@@ -1,0 +1,171 @@
+"""char-GPT serving CLI of the port:
+``python -m linalg_tpu_torch.apps.gpt --serve --ckpt_dir D --prompts F``.
+
+The ``--serve`` subset of ``linalg_tpu.apps.gpt`` with the same flags and
+the same JSON-lines output (``--out``), plus ``--device``. Checkpoints
+saved by ``linalg_tpu`` load unchanged. Training, the REPL and the serving
+options that are not ported yet (prefixes, LoRA, speculative decoding,
+quantization) come in later PRs (ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--serve", action="store_true",
+                    help="batch-serve mode: run every prompt in --prompts "
+                         "through the continuous-batching engine "
+                         "(serve.ServeEngine) and print/write completions")
+    ap.add_argument("--ckpt_dir", type=str, default="checkpoints_np")
+    ap.add_argument("--prompts", type=str, default="-",
+                    help="file with one prompt per line ('-' = stdin)")
+    ap.add_argument("--gen_tokens", type=int, default=200)
+    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--top_k", type=int, default=0)
+    ap.add_argument("--top_p", type=float, default=0.0,
+                    help="nucleus sampling: keep the smallest probability "
+                         "mass >= p (0 = off; composes with --top_k)")
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--n_slots", type=int, default=8,
+                    help="concurrent decode slots in the engine")
+    ap.add_argument("--chunk", type=int, default=32,
+                    help="decode-chunk length (tokens per host round trip)")
+    ap.add_argument("--out", type=str, default="",
+                    help="write completions as JSON lines to this file "
+                         "instead of stdout")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache (page pool + per-slot tables; "
+                         "admission control by memory)")
+    ap.add_argument("--page", type=int, default=64,
+                    help="paged mode: rows per KV page (must divide ctx_len)")
+    ap.add_argument("--n_pages", type=int, default=0,
+                    help="paged mode: pool size in pages (0 = dense-"
+                         "equivalent n_slots*ctx_len/page + trash page)")
+    ap.add_argument("--schedule", type=str, default="fifo",
+                    choices=("fifo", "best-fit"),
+                    help="admission under page pressure: strict arrival "
+                         "order or first-fit past a blocked request")
+    ap.add_argument("--paged_attn", type=str, default="auto",
+                    choices=("auto", "kernel", "gather"),
+                    help="paged mode attention read: the CUDA paged-"
+                         "attention kernel vs the table gather (auto = "
+                         "kernel on a CUDA device from ctx 2048 at d_head "
+                         "128)")
+    ap.add_argument("--device", type=str, default=None,
+                    help="torch device (default: cuda when present, else "
+                         "cpu)")
+    return ap
+
+
+def serve_cli(args) -> None:
+    """Serve a batch of prompts through the continuous-batching engine.
+
+    Prompts keep their LAST admissible tokens (the reference's context
+    truncation). A prompt longer than the engine's prefill window is
+    refused until chunked prefill is ported, rather than cut differently
+    from the JAX CLI."""
+    from ..serve.engine import Request, ServeEngine
+    from ..train.checkpoint import load_ckpt, load_tokenizer
+    from ..utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    params, cfg, _, itos = load_ckpt(args.ckpt_dir, device=device)
+    tok = load_tokenizer(args.ckpt_dir)
+
+    if args.prompts == "-":
+        lines = [ln.rstrip("\n") for ln in sys.stdin]
+    else:
+        with open(args.prompts, encoding="utf-8") as f:
+            lines = [ln.rstrip("\n") for ln in f]
+    lines = [ln for ln in lines if ln.strip()]
+    if not lines:
+        print("serve: no prompts")
+        return
+
+    eng = ServeEngine(params, cfg, n_slots=args.n_slots, chunk=args.chunk,
+                      top_k=args.top_k, seed=args.seed, paged=args.paged,
+                      page=args.page, n_pages=(args.n_pages or None),
+                      paged_attn=args.paged_attn, schedule=args.schedule,
+                      device=device)
+    # the engine reserves ceil(gen/chunk)*chunk cache rows per request: cap
+    # gen so one prompt token always fits, then keep each prompt's tail
+    gen_max = (cfg.ctx_len - 1) // args.chunk * args.chunk
+    gen = min(args.gen_tokens, max(gen_max, 1))
+    reserved = -(-gen // args.chunk) * args.chunk
+    if gen < args.gen_tokens:
+        print(f"(gen_tokens capped to {gen}: the decode budget "
+              f"reservation must fit ctx_len {cfg.ctx_len})")
+    plen_max = cfg.ctx_len - reserved
+    prompts = []
+    for i, ln in enumerate(lines):
+        ids = list(tok.encode(ln))[-plen_max:]
+        if len(ids) > eng.prefill_window:
+            raise SystemExit(
+                f"serve: prompt {i} has {len(ids)} tokens; this port admits "
+                f"at most prefill_window={eng.prefill_window} until chunked "
+                f"prefill is ported (ROADMAP.md queue 1, item 2)")
+        prompts.append(ids or None)  # nothing encodable: empty completion
+
+    t0 = time.perf_counter()
+    rid_to_line = {}
+    for i, ids in enumerate(prompts):
+        if ids is None:
+            continue
+        rid = eng.submit(Request(
+            prompt=ids, max_new_tokens=gen, temperature=args.temperature,
+            top_p=args.top_p, top_k=args.top_k if args.top_k > 0 else None))
+        rid_to_line[rid] = i
+    done = {rid_to_line[c.request_id]: c for c in eng.run()}
+    wall = time.perf_counter() - t0
+
+    out_f = open(args.out, "w", encoding="utf-8") if args.out else None
+    try:
+        for i, ln in enumerate(lines):
+            c = done.get(i)
+            text = "".join(itos[int(t)] for t in c.tokens) if c else ""
+            reason = c.finish_reason if c else "empty"
+            if out_f is not None:
+                out_f.write(json.dumps({
+                    "id": i, "prompt": ln, "text": text,
+                    "finish_reason": reason,
+                    "new_tokens": len(c.tokens) if c else 0,
+                }) + "\n")
+            else:
+                print(f"--- [{i}] {ln!r}")
+                print(text)
+    finally:
+        if out_f is not None:
+            out_f.close()
+    n_tok = sum(len(c.tokens) for c in done.values())
+    print(f"[serve: {len(done)} completions, {n_tok} tokens in {wall:.2f}s "
+          f"= {n_tok / max(wall, 1e-9):.0f} tok/s useful; "
+          f"slots={args.n_slots} chunk={args.chunk} "
+          f"prefills={eng.stats['prefills']} device={device}]")
+    if done:
+        lat = np.array([c.latency_s for c in done.values()])
+        qws = np.array([c.queue_s for c in done.values()])
+        print(f"[latency p50/p95: {np.percentile(lat, 50):.3f}/"
+              f"{np.percentile(lat, 95):.3f}s  queue-wait p50/p95: "
+              f"{np.percentile(qws, 50):.3f}/"
+              f"{np.percentile(qws, 95):.3f}s]")
+
+
+def main() -> None:
+    args = build_parser().parse_args()
+    if args.serve:
+        serve_cli(args)
+    else:
+        print("Nothing to do. Pass --serve (training and the REPL are not "
+              "ported yet).")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,442 @@
+"""Decoder-only char-GPT in PyTorch — the counterpart of
+``linalg_tpu/models/gpt.py`` for the serving slice.
+
+Same model: pre-LN decoder blocks (masked self-attention + ReLU/GELU FFN,
+residuals), sinusoidal or learned positions added at the embedding, a
+weight-tied output head, grouped-query attention. Same parameters: a dict
+with the keys and the stacked ``(L, ...)`` layer layout of
+``linalg_tpu.models.gpt.init_gpt_params``, drawn in the same numpy order,
+so both packages hold bit-identical weights for one seed.
+
+PyTorch idiom: eager functions on tensors, a Python loop where JAX scans
+(over layers and over decoded tokens), ``torch.Generator``s for sampling,
+and KV buffers updated in place. Parameters stay float32 masters; every
+forward runs in ``cfg.compute_dtype`` and returns float32 logits.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..nn.cache import fkv_write
+from ..nn.functional import (causal_mask, gelu, layer_norm, relu, sdpa,
+                             sinusoidal_encoding)
+
+__all__ = ["GPTConfig", "init_gpt_params", "params_from_numpy", "gpt_apply",
+           "gpt_prefill", "gpt_decode_chunk", "filter_logits",
+           "sample_token"]
+
+Params = Dict[str, Any]
+
+# Configurations GPTConfig accepts but this port cannot run yet, with the
+# ROADMAP.md item that brings each.
+_NOT_PORTED = {
+    ("pos", "rope"): "queue 1, item 3 (training slice: rope)",
+    ("pos", "alibi"): "queue 1, item 3 (training slice: alibi)",
+    ("ffn", "swiglu"): "queue 1, item 3 (training slice: gated FFNs)",
+    ("ffn", "geglu"): "queue 1, item 3 (training slice: gated FFNs)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    """Same fields and validation as ``linalg_tpu.models.gpt.GPTConfig``."""
+
+    vocab_size: int
+    d_model: int = 256
+    n_heads: int = 4
+    n_layers: int = 4
+    d_ff: Optional[int] = None
+    ctx_len: int = 256
+    pos: str = "sinusoidal"  # "sinusoidal" | "rope" | "learned" | "alibi"
+    dtype: str = "float32"  # compute dtype: "float32" or "bfloat16"
+    n_kv_heads: Optional[int] = None  # GQA: K/V heads, divides n_heads
+    window: Optional[int] = None  # sliding-window attention
+    ffn: str = "relu"  # "relu" | "gelu" | "swiglu" | "geglu"
+
+    def __post_init__(self):
+        if self.pos not in ("sinusoidal", "rope", "learned", "alibi"):
+            raise ValueError(f"Unknown positional encoding: {self.pos!r}")
+        if self.pos == "rope" and (self.d_model // self.n_heads) % 2 != 0:
+            raise ValueError("RoPE requires an even head dimension")
+        if self.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"Unknown compute dtype: {self.dtype!r}")
+        if self.n_kv_heads is not None and (
+                self.n_kv_heads < 1
+                or self.n_heads % self.n_kv_heads != 0):
+            raise ValueError(
+                "n_kv_heads must divide n_heads (each KV head serves an "
+                "equal group of query heads)")
+        if self.window is not None and self.window < 1:
+            raise ValueError("window must be >= 1 (tokens always see "
+                             "at least themselves)")
+        if self.ffn not in ("relu", "gelu", "swiglu", "geglu"):
+            raise ValueError(f"Unknown ffn: {self.ffn!r} (expected relu, "
+                             "gelu, swiglu or geglu)")
+        for field in ("pos", "ffn"):
+            item = _NOT_PORTED.get((field, getattr(self, field)))
+            if item:
+                raise NotImplementedError(
+                    f"{field}={getattr(self, field)!r} is not ported yet "
+                    f"(ROADMAP.md {item})")
+        if self.window is not None:
+            raise NotImplementedError(
+                "window is not ported yet (ROADMAP.md queue 1, item 5: "
+                "long-context attention)")
+
+    @property
+    def dff(self) -> int:
+        return self.d_ff if self.d_ff is not None else 4 * self.d_model
+
+    @property
+    def d_head(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads if self.n_kv_heads is not None else self.n_heads
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+
+def init_gpt_params(cfg: GPTConfig, seed: int = 123,
+                    device=None) -> Params:
+    """He-init attention/FFN weights, N(0, 0.02) embeddings, zero biases —
+    the JAX package's draws in the JAX package's order (float64 draws
+    rounded to float32), so the two are bit-equal."""
+    rng = np.random.default_rng(seed)
+    D, Fd, L, V = cfg.d_model, cfg.dff, cfg.n_layers, cfg.vocab_size
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    def he(fan_in, shape):
+        return t(rng.normal(0.0, math.sqrt(2.0 / fan_in), size=shape))
+
+    KD = cfg.kv_heads * cfg.d_head
+    layers = {
+        "ln1_g": t(np.ones((L, D))),
+        "ln1_b": t(np.zeros((L, D))),
+        "Wq": he(D, (L, D, D)),
+        "Wk": he(D, (L, D, KD)),
+        "Wv": he(D, (L, D, KD)),
+        "Wo": he(D, (L, D, D)),
+        "ln2_g": t(np.ones((L, D))),
+        "ln2_b": t(np.zeros((L, D))),
+        "W1": he(D, (L, D, Fd)),
+        "b1": t(np.zeros((L, Fd))),
+        "W2": he(Fd, (L, Fd, D)),
+        "b2": t(np.zeros((L, D))),
+    }
+    out = {
+        "tok_W": t(rng.normal(0.0, 0.02, size=(V, D))),
+        "head_b": t(np.zeros((V,))),
+        "layers": layers,
+    }
+    if cfg.pos == "learned":
+        out["pos_W"] = t(rng.normal(0.0, 0.02, size=(cfg.ctx_len, D)))
+    return out
+
+
+def params_from_numpy(np_params, device=None, dtype=None) -> Params:
+    """The JAX package's parameter pytree, as numpy arrays
+    (``jax.tree.map(np.asarray, p)``), as this package's dict of tensors on
+    ``device`` (cast to ``dtype`` when given)."""
+    if isinstance(np_params, dict):
+        return {k: params_from_numpy(v, device, dtype)
+                for k, v in np_params.items()}
+    return torch.tensor(np.asarray(np_params), device=device, dtype=dtype)
+
+
+def _heads(x, h: int):
+    B, T, D = x.shape
+    return x.reshape(B, T, h, D // h).transpose(1, 2)
+
+
+def _unheads(x):
+    B, h, T, d = x.shape
+    return x.transpose(1, 2).reshape(B, T, h * d)
+
+
+def _gqa_expand(kv, n_heads: int):
+    """Tile grouped K/V heads (B, hk, T, d) up to (B, n_heads, T, d): query
+    head h reads KV head h // (n_heads // hk)."""
+    hk = kv.shape[1]
+    if hk == n_heads:
+        return kv
+    return torch.repeat_interleave(kv, n_heads // hk, dim=1)
+
+
+def _gqa_decode_attn(q, k, v, mask):
+    """Single-position attention against a GROUPED KV cache.
+
+    q (B, H, 1, d); k/v (B, hk, S, d) with hk | H; mask (B, 1|H, 1, S)
+    additive. Equal head counts go through ``sdpa`` (compute dtype, 1e-12
+    denominator); grouped heads do their softmax in float32, as the JAX
+    package does."""
+    B, H, Tq, d = q.shape
+    hk, S = k.shape[1], k.shape[2]
+    if hk == H:
+        return sdpa(q, k, v, mask)
+    g = H // hk
+    qg = q.reshape(B, hk, g * Tq, d)
+    sc = (qg @ k.transpose(-1, -2)) / math.sqrt(d)
+    m = mask.expand(B, H, Tq, S).reshape(B, hk, g * Tq, S)
+    p = torch.softmax((sc + m).float(), dim=-1).to(q.dtype)
+    return (p @ v).reshape(B, H, Tq, d)
+
+
+def _ffn_dense(lp, x, ffn: str = "relu"):
+    """Position-wise 2-matmul MLP with the configured activation."""
+    u = x @ lp["W1"] + lp["b1"]
+    h = gelu(u) if ffn == "gelu" else relu(u)
+    return h @ lp["W2"] + lp["b2"]
+
+
+def _layer(h_in, lp, mask, n_heads: int, n_kv: Optional[int] = None,
+           ffn: str = "relu"):
+    """One pre-LN decoder block with explicit-matmul ``sdpa`` attention;
+    returns (h_out, (k, v)) with k/v at their grouped (B, n_kv, T, d) size
+    — the prefill cache."""
+    n_kv = n_heads if n_kv is None else n_kv
+    xn = layer_norm(h_in, lp["ln1_g"], lp["ln1_b"])
+    q = _heads(xn @ lp["Wq"], n_heads)
+    k = _heads(xn @ lp["Wk"], n_kv)
+    v = _heads(xn @ lp["Wv"], n_kv)
+    a = _unheads(sdpa(q, _gqa_expand(k, n_heads), _gqa_expand(v, n_heads),
+                      mask)) @ lp["Wo"]
+    h1 = h_in + a
+    f = _ffn_dense(lp, layer_norm(h1, lp["ln2_g"], lp["ln2_b"]), ffn)
+    return h1 + f, (k, v)
+
+
+def _embed(params: Params, x_ids, cfg: GPTConfig, T: int):
+    """Token embedding plus the additive position table, float32."""
+    if cfg.pos == "learned":
+        pe = params["pos_W"][:T]
+    else:
+        pe = sinusoidal_encoding(cfg.ctx_len, cfg.d_model,
+                                 device=params["tok_W"].device)[:T]
+    return params["tok_W"][x_ids] + pe[None]
+
+
+def _trunk_mask(cfg: GPTConfig, T: int, dt, device=None):
+    """Additive causal (1, 1, T, T) mask for the parallel paths."""
+    return causal_mask(T, dtype=dt, device=device)
+
+
+def _layer_params(params: Params, dt):
+    """Per-layer dicts of the stacked weights, cast to ``dt``."""
+    stacked = {k: w.to(dt) for k, w in params["layers"].items()}
+    L = next(iter(stacked.values())).shape[0]
+    return [{k: w[i] for k, w in stacked.items()} for i in range(L)]
+
+
+def _head(params: Params, h, dt):
+    return (h @ params["tok_W"].to(dt).T
+            + params["head_b"].to(dt)).float()
+
+
+@torch.no_grad()
+def gpt_apply(params: Params, x_ids, cfg: GPTConfig):
+    """Forward pass: token ids (B, T) -> float32 logits (B, T, V)."""
+    T = x_ids.shape[-1]
+    dt = cfg.compute_dtype
+    h = _embed(params, x_ids, cfg, T).to(dt)
+    mask = _trunk_mask(cfg, T, dt, h.device)
+    for lp in _layer_params(params, dt):
+        h, _ = _layer(h, lp, mask, cfg.n_heads, cfg.kv_heads, cfg.ffn)
+    return _head(params, h, dt)
+
+
+@torch.no_grad()
+def gpt_prefill(params: Params, x_ids, cfg: GPTConfig, length=None):
+    """Run the prompt; return (next-token logits (B, V), cache).
+
+    ``x_ids`` (B, T), T <= ctx_len, may be right-padded to a fixed window
+    with the true length in ``length``: causality keeps the pads inert and
+    the logits are read at ``length - 1``. The cache holds k/v
+    (L, B, kv_heads, ctx_len, d) padded to ctx_len, and ``length``."""
+    B, T = x_ids.shape
+    dt = cfg.compute_dtype
+    h = _embed(params, x_ids, cfg, T).to(dt)
+    mask = _trunk_mask(cfg, T, dt, h.device)
+    ks, vs = [], []
+    for lp in _layer_params(params, dt):
+        h, (k, v) = _layer(h, lp, mask, cfg.n_heads, cfg.kv_heads, cfg.ffn)
+        ks.append(k)
+        vs.append(v)
+    if length is None:
+        last = h[:, -1]
+        n = torch.tensor(T, dtype=torch.int32, device=h.device)
+    else:
+        n = torch.as_tensor(length, dtype=torch.int32, device=h.device)
+        last = h[torch.arange(B, device=h.device), n.long() - 1]
+    logits = _head(params, last, dt)
+    pad = cfg.ctx_len - T
+    K = F.pad(torch.stack(ks), (0, 0, 0, pad))
+    V = F.pad(torch.stack(vs), (0, 0, 0, pad))
+    return logits, {"k": K, "v": V, "length": n}
+
+
+def filter_logits(logits, temperature=1.0, top_k=0, top_p=0.0):
+    """Temperature / top-k / top-p transform of float32 logits.
+
+    ``top_k`` is a Python int (one k for every row) or a per-row integer
+    tensor ((B,) or (B, 1)); k <= 0 disables it for that row. ``temperature``
+    and ``top_p`` are scalars or per-row (B, 1) tensors; top_p outside
+    (0, 1) disables nucleus filtering. Filtered entries become -1e9."""
+    dev = logits.device
+    if isinstance(temperature, torch.Tensor):
+        z = logits / torch.clamp_min(temperature, 1e-6)
+    else:
+        z = logits / max(1e-6, float(temperature))
+    V = z.shape[-1]
+    if isinstance(top_k, (int, np.integer)):
+        if top_k > 0:
+            kth = torch.topk(z, int(top_k), dim=-1).values[..., -1:]
+            z = torch.where(z < kth, -1e9, z)
+    else:
+        k = torch.as_tensor(top_k, dtype=torch.int64, device=dev)
+        k = k.reshape(k.shape + (1,) * (z.ndim - k.ndim))
+        zs = torch.sort(z, dim=-1, descending=True).values
+        kth = torch.gather(zs, -1, torch.clamp(k, 1, V).expand(
+            zs.shape[:-1] + (1,)) - 1)
+        z = torch.where((k > 0) & (z < kth), -1e9, z)
+    if isinstance(top_p, torch.Tensor):
+        p_eff = torch.where((top_p > 0.0) & (top_p < 1.0), top_p, 1.0)
+    else:
+        p_eff = float(top_p) if 0.0 < top_p < 1.0 else 1.0
+    probs = torch.softmax(z, dim=-1)
+    sp = torch.sort(probs, dim=-1, descending=True).values
+    csum = torch.cumsum(sp, dim=-1)
+    keep = (csum - sp) < p_eff
+    thr = torch.amin(torch.where(keep, sp, torch.inf), dim=-1, keepdim=True)
+    return torch.where(probs >= thr, z, -1e9)
+
+
+def _categorical(z, generator: Optional[torch.Generator]):
+    """One draw per row from softmax(z), by the Gumbel-max trick (the
+    algorithm ``jax.random.categorical`` uses)."""
+    u = torch.rand(z.shape, generator=generator, device=z.device,
+                   dtype=torch.float32)
+    tiny = torch.finfo(torch.float32).tiny
+    return torch.argmax(z - torch.log(-torch.log(u.clamp_min(tiny))), dim=-1)
+
+
+def sample_token(generator, logits, temperature=1.0, top_k=0, top_p=0.0):
+    """Temperature / top-k / top-p sampling of one token per row."""
+    return _categorical(filter_logits(logits, temperature, top_k, top_p),
+                        generator)
+
+
+def _dt_decode_ops(params: Params, cfg: GPTConfig) -> Dict[str, Any]:
+    """Decode ops over weights cast ONCE to the compute dtype, with Q/K/V
+    fused into one (D, D + 2*kv_heads*d_head) matrix per layer."""
+    dt = cfg.compute_dtype
+    lws = [{"lp": lp, "W3": torch.cat([lp["Wq"], lp["Wk"], lp["Wv"]], -1)}
+           for lp in _layer_params(params, dt)]
+    tokW = params["tok_W"].to(dt)
+    head_b = params["head_b"].to(dt)
+    pe = (params["pos_W"] if cfg.pos == "learned" else sinusoidal_encoding(
+        cfg.ctx_len, cfg.d_model, device=tokW.device)).to(dt)
+    act = gelu if cfg.ffn == "gelu" else relu
+    return {
+        "lws": lws,
+        "embed": lambda token: tokW[token][:, None, :],
+        # clamp: an idle serving slot's position grows past the table
+        "pe": lambda rel: pe[torch.clamp(rel, max=cfg.ctx_len - 1).long()][
+            :, None],
+        "ln1": lambda lw, x: layer_norm(x, lw["lp"]["ln1_g"],
+                                        lw["lp"]["ln1_b"]),
+        "qkv": lambda lw, xn: xn @ lw["W3"],
+        "out": lambda lw, y: y @ lw["lp"]["Wo"],
+        "ln2": lambda lw, x: layer_norm(x, lw["lp"]["ln2_g"],
+                                        lw["lp"]["ln2_b"]),
+        "ffn": lambda lw, x2: (act(x2 @ lw["lp"]["W1"] + lw["lp"]["b1"])
+                               @ lw["lp"]["W2"] + lw["lp"]["b2"]),
+        "head": lambda h: (h @ tokW.T + head_b).float(),
+    }
+
+
+def _make_decode_step(cfg: GPTConfig, ops, start, write_fn):
+    """One-token decode step factory.
+
+    Returns ``decode_step(kbuf, vbuf, pos, token) -> (K, V, logits)``: embed
+    ``token`` at position ``pos`` (scalar or per-row), run the layers
+    against the KV buffers (L, ...), write each layer's new K/V with
+    ``write_fn`` (in place) and return float32 next-token logits.
+    ``ops["attn"]`` replaces the grouped decode attention; with a
+    ``wants_pos`` attribute it also receives the per-row positions."""
+    dt = cfg.compute_dtype
+    D = cfg.d_model
+    KD = cfg.kv_heads * cfg.d_head
+    attn = ops.get("attn") or _gqa_decode_attn
+    wants_pos = getattr(attn, "wants_pos", False)
+    dev = ops["lws"][0]["W3"].device
+    t_ids = torch.arange(cfg.ctx_len, device=dev)
+    start1 = torch.as_tensor(start, dtype=torch.int32, device=dev).reshape(-1)
+
+    def decode_step(kbuf, vbuf, pos, token):
+        pos1 = torch.as_tensor(pos, dtype=torch.int32, device=dev).reshape(-1)
+        h = (ops["embed"](token) + ops["pe"](pos1 - start1)).to(dt)
+        live = ((t_ids[None, :] <= pos1[:, None])
+                & (t_ids[None, :] >= start1[:, None]))
+        mask = torch.where(live, 0.0, -1e9).to(dt)[:, None, None, :]
+        for i, lw in enumerate(ops["lws"]):
+            qkv = ops["qkv"](lw, ops["ln1"](lw, h))
+            q = _heads(qkv[..., :D], cfg.n_heads)
+            k = _heads(qkv[..., D:D + KD], cfg.kv_heads)
+            v = _heads(qkv[..., D + KD:], cfg.kv_heads)
+            k_l, v_l = write_fn(kbuf[i], vbuf[i], pos, k, v)
+            a_raw = (attn(q, k_l, v_l, mask, pos1) if wants_pos
+                     else attn(q, k_l, v_l, mask))
+            h1 = h + ops["out"](lw, _unheads(a_raw))
+            h = h1 + ops["ffn"](lw, ops["ln2"](lw, h1))
+        return kbuf, vbuf, ops["head"](h[:, -1])
+
+    return decode_step
+
+
+@torch.no_grad()
+def _decode_chunk_core(cfg: GPTConfig, ops, logits, kbuf, vbuf, pos0, start,
+                       generator, n_tokens: int, temperature, top_k, top_p,
+                       write_fn):
+    """Sample -> decode-step loop shared by every decode chunk.
+
+    ``pos0``/``start`` are scalars (one shared position) or per-row vectors
+    (per-slot positions); ``temperature``/``top_p`` scalars or (B, 1)
+    tensors; ``top_k`` an int or per-row tensor. Returns (tokens (B, n),
+    logits, K, V, pos)."""
+    decode_step = _make_decode_step(cfg, ops, start, write_fn)
+    pos, toks = pos0, []
+    for _ in range(n_tokens):
+        tok = _categorical(filter_logits(logits, temperature, top_k, top_p),
+                           generator)
+        kbuf, vbuf, logits = decode_step(kbuf, vbuf, pos, tok)
+        pos = pos + 1
+        toks.append(tok)
+    return torch.stack(toks, dim=1), logits, kbuf, vbuf, pos
+
+
+def gpt_decode_chunk(params, cache, logits, generator, cfg: GPTConfig,
+                     n_tokens: int, temperature=1.0, top_k: int = 0,
+                     top_p=0.0):
+    """Sample ``n_tokens`` autoregressively from a prefilled cache (one
+    shared position ``cache["length"]``). The cache's k/v buffers are
+    updated in place; returns (tokens (B, n), logits, cache)."""
+    ops = _dt_decode_ops(params, cfg)
+    pos0 = int(cache["length"])
+    toks, logits, K, V, pos = _decode_chunk_core(
+        cfg, ops, logits, cache["k"], cache["v"], pos0, 0, generator,
+        n_tokens, temperature, top_k, top_p, fkv_write)
+    return toks, logits, dict(cache, k=K, v=V, length=torch.as_tensor(
+        pos, dtype=torch.int32, device=logits.device))

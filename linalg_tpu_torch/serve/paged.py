@@ -1,0 +1,210 @@
+"""Paged KV cache for the serving engine — the counterpart of
+``linalg_tpu/serve/paged.py``.
+
+The K/V of every slot live in ONE pool of fixed-size pages plus a
+per-slot page table:
+
+- ``pool_k``/``pool_v``: (L, n_pages, kv_heads, page, d_head);
+- ``table``: (n_slots, ctx_len/page) int32 — slot s's logical rows
+  [i*page, (i+1)*page) live in pool page ``table[s, i]``;
+- ``pos``: (n_slots,) int32 slot positions.
+
+Page 0 is the TRASH page: idle slots keep decoding and their writes land
+there, because a retired slot's table row is reset to 0. Admission
+reserves pages from a host-side free list (``PageAllocator``).
+
+Decode attention reads the pool one of two ways:
+
+- ``paged_attention``: the hand-written CUDA kernel
+  (``kernels/csrc/paged_attention.cu``) reads each slot's live pages in
+  place and stops its walk at the slot's position. It replaces both Pallas
+  kernels of the JAX package (``paged_attn_pallas_dma`` and
+  ``paged_attn_pallas``). On a CPU tensor it computes its plain version,
+  ``paged_attention_ref``.
+- the table gather: materialize each slot's (kv_heads, ctx, d) view and
+  run the grouped decode attention over it — the JAX ``use_kernel=False``
+  path, kept as an engine mode the user picks (``paged_attn="gather"``).
+
+The pools, table and positions are updated IN PLACE.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from ..kernels.paged_attention import SUPPORTED_D as SUPPORTED_KERNEL_D
+from ..kernels.paged_attention import paged_attention_cuda
+from ..models.gpt import GPTConfig, _decode_chunk_core, _gqa_decode_attn
+
+__all__ = ["init_paged_cache", "PageAllocator", "decode_chunk_paged",
+           "paged_attention", "paged_attention_ref", "SUPPORTED_KERNEL_D"]
+
+
+def init_paged_cache(cfg: GPTConfig, n_slots: int, n_pages: int, page: int,
+                     device=None):
+    """Zeroed paged cache. ``ctx_len`` must divide by ``page``; page 0 is
+    the trash page."""
+    if cfg.ctx_len % page:
+        raise ValueError(f"page size {page} must divide ctx_len "
+                         f"{cfg.ctx_len}")
+    if n_pages < 2:
+        raise ValueError("need at least 2 pages (page 0 is the trash page)")
+    shape = (cfg.n_layers, n_pages, cfg.kv_heads, page, cfg.d_head)
+    dt = cfg.compute_dtype
+    return {
+        "pool_k": torch.zeros(shape, dtype=dt, device=device),
+        "pool_v": torch.zeros(shape, dtype=dt, device=device),
+        "table": torch.zeros((n_slots, cfg.ctx_len // page),
+                             dtype=torch.int32, device=device),
+        "pos": torch.zeros((n_slots,), dtype=torch.int32, device=device),
+    }
+
+
+class PageAllocator:
+    """Host-side free list over pages 1..n_pages-1 (0 = trash)."""
+
+    def __init__(self, n_pages: int):
+        self.n_pages = n_pages
+        self._free: List[int] = list(range(n_pages - 1, 0, -1))
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def alloc(self, n: int) -> List[int]:
+        """Take ``n`` pages or raise MemoryError (caller checks n_free)."""
+        if n > len(self._free):
+            raise MemoryError(f"need {n} pages, {len(self._free)} free")
+        taken, self._free = self._free[-n:], self._free[:-n]
+        return list(reversed(taken))
+
+    def release(self, pages: List[int]) -> None:
+        for p in pages:
+            if not 0 < p < self.n_pages:
+                raise ValueError(f"page {p} is not an allocatable page")
+        self._free.extend(pages)
+
+
+def _pages_of(x, page: int):
+    """(L, 1, hk, ctx, d) prefill buffer -> (L, ctx/page, hk, page, d)."""
+    L, _, hk, ctx, d = x.shape
+    return x[:, 0].reshape(L, hk, ctx // page, page, d).transpose(1, 2)
+
+
+def _scatter_pages(cache, slot_k, slot_v, page_ids):
+    """Write a prefilled sequence's pages into the pool at ``page_ids``
+    ((ctx/page,) int); entries 0 dump their rows into the trash page."""
+    page = cache["pool_k"].shape[3]
+    ids = page_ids.long()
+    cache["pool_k"][:, ids] = _pages_of(slot_k, page)
+    cache["pool_v"][:, ids] = _pages_of(slot_v, page)
+    return cache
+
+
+def _point_slot(cache, logits, plen, slot_logits, b, table_ids):
+    """Point slot ``b``'s table row at ``table_ids``, set its position to
+    ``plen`` and its logits row to ``slot_logits`` (1, V)."""
+    cache["table"][b] = table_ids
+    cache["pos"][b] = plen
+    logits[b] = slot_logits[0]
+    return cache, logits
+
+
+def _admit_slot_paged(cache, logits, slot_k, slot_v, plen, slot_logits, b,
+                      scatter_ids, table_ids, cfg: GPTConfig):
+    """Scatter one prefilled sequence (L, 1, hk, ctx, d) into the pool and
+    point slot ``b`` at it. ``scatter_ids`` says where each page's data is
+    written, ``table_ids`` where the slot reads it (identical without
+    prefix sharing)."""
+    del cfg
+    cache = _scatter_pages(cache, slot_k, slot_v, scatter_ids)
+    return _point_slot(cache, logits, plen, slot_logits, b, table_ids)
+
+
+def _reset_table_row(cache, b):
+    """Retire slot ``b``: its logical rows all point at the trash page."""
+    cache["table"][b] = 0
+    return cache
+
+
+def _gather_pages(pool, table):
+    """(n_pages, hk, page, d) pool -> (B, hk, Pmax*page, d) per-slot view."""
+    x = pool[table.long()].transpose(1, 2)  # (B, hk, Pmax, page, d)
+    B, hk, P, page, d = x.shape
+    return x.reshape(B, hk, P * page, d)
+
+
+def paged_attention_ref(q, pool_k, pool_v, mask, table, pos):
+    """Plain PyTorch version of the paged decode attention: gather every
+    slot's pages, then the grouped decode attention. ``pos`` is unused —
+    rows past a slot's position are dead through ``mask``."""
+    del pos
+    return _gqa_decode_attn(q, _gather_pages(pool_k, table),
+                            _gather_pages(pool_v, table), mask)
+
+
+def paged_attention(q, pool_k, pool_v, mask, table, pos):
+    """Decode attention against the page pool.
+
+    ``q`` (B, H, 1, d); ``pool_k``/``pool_v`` (n_pages, hk, page, d);
+    ``mask`` (B, 1|H, 1, ctx) additive; ``table`` (B, ctx/page) int32;
+    ``pos`` (B,) int32. Returns (B, H, 1, d). Tensors on the CPU take the
+    plain version; tensors on a CUDA device launch the kernel, which raises
+    on anything it does not take."""
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, pool_k, pool_v, mask, table, pos)
+    return paged_attention_cuda(q.contiguous(), pool_k, pool_v,
+                                mask.contiguous(), table, pos)
+
+
+@torch.no_grad()
+def decode_chunk_paged(ops, cache, logits, generator, temp, top_p, top_k,
+                       cfg: GPTConfig, n_tokens: int,
+                       use_kernel: bool = False):
+    """Sample ``n_tokens`` for every slot of a paged cache.
+
+    ``ops`` are the decode ops ``models.gpt._dt_decode_ops(params, cfg)``
+    (built once per engine: the weights cast to the compute dtype);
+    ``temp``/``top_p``/``top_k`` are (B,) per-slot tensors. Each step
+    writes the new token's K/V at (page, row) = (table[s, pos/page],
+    pos % page), positions clamped to ctx-1 so idle slots write into the
+    trash page, then reads the pool — through ``paged_attention`` with
+    ``use_kernel``, else through the table gather. Updates ``cache`` in
+    place; returns (tokens (B, n), logits, cache)."""
+    table = cache["table"]
+    B = table.shape[0]
+    page = cache["pool_k"].shape[3]
+    ctx = cfg.ctx_len
+    bidx = torch.arange(B, device=table.device)
+    heads = torch.arange(cfg.kv_heads, device=table.device)[None, :]
+
+    if use_kernel:
+        def paged_attn(q, pk_l, pv_l, mask, pos):
+            return paged_attention(q, pk_l, pv_l, mask, table, pos)
+
+        paged_attn.wants_pos = True  # the page walk stops at the position
+    else:
+        def paged_attn(q, pk_l, pv_l, mask):
+            return _gqa_decode_attn(q, _gather_pages(pk_l, table),
+                                    _gather_pages(pv_l, table), mask)
+
+    def write_paged(pk_l, pv_l, pos, k, v):
+        # one flat row scatter per pool: row (page, head, row) of the
+        # (n_pages*hk*page, d) view. Duplicate targets only arise between
+        # idle slots colliding on the trash page, where any value will do.
+        n_pg, hk, pg, d = pk_l.shape
+        p = torch.clamp(pos, max=ctx - 1).long()
+        pidx = table[bidx, p // page].long()
+        ridx = ((pidx[:, None] * hk + heads) * pg
+                + (p % page)[:, None]).reshape(-1)
+        pk_l.view(n_pg * hk * pg, d)[ridx] = k[:, :, 0, :].reshape(-1, d)
+        pv_l.view(n_pg * hk * pg, d)[ridx] = v[:, :, 0, :].reshape(-1, d)
+        return pk_l, pv_l
+
+    toks, logits, pk, pv, pos = _decode_chunk_core(
+        cfg, dict(ops, attn=paged_attn), logits, cache["pool_k"],
+        cache["pool_v"], cache["pos"], 0, generator, n_tokens,
+        temp[:, None], top_k, top_p[:, None], write_paged)
+    return toks, logits, dict(cache, pool_k=pk, pool_v=pv, pos=pos)

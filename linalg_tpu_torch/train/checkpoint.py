@@ -1,0 +1,85 @@
+"""Load npz + JSON-sidecar checkpoints — the reader half of
+``linalg_tpu/train/checkpoint.py``.
+
+The archive keys are the reference's (``tok_W``, ``head_W``, ``head_b``,
+``pos_W``, ``l{i}_<layer key>``) and the sidecar ``chars_gpt_meta.json``
+carries the tokenizer and the architecture, so a checkpoint saved by
+``linalg_tpu.train.checkpoint.save_ckpt`` loads here unchanged.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+from typing import Dict, Tuple
+
+import numpy as np
+
+from ..models.gpt import GPTConfig, Params, params_from_numpy
+from ..nn.tokenizers import CharTokenizer
+
+__all__ = ["load_ckpt", "load_tokenizer", "CKPT_NAME", "META_NAME"]
+
+CKPT_NAME = "chars_gpt_best.npz"
+META_NAME = "chars_gpt_meta.json"
+
+_LAYER_KEYS = ("ln1_g", "ln1_b", "Wq", "Wk", "Wv", "Wo", "ln2_g", "ln2_b",
+               "W1", "b1", "W2", "b2")
+
+
+def load_ckpt(ckpt_dir, device=None) -> Tuple[Params, GPTConfig,
+                                              Dict[str, int], Dict[int, str]]:
+    """Rebuild (params, cfg, stoi, itos) from an archive + meta sidecar;
+    parameters are float32 tensors on ``device``. Raises on a missing or
+    corrupt file."""
+    ckpt_dir = pathlib.Path(ckpt_dir)
+    meta = json.loads((ckpt_dir / META_NAME).read_text())
+    cfg = _cfg_from_meta(meta)
+    stoi = meta["stoi"]
+    itos = {int(k): v for k, v in meta["itos"].items()}
+    with np.load(ckpt_dir / CKPT_NAME) as z:
+        # float32: reference-produced archives are float64
+        host = {
+            "tok_W": np.asarray(z["tok_W"], np.float32),
+            "head_b": np.asarray(z["head_b"], np.float32),
+            "layers": {
+                k: np.stack([z[f"l{i}_{k}"] for i in range(cfg.n_layers)]
+                            ).astype(np.float32)
+                for k in _LAYER_KEYS},
+        }
+        if cfg.pos == "learned":
+            host["pos_W"] = np.asarray(z["pos_W"], np.float32)
+    return params_from_numpy(host, device), cfg, stoi, itos
+
+
+def _cfg_from_meta(meta: dict) -> GPTConfig:
+    """The dense config of a meta sidecar, tolerating reference-format
+    metas (no pos/d_ff/dtype/vocab_size keys)."""
+    if meta.get("experts", 0):
+        raise NotImplementedError(
+            "MoE checkpoints are not ported yet (ROADMAP.md queue 1, "
+            "item 8: MoE)")
+    return GPTConfig(
+        vocab_size=meta.get("vocab_size") or len(meta["stoi"]),
+        d_model=meta["d_model"],
+        n_heads=meta["heads"],
+        n_layers=meta["layers"],
+        ctx_len=meta["ctx_len"],
+        pos=meta.get("pos", "sinusoidal"),
+        d_ff=meta.get("d_ff"),
+        dtype=meta.get("dtype", "float32"),
+        n_kv_heads=meta.get("kv_heads"),
+        window=meta.get("window"),
+        ffn=meta.get("ffn", "relu"),
+    )
+
+
+def load_tokenizer(ckpt_dir) -> CharTokenizer:
+    """The char tokenizer a checkpoint was trained with (from stoi/itos)."""
+    meta = json.loads((pathlib.Path(ckpt_dir) / META_NAME).read_text())
+    if meta.get("tokenizer") == "bpe":
+        raise NotImplementedError(
+            "BPE checkpoints are not ported yet (ROADMAP.md queue 1, "
+            "item 4: tokenizers)")
+    itos = {int(k): v for k, v in meta["itos"].items()}
+    return CharTokenizer.from_pretrained(meta["stoi"], itos)

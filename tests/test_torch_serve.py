@@ -1,0 +1,190 @@
+"""The port's serving slice (linalg_tpu_torch/serve, apps/gpt.py --serve)
+against the JAX package's, end to end on the CPU.
+
+The same requests go through the JAX ``ServeEngine`` and the port's, in
+slot mode and in paged mode with both attention reads (on CPU tensors the
+kernel read computes its plain version): greedy tokens must be EQUAL, and
+every page must be back in the pool after ``run()``. The port's serve CLI
+must print the same completions as the JAX CLI for one JAX-saved
+checkpoint. float32 throughout.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from linalg_tpu.models.gpt import GPTConfig as JCfg
+from linalg_tpu.models.gpt import init_gpt_params as jinit
+from linalg_tpu.serve import Request as JRequest
+from linalg_tpu.serve import ServeEngine as JEngine
+from linalg_tpu_torch.models.gpt import GPTConfig, init_gpt_params
+from linalg_tpu_torch.serve import Request, ServeEngine, serve
+
+torch.set_num_threads(2)
+
+# d_head 32: a shape the CUDA kernel takes; GQA groups of 2
+CFG_KW = dict(vocab_size=31, d_model=128, n_heads=4, n_kv_heads=2,
+              n_layers=2, ctx_len=64)
+CFG = GPTConfig(**CFG_KW)
+PARAMS = init_gpt_params(CFG, seed=7)
+ENGINE_KW = dict(n_slots=3, chunk=4, top_k=1)
+
+
+def requests(seed=0, n=7, stop_token=-1):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, CFG.vocab_size,
+                          size=int(rng.integers(3, 14))).tolist(),
+             int(rng.integers(3, 15))) for _ in range(n)], stop_token
+
+
+def run_port(reqs, **kw):
+    prompts, stop = reqs
+    eng = ServeEngine(PARAMS, CFG, **ENGINE_KW, **kw)
+    ids = [eng.submit(Request(p, n, stop_token=stop)) for p, n in prompts]
+    done = {c.request_id: c for c in eng.run()}
+    if eng._allocator is not None:
+        assert eng._allocator.n_free == eng._allocator.n_pages - 1
+    return [(done[i].tokens, done[i].finish_reason) for i in ids], eng
+
+
+@pytest.fixture(scope="module")
+def jax_tokens():
+    """The JAX slot engine's greedy tokens for each request set (the JAX
+    paged engine is pinned equal to it by tests/test_paged.py)."""
+    jp = jinit(JCfg(**CFG_KW), seed=7)
+    out = {}
+    for seed, stop in ((0, -1), (1, 10)):
+        prompts, _ = requests(seed, stop_token=stop)
+        eng = JEngine(jp, JCfg(**CFG_KW), **ENGINE_KW)
+        ids = [eng.submit(JRequest(p, n, stop_token=stop))
+               for p, n in prompts]
+        done = {c.request_id: c for c in eng.run()}
+        out[seed] = [(done[i].tokens, done[i].finish_reason) for i in ids]
+    assert {r for _, r in out[1]} == {"stop", "length"}
+    return out
+
+
+@pytest.mark.parametrize("mode", [
+    dict(),
+    dict(paged=True, page=16, paged_attn="gather"),
+    dict(paged=True, page=16, paged_attn="kernel"),
+    dict(paged=True, page=8, n_pages=7, paged_attn="kernel",
+         schedule="best-fit"),
+], ids=["slot", "paged-gather", "paged-kernel", "paged-pressure-bestfit"])
+@pytest.mark.parametrize("seed,stop", [(0, -1), (1, 10)],
+                         ids=["length", "stop"])
+def test_engine_matches_jax(jax_tokens, mode, seed, stop):
+    got, _ = run_port(requests(seed, stop_token=stop), **mode)
+    assert got == jax_tokens[seed]
+
+
+def test_jax_paged_engine_matches_port():
+    """One direct paged-vs-paged check (JAX gather engine, port kernel
+    engine), on a small pool that makes requests queue for pages."""
+    reqs = requests(2, n=5)
+    jeng = JEngine(jinit(JCfg(**CFG_KW), seed=7), JCfg(**CFG_KW),
+                   paged=True, page=16, n_pages=6, **ENGINE_KW)
+    ids = [jeng.submit(JRequest(p, n)) for p, n in reqs[0]]
+    done = {c.request_id: c for c in jeng.run()}
+    want = [(done[i].tokens, done[i].finish_reason) for i in ids]
+    got, eng = run_port(reqs, paged=True, page=16, n_pages=6,
+                        paged_attn="kernel")
+    assert got == want
+    assert eng.stats["prefills"] == 5
+
+
+def test_sampling_vectors_are_copies():
+    """The engine mutates its host sampling vectors in place; the device
+    tensors a chunk reads must not change with them."""
+    eng = ServeEngine(PARAMS, CFG, **ENGINE_KW)
+    eng.submit(Request([1, 2, 3], 8, temperature=0.5))
+    eng.step()
+    temp_dev = eng._samp_dev[0]
+    eng._temp[0] = 123.0
+    assert float(temp_dev[0]) == 0.5
+
+
+def test_sampled_run_is_seeded_and_complete():
+    prompts, _ = requests(3, n=4)
+
+    def run(seed):
+        done = serve(PARAMS, CFG, [Request(p, n, temperature=0.9, top_p=0.9)
+                                   for p, n in prompts], n_slots=2, chunk=4,
+                     seed=seed)
+        return [c.tokens for c in done]
+
+    a, b = run(0), run(0)
+    assert a == b
+    assert [len(t) for t in a] == [n for _, n in prompts]
+
+
+class TestErrors:
+    def test_unported_features_raise(self):
+        for kw in (dict(quant="int8"), dict(speculative=2),
+                   dict(max_loras=2), dict(paged=True, kv8=True),
+                   dict(auto_prefix=True),
+                   dict(paged=True, page_cache=True)):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                ServeEngine(PARAMS, CFG, **kw)
+        eng = ServeEngine(PARAMS, CFG, **ENGINE_KW)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            eng.register_prefix([1, 2, 3])
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            eng.submit(Request([1, 2], 4, prefix_id=0))
+
+    def test_submit_validation(self):
+        eng = ServeEngine(PARAMS, CFG, prefill_window=8, **ENGINE_KW)
+        with pytest.raises(ValueError, match="prefill_window"):
+            eng.submit(Request(list(range(9)), 4))  # chunked prefill: later
+        with pytest.raises(ValueError, match="empty"):
+            eng.submit(Request([], 4))
+        with pytest.raises(ValueError, match="ctx_len"):
+            eng.submit(Request([1, 2], 61))
+        with pytest.raises(ValueError, match="pages"):
+            ServeEngine(PARAMS, CFG, paged=True, page=16, n_pages=3,
+                        **ENGINE_KW).submit(Request([1, 2, 3], 40))
+
+    def test_kernel_mode_rejects_unsupported_shapes(self):
+        with pytest.raises(ValueError, match="page % 8"):
+            ServeEngine(PARAMS, CFG, paged=True, page=4,
+                        paged_attn="kernel")
+        cfg = GPTConfig(vocab_size=8, d_model=32, n_heads=2, ctx_len=32)
+        with pytest.raises(ValueError, match="d_head"):
+            ServeEngine(init_gpt_params(cfg), cfg, paged=True, page=8,
+                        chunk=4, paged_attn="kernel")
+
+
+def test_serve_cli_matches_jax_cli(tmp_path, capsys):
+    """The port's CLI on a JAX-saved checkpoint writes the JAX CLI's
+    completions, in slot mode and in paged kernel mode."""
+    from linalg_tpu.apps.gpt import build_parser as jparser
+    from linalg_tpu.apps.gpt import serve_cli as jserve
+    from linalg_tpu.nn.tokenizers import CharTokenizer
+    from linalg_tpu.train.checkpoint import save_ckpt
+    from linalg_tpu_torch.apps.gpt import build_parser, serve_cli
+
+    tok = CharTokenizer("abcdefghijklmnopqrstuvwxyz .,'\n")
+    cfg = JCfg(**dict(CFG_KW, vocab_size=tok.vocab_size))
+    save_ckpt(tmp_path, jinit(cfg, seed=3), cfg, tok.stoi, tok.itos)
+    (tmp_path / "prompts.txt").write_text(
+        "the one\nand the other, at last\n\n???\nz\n", encoding="utf-8")
+    common = ["--serve", "--ckpt_dir", str(tmp_path), "--prompts",
+              str(tmp_path / "prompts.txt"), "--gen_tokens", "10",
+              "--n_slots", "2", "--chunk", "4", "--top_k", "1"]
+
+    def read(name):
+        return [json.loads(ln) for ln in
+                (tmp_path / name).read_text().splitlines()]
+
+    jserve(jparser().parse_args(common + ["--out", str(tmp_path / "j")]))
+    want = read("j")
+    assert [r["finish_reason"] for r in want] == [
+        "length", "length", "empty", "length"]
+    for extra in ([], ["--paged", "--page", "16", "--paged_attn", "kernel"]):
+        serve_cli(build_parser().parse_args(
+            common + extra + ["--out", str(tmp_path / "t"), "--device",
+                              "cpu"]))
+        assert read("t") == want
+    assert "device=cpu" in capsys.readouterr().out
