@@ -23,13 +23,28 @@ Phases, each reported on its own line; any failure exits non-zero:
 5. equality — the same engine in float32 (TF32 off), greedy, on 4 of the
              requests: the kernel engine's tokens must equal the gather
              engine's.
+6. qr      — the Householder panel kernel (``csrc/qr_panel.cu``): its build
+             time and ptxas lines; the kernel against its plain PyTorch
+             version at (b, m, k) = (32, 4096, 0), (32, 4096, 2048),
+             (64, 4096, 0), the panel width (128, 4096, 0) and a strip with
+             a zero column (exact skip), max error, tolerance and median
+             CUDA-event times of both; then ``householder_qr`` on a 4096^2
+             float32 matrix from ``np.random.default_rng(0)``: 128 strip
+             launches (n / 32), rel_resid ||A-QR||_F/||A||_F in float64
+             <= 1e-6, ||Q^T Q - I||_F, median times of three runs through
+             the kernel, through the same driver with the plain strip, and
+             of ``torch.linalg.qr`` (GFLOP/s as 2 N^3 / t); and once more
+             with the caller's TF32 switched on, still <= 1e-6.
 
-The line before the last is a JSON object describing the kernel; the last
-line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+Phase 2 builds every kernel, one ``nvcc`` per source, all started
+together. The line before the last is a JSON object describing the
+kernels; the last line is ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import subprocess
 import sys
@@ -42,6 +57,14 @@ SERVE_CFG = dict(vocab_size=65, d_model=512, n_heads=4, n_kv_heads=2,
                  n_layers=8, ctx_len=4096)
 ENGINE_KW = dict(paged=True, page=256, n_slots=8, chunk=32,
                  prefill_window=2048)
+KERNELS = ("paged_attention", "qr_panel")
+QR_N = 4096          # the headline QR: 4096^2 float32
+QR_INNER = 32        # strip width householder_qr_panel passes the kernel
+QR_RESID_MAX = 1e-6  # ||A - QR||_F / ||A||_F, the headline accuracy gate
+# kernel vs plain sweep: float32 sums over m lanes in another order; a
+# float64 sweep at m 4096 differs from the float32 one by 2e-5 on St
+# (magnitude 65), 1.4e-7 on Vt and 1e-7 on Tt
+QR_RTOL_OF_MAX = 1e-5
 
 
 def phase(name, msg):
@@ -77,9 +100,9 @@ def kernel_case(B, H, hk, d, page, Pmax, dtype, seed, per_head_mask=False):
             torch.tensor(pos, dtype=torch.int32, device=dev))
 
 
-def median_ms(fn, args, trials=15, reps=10):
+def median_ms(fn, args, trials=15, reps=10, warm=3):
     """Median over ``trials`` of the CUDA-event time of ``reps`` calls."""
-    for _ in range(3):
+    for _ in range(warm):
         fn(*args)
     times = []
     for _ in range(trials):
@@ -128,6 +151,152 @@ def run_engine(ServeEngine, params, cfg, reqs, mode, seed=0):
     return outs, wall, n_tok, eng.stats
 
 
+def build_all(kbuild):
+    """Build every kernel, one nvcc per source, all started together.
+    Returns {name: (library path, seconds)}; a failed build raises."""
+    def one(name):
+        t0 = time.perf_counter()
+        lib = kbuild.build(name)
+        return lib, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        futures = {name: pool.submit(one, name) for name in KERNELS}
+        return {name: f.result() for name, f in futures.items()}
+
+
+def report_build(tag, built):
+    lib, seconds = built
+    phase(tag, f"{lib.name} in {seconds:.2f} s")
+    for ln in lib.with_suffix(".log").read_text().splitlines():
+        if "registers" in ln or "spill" in ln or "bytes smem" in ln:
+            phase(tag, ln.strip())
+
+
+def qr_phase():
+    """Phase 6: the panel kernel against its plain version, then the
+    4096^2 Householder QR through it. Returns the kernel's JSON record."""
+    from linalg_tpu_torch.kernels.qr_panel import factor_strip_cuda
+    from linalg_tpu_torch.ops.qr import householder_qr
+    from linalg_tpu_torch.ops.qr_panel import (
+        factor_panel_ref,
+        factor_strip_ref,
+        householder_qr_panel,
+    )
+
+    record = None
+    cases = [  # name, (b, m, k), zero column
+        ("strip", (32, 4096, 0), None),
+        ("strip k 2048", (32, 4096, 2048), None),
+        ("strip b 64", (64, 4096, 0), None),
+        ("panel b 128", (128, 4096, 0), None),
+        ("zero column", (32, 4096, 0), 5),
+    ]
+    for i, (name, (b, m, k), zero) in enumerate(cases):
+        St = np.random.default_rng(100 + i).standard_normal((b, m))
+        if zero is not None:
+            St[zero] = 0.0
+        St = torch.tensor(St, dtype=torch.float32, device="cuda")
+        ref = factor_strip_ref if b <= 64 else factor_panel_ref
+        got = factor_strip_cuda(St, k)
+        want = ref(St, k)
+        torch.cuda.synchronize()
+        errs, tols = [], []
+        for g, w, what in zip(got, want, ("St", "Vt", "Tt")):
+            err = float((g - w).abs().max())
+            tol = QR_RTOL_OF_MAX * max(1.0, float(w.abs().max()))
+            errs.append(err)
+            tols.append(tol)
+            if not err <= tol:
+                raise RuntimeError(f"qr_panel {name}: {what} max_abs_err "
+                                   f"{err:.3e} > tolerance {tol:.3e}")
+        if zero is not None:
+            vz = float(got[1][zero].abs().max())
+            tz = float(got[2][zero, zero])
+            if vz != 0.0 or tz != 0.0:
+                raise RuntimeError(f"qr_panel zero column: Vt row {vz}, "
+                                   f"Tt diagonal {tz}; both must be 0")
+        slow = b > 32
+        ms = median_ms(factor_strip_cuda, (St, k), trials=7 if slow else 15,
+                       reps=3 if slow else 10)
+        plain_ms = median_ms(ref, (St, k), trials=5, reps=2, warm=1)
+        phase("qr", f"{name} b,m,k={b},{m},{k}: max_abs_err St/Vt/Tt "
+              f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tolerance "
+              f"{QR_RTOL_OF_MAX} x max|want|: {tols[0]:.3e}/{tols[1]:.3e}/"
+              f"{tols[2]:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if name == "strip":  # the main path's shape
+            record = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+
+    N = QR_N
+    A_host = np.random.default_rng(0).standard_normal((N, N)).astype(
+        np.float32)
+    A = torch.tensor(A_host, device="cuda")
+    A64 = A.double()
+    eye = torch.eye(N, dtype=torch.float64, device="cuda")
+
+    def quality(Q, R):
+        rel = float(torch.linalg.norm(Q.double() @ R.double() - A64)
+                    / torch.linalg.norm(A64))
+        orth = float(torch.linalg.norm(Q.double().T @ Q.double() - eye))
+        return rel, orth
+
+    def plain_driver(A):  # the same driver with the plain strip sweep
+        return householder_qr_panel(A, block=128, inner=QR_INNER,
+                                    strip=factor_strip_ref)
+
+    runs = {"kernel": householder_qr, "plain strip": plain_driver,
+            "torch.linalg.qr": torch.linalg.qr}
+    for fn in runs.values():  # first-use costs out of the timing
+        fn(A)
+    torch.cuda.synchronize()
+
+    factor_strip_cuda.launches = 0
+    Q, R = householder_qr(A)
+    torch.cuda.synchronize()
+    launches = factor_strip_cuda.launches
+    if launches != N // QR_INNER:
+        raise RuntimeError(f"householder_qr launched the strip kernel "
+                           f"{launches} times; expected {N // QR_INNER}")
+    rel, orth = quality(Q, R)
+    phase("qr", f"householder_qr {N}x{N} f32: {launches} strip launches, "
+          f"rel_resid {rel:.3e} (gate {QR_RESID_MAX}), ||Q^T Q - I||_F "
+          f"{orth:.3e}")
+    if not rel <= QR_RESID_MAX:
+        raise RuntimeError(f"householder_qr rel_resid {rel:.3e} > "
+                           f"{QR_RESID_MAX}")
+
+    times = {name: [] for name in runs}
+    for _ in range(3):  # interleaved, so drift hits every candidate
+        for name, fn in runs.items():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn(A)
+            b.record()
+            torch.cuda.synchronize()
+            times[name].append(a.elapsed_time(b))
+    for name, fn in runs.items():
+        t = float(np.median(times[name]))
+        r_, o_ = quality(*fn(A))
+        phase("qr", f"{name}: median {t:.3f} ms of {times[name]}, "
+              f"{2.0 * N ** 3 / (t * 1e-3) / 1e9:.1f} GFLOP/s, rel_resid "
+              f"{r_:.3e}, ||Q^T Q - I||_F {o_:.3e}")
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        Q, R = householder_qr(A)
+        still_on = torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    rel_tf32, orth_tf32 = quality(Q, R)
+    phase("qr", f"householder_qr with the caller's TF32 on: rel_resid "
+          f"{rel_tf32:.3e}, ||Q^T Q - I||_F {orth_tf32:.3e}; the caller's "
+          f"setting afterwards: allow_tf32={still_on}")
+    if not rel_tf32 <= QR_RESID_MAX or not still_on:
+        raise RuntimeError("householder_qr under the caller's TF32 missed "
+                           "the gate or did not restore the setting")
+    return dict(launches=launches, **record)
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -152,13 +321,8 @@ def main() -> int:
     print(smi, flush=True)
 
     # -- 2. build -------------------------------------------------------
-    t0 = time.perf_counter()
-    lib = kbuild.build("paged_attention")
-    build_s = time.perf_counter() - t0
-    phase("build", f"{lib.name} in {build_s:.2f} s")
-    for ln in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in ln or "spill" in ln or "bytes smem" in ln:
-            phase("build", ln.strip())
+    built = build_all(kbuild)
+    report_build("build", built["paged_attention"])
 
     # -- 3. kernel vs plain version -------------------------------------
     cases = [  # name, shape args, dtype, tolerance (rtol, atol)
@@ -229,11 +393,19 @@ def main() -> int:
         raise RuntimeError("f32 greedy tokens differ between the kernel and "
                            "gather engines")
 
+    # -- 6. qr -----------------------------------------------------------
+    report_build("qr", built["qr_panel"])
+    qr_record = qr_phase()
+
     print(json.dumps({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/paged_attention.cu",
         "replaces": "linalg_tpu/serve/paged.py:433",
-        "launches": launches, **record}]}), flush=True)
+        "launches": launches, **record}, {
+        "name": "qr_panel", "route": "cuda",
+        "source": "linalg_tpu_torch/kernels/csrc/qr_panel.cu",
+        "replaces": "linalg_tpu/ops/pallas/qr_panel.py:143",
+        **qr_record}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,9 +8,71 @@ their sources at first use, never at import.
 
 Ported so far: the paged-KV serving path (``serve``), with the GPT forward,
 prefill and decode it runs (``models.gpt``), the char tokenizer and the npz
-checkpoint loader. See ROADMAP.md for what comes next.
+checkpoint loader; and the linear-algebra toolkit (``ops``: QR, SVD,
+elimination, eigen methods, projections, batched variants), whose
+Householder QR runs its panels through a CUDA kernel on the card. The
+toolkit's public functions are re-exported here, as ``linalg_tpu`` does.
+See ROADMAP.md for what comes next.
 """
 
+from .ops.eigen import matrix_power_binary, matrix_power_eig, power_iteration
+from .ops.elimination import (
+    back_substitute,
+    forward_eliminate,
+    gaussian_solve,
+    nullspace_basis_elimination,
+    rank_elimination,
+    rref,
+)
+from .ops.matrix_functions import adj, det, rank_numpy
+from .ops.projections import project_onto_colspace
+from .ops.qr import (
+    householder_qr,
+    least_squares_householder_qr,
+    least_squares_qr,
+    qr,
+)
+from .ops.svd import pca, svd
 from .utils.device import resolve_device
+from .utils.numerics import (
+    EPS,
+    permutation_sign,
+    random_nonsingular_qr,
+    random_nonsingular_upper,
+    scale_tol,
+)
 
-__all__ = ["resolve_device"]
+__all__ = [
+    # decompositions
+    "qr",
+    "householder_qr",
+    "svd",
+    "pca",
+    # matrix utilities
+    "det",
+    "adj",
+    "rank_numpy",
+    "matrix_power_eig",
+    "matrix_power_binary",
+    # linear systems
+    "gaussian_solve",
+    "least_squares_qr",
+    "least_squares_householder_qr",
+    "forward_eliminate",
+    "back_substitute",
+    # iterative methods
+    "power_iteration",
+    # rank / null-space tools
+    "rank_elimination",
+    "nullspace_basis_elimination",
+    "rref",
+    # projections
+    "project_onto_colspace",
+    # utils
+    "EPS",
+    "scale_tol",
+    "permutation_sign",
+    "random_nonsingular_upper",
+    "random_nonsingular_qr",
+    "resolve_device",
+]

@@ -111,7 +111,7 @@ def serve_cli(args) -> None:
             raise SystemExit(
                 f"serve: prompt {i} has {len(ids)} tokens; this port admits "
                 f"at most prefill_window={eng.prefill_window} until chunked "
-                f"prefill is ported (ROADMAP.md queue 1, item 2)")
+                f"prefill is ported (ROADMAP.md queue 1, item 3)")
         prompts.append(ids or None)  # nothing encodable: empty completion
 
     t0 = time.perf_counter()

@@ -37,10 +37,10 @@ Params = Dict[str, Any]
 # Configurations GPTConfig accepts but this port cannot run yet, with the
 # ROADMAP.md item that brings each.
 _NOT_PORTED = {
-    ("pos", "rope"): "queue 1, item 3 (training slice: rope)",
-    ("pos", "alibi"): "queue 1, item 3 (training slice: alibi)",
-    ("ffn", "swiglu"): "queue 1, item 3 (training slice: gated FFNs)",
-    ("ffn", "geglu"): "queue 1, item 3 (training slice: gated FFNs)",
+    ("pos", "rope"): "queue 1, item 1 (training slice: rope)",
+    ("pos", "alibi"): "queue 1, item 1 (training slice: alibi)",
+    ("ffn", "swiglu"): "queue 1, item 1 (training slice: gated FFNs)",
+    ("ffn", "geglu"): "queue 1, item 1 (training slice: gated FFNs)",
 }
 
 
@@ -87,7 +87,7 @@ class GPTConfig:
                     f"(ROADMAP.md {item})")
         if self.window is not None:
             raise NotImplementedError(
-                "window is not ported yet (ROADMAP.md queue 1, item 5: "
+                "window is not ported yet (ROADMAP.md queue 1, item 4: "
                 "long-context attention)")
 
     @property

@@ -51,7 +51,7 @@ def fkv_write_slots(k_buf, v_buf, pos, k_new, v_new):
     if k_new.shape[2] != 1:
         raise NotImplementedError(
             "multi-row slot writes come with chunked prefill (ROADMAP.md "
-            "queue 1, item 2)")
+            "queue 1, item 3)")
     p = torch.where(pos < 0, pos + max_T, pos).clamp(0, max_T - 1).long()
     b = torch.arange(B, device=k_buf.device)
     k_buf[b, :, p] = k_new[:, :, 0]

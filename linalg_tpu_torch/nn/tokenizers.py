@@ -1,5 +1,5 @@
 """Character tokenizer — the counterpart of ``linalg_tpu/nn/tokenizers.py``'s
-``CharTokenizer`` (byte-level BPE comes later, ROADMAP.md queue 1, item 4).
+``CharTokenizer`` (byte-level BPE comes later, ROADMAP.md queue 1, item 2).
 """
 
 from __future__ import annotations

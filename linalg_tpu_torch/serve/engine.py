@@ -48,9 +48,9 @@ from .paged import SUPPORTED_KERNEL_D
 __all__ = ["Request", "Completion", "ServeEngine", "serve",
            "decode_chunk_slots"]
 
-_ROADMAP_SERVE = "ROADMAP.md queue 1, item 2 (engine: chunked prefill, " \
+_ROADMAP_SERVE = "ROADMAP.md queue 1, item 3 (engine: chunked prefill, " \
                  "prefixes)"
-_ROADMAP_LATER = "ROADMAP.md queue 1, item 7 (serving features)"
+_ROADMAP_LATER = "ROADMAP.md queue 1, item 5 (serving features)"
 
 
 @dataclasses.dataclass

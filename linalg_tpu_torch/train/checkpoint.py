@@ -58,7 +58,7 @@ def _cfg_from_meta(meta: dict) -> GPTConfig:
     if meta.get("experts", 0):
         raise NotImplementedError(
             "MoE checkpoints are not ported yet (ROADMAP.md queue 1, "
-            "item 8: MoE)")
+            "item 6: MoE)")
     return GPTConfig(
         vocab_size=meta.get("vocab_size") or len(meta["stoi"]),
         d_model=meta["d_model"],
@@ -80,6 +80,6 @@ def load_tokenizer(ckpt_dir) -> CharTokenizer:
     if meta.get("tokenizer") == "bpe":
         raise NotImplementedError(
             "BPE checkpoints are not ported yet (ROADMAP.md queue 1, "
-            "item 4: tokenizers)")
+            "item 2: tokenizers)")
     itos = {int(k): v for k, v in meta["itos"].items()}
     return CharTokenizer.from_pretrained(meta["stoi"], itos)

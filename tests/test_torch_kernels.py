@@ -14,6 +14,13 @@ import torch
 
 from linalg_tpu_torch.kernels import build as kbuild
 from linalg_tpu_torch.kernels.paged_attention import paged_attention_cuda
+from linalg_tpu_torch.kernels.qr_panel import factor_strip_cuda
+from linalg_tpu_torch.ops.qr import householder_qr
+from linalg_tpu_torch.ops.qr_panel import (
+    factor_panel_ref,
+    factor_strip,
+    factor_strip_ref,
+)
 from linalg_tpu_torch.serve.paged import paged_attention, paged_attention_ref
 
 torch.set_num_threads(2)
@@ -23,6 +30,10 @@ torch.set_num_threads(2)
 RTOL, ATOL = 2e-5, 2e-6
 # bfloat16 keeps 8 bits of mantissa: outputs of magnitude ~1 round at ~4e-3
 BF16_ATOL = 2e-2
+# the panel sweep against its plain version: float32 sums over m lanes in
+# another order; a float64 sweep at m 4096 differs from the float32 one by
+# 2e-5 on St (magnitude 65), 1.4e-7 on Vt and 1e-7 on Tt
+QR_RTOL_OF_MAX = 1e-5
 
 SHAPES = [(4, 2, 128), (8, 1, 64), (4, 4, 64), (2, 2, 128)]
 
@@ -115,3 +126,63 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     strided_q = args[0].repeat_interleave(2, dim=-1)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         paged_attention_cuda(strided_q, *args[1:])
+
+
+def test_qr_panel_wrapper_rejects_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        factor_strip_cuda(torch.zeros(8, 32), 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,k,zero", [(32, 1024, 0, None),
+                                        (32, 1030, 7, 3),
+                                        (128, 2048, 0, None)],
+                         ids=["strip", "ragged_zero_col", "panel_b128"])
+def test_qr_panel_matches_ref_on_card(cuda, b, m, k, zero):
+    St = np.random.default_rng(b + m + k).standard_normal((b, m))
+    if zero is not None:
+        St[zero] = 0.0
+    St = torch.tensor(St, dtype=torch.float32, device=cuda)
+    ref = factor_strip_ref if b <= 64 else factor_panel_ref
+    before = factor_strip_cuda.launches
+    got = factor_strip(St, k) if b <= 64 else factor_strip_cuda(St, k)
+    torch.cuda.synchronize()
+    assert factor_strip_cuda.launches == before + 1
+    for g, w in zip(got, ref(St, k)):
+        tol = QR_RTOL_OF_MAX * max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g, w, rtol=0, atol=tol)
+    if zero is not None:  # exact skip: no reflector, tau = 0
+        assert float(got[1][zero].abs().max()) == 0.0
+        assert float(got[2][zero, zero]) == 0.0
+
+
+@pytest.mark.cuda
+def test_qr_panel_rejects_what_it_does_not_take(cuda):
+    St = torch.randn(16, 64, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        factor_strip_cuda(St.double(), 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        factor_strip_cuda(St.T.contiguous().T, 0)
+    with pytest.raises(ValueError, match="outside"):
+        factor_strip_cuda(torch.randn(300, 64, device=cuda), 0)
+
+
+@pytest.mark.cuda
+def test_householder_qr_through_kernel_under_callers_tf32(cuda):
+    n = 512
+    A = torch.tensor(np.random.default_rng(0).standard_normal((n, n)),
+                     dtype=torch.float32, device=cuda)
+    before = factor_strip_cuda.launches
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        Q, R = householder_qr(A)
+        still_on = torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    assert factor_strip_cuda.launches == before + n // 32
+    assert still_on  # the caller's setting is restored
+    A64 = A.double()
+    rel = torch.linalg.norm(Q.double() @ R.double() - A64) / torch.linalg.norm(
+        A64)
+    assert float(rel) <= 1e-6

@@ -1,0 +1,276 @@
+"""The port's QR (linalg_tpu_torch/ops/qr.py, ops/qr_panel.py) against the
+JAX package's.
+
+The same numpy-seeded matrices go through both packages on the CPU. The
+JAX Pallas kernels run in interpret mode, as tests/test_qr_pallas.py runs
+them. Tolerances: the panel sweeps within 1e-5 (float32, sums in another
+order; the tolerance test_qr_pallas.py holds factor_strip to against
+factor_panel), the blocked float32 drivers within 2e-4 (test_qr_pallas.py's
+bound between two float32 drivers), float64 QR and least squares within
+1e-10, and test_qr.py's orthogonality bounds.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from linalg_tpu.ops.pallas import qr_panel as jqp
+from linalg_tpu.ops.qr import (
+    householder_qr as j_householder_qr,
+    least_squares_householder_qr as j_lsq_hh,
+    least_squares_qr as j_lsq_mgs,
+    qr as j_qr,
+)
+from linalg_tpu_torch.kernels.qr_panel import factor_strip_cuda
+from linalg_tpu_torch.ops import qr_panel as tqp
+from linalg_tpu_torch.ops.qr import (
+    householder_qr,
+    least_squares_householder_qr,
+    least_squares_qr,
+    qr,
+)
+
+torch.set_num_threads(2)
+
+SWEEP_ATOL = 1e-5
+DRIVER_ATOL = 2e-4
+F64_ATOL = 1e-10
+
+
+def _rand(shape, seed=0, dtype=np.float32):
+    return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _close(got, want, atol):
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# the panel sweeps (K1 / K12) and their dispatchers
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["strip", "panel"])
+@pytest.mark.parametrize("k", [0, 8])
+def test_sweep_ref_matches_jax_kernel(kind, k):
+    A = _rand((24, 8), 11)
+    jfn = jqp.factor_strip if kind == "strip" else jqp.factor_panel
+    tfn = tqp.factor_strip_ref if kind == "strip" else tqp.factor_panel_ref
+    with pltpu.force_tpu_interpret_mode():
+        want = jfn(jnp.asarray(A.T), k, 8)
+    got = tfn(torch.from_numpy(A.T.copy()), k)
+    for g, w in zip(got, want):
+        _close(g, w, SWEEP_ATOL)
+
+
+@pytest.mark.parametrize("kind", ["strip", "panel"])
+def test_sweep_ref_zero_column_skipped(kind):
+    A = _rand((16, 4), 4)
+    A[:, 2] = 0.0
+    jfn = jqp.factor_strip if kind == "strip" else jqp.factor_panel
+    tfn = tqp.factor_strip_ref if kind == "strip" else tqp.factor_panel_ref
+    with pltpu.force_tpu_interpret_mode():
+        want = jfn(jnp.asarray(A.T), 0, 4)
+    St, Vt, Tt = tfn(torch.from_numpy(A.T.copy()), 0)
+    # no reflector and tau = 0, exactly: padded columns rely on it
+    assert float(Vt[2].abs().max()) == 0.0
+    assert float(Tt[2, 2]) == 0.0
+    for g, w in zip((St, Vt, Tt), want):
+        _close(g, w, SWEEP_ATOL)
+
+
+def test_sweep_ref_compact_wy_identity():
+    m, b = 24, 8
+    A = _rand((m, b), 1)
+    St, Vt, Tt = tqp.factor_panel_ref(torch.from_numpy(A.T.copy()), 0)
+    V, T = Vt.double().numpy().T, Tt.double().numpy().T
+    Qp = np.eye(m) - V @ T @ V.T
+    assert np.linalg.norm(Qp.T @ Qp - np.eye(m)) < 1e-5
+    assert np.linalg.norm(Qp @ St.double().numpy().T - A) < 1e-4
+
+
+@pytest.mark.parametrize("k", [0, 4])
+def test_dispatcher_takes_plain_version_on_cpu(k):
+    St = torch.from_numpy(_rand((8, 40), 3))
+    before = factor_strip_cuda.launches
+    for g, w in zip(tqp.factor_strip(St, k), tqp.factor_strip_ref(St, k)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert factor_strip_cuda.launches == before
+
+
+def test_strip_takes_at_most_64_rows():
+    with pytest.raises(ValueError, match="at most 64"):
+        tqp.factor_strip(torch.zeros(65, 80), 0)
+
+
+# ---------------------------------------------------------------------------
+# the blocked driver householder_qr_panel
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_driver_64():
+    """JAX householder_qr_pallas at n 64, block 16, inner 8, pair on/off
+    (interpret mode), computed once for the module."""
+    A = _rand((64, 64), 11)
+    out = {}
+    with pltpu.force_tpu_interpret_mode():
+        for pair in (True, False):
+            Q, R = jqp.householder_qr_pallas(jnp.asarray(A), block=16,
+                                             inner=8, pair=pair)
+            out[pair] = (np.asarray(Q), np.asarray(R))
+    return A, out
+
+
+@pytest.mark.parametrize("pair", [True, False])
+def test_driver_matches_jax(jax_driver_64, pair):
+    A, out = jax_driver_64
+    Q, R = tqp.householder_qr_panel(torch.from_numpy(A), block=16, inner=8,
+                                    pair=pair)
+    _close(Q, out[pair][0], DRIVER_ATOL)
+    _close(R, out[pair][1], DRIVER_ATOL)
+    assert np.abs(np.tril(R.numpy(), -1)).max() == 0.0
+
+
+@pytest.mark.parametrize("kw", [dict(pair=True), dict(pair=False),
+                                dict(agg=3), dict(inner=16)])
+def test_driver_reconstructs_tall(kw):
+    A = _rand((96, 48), 12)
+    Q, R = tqp.householder_qr_panel(torch.from_numpy(A), block=16,
+                                    **{"inner": 8, **kw})
+    Q, R = Q.double().numpy(), R.double().numpy()
+    assert Q.shape == (96, 48) and R.shape == (48, 48)
+    assert np.linalg.norm(Q @ R - A) / np.linalg.norm(A) < 1e-5
+    assert np.linalg.norm(Q.T @ Q - np.eye(48)) < 1e-4
+
+
+def test_driver_two_level_equals_single_strip():
+    # a width-16 panel as two 8-strips + WY merge = one 16-wide sweep
+    A = torch.from_numpy(_rand((32, 16), 12))
+    Q1, R1 = tqp.householder_qr_panel(A, block=16, inner=8,
+                                      strip=tqp.factor_panel_ref)
+    Q2, R2 = tqp.householder_qr_panel(A, block=16, inner=16,
+                                      strip=tqp.factor_panel_ref)
+    _close(R1, R2, DRIVER_ATOL)
+    _close(Q1, Q2, DRIVER_ATOL)
+
+
+def test_driver_runs_in_full_precision_and_restores_setting():
+    seen = []
+
+    def spy(St, k):
+        seen.append(torch.get_float32_matmul_precision())
+        return tqp.factor_strip_ref(St, k)
+
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")  # what allow_tf32 = True sets
+    try:
+        tqp.householder_qr_panel(torch.from_numpy(_rand((32, 32), 2)),
+                                 block=16, inner=8, strip=spy)
+        after = torch.get_float32_matmul_precision()
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert seen and set(seen) == {"highest"}
+    assert after == "high"
+
+
+@pytest.mark.parametrize("K", [100, 384, 1000, 5000])
+def test_chunked_lane_product_equals_matmul(K):
+    X = torch.from_numpy(_rand((7, K), 1, np.float64))
+    V = torch.from_numpy(_rand((5, K), 2, np.float64))
+    torch.testing.assert_close(tqp._xvt(X, V), X @ V.T, rtol=1e-12,
+                               atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# ops/qr.py against the JAX package, float64
+# ---------------------------------------------------------------------------
+
+
+SHAPES = [(5, 3), (64, 64), (100, 10), (37, 37), (130, 70)]
+
+
+@pytest.mark.parametrize("reorth", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_mgs_matches_jax(shape, reorth):
+    A = _rand(shape, shape[0], np.float64)
+    Q, R = qr(A, reorth=reorth)
+    Qj, Rj = j_qr(A, reorth=reorth)
+    _close(Q, Qj, F64_ATOL)
+    _close(R, Rj, F64_ATOL)
+    assert np.linalg.norm(Q.numpy() @ R.numpy() - A) < 1e-10
+
+
+@pytest.mark.parametrize("block", [2, 7, 16, 64, 128])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_householder_matches_jax(shape, block):
+    A = _rand(shape, shape[1], np.float64)
+    Q, R = householder_qr(A, block=block)
+    Qj, Rj = j_householder_qr(A, block=block)
+    assert Q.shape == shape and R.shape == (shape[1], shape[1])
+    _close(Q, Qj, F64_ATOL)
+    _close(R, Rj, F64_ATOL)
+
+
+def test_orthogonality_bounds():
+    A = _rand((100, 10), 0, np.float64)
+    Q, _ = qr(A, reorth=True)
+    assert np.linalg.norm(Q.numpy().T @ Q.numpy() - np.eye(10)) < 1e-10
+    Q, _ = householder_qr(_rand((100, 10), 1, np.float64))
+    assert np.linalg.norm(Q.numpy().T @ Q.numpy() - np.eye(10)) < 1e-10
+
+
+def test_householder_zero_column_skipped():
+    A = _rand((8, 5), 11, np.float64)
+    A[:, 2] = 0.0
+    Q, R = householder_qr(A, block=2)
+    Qj, Rj = j_householder_qr(A, block=2)
+    assert abs(float(R[2, 2])) < 1e-12
+    assert np.linalg.norm(Q.numpy() @ R.numpy() - A) < 1e-12
+    _close(Q, Qj, F64_ATOL)
+    _close(R, Rj, F64_ATOL)
+
+
+def test_householder_float32_on_cpu_takes_core_not_kernel():
+    # CPU tensors never reach the panel kernel: the JAX rule's core path
+    A = _rand((256, 128), 2)
+    before = factor_strip_cuda.launches
+    Q, R = householder_qr(A)
+    assert factor_strip_cuda.launches == before
+    assert Q.dtype == torch.float32
+    Qj, Rj = j_householder_qr(A)
+    _close(Q, Qj, DRIVER_ATOL)
+    _close(R, Rj, DRIVER_ATOL)
+    Qn, Rn = Q.double().numpy(), R.double().numpy()
+    assert np.linalg.norm(Qn @ Rn - A) / np.linalg.norm(A) < 1e-5
+    assert np.linalg.norm(Qn.T @ Qn - np.eye(128)) < 1e-4
+
+
+@pytest.mark.parametrize("seed", range(5))
+@pytest.mark.parametrize("kind", ["mgs", "householder"])
+def test_least_squares_match_jax(kind, seed):
+    rng = np.random.default_rng(seed + (500 if kind == "householder" else 0))
+    A = rng.standard_normal((40, 7))
+    b = rng.standard_normal(40)
+    fn, jfn = ((least_squares_qr, j_lsq_mgs) if kind == "mgs"
+               else (least_squares_householder_qr, j_lsq_hh))
+    x = fn(A, b)
+    _close(x, jfn(A, b), F64_ATOL)
+    r_np = np.linalg.norm(A @ np.linalg.lstsq(A, b, rcond=None)[0] - b)
+    assert np.linalg.norm(A @ x.numpy() - b) <= r_np * (1 + 1e-8)
+
+
+def test_mgs_linear_dependence_raises():
+    with pytest.raises(ValueError, match="linearly dependent"):
+        qr(np.ones((4, 3)))
+
+
+def test_householder_wide_raises():
+    with pytest.raises(ValueError, match="m >= n"):
+        householder_qr(np.ones((3, 5)))
