@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paged serving path on one CUDA card.
+"""Drive the PyTorch port's paths on one CUDA card: paged serving, the
+Householder QR and char-GPT training.
 
     python3 chip_smoke.py
 
@@ -35,6 +36,26 @@ Phases, each reported on its own line; any failure exits non-zero:
              the kernel, through the same driver with the plain strip, and
              of ``torch.linalg.qr`` (GFLOP/s as 2 N^3 / t); and once more
              with the caller's TF32 switched on, still <= 1e-6.
+7. flash   — the flash-attention kernels (``csrc/flash_attention.cu``):
+             build time and ptxas lines; forward (O, L) and backward (dq,
+             dk, dv from a random dO) against their plain PyTorch versions
+             at (B 24, H 8, T 1024, d 128) in bf16 and f32, (2, 8, 2048,
+             128) bf16 through ``flash_attention_long``, (4, 8, 1024, 64)
+             f32, and a ragged T 1000 through the picker's padding; median
+             CUDA-event times of kernel and plain version, forward and
+             forward+backward (the T 2048 shape also straight through the
+             kernels).
+8. train   — ``train.trainer.train`` at the train_big configuration
+             (``bench.py::bench_train_big``: d1024, 8 heads, 8 layers, ctx
+             1024, bf16, batch 24, AdamW lr 3e-4, warmup 200, wd 0.01) on
+             the synthetic corpus, 40 steps, eval every 20: launch counts
+             per layer, finite losses, steady-state ms/step, tok/s, TFLOP/s
+             and mfu (of the H100's 989 TFLOP/s dense bf16), peak memory,
+             the checkpoint reloaded equal; one step's loss and gradients
+             through the kernels against the plain versions (bf16, and f32
+             with TF32 off); a few steps at the published config (d512,
+             4 layers, ctx 256, batch 64, f32), which runs no kernel; a
+             ``torch.profiler`` breakdown of one train_big step.
 
 Phase 2 builds every kernel, one ``nvcc`` per source, all started
 together. The line before the last is a JSON object describing the
@@ -46,8 +67,10 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -57,7 +80,7 @@ SERVE_CFG = dict(vocab_size=65, d_model=512, n_heads=4, n_kv_heads=2,
                  n_layers=8, ctx_len=4096)
 ENGINE_KW = dict(paged=True, page=256, n_slots=8, chunk=32,
                  prefill_window=2048)
-KERNELS = ("paged_attention", "qr_panel")
+KERNELS = ("paged_attention", "qr_panel", "flash_attention")
 QR_N = 4096          # the headline QR: 4096^2 float32
 QR_INNER = 32        # strip width householder_qr_panel passes the kernel
 QR_RESID_MAX = 1e-6  # ||A - QR||_F / ||A||_F, the headline accuracy gate
@@ -65,6 +88,20 @@ QR_RESID_MAX = 1e-6  # ||A - QR||_F / ||A||_F, the headline accuracy gate
 # float64 sweep at m 4096 differs from the float32 one by 2e-5 on St
 # (magnitude 65), 1.4e-7 on Vt and 1e-7 on Tt
 QR_RTOL_OF_MAX = 1e-5
+# flash kernels vs their plain versions, as a share of max|want|: float32
+# sums over T and d in another order; bf16 outputs and the rounded P and dS
+# keep 8 bits of mantissa, and the kernel's online softmax rounds
+# exp(s - m_running) where the plain version rounds the normalized p
+FLASH_RTOL_OF_MAX = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# train_big (bench.py::bench_train_big) and the published config
+TRAIN_BIG = ["--d_model", "1024", "--heads", "8", "--layers", "8",
+             "--ctx_len", "1024", "--dtype", "bfloat16", "--batch_size",
+             "24", "--steps", "40", "--eval_every", "20"]
+PUBLISHED = ["--d_model", "512", "--heads", "4", "--layers", "4",
+             "--ctx_len", "256", "--dtype", "float32", "--batch_size", "64",
+             "--steps", "5", "--eval_every", "5"]
+EVAL_BATCHES = 20   # trainer._eval_device batches per eval
+H100_BF16_TFLOPS = 989.0  # dense bf16, NVIDIA's H100 SXM data sheet
 
 
 def phase(name, msg):
@@ -297,6 +334,284 @@ def qr_phase():
     return dict(launches=launches, **record)
 
 
+def flash_case(shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                         device="cuda") for _ in range(4)]
+
+
+def flash_compare(name, pairs, dtype):
+    """Max abs errors of (what, got, want) pairs against the tolerance;
+    raises on a miss."""
+    rtol = FLASH_RTOL_OF_MAX[dtype]
+    errs = {}
+    for what, got, want in pairs:
+        err = float((got.float() - want.float()).abs().max())
+        tol = rtol * max(1.0, float(want.float().abs().max()))
+        if not err <= tol:
+            raise RuntimeError(f"flash {name}: {what} max_abs_err {err:.3e} "
+                               f"> tolerance {tol:.3e}")
+        errs[what] = err
+    phase("flash", f"{name}: max_abs_err " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tolerance {rtol} x max|want|)")
+    return max(errs.values())
+
+
+def flash_phase():
+    """Phase 7: the flash kernels against their plain versions. Returns
+    the kernel's JSON record (errors and times at the training shape)."""
+    from linalg_tpu_torch.kernels.flash_attention import (
+        flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
+    from linalg_tpu_torch.models.gpt import _padded_attn
+    from linalg_tpu_torch.nn.flash import (flash_attention,
+                                           flash_attention_ref,
+                                           flash_bwd_ref, flash_fwd_ref)
+    from linalg_tpu_torch.nn.flash_long import flash_attention_long
+
+    def kernel_fb(q, k, v, do):
+        o, L = flash_fwd_cuda(q, k, v)
+        delta = torch.sum(do.float() * o.float(), dim=-1)
+        return (flash_dq_cuda(q, k, v, do, L, delta),
+                flash_dkdv_cuda(q, k, v, do, L, delta))
+
+    def plain_fb(q, k, v, do):
+        o, L = flash_fwd_ref(q, k, v)
+        return flash_bwd_ref(q, k, v, o, L, do)
+
+    record = None
+    for i, (shape, dtype) in enumerate([
+            ((24, 8, 1024, 128), torch.bfloat16),
+            ((24, 8, 1024, 128), torch.float32),
+            ((2, 8, 2048, 128), torch.bfloat16),  # flash_attention_long's
+            ((4, 8, 1024, 64), torch.float32)]):
+        q, k, v, do = flash_case(shape, dtype, seed=200 + i)
+        o, L = flash_fwd_cuda(q, k, v)
+        o_ref, L_ref = flash_fwd_ref(q, k, v)
+        # the backward kernels from the plain forward's o and L, so each
+        # kernel is held alone
+        delta = torch.sum(do.float() * o_ref.float(), dim=-1)
+        dq = flash_dq_cuda(q, k, v, do, L_ref, delta)
+        dk, dv = flash_dkdv_cuda(q, k, v, do, L_ref, delta)
+        torch.cuda.synchronize()
+        want = flash_bwd_ref(q, k, v, o_ref, L_ref, do)
+        dt = str(dtype).split(".")[1]
+        err = flash_compare(f"B,H,T,d={shape} {dt}", [
+            ("o", o, o_ref), ("L", L, L_ref), ("dq", dq, want[0]),
+            ("dk", dk, want[1]), ("dv", dv, want[2])], dtype)
+        del o, L, o_ref, L_ref, dq, dk, dv, want
+        args = (q, k, v)
+        ms_f = median_ms(flash_fwd_cuda, args, trials=7, reps=3)
+        plain_f = median_ms(flash_fwd_ref, args, trials=5, reps=2, warm=1)
+        ms_fb = median_ms(kernel_fb, args + (do,), trials=7, reps=3)
+        plain_fb_ms = median_ms(plain_fb, args + (do,), trials=5, reps=2,
+                                warm=1)
+        phase("flash", f"  kernel fwd {ms_f:.4f} ms, fwd+bwd {ms_fb:.4f} ms; "
+              f"plain fwd {plain_f:.4f} ms, fwd+bwd {plain_fb_ms:.4f} ms")
+        if i == 0:  # the training slice's shape and dtype
+            record = dict(max_abs_err=err, ms=ms_fb, plain_ms=plain_fb_ms,
+                          fwd_ms=ms_f, plain_fwd_ms=plain_f)
+        torch.cuda.empty_cache()
+
+    for name, (B, H, T, d), dtype, fn, ref in [
+            ("flash_attention_long T 2048", (2, 8, 2048, 128),
+             torch.bfloat16, lambda q, k, v, m: flash_attention_long(q, k, v),
+             lambda q, k, v, m: flash_attention_ref(q, k, v)),
+            ("ragged T 1000 padded to 1024", (2, 8, 1000, 128),
+             torch.float32, _padded_attn(flash_attention, 1000, 1024),
+             _padded_attn(flash_attention_ref, 1000, 1024))]:
+        # (B, T, H, d) transposed to heads, as the model hands them over
+        x = flash_case((B, T, H, d), dtype, seed=T)
+        outs = []
+        for f in (fn, ref):
+            q, k, v = (t.clone().requires_grad_(True) for t in x[:3])
+            o = f(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  None)
+            o.backward(x[3].transpose(1, 2))
+            outs.append((o.detach(), q.grad, k.grad, v.grad))
+        torch.cuda.synchronize()
+        flash_compare(name, [(w, g, r) for w, g, r in zip(
+            ("o", "dq", "dk", "dv"), *outs)], dtype)
+    return record
+
+
+def step_flops(d, L, T, V, batch):
+    """Matmul FLOPs of one fwd+bwd train step by bench.py's count
+    (``_gpt_step_flops``: 2 per multiply-add, backward twice the
+    forward)."""
+    per_tok_layer = 8 * d * d + 4 * d * 4 * d
+    fwd = batch * T * (L * (per_tok_layer + 4 * T * d) + 2 * d * V)
+    return 3 * fwd
+
+
+def loss_and_grads(params, x, y, cfg, attn_fn=None):
+    from linalg_tpu_torch.models.gpt import gpt_loss
+    from linalg_tpu_torch.train.optim import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = gpt_loss(params, x, y, cfg, attn_fn=attn_fn)
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+def train_phase(smi):
+    """Phase 8: the training path on the card. Returns the flash launch
+    counts of the train_big run."""
+    from linalg_tpu_torch.apps.gpt import build_parser
+    from linalg_tpu_torch.kernels.flash_attention import (
+        flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
+    from linalg_tpu_torch.models.gpt import GPTConfig, init_gpt_params
+    from linalg_tpu_torch.nn.flash import flash_attention_ref
+    from linalg_tpu_torch.train.checkpoint import load_ckpt
+    from linalg_tpu_torch.train.optim import adamw_init, tree_leaves
+    from linalg_tpu_torch.train.trainer import make_device_train_step, train
+
+    counters = (flash_fwd_cuda, flash_dq_cuda, flash_dkdv_cuda)
+    with tempfile.TemporaryDirectory() as tmp:
+        log = f"{tmp}/metrics.jsonl"
+        args = build_parser().parse_args(
+            ["--train", *TRAIN_BIG, "--ckpt_dir", f"{tmp}/ck", "--log_file",
+             log, "--device", "cuda"])
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        params, cfg, _, _ = train(args)
+        torch.cuda.synchronize()
+        launches = [c.launches for c in counters]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rows = [json.loads(ln) for ln in open(log, encoding="utf-8")]
+        n_eval = sum(r["event"] == "eval" for r in rows)
+        want = [cfg.n_layers * (args.steps + n_eval * EVAL_BATCHES),
+                cfg.n_layers * args.steps, cfg.n_layers * args.steps]
+        phase("train", f"train_big: flash launches fwd/dq/dkdv {launches}, "
+              f"expected {want} ({cfg.n_layers} layers x ({args.steps} "
+              f"steps + {n_eval} evals x {EVAL_BATCHES} batches) forward, "
+              f"{cfg.n_layers} x {args.steps} backward)")
+        if launches != want:
+            raise RuntimeError("train_big launch counts differ from the run")
+        losses = [r.get("loss", r.get("val_loss")) for r in rows
+                  if r["event"] in ("train", "eval")]
+        phase("train", f"losses (train at steps 1, 20, 40; val at 20, 40): "
+              f"{losses}")
+        if not all(math.isfinite(x) for x in losses):
+            raise RuntimeError("a train_big loss is not finite")
+        t = {(r["event"], r["step"]): r["elapsed_s"] for r in rows
+             if "step" in r}
+        # steps 21..40: from the end of the step-20 eval to the step-40 sync
+        ms = (t[("train", 40)] - t[("eval", 20)]) / 20 * 1e3
+        tok_s = args.batch_size * cfg.ctx_len / (ms * 1e-3)
+        tflops = step_flops(cfg.d_model, cfg.n_layers, cfg.ctx_len,
+                            cfg.vocab_size, args.batch_size) / (
+            ms * 1e-3) / 1e12
+        phase("train", f"train_big steady state (steps 21-40): {ms:.2f} "
+              f"ms/step, {tok_s:.0f} tok/s, {tflops:.1f} TFLOP/s, mfu "
+              f"{tflops / H100_BF16_TFLOPS:.4f} of {H100_BF16_TFLOPS:.0f} "
+              f"TFLOP/s; peak memory {peak_gb:.2f} GB; {smi}")
+        saved = [r["step"] for r in rows if r["event"] == "eval"
+                 and r["ckpt"]]
+        back, cfg2, _, _ = load_ckpt(f"{tmp}/ck", device="cuda")
+        same = cfg2 == cfg and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                              tree_leaves(params)))
+        phase("train", f"checkpoint saved at steps {saved}, reloaded equal "
+              f"to the trained params: {same}")
+        if not same:
+            raise RuntimeError("the checkpoint does not reload equal to the "
+                               "trained params")
+    del params, back
+
+    # one step's loss and gradients: kernels vs plain versions
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (2, args.batch_size, cfg.ctx_len))
+    x, y = (torch.tensor(a, device="cuda") for a in ids)
+    plain = lambda q, k, v, mask: flash_attention_ref(q, k, v, True)
+    for dtype, tol in (("bfloat16", (1e-2, 2e-2)), ("float32", (1e-4, 1e-4))):
+        c = GPTConfig(vocab_size=cfg.vocab_size, d_model=cfg.d_model,
+                      n_heads=cfg.n_heads, n_layers=cfg.n_layers,
+                      ctx_len=cfg.ctx_len, dtype=dtype)
+        p = init_gpt_params(c, seed=0, device="cuda")
+        lk, gk = loss_and_grads(p, x, y, c)
+        lp, gp = loss_and_grads(p, x, y, c, plain)
+        num = math.sqrt(sum(float(torch.sum((a - b).double() ** 2))
+                            for a, b in zip(gk, gp)))
+        den = math.sqrt(sum(float(torch.sum(b.double() ** 2)) for b in gp))
+        phase("train", f"one step {dtype}: loss kernels {lk:.6f}, plain "
+              f"{lp:.6f}, |diff| {abs(lk - lp):.3e} (bound {tol[0]}); "
+              f"gradients ||g_k - g_p|| / ||g_p|| {num / den:.3e} "
+              f"(bound {tol[1]})")
+        if not (abs(lk - lp) <= tol[0] and num / den <= tol[1]):
+            raise RuntimeError(f"one {dtype} step: kernels and plain "
+                               "versions disagree")
+        del p, gk, gp
+        torch.cuda.empty_cache()
+
+    # the published config: T 256 takes the rematted sdpa, no kernel
+    with tempfile.TemporaryDirectory() as tmp:
+        for ctr in counters:
+            ctr.launches = 0
+        log = f"{tmp}/metrics.jsonl"
+        args2 = build_parser().parse_args(
+            ["--train", *PUBLISHED, "--ckpt_dir", f"{tmp}/ck", "--log_file",
+             log, "--device", "cuda"])
+        train(args2)
+        rows = [json.loads(ln) for ln in open(log, encoding="utf-8")]
+        losses = [r.get("loss", r.get("val_loss")) for r in rows
+                  if r["event"] in ("train", "eval")]
+        n = [ctr.launches for ctr in counters]
+        phase("train", f"published config (d512, 4 layers, ctx 256, B 64, "
+              f"f32), {args2.steps} steps: losses {losses}, flash launches "
+              f"{n}")
+        if any(n) or not all(math.isfinite(v) for v in losses):
+            raise RuntimeError("published config: a flash launch or a "
+                               "non-finite loss")
+
+    # a torch.profiler breakdown of one train_big step (last: the profiler
+    # stays attached to the card and slows what runs after it)
+    p = init_gpt_params(cfg, seed=0, device="cuda")
+    state = adamw_init(p)
+    step = make_device_train_step(cfg, args.batch_size, base_lr=3e-4,
+                                  min_lr=3e-5, warmup=200, max_steps=10000,
+                                  weight_decay=0.01)
+    data = torch.tensor(rng.integers(0, cfg.vocab_size, 400_000),
+                        device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for _ in range(3):
+        p, state, gen, loss = step(p, state, data, gen)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        p, state, gen, loss = step(p, state, data, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+
+    def by_device_time(device_type):
+        return sorted(((getattr(e, "self_device_time_total", 0) / 1e3,
+                        e.count, e.key) for e in avgs
+                       if e.device_type == device_type), reverse=True)
+
+    kernels = by_device_time(torch.autograd.DeviceType.CUDA)
+    total = sum(ms_ for ms_, _, _ in kernels)
+    phase("train", f"profiled train_big step: wall {wall:.2f} ms, device "
+          f"time {total:.2f} ms (idle {max(0.0, 1 - total / wall):.1%}), "
+          f"{sum(n_ for _, n_, _ in kernels)} kernel launches")
+    for what, rows in (("kernels", kernels),
+                       ("ops", by_device_time(
+                           torch.autograd.DeviceType.CPU))):
+        phase("train", f"top {what} by device time:")
+        for ms_, n_, key in rows[:12]:
+            phase("train", f"  {ms_:9.3f} ms "
+                  f"{100 * ms_ / max(total, 1e-9):5.1f}%  x{n_:<5d} "
+                  f"{key[:80]}")
+    return launches
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -397,6 +712,13 @@ def main() -> int:
     report_build("qr", built["qr_panel"])
     qr_record = qr_phase()
 
+    # -- 7. flash --------------------------------------------------------
+    report_build("flash", built["flash_attention"])
+    flash_record = flash_phase()
+
+    # -- 8. train --------------------------------------------------------
+    flash_launches = train_phase(smi)
+
     print(json.dumps({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/paged_attention.cu",
@@ -405,7 +727,14 @@ def main() -> int:
         "name": "qr_panel", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/qr_panel.cu",
         "replaces": "linalg_tpu/ops/pallas/qr_panel.py:143",
-        **qr_record}]}), flush=True)
+        **qr_record}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "linalg_tpu_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "linalg_tpu/nn/flash.py:169, "
+                    "linalg_tpu/nn/flash_long.py:190",
+        "launches": sum(flash_launches),
+        "launches_fwd_dq_dkdv": flash_launches, **flash_record}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,11 +8,14 @@ their sources at first use, never at import.
 
 Ported so far: the paged-KV serving path (``serve``), with the GPT forward,
 prefill and decode it runs (``models.gpt``), the char tokenizer and the npz
-checkpoint loader; and the linear-algebra toolkit (``ops``: QR, SVD,
-elimination, eigen methods, projections, batched variants), whose
-Householder QR runs its panels through a CUDA kernel on the card. The
-toolkit's public functions are re-exported here, as ``linalg_tpu`` does.
-See ROADMAP.md for what comes next.
+checkpoints; the linear-algebra toolkit (``ops``: QR, SVD, elimination,
+eigen methods, projections, batched variants), whose Householder QR runs
+its panels through a CUDA kernel on the card; and char-GPT training
+(``train``: ``gpt_loss`` through the hand-derived backwards, AdamW, the
+trainer), whose causal attention runs through CUDA flash-attention
+kernels on the card (``nn.flash``, ``nn.flash_long``). The toolkit's
+public functions are re-exported here, as ``linalg_tpu`` does. See
+ROADMAP.md for what comes next.
 """
 
 from .ops.eigen import matrix_power_binary, matrix_power_eig, power_iteration

@@ -1,11 +1,13 @@
-"""char-GPT serving CLI of the port:
-``python -m linalg_tpu_torch.apps.gpt --serve --ckpt_dir D --prompts F``.
+"""char-GPT CLI of the port: ``python -m linalg_tpu_torch.apps.gpt
+--train`` and/or ``--serve --ckpt_dir D --prompts F``.
 
-The ``--serve`` subset of ``linalg_tpu.apps.gpt`` with the same flags and
-the same JSON-lines output (``--out``), plus ``--device``. Checkpoints
-saved by ``linalg_tpu`` load unchanged. Training, the REPL and the serving
-options that are not ported yet (prefixes, LoRA, speculative decoding,
-quantization) come in later PRs (ROADMAP.md queue 1).
+The ``--train`` and ``--serve`` subsets of ``linalg_tpu.apps.gpt`` with the
+same flags, defaults and outputs (``--out`` JSON lines), plus ``--device``.
+Checkpoints load and save in the JAX package's format. Flags of features
+that are not ported yet are accepted and refused with
+``NotImplementedError`` naming their ROADMAP.md item; the REPL and the
+serving options that are not ported (prefixes, LoRA, speculative
+decoding, quantization) come in later PRs (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -18,8 +20,79 @@ import time
 import numpy as np
 
 
+# Flags of the JAX CLI whose features are not ported: (default, ROADMAP.md
+# item). Any other value raises NotImplementedError naming the item.
+_NOT_PORTED_FLAGS = {
+    "repl": (False, "queue 1, item 2: sampling and the REPL"),
+    "tokenizer": ("char", "queue 1, item 2: tokenizers"),
+    "experts": (0, "queue 1, item 6: MoE"),
+    "lora_rank": (0, "queue 1, item 5: LoRA"),
+    "dp": (1, "queue 1, item 7: parallelism"),
+    "tp": (1, "queue 1, item 7: parallelism"),
+    "sp": (1, "queue 1, item 7: parallelism"),
+    "pp": (1, "queue 1, item 7: parallelism"),
+    "fsdp": (1, "queue 1, item 7: parallelism"),
+}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--train", action="store_true")
+    ap.add_argument("--batch_size", type=int, default=64)
+    ap.add_argument("--ctx_len", type=int, default=256)
+    ap.add_argument("--d_model", type=int, default=256)
+    ap.add_argument("--heads", type=int, default=4)
+    ap.add_argument("--kv_heads", type=int, default=None,
+                    help="grouped-query attention: number of K/V heads "
+                         "(must divide --heads); default = --heads")
+    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=4000)
+    ap.add_argument("--eval_every", type=int, default=200)
+    ap.add_argument("--lr_model", type=float, default=3e-4)
+    ap.add_argument("--lr_embed", type=float, default=3e-4,
+                    help="lr for the (tied) token embedding matrix")
+    ap.add_argument("--lr_head", type=float, default=3e-4,
+                    help="lr for the output-head bias (weights are tied)")
+    ap.add_argument("--pos", type=str, default="sinusoidal",
+                    choices=("sinusoidal", "rope", "learned", "alibi"),
+                    help="positional encoding for a fresh model (rope and "
+                         "alibi are not ported yet)")
+    ap.add_argument("--ffn", type=str, default="relu",
+                    choices=("relu", "gelu", "swiglu", "geglu"),
+                    help="FFN nonlinearity for a fresh model (the gated "
+                         "variants are not ported yet)")
+    ap.add_argument("--window", type=int, default=None,
+                    help="sliding-window attention (not ported yet)")
+    ap.add_argument("--dtype", type=str, default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="compute dtype for a fresh model (params stay f32)")
+    ap.add_argument("--weight_decay", type=float, default=0.01)
+    ap.add_argument("--data", type=str, default=None,
+                    help="path to a local corpus text file (optional)")
+    ap.add_argument("--profile", type=str, default=None,
+                    help="record a torch.profiler trace of training into "
+                         "DIR/trace.json")
+    ap.add_argument("--log_file", type=str, default=None,
+                    help="append training/eval metrics as JSON lines here")
+    ap.add_argument("--clip_norm", type=float, default=0.0,
+                    help="clip gradients to this global L2 norm before "
+                         "AdamW (0 = off)")
+    ap.add_argument("--grad_accum", type=int, default=1,
+                    help="split each batch into N sequential microbatches; "
+                         "one optimizer update on the averaged grads")
+    ap.add_argument("--repl", action="store_true",
+                    help="sampling REPL (not ported yet)")
+    ap.add_argument("--tokenizer", type=str, default="char",
+                    choices=("char", "bpe"),
+                    help="tokenizer for a fresh model (bpe is not ported "
+                         "yet)")
+    ap.add_argument("--experts", type=int, default=0,
+                    help="mixture-of-experts FFN (not ported yet)")
+    ap.add_argument("--lora_rank", type=int, default=0,
+                    help="LoRA finetuning (not ported yet)")
+    for axis in ("dp", "tp", "sp", "pp", "fsdp"):
+        ap.add_argument(f"--{axis}", type=int, default=1,
+                        help="multi-device mesh axis (not ported yet)")
     ap.add_argument("--serve", action="store_true",
                     help="batch-serve mode: run every prompt in --prompts "
                          "through the continuous-batching engine "
@@ -158,12 +231,20 @@ def serve_cli(args) -> None:
               f"{np.percentile(qws, 95):.3f}s]")
 
 
-def main() -> None:
-    args = build_parser().parse_args()
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    for flag, (default, item) in _NOT_PORTED_FLAGS.items():
+        if getattr(args, flag) != default:
+            raise NotImplementedError(
+                f"--{flag} is not ported yet (ROADMAP.md {item})")
+    if args.train:
+        from ..train.trainer import train
+
+        train(args)
     if args.serve:
         serve_cli(args)
-    else:
-        print("Nothing to do. Pass --serve (training and the REPL are not "
+    if not args.train and not args.serve:
+        print("Nothing to do. Pass --train and/or --serve (the REPL is not "
               "ported yet).")
 
 

@@ -1,0 +1,866 @@
+// Flash attention, forward and backward, for Hopper (sm_90a), plain C
+// interface.
+//
+// Replaces the Pallas TPU kernels of
+//   linalg_tpu/nn/flash.py:36-106       flash_attention (K2): _fwd_kernel,
+//                                       _bwd_kernel, T <= 1024
+//   linalg_tpu/nn/flash_long.py:33-119  flash_attention_long (K3):
+//                                       _fwd_kernel, _dq_kernel, _dkv_kernel,
+//                                       T in (1024, 8192]
+// Both compute the same math; the TPU splits it two ways only because the
+// (T, T) score tile, or the whole K/V, has to fit VMEM. Here one family of
+// three kernels serves both entry points:
+//
+//   forward  O = softmax(scale * Q K^T + causal) V, and the row logsumexp
+//            L = m + log(l), f32, shape (B*H, T)
+//   dq       P = exp(S - L), dP = dO V^T, dS = (dP - delta) * P,
+//            dq = scale * dS K
+//   dk/dv    dv = P^T dO, dk = scale * dS^T Q
+//
+// delta = rowsum(dO * O) is one small f32 pass the caller makes, as K3 does
+// outside its kernels. dq and dk/dv are separate kernels, as in K3: each
+// output row is owned by one block, so there are no atomics and the
+// gradients are deterministic.
+//
+// Contract: q, k, v, o, do, dq, dk, dv are contiguous, 16-byte aligned
+// (B*H, T, D) in one dtype (float or bf16); L and delta (B*H, T) float.
+// T % 64 == 0, D in {32, 64, 128}, equal head counts (no GQA: that is K4's
+// feature). Scores, the running max and normalizer, and every accumulator
+// are f32. The rules of the Pallas kernels carry over: masked scores take
+// -1e9; P is rounded to the io dtype before P V and before P^T dO; dS is
+// rounded to the io dtype before dS K and dS^T Q. The forward keeps an
+// online softmax, so it rounds p~ = exp(s - m_running) where K2 rounds
+// p = e / denom; in bf16 the two differ within bf16's rounding, and in f32
+// not at all beyond the order of the sums.
+//
+// What bounds it on this card: arithmetic. At the training shape (B 24,
+// H 8, T 1024, d 128) the forward does 2 * B*H * T^2 * d / 2 * 2 = 52 GFLOP
+// (causal half) per call against 0.2 GB of q/k/v/o traffic, ~250 flops per
+// byte, so the products decide the time and the (T, T) probabilities must
+// never go to device memory (the plain version writes 0.8 GB of them per
+// call). Every design choice follows from that: each 64 x 64 score, P and
+// dS tile lives in registers and shared memory only; a block walks only
+// the key (or query) tiles at or below the diagonal -- causal future tiles
+// are skipped, not computed and masked; each 64-row Q/K/V/dO tile is
+// staged in shared memory once per block and reused for all its products.
+//
+// Two paths, one contract:
+//   bf16  tensor cores: mma.sync m16n8k16 (bf16 operands, f32 accumulate),
+//         4 warps per 64-row tile, 16 rows per warp. The S/dP accumulators
+//         are rearranged in registers into the A operand of the next
+//         product (P V, dS K, P^T dO, dS^T Q), rounded to bf16 on the way --
+//         exactly the Pallas kernels' .astype(io dtype). Operands that a
+//         product needs with the other axis contiguous (V, K, Q, dO as the
+//         B operand of a P- or dS-product) get a transposed copy in shared
+//         memory. Rows are padded by 8 elements so the 32-bit fragment
+//         loads of a warp hit 32 distinct banks.
+//   f32   element-wise f32 FMA on the CUDA cores, never TF32 (the TPU's
+//         MXU truncation is not carried over): 256 threads as a 16 x 16
+//         grid, thread (ty, tx) owns score entries (ty + 16 i, tx + 16 j)
+//         and output entries (ty + 16 i, tx + 16 c); rows are padded by one
+//         float. A row's 16 owners are half a warp, so row reductions are
+//         four xor-shuffles.
+// Simple and right first: no cp.async/TMA pipelining, no wgmma, no warp
+// specialisation -- that is later perf_opt work. Shared memory per block
+// at D 128: bf16 forward 53 KB, dq 88 KB, dk/dv 107 KB; f32 forward
+// 116 KB, dq 149 KB, dk/dv 165 KB -- above the 48 KB static limit, so each
+// launch raises the kernel's dynamic shared-memory cap first.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BM = 64;        // rows per tile (query and key tiles alike)
+constexpr float NEG = -1e9f;  // the Pallas kernels' mask fill
+
+// ===================== bf16: tensor-core tiles =========================
+
+constexpr int MT = 128;      // threads per block: 4 warps x 16 rows
+constexpr int TS = BM + 8;   // row stride (elements) of a transposed tile
+
+template <int D> constexpr int RS = D + 8;  // row stride of a row tile
+
+// c += a * b for one m16n8k16 tile: a 16 x 16 bf16 (row), b 16 x 8 bf16
+// (col), c 16 x 8 f32. Lane (g = lane / 4, t = lane % 4) holds
+// a: (g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..);
+// b: (k 2t..2t+1, n g), (k 2t+8.., n g); c: (g, 2t..2t+1), (g+8, 2t..).
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// two floats rounded to bf16 (nearest even), `lo` in the low half
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A operand: the 16 x 16 block at (row0, k0) of a row-major tile
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
+                                       int stride, int row0, int k0, int g,
+                                       int t) {
+  const bf16* p = tile + (row0 + g) * stride + k0 + 2 * t;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * stride);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * stride + 8);
+}
+
+// B operand B[k][n] = tile[n0 + n][k0 + k]: a tile stored n-major with the
+// contraction axis contiguous
+__device__ __forceinline__ void load_b(uint32_t (&b)[2], const bf16* tile,
+                                       int stride, int n0, int k0, int g,
+                                       int t) {
+  const bf16* p = tile + (n0 + g) * stride + k0 + 2 * t;
+  b[0] = ld32(p);
+  b[1] = ld32(p + 8);
+}
+
+// The A operand of a product over the 16 columns [16 kk, 16 kk + 16) of a
+// 16 x BM accumulator held as BM / 8 mma tiles: its c layout is the a
+// layout, rounded to bf16.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
+                                         const float (&s)[BM / 8][4],
+                                         int kk) {
+  a[0] = pack(s[2 * kk][0], s[2 * kk][1]);
+  a[1] = pack(s[2 * kk][2], s[2 * kk][3]);
+  a[2] = pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+  a[3] = pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+}
+
+// Rows [0, BM) of a contiguous (rows, D) bf16 array into shared memory
+// (stride RS<D>), 16 bytes a thread, coalesced.
+template <int D>
+__device__ __forceinline__ void load_rows(bf16* dst,
+                                          const bf16* __restrict__ src) {
+  constexpr int V = D / 8;
+  for (int i = threadIdx.x; i < BM * V; i += MT) {
+    const int r = i / V, c = (i % V) * 8;
+    *reinterpret_cast<uint4*>(dst + r * RS<D> + c) =
+        *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
+  }
+}
+
+// The same rows transposed: dst[c][r] (stride TS). Consecutive threads
+// take consecutive rows, so a warp's stores of one column are contiguous.
+template <int D>
+__device__ __forceinline__ void load_cols(bf16* dst,
+                                          const bf16* __restrict__ src) {
+  for (int i = threadIdx.x; i < BM * (D / 8); i += MT) {
+    const int r = i % BM, c = (i / BM) * 8;
+    const uint4 x = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
+    const bf16* e = reinterpret_cast<const bf16*>(&x);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dst[(c + j) * TS + r] = e[j];
+  }
+}
+
+// The causal fill of a diagonal tile on an mma accumulator entry: entry i
+// of tile n sits at row (row0 + g + 8 (i / 2)), column (8 n + 2 t + i % 2).
+__device__ __forceinline__ bool future(int row0, int g, int t, int n,
+                                       int i) {
+  return 8 * n + 2 * t + (i & 1) > row0 + g + 8 * (i >> 1);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MT)
+    fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, bf16* __restrict__ o,
+             float* __restrict__ L, int Tlen, int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + BM * RS<D>;
+  bf16* Vt = Ks + BM * RS<D>;
+  const int nt = Tlen / BM;
+  const int qb = nt - 1 - blockIdx.x;  // the longest causal rows first
+  const size_t base = (size_t)blockIdx.y * Tlen * D;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
+
+  load_rows<D>(Qs, q + base + (size_t)qb * BM * D);
+  __syncthreads();
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc)
+    load_a(qa[kc], Qs, RS<D>, r0, kc * 16, g, t);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4] = {};
+  const int kend = causal ? qb + 1 : nt;
+  for (int kb = 0; kb < kend; ++kb) {
+    __syncthreads();  // the previous tile's K and V are consumed
+    load_rows<D>(Ks, k + base + (size_t)kb * BM * D);
+    load_cols<D>(Vt, v + base + (size_t)kb * BM * D);
+    __syncthreads();
+    float s[BM / 8][4] = {};
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+#pragma unroll
+      for (int n = 0; n < BM / 8; ++n) {
+        uint32_t b[2];
+        load_b(b, Ks, RS<D>, n * 8, kc * 16, g, t);
+        mma(s[n], qa[kc], b);
+      }
+    const bool diag = causal && kb == qb;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < BM / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = s[n][i] * scale;
+        if (diag && future(r0, g, t, n, i)) x = NEG;
+        s[n][i] = x;
+        mx[i >> 1] = fmaxf(mx[i >> 1], x);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mn = fmaxf(m[h], quad_max(mx[h]));
+      alpha[h] = expf(m[h] - mn);  // 0 on the first tile
+      m[h] = mn;
+    }
+#pragma unroll
+    for (int n = 0; n < BM / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[n][i] = expf(s[n][i] - m[i >> 1]);
+        rs[i >> 1] += s[n][i];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(rs[h]);
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[dn][i] *= alpha[i >> 1];
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk) {
+      uint32_t a[4];
+      acc_to_a(a, s, kk);
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        uint32_t b[2];
+        load_b(b, Vt, TS, dn * 8, kk * 16, g, t);
+        mma(acc[dn], a, b);
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = qb * BM + r0 + g + 8 * h;
+    const float inv = 1.f / l[h];
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      *reinterpret_cast<uint32_t*>(o + base + (size_t)r * D + dn * 8 +
+                                   2 * t) =
+          pack(acc[dn][2 * h] * inv, acc[dn][2 * h + 1] * inv);
+    if (t == 0) L[(size_t)blockIdx.y * Tlen + r] = m[h] + logf(l[h]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MT)
+    dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, const bf16* __restrict__ dO,
+            const float* __restrict__ L, const float* __restrict__ delta,
+            bf16* __restrict__ dq, int Tlen, int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + BM * RS<D>;
+  bf16* Ks = dOs + BM * RS<D>;
+  bf16* Vs = Ks + BM * RS<D>;
+  bf16* Kt = Vs + BM * RS<D>;
+  const int nt = Tlen / BM;
+  const int qb = nt - 1 - blockIdx.x;
+  const size_t base = (size_t)blockIdx.y * Tlen * D;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;
+
+  load_rows<D>(Qs, q + base + (size_t)qb * BM * D);
+  load_rows<D>(dOs, dO + base + (size_t)qb * BM * D);
+  float Lr[2], dr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t r = (size_t)blockIdx.y * Tlen + qb * BM + r0 + g + 8 * h;
+    Lr[h] = L[r];
+    dr[h] = delta[r];
+  }
+  float acc[D / 8][4] = {};
+  const int kend = causal ? qb + 1 : nt;
+  for (int kb = 0; kb < kend; ++kb) {
+    __syncthreads();
+    load_rows<D>(Ks, k + base + (size_t)kb * BM * D);
+    load_rows<D>(Vs, v + base + (size_t)kb * BM * D);
+    load_cols<D>(Kt, k + base + (size_t)kb * BM * D);
+    __syncthreads();
+    float s[BM / 8][4] = {}, dp[BM / 8][4] = {};
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t a[4], c[4];
+      load_a(a, Qs, RS<D>, r0, kc * 16, g, t);
+      load_a(c, dOs, RS<D>, r0, kc * 16, g, t);
+#pragma unroll
+      for (int n = 0; n < BM / 8; ++n) {
+        uint32_t b[2];
+        load_b(b, Ks, RS<D>, n * 8, kc * 16, g, t);
+        mma(s[n], a, b);
+        load_b(b, Vs, RS<D>, n * 8, kc * 16, g, t);
+        mma(dp[n], c, b);
+      }
+    }
+    const bool diag = causal && kb == qb;
+#pragma unroll
+    for (int n = 0; n < BM / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = s[n][i] * scale;
+        if (diag && future(r0, g, t, n, i)) x = NEG;
+        const float p = expf(x - Lr[i >> 1]);
+        s[n][i] = (dp[n][i] - dr[i >> 1]) * p;  // dS
+      }
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk) {
+      uint32_t a[4];
+      acc_to_a(a, s, kk);
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        uint32_t b[2];
+        load_b(b, Kt, TS, dn * 8, kk * 16, g, t);
+        mma(acc[dn], a, b);
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = qb * BM + r0 + g + 8 * h;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      *reinterpret_cast<uint32_t*>(dq + base + (size_t)r * D + dn * 8 +
+                                   2 * t) =
+          pack(scale * acc[dn][2 * h], scale * acc[dn][2 * h + 1]);
+  }
+}
+
+// One block per key tile kb; warp rows are keys, accumulator columns
+// queries (the transposed scores S^T = K Q^T).
+template <int D>
+__global__ void __launch_bounds__(MT)
+    dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ dO,
+              const float* __restrict__ L, const float* __restrict__ delta,
+              bf16* __restrict__ dk, bf16* __restrict__ dv, int Tlen,
+              int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + BM * RS<D>;
+  bf16* Qs = Vs + BM * RS<D>;
+  bf16* dOs = Qs + BM * RS<D>;
+  bf16* Qt = dOs + BM * RS<D>;
+  bf16* dOt = Qt + D * TS;
+  float* Ls = reinterpret_cast<float*>(dOt + D * TS);
+  float* Ds = Ls + BM;
+  const int nt = Tlen / BM;
+  const int kb = blockIdx.x;  // low key tiles see the most query tiles
+  const size_t base = (size_t)blockIdx.y * Tlen * D;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;
+
+  load_rows<D>(Ks, k + base + (size_t)kb * BM * D);
+  load_rows<D>(Vs, v + base + (size_t)kb * BM * D);
+  float accv[D / 8][4] = {}, acck[D / 8][4] = {};
+  for (int qb = causal ? kb : 0; qb < nt; ++qb) {
+    __syncthreads();
+    const size_t rows = base + (size_t)qb * BM * D;
+    load_rows<D>(Qs, q + rows);
+    load_rows<D>(dOs, dO + rows);
+    load_cols<D>(Qt, q + rows);
+    load_cols<D>(dOt, dO + rows);
+    if (threadIdx.x < BM) {
+      const size_t r = (size_t)blockIdx.y * Tlen + qb * BM + threadIdx.x;
+      Ls[threadIdx.x] = L[r];
+      Ds[threadIdx.x] = delta[r];
+    }
+    __syncthreads();
+    float st[BM / 8][4] = {}, dpt[BM / 8][4] = {};
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t a[4], c[4];
+      load_a(a, Ks, RS<D>, r0, kc * 16, g, t);
+      load_a(c, Vs, RS<D>, r0, kc * 16, g, t);
+#pragma unroll
+      for (int n = 0; n < BM / 8; ++n) {
+        uint32_t b[2];
+        load_b(b, Qs, RS<D>, n * 8, kc * 16, g, t);
+        mma(st[n], a, b);
+        load_b(b, dOs, RS<D>, n * 8, kc * 16, g, t);
+        mma(dpt[n], c, b);
+      }
+    }
+    const bool diag = causal && qb == kb;
+#pragma unroll
+    for (int n = 0; n < BM / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = 8 * n + 2 * t + (i & 1);  // query in the tile
+        float x = st[n][i] * scale;
+        // key after query: the query row is the column here
+        if (diag && r0 + g + 8 * (i >> 1) > col) x = NEG;
+        const float p = expf(x - Ls[col]);
+        st[n][i] = p;
+        dpt[n][i] = (dpt[n][i] - Ds[col]) * p;  // dS^T
+      }
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk) {
+      uint32_t pa[4], da[4];
+      acc_to_a(pa, st, kk);
+      acc_to_a(da, dpt, kk);
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        uint32_t b[2];
+        load_b(b, dOt, TS, dn * 8, kk * 16, g, t);
+        mma(accv[dn], pa, b);
+        load_b(b, Qt, TS, dn * 8, kk * 16, g, t);
+        mma(acck[dn], da, b);
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t r = (size_t)kb * BM + r0 + g + 8 * h;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const size_t at = base + r * D + dn * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(dv + at) =
+          pack(accv[dn][2 * h], accv[dn][2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(dk + at) =
+          pack(scale * acck[dn][2 * h], scale * acck[dn][2 * h + 1]);
+    }
+  }
+}
+
+// ===================== f32: element-wise FMA ===========================
+
+constexpr int NT = 256;     // threads per block: a 16 x 16 grid
+constexpr int PS = BM + 1;  // padded row stride of a score tile
+
+// reductions over the 16 threads that own one row (one half of a warp)
+__device__ __forceinline__ float row_max(float v) {
+  for (int o = 8; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Rows [0, BM) of a contiguous (rows, D) array into shared memory, row
+// stride D + 1.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ src) {
+  for (int i = threadIdx.x; i < BM * D; i += NT)
+    dst[(i / D) * (D + 1) + i % D] = src[i];
+}
+
+// acc[i][j] += sum_e A[(ty + 16 i)][e] * B[(tx + 16 j)][e] over two tiles
+// of stride D + 1: the score products Q K^T, dO V^T and their transposes.
+template <int D>
+__device__ __forceinline__ void tile_dot(float (&acc)[4][4],
+                                         const float* __restrict__ A,
+                                         const float* __restrict__ B, int ty,
+                                         int tx) {
+  constexpr int S = D + 1;
+#pragma unroll 4
+  for (int e = 0; e < D; ++e) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * S + e];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * S + e];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// acc[i][c] += sum_k P[(ty + 16 i)][k] * V[k][(tx + 16 c)]: a score tile
+// (stride PS) times a row tile (stride D + 1).
+template <int D>
+__device__ __forceinline__ void tile_mul(float (&acc)[4][D / 16],
+                                         const float* __restrict__ P,
+                                         const float* __restrict__ V, int ty,
+                                         int tx) {
+  constexpr int S = D + 1;
+#pragma unroll 4
+  for (int k = 0; k < BM; ++k) {
+    float p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = P[(ty + 16 * i) * PS + k];
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      const float x = V[k * S + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], x, acc[i][c]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT)
+    fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, float* __restrict__ o,
+            float* __restrict__ L, int Tlen, int causal, float scale) {
+  extern __shared__ float smem[];
+  constexpr int S = D + 1;
+  float* Qs = smem;
+  float* Ks = Qs + BM * S;
+  float* Vs = Ks + BM * S;
+  float* Ps = Vs + BM * S;
+  const int nt = Tlen / BM;
+  const int qb = nt - 1 - blockIdx.x;
+  const size_t base = (size_t)blockIdx.y * Tlen * D;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+
+  load_tile<D>(Qs, q + base + (size_t)qb * BM * D);
+  float m[4], l[4], acc[4][D / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+  }
+  const int kend = causal ? qb + 1 : nt;
+  for (int kb = 0; kb < kend; ++kb) {
+    __syncthreads();  // the previous tile's K, V and P are consumed
+    load_tile<D>(Ks, k + base + (size_t)kb * BM * D);
+    load_tile<D>(Vs, v + base + (size_t)kb * BM * D);
+    __syncthreads();
+    float s[4][4] = {};
+    tile_dot<D>(s, Qs, Ks, ty, tx);
+    const bool diag = causal && kb == qb;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] *= scale;
+        if (diag && tx + 16 * j > ty + 16 * i) s[i][j] = NEG;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float mn = fmaxf(m[i], row_max(mx));
+      const float alpha = expf(m[i] - mn);  // 0 on the first tile
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - mn);
+        rs += p;
+        Ps[(ty + 16 * i) * PS + tx + 16 * j] = p;
+      }
+      l[i] = l[i] * alpha + row_sum(rs);
+      m[i] = mn;
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();  // P complete
+    tile_mul<D>(acc, Ps, Vs, ty, tx);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = qb * BM + ty + 16 * i;
+    const float inv = 1.f / l[i];
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c)
+      o[base + (size_t)r * D + tx + 16 * c] = acc[i][c] * inv;
+    if (tx == 0) L[(size_t)blockIdx.y * Tlen + r] = m[i] + logf(l[i]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT)
+    dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dO,
+           const float* __restrict__ L, const float* __restrict__ delta,
+           float* __restrict__ dq, int Tlen, int causal, float scale) {
+  extern __shared__ float smem[];
+  constexpr int S = D + 1;
+  float* Qs = smem;
+  float* dOs = Qs + BM * S;
+  float* Ks = dOs + BM * S;
+  float* Vs = Ks + BM * S;
+  float* dSs = Vs + BM * S;
+  const int nt = Tlen / BM;
+  const int qb = nt - 1 - blockIdx.x;
+  const size_t base = (size_t)blockIdx.y * Tlen * D;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+
+  load_tile<D>(Qs, q + base + (size_t)qb * BM * D);
+  load_tile<D>(dOs, dO + base + (size_t)qb * BM * D);
+  float Lr[4], dr[4], acc[4][D / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const size_t r = (size_t)blockIdx.y * Tlen + qb * BM + ty + 16 * i;
+    Lr[i] = L[r];
+    dr[i] = delta[r];
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+  }
+  const int kend = causal ? qb + 1 : nt;
+  for (int kb = 0; kb < kend; ++kb) {
+    __syncthreads();
+    load_tile<D>(Ks, k + base + (size_t)kb * BM * D);
+    load_tile<D>(Vs, v + base + (size_t)kb * BM * D);
+    __syncthreads();
+    float s[4][4] = {}, dp[4][4] = {};
+    tile_dot<D>(s, Qs, Ks, ty, tx);
+    tile_dot<D>(dp, dOs, Vs, ty, tx);
+    const bool diag = causal && kb == qb;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float sv = s[i][j] * scale;
+        if (diag && tx + 16 * j > ty + 16 * i) sv = NEG;
+        const float p = expf(sv - Lr[i]);
+        dSs[(ty + 16 * i) * PS + tx + 16 * j] = (dp[i][j] - dr[i]) * p;
+      }
+    __syncthreads();
+    tile_mul<D>(acc, dSs, Ks, ty, tx);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = qb * BM + ty + 16 * i;
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c)
+      dq[base + (size_t)r * D + tx + 16 * c] = scale * acc[i][c];
+  }
+}
+
+// One block per key tile kb. Thread (ty, tx) owns the transposed score
+// entries (key ty + 16 i, query tx + 16 j) and the dk/dv entries
+// (key ty + 16 i, column tx + 16 c).
+template <int D>
+__global__ void __launch_bounds__(NT)
+    dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dO,
+             const float* __restrict__ L, const float* __restrict__ delta,
+             float* __restrict__ dk, float* __restrict__ dv, int Tlen,
+             int causal, float scale) {
+  extern __shared__ float smem[];
+  constexpr int S = D + 1;
+  float* Ks = smem;
+  float* Vs = Ks + BM * S;
+  float* Qs = Vs + BM * S;
+  float* dOs = Qs + BM * S;
+  float* Pt = dOs + BM * S;
+  float* dSt = Pt + BM * PS;
+  const int nt = Tlen / BM;
+  const int kb = blockIdx.x;
+  const size_t base = (size_t)blockIdx.y * Tlen * D;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+
+  load_tile<D>(Ks, k + base + (size_t)kb * BM * D);
+  load_tile<D>(Vs, v + base + (size_t)kb * BM * D);
+  float accv[4][D / 16], acck[4][D / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) accv[i][c] = acck[i][c] = 0.f;
+  for (int qb = causal ? kb : 0; qb < nt; ++qb) {
+    __syncthreads();
+    load_tile<D>(Qs, q + base + (size_t)qb * BM * D);
+    load_tile<D>(dOs, dO + base + (size_t)qb * BM * D);
+    float Lq[4], dq_[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const size_t r = (size_t)blockIdx.y * Tlen + qb * BM + tx + 16 * j;
+      Lq[j] = L[r];
+      dq_[j] = delta[r];
+    }
+    __syncthreads();
+    float st[4][4] = {}, dpt[4][4] = {};
+    tile_dot<D>(st, Ks, Qs, ty, tx);
+    tile_dot<D>(dpt, Vs, dOs, ty, tx);
+    const bool diag = causal && qb == kb;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float sv = st[i][j] * scale;
+        if (diag && ty + 16 * i > tx + 16 * j) sv = NEG;  // key after query
+        const float p = expf(sv - Lq[j]);
+        Pt[(ty + 16 * i) * PS + tx + 16 * j] = p;
+        dSt[(ty + 16 * i) * PS + tx + 16 * j] = (dpt[i][j] - dq_[j]) * p;
+      }
+    __syncthreads();
+    tile_mul<D>(accv, Pt, dOs, ty, tx);
+    tile_mul<D>(acck, dSt, Qs, ty, tx);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const size_t r = (size_t)kb * BM + ty + 16 * i;
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      dv[base + r * D + tx + 16 * c] = accv[i][c];
+      dk[base + r * D + tx + 16 * c] = scale * acck[i][c];
+    }
+  }
+}
+
+// ===================== launch =========================================
+
+struct Args {
+  const void *q, *k, *v, *dO;
+  const float *L, *delta;
+  void *out0, *out1;
+  float* L_out;
+  int BH, T, causal;
+  float scale;
+  cudaStream_t stream;
+};
+
+// Raise the kernel's dynamic shared-memory cap to `smem` where it is over
+// the 48 KB default (a launch over the cap is refused and never runs),
+// launch it on the (T / 64, B*H) grid, and return the launch's error.
+template <typename... P, typename... A>
+int launch(void (*kern)(P...), int threads, size_t smem, const Args& a,
+           A... args) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kern<<<dim3(a.T / BM, a.BH), threads, smem, a.stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// shared-memory bytes: bf16 row tiles, bf16 transposed tiles, f32 floats
+constexpr size_t bf16_smem(int D, int rows, int cols, int floats) {
+  return ((size_t)rows * BM * (D + 8) + (size_t)cols * D * TS) * 2 +
+         (size_t)floats * 4;
+}
+constexpr size_t f32_smem(int D, int tiles, int scores) {
+  return ((size_t)tiles * BM * (D + 1) + (size_t)scores * BM * PS) * 4;
+}
+
+// which: 0 forward, 1 dq, 2 dk/dv
+template <int D>
+int run_bf16(int which, const Args& a) {
+  auto in = [](const void* p) { return static_cast<const bf16*>(p); };
+  auto out = [](void* p) { return static_cast<bf16*>(p); };
+  switch (which) {
+    case 0:
+      return launch(fwd_bf16<D>, MT, bf16_smem(D, 2, 1, 0), a, in(a.q),
+                    in(a.k), in(a.v), out(a.out0), a.L_out, a.T, a.causal,
+                    a.scale);
+    case 1:
+      return launch(dq_bf16<D>, MT, bf16_smem(D, 4, 1, 0), a, in(a.q),
+                    in(a.k), in(a.v), in(a.dO), a.L, a.delta, out(a.out0),
+                    a.T, a.causal, a.scale);
+    case 2:
+      return launch(dkdv_bf16<D>, MT, bf16_smem(D, 4, 2, 2 * BM), a,
+                    in(a.q), in(a.k), in(a.v), in(a.dO), a.L, a.delta,
+                    out(a.out0), out(a.out1), a.T, a.causal, a.scale);
+    default:
+      return -1;
+  }
+}
+
+template <int D>
+int run_f32(int which, const Args& a) {
+  auto in = [](const void* p) { return static_cast<const float*>(p); };
+  auto out = [](void* p) { return static_cast<float*>(p); };
+  switch (which) {
+    case 0:
+      return launch(fwd_f32<D>, NT, f32_smem(D, 3, 1), a, in(a.q), in(a.k),
+                    in(a.v), out(a.out0), a.L_out, a.T, a.causal, a.scale);
+    case 1:
+      return launch(dq_f32<D>, NT, f32_smem(D, 4, 1), a, in(a.q), in(a.k),
+                    in(a.v), in(a.dO), a.L, a.delta, out(a.out0), a.T,
+                    a.causal, a.scale);
+    case 2:
+      return launch(dkdv_f32<D>, NT, f32_smem(D, 4, 2), a, in(a.q), in(a.k),
+                    in(a.v), in(a.dO), a.L, a.delta, out(a.out0),
+                    out(a.out1), a.T, a.causal, a.scale);
+    default:
+      return -1;
+  }
+}
+
+template <int D>
+int run(int dtype, int which, const Args& a) {
+  if (dtype == 0) return run_f32<D>(which, a);
+  if (dtype == 1) return run_bf16<D>(which, a);
+  return -1;
+}
+
+int dispatch(int dtype, int d, int which, const Args& a) {
+  if (a.T <= 0 || a.T % BM || a.BH <= 0 || a.BH > 65535) return -1;
+  switch (d) {
+    case 32: return run<32>(dtype, which, a);
+    case 64: return run<64>(dtype, which, a);
+    case 128: return run<128>(dtype, which, a);
+    default: return -1;
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Each returns 0 on success, -1 for an
+// unsupported dtype, d or shape, else the cudaError_t of the launch.
+
+// o = attention(q, k, v); L = its row logsumexp (f32, (BH, T)).
+extern "C" int flash_fwd_launch(int dtype, int d, const void* q,
+                                const void* k, const void* v, void* o,
+                                void* L, int BH, int T, int causal,
+                                float scale, void* stream) {
+  Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr,
+         static_cast<float*>(L), BH, T, causal, scale,
+         static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, d, 0, a);
+}
+
+// dq from q, k, v, dO, L and delta = rowsum(dO * O) (f32, (BH, T)).
+extern "C" int flash_dq_launch(int dtype, int d, const void* q, const void* k,
+                               const void* v, const void* dO, const void* L,
+                               const void* delta, void* dq, int BH, int T,
+                               int causal, float scale, void* stream) {
+  Args a{q, k, v, dO, static_cast<const float*>(L),
+         static_cast<const float*>(delta), dq, nullptr, nullptr, BH, T,
+         causal, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, d, 1, a);
+}
+
+// dk and dv from the same inputs.
+extern "C" int flash_dkdv_launch(int dtype, int d, const void* q,
+                                 const void* k, const void* v, const void* dO,
+                                 const void* L, const void* delta, void* dk,
+                                 void* dv, int BH, int T, int causal,
+                                 float scale, void* stream) {
+  Args a{q, k, v, dO, static_cast<const float*>(L),
+         static_cast<const float*>(delta), dk, dv, nullptr, BH, T, causal,
+         scale, static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, d, 2, a);
+}

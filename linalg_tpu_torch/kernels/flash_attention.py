@@ -1,0 +1,133 @@
+"""Wrappers of the hand-written CUDA flash-attention kernels.
+
+``flash_fwd_cuda``, ``flash_dq_cuda`` and ``flash_dkdv_cuda`` launch the
+three kernels of ``csrc/flash_attention.cu`` on the current CUDA stream.
+Each validates its arguments and raises on what the kernel does not take;
+none substitutes another implementation. The plain PyTorch versions are
+``linalg_tpu_torch.nn.flash.flash_fwd_ref`` / ``flash_bwd_ref``, and the
+dispatchers ``nn.flash.flash_fwd`` / ``flash_bwd`` pick between the two by
+the device the tensors lie on.
+
+Each wrapper's ``launches`` attribute counts its launches, so a run can
+show that its attention went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from .build import build
+
+__all__ = ["flash_fwd_cuda", "flash_dq_cuda", "flash_dkdv_cuda",
+           "SUPPORTED_D", "BLOCK"]
+
+SUPPORTED_D = (32, 64, 128)
+BLOCK = 64  # rows per tile: T must be a multiple
+MAX_BH = 65535  # batch * heads rides the grid's y dimension
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _lib():
+    lib = ctypes.CDLL(str(build("flash_attention")))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tail = [i32, i32, i32, f32, ptr]  # BH, T, causal, scale, stream
+    lib.flash_fwd_launch.argtypes = [i32, i32] + [ptr] * 5 + tail
+    lib.flash_dq_launch.argtypes = [i32, i32] + [ptr] * 7 + tail
+    lib.flash_dkdv_launch.argtypes = [i32, i32] + [ptr] * 8 + tail
+    for fn in (lib.flash_fwd_launch, lib.flash_dq_launch,
+               lib.flash_dkdv_launch):
+        fn.restype = i32
+    return lib
+
+
+def _check(name, heads, rows=()):
+    """Validate (B, H, T, d) tensors ``heads`` and f32 (B, H, T) ``rows``;
+    return (B*H, T, d)."""
+    q = heads[0]
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q must be (B, H, T, d), got "
+                         f"{tuple(q.shape)}")
+    B, H, T, d = q.shape
+    if not all(t.is_cuda and t.device == q.device for t in heads + rows):
+        raise ValueError(f"{name} needs every tensor on one CUDA device")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: unsupported dtype {q.dtype} (float32, "
+                         "bfloat16)")
+    if any(t.dtype != q.dtype for t in heads):
+        raise ValueError(f"{name}: q, k, v (and o, dO) must share one dtype")
+    if any(t.shape != q.shape for t in heads):
+        raise ValueError(f"{name}: q, k, v (and o, dO) must share one shape "
+                         "(B, H, T, d); grouped K/V heads are not taken")
+    if any(t.dtype != torch.float32 or t.shape != (B, H, T) for t in rows):
+        raise ValueError(f"{name}: L and delta must be float32 (B, H, T)")
+    if d not in SUPPORTED_D:
+        raise ValueError(f"{name}: d_head {d} unsupported (the kernels are "
+                         f"built for {SUPPORTED_D})")
+    if T == 0 or T % BLOCK:
+        raise ValueError(f"{name}: T {T} must be a positive multiple of "
+                         f"{BLOCK}")
+    if not 0 < B * H <= MAX_BH:
+        raise ValueError(f"{name}: B*H {B * H} outside (0, {MAX_BH}]")
+    if not all(t.is_contiguous() for t in heads + rows):
+        raise ValueError(f"{name} needs contiguous tensors")
+    if any(t.data_ptr() % 16 for t in heads):
+        raise ValueError(f"{name} needs 16-byte aligned tensors")
+    return B * H, T, d
+
+
+def _call(name, fn, dtype, d, ptrs, BH, T, causal, device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = fn(_DTYPE_CODE[dtype], d, *ptrs, BH, T, int(bool(causal)),
+                1.0 / math.sqrt(d), stream)
+    if rc:
+        raise RuntimeError(f"{name} launch failed (code {rc})")
+
+
+def flash_fwd_cuda(q, k, v, causal: bool = True):
+    """Attention forward: q, k, v (B, H, T, d) -> (o (B, H, T, d) in q's
+    dtype, L (B, H, T) float32 row logsumexp)."""
+    BH, T, d = _check("flash_fwd_cuda", (q, k, v))
+    o = torch.empty_like(q)
+    L = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _call("flash_fwd", _lib().flash_fwd_launch, q.dtype, d,
+          (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+           L.data_ptr()), BH, T, causal, q.device)
+    flash_fwd_cuda.launches += 1
+    return o, L
+
+
+def flash_dq_cuda(q, k, v, do, L, delta, causal: bool = True):
+    """dq of attention from the forward's L and delta = rowsum(dO * O)
+    (both float32 (B, H, T))."""
+    BH, T, d = _check("flash_dq_cuda", (q, k, v, do), (L, delta))
+    dq = torch.empty_like(q)
+    _call("flash_dq", _lib().flash_dq_launch, q.dtype, d,
+          (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           L.data_ptr(), delta.data_ptr(), dq.data_ptr()), BH, T, causal,
+          q.device)
+    flash_dq_cuda.launches += 1
+    return dq
+
+
+def flash_dkdv_cuda(q, k, v, do, L, delta, causal: bool = True):
+    """(dk, dv) of attention from the same inputs as ``flash_dq_cuda``."""
+    BH, T, d = _check("flash_dkdv_cuda", (q, k, v, do), (L, delta))
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _call("flash_dkdv", _lib().flash_dkdv_launch, q.dtype, d,
+          (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           L.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
+          BH, T, causal, q.device)
+    flash_dkdv_cuda.launches += 1
+    return dk, dv
+
+
+flash_fwd_cuda.launches = 0
+flash_dq_cuda.launches = 0
+flash_dkdv_cuda.launches = 0

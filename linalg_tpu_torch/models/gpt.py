@@ -1,5 +1,5 @@
 """Decoder-only char-GPT in PyTorch — the counterpart of
-``linalg_tpu/models/gpt.py`` for the serving slice.
+``linalg_tpu/models/gpt.py`` for the serving and training slices.
 
 Same model: pre-LN decoder blocks (masked self-attention + ReLU/GELU FFN,
 residuals), sinusoidal or learned positions added at the embedding, a
@@ -12,35 +12,43 @@ PyTorch idiom: eager functions on tensors, a Python loop where JAX scans
 (over layers and over decoded tokens), ``torch.Generator``s for sampling,
 and KV buffers updated in place. Parameters stay float32 masters; every
 forward runs in ``cfg.compute_dtype`` and returns float32 logits.
+``gpt_apply`` and ``gpt_loss`` are differentiable (the training path:
+attention picked by ``_pick_attn``); prefill and decode run without
+gradients and always use ``sdpa``, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..kernels.flash_attention import SUPPORTED_D as FLASH_D
 from ..nn.cache import fkv_write
+from ..nn.flash import FLASH_MAX_T, flash_attention
+from ..nn.flash_long import flash_attention_long
 from ..nn.functional import (causal_mask, gelu, layer_norm, relu, sdpa,
                              sinusoidal_encoding)
 
 __all__ = ["GPTConfig", "init_gpt_params", "params_from_numpy", "gpt_apply",
-           "gpt_prefill", "gpt_decode_chunk", "filter_logits",
-           "sample_token"]
+           "gpt_loss", "gpt_prefill", "gpt_decode_chunk", "filter_logits",
+           "sample_token", "CE_CHUNK_THRESHOLD"]
 
 Params = Dict[str, Any]
 
 # Configurations GPTConfig accepts but this port cannot run yet, with the
 # ROADMAP.md item that brings each.
 _NOT_PORTED = {
-    ("pos", "rope"): "queue 1, item 1 (training slice: rope)",
-    ("pos", "alibi"): "queue 1, item 1 (training slice: alibi)",
-    ("ffn", "swiglu"): "queue 1, item 1 (training slice: gated FFNs)",
-    ("ffn", "geglu"): "queue 1, item 1 (training slice: gated FFNs)",
+    ("pos", "rope"): "queue 1, item 4 (long-context attention: rope)",
+    ("pos", "alibi"): "queue 1, item 4 (long-context attention: alibi)",
+    ("ffn", "swiglu"): "queue 1, item 4 (gated FFNs)",
+    ("ffn", "geglu"): "queue 1, item 4 (gated FFNs)",
 }
 
 
@@ -202,17 +210,17 @@ def _ffn_dense(lp, x, ffn: str = "relu"):
 
 
 def _layer(h_in, lp, mask, n_heads: int, n_kv: Optional[int] = None,
-           ffn: str = "relu"):
-    """One pre-LN decoder block with explicit-matmul ``sdpa`` attention;
-    returns (h_out, (k, v)) with k/v at their grouped (B, n_kv, T, d) size
-    — the prefill cache."""
+           ffn: str = "relu", attn_fn: Callable = sdpa):
+    """One pre-LN decoder block; ``attn_fn(q, k, v, mask)`` sees equal head
+    counts. Returns (h_out, (k, v)) with k/v at their grouped
+    (B, n_kv, T, d) size — the prefill cache."""
     n_kv = n_heads if n_kv is None else n_kv
     xn = layer_norm(h_in, lp["ln1_g"], lp["ln1_b"])
     q = _heads(xn @ lp["Wq"], n_heads)
     k = _heads(xn @ lp["Wk"], n_kv)
     v = _heads(xn @ lp["Wv"], n_kv)
-    a = _unheads(sdpa(q, _gqa_expand(k, n_heads), _gqa_expand(v, n_heads),
-                      mask)) @ lp["Wo"]
+    a = _unheads(attn_fn(q, _gqa_expand(k, n_heads),
+                         _gqa_expand(v, n_heads), mask)) @ lp["Wo"]
     h1 = h_in + a
     f = _ffn_dense(lp, layer_norm(h1, lp["ln2_g"], lp["ln2_b"]), ffn)
     return h1 + f, (k, v)
@@ -245,16 +253,104 @@ def _head(params: Params, h, dt):
             + params["head_b"].to(dt)).float()
 
 
-@torch.no_grad()
-def gpt_apply(params: Params, x_ids, cfg: GPTConfig):
-    """Forward pass: token ids (B, T) -> float32 logits (B, T, V)."""
+# ``sdpa`` whose probabilities are recomputed in the backward rather than
+# saved across the layer stack (``jax.checkpoint`` in the JAX package)
+_REMAT_SDPA = functools.partial(checkpoint, sdpa, use_reentrant=False)
+
+
+def _pick_attn_cfg(cfg: GPTConfig, T: int, device_type: str):
+    """Config-aware attention pick. The JAX package sends ALiBi and
+    sliding windows to their own paths here; the port's ``GPTConfig``
+    refuses both until ROADMAP.md queue 1, item 4, so every config it
+    accepts takes ``_pick_attn``."""
+    return _pick_attn(T, cfg.d_head, device_type)
+
+
+def _pick_attn(T: int, d_head: int, device_type: str):
+    """Attention for a training forward of length T on ``device_type``.
+
+    Off CUDA: ``sdpa`` (the JAX package's rule off the TPU). On CUDA, the
+    JAX package's thresholds, TPU measurements that stand until an H100
+    measurement replaces them: the rematted sdpa below T = 512, and for a
+    d_head the kernels do not take (the JAX rule sends d_head < 8 there);
+    otherwise, with T right-padded to Tp, a multiple of 256, the flash
+    kernels (``flash_attention`` for Tp <= 1024, ``flash_attention_long``
+    for Tp <= 4096). Longer contexts need the streaming kernel K4, which
+    is not ported yet."""
+    if device_type != "cuda":
+        return sdpa
+    if T < 512 or d_head not in FLASH_D:
+        return _REMAT_SDPA
+    Tp = -(-T // 256) * 256
+    if Tp <= FLASH_MAX_T:
+        fn = flash_attention
+    elif Tp <= 4096:
+        fn = flash_attention_long
+    else:
+        raise NotImplementedError(
+            f"attention at T = {T} needs flash_attention_stream (K4), not "
+            f"ported yet (ROADMAP.md queue 1, item 4)")
+    if Tp == T:
+        return lambda q, k, v, mask: fn(q, k, v, True)
+    return _padded_attn(fn, T, Tp)
+
+
+def _padded_attn(fn, T: int, Tp: int):
+    """Wrap a causal attention kernel to serve ragged T < Tp: right-pad to
+    Tp and slice back. Exact under the causal mask: real rows never see
+    the padded keys, and the padded rows are thrown away."""
+
+    def padded(q, k, v, mask):
+        pad = (0, 0, 0, Tp - T)
+        out = fn(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), True)
+        return out[..., :T, :]
+
+    return padded
+
+
+def _gpt_trunk(params: Params, x_ids, cfg: GPTConfig,
+               attn_fn: Optional[Callable] = None):
+    """Embedding + layer stack: token ids (B, T) -> final hidden (B, T, D)
+    in the compute dtype. Differentiable with respect to ``params``."""
     T = x_ids.shape[-1]
+    if attn_fn is None:
+        attn_fn = _pick_attn_cfg(cfg, T, x_ids.device.type)
     dt = cfg.compute_dtype
     h = _embed(params, x_ids, cfg, T).to(dt)
     mask = _trunk_mask(cfg, T, dt, h.device)
     for lp in _layer_params(params, dt):
-        h, _ = _layer(h, lp, mask, cfg.n_heads, cfg.kv_heads, cfg.ffn)
-    return _head(params, h, dt)
+        h, _ = _layer(h, lp, mask, cfg.n_heads, cfg.kv_heads, cfg.ffn,
+                      attn_fn)
+    return h
+
+
+def gpt_apply(params: Params, x_ids, cfg: GPTConfig,
+              attn_fn: Optional[Callable] = None):
+    """Forward pass: token ids (B, T) -> float32 logits (B, T, V).
+
+    ``attn_fn`` defaults to ``_pick_attn``'s choice for the ids' device;
+    pass ``sdpa`` to force the explicit-matmul path."""
+    dt = cfg.compute_dtype
+    return _head(params, _gpt_trunk(params, x_ids, cfg, attn_fn), dt)
+
+
+# Vocabularies at least this wide take the JAX package's chunked-CE path,
+# which is not ported yet.
+CE_CHUNK_THRESHOLD = 8192
+
+
+def gpt_loss(params: Params, x_ids, y_ids, cfg: GPTConfig,
+             attn_fn: Optional[Callable] = None):
+    """Mean softmax cross-entropy over all positions: float32 logits and
+    logsumexp, differentiated by autograd (JAX autodiff there too)."""
+    if cfg.vocab_size >= CE_CHUNK_THRESHOLD:
+        raise NotImplementedError(
+            "vocab_size >= 8192 takes nn.losses.chunked_softmax_ce, not "
+            "ported yet (ROADMAP.md queue 1, item 2)")
+    logits = gpt_apply(params, x_ids, cfg, attn_fn)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y_ids[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
 
 
 @torch.no_grad()

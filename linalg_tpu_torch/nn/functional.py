@@ -1,11 +1,15 @@
-"""Functional NN ops (forward) — the PyTorch counterpart of
-``linalg_tpu/nn/functional.py``.
+"""Functional NN ops with hand-derived backward passes — the PyTorch
+counterpart of ``linalg_tpu/nn/functional.py``.
 
-Forwards only, with the reference's exact formulas: the ``+1e-12``
-softmax denominator, the ``-1e9`` causal fill, LayerNorm at eps 1e-5, the
-tanh-approximation GELU and an explicit-matmul ``sdpa``. The serving path
-never differentiates; the hand-derived backwards (``jax.custom_vjp`` in the
-JAX package) become ``torch.autograd.Function``s with the training slice.
+The reference's exact forward formulas: the ``+1e-12`` softmax
+denominator, the ``-1e9`` causal fill, LayerNorm at eps 1e-5, the
+tanh-approximation GELU and an explicit-matmul ``sdpa``. Each of the JAX
+package's ``jax.custom_vjp``s is a ``torch.autograd.Function`` here with
+the same closed-form backward (``_relu_bwd``, ``_gelu_bwd``, ``_ln_bwd``,
+``_sdpa_vjp_bwd``); autograd never differentiates through the forwards.
+When no input requires a gradient (prefill, decode, evaluation) the plain
+forward runs without the Function, so inference pays nothing for it; the
+forward is the same function either way.
 """
 
 from __future__ import annotations
@@ -14,21 +18,81 @@ import math
 
 import torch
 
-__all__ = ["relu", "gelu", "softmax_last", "causal_mask", "layer_norm",
-           "sdpa", "sinusoidal_encoding"]
+__all__ = ["relu", "relu_backward", "gelu", "gelu_backward", "softmax_last",
+           "causal_mask", "layer_norm", "sdpa", "sinusoidal_encoding"]
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 _GELU_C = 0.044715
 
 
-def relu(x):
-    """max(0, x)."""
+def _wants_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in xs)
+
+
+# ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+
+
+def _relu_fwd(x):
     return torch.clamp_min(x, 0.0)
 
 
-def gelu(x):
-    """Tanh-approximation GELU."""
+def relu_backward(x):
+    """d/dx ReLU: the explicit mask."""
+    return (x > 0.0).to(x.dtype)
+
+
+class _ReLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _relu_fwd(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * relu_backward(x)
+
+
+def relu(x):
+    """max(0, x), with the hand-written mask as its gradient."""
+    return _ReLU.apply(x) if _wants_grad(x) else _relu_fwd(x)
+
+
+def _gelu_fwd(x):
     return 0.5 * x * (1.0 + torch.tanh(_SQRT_2_OVER_PI * (x + _GELU_C * x**3)))
+
+
+def gelu_backward(x):
+    """d/dx of tanh-approximation GELU."""
+    t = torch.tanh(_SQRT_2_OVER_PI * (x + _GELU_C * x**3))
+    sech2 = 1.0 - t**2
+    inner_deriv = _SQRT_2_OVER_PI * (1.0 + 3.0 * _GELU_C * x**2)
+    return 0.5 * (1.0 + t) + 0.5 * x * sech2 * inner_deriv
+
+
+class _GELU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _gelu_fwd(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * gelu_backward(x)
+
+
+def gelu(x):
+    """Tanh-approximation GELU with the hand-derived gradient."""
+    return _GELU.apply(x) if _wants_grad(x) else _gelu_fwd(x)
+
+
+# ---------------------------------------------------------------------------
+# softmax / masks
+# ---------------------------------------------------------------------------
 
 
 def softmax_last(x, eps: float = 1e-12):
@@ -45,11 +109,87 @@ def causal_mask(seq_len: int, fill: float = -1e9, dtype=torch.float32,
     return m[None, None]
 
 
-def layer_norm(x, gamma, beta, eps: float = 1e-5):
-    """y = gamma * (x - mean) / sqrt(var + eps) + beta over the last axis."""
+# ---------------------------------------------------------------------------
+# normalization
+# ---------------------------------------------------------------------------
+
+
+def _ln_fwd(x, gamma, beta, eps):
+    """(y, xhat, sigma): y = xhat * gamma + beta."""
     mu = torch.mean(x, dim=-1, keepdim=True)
     var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
-    return (x - mu) / torch.sqrt(var + eps) * gamma + beta
+    sigma = torch.sqrt(var + eps)
+    xhat = (x - mu) / sigma
+    return xhat * gamma + beta, xhat, sigma
+
+
+def _sum_to(g, like):
+    """Sum a broadcast gradient back over the leading axes of ``like``."""
+    return g.sum(dim=tuple(range(g.dim() - like.dim()))) if (
+        g.dim() > like.dim()) else g
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        y, xhat, sigma = _ln_fwd(x, gamma, beta, eps)
+        ctx.save_for_backward(xhat, sigma, gamma)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        # closed form: dx = (ghat - mean(ghat) - xhat * mean(ghat * xhat))
+        # / sigma with ghat = dy * gamma
+        xhat, sigma, gamma = ctx.saved_tensors
+        ghat = dy * gamma
+        m1 = torch.mean(ghat, dim=-1, keepdim=True)
+        m2 = torch.mean(ghat * xhat, dim=-1, keepdim=True)
+        dx = (ghat - m1 - xhat * m2) / sigma
+        dgamma = _sum_to(dy * xhat, gamma)
+        dbeta = _sum_to(dy, gamma)
+        return dx, dgamma, dbeta, None
+
+
+def layer_norm(x, gamma, beta, eps: float = 1e-5):
+    """y = gamma * (x - mean) / sqrt(var + eps) + beta over the last axis."""
+    if _wants_grad(x, gamma, beta):
+        return _LayerNorm.apply(x, gamma, beta, eps)
+    return _ln_fwd(x, gamma, beta, eps)[0]
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def _sdpa_fwd(Q, K, V, mask):
+    """(O, P) of softmax(QK^T/sqrt(d) + mask) V, in the inputs' dtype."""
+    S = (1.0 / math.sqrt(Q.shape[-1])) * (Q @ K.transpose(-1, -2))
+    if mask is not None:
+        S = S + mask
+    P = softmax_last(S)
+    return P @ V, P
+
+
+class _SDPA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, Q, K, V, mask):
+        O, P = _sdpa_fwd(Q, K, V, mask)
+        ctx.save_for_backward(Q, K, V, P)
+        return O
+
+    @staticmethod
+    def backward(ctx, dO):
+        # the softmax Jacobian trick dS = (dP - rowsum(dP * P)) * P; the
+        # mask gets no gradient
+        Q, K, V, P = ctx.saved_tensors
+        scale = 1.0 / math.sqrt(Q.shape[-1])
+        dV = P.transpose(-1, -2) @ dO
+        dP = dO @ V.transpose(-1, -2)
+        dS = (dP - torch.sum(dP * P, dim=-1, keepdim=True)) * P
+        dQ = (dS @ K) * scale
+        dK = (dS.transpose(-1, -2) @ Q) * scale
+        return dQ, dK, dV, None
 
 
 def sdpa(Q, K, V, mask=None):
@@ -57,11 +197,11 @@ def sdpa(Q, K, V, mask=None):
 
     Q (..., T, d), K/V (..., S, d), additive mask broadcastable to
     (..., T, S). Explicit matmuls and ``softmax_last``, in the inputs'
-    dtype, as the reference computes it."""
-    S = (1.0 / math.sqrt(Q.shape[-1])) * (Q @ K.transpose(-1, -2))
-    if mask is not None:
-        S = S + mask
-    return softmax_last(S) @ V
+    dtype, as the reference computes it; the backward is the reference's
+    hand-derived form (the probabilities are saved for it)."""
+    if _wants_grad(Q, K, V):
+        return _SDPA.apply(Q, K, V, mask)
+    return _sdpa_fwd(Q, K, V, mask)[0]
 
 
 def sinusoidal_encoding(max_len: int, d_model: int, dtype=torch.float32,

@@ -1,10 +1,10 @@
-"""Load npz + JSON-sidecar checkpoints — the reader half of
+"""npz + JSON-sidecar checkpoints — the counterpart of
 ``linalg_tpu/train/checkpoint.py``.
 
 The archive keys are the reference's (``tok_W``, ``head_W``, ``head_b``,
 ``pos_W``, ``l{i}_<layer key>``) and the sidecar ``chars_gpt_meta.json``
-carries the tokenizer and the architecture, so a checkpoint saved by
-``linalg_tpu.train.checkpoint.save_ckpt`` loads here unchanged.
+carries the tokenizer and the architecture, in the JAX package's format:
+each package loads the other's checkpoints unchanged.
 """
 
 from __future__ import annotations
@@ -18,13 +18,56 @@ import numpy as np
 from ..models.gpt import GPTConfig, Params, params_from_numpy
 from ..nn.tokenizers import CharTokenizer
 
-__all__ = ["load_ckpt", "load_tokenizer", "CKPT_NAME", "META_NAME"]
+__all__ = ["save_ckpt", "load_ckpt", "load_tokenizer", "CKPT_NAME",
+           "META_NAME"]
 
 CKPT_NAME = "chars_gpt_best.npz"
 META_NAME = "chars_gpt_meta.json"
 
 _LAYER_KEYS = ("ln1_g", "ln1_b", "Wq", "Wk", "Wv", "Wo", "ln2_g", "ln2_b",
                "W1", "b1", "W2", "b2")
+
+
+def save_ckpt(ckpt_dir, params: Params, cfg: GPTConfig,
+              stoi: Dict[str, int], itos: Dict[int, str]) -> pathlib.Path:
+    """Write ``params`` (float32 on any device) and the meta sidecar to
+    ``ckpt_dir``; returns the archive's path. Uncompressed npz, as the JAX
+    package writes it."""
+    ckpt_dir = pathlib.Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+
+    def host(t):
+        return t.detach().float().cpu().numpy()
+
+    tok_W = host(params["tok_W"])
+    arrays = {"tok_W": tok_W, "head_W": tok_W.T,  # tied head, stored too
+              "head_b": host(params["head_b"])}
+    if "pos_W" in params:
+        arrays["pos_W"] = host(params["pos_W"])
+    for key, w in params["layers"].items():
+        w = host(w)
+        for i in range(cfg.n_layers):
+            arrays[f"l{i}_{key}"] = w[i]
+    path = ckpt_dir / CKPT_NAME
+    np.savez(path, **arrays)
+    meta = {
+        "stoi": stoi,
+        "itos": {str(k): v for k, v in itos.items()},
+        "vocab_size": cfg.vocab_size,
+        "d_model": cfg.d_model,
+        "heads": cfg.n_heads,
+        "layers": cfg.n_layers,
+        "ctx_len": cfg.ctx_len,
+        "pos": cfg.pos,
+        "d_ff": cfg.d_ff,  # None = the 4*d_model default
+        "dtype": cfg.dtype,
+    }
+    if cfg.n_kv_heads is not None:
+        meta["kv_heads"] = cfg.n_kv_heads
+    if cfg.ffn != "relu":
+        meta["ffn"] = cfg.ffn
+    (ckpt_dir / META_NAME).write_text(json.dumps(meta))
+    return path
 
 
 def load_ckpt(ckpt_dir, device=None) -> Tuple[Params, GPTConfig,

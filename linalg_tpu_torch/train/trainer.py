@@ -1,0 +1,308 @@
+"""Char-GPT trainer — the counterpart of ``linalg_tpu/train/trainer.py``
+for one device.
+
+AdamW (betas (0.9, 0.95), the reference's weight-decay rules), linear
+warmup + cosine schedule, 90/10 split, random-window batches, loss prints
+every 20 steps, val eval every ``eval_every`` with save-best-checkpoint,
+resume-or-init on start.
+
+PyTorch idiom: the step runs eagerly — forward, the hand-derived
+backwards (``autograd.Function``s, the flash kernels on the card), AdamW
+in place. The corpus lives on the device and each step draws its windows
+there from a ``torch.Generator``, so no batch crosses from the host; the
+every-20-steps loss print is the loop's only host sync besides evals.
+
+Not ported yet, and refused with the ROADMAP.md item that brings each:
+BPE (queue 1, item 2), LoRA (item 5), MoE (item 6), the sharded trainers
+(item 7), and sampling (item 2).
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from typing import Iterator, Tuple
+
+import numpy as np
+import torch
+
+from ..models.gpt import GPTConfig, gpt_loss, init_gpt_params
+from ..nn.tokenizers import CharTokenizer
+from ..utils.device import resolve_device
+from .checkpoint import load_ckpt, load_tokenizer, save_ckpt
+from .data import load_text
+from .optim import (adamw_init, adamw_update, gpt_lr_scales, gpt_wd_mask,
+                    tree_leaves, tree_map, warmup_cosine)
+
+__all__ = ["train", "make_train_step", "make_device_train_step", "eval_avg"]
+
+
+def _value_and_grad(params, x, y, cfg):
+    """(loss, grads shaped like params) of ``gpt_loss``."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = gpt_loss(params, x, y, cfg)
+    grads = iter(torch.autograd.grad(loss, leaves))
+    return loss.detach(), tree_map(lambda _: next(grads), params)
+
+
+def make_train_step(cfg: GPTConfig, *, base_lr: float, min_lr: float,
+                    warmup: int, max_steps: int, weight_decay: float):
+    """Build ``train_step(params, opt_state, x, y, step) -> (params,
+    opt_state, loss)`` over explicit (x, y) id batches; the lr follows
+    ``warmup_cosine`` at ``step``."""
+
+    def train_step(params, opt_state, x, y, step):
+        loss, grads = _value_and_grad(params, x, y, cfg)
+        lr = warmup_cosine(step, base=base_lr, min_lr=min_lr, warmup=warmup,
+                           max_steps=max_steps)
+        params, opt_state = adamw_update(params, grads, opt_state, lr,
+                                         gpt_wd_mask(params, weight_decay))
+        return params, opt_state, loss
+
+    return train_step
+
+
+def _windows(data_ids, batch: int, T: int, generator):
+    """(x, y) (batch, T) windows at random starts, drawn on the data's
+    device."""
+    ix = torch.randint(0, data_ids.shape[0] - T - 1, (batch,),
+                       generator=generator, device=data_ids.device)
+    offs = ix[:, None] + torch.arange(T, device=data_ids.device)[None, :]
+    return data_ids[offs], data_ids[offs + 1]
+
+
+def make_device_train_step(cfg: GPTConfig, batch_size: int, *,
+                           base_lr: float, min_lr: float, warmup: int,
+                           max_steps: int, weight_decay: float,
+                           lr_embed_scale: float = 1.0,
+                           lr_head_scale: float = 1.0, grad_accum: int = 1,
+                           clip_norm: float = 0.0):
+    """Build ``train_step(params, opt_state, data_ids, generator) ->
+    (params, opt_state, generator, loss)``: batch windows are sampled on
+    the device holding ``data_ids`` from ``generator``.
+
+    ``grad_accum`` > 1 splits the batch into that many sequential
+    microbatches and applies ONE update on the averaged gradients — the
+    full-batch step at 1/grad_accum the activation memory. The schedule is
+    driven by the optimizer's own step count."""
+    B, T = batch_size, cfg.ctx_len
+    if grad_accum < 1 or B % grad_accum:
+        raise ValueError(
+            f"grad_accum must divide batch_size: {grad_accum} vs {B}")
+    micro = B // grad_accum
+
+    def train_step(params, opt_state, data_ids, generator):
+        x, y = _windows(data_ids, B, T, generator)
+        if grad_accum == 1:
+            loss, grads = _value_and_grad(params, x, y, cfg)
+        else:
+            loss, grads = 0.0, None
+            for i in range(grad_accum):
+                sl = slice(i * micro, (i + 1) * micro)
+                l, g = _value_and_grad(params, x[sl], y[sl], cfg)
+                loss = loss + l
+                grads = g if grads is None else tree_map(torch.add, grads, g)
+            loss = loss / grad_accum
+            grads = tree_map(lambda g: g / grad_accum, grads)
+        lr = warmup_cosine(opt_state.t + 1, base=base_lr, min_lr=min_lr,
+                           warmup=warmup, max_steps=max_steps)
+        params, opt_state = adamw_update(
+            params, grads, opt_state, lr, gpt_wd_mask(params, weight_decay),
+            lr_scales=gpt_lr_scales(params, embed=lr_embed_scale,
+                                    head=lr_head_scale),
+            clip_norm=clip_norm)
+        return params, opt_state, generator, loss
+
+    return train_step
+
+
+@torch.no_grad()
+def _eval_loss(params, x, y, cfg: GPTConfig):
+    return gpt_loss(params, x, y, cfg)
+
+
+def eval_avg(params, cfg: GPTConfig, it: Iterator, batches: int = 10
+             ) -> float:
+    """Mean loss over ``batches`` host (x, y) batches from ``it``."""
+    dev = params["tok_W"].device
+    losses = [float(_eval_loss(params, torch.as_tensor(x, device=dev),
+                               torch.as_tensor(y, device=dev), cfg))
+              for x, y in (next(it) for _ in range(batches))]
+    return float(np.mean(losses))
+
+
+@torch.no_grad()
+def _eval_device(params, val_ids, generator, cfg: GPTConfig, batch: int,
+                 batches: int):
+    """Mean val loss over ``batches`` random device windows; one scalar
+    tensor, no host sync."""
+    total = 0.0
+    for _ in range(batches):
+        total = total + gpt_loss(params, *_windows(val_ids, batch,
+                                                   cfg.ctx_len, generator),
+                                 cfg)
+    return total / batches
+
+
+def _make_tokenizer(args, text: str) -> CharTokenizer:
+    """Fresh-model tokenizer: the char vocabulary of the corpus."""
+    if (getattr(args, "tokenizer", "char") or "char") != "char":
+        raise NotImplementedError(
+            "--tokenizer bpe is not ported yet (ROADMAP.md queue 1, item 2: "
+            "tokenizers)")
+    return CharTokenizer(text)
+
+
+def _resume_or_init(args, device):
+    """The reference's resume-or-init: load ``args.ckpt_dir``; on any
+    failure to load, build a fresh dense GPT from the flags (weights from
+    seed 123, as the JAX package draws them).
+
+    Returns (text, params, cfg, tok, stoi, itos)."""
+    if int(getattr(args, "experts", 0) or 0) > 0:
+        raise NotImplementedError(
+            "--experts (MoE) is not ported yet (ROADMAP.md queue 1, item 6)")
+    text = load_text(getattr(args, "data", None))
+    try:
+        params, cfg, stoi, itos = load_ckpt(args.ckpt_dir, device=device)
+        tok = load_tokenizer(args.ckpt_dir)
+        print(f"resumed from {args.ckpt_dir}")
+        return text, params, cfg, tok, stoi, itos
+    except (OSError, ValueError, KeyError):
+        print("Error loading checkpoint, starting from scratch")
+    tok = _make_tokenizer(args, text)
+    cfg = GPTConfig(
+        vocab_size=tok.vocab_size, d_model=args.d_model, n_heads=args.heads,
+        n_layers=args.layers, ctx_len=args.ctx_len,
+        pos=getattr(args, "pos", "sinusoidal") or "sinusoidal",
+        dtype=getattr(args, "dtype", "float32") or "float32",
+        n_kv_heads=getattr(args, "kv_heads", None),
+        window=getattr(args, "window", None),
+        ffn=getattr(args, "ffn", "relu") or "relu")
+    params = init_gpt_params(cfg, seed=123, device=device)
+    return text, params, cfg, tok, tok.stoi, tok.itos
+
+
+class _MetricsLog:
+    """Append-mode JSONL metrics sink (``--log_file``); None path = no-op.
+    Rows are written only at the loop's existing host-sync points."""
+
+    def __init__(self, path):
+        self._f = open(path, "a", encoding="utf-8") if path else None
+
+    def write(self, **row):
+        if self._f is not None:
+            self._f.write(json.dumps(row) + "\n")
+            self._f.flush()
+
+    def close(self):
+        if self._f is not None:
+            self._f.close()
+
+
+def _train_loop(args, cfg, params, opt_state, generator, step_fn, eval_fn,
+                train_ids, val_ids, stoi, itos, desc: str = ""):
+    """The training loop: ``step_fn(params, opt_state, train_ids,
+    generator)`` per step, ``eval_fn(params, val_ids, generator)`` every
+    ``args.eval_every`` steps, the best checkpoint saved on improvement.
+    Printing every 20 steps is the host sync."""
+    from ..utils.profiling import StepTimer, trace
+
+    best = 1e9
+    t0 = time.time()
+    tokens_per_step = args.batch_size * cfg.ctx_len
+    timer = StepTimer(tokens_per_step, window=10)
+    last_sync = 0
+    mlog = _MetricsLog(getattr(args, "log_file", None))
+    with trace(getattr(args, "profile", None)):
+        for step in range(1, args.steps + 1):
+            params, opt_state, generator, loss = step_fn(
+                params, opt_state, train_ids, generator)
+            if step % 20 == 0 or step == 1:
+                loss_f = float(loss)  # the host sync point
+                timer.tick(step - last_sync)
+                last_sync = step
+                rate = (f"  ({timer.steps_per_sec:.1f} steps/s, "
+                        f"{timer.tokens_per_sec:.0f} tok/s)"
+                        if step > 1 else "")
+                print(f"step {step:6d}  loss {loss_f:.4f}{rate}")
+                mlog.write(event="train", step=step, loss=loss_f,
+                           steps_per_sec=(timer.steps_per_sec
+                                          if step > 1 else None),
+                           tokens_per_sec=(timer.tokens_per_sec
+                                           if step > 1 else None),
+                           elapsed_s=round(time.time() - t0, 3))
+            if step % args.eval_every == 0:
+                val_loss = float(eval_fn(params, val_ids, generator))
+                print(f"[eval] step {step:6d}  val_loss {val_loss:.4f}")
+                saved = None
+                if val_loss < best:
+                    best = val_loss
+                    path = save_ckpt(args.ckpt_dir, params, cfg, stoi, itos)
+                    print(f"  saved best -> {path}  (val {best:.4f})")
+                    saved = str(path)
+                mlog.write(event="eval", step=step, val_loss=val_loss,
+                           best=best, ckpt=saved,
+                           elapsed_s=round(time.time() - t0, 3))
+    dt = time.time() - t0
+    print(f"done in {dt:.1f}s  ({desc}{args.steps / dt:.2f} steps/s, "
+          f"{args.steps * tokens_per_step / dt:.0f} tok/s)")
+    mlog.write(event="done", steps=args.steps, wall_s=round(dt, 3),
+               steps_per_sec=round(args.steps / dt, 3),
+               tokens_per_sec=round(args.steps * tokens_per_step / dt, 1),
+               best_val_loss=(best if best < 1e9 else None))
+    mlog.close()
+    return params
+
+
+def _lr_kwargs(args):
+    base_lr = args.lr_model
+    return dict(
+        base_lr=base_lr, min_lr=base_lr / 10, warmup=200,
+        max_steps=args.steps, weight_decay=args.weight_decay,
+        lr_embed_scale=(getattr(args, "lr_embed", base_lr) / base_lr
+                        if base_lr else 1.0),
+        lr_head_scale=(getattr(args, "lr_head", base_lr) / base_lr
+                       if base_lr else 1.0),
+    )
+
+
+def train(args) -> Tuple[dict, GPTConfig, dict, dict]:
+    """Run the training loop on ``args.device`` (default: the card when
+    there is one); returns (params, cfg, stoi, itos)."""
+    for axis in ("dp", "tp", "sp", "pp", "fsdp"):
+        if int(getattr(args, axis, 1) or 1) > 1:
+            raise NotImplementedError(
+                f"--{axis} (multi-device training) is not ported yet "
+                "(ROADMAP.md queue 1, item 7: parallelism)")
+    if int(getattr(args, "lora_rank", 0) or 0) > 0:
+        raise NotImplementedError(
+            "--lora_rank (LoRA finetuning) is not ported yet (ROADMAP.md "
+            "queue 1, item 5)")
+    device = resolve_device(getattr(args, "device", None))
+    text, params, cfg, tok, stoi, itos = _resume_or_init(args, device)
+
+    ids = tok.encode(text)
+    split = int(0.9 * len(ids))
+    # the whole corpus on the device, once
+    train_ids = torch.as_tensor(ids[:split], dtype=torch.long, device=device)
+    val_ids = torch.as_tensor(ids[split:], dtype=torch.long, device=device)
+
+    opt_state = adamw_init(params)
+    step_fn = make_device_train_step(
+        cfg, args.batch_size,
+        grad_accum=int(getattr(args, "grad_accum", 1) or 1),
+        clip_norm=float(getattr(args, "clip_norm", 0.0) or 0.0),
+        **_lr_kwargs(args))
+
+    def eval_fn(p, v, g):
+        return _eval_device(p, v, g, cfg, args.batch_size, 20)
+
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    params = _train_loop(args, cfg, params, opt_state, generator, step_fn,
+                         eval_fn, train_ids, val_ids, stoi, itos)
+    for p in tree_leaves(params):
+        p.requires_grad_(False)
+    return params, cfg, stoi, itos

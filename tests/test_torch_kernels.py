@@ -13,7 +13,20 @@ import pytest
 import torch
 
 from linalg_tpu_torch.kernels import build as kbuild
+from linalg_tpu_torch.kernels.flash_attention import (
+    flash_dkdv_cuda,
+    flash_dq_cuda,
+    flash_fwd_cuda,
+)
 from linalg_tpu_torch.kernels.paged_attention import paged_attention_cuda
+from linalg_tpu_torch.models.gpt import _padded_attn
+from linalg_tpu_torch.nn.flash import (
+    flash_attention,
+    flash_attention_ref,
+    flash_bwd_ref,
+    flash_fwd_ref,
+)
+from linalg_tpu_torch.nn.flash_long import flash_attention_long
 from linalg_tpu_torch.kernels.qr_panel import factor_strip_cuda
 from linalg_tpu_torch.ops.qr import householder_qr
 from linalg_tpu_torch.ops.qr_panel import (
@@ -186,3 +199,128 @@ def test_householder_qr_through_kernel_under_callers_tf32(cuda):
     rel = torch.linalg.norm(Q.double() @ R.double() - A64) / torch.linalg.norm(
         A64)
     assert float(rel) <= 1e-6
+
+
+# flash kernels vs their plain versions: float32 sums over T and d in
+# another order (1e-4 of the largest value); bfloat16 outputs and the
+# rounded P and dS keep 8 bits of mantissa, and the kernel's online softmax
+# rounds exp(s - m_running) where the plain version rounds the normalized p
+# (2e-2 of the largest value)
+FLASH_RTOL_OF_MAX = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+# the shapes chip_smoke.py drives: the training slice (B 24, H 8, T 1024,
+# d 128), T 2048 through flash_attention_long, d 64, and a ragged T
+FLASH_SHAPES = [(24, 8, 1024, 128), (2, 8, 2048, 128), (4, 8, 1024, 64),
+                (3, 2, 256, 32)]
+
+
+def flash_inputs(shape, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                         device=device) for _ in range(4)]
+
+
+def assert_close_of_max(got, want, dtype, what):
+    tol = FLASH_RTOL_OF_MAX[dtype] * max(1.0, float(want.abs().max()))
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol, f"{what}: max_abs_err {err:.3e} > {tol:.3e}"
+
+
+def test_flash_wrappers_reject_cpu_tensors():
+    q = torch.zeros(1, 1, 64, 32)
+    L = torch.zeros(1, 1, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_fwd_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_dq_cuda(q, q, q, q, L, L)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_dkdv_cuda(q, q, q, q, L, L)
+
+
+def test_flash_dispatcher_takes_plain_version_on_cpu():
+    q, k, v, do = flash_inputs((1, 2, 64, 16), torch.float32, "cpu", 0)
+    before = (flash_fwd_cuda.launches, flash_dq_cuda.launches,
+              flash_dkdv_cuda.launches)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    o = flash_attention(q, k, v)
+    o.backward(do)
+    o_ref, L_ref = flash_fwd_ref(q.detach(), k.detach(), v.detach())
+    torch.testing.assert_close(o.detach(), o_ref, rtol=0, atol=0)
+    want = flash_bwd_ref(q.detach(), k.detach(), v.detach(), o_ref, L_ref, do)
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        torch.testing.assert_close(got, w, rtol=0, atol=0)
+    assert (flash_fwd_cuda.launches, flash_dq_cuda.launches,
+            flash_dkdv_cuda.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_kernels_match_ref_on_card(cuda, shape, dtype, causal):
+    q, k, v, do = flash_inputs(shape, dtype, cuda, seed=sum(shape))
+    before = (flash_fwd_cuda.launches, flash_dq_cuda.launches,
+              flash_dkdv_cuda.launches)
+    o, L = flash_fwd_cuda(q, k, v, causal)
+    o_ref, L_ref = flash_fwd_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert_close_of_max(o, o_ref, dtype, "o")
+    assert_close_of_max(L, L_ref, dtype, "L")
+    # the backward kernels from the plain forward's o and L, so each kernel
+    # is held alone
+    delta = torch.sum(do.float() * o_ref.float(), dim=-1)
+    dq = flash_dq_cuda(q, k, v, do, L_ref, delta, causal)
+    dk, dv = flash_dkdv_cuda(q, k, v, do, L_ref, delta, causal)
+    torch.cuda.synchronize()
+    want = flash_bwd_ref(q, k, v, o_ref, L_ref, do, causal)
+    for got, w, what in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        assert_close_of_max(got, w, dtype, what)
+    assert (flash_fwd_cuda.launches, flash_dq_cuda.launches,
+            flash_dkdv_cuda.launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,fn", [(1024, flash_attention),
+                                  (2048, flash_attention_long),
+                                  (1000, flash_attention)],
+                         ids=["flash", "flash_long", "ragged"])
+def test_flash_attention_autograd_on_card(cuda, T, fn):
+    """The autograd Function through the kernels against the same Function
+    through the plain versions, on transposed (non-contiguous) views as the
+    model hands them over; T 1000 through the picker's padding."""
+    x = flash_inputs((2, T, 4, 64), torch.float32, cuda, seed=T)
+    attn = _padded_attn(fn, T, 1024) if T % 256 else (
+        lambda q, k, v, mask: fn(q, k, v, True))
+    ref = _padded_attn(flash_attention_ref, T, 1024) if T % 256 else (
+        lambda q, k, v, mask: flash_attention_ref(q, k, v, True))
+    grads = []
+    for f in (attn, ref):
+        q, k, v = (t.clone().requires_grad_(True) for t in x[:3])
+        o = f(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), None)
+        o.backward(x[3].transpose(1, 2))
+        grads.append([o.detach(), q.grad, k.grad, v.grad])
+    for got, w, what in zip(*grads, ("o", "dq", "dk", "dv")):
+        assert_close_of_max(got, w, torch.float32, what)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_reject_what_they_do_not_take(cuda):
+    q, k, v, do = flash_inputs((2, 2, 128, 64), torch.float32, cuda, 9)
+    L = torch.zeros(2, 2, 128, device=cuda)
+    with pytest.raises(ValueError, match="d_head"):
+        flash_fwd_cuda(*(t[..., :48].contiguous() for t in (q, k, v)))
+    with pytest.raises(ValueError, match="dtype"):
+        flash_fwd_cuda(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="multiple"):
+        flash_fwd_cuda(*(t[:, :, :100].contiguous() for t in (q, k, v)))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_fwd_cuda(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="grouped"):
+        flash_fwd_cuda(q, k[:, :1].contiguous(), v[:, :1].contiguous())
+    with pytest.raises(ValueError, match="float32"):
+        flash_dq_cuda(q, k, v, do, L.half(), L)
+    with pytest.raises(ValueError, match="share one dtype"):
+        flash_dkdv_cuda(q, k, v, do.bfloat16(), L, L)
