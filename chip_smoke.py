@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one CUDA card: paged serving, the
-Householder QR and char-GPT training.
+Householder QR, char-GPT training and long-context training.
 
     python3 chip_smoke.py
 
@@ -55,11 +55,35 @@ Phases, each reported on its own line; any failure exits non-zero:
              through the kernels against the plain versions (bf16, and f32
              with TF32 off); a few steps at the published config (d512,
              4 layers, ctx 256, batch 64, f32), which runs no kernel; a
-             ``torch.profiler`` breakdown of one train_big step.
+             ``torch.profiler`` breakdown of one train_big step (run last,
+             after phase 10: the profiler stays attached to the card).
+9. stream  — the flash kernels with K4's band and grouped K/V
+             (``flash_attention_stream``): forward (O, L) and backward
+             (dq, dk, dv from a random dO) against their plain versions at
+             (B 8, H 4, hk 2, T 4096, d 128) bf16 window 512 (the
+             long_window shape), the same in f32 at B 2, (1, 4, hk 4, 8192,
+             128) bf16 with no window, and MQA (hk 1) with window 300 and
+             causal=False at T 1024; median CUDA-event times of the kernels,
+             the plain versions and ``F.scaled_dot_product_attention(...,
+             enable_gqa=True)`` (is_causal, or a boolean band mask), forward
+             and forward+backward, launch counts and the bound.
+10. long   — ``train.trainer.train`` at long_window (GPTConfig(vocab 65,
+             d512, 4 heads, 2 KV heads, 8 layers, ctx 4096, bf16, rope,
+             swiglu, window 512), batch 8, AdamW lr 3e-4, warmup 200, wd
+             0.01), 40 steps, eval every 20: launch counts, grouped K/V
+             (hk 2) at the kernels, finite losses, ms/step, tok/s, TFLOP/s
+             and mfu by the count in ``long_step_flops``, peak memory, the
+             checkpoint (window included) reloaded equal; one step through
+             the kernels against the plain versions (bf16, and f32 with
+             TF32 off); one step at ctx 8192 (d512, 4 heads, 2 layers,
+             batch 1, bf16) through ``_pick_attn``'s stream; a
+             ``torch.profiler`` breakdown of one long_window step.
 
 Phase 2 builds every kernel, one ``nvcc`` per source, all started
 together. The line before the last is a JSON object describing the
-kernels; the last line is ``{"ok": true, "device": {...}}``. Imports
+kernels (with each one's bound: the larger of its bytes over 3.35 TB/s
+and its operations over the peak of their type, from the H100's data
+sheet); the last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX.
 """
 
@@ -100,8 +124,66 @@ TRAIN_BIG = ["--d_model", "1024", "--heads", "8", "--layers", "8",
 PUBLISHED = ["--d_model", "512", "--heads", "4", "--layers", "4",
              "--ctx_len", "256", "--dtype", "float32", "--batch_size", "64",
              "--steps", "5", "--eval_every", "5"]
+# long_window: the JAX package's ctx-4096 serving widths with K4's band
+LONG_WINDOW = ["--d_model", "512", "--heads", "4", "--kv_heads", "2",
+               "--layers", "8", "--ctx_len", "4096", "--pos", "rope",
+               "--ffn", "swiglu", "--window", "512", "--dtype", "bfloat16",
+               "--batch_size", "8", "--steps", "40", "--eval_every", "20"]
 EVAL_BATCHES = 20   # trainer._eval_device batches per eval
 H100_BF16_TFLOPS = 989.0  # dense bf16, NVIDIA's H100 SXM data sheet
+# the H100 SXM's data sheet: HBM rate, dense peaks by operand type (f32
+# runs on the FMA units: the kernels never use TF32)
+H100_BYTES_PER_S = 3.35e12
+H100_PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def bound_ms(flops, nbytes, dtype):
+    """(least time in ms, what bounds it): the larger of the bytes over the
+    memory rate and the operations over the peak of their type."""
+    t_ops = flops / H100_PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def paged_bound(q, pk, pv, mask, table, pos):
+    """Bound of one paged decode-attention call: each slot reads its
+    min(pos + 1, ctx) live K/V rows once (an idle slot's clamped position
+    reads them all), q, the mask, the table and the positions once, and
+    writes its output; 4 d operations per head and live key."""
+    B, H, _, d = q.shape
+    hk = pk.shape[1]
+    ctx = pk.shape[2] * table.shape[1]
+    live = int(torch.clamp(pos.long() + 1, max=ctx).sum())
+    nbytes = (q.element_size() * (2 * q.numel() + 2 * hk * d * live
+                                  + mask.numel())
+              + 4 * (table.numel() + pos.numel()))
+    return bound_ms(4 * H * d * live, nbytes, q.dtype)
+
+
+def strip_bound(b, m):
+    """Bound of one Householder strip sweep of a (b, m) float32 strip:
+    reads St once, writes St, Vt and the (b, b) Tt once; ~3 m b^2
+    operations (2 m b^2 applying the reflectors, m b^2 forming Tt)."""
+    return bound_ms(3 * m * b * b, 4 * (3 * b * m + b * b), torch.float32)
+
+
+def attn_live_pairs(T, causal, window):
+    """Visible (query, key) pairs of one head: row i sees keys
+    (i - window, i] when causal, (i - window, T) when not."""
+    i = np.arange(T)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(T, int)
+    hi = i + 1 if causal else np.full(T, T)
+    return int((hi - lo).sum())
+
+
+def attn_bound(B, H, hk, T, d, dtype, causal=True, window=None):
+    """Bound of attention forward+backward: 2 d operations per visible
+    pair for each of Q K^T and P V forward and dV, dP, dQ, dK backward (no
+    recomputation); q, k, v, dO read once, o, dq, dk, dv written once."""
+    flops = 12 * d * B * H * attn_live_pairs(T, causal, window)
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = esize * 4 * T * d * (B * H + B * hk)
+    return bound_ms(flops, nbytes, dtype)
 
 
 def phase(name, msg):
@@ -259,9 +341,13 @@ def qr_phase():
         phase("qr", f"{name} b,m,k={b},{m},{k}: max_abs_err St/Vt/Tt "
               f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tolerance "
               f"{QR_RTOL_OF_MAX} x max|want|: {tols[0]:.3e}/{tols[1]:.3e}/"
-              f"{tols[2]:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"{tols[2]:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {strip_bound(b, m - k)[0]:.4f} ms "
+              f"({strip_bound(b, m - k)[1]})")
         if name == "strip":  # the main path's shape
-            record = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+            bms, by = strip_bound(b, m - k)
+            record = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by, library_ms=None)
 
     N = QR_N
     A_host = np.random.default_rng(0).standard_normal((N, N)).astype(
@@ -340,7 +426,7 @@ def flash_case(shape, dtype, seed):
                          device="cuda") for _ in range(4)]
 
 
-def flash_compare(name, pairs, dtype):
+def flash_compare(name, pairs, dtype, tag="flash"):
     """Max abs errors of (what, got, want) pairs against the tolerance;
     raises on a miss."""
     rtol = FLASH_RTOL_OF_MAX[dtype]
@@ -349,13 +435,42 @@ def flash_compare(name, pairs, dtype):
         err = float((got.float() - want.float()).abs().max())
         tol = rtol * max(1.0, float(want.float().abs().max()))
         if not err <= tol:
-            raise RuntimeError(f"flash {name}: {what} max_abs_err {err:.3e} "
-                               f"> tolerance {tol:.3e}")
+            raise RuntimeError(f"{tag} {name}: {what} max_abs_err "
+                               f"{err:.3e} > tolerance {tol:.3e}")
         errs[what] = err
-    phase("flash", f"{name}: max_abs_err " + ", ".join(
+    phase(tag, f"{name}: max_abs_err " + ", ".join(
         f"{k} {v:.3e}" for k, v in errs.items())
         + f" (tolerance {rtol} x max|want|)")
     return max(errs.values())
+
+
+def library_ms(q, k, v, do, causal, window):
+    """Median ms of the one PyTorch call computing the same attention,
+    ``F.scaled_dot_product_attention`` (grouped K/V through enable_gqa;
+    a window as a boolean band mask): forward, and forward+backward."""
+    import torch.nn.functional as F
+
+    T = q.shape[2]
+    mask = None
+    if window is not None:
+        i = torch.arange(T, device=q.device)
+        mask = (i[:, None] - i[None, :]) < window
+        if causal:
+            mask &= i[None, :] <= i[:, None]
+    kw = dict(attn_mask=mask, is_causal=causal and mask is None,
+              enable_gqa=k.shape[1] != q.shape[1])
+    x = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def fwd(q, k, v):
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, **kw)
+
+    def fb(q, k, v):
+        o = F.scaled_dot_product_attention(q, k, v, **kw)
+        return torch.autograd.grad(o, (q, k, v), do)
+
+    return (median_ms(fwd, x, trials=5, reps=3),
+            median_ms(fb, x, trials=5, reps=3))
 
 
 def flash_phase():
@@ -406,11 +521,18 @@ def flash_phase():
         ms_fb = median_ms(kernel_fb, args + (do,), trials=7, reps=3)
         plain_fb_ms = median_ms(plain_fb, args + (do,), trials=5, reps=2,
                                 warm=1)
+        lib_f, lib_fb = library_ms(q, k, v, do, True, None)
+        bms, by = attn_bound(shape[0], shape[1], shape[1], shape[2],
+                             shape[3], dtype)
         phase("flash", f"  kernel fwd {ms_f:.4f} ms, fwd+bwd {ms_fb:.4f} ms; "
-              f"plain fwd {plain_f:.4f} ms, fwd+bwd {plain_fb_ms:.4f} ms")
+              f"plain fwd {plain_f:.4f} ms, fwd+bwd {plain_fb_ms:.4f} ms; "
+              f"F.scaled_dot_product_attention fwd {lib_f:.4f} ms, fwd+bwd "
+              f"{lib_fb:.4f} ms; bound fwd+bwd {bms:.4f} ms ({by})")
         if i == 0:  # the training slice's shape and dtype
             record = dict(max_abs_err=err, ms=ms_fb, plain_ms=plain_fb_ms,
-                          fwd_ms=ms_f, plain_fwd_ms=plain_f)
+                          bound_ms=bms, bound_by=by, library_ms=lib_fb,
+                          fwd_ms=ms_f, plain_fwd_ms=plain_f,
+                          library_fwd_ms=lib_f)
         torch.cuda.empty_cache()
 
     for name, (B, H, T, d), dtype, fn, ref in [
@@ -458,17 +580,68 @@ def loss_and_grads(params, x, y, cfg, attn_fn=None):
     return float(loss.detach()), grads
 
 
+def one_step_check(tag, cfg, batch_size, plain):
+    """One step's loss and gradients through the kernels against the same
+    step with attention ``plain`` (the plain versions), at ``cfg``'s widths
+    from seed-0 weights and ids. f32 with TF32 off: |dloss| and
+    ||g_k - g_p|| / ||g_p|| <= 1e-4. bf16: |dloss| <= 1e-2, the kernels'
+    gradients no farther from the f32 plain step's than the bf16 plain
+    step's are (x 1.1), and ||g_k - g_p|| / ||g_p|| <= 2e-2, or, where
+    bf16 alone moves the plain step's gradients farther than that off
+    f32's, <= that distance."""
+    import dataclasses
+
+    from linalg_tpu_torch.models.gpt import init_gpt_params
+
+    def rel(a, b):
+        num = math.sqrt(sum(float(torch.sum((x - y).double() ** 2))
+                            for x, y in zip(a, b)))
+        return num / math.sqrt(sum(float(torch.sum(y.double() ** 2))
+                                   for y in b))
+
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (2, batch_size, cfg.ctx_len))
+    x, y = (torch.tensor(a, device="cuda") for a in ids)
+    truth = None
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        p = init_gpt_params(c, seed=0, device="cuda")
+        lk, gk = loss_and_grads(p, x, y, c)
+        lp, gp = loss_and_grads(p, x, y, c, plain)
+        dg = rel(gk, gp)
+        if dtype == "float32":
+            bounds = (1e-4, 1e-4)
+            ok = abs(lk - lp) <= bounds[0] and dg <= bounds[1]
+            extra = ""
+            truth = [g.float() for g in gp]
+        else:
+            noise_p, noise_k = rel(gp, truth), rel(gk, truth)
+            bounds = (1e-2, max(2e-2, noise_p))
+            ok = (abs(lk - lp) <= bounds[0] and dg <= bounds[1]
+                  and noise_k <= 1.1 * noise_p)
+            extra = (f"; off the f32 step's gradients: kernels {noise_k:.3e}, "
+                     f"plain {noise_p:.3e} (kernels <= 1.1 x plain)")
+        phase(tag, f"one step {dtype}: loss kernels {lk:.6f}, plain "
+              f"{lp:.6f}, |diff| {abs(lk - lp):.3e} (bound {bounds[0]}); "
+              f"gradients ||g_k - g_p|| / ||g_p|| {dg:.3e} (bound "
+              f"{bounds[1]:.3e}){extra}")
+        if not ok:
+            raise RuntimeError(f"one {dtype} step: kernels and plain "
+                               "versions disagree")
+        del p, gk, gp
+        torch.cuda.empty_cache()
+
+
 def train_phase(smi):
     """Phase 8: the training path on the card. Returns the flash launch
-    counts of the train_big run."""
+    counts of the train_big run, its config and its batch size."""
     from linalg_tpu_torch.apps.gpt import build_parser
     from linalg_tpu_torch.kernels.flash_attention import (
         flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
-    from linalg_tpu_torch.models.gpt import GPTConfig, init_gpt_params
     from linalg_tpu_torch.nn.flash import flash_attention_ref
     from linalg_tpu_torch.train.checkpoint import load_ckpt
-    from linalg_tpu_torch.train.optim import adamw_init, tree_leaves
-    from linalg_tpu_torch.train.trainer import make_device_train_step, train
+    from linalg_tpu_torch.train.optim import tree_leaves
+    from linalg_tpu_torch.train.trainer import train
 
     counters = (flash_fwd_cuda, flash_dq_cuda, flash_dkdv_cuda)
     with tempfile.TemporaryDirectory() as tmp:
@@ -525,29 +698,8 @@ def train_phase(smi):
     del params, back
 
     # one step's loss and gradients: kernels vs plain versions
-    rng = np.random.default_rng(0)
-    ids = rng.integers(0, cfg.vocab_size, (2, args.batch_size, cfg.ctx_len))
-    x, y = (torch.tensor(a, device="cuda") for a in ids)
     plain = lambda q, k, v, mask: flash_attention_ref(q, k, v, True)
-    for dtype, tol in (("bfloat16", (1e-2, 2e-2)), ("float32", (1e-4, 1e-4))):
-        c = GPTConfig(vocab_size=cfg.vocab_size, d_model=cfg.d_model,
-                      n_heads=cfg.n_heads, n_layers=cfg.n_layers,
-                      ctx_len=cfg.ctx_len, dtype=dtype)
-        p = init_gpt_params(c, seed=0, device="cuda")
-        lk, gk = loss_and_grads(p, x, y, c)
-        lp, gp = loss_and_grads(p, x, y, c, plain)
-        num = math.sqrt(sum(float(torch.sum((a - b).double() ** 2))
-                            for a, b in zip(gk, gp)))
-        den = math.sqrt(sum(float(torch.sum(b.double() ** 2)) for b in gp))
-        phase("train", f"one step {dtype}: loss kernels {lk:.6f}, plain "
-              f"{lp:.6f}, |diff| {abs(lk - lp):.3e} (bound {tol[0]}); "
-              f"gradients ||g_k - g_p|| / ||g_p|| {num / den:.3e} "
-              f"(bound {tol[1]})")
-        if not (abs(lk - lp) <= tol[0] and num / den <= tol[1]):
-            raise RuntimeError(f"one {dtype} step: kernels and plain "
-                               "versions disagree")
-        del p, gk, gp
-        torch.cuda.empty_cache()
+    one_step_check("train", cfg, args.batch_size, plain)
 
     # the published config: T 256 takes the rematted sdpa, no kernel
     with tempfile.TemporaryDirectory() as tmp:
@@ -569,11 +721,21 @@ def train_phase(smi):
             raise RuntimeError("published config: a flash launch or a "
                                "non-finite loss")
 
-    # a torch.profiler breakdown of one train_big step (last: the profiler
-    # stays attached to the card and slows what runs after it)
+    return launches, cfg, args.batch_size
+
+
+def profile_step(tag, cfg, batch_size):
+    """A ``torch.profiler`` breakdown of one train step after three warm
+    ones. Run after every timing: the profiler stays attached to the card
+    and slows what runs after it."""
+    from linalg_tpu_torch.models.gpt import init_gpt_params
+    from linalg_tpu_torch.train.optim import adamw_init
+    from linalg_tpu_torch.train.trainer import make_device_train_step
+
+    rng = np.random.default_rng(0)
     p = init_gpt_params(cfg, seed=0, device="cuda")
     state = adamw_init(p)
-    step = make_device_train_step(cfg, args.batch_size, base_lr=3e-4,
+    step = make_device_train_step(cfg, batch_size, base_lr=3e-4,
                                   min_lr=3e-5, warmup=200, max_steps=10000,
                                   weight_decay=0.01)
     data = torch.tensor(rng.integers(0, cfg.vocab_size, 400_000),
@@ -598,18 +760,240 @@ def train_phase(smi):
 
     kernels = by_device_time(torch.autograd.DeviceType.CUDA)
     total = sum(ms_ for ms_, _, _ in kernels)
-    phase("train", f"profiled train_big step: wall {wall:.2f} ms, device "
-          f"time {total:.2f} ms (idle {max(0.0, 1 - total / wall):.1%}), "
+    phase(tag, f"profiled step: wall {wall:.2f} ms, device time "
+          f"{total:.2f} ms (idle {max(0.0, 1 - total / wall):.1%}), "
           f"{sum(n_ for _, n_, _ in kernels)} kernel launches")
     for what, rows in (("kernels", kernels),
                        ("ops", by_device_time(
                            torch.autograd.DeviceType.CPU))):
-        phase("train", f"top {what} by device time:")
+        phase(tag, f"top {what} by device time:")
         for ms_, n_, key in rows[:12]:
-            phase("train", f"  {ms_:9.3f} ms "
+            phase(tag, f"  {ms_:9.3f} ms "
                   f"{100 * ms_ / max(total, 1e-9):5.1f}%  x{n_:<5d} "
                   f"{key[:80]}")
-    return launches
+
+
+def stream_phase():
+    """Phase 9: the flash kernels with K4's band and grouped K/V against
+    their plain versions. Returns the record of the long_window shape."""
+    from linalg_tpu_torch.kernels.flash_attention import (
+        flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
+    from linalg_tpu_torch.nn.flash_stream import (stream_bwd_ref,
+                                                  stream_fwd_ref)
+
+    counters = (flash_fwd_cuda, flash_dq_cuda, flash_dkdv_cuda)
+    record = None
+    for i, (B, H, hk, T, d, dtype, window, causal) in enumerate([
+            (8, 4, 2, 4096, 128, torch.bfloat16, 512, True),  # long_window
+            (2, 4, 2, 4096, 128, torch.float32, 512, True),
+            (1, 4, 4, 8192, 128, torch.bfloat16, None, True),
+            (2, 4, 1, 1024, 128, torch.bfloat16, 300, False)]):
+        rng = np.random.default_rng(300 + i)
+        q, k, v, do = (torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                                    device="cuda")
+                       for shape in ((B, H, T, d), (B, hk, T, d),
+                                     (B, hk, T, d), (B, H, T, d)))
+        g = H // hk
+
+        def kernel_fwd(q, k, v):
+            return flash_fwd_cuda(q, k, v, causal, window, g)
+
+        def kernel_fb(q, k, v, do):
+            o, L = flash_fwd_cuda(q, k, v, causal, window, g)
+            delta = torch.sum(do.float() * o.float(), dim=-1)
+            return (flash_dq_cuda(q, k, v, do, L, delta, causal, window, g),
+                    flash_dkdv_cuda(q, k, v, do, L, delta, causal, window,
+                                    g))
+
+        def plain_fwd(q, k, v):
+            return stream_fwd_ref(q, k, v, causal, window)
+
+        def plain_fb(q, k, v, do):
+            o, L = stream_fwd_ref(q, k, v, causal, window)
+            return stream_bwd_ref(q, k, v, o, L, do, causal, window)
+
+        for c in counters:
+            c.launches = 0
+        o, L = kernel_fwd(q, k, v)
+        o_ref, L_ref = plain_fwd(q, k, v)
+        delta = torch.sum(do.float() * o_ref.float(), dim=-1)
+        dq = flash_dq_cuda(q, k, v, do, L_ref, delta, causal, window, g)
+        dk, dv = flash_dkdv_cuda(q, k, v, do, L_ref, delta, causal, window,
+                                 g)
+        torch.cuda.synchronize()
+        launches = [c.launches for c in counters]
+        if launches != [1, 1, 1] or dk.shape != k.shape:
+            raise RuntimeError(f"stream: launches {launches}, dk "
+                               f"{tuple(dk.shape)} for k {tuple(k.shape)}")
+        want = stream_bwd_ref(q, k, v, o_ref, L_ref, do, causal, window)
+        dt = str(dtype).split(".")[1]
+        name = (f"B,H,hk,T,d={B},{H},{hk},{T},{d} {dt} window {window} "
+                f"{'causal' if causal else 'no causal ban'}")
+        err = flash_compare(name, [
+            ("o", o, o_ref), ("L", L, L_ref), ("dq", dq, want[0]),
+            ("dk", dk, want[1]), ("dv", dv, want[2])], dtype, "stream")
+        del o, L, o_ref, L_ref, delta, dq, dk, dv, want
+        torch.cuda.empty_cache()
+        ms_f = median_ms(kernel_fwd, (q, k, v), trials=7, reps=3)
+        ms_fb = median_ms(kernel_fb, (q, k, v, do), trials=7, reps=3)
+        plain_f = median_ms(plain_fwd, (q, k, v), trials=3, reps=2, warm=1)
+        plain_fb_ms = median_ms(plain_fb, (q, k, v, do), trials=3, reps=2,
+                                warm=1)
+        lib_f, lib_fb = library_ms(q, k, v, do, causal, window)
+        bms, by = attn_bound(B, H, hk, T, d, dtype, causal, window)
+        phase("stream", f"  launches fwd/dq/dkdv {launches}; kernel fwd "
+              f"{ms_f:.4f} ms, fwd+bwd {ms_fb:.4f} ms; plain fwd "
+              f"{plain_f:.4f} ms, fwd+bwd {plain_fb_ms:.4f} ms; "
+              f"F.scaled_dot_product_attention fwd {lib_f:.4f} ms, "
+              f"fwd+bwd {lib_fb:.4f} ms; bound fwd+bwd {bms:.4f} ms ({by}), "
+              f"{bms / ms_fb:.1%} of it")
+        if i == 0:
+            record = dict(shape=[B, H, hk, T, d], window=window,
+                          max_abs_err=err, ms=ms_fb, plain_ms=plain_fb_ms,
+                          library_ms=lib_fb, bound_ms=bms, bound_by=by,
+                          fwd_ms=ms_f, plain_fwd_ms=plain_f,
+                          library_fwd_ms=lib_f)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return record
+
+
+def long_step_flops(cfg, batch):
+    """Operations of one fwd+bwd long_window step, counted out: per token
+    and layer the Q and O projections (2 D^2 each), the narrower K/V
+    projections (2 D KD each, KD = kv_heads d_head), the up, gate and
+    down FFN products (2 D F each; the gate only for a gated FFN) and
+    attention at the band's mean visible keys per query (4 D of them: Q K^T
+    and P V); the tied head 2 D V; backward twice the forward."""
+    D, T, F = cfg.d_model, cfg.ctx_len, cfg.dff
+    KD = cfg.kv_heads * cfg.d_head
+    keys = attn_live_pairs(T, True, cfg.window) / T
+    per_layer = (4 * D * D + 4 * D * KD + (3 if cfg.gated_ffn else 2)
+                 * 2 * D * F + 4 * D * keys)
+    fwd = batch * T * (cfg.n_layers * per_layer + 2 * D * cfg.vocab_size)
+    return 3 * fwd
+
+
+def long_phase(smi):
+    """Phase 10: long-context training through the stream kernels. Returns
+    the flash launch counts of the long_window run, its config and batch
+    size."""
+    from linalg_tpu_torch.apps.gpt import build_parser
+    from linalg_tpu_torch.kernels import flash_attention as kfa
+    from linalg_tpu_torch.models.gpt import (GPTConfig, _pick_attn_cfg,
+                                             init_gpt_params)
+    from linalg_tpu_torch.nn import flash as nn_flash
+    from linalg_tpu_torch.nn.flash import flash_attention_ref
+    from linalg_tpu_torch.train.checkpoint import load_ckpt
+    from linalg_tpu_torch.train.optim import adamw_init, tree_leaves
+    from linalg_tpu_torch.train.trainer import make_device_train_step, train
+
+    counters = (kfa.flash_fwd_cuda, kfa.flash_dq_cuda, kfa.flash_dkdv_cuda)
+    dispatch = nn_flash.flash_fwd
+    seen = set()
+
+    def spy(q, k, v, causal=True, window=None):
+        """Records the head counts and window the attention Function hands
+        the forward dispatcher, which passes them on to the kernel."""
+        seen.add((q.shape[1], k.shape[1], window, q.is_cuda))
+        return dispatch(q, k, v, causal, window)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log = f"{tmp}/metrics.jsonl"
+        args = build_parser().parse_args(
+            ["--train", *LONG_WINDOW, "--ckpt_dir", f"{tmp}/ck",
+             "--log_file", log, "--device", "cuda"])
+        torch.cuda.reset_peak_memory_stats()
+        nn_flash.flash_fwd = spy
+        try:
+            for c in counters:
+                c.launches = 0
+            params, cfg, _, _ = train(args)
+            torch.cuda.synchronize()
+            launches = [c.launches for c in counters]
+        finally:
+            nn_flash.flash_fwd = dispatch
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rows = [json.loads(ln) for ln in open(log, encoding="utf-8")]
+        n_eval = sum(r["event"] == "eval" for r in rows)
+        want = [cfg.n_layers * (args.steps + n_eval * EVAL_BATCHES),
+                cfg.n_layers * args.steps, cfg.n_layers * args.steps]
+        phase("long", f"long_window: flash launches fwd/dq/dkdv {launches}, "
+              f"expected {want} ({cfg.n_layers} layers x ({args.steps} "
+              f"steps + {n_eval} evals x {EVAL_BATCHES} batches) forward, "
+              f"{cfg.n_layers} x {args.steps} backward); (H, hk, window, "
+              f"on the card) at the kernel: {sorted(seen)}")
+        if launches != want:
+            raise RuntimeError("long_window launch counts differ from the "
+                               "run")
+        if seen != {(cfg.n_heads, cfg.kv_heads, cfg.window, True)} or (
+                cfg.kv_heads != 2):
+            raise RuntimeError("long_window: the kernel did not get the "
+                               "grouped (hk 2) K/V and the window")
+        losses = [r.get("loss", r.get("val_loss")) for r in rows
+                  if r["event"] in ("train", "eval")]
+        phase("long", f"losses (train at steps 1, 20, 40; val at 20, 40): "
+              f"{losses}")
+        if not all(math.isfinite(x) for x in losses):
+            raise RuntimeError("a long_window loss is not finite")
+        t = {(r["event"], r["step"]): r["elapsed_s"] for r in rows
+             if "step" in r}
+        ms = (t[("train", 40)] - t[("eval", 20)]) / 20 * 1e3
+        tok_s = args.batch_size * cfg.ctx_len / (ms * 1e-3)
+        tflops = long_step_flops(cfg, args.batch_size) / (ms * 1e-3) / 1e12
+        phase("long", f"long_window steady state (steps 21-40): {ms:.2f} "
+              f"ms/step, {tok_s:.0f} tok/s, {tflops:.1f} TFLOP/s, mfu "
+              f"{tflops / H100_BF16_TFLOPS:.4f} of {H100_BF16_TFLOPS:.0f} "
+              f"TFLOP/s (long_step_flops: "
+              f"{long_step_flops(cfg, args.batch_size) / 1e12:.3f} TFLOP a "
+              f"step); peak memory {peak_gb:.2f} GB; {smi}")
+        back, cfg2, _, _ = load_ckpt(f"{tmp}/ck", device="cuda")
+        same = cfg2 == cfg and cfg2.window == 512 and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                              tree_leaves(params)))
+        phase("long", f"checkpoint reloaded equal to the trained params, "
+              f"window {cfg2.window}: {same}")
+        if not same:
+            raise RuntimeError("the long_window checkpoint does not reload "
+                               "equal")
+    del params, back
+    torch.cuda.empty_cache()
+
+    def plain(q, k, v, mask):  # the same band through the plain versions
+        return flash_attention_ref(q, k, v, True, cfg.window)
+
+    plain.gqa_native = True
+    one_step_check("long", cfg, args.batch_size, plain)
+
+    # T 8192 with no window: _pick_attn streams (K4) past 4096
+    c8 = GPTConfig(vocab_size=cfg.vocab_size, d_model=512, n_heads=4,
+                   n_layers=2, ctx_len=8192, dtype="bfloat16")
+    pick = _pick_attn_cfg(c8, c8.ctx_len, "cuda")
+    p = init_gpt_params(c8, seed=0, device="cuda")
+    step = make_device_train_step(c8, 1, base_lr=3e-4, min_lr=3e-5,
+                                  warmup=200, max_steps=10000,
+                                  weight_decay=0.01)
+    data = torch.tensor(np.random.default_rng(1).integers(
+        0, c8.vocab_size, 100_000), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    p, _, _, loss = step(p, adamw_init(p), data, gen)
+    loss = float(loss)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    n8 = [c.launches for c in counters]
+    phase("long", f"ctx 8192 (d512, 4 heads, 2 layers, batch 1, bf16): pick "
+          f"gqa_native={getattr(pick, 'gqa_native', False)}, launches "
+          f"fwd/dq/dkdv {n8}, loss {loss:.4f}, first step {first_ms:.1f} ms")
+    if n8 != [2, 2, 2] or not getattr(pick, "gqa_native", False) or (
+            not math.isfinite(loss)):
+        raise RuntimeError("the ctx-8192 step did not stream through the "
+                           "kernels")
+    launches = [a + b for a, b in zip(launches, n8)]
+    del p
+    torch.cuda.empty_cache()
+    return launches, cfg, args.batch_size
 
 
 def main() -> int:
@@ -664,8 +1048,11 @@ def main() -> int:
         phase("kernel", f"{name} B,H,hk,d,page,Pmax={shp}: max_abs_err "
               f"{err:.3e} (rtol {rtol}, atol {atol}); kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms")
+        bms, by = paged_bound(*args)
+        phase("kernel", f"  bound {bms:.4f} ms ({by}), {bms / ms:.1%} of it")
         if name == "serve bf16":  # the engine's shape and dtype
-            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by, library_ms=None)
 
     # -- 4. engine ------------------------------------------------------
     cfg = GPTConfig(dtype="bfloat16", **SERVE_CFG)
@@ -717,8 +1104,19 @@ def main() -> int:
     flash_record = flash_phase()
 
     # -- 8. train --------------------------------------------------------
-    flash_launches = train_phase(smi)
+    train_launches, big_cfg, big_batch = train_phase(smi)
 
+    # -- 9. stream -------------------------------------------------------
+    stream_record = stream_phase()
+
+    # -- 10. long ----------------------------------------------------------
+    long_launches, long_cfg, long_batch = long_phase(smi)
+
+    # the profiler breakdowns last: the profiler stays attached to the card
+    profile_step("train", big_cfg, big_batch)
+    profile_step("long", long_cfg, long_batch)
+
+    flash_launches = [a + b for a, b in zip(train_launches, long_launches)]
     print(json.dumps({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/paged_attention.cu",
@@ -731,9 +1129,13 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "linalg_tpu/nn/flash.py:169, "
-                    "linalg_tpu/nn/flash_long.py:190",
+                    "linalg_tpu/nn/flash_long.py:190, "
+                    "linalg_tpu/nn/flash_stream.py:327",
         "launches": sum(flash_launches),
-        "launches_fwd_dq_dkdv": flash_launches, **flash_record}]}),
+        "launches_fwd_dq_dkdv": flash_launches,
+        "launches_train_big_long_window": [sum(train_launches),
+                                           sum(long_launches)],
+        **flash_record, "stream": stream_record}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -13,7 +13,9 @@ eigen methods, projections, batched variants), whose Householder QR runs
 its panels through a CUDA kernel on the card; and char-GPT training
 (``train``: ``gpt_loss`` through the hand-derived backwards, AdamW, the
 trainer), whose causal attention runs through CUDA flash-attention
-kernels on the card (``nn.flash``, ``nn.flash_long``). The toolkit's
+kernels on the card (``nn.flash``, ``nn.flash_long``), and long-context
+training (RoPE, ALiBi, gated FFNs, a sliding window and grouped K/V read
+in place by the same kernels, ``nn.flash_stream``). The toolkit's
 public functions are re-exported here, as ``linalg_tpu`` does. See
 ROADMAP.md for what comes next.
 """

@@ -55,14 +55,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="lr for the output-head bias (weights are tied)")
     ap.add_argument("--pos", type=str, default="sinusoidal",
                     choices=("sinusoidal", "rope", "learned", "alibi"),
-                    help="positional encoding for a fresh model (rope and "
-                         "alibi are not ported yet)")
+                    help="positional encoding for a fresh model")
     ap.add_argument("--ffn", type=str, default="relu",
                     choices=("relu", "gelu", "swiglu", "geglu"),
-                    help="FFN nonlinearity for a fresh model (the gated "
-                         "variants are not ported yet)")
+                    help="FFN nonlinearity for a fresh model")
     ap.add_argument("--window", type=int, default=None,
-                    help="sliding-window attention (not ported yet)")
+                    help="sliding-window attention: each token sees the "
+                         "last N positions, itself included")
     ap.add_argument("--dtype", type=str, default="float32",
                     choices=("float32", "bfloat16"),
                     help="compute dtype for a fresh model (params stay f32)")

@@ -7,9 +7,13 @@
 //   linalg_tpu/nn/flash_long.py:33-119  flash_attention_long (K3):
 //                                       _fwd_kernel, _dq_kernel, _dkv_kernel,
 //                                       T in (1024, 8192]
-// Both compute the same math; the TPU splits it two ways only because the
-// (T, T) score tile, or the whole K/V, has to fit VMEM. Here one family of
-// three kernels serves both entry points:
+//   linalg_tpu/nn/flash_stream.py:114-265  flash_attention_stream (K4):
+//                                       _fwd_kernel, _bwd_dkdv_kernel,
+//                                       _bwd_dq_kernel, any T, a sliding-
+//                                       window band, grouped K/V heads
+// All three compute the same math; the TPU splits it three ways only
+// because the (T, T) score tile, or the whole K/V, has to fit VMEM. Here
+// one family of three kernels serves every entry point:
 //
 //   forward  O = softmax(scale * Q K^T + causal) V, and the row logsumexp
 //            L = m + log(l), f32, shape (B*H, T)
@@ -22,13 +26,37 @@
 // output row is owned by one block, so there are no atomics and the
 // gradients are deterministic.
 //
-// Contract: q, k, v, o, do, dq, dk, dv are contiguous, 16-byte aligned
-// (B*H, T, D) in one dtype (float or bf16); L and delta (B*H, T) float.
-// T % 64 == 0, D in {32, 64, 128}, equal head counts (no GQA: that is K4's
-// feature). Scores, the running max and normalizer, and every accumulator
-// are f32. The rules of the Pallas kernels carry over: masked scores take
-// -1e9; P is rounded to the io dtype before P V and before P^T dO; dS is
-// rounded to the io dtype before dS K and dS^T Q. The forward keeps an
+// The band (K4): query row i sees key j when (not causal or j <= i) and
+// (window == 0 or i - j < window); window 0 means no band, and causal 0
+// with a window bans only the keys behind it. A query tile walks only the
+// key tiles [kstart, kend) that hold a visible key, a key tile only the
+// query tiles [qstart, qend) that see it, so windowed attention costs
+// O(T * window); the element-wise fill applies to the tiles that cross the
+// diagonal or the band's lower edge. A tile can be wholly banned for some
+// of a block's rows (the first tile of a band that is not a multiple of
+// 64): those rows then take the fill as their running max, and the first
+// live tile rescales them by alpha = exp(-1e9 - m) = 0, so nothing of the
+// banned tile survives. Every row sees at least its own key, so a live
+// tile always comes.
+//
+// Grouped K/V (K4's GQA): q, o, dO, dq have B*H heads, k, v, dk, dv B*hk,
+// with group = H / hk query heads per KV head; blockIdx.y = b*H + h reads
+// K/V head blockIdx.y / group = b*hk + h / group, so the expanded K/V never
+// exists in memory. dk/dv run one block per (b, KV head, key tile): it
+// walks the group's query heads and their live query tiles, sums their
+// contributions in the f32 registers it already holds and writes the
+// grouped result once, rounded once -- no expanded dk/dv, no group sum
+// afterwards, no atomics. (K4 returns per-query-head dk/dv rounded to the
+// io dtype and sums them afterwards; the two differ by bf16 rounding.)
+//
+// Contract: q, o, do, dq are contiguous, 16-byte aligned (B*H, T, D), and
+// k, v, dk, dv (B*H / group, T, D), in one dtype (float or bf16); L and
+// delta (B*H, T) float. T % 64 == 0, D in {32, 64, 128}. Scores, the
+// running max and normalizer, and every accumulator are f32. The rules of
+// the Pallas kernels carry over: masked scores take -1e9 (K4 fills -1e30;
+// both give exactly 0 after exp); P is rounded to the io dtype before P V
+// and before P^T dO; dS is rounded to the io dtype before dS K and dS^T Q.
+// The forward keeps an
 // online softmax, so it rounds p~ = exp(s - m_running) where K2 rounds
 // p = e / denom; in bf16 the two differ within bf16's rounding, and in f32
 // not at all beyond the order of the sums.
@@ -40,9 +68,11 @@
 // never go to device memory (the plain version writes 0.8 GB of them per
 // call). Every design choice follows from that: each 64 x 64 score, P and
 // dS tile lives in registers and shared memory only; a block walks only
-// the key (or query) tiles at or below the diagonal -- causal future tiles
-// are skipped, not computed and masked; each 64-row Q/K/V/dO tile is
-// staged in shared memory once per block and reused for all its products.
+// the key (or query) tiles that hold a visible entry -- causal future
+// tiles and tiles behind the band are skipped, not computed and masked;
+// each 64-row Q/K/V/dO tile is staged in shared memory once per block and
+// reused for all its products. At K4's training shape (B 8, H 4, T 4096,
+// d 128, window 512) the band leaves ~1/7 of the causal tile pairs.
 //
 // Two paths, one contract:
 //   bf16  tensor cores: mma.sync m16n8k16 (bf16 operands, f32 accumulate),
@@ -168,13 +198,8 @@ __device__ __forceinline__ void load_cols(bf16* dst,
   }
 }
 
-// The causal fill of a diagonal tile on an mma accumulator entry: entry i
-// of tile n sits at row (row0 + g + 8 (i / 2)), column (8 n + 2 t + i % 2).
-__device__ __forceinline__ bool future(int row0, int g, int t, int n,
-                                       int i) {
-  return 8 * n + 2 * t + (i & 1) > row0 + g + 8 * (i >> 1);
-}
-
+// An mma accumulator entry i of tile n sits at row (g + 8 (i / 2)) of the
+// warp's 16 and column (8 n + 2 t + i % 2) of the tile's 64.
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -184,11 +209,42 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// ===================== the band (causal, window) =======================
+
+// query i may not see key j
+__device__ __forceinline__ bool banned(int i, int j, int causal,
+                                       int window) {
+  return (causal && j > i) || (window > 0 && i - j >= window);
+}
+// the key tiles [key_start, key_end) of query tile qb hold a visible key
+__device__ __forceinline__ int key_start(int qb, int window) {
+  return window > 0 ? max(0, qb * BM - (window - 1)) / BM : 0;
+}
+__device__ __forceinline__ int key_end(int qb, int nt, int causal) {
+  return causal ? qb + 1 : nt;
+}
+// the query tiles [query_start, query_end) of key tile kb see one of its
+// keys: the last one's first row still sees the tile's last key
+__device__ __forceinline__ int query_start(int kb, int causal) {
+  return causal ? kb : 0;
+}
+__device__ __forceinline__ int query_end(int kb, int nt, int window) {
+  return window > 0 ? min(nt, (kb * BM + BM + window - 2) / BM + 1) : nt;
+}
+// the tile pair holds a banned entry: it crosses the diagonal or the
+// band's lower edge, so it takes the element-wise fill
+__device__ __forceinline__ bool edge(int qb, int kb, int causal,
+                                     int window) {
+  return (causal && kb >= qb) ||
+         (window > 0 && kb * BM <= qb * BM + BM - 1 - window);
+}
+
 template <int D>
 __global__ void __launch_bounds__(MT)
     fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ o,
-             float* __restrict__ L, int Tlen, int causal, float scale) {
+             float* __restrict__ L, int Tlen, int causal, int window,
+             int group, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ks = Qs + BM * RS<D>;
@@ -196,6 +252,7 @@ __global__ void __launch_bounds__(MT)
   const int nt = Tlen / BM;
   const int qb = nt - 1 - blockIdx.x;  // the longest causal rows first
   const size_t base = (size_t)blockIdx.y * Tlen * D;
+  const size_t kvbase = (size_t)(blockIdx.y / group) * Tlen * D;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
 
@@ -207,11 +264,11 @@ __global__ void __launch_bounds__(MT)
     load_a(qa[kc], Qs, RS<D>, r0, kc * 16, g, t);
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float acc[D / 8][4] = {};
-  const int kend = causal ? qb + 1 : nt;
-  for (int kb = 0; kb < kend; ++kb) {
+  const int kend = key_end(qb, nt, causal);
+  for (int kb = key_start(qb, window); kb < kend; ++kb) {
     __syncthreads();  // the previous tile's K and V are consumed
-    load_rows<D>(Ks, k + base + (size_t)kb * BM * D);
-    load_cols<D>(Vt, v + base + (size_t)kb * BM * D);
+    load_rows<D>(Ks, k + kvbase + (size_t)kb * BM * D);
+    load_cols<D>(Vt, v + kvbase + (size_t)kb * BM * D);
     __syncthreads();
     float s[BM / 8][4] = {};
 #pragma unroll
@@ -222,14 +279,17 @@ __global__ void __launch_bounds__(MT)
         load_b(b, Ks, RS<D>, n * 8, kc * 16, g, t);
         mma(s[n], qa[kc], b);
       }
-    const bool diag = causal && kb == qb;
+    const bool masked = edge(qb, kb, causal, window);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int n = 0; n < BM / 8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float x = s[n][i] * scale;
-        if (diag && future(r0, g, t, n, i)) x = NEG;
+        if (masked && banned(qb * BM + r0 + g + 8 * (i >> 1),
+                             kb * BM + 8 * n + 2 * t + (i & 1), causal,
+                             window))
+          x = NEG;
         s[n][i] = x;
         mx[i >> 1] = fmaxf(mx[i >> 1], x);
       }
@@ -237,7 +297,9 @@ __global__ void __launch_bounds__(MT)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float mn = fmaxf(m[h], quad_max(mx[h]));
-      alpha[h] = expf(m[h] - mn);  // 0 on the first tile
+      // 0 on the first tile, and on the first live tile after a tile
+      // wholly banned for this row
+      alpha[h] = expf(m[h] - mn);
       m[h] = mn;
     }
 #pragma unroll
@@ -283,7 +345,8 @@ __global__ void __launch_bounds__(MT)
     dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, const bf16* __restrict__ dO,
             const float* __restrict__ L, const float* __restrict__ delta,
-            bf16* __restrict__ dq, int Tlen, int causal, float scale) {
+            bf16* __restrict__ dq, int Tlen, int causal, int window,
+            int group, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* dOs = Qs + BM * RS<D>;
@@ -293,6 +356,7 @@ __global__ void __launch_bounds__(MT)
   const int nt = Tlen / BM;
   const int qb = nt - 1 - blockIdx.x;
   const size_t base = (size_t)blockIdx.y * Tlen * D;
+  const size_t kvbase = (size_t)(blockIdx.y / group) * Tlen * D;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16;
 
@@ -306,12 +370,12 @@ __global__ void __launch_bounds__(MT)
     dr[h] = delta[r];
   }
   float acc[D / 8][4] = {};
-  const int kend = causal ? qb + 1 : nt;
-  for (int kb = 0; kb < kend; ++kb) {
+  const int kend = key_end(qb, nt, causal);
+  for (int kb = key_start(qb, window); kb < kend; ++kb) {
     __syncthreads();
-    load_rows<D>(Ks, k + base + (size_t)kb * BM * D);
-    load_rows<D>(Vs, v + base + (size_t)kb * BM * D);
-    load_cols<D>(Kt, k + base + (size_t)kb * BM * D);
+    load_rows<D>(Ks, k + kvbase + (size_t)kb * BM * D);
+    load_rows<D>(Vs, v + kvbase + (size_t)kb * BM * D);
+    load_cols<D>(Kt, k + kvbase + (size_t)kb * BM * D);
     __syncthreads();
     float s[BM / 8][4] = {}, dp[BM / 8][4] = {};
 #pragma unroll
@@ -328,13 +392,16 @@ __global__ void __launch_bounds__(MT)
         mma(dp[n], c, b);
       }
     }
-    const bool diag = causal && kb == qb;
+    const bool masked = edge(qb, kb, causal, window);
 #pragma unroll
     for (int n = 0; n < BM / 8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float x = s[n][i] * scale;
-        if (diag && future(r0, g, t, n, i)) x = NEG;
+        if (masked && banned(qb * BM + r0 + g + 8 * (i >> 1),
+                             kb * BM + 8 * n + 2 * t + (i & 1), causal,
+                             window))
+          x = NEG;
         const float p = expf(x - Lr[i >> 1]);
         s[n][i] = (dp[n][i] - dr[i >> 1]) * p;  // dS
       }
@@ -361,15 +428,16 @@ __global__ void __launch_bounds__(MT)
   }
 }
 
-// One block per key tile kb; warp rows are keys, accumulator columns
-// queries (the transposed scores S^T = K Q^T).
+// One block per (KV head, key tile kb), blockIdx.y = b*hk + kv head; it
+// walks the group's query heads and their live query tiles. Warp rows are
+// keys, accumulator columns queries (the transposed scores S^T = K Q^T).
 template <int D>
 __global__ void __launch_bounds__(MT)
     dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ dO,
               const float* __restrict__ L, const float* __restrict__ delta,
               bf16* __restrict__ dk, bf16* __restrict__ dv, int Tlen,
-              int causal, float scale) {
+              int causal, int window, int group, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vs = Ks + BM * RS<D>;
@@ -381,22 +449,26 @@ __global__ void __launch_bounds__(MT)
   float* Ds = Ls + BM;
   const int nt = Tlen / BM;
   const int kb = blockIdx.x;  // low key tiles see the most query tiles
-  const size_t base = (size_t)blockIdx.y * Tlen * D;
+  const size_t kvbase = (size_t)blockIdx.y * Tlen * D;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16;
 
-  load_rows<D>(Ks, k + base + (size_t)kb * BM * D);
-  load_rows<D>(Vs, v + base + (size_t)kb * BM * D);
+  load_rows<D>(Ks, k + kvbase + (size_t)kb * BM * D);
+  load_rows<D>(Vs, v + kvbase + (size_t)kb * BM * D);
   float accv[D / 8][4] = {}, acck[D / 8][4] = {};
-  for (int qb = causal ? kb : 0; qb < nt; ++qb) {
+  const int qstart = query_start(kb, causal);
+  const int nq = query_end(kb, nt, window) - qstart;
+  for (int it = 0; it < group * nq; ++it) {
+    const int qh = blockIdx.y * group + it / nq;  // query head b*H + h
+    const int qb = qstart + it % nq;
     __syncthreads();
-    const size_t rows = base + (size_t)qb * BM * D;
+    const size_t rows = ((size_t)qh * Tlen + (size_t)qb * BM) * D;
     load_rows<D>(Qs, q + rows);
     load_rows<D>(dOs, dO + rows);
     load_cols<D>(Qt, q + rows);
     load_cols<D>(dOt, dO + rows);
     if (threadIdx.x < BM) {
-      const size_t r = (size_t)blockIdx.y * Tlen + qb * BM + threadIdx.x;
+      const size_t r = (size_t)qh * Tlen + qb * BM + threadIdx.x;
       Ls[threadIdx.x] = L[r];
       Ds[threadIdx.x] = delta[r];
     }
@@ -416,15 +488,17 @@ __global__ void __launch_bounds__(MT)
         mma(dpt[n], c, b);
       }
     }
-    const bool diag = causal && qb == kb;
+    const bool masked = edge(qb, kb, causal, window);
 #pragma unroll
     for (int n = 0; n < BM / 8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int col = 8 * n + 2 * t + (i & 1);  // query in the tile
         float x = st[n][i] * scale;
-        // key after query: the query row is the column here
-        if (diag && r0 + g + 8 * (i >> 1) > col) x = NEG;
+        // the query row is the column here, the key the row
+        if (masked && banned(qb * BM + col, kb * BM + r0 + g + 8 * (i >> 1),
+                             causal, window))
+          x = NEG;
         const float p = expf(x - Ls[col]);
         st[n][i] = p;
         dpt[n][i] = (dpt[n][i] - Ds[col]) * p;  // dS^T
@@ -449,7 +523,7 @@ __global__ void __launch_bounds__(MT)
     const size_t r = (size_t)kb * BM + r0 + g + 8 * h;
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn) {
-      const size_t at = base + r * D + dn * 8 + 2 * t;
+      const size_t at = kvbase + r * D + dn * 8 + 2 * t;
       *reinterpret_cast<uint32_t*>(dv + at) =
           pack(accv[dn][2 * h], accv[dn][2 * h + 1]);
       *reinterpret_cast<uint32_t*>(dk + at) =
@@ -531,7 +605,8 @@ template <int D>
 __global__ void __launch_bounds__(NT)
     fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, float* __restrict__ o,
-            float* __restrict__ L, int Tlen, int causal, float scale) {
+            float* __restrict__ L, int Tlen, int causal, int window,
+            int group, float scale) {
   extern __shared__ float smem[];
   constexpr int S = D + 1;
   float* Qs = smem;
@@ -541,6 +616,7 @@ __global__ void __launch_bounds__(NT)
   const int nt = Tlen / BM;
   const int qb = nt - 1 - blockIdx.x;
   const size_t base = (size_t)blockIdx.y * Tlen * D;
+  const size_t kvbase = (size_t)(blockIdx.y / group) * Tlen * D;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
   load_tile<D>(Qs, q + base + (size_t)qb * BM * D);
@@ -552,26 +628,30 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
   }
-  const int kend = causal ? qb + 1 : nt;
-  for (int kb = 0; kb < kend; ++kb) {
+  const int kend = key_end(qb, nt, causal);
+  for (int kb = key_start(qb, window); kb < kend; ++kb) {
     __syncthreads();  // the previous tile's K, V and P are consumed
-    load_tile<D>(Ks, k + base + (size_t)kb * BM * D);
-    load_tile<D>(Vs, v + base + (size_t)kb * BM * D);
+    load_tile<D>(Ks, k + kvbase + (size_t)kb * BM * D);
+    load_tile<D>(Vs, v + kvbase + (size_t)kb * BM * D);
     __syncthreads();
     float s[4][4] = {};
     tile_dot<D>(s, Qs, Ks, ty, tx);
-    const bool diag = causal && kb == qb;
+    const bool masked = edge(qb, kb, causal, window);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         s[i][j] *= scale;
-        if (diag && tx + 16 * j > ty + 16 * i) s[i][j] = NEG;
+        if (masked && banned(qb * BM + ty + 16 * i, kb * BM + tx + 16 * j,
+                             causal, window))
+          s[i][j] = NEG;
         mx = fmaxf(mx, s[i][j]);
       }
       const float mn = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - mn);  // 0 on the first tile
+      // 0 on the first tile, and on the first live tile after a tile
+      // wholly banned for this row
+      const float alpha = expf(m[i] - mn);
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -603,7 +683,8 @@ __global__ void __launch_bounds__(NT)
     dq_f32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ dO,
            const float* __restrict__ L, const float* __restrict__ delta,
-           float* __restrict__ dq, int Tlen, int causal, float scale) {
+           float* __restrict__ dq, int Tlen, int causal, int window,
+           int group, float scale) {
   extern __shared__ float smem[];
   constexpr int S = D + 1;
   float* Qs = smem;
@@ -614,6 +695,7 @@ __global__ void __launch_bounds__(NT)
   const int nt = Tlen / BM;
   const int qb = nt - 1 - blockIdx.x;
   const size_t base = (size_t)blockIdx.y * Tlen * D;
+  const size_t kvbase = (size_t)(blockIdx.y / group) * Tlen * D;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
   load_tile<D>(Qs, q + base + (size_t)qb * BM * D);
@@ -627,22 +709,24 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
   }
-  const int kend = causal ? qb + 1 : nt;
-  for (int kb = 0; kb < kend; ++kb) {
+  const int kend = key_end(qb, nt, causal);
+  for (int kb = key_start(qb, window); kb < kend; ++kb) {
     __syncthreads();
-    load_tile<D>(Ks, k + base + (size_t)kb * BM * D);
-    load_tile<D>(Vs, v + base + (size_t)kb * BM * D);
+    load_tile<D>(Ks, k + kvbase + (size_t)kb * BM * D);
+    load_tile<D>(Vs, v + kvbase + (size_t)kb * BM * D);
     __syncthreads();
     float s[4][4] = {}, dp[4][4] = {};
     tile_dot<D>(s, Qs, Ks, ty, tx);
     tile_dot<D>(dp, dOs, Vs, ty, tx);
-    const bool diag = causal && kb == qb;
+    const bool masked = edge(qb, kb, causal, window);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float sv = s[i][j] * scale;
-        if (diag && tx + 16 * j > ty + 16 * i) sv = NEG;
+        if (masked && banned(qb * BM + ty + 16 * i, kb * BM + tx + 16 * j,
+                             causal, window))
+          sv = NEG;
         const float p = expf(sv - Lr[i]);
         dSs[(ty + 16 * i) * PS + tx + 16 * j] = (dp[i][j] - dr[i]) * p;
       }
@@ -658,7 +742,8 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// One block per key tile kb. Thread (ty, tx) owns the transposed score
+// One block per (KV head, key tile kb), walking the group's query heads
+// and their live query tiles. Thread (ty, tx) owns the transposed score
 // entries (key ty + 16 i, query tx + 16 j) and the dk/dv entries
 // (key ty + 16 i, column tx + 16 c).
 template <int D>
@@ -667,7 +752,7 @@ __global__ void __launch_bounds__(NT)
              const float* __restrict__ v, const float* __restrict__ dO,
              const float* __restrict__ L, const float* __restrict__ delta,
              float* __restrict__ dk, float* __restrict__ dv, int Tlen,
-             int causal, float scale) {
+             int causal, int window, int group, float scale) {
   extern __shared__ float smem[];
   constexpr int S = D + 1;
   float* Ks = smem;
@@ -678,24 +763,29 @@ __global__ void __launch_bounds__(NT)
   float* dSt = Pt + BM * PS;
   const int nt = Tlen / BM;
   const int kb = blockIdx.x;
-  const size_t base = (size_t)blockIdx.y * Tlen * D;
+  const size_t kvbase = (size_t)blockIdx.y * Tlen * D;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  load_tile<D>(Ks, k + base + (size_t)kb * BM * D);
-  load_tile<D>(Vs, v + base + (size_t)kb * BM * D);
+  load_tile<D>(Ks, k + kvbase + (size_t)kb * BM * D);
+  load_tile<D>(Vs, v + kvbase + (size_t)kb * BM * D);
   float accv[4][D / 16], acck[4][D / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) accv[i][c] = acck[i][c] = 0.f;
-  for (int qb = causal ? kb : 0; qb < nt; ++qb) {
+  const int qstart = query_start(kb, causal);
+  const int nq = query_end(kb, nt, window) - qstart;
+  for (int it = 0; it < group * nq; ++it) {
+    const int qh = blockIdx.y * group + it / nq;  // query head b*H + h
+    const int qb = qstart + it % nq;
     __syncthreads();
-    load_tile<D>(Qs, q + base + (size_t)qb * BM * D);
-    load_tile<D>(dOs, dO + base + (size_t)qb * BM * D);
+    const size_t rows = ((size_t)qh * Tlen + (size_t)qb * BM) * D;
+    load_tile<D>(Qs, q + rows);
+    load_tile<D>(dOs, dO + rows);
     float Lq[4], dq_[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const size_t r = (size_t)blockIdx.y * Tlen + qb * BM + tx + 16 * j;
+      const size_t r = (size_t)qh * Tlen + qb * BM + tx + 16 * j;
       Lq[j] = L[r];
       dq_[j] = delta[r];
     }
@@ -703,13 +793,15 @@ __global__ void __launch_bounds__(NT)
     float st[4][4] = {}, dpt[4][4] = {};
     tile_dot<D>(st, Ks, Qs, ty, tx);
     tile_dot<D>(dpt, Vs, dOs, ty, tx);
-    const bool diag = causal && qb == kb;
+    const bool masked = edge(qb, kb, causal, window);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float sv = st[i][j] * scale;
-        if (diag && ty + 16 * i > tx + 16 * j) sv = NEG;  // key after query
+        if (masked && banned(qb * BM + tx + 16 * j, kb * BM + ty + 16 * i,
+                             causal, window))
+          sv = NEG;
         const float p = expf(sv - Lq[j]);
         Pt[(ty + 16 * i) * PS + tx + 16 * j] = p;
         dSt[(ty + 16 * i) * PS + tx + 16 * j] = (dpt[i][j] - dq_[j]) * p;
@@ -723,8 +815,8 @@ __global__ void __launch_bounds__(NT)
     const size_t r = (size_t)kb * BM + ty + 16 * i;
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) {
-      dv[base + r * D + tx + 16 * c] = accv[i][c];
-      dk[base + r * D + tx + 16 * c] = scale * acck[i][c];
+      dv[kvbase + r * D + tx + 16 * c] = accv[i][c];
+      dk[kvbase + r * D + tx + 16 * c] = scale * acck[i][c];
     }
   }
 }
@@ -736,23 +828,23 @@ struct Args {
   const float *L, *delta;
   void *out0, *out1;
   float* L_out;
-  int BH, T, causal;
+  int BH, T, causal, window, group;  // BH counts query heads
   float scale;
   cudaStream_t stream;
 };
 
 // Raise the kernel's dynamic shared-memory cap to `smem` where it is over
 // the 48 KB default (a launch over the cap is refused and never runs),
-// launch it on the (T / 64, B*H) grid, and return the launch's error.
+// launch it on the (T / 64, rows) grid, and return the launch's error.
 template <typename... P, typename... A>
-int launch(void (*kern)(P...), int threads, size_t smem, const Args& a,
-           A... args) {
+int launch(void (*kern)(P...), int threads, size_t smem, int rows,
+           const Args& a, A... args) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kern<<<dim3(a.T / BM, a.BH), threads, smem, a.stream>>>(args...);
+  kern<<<dim3(a.T / BM, rows), threads, smem, a.stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -765,24 +857,25 @@ constexpr size_t f32_smem(int D, int tiles, int scores) {
   return ((size_t)tiles * BM * (D + 1) + (size_t)scores * BM * PS) * 4;
 }
 
-// which: 0 forward, 1 dq, 2 dk/dv
+// which: 0 forward, 1 dq (grid rows: query heads), 2 dk/dv (KV heads)
 template <int D>
 int run_bf16(int which, const Args& a) {
   auto in = [](const void* p) { return static_cast<const bf16*>(p); };
   auto out = [](void* p) { return static_cast<bf16*>(p); };
   switch (which) {
     case 0:
-      return launch(fwd_bf16<D>, MT, bf16_smem(D, 2, 1, 0), a, in(a.q),
-                    in(a.k), in(a.v), out(a.out0), a.L_out, a.T, a.causal,
-                    a.scale);
+      return launch(fwd_bf16<D>, MT, bf16_smem(D, 2, 1, 0), a.BH, a,
+                    in(a.q), in(a.k), in(a.v), out(a.out0), a.L_out, a.T,
+                    a.causal, a.window, a.group, a.scale);
     case 1:
-      return launch(dq_bf16<D>, MT, bf16_smem(D, 4, 1, 0), a, in(a.q),
-                    in(a.k), in(a.v), in(a.dO), a.L, a.delta, out(a.out0),
-                    a.T, a.causal, a.scale);
-    case 2:
-      return launch(dkdv_bf16<D>, MT, bf16_smem(D, 4, 2, 2 * BM), a,
+      return launch(dq_bf16<D>, MT, bf16_smem(D, 4, 1, 0), a.BH, a,
                     in(a.q), in(a.k), in(a.v), in(a.dO), a.L, a.delta,
-                    out(a.out0), out(a.out1), a.T, a.causal, a.scale);
+                    out(a.out0), a.T, a.causal, a.window, a.group, a.scale);
+    case 2:
+      return launch(dkdv_bf16<D>, MT, bf16_smem(D, 4, 2, 2 * BM),
+                    a.BH / a.group, a, in(a.q), in(a.k), in(a.v), in(a.dO),
+                    a.L, a.delta, out(a.out0), out(a.out1), a.T, a.causal,
+                    a.window, a.group, a.scale);
     default:
       return -1;
   }
@@ -794,16 +887,18 @@ int run_f32(int which, const Args& a) {
   auto out = [](void* p) { return static_cast<float*>(p); };
   switch (which) {
     case 0:
-      return launch(fwd_f32<D>, NT, f32_smem(D, 3, 1), a, in(a.q), in(a.k),
-                    in(a.v), out(a.out0), a.L_out, a.T, a.causal, a.scale);
+      return launch(fwd_f32<D>, NT, f32_smem(D, 3, 1), a.BH, a, in(a.q),
+                    in(a.k), in(a.v), out(a.out0), a.L_out, a.T, a.causal,
+                    a.window, a.group, a.scale);
     case 1:
-      return launch(dq_f32<D>, NT, f32_smem(D, 4, 1), a, in(a.q), in(a.k),
-                    in(a.v), in(a.dO), a.L, a.delta, out(a.out0), a.T,
-                    a.causal, a.scale);
+      return launch(dq_f32<D>, NT, f32_smem(D, 4, 1), a.BH, a, in(a.q),
+                    in(a.k), in(a.v), in(a.dO), a.L, a.delta, out(a.out0),
+                    a.T, a.causal, a.window, a.group, a.scale);
     case 2:
-      return launch(dkdv_f32<D>, NT, f32_smem(D, 4, 2), a, in(a.q), in(a.k),
-                    in(a.v), in(a.dO), a.L, a.delta, out(a.out0),
-                    out(a.out1), a.T, a.causal, a.scale);
+      return launch(dkdv_f32<D>, NT, f32_smem(D, 4, 2), a.BH / a.group, a,
+                    in(a.q), in(a.k), in(a.v), in(a.dO), a.L, a.delta,
+                    out(a.out0), out(a.out1), a.T, a.causal, a.window,
+                    a.group, a.scale);
     default:
       return -1;
   }
@@ -817,7 +912,9 @@ int run(int dtype, int which, const Args& a) {
 }
 
 int dispatch(int dtype, int d, int which, const Args& a) {
-  if (a.T <= 0 || a.T % BM || a.BH <= 0 || a.BH > 65535) return -1;
+  if (a.T <= 0 || a.T % BM || a.BH <= 0 || a.BH > 65535 || a.window < 0 ||
+      a.group < 1 || a.BH % a.group)
+    return -1;
   switch (d) {
     case 32: return run<32>(dtype, which, a);
     case 64: return run<64>(dtype, which, a);
@@ -828,16 +925,19 @@ int dispatch(int dtype, int d, int which, const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each returns 0 on success, -1 for an
-// unsupported dtype, d or shape, else the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16. BH counts query heads (B*H); k and v
+// hold BH / group heads. window 0 means no band. Each returns 0 on
+// success, -1 for an unsupported dtype, d or shape, else the cudaError_t
+// of the launch.
 
 // o = attention(q, k, v); L = its row logsumexp (f32, (BH, T)).
 extern "C" int flash_fwd_launch(int dtype, int d, const void* q,
                                 const void* k, const void* v, void* o,
                                 void* L, int BH, int T, int causal,
-                                float scale, void* stream) {
+                                int window, int group, float scale,
+                                void* stream) {
   Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr,
-         static_cast<float*>(L), BH, T, causal, scale,
+         static_cast<float*>(L), BH, T, causal, window, group, scale,
          static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, d, 0, a);
 }
@@ -846,21 +946,24 @@ extern "C" int flash_fwd_launch(int dtype, int d, const void* q,
 extern "C" int flash_dq_launch(int dtype, int d, const void* q, const void* k,
                                const void* v, const void* dO, const void* L,
                                const void* delta, void* dq, int BH, int T,
-                               int causal, float scale, void* stream) {
+                               int causal, int window, int group, float scale,
+                               void* stream) {
   Args a{q, k, v, dO, static_cast<const float*>(L),
          static_cast<const float*>(delta), dq, nullptr, nullptr, BH, T,
-         causal, scale, static_cast<cudaStream_t>(stream)};
+         causal, window, group, scale, static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, d, 1, a);
 }
 
-// dk and dv from the same inputs.
+// dk and dv (BH / group heads, each summed over its group) from the same
+// inputs.
 extern "C" int flash_dkdv_launch(int dtype, int d, const void* q,
                                  const void* k, const void* v, const void* dO,
                                  const void* L, const void* delta, void* dk,
                                  void* dv, int BH, int T, int causal,
-                                 float scale, void* stream) {
+                                 int window, int group, float scale,
+                                 void* stream) {
   Args a{q, k, v, dO, static_cast<const float*>(L),
          static_cast<const float*>(delta), dk, dv, nullptr, BH, T, causal,
-         scale, static_cast<cudaStream_t>(stream)};
+         window, group, scale, static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, d, 2, a);
 }

@@ -8,6 +8,11 @@ none substitutes another implementation. The plain PyTorch versions are
 dispatchers ``nn.flash.flash_fwd`` / ``flash_bwd`` pick between the two by
 the device the tensors lie on.
 
+``window`` (a sliding-window band, None for none) and ``group`` (query
+heads per K/V head) are K4's: with ``group`` g > 1, k and v are
+(B, H / g, T, d) and dk, dv come back at that grouped size. Without it,
+K/V must have q's heads.
+
 Each wrapper's ``launches`` attribute counts its launches, so a run can
 show that its attention went through the kernels.
 """
@@ -35,7 +40,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def _lib():
     lib = ctypes.CDLL(str(build("flash_attention")))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tail = [i32, i32, i32, f32, ptr]  # BH, T, causal, scale, stream
+    # BH, T, causal, window, group, scale, stream
+    tail = [i32, i32, i32, i32, i32, f32, ptr]
     lib.flash_fwd_launch.argtypes = [i32, i32] + [ptr] * 5 + tail
     lib.flash_dq_launch.argtypes = [i32, i32] + [ptr] * 7 + tail
     lib.flash_dkdv_launch.argtypes = [i32, i32] + [ptr] * 8 + tail
@@ -45,9 +51,10 @@ def _lib():
     return lib
 
 
-def _check(name, heads, rows=()):
-    """Validate (B, H, T, d) tensors ``heads`` and f32 (B, H, T) ``rows``;
-    return (B*H, T, d)."""
+def _check(name, heads, rows=(), group=1):
+    """Validate the tensors ``heads`` = (q, k, v[, dO]), q and dO
+    (B, H, T, d), k and v (B, H / group, T, d), and the f32 (B, H, T)
+    ``rows``; return (B*H, T, d)."""
     q = heads[0]
     if q.dim() != 4:
         raise ValueError(f"{name}: q must be (B, H, T, d), got "
@@ -60,9 +67,17 @@ def _check(name, heads, rows=()):
                          "bfloat16)")
     if any(t.dtype != q.dtype for t in heads):
         raise ValueError(f"{name}: q, k, v (and o, dO) must share one dtype")
-    if any(t.shape != q.shape for t in heads):
-        raise ValueError(f"{name}: q, k, v (and o, dO) must share one shape "
-                         "(B, H, T, d); grouped K/V heads are not taken")
+    if group < 1 or H % group:
+        raise ValueError(f"{name}: group {group} must divide the {H} query "
+                         "heads")
+    kv_shape = (B, H // group, T, d)
+    if any(t.shape != q.shape for t in heads[3:]) or any(
+            t.shape != kv_shape for t in heads[1:3]):
+        raise ValueError(
+            f"{name}: q (and dO) must be (B, H, T, d) and k, v "
+            f"(B, H / group, T, d) = {kv_shape}, got "
+            f"{[tuple(t.shape) for t in heads]}; grouped K/V heads are "
+            "taken only with group = H / hk")
     if any(t.dtype != torch.float32 or t.shape != (B, H, T) for t in rows):
         raise ValueError(f"{name}: L and delta must be float32 (B, H, T)")
     if d not in SUPPORTED_D:
@@ -80,50 +95,58 @@ def _check(name, heads, rows=()):
     return B * H, T, d
 
 
-def _call(name, fn, dtype, d, ptrs, BH, T, causal, device):
+def _call(name, fn, dtype, d, ptrs, BH, T, causal, window, group, device):
+    if window is not None and window < 1:
+        raise ValueError(f"{name}: window must be >= 1 or None, got "
+                         f"{window}")
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         rc = fn(_DTYPE_CODE[dtype], d, *ptrs, BH, T, int(bool(causal)),
-                1.0 / math.sqrt(d), stream)
+                window or 0, group, 1.0 / math.sqrt(d), stream)
     if rc:
         raise RuntimeError(f"{name} launch failed (code {rc})")
 
 
-def flash_fwd_cuda(q, k, v, causal: bool = True):
-    """Attention forward: q, k, v (B, H, T, d) -> (o (B, H, T, d) in q's
-    dtype, L (B, H, T) float32 row logsumexp)."""
-    BH, T, d = _check("flash_fwd_cuda", (q, k, v))
+def flash_fwd_cuda(q, k, v, causal: bool = True, window=None,
+                   group: int = 1):
+    """Attention forward: q (B, H, T, d), k, v (B, H / group, T, d) ->
+    (o (B, H, T, d) in q's dtype, L (B, H, T) float32 row logsumexp)."""
+    BH, T, d = _check("flash_fwd_cuda", (q, k, v), group=group)
     o = torch.empty_like(q)
     L = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _call("flash_fwd", _lib().flash_fwd_launch, q.dtype, d,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-           L.data_ptr()), BH, T, causal, q.device)
+           L.data_ptr()), BH, T, causal, window, group, q.device)
     flash_fwd_cuda.launches += 1
     return o, L
 
 
-def flash_dq_cuda(q, k, v, do, L, delta, causal: bool = True):
+def flash_dq_cuda(q, k, v, do, L, delta, causal: bool = True, window=None,
+                  group: int = 1):
     """dq of attention from the forward's L and delta = rowsum(dO * O)
     (both float32 (B, H, T))."""
-    BH, T, d = _check("flash_dq_cuda", (q, k, v, do), (L, delta))
+    BH, T, d = _check("flash_dq_cuda", (q, k, v, do), (L, delta), group)
     dq = torch.empty_like(q)
     _call("flash_dq", _lib().flash_dq_launch, q.dtype, d,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            L.data_ptr(), delta.data_ptr(), dq.data_ptr()), BH, T, causal,
-          q.device)
+          window, group, q.device)
     flash_dq_cuda.launches += 1
     return dq
 
 
-def flash_dkdv_cuda(q, k, v, do, L, delta, causal: bool = True):
-    """(dk, dv) of attention from the same inputs as ``flash_dq_cuda``."""
-    BH, T, d = _check("flash_dkdv_cuda", (q, k, v, do), (L, delta))
+def flash_dkdv_cuda(q, k, v, do, L, delta, causal: bool = True, window=None,
+                    group: int = 1):
+    """(dk, dv) of attention from the same inputs as ``flash_dq_cuda``, at
+    k's grouped size: each K/V head's gradient summed over its group in
+    float32 and rounded once."""
+    BH, T, d = _check("flash_dkdv_cuda", (q, k, v, do), (L, delta), group)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _call("flash_dkdv", _lib().flash_dkdv_launch, q.dtype, d,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            L.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-          BH, T, causal, q.device)
+          BH, T, causal, window, group, q.device)
     flash_dkdv_cuda.launches += 1
     return dk, dv
 

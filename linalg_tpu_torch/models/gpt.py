@@ -1,8 +1,9 @@
 """Decoder-only char-GPT in PyTorch — the counterpart of
 ``linalg_tpu/models/gpt.py`` for the serving and training slices.
 
-Same model: pre-LN decoder blocks (masked self-attention + ReLU/GELU FFN,
-residuals), sinusoidal or learned positions added at the embedding, a
+Same model: pre-LN decoder blocks (masked self-attention + ReLU/GELU or
+gated SwiGLU/GeGLU FFN, residuals), sinusoidal or learned positions added
+at the embedding or RoPE/ALiBi inside attention, a sliding-window band, a
 weight-tied output head, grouped-query attention. Same parameters: a dict
 with the keys and the stacked ``(L, ...)`` layer layout of
 ``linalg_tpu.models.gpt.init_gpt_params``, drawn in the same numpy order,
@@ -33,23 +34,17 @@ from ..kernels.flash_attention import SUPPORTED_D as FLASH_D
 from ..nn.cache import fkv_write
 from ..nn.flash import FLASH_MAX_T, flash_attention
 from ..nn.flash_long import flash_attention_long
-from ..nn.functional import (causal_mask, gelu, layer_norm, relu, sdpa,
-                             sinusoidal_encoding)
+from ..nn.flash_stream import STREAM_BLOCK, flash_attention_stream
+from ..nn.functional import (causal_mask, geglu, gelu, layer_norm, relu,
+                             rope_rotate, rope_tables, sdpa,
+                             sinusoidal_encoding, swiglu)
+from ..nn.positional import alibi_slopes
 
 __all__ = ["GPTConfig", "init_gpt_params", "params_from_numpy", "gpt_apply",
            "gpt_loss", "gpt_prefill", "gpt_decode_chunk", "filter_logits",
            "sample_token", "CE_CHUNK_THRESHOLD"]
 
 Params = Dict[str, Any]
-
-# Configurations GPTConfig accepts but this port cannot run yet, with the
-# ROADMAP.md item that brings each.
-_NOT_PORTED = {
-    ("pos", "rope"): "queue 1, item 4 (long-context attention: rope)",
-    ("pos", "alibi"): "queue 1, item 4 (long-context attention: alibi)",
-    ("ffn", "swiglu"): "queue 1, item 4 (gated FFNs)",
-    ("ffn", "geglu"): "queue 1, item 4 (gated FFNs)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,16 +82,6 @@ class GPTConfig:
         if self.ffn not in ("relu", "gelu", "swiglu", "geglu"):
             raise ValueError(f"Unknown ffn: {self.ffn!r} (expected relu, "
                              "gelu, swiglu or geglu)")
-        for field in ("pos", "ffn"):
-            item = _NOT_PORTED.get((field, getattr(self, field)))
-            if item:
-                raise NotImplementedError(
-                    f"{field}={getattr(self, field)!r} is not ported yet "
-                    f"(ROADMAP.md {item})")
-        if self.window is not None:
-            raise NotImplementedError(
-                "window is not ported yet (ROADMAP.md queue 1, item 4: "
-                "long-context attention)")
 
     @property
     def dff(self) -> int:
@@ -109,6 +94,11 @@ class GPTConfig:
     @property
     def kv_heads(self) -> int:
         return self.n_kv_heads if self.n_kv_heads is not None else self.n_heads
+
+    @property
+    def gated_ffn(self) -> bool:
+        """True for the two-branch FFNs (an extra Wg/bg per layer)."""
+        return self.ffn in ("swiglu", "geglu")
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -144,6 +134,9 @@ def init_gpt_params(cfg: GPTConfig, seed: int = 123,
         "W2": he(Fd, (L, Fd, D)),
         "b2": t(np.zeros((L, D))),
     }
+    if cfg.gated_ffn:  # the gate branch, drawn before tok_W as in JAX
+        layers["Wg"] = he(D, (L, D, Fd))
+        layers["bg"] = t(np.zeros((L, Fd)))
     out = {
         "tok_W": t(rng.normal(0.0, 0.02, size=(V, D))),
         "head_b": t(np.zeros((V,))),
@@ -203,42 +196,78 @@ def _gqa_decode_attn(q, k, v, mask):
 
 
 def _ffn_dense(lp, x, ffn: str = "relu"):
-    """Position-wise 2-matmul MLP with the configured activation."""
+    """Position-wise FFN: the 2-matmul MLP with relu/gelu, or the gated
+    ``f(x @ W1 + b1, x @ Wg + bg) @ W2 + b2`` with swiglu/geglu."""
     u = x @ lp["W1"] + lp["b1"]
-    h = gelu(u) if ffn == "gelu" else relu(u)
+    if ffn in ("swiglu", "geglu"):
+        gate_fn = swiglu if ffn == "swiglu" else geglu
+        h = gate_fn(u, x @ lp["Wg"] + lp["bg"])
+    else:
+        h = gelu(u) if ffn == "gelu" else relu(u)
     return h @ lp["W2"] + lp["b2"]
 
 
 def _layer(h_in, lp, mask, n_heads: int, n_kv: Optional[int] = None,
-           ffn: str = "relu", attn_fn: Callable = sdpa):
-    """One pre-LN decoder block; ``attn_fn(q, k, v, mask)`` sees equal head
-    counts. Returns (h_out, (k, v)) with k/v at their grouped
-    (B, n_kv, T, d) size — the prefill cache."""
+           ffn: str = "relu", attn_fn: Callable = sdpa, rope=None):
+    """One pre-LN decoder block. ``rope`` is an optional (cos, sin) pair of
+    (T, d_head/2) tables rotating q and k. ``attn_fn(q, k, v, mask)`` sees
+    equal head counts, or the grouped K/V when it carries ``gqa_native``.
+    Returns (h_out, (k, v)) with k/v at their grouped (B, n_kv, T, d) size
+    — the prefill cache."""
     n_kv = n_heads if n_kv is None else n_kv
     xn = layer_norm(h_in, lp["ln1_g"], lp["ln1_b"])
     q = _heads(xn @ lp["Wq"], n_heads)
     k = _heads(xn @ lp["Wk"], n_kv)
     v = _heads(xn @ lp["Wv"], n_kv)
-    a = _unheads(attn_fn(q, _gqa_expand(k, n_heads),
-                         _gqa_expand(v, n_heads), mask)) @ lp["Wo"]
+    if rope is not None:
+        q = rope_rotate(q, *rope)
+        k = rope_rotate(k, *rope)
+    if getattr(attn_fn, "gqa_native", False):
+        # the stream kernels read each grouped K/V head for its query heads
+        a = _unheads(attn_fn(q, k, v, mask)) @ lp["Wo"]
+    else:
+        a = _unheads(attn_fn(q, _gqa_expand(k, n_heads),
+                             _gqa_expand(v, n_heads), mask)) @ lp["Wo"]
     h1 = h_in + a
     f = _ffn_dense(lp, layer_norm(h1, lp["ln2_g"], lp["ln2_b"]), ffn)
     return h1 + f, (k, v)
 
 
-def _embed(params: Params, x_ids, cfg: GPTConfig, T: int):
-    """Token embedding plus the additive position table, float32."""
+def _embed(params: Params, x_ids, cfg: GPTConfig, T: int, dt):
+    """Token embedding plus positions, formed in float32 and cast to
+    ``dt``: (h, rope tables or None). Sinusoidal and learned tables are
+    added here; RoPE returns the (T, d_head/2) rotation tables for the
+    layers; ALiBi enters only through the mask."""
+    dev = params["tok_W"].device
+    emb = params["tok_W"][x_ids]
+    if cfg.pos == "rope":
+        cos, sin = rope_tables(cfg.d_head, torch.arange(T, device=dev))
+        return emb.to(dt), (cos.to(dt), sin.to(dt))
+    if cfg.pos == "alibi":
+        return emb.to(dt), None
     if cfg.pos == "learned":
         pe = params["pos_W"][:T]
     else:
-        pe = sinusoidal_encoding(cfg.ctx_len, cfg.d_model,
-                                 device=params["tok_W"].device)[:T]
-    return params["tok_W"][x_ids] + pe[None]
+        pe = sinusoidal_encoding(cfg.ctx_len, cfg.d_model, device=dev)[:T]
+    return (emb + pe[None]).to(dt), None
 
 
 def _trunk_mask(cfg: GPTConfig, T: int, dt, device=None):
-    """Additive causal (1, 1, T, T) mask for the parallel paths."""
-    return causal_mask(T, dtype=dt, device=device)
+    """Additive mask for the parallel paths: causal (1, 1, T, T); the
+    window band bans keys window or more behind the query; ALiBi adds the
+    per-head bias ``slope_h * (j - i)`` (formed in float32), giving
+    (1, H, T, T)."""
+    m = causal_mask(T, dtype=dt, device=device)
+    i = torch.arange(T, device=device)
+    if cfg.window is not None:
+        far = (i[:, None] - i[None, :]) >= cfg.window  # query i, key j
+        m = torch.where(far[None, None], torch.tensor(-1e9, dtype=dt,
+                                                      device=device), m)
+    if cfg.pos == "alibi":
+        sl = alibi_slopes(cfg.n_heads, device=device)
+        bias = sl[:, None, None] * (i[None, None, :] - i[None, :, None])
+        m = m + bias.to(dt)[None]
+    return m
 
 
 def _layer_params(params: Params, dt):
@@ -259,11 +288,24 @@ _REMAT_SDPA = functools.partial(checkpoint, sdpa, use_reentrant=False)
 
 
 def _pick_attn_cfg(cfg: GPTConfig, T: int, device_type: str):
-    """Config-aware attention pick. The JAX package sends ALiBi and
-    sliding windows to their own paths here; the port's ``GPTConfig``
-    refuses both until ROADMAP.md queue 1, item 4, so every config it
-    accepts takes ``_pick_attn``."""
-    return _pick_attn(T, cfg.d_head, device_type)
+    """Config-aware attention pick, the JAX package's rule: ALiBi takes
+    the rematted sdpa (no kernel threads its per-head bias). A window
+    takes the band through ``flash_attention_stream`` on CUDA at T >= 512
+    (ragged T right-padded to a multiple of 256, exact under the causal
+    band), reading grouped K/V in place; below that, off CUDA, or for a
+    d_head the kernels do not take, the rematted sdpa with the band in its
+    mask. Everything else takes ``_pick_attn``."""
+    if cfg.pos == "alibi":
+        return _REMAT_SDPA
+    if cfg.window is None:
+        return _pick_attn(T, cfg.d_head, device_type)
+    if device_type != "cuda" or T < 512 or cfg.d_head not in FLASH_D:
+        return _REMAT_SDPA
+    Tp = -(-T // STREAM_BLOCK) * STREAM_BLOCK
+    banded = _padded_attn(functools.partial(flash_attention_stream,
+                                            window=cfg.window), T, Tp)
+    banded.gqa_native = True
+    return banded
 
 
 def _pick_attn(T: int, d_head: int, device_type: str):
@@ -275,8 +317,8 @@ def _pick_attn(T: int, d_head: int, device_type: str):
     d_head the kernels do not take (the JAX rule sends d_head < 8 there);
     otherwise, with T right-padded to Tp, a multiple of 256, the flash
     kernels (``flash_attention`` for Tp <= 1024, ``flash_attention_long``
-    for Tp <= 4096). Longer contexts need the streaming kernel K4, which
-    is not ported yet."""
+    for Tp <= 4096, ``flash_attention_stream`` beyond, which reads grouped
+    K/V in place: ``gqa_native``)."""
     if device_type != "cuda":
         return sdpa
     if T < 512 or d_head not in FLASH_D:
@@ -287,20 +329,21 @@ def _pick_attn(T: int, d_head: int, device_type: str):
     elif Tp <= 4096:
         fn = flash_attention_long
     else:
-        raise NotImplementedError(
-            f"attention at T = {T} needs flash_attention_stream (K4), not "
-            f"ported yet (ROADMAP.md queue 1, item 4)")
-    if Tp == T:
-        return lambda q, k, v, mask: fn(q, k, v, True)
-    return _padded_attn(fn, T, Tp)
+        fn = flash_attention_stream
+    wrapped = _padded_attn(fn, T, Tp)
+    wrapped.gqa_native = fn is flash_attention_stream
+    return wrapped
 
 
 def _padded_attn(fn, T: int, Tp: int):
-    """Wrap a causal attention kernel to serve ragged T < Tp: right-pad to
-    Tp and slice back. Exact under the causal mask: real rows never see
-    the padded keys, and the padded rows are thrown away."""
+    """Wrap a causal attention kernel ``fn(q, k, v, causal)`` to serve
+    ragged T <= Tp: right-pad to Tp and slice back. Exact under the causal
+    mask: real rows never see the padded keys, and the padded rows are
+    thrown away."""
 
     def padded(q, k, v, mask):
+        if Tp == T:
+            return fn(q, k, v, True)
         pad = (0, 0, 0, Tp - T)
         out = fn(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), True)
         return out[..., :T, :]
@@ -316,11 +359,11 @@ def _gpt_trunk(params: Params, x_ids, cfg: GPTConfig,
     if attn_fn is None:
         attn_fn = _pick_attn_cfg(cfg, T, x_ids.device.type)
     dt = cfg.compute_dtype
-    h = _embed(params, x_ids, cfg, T).to(dt)
+    h, rope = _embed(params, x_ids, cfg, T, dt)
     mask = _trunk_mask(cfg, T, dt, h.device)
     for lp in _layer_params(params, dt):
         h, _ = _layer(h, lp, mask, cfg.n_heads, cfg.kv_heads, cfg.ffn,
-                      attn_fn)
+                      attn_fn, rope)
     return h
 
 
@@ -363,11 +406,12 @@ def gpt_prefill(params: Params, x_ids, cfg: GPTConfig, length=None):
     (L, B, kv_heads, ctx_len, d) padded to ctx_len, and ``length``."""
     B, T = x_ids.shape
     dt = cfg.compute_dtype
-    h = _embed(params, x_ids, cfg, T).to(dt)
+    h, rope = _embed(params, x_ids, cfg, T, dt)
     mask = _trunk_mask(cfg, T, dt, h.device)
     ks, vs = [], []
     for lp in _layer_params(params, dt):
-        h, (k, v) = _layer(h, lp, mask, cfg.n_heads, cfg.kv_heads, cfg.ffn)
+        h, (k, v) = _layer(h, lp, mask, cfg.n_heads, cfg.kv_heads, cfg.ffn,
+                           rope=rope)
         ks.append(k)
         vs.append(v)
     if length is None:
@@ -436,29 +480,48 @@ def sample_token(generator, logits, temperature=1.0, top_k=0, top_p=0.0):
 
 def _dt_decode_ops(params: Params, cfg: GPTConfig) -> Dict[str, Any]:
     """Decode ops over weights cast ONCE to the compute dtype, with Q/K/V
-    fused into one (D, D + 2*kv_heads*d_head) matrix per layer."""
+    fused into one (D, D + 2*kv_heads*d_head) matrix per layer, and a
+    gated FFN's up and gate branches into one (D, 2F) matrix."""
     dt = cfg.compute_dtype
     lws = [{"lp": lp, "W3": torch.cat([lp["Wq"], lp["Wk"], lp["Wv"]], -1)}
            for lp in _layer_params(params, dt)]
     tokW = params["tok_W"].to(dt)
     head_b = params["head_b"].to(dt)
-    pe = (params["pos_W"] if cfg.pos == "learned" else sinusoidal_encoding(
-        cfg.ctx_len, cfg.d_model, device=tokW.device)).to(dt)
-    act = gelu if cfg.ffn == "gelu" else relu
+    pe = None
+    if cfg.pos not in ("rope", "alibi"):
+        pe = (params["pos_W"] if cfg.pos == "learned" else
+              sinusoidal_encoding(cfg.ctx_len, cfg.d_model,
+                                  device=tokW.device)).to(dt)
+    if cfg.gated_ffn:
+        for lw in lws:
+            lw["W1g"] = torch.cat([lw["lp"]["W1"], lw["lp"]["Wg"]], -1)
+            lw["b1g"] = torch.cat([lw["lp"]["b1"], lw["lp"]["bg"]], -1)
+        Fd = cfg.dff
+        gate_fn = swiglu if cfg.ffn == "swiglu" else geglu
+
+        def ffn(lw, x2):
+            ug = x2 @ lw["W1g"] + lw["b1g"]  # (B, 1, 2F)
+            return (gate_fn(ug[..., :Fd], ug[..., Fd:]) @ lw["lp"]["W2"]
+                    + lw["lp"]["b2"])
+    else:
+        act = gelu if cfg.ffn == "gelu" else relu
+
+        def ffn(lw, x2):
+            return (act(x2 @ lw["lp"]["W1"] + lw["lp"]["b1"])
+                    @ lw["lp"]["W2"] + lw["lp"]["b2"])
     return {
         "lws": lws,
         "embed": lambda token: tokW[token][:, None, :],
         # clamp: an idle serving slot's position grows past the table
-        "pe": lambda rel: pe[torch.clamp(rel, max=cfg.ctx_len - 1).long()][
-            :, None],
+        "pe": (None if pe is None else lambda rel: pe[
+            torch.clamp(rel, max=cfg.ctx_len - 1).long()][:, None]),
         "ln1": lambda lw, x: layer_norm(x, lw["lp"]["ln1_g"],
                                         lw["lp"]["ln1_b"]),
         "qkv": lambda lw, xn: xn @ lw["W3"],
         "out": lambda lw, y: y @ lw["lp"]["Wo"],
         "ln2": lambda lw, x: layer_norm(x, lw["lp"]["ln2_g"],
                                         lw["lp"]["ln2_b"]),
-        "ffn": lambda lw, x2: (act(x2 @ lw["lp"]["W1"] + lw["lp"]["b1"])
-                               @ lw["lp"]["W2"] + lw["lp"]["b2"]),
+        "ffn": ffn,
         "head": lambda h: (h @ tokW.T + head_b).float(),
     }
 
@@ -480,18 +543,41 @@ def _make_decode_step(cfg: GPTConfig, ops, start, write_fn):
     dev = ops["lws"][0]["W3"].device
     t_ids = torch.arange(cfg.ctx_len, device=dev)
     start1 = torch.as_tensor(start, dtype=torch.int32, device=dev).reshape(-1)
+    slopes = (alibi_slopes(cfg.n_heads, device=dev) if cfg.pos == "alibi"
+              else None)
 
     def decode_step(kbuf, vbuf, pos, token):
         pos1 = torch.as_tensor(pos, dtype=torch.int32, device=dev).reshape(-1)
-        h = (ops["embed"](token) + ops["pe"](pos1 - start1)).to(dt)
+        rel = pos1 - start1
+        rope = None
+        if cfg.pos == "rope":  # tables at the relative position
+            c, s_ = rope_tables(cfg.d_head, rel[:, None])  # (B|1, 1, d/2)
+            rope = (c[:, None].to(dt), s_[:, None].to(dt))
+            h = ops["embed"](token).to(dt)
+        elif cfg.pos == "alibi":
+            h = ops["embed"](token).to(dt)
+        else:
+            h = (ops["embed"](token) + ops["pe"](rel)).to(dt)
         live = ((t_ids[None, :] <= pos1[:, None])
                 & (t_ids[None, :] >= start1[:, None]))
+        if cfg.window is not None:
+            live &= t_ids[None, :] > pos1[:, None] - cfg.window
         mask = torch.where(live, 0.0, -1e9).to(dt)[:, None, None, :]
+        if slopes is not None:
+            # key slot j vs the query at ``pos``: slope_h * (j - pos); j >
+            # pos is inert under the -1e9 of the live mask
+            bias = (slopes[None, :, None, None]
+                    * (t_ids[None, :] - pos1[:, None]).float()[
+                        :, None, None, :])
+            mask = mask + bias.to(dt)
         for i, lw in enumerate(ops["lws"]):
             qkv = ops["qkv"](lw, ops["ln1"](lw, h))
             q = _heads(qkv[..., :D], cfg.n_heads)
             k = _heads(qkv[..., D:D + KD], cfg.kv_heads)
             v = _heads(qkv[..., D + KD:], cfg.kv_heads)
+            if rope is not None:  # cached keys are stored rotated
+                q = rope_rotate(q, *rope)
+                k = rope_rotate(k, *rope)
             k_l, v_l = write_fn(kbuf[i], vbuf[i], pos, k, v)
             a_raw = (attn(q, k_l, v_l, mask, pos1) if wants_pos
                      else attn(q, k_l, v_l, mask))

@@ -7,8 +7,11 @@ P = exp(S - L). On a CUDA tensor it runs the hand-written kernels of
 ``kernels/csrc/flash_attention.cu`` (forward, dq, dk/dv); on a CPU tensor
 it runs their plain PyTorch versions ``flash_fwd_ref`` / ``flash_bwd_ref``,
 which follow K2's formulas (``linalg_tpu/nn/flash.py:36-106``). Any other
-device raises. ``nn.flash_long.flash_attention_long`` (K3) is the same
-math behind the same kernels.
+device raises. ``nn.flash_long.flash_attention_long`` (K3) and
+``nn.flash_stream.flash_attention_stream`` (K4) are the same math behind
+the same kernels; K4 adds the sliding-window band (``window``) and K/V
+with fewer heads than q (``H % hk == 0``), which the plain versions here
+take too.
 """
 
 from __future__ import annotations
@@ -23,40 +26,55 @@ __all__ = ["flash_attention", "flash_attention_ref", "flash_fwd",
 FLASH_MAX_T = 1024
 
 
-def _scores(q, k, causal):
-    """scale * q k^T in float32, causal entries at the -1e9 fill."""
+def _expand(kv, H):
+    """Grouped K/V (B, hk, T, d) read by query head h at h // (H / hk), as
+    the (B, H, T, d) float32 tensor the plain versions multiply."""
+    return kv.float().repeat_interleave(H // kv.shape[1], dim=1)
+
+
+def _scores(q, k, causal, window=None):
+    """scale * q k^T in float32; entries outside the band (future keys when
+    causal, keys window or more behind the query) at the -1e9 fill."""
     T, d = q.shape[-2:]
-    s = (1.0 / math.sqrt(d)) * (q.float() @ k.float().transpose(-1, -2))
+    s = (1.0 / math.sqrt(d)) * (q.float() @ _expand(k, q.shape[1])
+                                .transpose(-1, -2))
+    i = torch.arange(T, device=q.device)
     if causal:
-        i = torch.arange(T, device=q.device)
         s = torch.where(i[None, :] <= i[:, None], s, -1e9)
+    if window is not None:
+        s = torch.where(i[:, None] - i[None, :] < window, s, -1e9)
     return s
 
 
-def flash_fwd_ref(q, k, v, causal: bool = True):
+def flash_fwd_ref(q, k, v, causal: bool = True, window=None):
     """Plain version of the forward kernel: (o in q's dtype, L float32
     (B, H, T)). Products of the io dtype accumulate in float32; P is
-    rounded to v's dtype before P v."""
-    s = _scores(q, k, causal)
+    rounded to v's dtype before P v. k and v may have fewer heads than q."""
+    s = _scores(q, k, causal, window)
     m = torch.amax(s, dim=-1, keepdim=True)
     e = torch.exp(s - m)
     denom = torch.sum(e, dim=-1, keepdim=True)
-    o = (e / denom).to(v.dtype).float() @ v.float()
+    o = (e / denom).to(v.dtype).float() @ _expand(v, q.shape[1])
     return o.to(q.dtype), (m + torch.log(denom))[..., 0]
 
 
-def flash_bwd_ref(q, k, v, o, L, do, causal: bool = True):
+def flash_bwd_ref(q, k, v, o, L, do, causal: bool = True, window=None):
     """Plain version of the dq and dk/dv kernels: (dq, dk, dv) in q's
-    dtype, with P recomputed from L and delta = rowsum(dO * O) in float32."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    p = torch.exp(_scores(q, k, causal) - L[..., None])
+    dtype, with P recomputed from L and delta = rowsum(dO * O) in float32.
+    For grouped k/v, dk and dv are each KV head's group summed in float32
+    and rounded once, at k's size."""
+    B, H, T, d = q.shape
+    hk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    p = torch.exp(_scores(q, k, causal, window) - L[..., None])
     dof = do.float()
     dv = p.to(do.dtype).float().transpose(-1, -2) @ dof
-    dp = dof @ v.float().transpose(-1, -2)
+    dp = dof @ _expand(v, H).transpose(-1, -2)
     delta = torch.sum(dof * o.float(), dim=-1, keepdim=True)
     ds = (dp - delta) * p
-    dq = scale * (ds.to(k.dtype).float() @ k.float())
+    dq = scale * (ds.to(k.dtype).float() @ _expand(k, H))
     dk = scale * (ds.to(q.dtype).float().transpose(-1, -2) @ q.float())
+    dk, dv = (x.reshape(B, hk, H // hk, T, d).sum(dim=2) for x in (dk, dv))
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
@@ -69,46 +87,49 @@ def _on_cpu(x, name):
     return x.device.type == "cpu"
 
 
-def flash_fwd(q, k, v, causal: bool = True):
+def flash_fwd(q, k, v, causal: bool = True, window=None):
     """(o, L): the CUDA forward kernel, or its plain version on the CPU."""
     if _on_cpu(q, "flash_fwd"):
-        return flash_fwd_ref(q, k, v, causal)
+        return flash_fwd_ref(q, k, v, causal, window)
     from ..kernels.flash_attention import flash_fwd_cuda
 
-    return flash_fwd_cuda(q, k, v, causal)
+    return flash_fwd_cuda(q, k, v, causal, window, q.shape[1] // k.shape[1])
 
 
-def flash_bwd(q, k, v, o, L, do, causal: bool = True):
+def flash_bwd(q, k, v, o, L, do, causal: bool = True, window=None):
     """(dq, dk, dv): the CUDA dq and dk/dv kernels, or their plain version
     on the CPU. delta = rowsum(dO * O) is one float32 pass here, as K3
-    takes it outside its kernels (``flash_long.py:213-217``)."""
+    and K4 take it outside their kernels (``flash_long.py:213-217``,
+    ``flash_stream.py:367-368``)."""
     if _on_cpu(q, "flash_bwd"):
-        return flash_bwd_ref(q, k, v, o, L, do, causal)
+        return flash_bwd_ref(q, k, v, o, L, do, causal, window)
     from ..kernels.flash_attention import flash_dkdv_cuda, flash_dq_cuda
 
+    group = q.shape[1] // k.shape[1]
     delta = torch.sum(do.float() * o.float(), dim=-1)
-    dq = flash_dq_cuda(q, k, v, do, L, delta, causal)
-    dk, dv = flash_dkdv_cuda(q, k, v, do, L, delta, causal)
+    dq = flash_dq_cuda(q, k, v, do, L, delta, causal, window, group)
+    dk, dv = flash_dkdv_cuda(q, k, v, do, L, delta, causal, window, group)
     return dq, dk, dv
 
 
 class _Flash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, plain):
+    def forward(ctx, q, k, v, causal, window, plain):
         # the kernels take contiguous (B, H, T, d); the model's head split
         # hands over transposed views, so they are copied here explicitly
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, L = (flash_fwd_ref if plain else flash_fwd)(q, k, v, causal)
+        o, L = (flash_fwd_ref if plain else flash_fwd)(q, k, v, causal,
+                                                       window)
         ctx.save_for_backward(q, k, v, o, L)
-        ctx.causal, ctx.plain = causal, plain
+        ctx.causal, ctx.window, ctx.plain = causal, window, plain
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, L = ctx.saved_tensors
         dq, dk, dv = (flash_bwd_ref if ctx.plain else flash_bwd)(
-            q, k, v, o, L, do.contiguous(), ctx.causal)
-        return dq, dk, dv, None, None
+            q, k, v, o, L, do.contiguous(), ctx.causal, ctx.window)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True):
@@ -118,10 +139,11 @@ def flash_attention(q, k, v, causal: bool = True):
     On the card T must be a multiple of 64 and d one of 32, 64, 128 (the
     kernel wrapper raises otherwise); the model's picker pads T to a
     multiple of 256 and sends other head widths to sdpa."""
-    return _Flash.apply(q, k, v, causal, False)
+    return _Flash.apply(q, k, v, causal, None, False)
 
 
-def flash_attention_ref(q, k, v, causal: bool = True):
-    """``flash_attention`` through the plain versions on any device: the
-    reference a run on the card holds the kernels' path against."""
-    return _Flash.apply(q, k, v, causal, True)
+def flash_attention_ref(q, k, v, causal: bool = True, window=None):
+    """``flash_attention`` (or, with a window or grouped k/v,
+    ``flash_attention_stream``) through the plain versions on any device:
+    the reference a run on the card holds the kernels' path against."""
+    return _Flash.apply(q, k, v, causal, window, True)

@@ -26,4 +26,4 @@ def flash_attention_long(q, k, v, causal: bool = True):
     if T % _BLOCK or T > LONG_MAX_T:
         raise ValueError(f"flash_attention_long needs T % {_BLOCK} == 0 and "
                          f"T <= {LONG_MAX_T}, got T = {T}")
-    return _Flash.apply(q, k, v, causal, False)
+    return _Flash.apply(q, k, v, causal, None, False)

@@ -5,8 +5,11 @@ The reference's exact forward formulas: the ``+1e-12`` softmax
 denominator, the ``-1e9`` causal fill, LayerNorm at eps 1e-5, the
 tanh-approximation GELU and an explicit-matmul ``sdpa``. Each of the JAX
 package's ``jax.custom_vjp``s is a ``torch.autograd.Function`` here with
-the same closed-form backward (``_relu_bwd``, ``_gelu_bwd``, ``_ln_bwd``,
+the same closed-form backward (``_relu_bwd``, ``_gelu_bwd``, ``_silu_bwd``,
+``_swiglu_bwd``, ``_geglu_bwd``, ``_ln_bwd``, ``_rms_bwd``,
 ``_sdpa_vjp_bwd``); autograd never differentiates through the forwards.
+The RoPE tables and rotation are plain tensor ops there and here,
+differentiated by autograd.
 When no input requires a gradient (prefill, decode, evaluation) the plain
 forward runs without the Function, so inference pays nothing for it; the
 forward is the same function either way.
@@ -18,8 +21,11 @@ import math
 
 import torch
 
-__all__ = ["relu", "relu_backward", "gelu", "gelu_backward", "softmax_last",
-           "causal_mask", "layer_norm", "sdpa", "sinusoidal_encoding"]
+__all__ = ["relu", "relu_backward", "gelu", "gelu_backward", "silu",
+           "silu_backward", "swiglu", "swiglu_backward", "geglu",
+           "geglu_backward", "softmax_last", "causal_mask", "layer_norm",
+           "rms_norm", "sdpa", "sinusoidal_encoding", "rope_tables",
+           "rope_rotate"]
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 _GELU_C = 0.044715
@@ -90,6 +96,85 @@ def gelu(x):
     return _GELU.apply(x) if _wants_grad(x) else _gelu_fwd(x)
 
 
+def _silu_fwd(x):
+    return x * torch.sigmoid(x)
+
+
+def silu_backward(x):
+    """d/dx SiLU = sigma(x) * (1 + x * (1 - sigma(x)))."""
+    s = torch.sigmoid(x)
+    return s * (1.0 + x * (1.0 - s))
+
+
+class _SiLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _silu_fwd(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * silu_backward(x)
+
+
+def silu(x):
+    """SiLU/Swish ``x * sigmoid(x)`` with the hand-derived gradient."""
+    return _SiLU.apply(x) if _wants_grad(x) else _silu_fwd(x)
+
+
+def _swiglu_fwd(a, g):
+    return (a * torch.sigmoid(a)) * g
+
+
+def swiglu_backward(a, g):
+    """The elementwise factors (d/da, d/dg) of ``swiglu(a, g)``:
+    (g * silu'(a), silu(a))."""
+    s = torch.sigmoid(a)
+    return g * (s * (1.0 + a * (1.0 - s))), a * s
+
+
+def _geglu_fwd(a, g):
+    return _gelu_fwd(a) * g
+
+
+def geglu_backward(a, g):
+    """The elementwise factors (d/da, d/dg) of ``geglu(a, g)``:
+    (g * gelu'(a), gelu(a)), tanh-approximation GELU."""
+    return g * gelu_backward(a), _gelu_fwd(a)
+
+
+class _Gated(torch.autograd.Function):
+    """A gated unit f(a) * g with the hand-written product-rule backward."""
+
+    @staticmethod
+    def forward(ctx, a, g, fwd, bwd):
+        ctx.save_for_backward(a, g)
+        ctx.bwd = bwd
+        return fwd(a, g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, g = ctx.saved_tensors
+        da_f, dg_f = ctx.bwd(a, g)
+        return dy * da_f, dy * dg_f, None, None
+
+
+def swiglu(a, g):
+    """Gated SiLU unit ``silu(a) * g`` (Shazeer 2020): ``a`` the activation
+    branch (x @ W1 + b1), ``g`` the linear gate branch (x @ Wg + bg)."""
+    if _wants_grad(a, g):
+        return _Gated.apply(a, g, _swiglu_fwd, swiglu_backward)
+    return _swiglu_fwd(a, g)
+
+
+def geglu(a, g):
+    """Gated GELU unit ``gelu(a) * g`` with the tanh-approximation GELU."""
+    if _wants_grad(a, g):
+        return _Gated.apply(a, g, _geglu_fwd, geglu_backward)
+    return _geglu_fwd(a, g)
+
+
 # ---------------------------------------------------------------------------
 # softmax / masks
 # ---------------------------------------------------------------------------
@@ -157,6 +242,39 @@ def layer_norm(x, gamma, beta, eps: float = 1e-5):
     return _ln_fwd(x, gamma, beta, eps)[0]
 
 
+def _rms_fwd(x, gamma, eps):
+    """(y, xnorm, rms): y = xnorm * gamma."""
+    rms = torch.sqrt(torch.mean(x**2, dim=-1, keepdim=True) + eps)
+    xnorm = x / rms
+    return xnorm * gamma, xnorm, rms
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        y, xnorm, rms = _rms_fwd(x, gamma, eps)
+        ctx.save_for_backward(xnorm, rms, gamma)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        # closed form: dx = (g - xnorm * mean(g * xnorm)) / rms with
+        # g = dy * gamma -- the JAX package's corrected form, whose final
+        # /rms on the correction term the reference dropped
+        xnorm, rms, gamma = ctx.saved_tensors
+        g = dy * gamma
+        dx = (g - xnorm * torch.mean(g * xnorm, dim=-1, keepdim=True)) / rms
+        return dx, _sum_to(dy * xnorm, gamma), None
+
+
+def rms_norm(x, gamma, eps: float = 1e-6):
+    """y = gamma * x / sqrt(mean(x^2) + eps) over the last axis, no
+    centering."""
+    if _wants_grad(x, gamma):
+        return _RMSNorm.apply(x, gamma, eps)
+    return _rms_fwd(x, gamma, eps)[0]
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
@@ -215,3 +333,23 @@ def sinusoidal_encoding(max_len: int, d_model: int, dtype=torch.float32,
     angle = pos / denom
     pe = torch.where(i % 2 == 0, torch.sin(angle), torch.cos(angle))
     return pe.to(dtype)
+
+
+def rope_tables(d_head: int, positions, base: float = 10000.0,
+                dtype=torch.float32):
+    """cos/sin tables (..., d_head/2) for integer ``positions`` (...,),
+    computed in float32 on the positions' device. PyTorch's float32
+    cos/sin and XLA's differ by at most one ulp."""
+    positions = torch.as_tensor(positions)
+    inv_freq = 1.0 / (base ** (torch.arange(
+        0, d_head, 2, dtype=torch.float32, device=positions.device) / d_head))
+    angles = positions.to(torch.float32)[..., None] * inv_freq
+    return torch.cos(angles).to(dtype), torch.sin(angles).to(dtype)
+
+
+def rope_rotate(x, cos, sin):
+    """Rotate the interleaved even/odd feature pairs of x (..., T, d) by
+    cos/sin tables broadcastable to (..., T, d/2)."""
+    xe, xo = x[..., 0::2], x[..., 1::2]
+    return torch.stack([xe * cos - xo * sin, xe * sin + xo * cos],
+                       dim=-1).reshape(x.shape)

@@ -25,7 +25,8 @@ Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md's
 item): prompts longer than ``prefill_window`` (chunked prefill),
 registered prefixes, ``auto_prefix``, ``page_cache``, LoRA, speculative
 decoding, int8 weights (``quant``), int8 KV pages (``kv8``), ring mode and
-mesh serving.
+mesh serving, and configs with RoPE, ALiBi, a window or a gated FFN (the
+JAX engine serves those in ring mode with its own decode ops).
 """
 
 from __future__ import annotations
@@ -175,6 +176,13 @@ class ServeEngine:
             if on:
                 raise NotImplementedError(
                     f"{name} serving is not ported yet ({item})")
+        if cfg.pos in ("rope", "alibi") or cfg.window is not None or (
+                cfg.gated_ffn):
+            raise NotImplementedError(
+                f"serving pos={cfg.pos!r}, window={cfg.window}, "
+                f"ffn={cfg.ffn!r} is not ported yet: rope, alibi, window "
+                f"and gated-FFN configs take the JAX engine's ring mode "
+                f"({_ROADMAP_LATER})")
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
         self.device = resolve_device(device)

@@ -26,6 +26,7 @@ META_NAME = "chars_gpt_meta.json"
 
 _LAYER_KEYS = ("ln1_g", "ln1_b", "Wq", "Wk", "Wv", "Wo", "ln2_g", "ln2_b",
                "W1", "b1", "W2", "b2")
+_GATE_KEYS = ("Wg", "bg")  # swiglu/geglu's gate branch
 
 
 def save_ckpt(ckpt_dir, params: Params, cfg: GPTConfig,
@@ -64,6 +65,8 @@ def save_ckpt(ckpt_dir, params: Params, cfg: GPTConfig,
     }
     if cfg.n_kv_heads is not None:
         meta["kv_heads"] = cfg.n_kv_heads
+    if cfg.window is not None:
+        meta["window"] = cfg.window
     if cfg.ffn != "relu":
         meta["ffn"] = cfg.ffn
     (ckpt_dir / META_NAME).write_text(json.dumps(meta))
@@ -88,7 +91,8 @@ def load_ckpt(ckpt_dir, device=None) -> Tuple[Params, GPTConfig,
             "layers": {
                 k: np.stack([z[f"l{i}_{k}"] for i in range(cfg.n_layers)]
                             ).astype(np.float32)
-                for k in _LAYER_KEYS},
+                for k in _LAYER_KEYS + (_GATE_KEYS if cfg.gated_ffn
+                                        else ())},
         }
         if cfg.pos == "learned":
             host["pos_W"] = np.asarray(z["pos_W"], np.float32)

@@ -1,6 +1,7 @@
 """The port's hand-derived backwards (linalg_tpu_torch/nn/functional.py),
 flash attention (nn/flash.py, nn/flash_long.py, their plain versions on
-the CPU) and attention picker against the JAX package's.
+the CPU) and attention picker against the JAX package's. The streaming
+kernel K4 (nn/flash_stream.py) has its own file, tests/test_torch_stream.py.
 
 Same numpy-seeded inputs through both packages. The functional ops run in
 float64 (tests/conftest.py turns on x64 for JAX): forwards and gradients
@@ -50,7 +51,7 @@ def jax_vjp(fn, args, cot):
 class TestFunctionalGradients:
     """Each autograd.Function against the JAX custom_vjp it ports."""
 
-    @pytest.mark.parametrize("name", ["relu", "gelu"])
+    @pytest.mark.parametrize("name", ["relu", "gelu", "silu"])
     def test_activation(self, name):
         x = rand((3, 5, 8), 0)
         cot = rand(x.shape, 1)
@@ -59,14 +60,55 @@ class TestFunctionalGradients:
         np.testing.assert_allclose(tout, jout, rtol=F64_RTOL)
         np.testing.assert_allclose(tg[0], jg[0], rtol=F64_RTOL)
 
-    def test_layer_norm(self):
-        args = [rand((2, 3, 16), 2), rand((16,), 3), rand((16,), 4)]
-        cot = rand((2, 3, 16), 5)
-        tout, tg = torch_vjp(tF.layer_norm, args, cot)
-        jout, jg = jax_vjp(jF.layer_norm, args, cot)
+    @pytest.mark.parametrize("name", ["swiglu", "geglu"])
+    def test_gated_unit(self, name):
+        """The product-rule backward of f(a) * g, both branches."""
+        args = [rand((3, 5, 8), 40), rand((3, 5, 8), 41)]
+        cot = rand((3, 5, 8), 42)
+        tout, tg = torch_vjp(getattr(tF, name), args, cot)
+        jout, jg = jax_vjp(getattr(jF, name), args, cot)
         np.testing.assert_allclose(tout, jout, rtol=F64_RTOL)
         for a, b in zip(tg, jg):
             np.testing.assert_allclose(a, b, rtol=F64_RTOL, atol=1e-13)
+
+    @pytest.mark.parametrize("name", ["layer_norm", "rms_norm"])
+    def test_layer_norm(self, name):
+        """LayerNorm and RMSNorm (its corrected /rms term) with the
+        gradients of x and gamma (and beta)."""
+        n_args = 3 if name == "layer_norm" else 2
+        args = [rand((2, 3, 16), 2), rand((16,), 3), rand((16,), 4)][:n_args]
+        cot = rand((2, 3, 16), 5)
+        tout, tg = torch_vjp(getattr(tF, name), args, cot)
+        jout, jg = jax_vjp(getattr(jF, name), args, cot)
+        np.testing.assert_allclose(tout, jout, rtol=F64_RTOL)
+        for a, b in zip(tg, jg):
+            np.testing.assert_allclose(a, b, rtol=F64_RTOL, atol=1e-13)
+
+    def test_rope_rotate(self):
+        """The rotation and its autograd gradient against jax.vjp, on the
+        same float64 tables."""
+        c, s = (np.asarray(t) for t in jF.rope_tables(
+            8, np.arange(6), dtype=jnp.float64))
+        x, cot = rand((2, 3, 6, 8), 50), rand((2, 3, 6, 8), 51)
+        tout, tg = torch_vjp(lambda x: tF.rope_rotate(
+            x, torch.tensor(c), torch.tensor(s)), [x], cot)
+        jout, jg = jax_vjp(lambda x: jF.rope_rotate(x, c, s), [x], cot)
+        np.testing.assert_allclose(tout, jout, rtol=F64_RTOL)
+        np.testing.assert_allclose(tg[0], jg[0], rtol=F64_RTOL, atol=1e-13)
+
+    @pytest.mark.parametrize("d_head,positions", [
+        (8, np.arange(64)), (128, np.arange(4096)),
+        (16, np.array([[3], [40]]))], ids=["d8", "d128_T4096", "decode"])
+    def test_rope_tables(self, d_head, positions):
+        """float32 tables: the angles agree bit for bit; PyTorch's and
+        XLA's float32 cos/sin differ by at most one ulp (6e-8)."""
+        tc, ts = tF.rope_tables(d_head, torch.from_numpy(positions))
+        jc, js = jF.rope_tables(d_head, positions)
+        assert tc.shape == jc.shape and tc.dtype == torch.float32
+        np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=0,
+                                   atol=6e-8)
+        np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0,
+                                   atol=6e-8)
 
     @pytest.mark.parametrize("masked", [False, True])
     def test_sdpa(self, masked):
@@ -88,7 +130,8 @@ class TestFunctionalGradients:
         x = torch.tensor(rand((4, 8), 10))
         g, b = torch.ones(8, dtype=torch.float64), torch.zeros(
             8, dtype=torch.float64)
-        for y in (tF.relu(x), tF.gelu(x), tF.layer_norm(x, g, b),
+        for y in (tF.relu(x), tF.gelu(x), tF.silu(x), tF.swiglu(x, x),
+                  tF.geglu(x, x), tF.layer_norm(x, g, b), tF.rms_norm(x, g),
                   tF.sdpa(x[None], x[None], x[None])):
             assert y.grad_fn is None
 
@@ -179,15 +222,58 @@ class TestPicker:
         assert fn(q, q, q, None).shape == q.shape
         assert seen == [(kernel, -(-T // 256) * 256)]
 
-    def test_beyond_4096_raises(self):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            tgpt._pick_attn(4097, 128, "cuda")
+    def test_beyond_4096_raises(self, monkeypatch):
+        """Past T 4096 the picker streams (K4): T 4097 right-padded to
+        4352, grouped K/V handed over as they are (``gqa_native``)."""
+        seen = []
+        monkeypatch.setattr(tgpt, "flash_attention_stream",
+                            lambda q, k, v, c: seen.append(
+                                (q.shape[-2], k.shape[1])) or q)
+        fn = tgpt._pick_attn(4097, 128, "cuda")
+        assert fn.gqa_native
+        q, k = torch.zeros(1, 4, 4097, 128), torch.zeros(1, 2, 4097, 128)
+        assert fn(q, k, k, None).shape == q.shape
+        assert seen == [(4352, 2)]
+        assert not tgpt._pick_attn(4096, 128, "cuda").gqa_native
 
     def test_cfg_pick_follows_d_head(self):
         cfg = tgpt.GPTConfig(vocab_size=65, d_model=1024, n_heads=8,
                              n_layers=1, ctx_len=1024)
         assert tgpt._pick_attn_cfg(cfg, 1024, "cpu") is tF.sdpa
         assert tgpt._pick_attn_cfg(cfg, 256, "cuda") is tgpt._REMAT_SDPA
+
+    @pytest.mark.parametrize("kw,device,T,want", [
+        (dict(pos="alibi"), "cuda", 2048, None),
+        (dict(pos="alibi"), "cpu", 64, None),
+        (dict(window=512), "cpu", 4096, None),
+        (dict(window=512), "cuda", 511, None),
+        (dict(window=512, d_model=384), "cuda", 1024, None),  # d_head 96
+        (dict(window=512), "cuda", 4096, 4096),
+        (dict(window=300, pos="rope"), "cuda", 1000, 1024),
+        (dict(window=64, n_kv_heads=1), "cuda", 8192, 8192),
+    ])
+    def test_cfg_pick_alibi_and_window(self, kw, device, T, want,
+                                       monkeypatch):
+        """ALiBi always takes the rematted sdpa; a window takes the band
+        through flash_attention_stream on CUDA from T 512 (ragged T padded
+        to 256, grouped K/V in place), else the rematted sdpa with the band
+        in its mask. ``want`` is the stream's T, None the rematted sdpa."""
+        seen = []
+        monkeypatch.setattr(tgpt, "flash_attention_stream",
+                            lambda q, k, v, c, window: seen.append(
+                                (q.shape[-2], k.shape[1], c, window)) or q)
+        cfg = tgpt.GPTConfig(**dict(dict(vocab_size=65, d_model=512,
+                                          n_heads=4, n_layers=1,
+                                          ctx_len=8192), **kw))
+        fn = tgpt._pick_attn_cfg(cfg, T, device)
+        if want is None:
+            assert fn is tgpt._REMAT_SDPA
+            return
+        assert fn.gqa_native
+        q = torch.zeros(1, 4, T, 128)
+        k = torch.zeros(1, cfg.kv_heads, T, 128)
+        assert fn(q, k, k, None).shape == q.shape
+        assert seen == [(want, cfg.kv_heads, True, cfg.window)]
 
     def test_remat_sdpa_gradients_equal_sdpa(self):
         """The rematted sdpa recomputes P in the backward: same values and

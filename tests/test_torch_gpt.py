@@ -8,6 +8,7 @@ a test says otherwise (float32 sums taken in another order); greedy
 tokens exactly.
 """
 
+import dataclasses
 import subprocess
 import sys
 
@@ -26,12 +27,21 @@ torch.set_num_threads(2)
 
 RTOL, ATOL = 2e-5, 2e-6
 
-# (2 layers, d 32, MHA, learned positions) and (d 256, one KV head, gelu)
+# (2 layers, d 32, MHA, learned positions) and (d 256, one KV head, gelu);
+# the long-context features: RoPE + SwiGLU + GQA + a window of 5 (the
+# prompts of 9-12 tokens outgrow it), ALiBi + GeGLU, and a window alone
 CFGS = {
     "d32": dict(vocab_size=31, d_model=32, n_heads=2, n_layers=2,
                 ctx_len=32, pos="learned"),
     "d256_hk1": dict(vocab_size=29, d_model=256, n_heads=4, n_kv_heads=1,
                      n_layers=2, ctx_len=32, ffn="gelu", d_ff=384),
+    "rope_swiglu_gqa_w5": dict(vocab_size=31, d_model=64, n_heads=4,
+                               n_kv_heads=2, n_layers=2, ctx_len=32,
+                               pos="rope", ffn="swiglu", window=5),
+    "alibi_geglu": dict(vocab_size=31, d_model=48, n_heads=3, n_layers=2,
+                        ctx_len=32, pos="alibi", ffn="geglu", d_ff=80),
+    "window7": dict(vocab_size=31, d_model=32, n_heads=2, n_layers=2,
+                    ctx_len=32, window=7),
 }
 
 
@@ -59,7 +69,8 @@ def test_port_imports_neither_jax_nor_reference():
         "import linalg_tpu_torch as p\n"
         "import linalg_tpu_torch.ops, linalg_tpu_torch.ops.qr_panel\n"
         "import linalg_tpu_torch.train.trainer, linalg_tpu_torch.nn.flash\n"
-        "import linalg_tpu_torch.nn.flash_long\n"
+        "import linalg_tpu_torch.nn.flash_long, linalg_tpu_torch.nn.flash_stream"
+        ", linalg_tpu_torch.nn.positional\n"
         "for m in pkgutil.walk_packages(p.__path__, 'linalg_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -69,7 +80,7 @@ def test_port_imports_neither_jax_nor_reference():
         "if m.startswith('linalg_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, check=True)
-    assert int(out.stdout.strip()) >= 38  # every module was imported
+    assert int(out.stdout.strip()) >= 40  # every module was imported
 
 
 class TestFunctional:
@@ -159,14 +170,28 @@ class TestParams:
         assert half["layers"]["Wq"].dtype == torch.bfloat16
 
     def test_config_validation(self):
+        """The JAX package's validation; rope, alibi, the gated FFNs and a
+        window construct (and equal the JAX configs field for field), and
+        the serving engine refuses them, naming ROADMAP.md queue 1 item 5
+        (the JAX engine serves them in ring mode)."""
+        from linalg_tpu_torch.serve.engine import ServeEngine
+
         with pytest.raises(ValueError, match="n_kv_heads"):
             tgpt.GPTConfig(vocab_size=8, n_heads=4, n_kv_heads=3)
         with pytest.raises(ValueError, match="dtype"):
             tgpt.GPTConfig(vocab_size=8, dtype="float16")
+        with pytest.raises(ValueError, match="window"):
+            tgpt.GPTConfig(vocab_size=8, window=0)
         for kw in (dict(pos="rope"), dict(pos="alibi"), dict(ffn="swiglu"),
                    dict(ffn="geglu"), dict(window=4)):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                tgpt.GPTConfig(vocab_size=8, **kw)
+            cfg = tgpt.GPTConfig(vocab_size=8, d_model=16, n_layers=1,
+                                 ctx_len=64, **kw)
+            assert dataclasses.asdict(cfg) == dataclasses.asdict(
+                jgpt.GPTConfig(vocab_size=8, d_model=16, n_layers=1,
+                               ctx_len=64, **kw))
+            with pytest.raises(NotImplementedError, match="item 5"):
+                ServeEngine(tgpt.init_gpt_params(cfg), cfg, chunk=8,
+                            device="cpu")
 
     def test_checkpoint_cross_load(self, tmp_path):
         from linalg_tpu.nn.tokenizers import CharTokenizer as JTok

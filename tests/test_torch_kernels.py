@@ -27,6 +27,7 @@ from linalg_tpu_torch.nn.flash import (
     flash_fwd_ref,
 )
 from linalg_tpu_torch.nn.flash_long import flash_attention_long
+from linalg_tpu_torch.nn.flash_stream import flash_attention_stream
 from linalg_tpu_torch.kernels.qr_panel import factor_strip_cuda
 from linalg_tpu_torch.ops.qr import householder_qr
 from linalg_tpu_torch.ops.qr_panel import (
@@ -324,3 +325,86 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
         flash_dq_cuda(q, k, v, do, L.half(), L)
     with pytest.raises(ValueError, match="share one dtype"):
         flash_dkdv_cuda(q, k, v, do.bfloat16(), L, L)
+
+
+# K4 through the same kernels: (B, H, hk, T, d, window, causal). The slice's
+# shape at a smaller batch; MQA with a window of 300 (not a multiple of 64:
+# the first key tile of a query tile is wholly banned for its later rows)
+# and no causal ban; window 1 (each row sees only itself); a band with no
+# group; T 8192 with no window through the stream's group path.
+STREAM_CASES = [(2, 4, 2, 4096, 128, 512, True),
+                (1, 4, 1, 1024, 64, 300, False),
+                (1, 4, 1, 768, 128, 300, True),
+                (2, 2, 1, 256, 32, 1, True),
+                (1, 4, 4, 512, 64, 100, True),
+                (1, 4, 2, 8192, 128, None, True)]
+
+
+def stream_inputs(B, H, hk, T, d, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                         device=device)
+            for shape in ((B, H, T, d), (B, hk, T, d), (B, hk, T, d),
+                          (B, H, T, d))]
+
+
+def test_flash_wrappers_refuse_a_group_that_does_not_divide():
+    q = torch.zeros(1, 4, 64, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_fwd_cuda(q, q[:, :2], q[:, :2], group=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", STREAM_CASES,
+                         ids=lambda c: "B{}H{}hk{}T{}d{}w{}{}".format(
+                             *c[:6], "c" if c[6] else "n"))
+def test_stream_kernels_match_ref_on_card(cuda, case, dtype):
+    """The kernels with a band and a group against the plain versions:
+    o and L (the wholly-banned-tile rows show in L first), then dq and the
+    grouped dk/dv from the plain forward's o and L."""
+    B, H, hk, T, d, window, causal = case
+    q, k, v, do = stream_inputs(B, H, hk, T, d, dtype, cuda, seed=T + d)
+    g = H // hk
+    o, L = flash_fwd_cuda(q, k, v, causal, window, g)
+    o_ref, L_ref = flash_fwd_ref(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert_close_of_max(o, o_ref, dtype, "o")
+    assert_close_of_max(L, L_ref, dtype, "L")
+    delta = torch.sum(do.float() * o_ref.float(), dim=-1)
+    dq = flash_dq_cuda(q, k, v, do, L_ref, delta, causal, window, g)
+    dk, dv = flash_dkdv_cuda(q, k, v, do, L_ref, delta, causal, window, g)
+    torch.cuda.synchronize()
+    assert dk.shape == k.shape and dv.shape == v.shape
+    want = flash_bwd_ref(q, k, v, o_ref, L_ref, do, causal, window)
+    for got, w, what in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        assert_close_of_max(got, w, dtype, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,hk,window", [(1024, 2, 300), (1280, 1, 64)],
+                         ids=["gqa_w300", "mqa_w64"])
+def test_stream_autograd_on_card(cuda, T, hk, window):
+    """flash_attention_stream through the kernels against the same
+    Function through the plain versions, on transposed views of (B, T, h,
+    d) as the model hands them over; the kernels launch once each."""
+    rng = np.random.default_rng(T)
+    x = [torch.tensor(rng.standard_normal((2, T, h, 64)),
+                      dtype=torch.float32, device=cuda) for h in (4, hk, hk)]
+    dO = torch.tensor(rng.standard_normal((2, T, 4, 64)),
+                      dtype=torch.float32, device=cuda).transpose(1, 2)
+    before = (flash_fwd_cuda.launches, flash_dq_cuda.launches,
+              flash_dkdv_cuda.launches)
+    outs = []
+    for f in (flash_attention_stream, flash_attention_ref):
+        q, k, v = (t.clone().requires_grad_(True) for t in x)
+        o = f(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), True,
+              window)
+        o.backward(dO)
+        outs.append([o.detach(), q.grad, k.grad, v.grad])
+    torch.cuda.synchronize()
+    assert (flash_fwd_cuda.launches, flash_dq_cuda.launches,
+            flash_dkdv_cuda.launches) == tuple(n + 1 for n in before)
+    for got, w, what in zip(*outs, ("o", "dq", "dk", "dv")):
+        assert_close_of_max(got, w, torch.float32, what)

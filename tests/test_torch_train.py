@@ -12,6 +12,7 @@ rtol 1e-4 and parameters atol 1e-5 (the warmup lr at steps <= 3 is at most
 move); texts, checkpoints and configs exactly.
 """
 
+import dataclasses
 import subprocess
 import sys
 
@@ -22,6 +23,7 @@ import pytest
 import torch
 
 from linalg_tpu.models import gpt as jgpt
+from linalg_tpu.nn import functional as jF
 from linalg_tpu.train import checkpoint as jckpt
 from linalg_tpu.train import data as jdata
 from linalg_tpu.train import optim as joptim
@@ -60,6 +62,55 @@ def batch(seed, T=SMALL["ctx_len"], V=SMALL["vocab_size"]):
     return rng.integers(0, V, (B, T)), rng.integers(0, V, (B, T))
 
 
+@dataclasses.dataclass(frozen=True)
+class JaxCfg64(jgpt.GPTConfig):
+    """The JAX config computing in float64."""
+
+    @property
+    def compute_dtype(self):
+        return jnp.float64
+
+
+@dataclasses.dataclass(frozen=True)
+class PortCfg64(tgpt.GPTConfig):
+    """The port's config computing in float64."""
+
+    @property
+    def compute_dtype(self):
+        return torch.float64
+
+
+# RoPE + SwiGLU + GQA + a window; ALiBi + GeGLU; sinusoidal ReLU + a window
+LONG_CFGS = {
+    "rope_swiglu_gqa_window": dict(pos="rope", ffn="swiglu", n_kv_heads=2,
+                                   window=24),
+    "alibi_geglu": dict(pos="alibi", ffn="geglu"),
+    "relu_window": dict(window=24),
+}
+
+
+def long_cfgs(name, monkeypatch):
+    """(jax cfg, jax params, port cfg, port params) in float64 for
+    ``LONG_CFGS[name]``; the port's float32 init is checked bit-equal to
+    the JAX package's first."""
+    kw = dict(SMALL, **LONG_CFGS[name])
+    jc, tc = JaxCfg64(**kw), PortCfg64(**kw)
+    jp32 = jgpt.init_gpt_params(jc, seed=123)
+    want = flat(jp32)
+    got = flat(tgpt.init_gpt_params(tc, seed=123))
+    assert want.keys() == got.keys()
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    host = jax.tree.map(lambda a: np.asarray(a, np.float64), jp32)
+    # the float32 position tables of the JAX package (see the tests)
+    monkeypatch.setattr(tgpt, "rope_tables", lambda d, pos: tuple(
+        torch.tensor(np.asarray(t)) for t in jF.rope_tables(d, pos.numpy())))
+    monkeypatch.setattr(tgpt, "sinusoidal_encoding", lambda n, d, device: (
+        torch.tensor(np.asarray(jF.sinusoidal_encoding(n, d)))))
+    return (jc, jax.tree.map(jnp.asarray, host), tc,
+            tgpt.params_from_numpy(host))
+
+
 class TestLoss:
     @pytest.mark.parametrize("attn", ["default", "flash"])
     def test_loss_and_every_gradient(self, attn):
@@ -86,6 +137,68 @@ class TestLoss:
         for key in want:
             np.testing.assert_allclose(got[key], want[key], rtol=1e-4,
                                        atol=1e-6, err_msg=key)
+
+    @pytest.mark.parametrize("name", sorted(LONG_CFGS))
+    def test_trunk_and_every_gradient_f64(self, name, monkeypatch):
+        """The layer stack in float64 through both packages (a config whose
+        compute dtype is float64; x64 is on for JAX): the hidden states and
+        the gradients of <trunk, cot> for every parameter it reads, rtol
+        1e-10. Weights are ``init_gpt_params``'s, bit-equal in the two
+        packages (the gated draws included) and handed to the port through
+        ``params_from_numpy``. The RoPE and sinusoidal tables are float32
+        in both packages, and PyTorch's float32 cos/sin differ from XLA's
+        by an ulp (tests/test_torch_flash.py, test_torch_gpt.py), so the
+        port gets the JAX package's tables."""
+        jc, jp, tc, tp = long_cfgs(name, monkeypatch)
+        x, _ = batch(7)
+        cot = np.random.default_rng(8).standard_normal((B, jc.ctx_len,
+                                                        jc.d_model))
+        jh, vjp = jax.vjp(lambda p: jgpt._gpt_trunk(p, jnp.asarray(x), jc),
+                          jp)
+        (jg,) = vjp(jnp.asarray(cot))
+        leaves = toptim.tree_leaves(tp)
+        for p in leaves:
+            p.requires_grad_(True)
+        th = tgpt._gpt_trunk(tp, torch.from_numpy(x), tc)
+        grads = torch.autograd.grad(th, leaves, torch.from_numpy(cot),
+                                    allow_unused=True)
+        # the head (head_b) is outside the trunk: a zero gradient in JAX
+        grads = iter([torch.zeros_like(p) if g is None else g
+                      for p, g in zip(leaves, grads)])
+        got = flat(toptim.tree_map(lambda _: next(grads), tp))
+        assert th.dtype == torch.float64
+        np.testing.assert_allclose(th.detach().numpy(), np.asarray(jh),
+                                   rtol=1e-10, atol=1e-12)
+        want = flat(jg)
+        assert want.keys() == got.keys()
+        for key in want:
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-10,
+                                       atol=1e-12, err_msg=key)
+
+    @pytest.mark.parametrize("name", sorted(LONG_CFGS))
+    def test_loss_and_every_gradient_long_cfgs(self, name, monkeypatch):
+        """``gpt_loss`` and every gradient with the float64 trunk of the
+        test above. Both packages cast the logits to float32 and take the
+        cross-entropy there, so the loss and the gradients agree to float32
+        rounding of the softmax, not to float64's: rtol 1e-5, and atol
+        1e-7 for the tied embedding's entries, sums over all B*T positions
+        of float32 logit gradients (~1e-6 of their typical size)."""
+        jc, jp, tc, tp = long_cfgs(name, monkeypatch)
+        x, y = batch(9)
+        jl, jg = jax.value_and_grad(jgpt.gpt_loss)(jp, jnp.asarray(x),
+                                                   jnp.asarray(y), jc)
+        leaves = toptim.tree_leaves(tp)
+        for p in leaves:
+            p.requires_grad_(True)
+        tl = tgpt.gpt_loss(tp, torch.from_numpy(x), torch.from_numpy(y), tc)
+        grads = iter(torch.autograd.grad(tl, leaves))
+        got = flat(toptim.tree_map(lambda _: next(grads), tp))
+        np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-6)
+        want = flat(jg)
+        assert want.keys() == got.keys()
+        for key in want:
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-5,
+                                       atol=1e-7, err_msg=key)
 
     def test_wide_vocab_refused(self):
         _, _, tc, tp = both(vocab_size=8192)
@@ -291,12 +404,36 @@ class TestCLI:
         with pytest.raises(NotImplementedError, match=item):
             tapp.main(argv)
 
-    @pytest.mark.parametrize("flag", ["--pos rope", "--ffn swiglu",
-                                      "--window 8"])
+    @pytest.mark.parametrize("flag", [
+        "--pos rope", "--ffn swiglu", "--window 8",
+        "--pos rope --ffn swiglu --kv_heads 2 --window 8",
+        "--pos alibi --ffn geglu"])
     def test_unported_model_flags_raise(self, flag, tmp_path):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            tapp.main(["--train", "--steps", "1", "--device", "cpu",
-                       "--ckpt_dir", str(tmp_path), *flag.split()])
+        """Each long-context flag (once refused) trains one CPU step; the
+        checkpoint loads in the JAX package with the same config (window
+        and gate included) and equal arrays, and a checkpoint the JAX
+        package saves from them loads back in the port."""
+        ck = tmp_path / "ck"
+        tapp.main(["--train", "--steps", "1", "--eval_every", "1",
+                   "--d_model", "32", "--layers", "2", "--heads", "4",
+                   "--ctx_len", "32", "--batch_size", "2", "--device",
+                   "cpu", "--ckpt_dir", str(ck), *flag.split()])
+        params, cfg, stoi, itos = tckpt.load_ckpt(ck)
+        args = tapp.build_parser().parse_args(flag.split())
+        assert (cfg.pos, cfg.ffn, cfg.window, cfg.n_kv_heads) == (
+            args.pos, args.ffn, args.window, args.kv_heads)
+        jparams, jcfg, jstoi, jitos = jckpt.load_ckpt(ck)
+        assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
+        assert (jstoi, jitos) == (stoi, itos)
+        want = flat(params)
+        assert flat(jparams).keys() == want.keys()
+        for key, val in flat(jparams).items():
+            np.testing.assert_array_equal(val, want[key], err_msg=key)
+        jckpt.save_ckpt(tmp_path / "jax", jparams, jcfg, jstoi, jitos)
+        back, cfg2, _, _ = tckpt.load_ckpt(tmp_path / "jax")
+        assert cfg2 == cfg
+        for key, val in flat(back).items():
+            np.testing.assert_array_equal(val, want[key], err_msg=key)
 
     def test_trainer_refuses_sharding_and_lora(self):
         args = tapp.build_parser().parse_args(["--tp", "2"])
@@ -310,7 +447,9 @@ class TestCLI:
 def test_training_modules_import_no_jax():
     code = ("import sys\n"
             "import linalg_tpu_torch.train.trainer, linalg_tpu_torch.nn.flash"
-            ", linalg_tpu_torch.nn.flash_long, linalg_tpu_torch.apps.gpt\n"
+            ", linalg_tpu_torch.nn.flash_long, linalg_tpu_torch.apps.gpt"
+            ", linalg_tpu_torch.nn.flash_stream, linalg_tpu_torch.nn.positional"
+            "\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'linalg_tpu')]\n"
             "assert not bad, bad\n")
