@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one CUDA card: paged serving, the
-Householder QR, char-GPT training and long-context training.
+Householder QR, char-GPT training, long-context training and
+short-context training through the gated kernels.
 
     python3 chip_smoke.py
 
@@ -78,6 +79,31 @@ Phases, each reported on its own line; any failure exits non-zero:
              TF32 off); one step at ctx 8192 (d512, 4 heads, 2 layers,
              batch 1, bf16) through ``_pick_attn``'s stream; a
              ``torch.profiler`` breakdown of one long_window step.
+11. btd    — K7 (``nn.flash_btd.attention_btd``: the flash kernels on head
+             views of (B, T, H*d) tensors): forward (O, L) and backward
+             (dq, dk, dv from a random dO) against the plain versions at
+             (B 128, T 256, H 4, d 128) in f32 and bf16 and (2, 64, 2,
+             128) f32; median CUDA-event times of the kernels, the plain
+             versions and ``F.scaled_dot_product_attention`` on the head
+             views, and the bound.
+12. fused  — K8 ``ln_qkv`` and K9 ``ln_ffn`` (``csrc/fused_layer.cu``):
+             build lines; forward and every gradient against the plain
+             versions at N 16384 (B 64 x T 256), D 512, F 2048 in f32 and
+             bf16; median times of the kernels, the plain versions and the
+             unfused PyTorch composition (``F.layer_norm`` and matmuls, the
+             path the picker takes otherwise; no single library call
+             computes either function), and the bound.
+13. short  — ``train.trainer.train`` at the published config (d512, 4
+             heads, 4 layers, ctx 256, vocab 65) in bf16 and f32, 40 steps
+             each (eval every 20): (a) batch 128 with default switches
+             (K7 by its size gate), (b) batch 64 with
+             LINALG_TPU_FUSED_LN=1 (K8/K9), (c)
+             both batches with the kernels off (LINALG_TPU_BTD_ATTN=0; the
+             fused switch unset): launch counts per layer, finite losses,
+             ms/step, tok/s, peak memory, the A/B of (a) and (b) against
+             (c); one step through the kernels against the plain versions
+             for (a) and (b); ``torch.profiler`` breakdowns of one bf16
+             step of (a) and of (b), last.
 
 Phase 2 builds every kernel, one ``nvcc`` per source, all started
 together. The line before the last is a JSON object describing the
@@ -90,12 +116,16 @@ nothing of JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -104,7 +134,7 @@ SERVE_CFG = dict(vocab_size=65, d_model=512, n_heads=4, n_kv_heads=2,
                  n_layers=8, ctx_len=4096)
 ENGINE_KW = dict(paged=True, page=256, n_slots=8, chunk=32,
                  prefill_window=2048)
-KERNELS = ("paged_attention", "qr_panel", "flash_attention")
+KERNELS = ("paged_attention", "qr_panel", "flash_attention", "fused_layer")
 QR_N = 4096          # the headline QR: 4096^2 float32
 QR_INNER = 32        # strip width householder_qr_panel passes the kernel
 QR_RESID_MAX = 1e-6  # ||A - QR||_F / ||A||_F, the headline accuracy gate
@@ -124,6 +154,16 @@ TRAIN_BIG = ["--d_model", "1024", "--heads", "8", "--layers", "8",
 PUBLISHED = ["--d_model", "512", "--heads", "4", "--layers", "4",
              "--ctx_len", "256", "--dtype", "float32", "--batch_size", "64",
              "--steps", "5", "--eval_every", "5"]
+# phase 13: the published widths; dtype, batch and switches per run
+SHORT = ["--d_model", "512", "--heads", "4", "--layers", "4", "--ctx_len",
+         "256", "--steps", "40", "--eval_every", "20"]
+SWITCHES = ("LINALG_TPU_BTD_ATTN", "LINALG_TPU_FUSED_LN")
+# K8/K9 vs their plain versions, as a share of max|want|: float32 sums in
+# another order; bf16 outputs keep 8 bits of mantissa, and an element on a
+# rounding boundary of x^, relu(z) or dz may round the other way
+FUSED_RTOL_OF_MAX = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# ln_ffn's gradients behind the ReLU mask, by ||got - want|| / ||want||
+FUSED_RTOL_OF_NORM = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 # long_window: the JAX package's ctx-4096 serving widths with K4's band
 LONG_WINDOW = ["--d_model", "512", "--heads", "4", "--kv_heads", "2",
                "--layers", "8", "--ctx_len", "4096", "--pos", "rope",
@@ -580,17 +620,29 @@ def loss_and_grads(params, x, y, cfg, attn_fn=None):
     return float(loss.detach()), grads
 
 
-def one_step_check(tag, cfg, batch_size, plain):
+@contextlib.contextmanager
+def patched(*pairs):
+    """Set attributes for the block and restore them after:
+    ``patched((obj, {name: value, ...}), ...)``."""
+    with contextlib.ExitStack() as stack:
+        for obj, attrs in pairs:
+            for name, value in attrs.items():
+                stack.enter_context(mock.patch.object(obj, name, value))
+        yield
+
+
+def one_step_check(tag, cfg, batch_size, plain, patch=(), counters=()):
     """One step's loss and gradients through the kernels against the same
     step with attention ``plain`` (the plain versions), at ``cfg``'s widths
-    from seed-0 weights and ids. f32 with TF32 off: |dloss| and
-    ||g_k - g_p|| / ||g_p|| <= 1e-4. bf16: |dloss| <= 1e-2, the kernels'
-    gradients no farther from the f32 plain step's than the bf16 plain
-    step's are (x 1.1), and ||g_k - g_p|| / ||g_p|| <= 2e-2, or, where
-    bf16 alone moves the plain step's gradients farther than that off
-    f32's, <= that distance."""
-    import dataclasses
-
+    from seed-0 weights and ids; with ``patch`` (``patched`` pairs of
+    ``models.gpt`` names and their plain stand-ins) the plain step takes
+    the picker's path with those replaced. Each of ``counters`` must count
+    launches in the kernel step and none in the plain one. f32 with TF32
+    off: |dloss| and ||g_k - g_p|| / ||g_p|| <= 1e-4. bf16: |dloss| <= 1e-2,
+    the kernels' gradients no farther from the f32 plain step's than the
+    bf16 plain step's are (x 1.1), and ||g_k - g_p|| / ||g_p|| <= 2e-2,
+    or, where bf16 alone moves the plain step's gradients farther than
+    that off f32's, <= that distance."""
     from linalg_tpu_torch.models.gpt import init_gpt_params
 
     def rel(a, b):
@@ -606,8 +658,16 @@ def one_step_check(tag, cfg, batch_size, plain):
     for dtype in ("float32", "bfloat16"):
         c = dataclasses.replace(cfg, dtype=dtype)
         p = init_gpt_params(c, seed=0, device="cuda")
+        for ctr in counters:
+            ctr.launches = 0
         lk, gk = loss_and_grads(p, x, y, c)
-        lp, gp = loss_and_grads(p, x, y, c, plain)
+        n_kernel = [ctr.launches for ctr in counters]
+        with patched(*patch):
+            lp, gp = loss_and_grads(p, x, y, c, plain)
+        if counters and (min(n_kernel) == 0 or [
+                ctr.launches for ctr in counters] != n_kernel):
+            raise RuntimeError(f"one {dtype} step: the kernel step launched "
+                               f"{n_kernel}; the plain step must launch none")
         dg = rel(gk, gp)
         if dtype == "float32":
             bounds = (1e-4, 1e-4)
@@ -701,8 +761,14 @@ def train_phase(smi):
     plain = lambda q, k, v, mask: flash_attention_ref(q, k, v, True)
     one_step_check("train", cfg, args.batch_size, plain)
 
-    # the published config: T 256 takes the rematted sdpa, no kernel
-    with tempfile.TemporaryDirectory() as tmp:
+    # the published config at batch 64 with default switches: T 256 takes
+    # the rematted sdpa (K7's size gate is batch 128), and K8/K9 are
+    # opt-in: no kernel
+    from linalg_tpu_torch.kernels import fused_layer as kf
+
+    counters += (kf.ln_qkv_fwd_cuda, kf.ln_qkv_bwd_cuda, kf.ln_ffn_fwd_cuda,
+                 kf.ln_ffn_bwd_cuda)
+    with tempfile.TemporaryDirectory() as tmp, switches():
         for ctr in counters:
             ctr.launches = 0
         log = f"{tmp}/metrics.jsonl"
@@ -715,10 +781,10 @@ def train_phase(smi):
                   if r["event"] in ("train", "eval")]
         n = [ctr.launches for ctr in counters]
         phase("train", f"published config (d512, 4 layers, ctx 256, B 64, "
-              f"f32), {args2.steps} steps: losses {losses}, flash launches "
-              f"{n}")
+              f"f32), {args2.steps} steps: losses {losses}, launches of "
+              f"flash fwd/dq/dkdv and ln_qkv fwd/bwd, ln_ffn fwd/bwd {n}")
         if any(n) or not all(math.isfinite(v) for v in losses):
-            raise RuntimeError("published config: a flash launch or a "
+            raise RuntimeError("published config: a kernel launch or a "
                                "non-finite loss")
 
     return launches, cfg, args.batch_size
@@ -996,6 +1062,324 @@ def long_phase(smi):
     return launches, cfg, args.batch_size
 
 
+def btd_phase():
+    """Phase 11: K7, the flash kernels on head views of (B, T, H*d)
+    tensors, against the plain versions. Returns the record of the
+    published shape in bf16 (phase 13's batch 128)."""
+    from linalg_tpu_torch.kernels.flash_attention import (
+        flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
+    from linalg_tpu_torch.nn import flash_btd as fb
+
+    def kernel_fb(q, k, v, do, H):
+        o, L = fb._btd_fwd(q, k, v, H, True)
+        return fb._btd_bwd(q, k, v, o, L, do, H, True)
+
+    def plain_fb(q, k, v, do, H):
+        o, L = fb.btd_fwd_ref(q, k, v, H)
+        return fb.btd_bwd_ref(q, k, v, o, L, do, H)
+
+    counters = (flash_fwd_cuda, flash_dq_cuda, flash_dkdv_cuda)
+    record = None
+    for i, ((B, T, H, d), dtype) in enumerate([
+            ((128, 256, 4, 128), torch.bfloat16),
+            ((128, 256, 4, 128), torch.float32),
+            ((2, 64, 2, 128), torch.float32)]):
+        q, k, v, do = flash_case((B, T, H * d), dtype, seed=400 + i)
+        for c in counters:
+            c.launches = 0
+        o, L = fb._btd_fwd(q, k, v, H, True)
+        o_ref, L_ref = fb.btd_fwd_ref(q, k, v, H)
+        # the backward kernels from the plain forward's o and L
+        dq, dk, dv = fb._btd_bwd(q, k, v, o_ref, L_ref, do, H, True)
+        torch.cuda.synchronize()
+        launches = [c.launches for c in counters]
+        if launches != [1, 1, 1] or o.shape != q.shape or not (
+                o.is_contiguous() and dq.is_contiguous()):
+            raise RuntimeError(f"btd: launches {launches}, o "
+                               f"{tuple(o.shape)}; outputs must come back "
+                               "in (B, T, H*d)")
+        want = fb.btd_bwd_ref(q, k, v, o_ref, L_ref, do, H)
+        dt = str(dtype).split(".")[1]
+        err = flash_compare(f"B,T,H,d={B},{T},{H},{d} {dt}", [
+            ("o", o, o_ref), ("L", L, L_ref), ("dq", dq, want[0]),
+            ("dk", dk, want[1]), ("dv", dv, want[2])], dtype, "btd")
+        del o, L, o_ref, L_ref, dq, dk, dv, want
+        ms_f = median_ms(fb._btd_fwd, (q, k, v, H, True), trials=7, reps=5)
+        ms_fb = median_ms(kernel_fb, (q, k, v, do, H), trials=7, reps=5)
+        plain_fb_ms = median_ms(plain_fb, (q, k, v, do, H), trials=5,
+                                reps=2, warm=1)
+        heads = [fb._heads(t, H) for t in (q, k, v, do)]
+        lib_f, lib_fb = library_ms(*heads, True, None)
+        bms, by = attn_bound(B, H, H, T, d, dtype)
+        phase("btd", f"  kernel fwd {ms_f:.4f} ms, fwd+bwd {ms_fb:.4f} ms; "
+              f"plain fwd+bwd {plain_fb_ms:.4f} ms; "
+              f"F.scaled_dot_product_attention on the head views fwd "
+              f"{lib_f:.4f} ms, fwd+bwd {lib_fb:.4f} ms; bound fwd+bwd "
+              f"{bms:.4f} ms ({by}), {bms / ms_fb:.1%} of it")
+        if i == 0:
+            record = dict(shape=[B, T, H, d], max_abs_err=err, ms=ms_fb,
+                          plain_ms=plain_fb_ms, library_ms=lib_fb,
+                          bound_ms=bms, bound_by=by, fwd_ms=ms_f,
+                          library_fwd_ms=lib_f)
+        del q, k, v, do, heads
+        torch.cuda.empty_cache()
+    return record
+
+
+def fused_bound(N, D, F, dtype):
+    """Bounds of K8 and K9, forward+backward each: ((ms, by) of ln_qkv,
+    (ms, by) of ln_ffn, (flops, bytes) of both). Operations: 2 per
+    multiply-add of each product without recomputation (ln_qkv 3 forward,
+    3 dxn and 3 dW products of N D^2; ln_ffn 2 forward and dW2, da, dW1,
+    dxn of N D F). Bytes: every input read once and every output written
+    once in the io dtype (ln_qkv x, g, b, Wq, Wk, Wv, dq, dk, dv in; q, k,
+    v, dx, dg, db, dWq, dWk, dWv out; ln_ffn x, g, b, W1, b1, W2, b2, df
+    in; f, dx, dg, db, dW1, db1, dW2, db2 out)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    qkv = (18 * N * D * D, es * (8 * N * D + 6 * D * D + 4 * D))
+    ffn = (12 * N * D * F, es * (4 * N * D + 4 * D * F + 2 * F + 6 * D))
+    both = (qkv[0] + ffn[0], qkv[1] + ffn[1])
+    return bound_ms(*qkv, dtype), bound_ms(*ffn, dtype), both
+
+
+def fused_error(got, want, dtype, what):
+    """(error, tolerance, kind) of one output: max abs against a share of
+    max|want|; the outputs of K9's backward behind the ReLU mask by the
+    relative norm instead (a z within the sums' rounding of 0 may take the
+    other side of the ReLU in the two versions, moving that dz entry by
+    all of da)."""
+    g, w = got.float(), want.float()
+    if what in ("ffn dx", "ffn dg", "ffn db", "dW1", "db1"):
+        return (float(torch.linalg.norm(g - w) / torch.linalg.norm(w)),
+                FUSED_RTOL_OF_NORM[dtype], "rel norm")
+    return (float((g - w).abs().max()),
+            FUSED_RTOL_OF_MAX[dtype] * max(1.0, float(w.abs().max())),
+            "max abs")
+
+
+def fused_phase():
+    """Phase 12: K8 and K9 against their plain versions at the published
+    width. Returns the kernel's JSON record (bf16)."""
+    import torch.nn.functional as F_
+
+    from linalg_tpu_torch.kernels import fused_layer as kf
+    from linalg_tpu_torch.nn import fused_layer as fl
+
+    N, D, F = 64 * 256, 512, 2048
+    names = ["q", "k", "v", "dx", "dg", "db", "dWq", "dWk", "dWv", "f",
+             "ffn dx", "ffn dg", "ffn db", "dW1", "db1", "dW2", "db2"]
+    counters = (kf.ln_qkv_fwd_cuda, kf.ln_qkv_bwd_cuda, kf.ln_ffn_fwd_cuda,
+                kf.ln_ffn_bwd_cuda)
+    record = None
+    for dtype in (torch.bfloat16, torch.float32):
+        rng = np.random.default_rng(500)
+
+        def t(*shape, scale=1.0, shift=0.0):
+            return torch.tensor(rng.standard_normal(shape) * scale + shift,
+                                dtype=dtype, device="cuda")
+
+        x = t(N, D)
+        g, b = t(D, scale=0.1, shift=1.0), t(D, scale=0.1)
+        qkv = (x, g, b, *(t(D, D, scale=D ** -0.5) for _ in range(3)))
+        ffn = (x, g, b, t(D, F, scale=D ** -0.5), t(F, scale=0.1),
+               t(F, D, scale=F ** -0.5), t(D, scale=0.1))
+        dys = [t(N, D) for _ in range(3)]
+        for c in counters:
+            c.launches = 0
+        got = [*kf.ln_qkv_fwd_cuda(*qkv), *kf.ln_qkv_bwd_cuda(*qkv, *dys),
+               kf.ln_ffn_fwd_cuda(*ffn),
+               *kf.ln_ffn_bwd_cuda(*ffn[:6], dys[0])]
+        torch.cuda.synchronize()
+        if [c.launches for c in counters] != [1, 1, 1, 1]:
+            raise RuntimeError("fused: a wrapper did not launch once")
+        want = [*fl.ln_qkv_ref(*qkv), *fl.ln_qkv_bwd_ref(*qkv, *dys),
+                fl.ln_ffn_ref(*ffn), *fl.ln_ffn_bwd_ref(*ffn[:6], dys[0])]
+        errs = {}
+        for gt, w, what in zip(got, want, names):
+            err, tol, kind = fused_error(gt, w, dtype, what)
+            if not (gt.shape == w.shape and err <= tol):
+                raise RuntimeError(f"fused {what}: {kind} error {err:.3e} "
+                                   f"> tolerance {tol:.3e}")
+            errs[what] = (err, kind)
+        dt = str(dtype).split(".")[1]
+        phase("fused", f"N,D,F={N},{D},{F} {dt}: " + ", ".join(
+            f"{k} {e:.3e}" for k, (e, _) in errs.items())
+            + f" (max abs within {FUSED_RTOL_OF_MAX[dtype]} x max|want|; "
+            f"dx, dg, db, dW1, db1 of ln_ffn by relative norm within "
+            f"{FUSED_RTOL_OF_NORM[dtype]})")
+        del got, want
+
+        def k_qkv(*a):
+            return kf.ln_qkv_bwd_cuda(*a[:6], *kf.ln_qkv_fwd_cuda(*a[:6]))
+
+        def p_qkv(*a):
+            return fl.ln_qkv_bwd_ref(*a[:6], *fl.ln_qkv_ref(*a[:6]))
+
+        def k_ffn(*a):
+            return kf.ln_ffn_bwd_cuda(*a[:6], kf.ln_ffn_fwd_cuda(*a))
+
+        def p_ffn(*a):
+            return fl.ln_ffn_bwd_ref(*a[:6], fl.ln_ffn_ref(*a))
+
+        ps = [t_.detach().clone().requires_grad_(True)
+              for t_ in qkv + ffn[3:]]
+
+        def u_qkv(x, g, b, wq, wk, wv, *_):
+            y = F_.layer_norm(x, (D,), g, b, 1e-5)
+            outs = (y @ wq, y @ wk, y @ wv)
+            return torch.autograd.grad(outs, (x, g, b, wq, wk, wv), dys)
+
+        def u_ffn(x, g, b, wq, wk, wv, w1, b1, w2, b2):
+            y = F_.layer_norm(x, (D,), g, b, 1e-5)
+            f = torch.relu(y @ w1 + b1) @ w2 + b2
+            return torch.autograd.grad(f, (x, g, b, w1, b1, w2, b2), dys[0])
+
+        times = {}
+        for name, fn, args in (
+                ("ln_qkv fwd", kf.ln_qkv_fwd_cuda, qkv),
+                ("ln_qkv fwd+bwd", k_qkv, qkv),
+                ("ln_qkv plain fwd+bwd", p_qkv, qkv),
+                ("ln_qkv unfused fwd+bwd", u_qkv, ps),
+                ("ln_ffn fwd", kf.ln_ffn_fwd_cuda, ffn),
+                ("ln_ffn fwd+bwd", k_ffn, ffn),
+                ("ln_ffn plain fwd+bwd", p_ffn, ffn),
+                ("ln_ffn unfused fwd+bwd", u_ffn, ps)):
+            slow = "plain" in name
+            times[name] = median_ms(fn, args, trials=5 if slow else 7,
+                                    reps=2 if slow else 5,
+                                    warm=1 if slow else 3)
+        bq, bf, both = fused_bound(N, D, F, dtype)
+        phase("fused", "  " + "; ".join(f"{k} {v:.4f} ms"
+                                         for k, v in times.items()))
+        phase("fused", f"  bound fwd+bwd ln_qkv {bq[0]:.4f} ms ({bq[1]}), "
+              f"{bq[0] / times['ln_qkv fwd+bwd']:.1%} of it; ln_ffn "
+              f"{bf[0]:.4f} ms ({bf[1]}), "
+              f"{bf[0] / times['ln_ffn fwd+bwd']:.1%} of it; no single "
+              "library call computes either function")
+        if dtype == torch.bfloat16:
+            bms, by = bound_ms(*both, dtype)
+            record = dict(
+                shape=[N, D, F], max_abs_err=max(
+                    e for e, kind in errs.values() if kind == "max abs"),
+                max_rel_norm_err=max(
+                    e for e, kind in errs.values() if kind == "rel norm"),
+                ms=times["ln_qkv fwd+bwd"] + times["ln_ffn fwd+bwd"],
+                plain_ms=(times["ln_qkv plain fwd+bwd"]
+                          + times["ln_ffn plain fwd+bwd"]),
+                bound_ms=bms, bound_by=by, library_ms=None,
+                unfused_ms=(times["ln_qkv unfused fwd+bwd"]
+                            + times["ln_ffn unfused fwd+bwd"]),
+                ms_by_kernel={k: v for k, v in times.items()})
+        del qkv, ffn, dys, ps, x
+        torch.cuda.empty_cache()
+    return record
+
+
+@contextlib.contextmanager
+def switches(**values):
+    """Set the gate switches (``SWITCHES``) to ``values`` for the block,
+    unset the others, and restore them all after."""
+    with mock.patch.dict(os.environ):
+        for name in SWITCHES:
+            os.environ.pop(name, None)
+        os.environ.update(values)
+        yield
+
+
+def short_phase(smi):
+    """Phase 13: the published config through K7 (batch 128) and K8/K9
+    (batch 64, LINALG_TPU_FUSED_LN=1), against the same batches with the
+    kernels off. Returns the launches of the kernel runs ({"btd": [fwd, dq,
+    dkdv], "fused": [qkv fwd, qkv bwd, ffn fwd, ffn bwd]}) and the config
+    and batch of the profiled steps."""
+    from linalg_tpu_torch.apps.gpt import build_parser
+    from linalg_tpu_torch.kernels import fused_layer as kf
+    from linalg_tpu_torch.kernels.flash_attention import (
+        flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
+    from linalg_tpu_torch.train.trainer import train
+
+    flash = (flash_fwd_cuda, flash_dq_cuda, flash_dkdv_cuda)
+    fused = (kf.ln_qkv_fwd_cuda, kf.ln_qkv_bwd_cuda, kf.ln_ffn_fwd_cuda,
+             kf.ln_ffn_bwd_cuda)
+    runs = [("btd", 128, {}), ("fused", 64, {"LINALG_TPU_FUSED_LN": "1"}),
+            ("btd off", 128, {"LINALG_TPU_BTD_ATTN": "0"}),
+            ("fused off", 64, {})]
+    totals = {"btd": [0, 0, 0], "fused": [0, 0, 0, 0]}
+    ms = {}
+    cfgs = {}
+    for dtype in ("bfloat16", "float32"):
+        for name, batch, env in runs:
+            with tempfile.TemporaryDirectory() as tmp, switches(**env):
+                log = f"{tmp}/metrics.jsonl"
+                args = build_parser().parse_args(
+                    ["--train", *SHORT, "--dtype", dtype, "--batch_size",
+                     str(batch), "--ckpt_dir", f"{tmp}/ck", "--log_file",
+                     log, "--device", "cuda"])
+                torch.cuda.reset_peak_memory_stats()
+                for c in flash + fused:
+                    c.launches = 0
+                _, cfg, _, _ = train(args)
+                torch.cuda.synchronize()
+                n_flash = [c.launches for c in flash]
+                n_fused = [c.launches for c in fused]
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                rows = [json.loads(ln) for ln in open(log, encoding="utf-8")]
+            n_eval = sum(r["event"] == "eval" for r in rows)
+            L, steps = cfg.n_layers, args.steps
+            fwd = L * (steps + n_eval * EVAL_BATCHES)
+            want_flash, want_fused = [0, 0, 0], [0, 0, 0, 0]
+            if name == "btd":
+                want_flash = [fwd, L * steps, L * steps]
+            elif name == "fused":
+                want_fused = [fwd, L * steps, fwd, L * steps]
+            losses = [r.get("loss", r.get("val_loss")) for r in rows
+                      if r["event"] in ("train", "eval")]
+            t = {(r["event"], r["step"]): r["elapsed_s"] for r in rows
+                 if "step" in r}
+            # steps 21..40: from the end of the step-20 eval to the step-40
+            # sync
+            ms[dtype, name] = (t[("train", 40)] - t[("eval", 20)]) / 20 * 1e3
+            tok_s = batch * cfg.ctx_len / (ms[dtype, name] * 1e-3)
+            phase("short", f"{dtype} B {batch} {name}: launches flash "
+                  f"fwd/dq/dkdv {n_flash} (expected {want_flash}), fused "
+                  f"qkv fwd/bwd, ffn fwd/bwd {n_fused} (expected "
+                  f"{want_fused}; {L} layers x ({steps} steps + {n_eval} "
+                  f"evals x {EVAL_BATCHES} batches) forward, {L} x {steps} "
+                  f"backward); losses {losses}; {ms[dtype, name]:.2f} "
+                  f"ms/step, {tok_s:.0f} tok/s, peak {peak_gb:.2f} GB")
+            if n_flash != want_flash or n_fused != want_fused:
+                raise RuntimeError(f"short {name}: launch counts differ")
+            if not all(math.isfinite(v) for v in losses):
+                raise RuntimeError(f"short {name}: a loss is not finite")
+            if name in totals:
+                got = n_flash if name == "btd" else n_fused
+                totals[name] = [a + b for a, b in zip(totals[name], got)]
+                cfgs[name] = (cfg, batch)
+        for name in ("btd", "fused"):
+            on, off = ms[dtype, name], ms[dtype, name + " off"]
+            phase("short", f"{dtype} A/B {name}: kernels {on:.2f} vs off "
+                  f"{off:.2f} ms/step ({off / on:.3f}x); {smi}")
+
+    # one step through the kernels against the plain versions
+    from linalg_tpu_torch.models import gpt as tgpt
+    from linalg_tpu_torch.nn import fused_layer as fl
+    from linalg_tpu_torch.nn.flash_btd import attention_btd_ref
+
+    def plain_btd(B, T, c, device_type):
+        return lambda q, k, v: attention_btd_ref(q, k, v, c.n_heads, True)
+
+    with switches():
+        one_step_check("short", cfgs["btd"][0], 128, None,
+                       [(tgpt, {"_pick_attn_btd": plain_btd})], flash)
+    with switches(LINALG_TPU_FUSED_LN="1"):
+        one_step_check(
+            "short", cfgs["fused"][0], 64, None,
+            [(tgpt, {"ln_qkv": lambda *a: fl.ln_qkv(*a, plain=True),
+                     "ln_ffn": lambda *a: fl.ln_ffn(*a, plain=True)})],
+            fused)
+    return totals, cfgs
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1112,11 +1496,27 @@ def main() -> int:
     # -- 10. long ----------------------------------------------------------
     long_launches, long_cfg, long_batch = long_phase(smi)
 
+    # -- 11. btd -----------------------------------------------------------
+    btd_record = btd_phase()
+
+    # -- 12. fused ---------------------------------------------------------
+    report_build("fused", built["fused_layer"])
+    fused_record = fused_phase()
+
+    # -- 13. short ---------------------------------------------------------
+    short_launches, short_cfgs = short_phase(smi)
+
     # the profiler breakdowns last: the profiler stays attached to the card
     profile_step("train", big_cfg, big_batch)
     profile_step("long", long_cfg, long_batch)
+    for name, env in (("btd", {}), ("fused", {"LINALG_TPU_FUSED_LN": "1"})):
+        cfg_, batch_ = short_cfgs[name]
+        with switches(**env):
+            profile_step(f"short {name}",
+                         dataclasses.replace(cfg_, dtype="bfloat16"), batch_)
 
-    flash_launches = [a + b for a, b in zip(train_launches, long_launches)]
+    flash_launches = [a + b + c for a, b, c in zip(
+        train_launches, long_launches, short_launches["btd"])]
     print(json.dumps({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/paged_attention.cu",
@@ -1130,13 +1530,20 @@ def main() -> int:
         "source": "linalg_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "linalg_tpu/nn/flash.py:169, "
                     "linalg_tpu/nn/flash_long.py:190, "
-                    "linalg_tpu/nn/flash_stream.py:327",
+                    "linalg_tpu/nn/flash_stream.py:327, "
+                    "linalg_tpu/nn/flash_btd.py:178",
         "launches": sum(flash_launches),
         "launches_fwd_dq_dkdv": flash_launches,
-        "launches_train_big_long_window": [sum(train_launches),
-                                           sum(long_launches)],
-        **flash_record, "stream": stream_record}]}),
-        flush=True)
+        "launches_train_big_long_window_btd": [
+            sum(train_launches), sum(long_launches),
+            sum(short_launches["btd"])],
+        **flash_record, "stream": stream_record, "btd": btd_record}, {
+        "name": "fused_layer", "route": "cuda",
+        "source": "linalg_tpu_torch/kernels/csrc/fused_layer.cu",
+        "replaces": "linalg_tpu/nn/fused_layer.py:166, :312",
+        "launches": sum(short_launches["fused"]),
+        "launches_qkv_fwd_bwd_ffn_fwd_bwd": short_launches["fused"],
+        **fused_record}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -132,8 +132,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "kernel on a CUDA device from ctx 2048 at d_head "
                          "128)")
     ap.add_argument("--device", type=str, default=None,
-                    help="torch device (default: cuda when present, else "
-                         "cpu)")
+                    help="torch device: cuda (the default; raises on a "
+                         "machine without a card) or cpu")
     return ap
 
 

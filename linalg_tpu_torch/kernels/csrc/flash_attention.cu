@@ -49,9 +49,20 @@
 // afterwards, no atomics. (K4 returns per-query-head dk/dv rounded to the
 // io dtype and sums them afterwards; the two differ by bf16 rounding.)
 //
-// Contract: q, o, do, dq are contiguous, 16-byte aligned (B*H, T, D), and
-// k, v, dk, dv (B*H / group, T, D), in one dtype (float or bf16); L and
-// delta (B*H, T) float. T % 64 == 0, D in {32, 64, 128}. Scores, the
+// Layouts (K7): every head tensor is addressed through its own element
+// strides -- per batch, per head, per row -- with the D columns of a row
+// contiguous. Contiguous (B, H, T, D) has strides (H T D, T D, D); the
+// model's (B, T, H*D) projections (linalg_tpu/nn/flash_btd.py:178
+// attention_btd, K7) have (T H D, D, H D): head h is the column slice
+// [h D, (h + 1) D) of each row, read and written in place, so K7 needs no
+// head transpose on either side. K7 computes K2's function; only the
+// layout differs, so it runs these kernels. (The TPU's (8 H, T) broadcast
+// rows of L do not carry over: L is (B*H, T) here for every layout.)
+//
+// Contract: q, o, do, dq hold B*H heads and k, v, dk, dv B*H / group, in
+// one dtype (float or bf16), 16-byte aligned, with batch, head and row
+// strides that are multiples of 16 bytes; L and delta contiguous (B*H, T)
+// float. T % 64 == 0, D in {32, 64, 128}. Scores, the
 // running max and normalizer, and every accumulator are f32. The rules of
 // the Pallas kernels carry over: masked scores take -1e9 (K4 fills -1e30;
 // both give exactly 0 after exp); P is rounded to the io dtype before P V
@@ -107,6 +118,22 @@ using bf16 = __nv_bfloat16;
 
 constexpr int BM = 64;        // rows per tile (query and key tiles alike)
 constexpr float NEG = -1e9f;  // the Pallas kernels' mask fill
+
+// Element strides of one head tensor: per batch, per head, per row.
+struct Lay {
+  long long b, h, r;
+};
+// The layouts of every head tensor of a launch; H query heads and hk K/V
+// heads per batch.
+struct Lays {
+  Lay q, k, v, o, dO, dq, dk, dv;
+  int H, hk;
+};
+
+// Offset of head `bh` (= batch * heads + head) of a tensor of layout `l`.
+__device__ __forceinline__ size_t head_at(const Lay& l, int bh, int heads) {
+  return (size_t)(bh / heads) * l.b + (size_t)(bh % heads) * l.h;
+}
 
 // ===================== bf16: tensor-core tiles =========================
 
@@ -171,16 +198,17 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
   a[3] = pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 }
 
-// Rows [0, BM) of a contiguous (rows, D) bf16 array into shared memory
-// (stride RS<D>), 16 bytes a thread, coalesced.
+// Rows [0, BM) of a (rows, D) bf16 array of row stride `rs` into shared
+// memory (stride RS<D>), 16 bytes a thread, coalesced.
 template <int D>
 __device__ __forceinline__ void load_rows(bf16* dst,
-                                          const bf16* __restrict__ src) {
+                                          const bf16* __restrict__ src,
+                                          long long rs) {
   constexpr int V = D / 8;
   for (int i = threadIdx.x; i < BM * V; i += MT) {
     const int r = i / V, c = (i % V) * 8;
     *reinterpret_cast<uint4*>(dst + r * RS<D> + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
+        *reinterpret_cast<const uint4*>(src + r * rs + c);
   }
 }
 
@@ -188,10 +216,11 @@ __device__ __forceinline__ void load_rows(bf16* dst,
 // take consecutive rows, so a warp's stores of one column are contiguous.
 template <int D>
 __device__ __forceinline__ void load_cols(bf16* dst,
-                                          const bf16* __restrict__ src) {
+                                          const bf16* __restrict__ src,
+                                          long long rs) {
   for (int i = threadIdx.x; i < BM * (D / 8); i += MT) {
     const int r = i % BM, c = (i / BM) * 8;
-    const uint4 x = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
+    const uint4 x = *reinterpret_cast<const uint4*>(src + r * rs + c);
     const bf16* e = reinterpret_cast<const bf16*>(&x);
 #pragma unroll
     for (int j = 0; j < 8; ++j) dst[(c + j) * TS + r] = e[j];
@@ -244,19 +273,22 @@ __global__ void __launch_bounds__(MT)
     fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ o,
              float* __restrict__ L, int Tlen, int causal, int window,
-             int group, float scale) {
+             int group, float scale, const Lays ly) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ks = Qs + BM * RS<D>;
   bf16* Vt = Ks + BM * RS<D>;
   const int nt = Tlen / BM;
   const int qb = nt - 1 - blockIdx.x;  // the longest causal rows first
-  const size_t base = (size_t)blockIdx.y * Tlen * D;
-  const size_t kvbase = (size_t)(blockIdx.y / group) * Tlen * D;
+  const int kvh = blockIdx.y / group;
+  q += head_at(ly.q, blockIdx.y, ly.H);
+  o += head_at(ly.o, blockIdx.y, ly.H);
+  k += head_at(ly.k, kvh, ly.hk);
+  v += head_at(ly.v, kvh, ly.hk);
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
 
-  load_rows<D>(Qs, q + base + (size_t)qb * BM * D);
+  load_rows<D>(Qs, q + qb * BM * ly.q.r, ly.q.r);
   __syncthreads();
   uint32_t qa[D / 16][4];
 #pragma unroll
@@ -267,8 +299,8 @@ __global__ void __launch_bounds__(MT)
   const int kend = key_end(qb, nt, causal);
   for (int kb = key_start(qb, window); kb < kend; ++kb) {
     __syncthreads();  // the previous tile's K and V are consumed
-    load_rows<D>(Ks, k + kvbase + (size_t)kb * BM * D);
-    load_cols<D>(Vt, v + kvbase + (size_t)kb * BM * D);
+    load_rows<D>(Ks, k + kb * BM * ly.k.r, ly.k.r);
+    load_cols<D>(Vt, v + kb * BM * ly.v.r, ly.v.r);
     __syncthreads();
     float s[BM / 8][4] = {};
 #pragma unroll
@@ -333,8 +365,7 @@ __global__ void __launch_bounds__(MT)
     const float inv = 1.f / l[h];
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(o + base + (size_t)r * D + dn * 8 +
-                                   2 * t) =
+      *reinterpret_cast<uint32_t*>(o + r * ly.o.r + dn * 8 + 2 * t) =
           pack(acc[dn][2 * h] * inv, acc[dn][2 * h + 1] * inv);
     if (t == 0) L[(size_t)blockIdx.y * Tlen + r] = m[h] + logf(l[h]);
   }
@@ -346,7 +377,7 @@ __global__ void __launch_bounds__(MT)
             const bf16* __restrict__ v, const bf16* __restrict__ dO,
             const float* __restrict__ L, const float* __restrict__ delta,
             bf16* __restrict__ dq, int Tlen, int causal, int window,
-            int group, float scale) {
+            int group, float scale, const Lays ly) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* dOs = Qs + BM * RS<D>;
@@ -355,13 +386,17 @@ __global__ void __launch_bounds__(MT)
   bf16* Kt = Vs + BM * RS<D>;
   const int nt = Tlen / BM;
   const int qb = nt - 1 - blockIdx.x;
-  const size_t base = (size_t)blockIdx.y * Tlen * D;
-  const size_t kvbase = (size_t)(blockIdx.y / group) * Tlen * D;
+  const int kvh = blockIdx.y / group;
+  q += head_at(ly.q, blockIdx.y, ly.H);
+  dO += head_at(ly.dO, blockIdx.y, ly.H);
+  dq += head_at(ly.dq, blockIdx.y, ly.H);
+  k += head_at(ly.k, kvh, ly.hk);
+  v += head_at(ly.v, kvh, ly.hk);
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16;
 
-  load_rows<D>(Qs, q + base + (size_t)qb * BM * D);
-  load_rows<D>(dOs, dO + base + (size_t)qb * BM * D);
+  load_rows<D>(Qs, q + qb * BM * ly.q.r, ly.q.r);
+  load_rows<D>(dOs, dO + qb * BM * ly.dO.r, ly.dO.r);
   float Lr[2], dr[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -373,9 +408,9 @@ __global__ void __launch_bounds__(MT)
   const int kend = key_end(qb, nt, causal);
   for (int kb = key_start(qb, window); kb < kend; ++kb) {
     __syncthreads();
-    load_rows<D>(Ks, k + kvbase + (size_t)kb * BM * D);
-    load_rows<D>(Vs, v + kvbase + (size_t)kb * BM * D);
-    load_cols<D>(Kt, k + kvbase + (size_t)kb * BM * D);
+    load_rows<D>(Ks, k + kb * BM * ly.k.r, ly.k.r);
+    load_rows<D>(Vs, v + kb * BM * ly.v.r, ly.v.r);
+    load_cols<D>(Kt, k + kb * BM * ly.k.r, ly.k.r);
     __syncthreads();
     float s[BM / 8][4] = {}, dp[BM / 8][4] = {};
 #pragma unroll
@@ -422,8 +457,7 @@ __global__ void __launch_bounds__(MT)
     const int r = qb * BM + r0 + g + 8 * h;
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(dq + base + (size_t)r * D + dn * 8 +
-                                   2 * t) =
+      *reinterpret_cast<uint32_t*>(dq + r * ly.dq.r + dn * 8 + 2 * t) =
           pack(scale * acc[dn][2 * h], scale * acc[dn][2 * h + 1]);
   }
 }
@@ -437,7 +471,8 @@ __global__ void __launch_bounds__(MT)
               const bf16* __restrict__ v, const bf16* __restrict__ dO,
               const float* __restrict__ L, const float* __restrict__ delta,
               bf16* __restrict__ dk, bf16* __restrict__ dv, int Tlen,
-              int causal, int window, int group, float scale) {
+              int causal, int window, int group, float scale,
+              const Lays ly) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vs = Ks + BM * RS<D>;
@@ -449,12 +484,15 @@ __global__ void __launch_bounds__(MT)
   float* Ds = Ls + BM;
   const int nt = Tlen / BM;
   const int kb = blockIdx.x;  // low key tiles see the most query tiles
-  const size_t kvbase = (size_t)blockIdx.y * Tlen * D;
+  k += head_at(ly.k, blockIdx.y, ly.hk);
+  v += head_at(ly.v, blockIdx.y, ly.hk);
+  dk += head_at(ly.dk, blockIdx.y, ly.hk);
+  dv += head_at(ly.dv, blockIdx.y, ly.hk);
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16;
 
-  load_rows<D>(Ks, k + kvbase + (size_t)kb * BM * D);
-  load_rows<D>(Vs, v + kvbase + (size_t)kb * BM * D);
+  load_rows<D>(Ks, k + kb * BM * ly.k.r, ly.k.r);
+  load_rows<D>(Vs, v + kb * BM * ly.v.r, ly.v.r);
   float accv[D / 8][4] = {}, acck[D / 8][4] = {};
   const int qstart = query_start(kb, causal);
   const int nq = query_end(kb, nt, window) - qstart;
@@ -462,11 +500,12 @@ __global__ void __launch_bounds__(MT)
     const int qh = blockIdx.y * group + it / nq;  // query head b*H + h
     const int qb = qstart + it % nq;
     __syncthreads();
-    const size_t rows = ((size_t)qh * Tlen + (size_t)qb * BM) * D;
-    load_rows<D>(Qs, q + rows);
-    load_rows<D>(dOs, dO + rows);
-    load_cols<D>(Qt, q + rows);
-    load_cols<D>(dOt, dO + rows);
+    const bf16* qt = q + head_at(ly.q, qh, ly.H) + qb * BM * ly.q.r;
+    const bf16* dot = dO + head_at(ly.dO, qh, ly.H) + qb * BM * ly.dO.r;
+    load_rows<D>(Qs, qt, ly.q.r);
+    load_rows<D>(dOs, dot, ly.dO.r);
+    load_cols<D>(Qt, qt, ly.q.r);
+    load_cols<D>(dOt, dot, ly.dO.r);
     if (threadIdx.x < BM) {
       const size_t r = (size_t)qh * Tlen + qb * BM + threadIdx.x;
       Ls[threadIdx.x] = L[r];
@@ -520,13 +559,13 @@ __global__ void __launch_bounds__(MT)
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const size_t r = (size_t)kb * BM + r0 + g + 8 * h;
+    const long long r = (long long)kb * BM + r0 + g + 8 * h;
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn) {
-      const size_t at = kvbase + r * D + dn * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(dv + at) =
+      const int c = dn * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(dv + r * ly.dv.r + c) =
           pack(accv[dn][2 * h], accv[dn][2 * h + 1]);
-      *reinterpret_cast<uint32_t*>(dk + at) =
+      *reinterpret_cast<uint32_t*>(dk + r * ly.dk.r + c) =
           pack(scale * acck[dn][2 * h], scale * acck[dn][2 * h + 1]);
     }
   }
@@ -548,13 +587,14 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// Rows [0, BM) of a contiguous (rows, D) array into shared memory, row
-// stride D + 1.
+// Rows [0, BM) of a (rows, D) array of row stride `rs` into shared
+// memory, row stride D + 1.
 template <int D>
 __device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src) {
+                                          const float* __restrict__ src,
+                                          long long rs) {
   for (int i = threadIdx.x; i < BM * D; i += NT)
-    dst[(i / D) * (D + 1) + i % D] = src[i];
+    dst[(i / D) * (D + 1) + i % D] = src[(i / D) * rs + i % D];
 }
 
 // acc[i][j] += sum_e A[(ty + 16 i)][e] * B[(tx + 16 j)][e] over two tiles
@@ -606,7 +646,7 @@ __global__ void __launch_bounds__(NT)
     fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, float* __restrict__ o,
             float* __restrict__ L, int Tlen, int causal, int window,
-            int group, float scale) {
+            int group, float scale, const Lays ly) {
   extern __shared__ float smem[];
   constexpr int S = D + 1;
   float* Qs = smem;
@@ -615,11 +655,14 @@ __global__ void __launch_bounds__(NT)
   float* Ps = Vs + BM * S;
   const int nt = Tlen / BM;
   const int qb = nt - 1 - blockIdx.x;
-  const size_t base = (size_t)blockIdx.y * Tlen * D;
-  const size_t kvbase = (size_t)(blockIdx.y / group) * Tlen * D;
+  const int kvh = blockIdx.y / group;
+  q += head_at(ly.q, blockIdx.y, ly.H);
+  o += head_at(ly.o, blockIdx.y, ly.H);
+  k += head_at(ly.k, kvh, ly.hk);
+  v += head_at(ly.v, kvh, ly.hk);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  load_tile<D>(Qs, q + base + (size_t)qb * BM * D);
+  load_tile<D>(Qs, q + qb * BM * ly.q.r, ly.q.r);
   float m[4], l[4], acc[4][D / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -631,8 +674,8 @@ __global__ void __launch_bounds__(NT)
   const int kend = key_end(qb, nt, causal);
   for (int kb = key_start(qb, window); kb < kend; ++kb) {
     __syncthreads();  // the previous tile's K, V and P are consumed
-    load_tile<D>(Ks, k + kvbase + (size_t)kb * BM * D);
-    load_tile<D>(Vs, v + kvbase + (size_t)kb * BM * D);
+    load_tile<D>(Ks, k + kb * BM * ly.k.r, ly.k.r);
+    load_tile<D>(Vs, v + kb * BM * ly.v.r, ly.v.r);
     __syncthreads();
     float s[4][4] = {};
     tile_dot<D>(s, Qs, Ks, ty, tx);
@@ -673,7 +716,7 @@ __global__ void __launch_bounds__(NT)
     const float inv = 1.f / l[i];
 #pragma unroll
     for (int c = 0; c < D / 16; ++c)
-      o[base + (size_t)r * D + tx + 16 * c] = acc[i][c] * inv;
+      o[r * ly.o.r + tx + 16 * c] = acc[i][c] * inv;
     if (tx == 0) L[(size_t)blockIdx.y * Tlen + r] = m[i] + logf(l[i]);
   }
 }
@@ -684,7 +727,7 @@ __global__ void __launch_bounds__(NT)
            const float* __restrict__ v, const float* __restrict__ dO,
            const float* __restrict__ L, const float* __restrict__ delta,
            float* __restrict__ dq, int Tlen, int causal, int window,
-           int group, float scale) {
+           int group, float scale, const Lays ly) {
   extern __shared__ float smem[];
   constexpr int S = D + 1;
   float* Qs = smem;
@@ -694,12 +737,16 @@ __global__ void __launch_bounds__(NT)
   float* dSs = Vs + BM * S;
   const int nt = Tlen / BM;
   const int qb = nt - 1 - blockIdx.x;
-  const size_t base = (size_t)blockIdx.y * Tlen * D;
-  const size_t kvbase = (size_t)(blockIdx.y / group) * Tlen * D;
+  const int kvh = blockIdx.y / group;
+  q += head_at(ly.q, blockIdx.y, ly.H);
+  dO += head_at(ly.dO, blockIdx.y, ly.H);
+  dq += head_at(ly.dq, blockIdx.y, ly.H);
+  k += head_at(ly.k, kvh, ly.hk);
+  v += head_at(ly.v, kvh, ly.hk);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  load_tile<D>(Qs, q + base + (size_t)qb * BM * D);
-  load_tile<D>(dOs, dO + base + (size_t)qb * BM * D);
+  load_tile<D>(Qs, q + qb * BM * ly.q.r, ly.q.r);
+  load_tile<D>(dOs, dO + qb * BM * ly.dO.r, ly.dO.r);
   float Lr[4], dr[4], acc[4][D / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -712,8 +759,8 @@ __global__ void __launch_bounds__(NT)
   const int kend = key_end(qb, nt, causal);
   for (int kb = key_start(qb, window); kb < kend; ++kb) {
     __syncthreads();
-    load_tile<D>(Ks, k + kvbase + (size_t)kb * BM * D);
-    load_tile<D>(Vs, v + kvbase + (size_t)kb * BM * D);
+    load_tile<D>(Ks, k + kb * BM * ly.k.r, ly.k.r);
+    load_tile<D>(Vs, v + kb * BM * ly.v.r, ly.v.r);
     __syncthreads();
     float s[4][4] = {}, dp[4][4] = {};
     tile_dot<D>(s, Qs, Ks, ty, tx);
@@ -738,7 +785,7 @@ __global__ void __launch_bounds__(NT)
     const int r = qb * BM + ty + 16 * i;
 #pragma unroll
     for (int c = 0; c < D / 16; ++c)
-      dq[base + (size_t)r * D + tx + 16 * c] = scale * acc[i][c];
+      dq[r * ly.dq.r + tx + 16 * c] = scale * acc[i][c];
   }
 }
 
@@ -752,7 +799,8 @@ __global__ void __launch_bounds__(NT)
              const float* __restrict__ v, const float* __restrict__ dO,
              const float* __restrict__ L, const float* __restrict__ delta,
              float* __restrict__ dk, float* __restrict__ dv, int Tlen,
-             int causal, int window, int group, float scale) {
+             int causal, int window, int group, float scale,
+             const Lays ly) {
   extern __shared__ float smem[];
   constexpr int S = D + 1;
   float* Ks = smem;
@@ -763,11 +811,14 @@ __global__ void __launch_bounds__(NT)
   float* dSt = Pt + BM * PS;
   const int nt = Tlen / BM;
   const int kb = blockIdx.x;
-  const size_t kvbase = (size_t)blockIdx.y * Tlen * D;
+  k += head_at(ly.k, blockIdx.y, ly.hk);
+  v += head_at(ly.v, blockIdx.y, ly.hk);
+  dk += head_at(ly.dk, blockIdx.y, ly.hk);
+  dv += head_at(ly.dv, blockIdx.y, ly.hk);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  load_tile<D>(Ks, k + kvbase + (size_t)kb * BM * D);
-  load_tile<D>(Vs, v + kvbase + (size_t)kb * BM * D);
+  load_tile<D>(Ks, k + kb * BM * ly.k.r, ly.k.r);
+  load_tile<D>(Vs, v + kb * BM * ly.v.r, ly.v.r);
   float accv[4][D / 16], acck[4][D / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -779,9 +830,10 @@ __global__ void __launch_bounds__(NT)
     const int qh = blockIdx.y * group + it / nq;  // query head b*H + h
     const int qb = qstart + it % nq;
     __syncthreads();
-    const size_t rows = ((size_t)qh * Tlen + (size_t)qb * BM) * D;
-    load_tile<D>(Qs, q + rows);
-    load_tile<D>(dOs, dO + rows);
+    load_tile<D>(Qs, q + head_at(ly.q, qh, ly.H) + qb * BM * ly.q.r,
+                 ly.q.r);
+    load_tile<D>(dOs, dO + head_at(ly.dO, qh, ly.H) + qb * BM * ly.dO.r,
+                 ly.dO.r);
     float Lq[4], dq_[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -812,11 +864,11 @@ __global__ void __launch_bounds__(NT)
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const size_t r = (size_t)kb * BM + ty + 16 * i;
+    const long long r = (long long)kb * BM + ty + 16 * i;
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) {
-      dv[kvbase + r * D + tx + 16 * c] = accv[i][c];
-      dk[kvbase + r * D + tx + 16 * c] = scale * acck[i][c];
+      dv[r * ly.dv.r + tx + 16 * c] = accv[i][c];
+      dk[r * ly.dk.r + tx + 16 * c] = scale * acck[i][c];
     }
   }
 }
@@ -831,6 +883,7 @@ struct Args {
   int BH, T, causal, window, group;  // BH counts query heads
   float scale;
   cudaStream_t stream;
+  Lays ly;
 };
 
 // Raise the kernel's dynamic shared-memory cap to `smem` where it is over
@@ -866,16 +919,17 @@ int run_bf16(int which, const Args& a) {
     case 0:
       return launch(fwd_bf16<D>, MT, bf16_smem(D, 2, 1, 0), a.BH, a,
                     in(a.q), in(a.k), in(a.v), out(a.out0), a.L_out, a.T,
-                    a.causal, a.window, a.group, a.scale);
+                    a.causal, a.window, a.group, a.scale, a.ly);
     case 1:
       return launch(dq_bf16<D>, MT, bf16_smem(D, 4, 1, 0), a.BH, a,
                     in(a.q), in(a.k), in(a.v), in(a.dO), a.L, a.delta,
-                    out(a.out0), a.T, a.causal, a.window, a.group, a.scale);
+                    out(a.out0), a.T, a.causal, a.window, a.group, a.scale,
+                    a.ly);
     case 2:
       return launch(dkdv_bf16<D>, MT, bf16_smem(D, 4, 2, 2 * BM),
                     a.BH / a.group, a, in(a.q), in(a.k), in(a.v), in(a.dO),
                     a.L, a.delta, out(a.out0), out(a.out1), a.T, a.causal,
-                    a.window, a.group, a.scale);
+                    a.window, a.group, a.scale, a.ly);
     default:
       return -1;
   }
@@ -889,16 +943,16 @@ int run_f32(int which, const Args& a) {
     case 0:
       return launch(fwd_f32<D>, NT, f32_smem(D, 3, 1), a.BH, a, in(a.q),
                     in(a.k), in(a.v), out(a.out0), a.L_out, a.T, a.causal,
-                    a.window, a.group, a.scale);
+                    a.window, a.group, a.scale, a.ly);
     case 1:
       return launch(dq_f32<D>, NT, f32_smem(D, 4, 1), a.BH, a, in(a.q),
                     in(a.k), in(a.v), in(a.dO), a.L, a.delta, out(a.out0),
-                    a.T, a.causal, a.window, a.group, a.scale);
+                    a.T, a.causal, a.window, a.group, a.scale, a.ly);
     case 2:
       return launch(dkdv_f32<D>, NT, f32_smem(D, 4, 2), a.BH / a.group, a,
                     in(a.q), in(a.k), in(a.v), in(a.dO), a.L, a.delta,
                     out(a.out0), out(a.out1), a.T, a.causal, a.window,
-                    a.group, a.scale);
+                    a.group, a.scale, a.ly);
     default:
       return -1;
   }
@@ -911,10 +965,18 @@ int run(int dtype, int which, const Args& a) {
   return -1;
 }
 
-int dispatch(int dtype, int d, int which, const Args& a) {
-  if (a.T <= 0 || a.T % BM || a.BH <= 0 || a.BH > 65535 || a.window < 0 ||
-      a.group < 1 || a.BH % a.group)
+int dispatch(int dtype, int d, int which, Args& a, int B, int H,
+             const long long* strides) {
+  if (a.T <= 0 || a.T % BM || B <= 0 || H <= 0 || B * H > 65535 ||
+      a.window < 0 || a.group < 1 || H % a.group)
     return -1;
+  a.BH = B * H;
+  Lay* lay[] = {&a.ly.q, &a.ly.k, &a.ly.v, &a.ly.o,
+                &a.ly.dO, &a.ly.dq, &a.ly.dk, &a.ly.dv};
+  for (int i = 0; i < 8; ++i)
+    *lay[i] = Lay{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  a.ly.H = H;
+  a.ly.hk = H / a.group;
   switch (d) {
     case 32: return run<32>(dtype, which, a);
     case 64: return run<64>(dtype, which, a);
@@ -925,45 +987,49 @@ int dispatch(int dtype, int d, int which, const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. BH counts query heads (B*H); k and v
-// hold BH / group heads. window 0 means no band. Each returns 0 on
-// success, -1 for an unsupported dtype, d or shape, else the cudaError_t
-// of the launch.
+// dtype: 0 = float32, 1 = bfloat16. B batches of H query heads; k and v
+// hold H / group heads per batch. window 0 means no band. `strides` holds
+// the (batch, head, row) element strides of q, k, v, o, dO, dq, dk, dv in
+// that order (24 values; those of tensors a launch does not take are not
+// read). Each returns 0 on success, -1 for an unsupported dtype, d or
+// shape, else the cudaError_t of the launch.
 
-// o = attention(q, k, v); L = its row logsumexp (f32, (BH, T)).
+// o = attention(q, k, v); L = its row logsumexp (f32, (B*H, T)).
 extern "C" int flash_fwd_launch(int dtype, int d, const void* q,
                                 const void* k, const void* v, void* o,
-                                void* L, int BH, int T, int causal,
+                                void* L, int B, int H, int T, int causal,
                                 int window, int group, float scale,
-                                void* stream) {
+                                const long long* strides, void* stream) {
   Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr,
-         static_cast<float*>(L), BH, T, causal, window, group, scale,
-         static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, d, 0, a);
+         static_cast<float*>(L), 0, T, causal, window, group, scale,
+         static_cast<cudaStream_t>(stream), {}};
+  return dispatch(dtype, d, 0, a, B, H, strides);
 }
 
-// dq from q, k, v, dO, L and delta = rowsum(dO * O) (f32, (BH, T)).
+// dq from q, k, v, dO, L and delta = rowsum(dO * O) (f32, (B*H, T)).
 extern "C" int flash_dq_launch(int dtype, int d, const void* q, const void* k,
                                const void* v, const void* dO, const void* L,
-                               const void* delta, void* dq, int BH, int T,
-                               int causal, int window, int group, float scale,
+                               const void* delta, void* dq, int B, int H,
+                               int T, int causal, int window, int group,
+                               float scale, const long long* strides,
                                void* stream) {
   Args a{q, k, v, dO, static_cast<const float*>(L),
-         static_cast<const float*>(delta), dq, nullptr, nullptr, BH, T,
-         causal, window, group, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, d, 1, a);
+         static_cast<const float*>(delta), dq, nullptr, nullptr, 0, T,
+         causal, window, group, scale, static_cast<cudaStream_t>(stream),
+         {}};
+  return dispatch(dtype, d, 1, a, B, H, strides);
 }
 
-// dk and dv (BH / group heads, each summed over its group) from the same
-// inputs.
+// dk and dv (H / group heads per batch, each summed over its group) from
+// the same inputs.
 extern "C" int flash_dkdv_launch(int dtype, int d, const void* q,
                                  const void* k, const void* v, const void* dO,
                                  const void* L, const void* delta, void* dk,
-                                 void* dv, int BH, int T, int causal,
+                                 void* dv, int B, int H, int T, int causal,
                                  int window, int group, float scale,
-                                 void* stream) {
+                                 const long long* strides, void* stream) {
   Args a{q, k, v, dO, static_cast<const float*>(L),
-         static_cast<const float*>(delta), dk, dv, nullptr, BH, T, causal,
-         window, group, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, d, 2, a);
+         static_cast<const float*>(delta), dk, dv, nullptr, 0, T, causal,
+         window, group, scale, static_cast<cudaStream_t>(stream), {}};
+  return dispatch(dtype, d, 2, a, B, H, strides);
 }

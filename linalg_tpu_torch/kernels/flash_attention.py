@@ -13,6 +13,13 @@ heads per K/V head) are K4's: with ``group`` g > 1, k and v are
 (B, H / g, T, d) and dk, dv come back at that grouped size. Without it,
 K/V must have q's heads.
 
+Head tensors are read and written through their strides: any (B, H, T,
+d) view whose d axis is contiguous and whose other strides are multiples
+of 16 bytes, such as the head view ``x.view(B, T, H, d).transpose(1, 2)``
+of the model's (B, T, H*d) projections (K7, ``nn.flash_btd``). Outputs
+take the layout of the input they mirror (``torch.empty_like``): o and dq
+q's, dk and dv k's and v's.
+
 Each wrapper's ``launches`` attribute counts its launches, so a run can
 show that its attention went through the kernels.
 """
@@ -40,8 +47,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def _lib():
     lib = ctypes.CDLL(str(build("flash_attention")))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # BH, T, causal, window, group, scale, stream
-    tail = [i32, i32, i32, i32, i32, f32, ptr]
+    # B, H, T, causal, window, group, scale, strides, stream
+    tail = [i32, i32, i32, i32, i32, i32, f32, ptr, ptr]
     lib.flash_fwd_launch.argtypes = [i32, i32] + [ptr] * 5 + tail
     lib.flash_dq_launch.argtypes = [i32, i32] + [ptr] * 7 + tail
     lib.flash_dkdv_launch.argtypes = [i32, i32] + [ptr] * 8 + tail
@@ -88,21 +95,38 @@ def _check(name, heads, rows=(), group=1):
                          f"{BLOCK}")
     if not 0 < B * H <= MAX_BH:
         raise ValueError(f"{name}: B*H {B * H} outside (0, {MAX_BH}]")
-    if not all(t.is_contiguous() for t in heads + rows):
-        raise ValueError(f"{name} needs contiguous tensors")
+    if not all(t.is_contiguous() for t in rows):
+        raise ValueError(f"{name} needs contiguous L and delta")
+    vec = 16 // q.element_size()  # elements in 16 bytes
+    if any(t.stride(3) != 1 or any(st % vec for st in t.stride()[:3])
+           for t in heads):
+        raise ValueError(f"{name}: each head's d axis must be contiguous "
+                         "and the batch, head and row strides multiples of "
+                         "16 bytes")
     if any(t.data_ptr() % 16 for t in heads):
         raise ValueError(f"{name} needs 16-byte aligned tensors")
-    return B * H, T, d
+    return B, H, T, d
 
 
-def _call(name, fn, dtype, d, ptrs, BH, T, causal, window, group, device):
+def _strides(*tensors):
+    """The (batch, head, row) strides of q, k, v, o, dO, dq, dk, dv (None
+    for a tensor the launch does not take) as the kernels' int64 array."""
+    vals = []
+    for t in tensors:
+        vals += list(t.stride()[:3]) if t is not None else [0, 0, 0]
+    return (ctypes.c_longlong * 24)(*vals)
+
+
+def _call(name, fn, dtype, dims, ptrs, causal, window, group, strides,
+          device):
     if window is not None and window < 1:
         raise ValueError(f"{name}: window must be >= 1 or None, got "
                          f"{window}")
+    B, H, T, d = dims
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        rc = fn(_DTYPE_CODE[dtype], d, *ptrs, BH, T, int(bool(causal)),
-                window or 0, group, 1.0 / math.sqrt(d), stream)
+        rc = fn(_DTYPE_CODE[dtype], d, *ptrs, B, H, T, int(bool(causal)),
+                window or 0, group, 1.0 / math.sqrt(d), strides, stream)
     if rc:
         raise RuntimeError(f"{name} launch failed (code {rc})")
 
@@ -111,12 +135,13 @@ def flash_fwd_cuda(q, k, v, causal: bool = True, window=None,
                    group: int = 1):
     """Attention forward: q (B, H, T, d), k, v (B, H / group, T, d) ->
     (o (B, H, T, d) in q's dtype, L (B, H, T) float32 row logsumexp)."""
-    BH, T, d = _check("flash_fwd_cuda", (q, k, v), group=group)
+    dims = _check("flash_fwd_cuda", (q, k, v), group=group)
     o = torch.empty_like(q)
     L = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _call("flash_fwd", _lib().flash_fwd_launch, q.dtype, d,
+    _call("flash_fwd", _lib().flash_fwd_launch, q.dtype, dims,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-           L.data_ptr()), BH, T, causal, window, group, q.device)
+           L.data_ptr()), causal, window, group,
+          _strides(q, k, v, o, None, None, None, None), q.device)
     flash_fwd_cuda.launches += 1
     return o, L
 
@@ -125,12 +150,12 @@ def flash_dq_cuda(q, k, v, do, L, delta, causal: bool = True, window=None,
                   group: int = 1):
     """dq of attention from the forward's L and delta = rowsum(dO * O)
     (both float32 (B, H, T))."""
-    BH, T, d = _check("flash_dq_cuda", (q, k, v, do), (L, delta), group)
+    dims = _check("flash_dq_cuda", (q, k, v, do), (L, delta), group)
     dq = torch.empty_like(q)
-    _call("flash_dq", _lib().flash_dq_launch, q.dtype, d,
+    _call("flash_dq", _lib().flash_dq_launch, q.dtype, dims,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-           L.data_ptr(), delta.data_ptr(), dq.data_ptr()), BH, T, causal,
-          window, group, q.device)
+           L.data_ptr(), delta.data_ptr(), dq.data_ptr()), causal, window,
+          group, _strides(q, k, v, None, do, dq, None, None), q.device)
     flash_dq_cuda.launches += 1
     return dq
 
@@ -140,13 +165,14 @@ def flash_dkdv_cuda(q, k, v, do, L, delta, causal: bool = True, window=None,
     """(dk, dv) of attention from the same inputs as ``flash_dq_cuda``, at
     k's grouped size: each K/V head's gradient summed over its group in
     float32 and rounded once."""
-    BH, T, d = _check("flash_dkdv_cuda", (q, k, v, do), (L, delta), group)
+    dims = _check("flash_dkdv_cuda", (q, k, v, do), (L, delta), group)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _call("flash_dkdv", _lib().flash_dkdv_launch, q.dtype, d,
+    _call("flash_dkdv", _lib().flash_dkdv_launch, q.dtype, dims,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            L.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-          BH, T, causal, window, group, q.device)
+          causal, window, group,
+          _strides(q, k, v, None, do, None, dk, dv), q.device)
     flash_dkdv_cuda.launches += 1
     return dk, dv
 

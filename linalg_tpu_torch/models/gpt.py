@@ -14,8 +14,12 @@ PyTorch idiom: eager functions on tensors, a Python loop where JAX scans
 and KV buffers updated in place. Parameters stay float32 masters; every
 forward runs in ``cfg.compute_dtype`` and returns float32 logits.
 ``gpt_apply`` and ``gpt_loss`` are differentiable (the training path:
-attention picked by ``_pick_attn``); prefill and decode run without
-gradients and always use ``sdpa``, as the JAX package does.
+attention picked by ``_pick_attn``, and the JAX package's two gated
+kernels on the card: ``_pick_attn_btd``'s (B, T, H*d) attention and
+``_pick_fused``'s LayerNorm+QKV / LayerNorm+FFN; both read the same
+parameter keys, so ``params_from_numpy`` carries JAX weights across
+unchanged); prefill and decode run without gradients and always use
+``sdpa``, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import os
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -33,8 +38,10 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.flash_attention import SUPPORTED_D as FLASH_D
 from ..nn.cache import fkv_write
 from ..nn.flash import FLASH_MAX_T, flash_attention
+from ..nn.flash_btd import attention_btd, btd_supported
 from ..nn.flash_long import flash_attention_long
 from ..nn.flash_stream import STREAM_BLOCK, flash_attention_stream
+from ..nn.fused_layer import fused_supported, ln_ffn, ln_qkv
 from ..nn.functional import (causal_mask, geglu, gelu, layer_norm, relu,
                              rope_rotate, rope_tables, sdpa,
                              sinusoidal_encoding, swiglu)
@@ -208,17 +215,35 @@ def _ffn_dense(lp, x, ffn: str = "relu"):
 
 
 def _layer(h_in, lp, mask, n_heads: int, n_kv: Optional[int] = None,
-           ffn: str = "relu", attn_fn: Callable = sdpa, rope=None):
+           ffn: str = "relu", attn_fn: Callable = sdpa, rope=None,
+           fused: bool = False, attn_btd: Optional[Callable] = None):
     """One pre-LN decoder block. ``rope`` is an optional (cos, sin) pair of
     (T, d_head/2) tables rotating q and k. ``attn_fn(q, k, v, mask)`` sees
     equal head counts, or the grouped K/V when it carries ``gqa_native``.
     Returns (h_out, (k, v)) with k/v at their grouped (B, n_kv, T, d) size
-    — the prefill cache."""
+    — the prefill cache.
+
+    The JAX package's order: ``attn_btd(q, k, v)``, a (B, T, H*d)-layout
+    attention (``nn.flash_btd``), takes the block first when there is no
+    RoPE (then k/v are not returned); else ``fused`` routes LN+QKV and
+    LN+FFN through ``nn.fused_layer`` (``_pick_fused`` gates it to equal
+    K/V heads and the ReLU FFN)."""
     n_kv = n_heads if n_kv is None else n_kv
-    xn = layer_norm(h_in, lp["ln1_g"], lp["ln1_b"])
-    q = _heads(xn @ lp["Wq"], n_heads)
-    k = _heads(xn @ lp["Wk"], n_kv)
-    v = _heads(xn @ lp["Wv"], n_kv)
+    if attn_btd is not None and rope is None:
+        xn = layer_norm(h_in, lp["ln1_g"], lp["ln1_b"])
+        a = attn_btd(xn @ lp["Wq"], xn @ lp["Wk"], xn @ lp["Wv"]) @ lp["Wo"]
+        h1 = h_in + a
+        f = _ffn_dense(lp, layer_norm(h1, lp["ln2_g"], lp["ln2_b"]), ffn)
+        return h1 + f, (None, None)
+    if fused:
+        qf, kf, vf = ln_qkv(h_in, lp["ln1_g"], lp["ln1_b"], lp["Wq"],
+                            lp["Wk"], lp["Wv"])
+        q, k, v = _heads(qf, n_heads), _heads(kf, n_kv), _heads(vf, n_kv)
+    else:
+        xn = layer_norm(h_in, lp["ln1_g"], lp["ln1_b"])
+        q = _heads(xn @ lp["Wq"], n_heads)
+        k = _heads(xn @ lp["Wk"], n_kv)
+        v = _heads(xn @ lp["Wv"], n_kv)
     if rope is not None:
         q = rope_rotate(q, *rope)
         k = rope_rotate(k, *rope)
@@ -229,7 +254,11 @@ def _layer(h_in, lp, mask, n_heads: int, n_kv: Optional[int] = None,
         a = _unheads(attn_fn(q, _gqa_expand(k, n_heads),
                              _gqa_expand(v, n_heads), mask)) @ lp["Wo"]
     h1 = h_in + a
-    f = _ffn_dense(lp, layer_norm(h1, lp["ln2_g"], lp["ln2_b"]), ffn)
+    if fused:
+        f = ln_ffn(h1, lp["ln2_g"], lp["ln2_b"], lp["W1"], lp["b1"],
+                   lp["W2"], lp["b2"])
+    else:
+        f = _ffn_dense(lp, layer_norm(h1, lp["ln2_g"], lp["ln2_b"]), ffn)
     return h1 + f, (k, v)
 
 
@@ -335,6 +364,54 @@ def _pick_attn(T: int, d_head: int, device_type: str):
     return wrapped
 
 
+def _pick_fused(B: int, T: int, cfg: GPTConfig, device_type: str) -> bool:
+    """Gate for the fused LN+QKV / LN+FFN kernels (K8/K9): the JAX
+    package's rule, opt-in with ``LINALG_TPU_FUSED_LN=1``, with ``cuda`` in
+    the place of the TPU backend. Equal K/V heads (the fused QKV assumes
+    equal-width projections), no window (attention must see its band), the
+    ReLU FFN (``ln_ffn`` has no gate branch), and ``fused_supported``
+    shapes. The JAX package measured them slower than its unfused path on
+    the TPU; the gate stays as it is until a benchmark cell on the card
+    shows otherwise (PERF.md has the H100 A/B)."""
+    if cfg.kv_heads != cfg.n_heads or cfg.window is not None:
+        return False
+    if cfg.ffn != "relu":
+        return False
+    if os.environ.get("LINALG_TPU_FUSED_LN", "") != "1":
+        return False
+    return device_type == "cuda" and fused_supported(B * T, cfg.d_model,
+                                                     cfg.dff)
+
+
+# The JAX package's btd-vs-rematted-sdpa crossover, measured on its TPU:
+# the (B, T, H*d) kernel pays off once the (B, H, T, T) score tensor it
+# keeps out of device memory is this large (~B >= 128 at the published
+# config). Kept as it is until an H100 benchmark cell can move it.
+_BTD_MIN_SCORE_ELEMS = 32 * 1024 * 1024
+
+
+def _pick_attn_btd(B: int, T: int, cfg: GPTConfig, device_type: str):
+    """(B, T, H*d)-layout attention for the short-context training path
+    (K7), or None: the JAX package's rule with ``cuda`` in the place of
+    the TPU backend. On by itself when B*H*T^2 >= 32M score elements;
+    ``LINALG_TPU_BTD_ATTN=0/1`` forces it off/on (the size test only).
+    Never with RoPE; only for T < 512 and a multiple of 256, and
+    ``btd_supported`` shapes. ``_gpt_trunk`` also keeps it from ALiBi,
+    grouped K/V and a window."""
+    force = os.environ.get("LINALG_TPU_BTD_ATTN", "")
+    if force == "0":
+        return None
+    if force != "1" and B * cfg.n_heads * T * T < _BTD_MIN_SCORE_ELEMS:
+        return None
+    if device_type != "cuda" or cfg.pos == "rope":
+        return None
+    if not (T < 512 and T % 256 == 0):
+        return None
+    if not btd_supported(B, T, cfg.d_model, cfg.n_heads):
+        return None
+    return lambda q, k, v: attention_btd(q, k, v, cfg.n_heads, True)
+
+
 def _padded_attn(fn, T: int, Tp: int):
     """Wrap a causal attention kernel ``fn(q, k, v, causal)`` to serve
     ragged T <= Tp: right-pad to Tp and slice back. Exact under the causal
@@ -355,15 +432,23 @@ def _gpt_trunk(params: Params, x_ids, cfg: GPTConfig,
                attn_fn: Optional[Callable] = None):
     """Embedding + layer stack: token ids (B, T) -> final hidden (B, T, D)
     in the compute dtype. Differentiable with respect to ``params``."""
-    T = x_ids.shape[-1]
+    B, T = x_ids.shape[0], x_ids.shape[-1]
+    dev = x_ids.device.type
+    gqa = cfg.kv_heads != cfg.n_heads
+    attn_btd = None
     if attn_fn is None:
-        attn_fn = _pick_attn_cfg(cfg, T, x_ids.device.type)
+        if cfg.pos != "alibi" and not gqa and cfg.window is None:
+            # the (B, T, H*d) kernel takes the raw QKV projections: no
+            # grouped K/V, and a pure causal mask (no band, no bias)
+            attn_btd = _pick_attn_btd(B, T, cfg, dev)
+        attn_fn = _pick_attn_cfg(cfg, T, dev)
+    fused = (not gqa) and _pick_fused(B, T, cfg, dev)
     dt = cfg.compute_dtype
     h, rope = _embed(params, x_ids, cfg, T, dt)
     mask = _trunk_mask(cfg, T, dt, h.device)
     for lp in _layer_params(params, dt):
         h, _ = _layer(h, lp, mask, cfg.n_heads, cfg.kv_heads, cfg.ffn,
-                      attn_fn, rope)
+                      attn_fn, rope, fused, attn_btd)
     return h
 
 

@@ -270,8 +270,8 @@ def _lr_kwargs(args):
 
 
 def train(args) -> Tuple[dict, GPTConfig, dict, dict]:
-    """Run the training loop on ``args.device`` (default: the card when
-    there is one); returns (params, cfg, stoi, itos)."""
+    """Run the training loop on ``args.device`` (default: the card; the
+    CPU only when asked for); returns (params, cfg, stoi, itos)."""
     for axis in ("dp", "tp", "sp", "pp", "fsdp"):
         if int(getattr(args, axis, 1) or 1) > 1:
             raise NotImplementedError(

@@ -8,9 +8,13 @@ __all__ = ["resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` when given; else ``cuda`` when a card is present, else
-    ``cpu``. An explicit device always wins: asking for ``cuda`` on a
-    machine without one fails at first use, never falls back."""
-    if device is not None:
-        return torch.device(device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """``device`` when given, else ``cuda``: the port runs on the card
+    unless the caller asks for the CPU (``device="cpu"``, ``--device
+    cpu``). Asking for ``cuda`` (or nothing) on a machine without a card
+    raises here, at construction or at the CLI; nothing falls back."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card on this machine: pass device='cpu' (--device cpu "
+            "on the command line) to run on the CPU")
+    return dev

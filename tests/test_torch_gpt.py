@@ -71,6 +71,8 @@ def test_port_imports_neither_jax_nor_reference():
         "import linalg_tpu_torch.train.trainer, linalg_tpu_torch.nn.flash\n"
         "import linalg_tpu_torch.nn.flash_long, linalg_tpu_torch.nn.flash_stream"
         ", linalg_tpu_torch.nn.positional\n"
+        "import linalg_tpu_torch.nn.flash_btd, linalg_tpu_torch.nn.fused_layer"
+        ", linalg_tpu_torch.kernels.fused_layer\n"
         "for m in pkgutil.walk_packages(p.__path__, 'linalg_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -81,6 +83,18 @@ def test_port_imports_neither_jax_nor_reference():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, check=True)
     assert int(out.stdout.strip()) >= 40  # every module was imported
+
+
+def test_resolve_device_defaults_to_the_card(monkeypatch):
+    """No device asked for means ``cuda``; the CPU only when asked for."""
+    from linalg_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        resolve_device()
 
 
 class TestFunctional:

@@ -317,8 +317,8 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
         flash_fwd_cuda(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="multiple"):
         flash_fwd_cuda(*(t[:, :, :100].contiguous() for t in (q, k, v)))
-    with pytest.raises(ValueError, match="contiguous"):
-        flash_fwd_cuda(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="contiguous"):  # d axis strided
+        flash_fwd_cuda(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
     with pytest.raises(ValueError, match="grouped"):
         flash_fwd_cuda(q, k[:, :1].contiguous(), v[:, :1].contiguous())
     with pytest.raises(ValueError, match="float32"):
@@ -408,3 +408,171 @@ def test_stream_autograd_on_card(cuda, T, hk, window):
             flash_dkdv_cuda.launches) == tuple(n + 1 for n in before)
     for got, w, what in zip(*outs, ("o", "dq", "dk", "dv")):
         assert_close_of_max(got, w, torch.float32, what)
+
+
+# K7: the flash kernels on head views of (B, T, H*d) tensors
+# (nn/flash_btd.py), the published shape and the JAX tests' small ones
+BTD_SHAPES = [(128, 256, 4, 128), (2, 64, 2, 128), (3, 128, 4, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", BTD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_btd_through_kernels_matches_ref_on_card(cuda, shape, dtype):
+    """attention_btd through the kernels (strided head views, outputs
+    written in (B, T, H*d)) against the same Function through the plain
+    versions; each kernel launches once."""
+    from linalg_tpu_torch.nn.flash_btd import attention_btd, attention_btd_ref
+
+    B, T, H, d = shape
+    x = flash_inputs((B, T, H * d), dtype, cuda, seed=B + T)
+    before = (flash_fwd_cuda.launches, flash_dq_cuda.launches,
+              flash_dkdv_cuda.launches)
+    outs = []
+    for fn in (attention_btd, attention_btd_ref):
+        q, k, v = (t.clone().requires_grad_(True) for t in x[:3])
+        o = fn(q, k, v, H)
+        o.backward(x[3])
+        outs.append([o.detach(), q.grad, k.grad, v.grad])
+    torch.cuda.synchronize()
+    assert (flash_fwd_cuda.launches, flash_dq_cuda.launches,
+            flash_dkdv_cuda.launches) == tuple(n + 1 for n in before)
+    assert outs[0][0].is_contiguous() and outs[0][0].shape == (B, T, H * d)
+    for got, w, what in zip(*outs, ("o", "dq", "dk", "dv")):
+        assert_close_of_max(got, w, dtype, what)
+
+
+# K8/K9 (kernels/csrc/fused_layer.cu) vs their plain versions, as a share
+# of max|want|: float32 sums in another order (1e-4); bf16 outputs keep 8
+# bits of mantissa, and x^, relu(z) and dz round where the plain versions
+# round, but an element on a rounding boundary may round the other way
+# (2e-2)
+FUSED_RTOL_OF_MAX = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# The outputs of K9's backward behind the ReLU mask (dx, dg, db, dW1, db1):
+# a z within the sums' rounding of 0 may fall on the other side of the
+# ReLU in the two versions, which moves that dz entry by all of da, so
+# they are held by ||got - want|| / ||want|| instead (a few such entries
+# at N 16384 move it by ~3e-4)
+FUSED_MASKED = ("ffn dx", "ffn dg", "ffn db", "dW1", "db1")
+FUSED_RTOL_OF_NORM = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+
+
+def fused_error(got, want, dtype, what):
+    """(error, tolerance) of one output: max abs against a share of
+    max|want|, or, behind K9's ReLU mask, the relative norm."""
+    g, w = got.float(), want.float()
+    if what in FUSED_MASKED:
+        return (float(torch.linalg.norm(g - w) / torch.linalg.norm(w)),
+                FUSED_RTOL_OF_NORM[dtype])
+    return (float((g - w).abs().max()),
+            FUSED_RTOL_OF_MAX[dtype] * max(1.0, float(w.abs().max())))
+# (N, D, F): the published width at B 64 x T 256; a ragged N (5 row tiles:
+# the 8 row groups of the gradient sums are uneven, some empty); one tile
+FUSED_SHAPES = [(16384, 512, 2048), (320, 128, 256), (64, 256, 384)]
+
+
+def fused_inputs(N, D, F, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, shift=0.0):
+        return torch.tensor(rng.standard_normal(shape) * scale + shift,
+                            dtype=dtype, device=device)
+
+    x = t(N, D)
+    qkv = (x, t(D, scale=0.1, shift=1.0), t(D, scale=0.1),
+           *(t(D, D, scale=D ** -0.5) for _ in range(3)))
+    ffn = (x, qkv[1], qkv[2], t(D, F, scale=D ** -0.5), t(F, scale=0.1),
+           t(F, D, scale=F ** -0.5), t(D, scale=0.1))
+    return qkv, ffn, [t(N, D) for _ in range(3)]
+
+
+def fused_counts():
+    from linalg_tpu_torch.kernels import fused_layer as kf
+
+    return (kf.ln_qkv_fwd_cuda.launches, kf.ln_qkv_bwd_cuda.launches,
+            kf.ln_ffn_fwd_cuda.launches, kf.ln_ffn_bwd_cuda.launches)
+
+
+def test_fused_wrappers_reject_cpu_tensors():
+    from linalg_tpu_torch.kernels import fused_layer as kf
+
+    qkv, ffn, dys = fused_inputs(64, 128, 128, torch.float32, "cpu", 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        kf.ln_qkv_fwd_cuda(*qkv)
+    with pytest.raises(ValueError, match="CUDA"):
+        kf.ln_qkv_bwd_cuda(*qkv, *dys)
+    with pytest.raises(ValueError, match="CUDA"):
+        kf.ln_ffn_fwd_cuda(*ffn)
+    with pytest.raises(ValueError, match="CUDA"):
+        kf.ln_ffn_bwd_cuda(*ffn[:6], dys[0])
+
+
+def test_fused_dispatchers_take_plain_version_on_cpu():
+    from linalg_tpu_torch.nn.fused_layer import ln_ffn, ln_qkv
+
+    qkv, ffn, dys = fused_inputs(64, 128, 128, torch.float32, "cpu", 1)
+    before = fused_counts()
+    xs = [t.clone().requires_grad_(True) for t in qkv]
+    torch.autograd.grad(ln_qkv(*xs), xs, dys)
+    xs = [t.clone().requires_grad_(True) for t in ffn]
+    torch.autograd.grad(ln_ffn(*xs), xs, dys[0])
+    assert fused_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", FUSED_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_kernels_match_ref_on_card(cuda, shape, dtype):
+    """Every output and gradient of K8 and K9 against the plain versions;
+    each wrapper launches once."""
+    from linalg_tpu_torch.kernels import fused_layer as kf
+    from linalg_tpu_torch.nn import fused_layer as fl
+
+    qkv, ffn, dys = fused_inputs(*shape, dtype, cuda, seed=sum(shape))
+    before = fused_counts()
+    got = [*kf.ln_qkv_fwd_cuda(*qkv), *kf.ln_qkv_bwd_cuda(*qkv, *dys),
+           kf.ln_ffn_fwd_cuda(*ffn), *kf.ln_ffn_bwd_cuda(*ffn[:6], dys[0])]
+    torch.cuda.synchronize()
+    assert fused_counts() == tuple(n + 1 for n in before)
+    want = [*fl.ln_qkv_ref(*qkv), *fl.ln_qkv_bwd_ref(*qkv, *dys),
+            fl.ln_ffn_ref(*ffn), *fl.ln_ffn_bwd_ref(*ffn[:6], dys[0])]
+    names = ["q", "k", "v", "dx", "dg", "db", "dWq", "dWk", "dWv", "f",
+             "ffn dx", "ffn dg", "ffn db", "dW1", "db1", "dW2", "db2"]
+    for g, w, what in zip(got, want, names):
+        assert g.shape == w.shape and g.dtype == w.dtype, what
+        err, tol = fused_error(g, w, dtype, what)
+        assert err <= tol, f"{what}: error {err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.cuda
+def test_fused_backward_is_deterministic_on_card(cuda):
+    """No float atomics: two backward runs give the same bits."""
+    from linalg_tpu_torch.kernels import fused_layer as kf
+
+    qkv, ffn, dys = fused_inputs(1024, 256, 512, torch.float32, cuda, 5)
+    for fn, args in ((kf.ln_qkv_bwd_cuda, (*qkv, *dys)),
+                     (kf.ln_ffn_bwd_cuda, (*ffn[:6], dys[0]))):
+        a, b = fn(*args), fn(*args)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_fused_kernels_reject_what_they_do_not_take(cuda):
+    from linalg_tpu_torch.kernels import fused_layer as kf
+
+    qkv, ffn, _ = fused_inputs(128, 128, 256, torch.float32, cuda, 6)
+    x = qkv[0]
+    with pytest.raises(ValueError, match="multiple of 64"):
+        kf.ln_qkv_fwd_cuda(x[:100].contiguous(), *qkv[1:])
+    with pytest.raises(ValueError, match="dtype"):
+        kf.ln_qkv_fwd_cuda(x.double(), *(t.double() for t in qkv[1:]))
+    with pytest.raises(ValueError, match="share"):
+        kf.ln_qkv_fwd_cuda(x.bfloat16(), *qkv[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        kf.ln_qkv_fwd_cuda(x, *qkv[1:3], qkv[3].T, *qkv[4:])
+    with pytest.raises(ValueError, match="shape"):
+        kf.ln_ffn_fwd_cuda(*ffn[:5], ffn[5][:128].contiguous(), ffn[6])

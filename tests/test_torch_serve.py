@@ -41,7 +41,7 @@ def requests(seed=0, n=7, stop_token=-1):
 
 def run_port(reqs, **kw):
     prompts, stop = reqs
-    eng = ServeEngine(PARAMS, CFG, **ENGINE_KW, **kw)
+    eng = ServeEngine(PARAMS, CFG, device="cpu", **ENGINE_KW, **kw)
     ids = [eng.submit(Request(p, n, stop_token=stop)) for p, n in prompts]
     done = {c.request_id: c for c in eng.run()}
     if eng._allocator is not None:
@@ -98,7 +98,7 @@ def test_jax_paged_engine_matches_port():
 def test_sampling_vectors_are_copies():
     """The engine mutates its host sampling vectors in place; the device
     tensors a chunk reads must not change with them."""
-    eng = ServeEngine(PARAMS, CFG, **ENGINE_KW)
+    eng = ServeEngine(PARAMS, CFG, device="cpu", **ENGINE_KW)
     eng.submit(Request([1, 2, 3], 8, temperature=0.5))
     eng.step()
     temp_dev = eng._samp_dev[0]
@@ -112,7 +112,7 @@ def test_sampled_run_is_seeded_and_complete():
     def run(seed):
         done = serve(PARAMS, CFG, [Request(p, n, temperature=0.9, top_p=0.9)
                                    for p, n in prompts], n_slots=2, chunk=4,
-                     seed=seed)
+                     seed=seed, device="cpu")
         return [c.tokens for c in done]
 
     a, b = run(0), run(0)
@@ -127,15 +127,16 @@ class TestErrors:
                    dict(auto_prefix=True),
                    dict(paged=True, page_cache=True)):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
-                ServeEngine(PARAMS, CFG, **kw)
-        eng = ServeEngine(PARAMS, CFG, **ENGINE_KW)
+                ServeEngine(PARAMS, CFG, device="cpu", **kw)
+        eng = ServeEngine(PARAMS, CFG, device="cpu", **ENGINE_KW)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             eng.register_prefix([1, 2, 3])
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             eng.submit(Request([1, 2], 4, prefix_id=0))
 
     def test_submit_validation(self):
-        eng = ServeEngine(PARAMS, CFG, prefill_window=8, **ENGINE_KW)
+        eng = ServeEngine(PARAMS, CFG, prefill_window=8, device="cpu",
+                          **ENGINE_KW)
         with pytest.raises(ValueError, match="prefill_window"):
             eng.submit(Request(list(range(9)), 4))  # chunked prefill: later
         with pytest.raises(ValueError, match="empty"):
@@ -144,16 +145,17 @@ class TestErrors:
             eng.submit(Request([1, 2], 61))
         with pytest.raises(ValueError, match="pages"):
             ServeEngine(PARAMS, CFG, paged=True, page=16, n_pages=3,
-                        **ENGINE_KW).submit(Request([1, 2, 3], 40))
+                        device="cpu", **ENGINE_KW).submit(
+                            Request([1, 2, 3], 40))
 
     def test_kernel_mode_rejects_unsupported_shapes(self):
         with pytest.raises(ValueError, match="page % 8"):
             ServeEngine(PARAMS, CFG, paged=True, page=4,
-                        paged_attn="kernel")
+                        paged_attn="kernel", device="cpu")
         cfg = GPTConfig(vocab_size=8, d_model=32, n_heads=2, ctx_len=32)
         with pytest.raises(ValueError, match="d_head"):
             ServeEngine(init_gpt_params(cfg), cfg, paged=True, page=8,
-                        chunk=4, paged_attn="kernel")
+                        chunk=4, paged_attn="kernel", device="cpu")
 
 
 def test_serve_cli_matches_jax_cli(tmp_path, capsys):
@@ -188,3 +190,12 @@ def test_serve_cli_matches_jax_cli(tmp_path, capsys):
                               "cpu"]))
         assert read("t") == want
     assert "device=cpu" in capsys.readouterr().out
+
+
+def test_engine_without_device_raises_on_a_machine_without_a_card(
+        monkeypatch):
+    """No device asked for means the card: without one the engine refuses
+    at construction, naming --device cpu, instead of serving on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        ServeEngine(PARAMS, CFG, **ENGINE_KW)
