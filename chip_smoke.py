@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one CUDA card: paged serving, the
-Householder QR, char-GPT training, long-context training and
-short-context training through the gated kernels.
+Householder QR, char-GPT training, long-context training, short-context
+training through the gated kernels, and sequence-parallel training
+through the ring kernels.
 
     python3 chip_smoke.py
 
@@ -104,6 +105,31 @@ Phases, each reported on its own line; any failure exits non-zero:
              (c); one step through the kernels against the plain versions
              for (a) and (b); ``torch.profiler`` breakdowns of one bf16
              step of (a) and of (b), last.
+14. ring   — the ring kernels K10 (forward) and K11 (backward) of
+             ``csrc/ring_attention.cu``, the ring's 4 ranks sharing the card
+             (``parallel.ring_pallas``: K/V slots rotated on a side stream,
+             the backward's f32 bundle lapping the ring): o, L, dq, dk, dv
+             against the plain versions through the same protocol at
+             long_window's shape (B 8, h 4, T 4096, d 128, window 512) in
+             bf16 and f32, train_big's (24, 8, 1024, 128, causal) bf16,
+             ALiBi, no causal ban, n 2 and 8, and a ragged T 1000 (Tl 250);
+             one launch per ring step; median times of K10 and K11 at the
+             first three beside the plain versions,
+             ``F.scaled_dot_product_attention`` over the gathered sequence
+             (forward, and its backward alone) and the attention's bound,
+             with the rotations' least time beside it; last, the share of
+             the forward's rotation copy time that a profiler trace shows
+             overlapping K10.
+15. sp     — ``train.trainer.train`` with ``--sp 4`` (the mesh's 4 ranks on
+             the card, attention through K10/K11): long_window 40 steps and
+             train_big's widths at 2 layers 20 steps: launch counts (K10 n
+             per layer per forward, K11 n per layer per backward; the plain
+             ring never runs), finite losses, ms/step, tok/s, peak memory,
+             the checkpoint reloaded equal, the step-1 loss against the
+             single-card run from the same seed (same batch); one step
+             through the kernels against the plain ring (``--ring xla``)
+             at 2 layers in f32 and bf16; a profiled long_window sp step
+             last.
 
 Phase 2 builds every kernel, one ``nvcc`` per source, all started
 together. The line before the last is a JSON object describing the
@@ -118,6 +144,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -134,7 +161,8 @@ SERVE_CFG = dict(vocab_size=65, d_model=512, n_heads=4, n_kv_heads=2,
                  n_layers=8, ctx_len=4096)
 ENGINE_KW = dict(paged=True, page=256, n_slots=8, chunk=32,
                  prefill_window=2048)
-KERNELS = ("paged_attention", "qr_panel", "flash_attention", "fused_layer")
+KERNELS = ("paged_attention", "qr_panel", "flash_attention", "fused_layer",
+           "ring_attention")
 QR_N = 4096          # the headline QR: 4096^2 float32
 QR_INNER = 32        # strip width householder_qr_panel passes the kernel
 QR_RESID_MAX = 1e-6  # ||A - QR||_F / ||A||_F, the headline accuracy gate
@@ -170,6 +198,8 @@ LONG_WINDOW = ["--d_model", "512", "--heads", "4", "--kv_heads", "2",
                "--ffn", "swiglu", "--window", "512", "--dtype", "bfloat16",
                "--batch_size", "8", "--steps", "40", "--eval_every", "20"]
 EVAL_BATCHES = 20   # trainer._eval_device batches per eval
+SP_EVAL_BATCHES = 10  # the sp trainer's eval batches (JAX's make_sp_eval)
+SP = 4  # phase 15's ring: 4 ranks sharing the card
 H100_BF16_TFLOPS = 989.0  # dense bf16, NVIDIA's H100 SXM data sheet
 # the H100 SXM's data sheet: HBM rate, dense peaks by operand type (f32
 # runs on the FMA units: the kernels never use TF32)
@@ -631,12 +661,14 @@ def patched(*pairs):
         yield
 
 
-def one_step_check(tag, cfg, batch_size, plain, patch=(), counters=()):
-    """One step's loss and gradients through the kernels against the same
-    step with attention ``plain`` (the plain versions), at ``cfg``'s widths
-    from seed-0 weights and ids; with ``patch`` (``patched`` pairs of
-    ``models.gpt`` names and their plain stand-ins) the plain step takes
-    the picker's path with those replaced. Each of ``counters`` must count
+def one_step_check(tag, cfg, batch_size, plain, patch=(), counters=(),
+                   kernel=None):
+    """One step's loss and gradients through the kernels (the model's pick,
+    or attention ``kernel``) against the same step with attention
+    ``plain`` (the plain versions), at ``cfg``'s widths from seed-0 weights
+    and ids; with ``patch`` (``patched`` pairs of ``models.gpt`` names and
+    their plain stand-ins) the plain step takes the picker's path with
+    those replaced. Each of ``counters`` must count
     launches in the kernel step and none in the plain one. f32 with TF32
     off: |dloss| and ||g_k - g_p|| / ||g_p|| <= 1e-4. bf16: |dloss| <= 1e-2,
     the kernels' gradients no farther from the f32 plain step's than the
@@ -660,7 +692,7 @@ def one_step_check(tag, cfg, batch_size, plain, patch=(), counters=()):
         p = init_gpt_params(c, seed=0, device="cuda")
         for ctr in counters:
             ctr.launches = 0
-        lk, gk = loss_and_grads(p, x, y, c)
+        lk, gk = loss_and_grads(p, x, y, c, kernel)
         n_kernel = [ctr.launches for ctr in counters]
         with patched(*patch):
             lp, gp = loss_and_grads(p, x, y, c, plain)
@@ -790,10 +822,11 @@ def train_phase(smi):
     return launches, cfg, args.batch_size
 
 
-def profile_step(tag, cfg, batch_size):
-    """A ``torch.profiler`` breakdown of one train step after three warm
-    ones. Run after every timing: the profiler stays attached to the card
-    and slows what runs after it."""
+def profile_step(tag, cfg, batch_size, attn_fn=None):
+    """A ``torch.profiler`` breakdown of one train step (attention
+    ``attn_fn``, default the model's pick) after three warm ones. Run after
+    every timing: the profiler stays attached to the card and slows what
+    runs after it."""
     from linalg_tpu_torch.models.gpt import init_gpt_params
     from linalg_tpu_torch.train.optim import adamw_init
     from linalg_tpu_torch.train.trainer import make_device_train_step
@@ -803,7 +836,7 @@ def profile_step(tag, cfg, batch_size):
     state = adamw_init(p)
     step = make_device_train_step(cfg, batch_size, base_lr=3e-4,
                                   min_lr=3e-5, warmup=200, max_steps=10000,
-                                  weight_decay=0.01)
+                                  weight_decay=0.01, attn_fn=attn_fn)
     data = torch.tensor(rng.integers(0, cfg.vocab_size, 400_000),
                         device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -958,11 +991,11 @@ def long_phase(smi):
     dispatch = nn_flash.flash_fwd
     seen = set()
 
-    def spy(q, k, v, causal=True, window=None):
+    def spy(q, k, v, causal=True, window=None, scale=None):
         """Records the head counts and window the attention Function hands
         the forward dispatcher, which passes them on to the kernel."""
         seen.add((q.shape[1], k.shape[1], window, q.is_cuda))
-        return dispatch(q, k, v, causal, window)
+        return dispatch(q, k, v, causal, window, scale)
 
     with tempfile.TemporaryDirectory() as tmp:
         log = f"{tmp}/metrics.jsonl"
@@ -1380,6 +1413,289 @@ def short_phase(smi):
     return totals, cfgs
 
 
+def ring_run(x, n, plain=False, **kw):
+    """(o, L, dq, dk, dv) of the ring over n ranks sharing the card:
+    ``ring_attention_pallas_local`` and its backward, through K10/K11 or
+    (``plain``) their plain versions; the backward from the forward's own
+    o and L and the cotangent x[3]."""
+    from linalg_tpu_torch.parallel import make_mesh
+    from linalg_tpu_torch.parallel.ring_pallas import (
+        ring_attention_pallas_bwd_local, ring_attention_pallas_local)
+
+    q, k, v, do = x
+    mesh = make_mesh((n,), ("sp",), ["cuda"] * n)
+    o, L = ring_attention_pallas_local(q, k, v, mesh=mesh, with_lse=True,
+                                       plain=plain, **kw)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    return (o, L) + ring_attention_pallas_bwd_local(
+        q, k, v, do, L, delta, mesh=mesh, plain=plain, **kw)
+
+
+def ring_bound(B, h, T, d, dtype, causal, window, what):
+    """Bound of the attention the ring computes, as ``attn_bound`` counts
+    it: forward (``what`` "fwd": 4 d operations per visible pair; q, k, v
+    read, o and L written) or backward ("bwd": 8 d per pair; q, k, v, dO,
+    L, delta read, dq, dk, dv written). The rotations are the protocol's
+    cost, not the function's: ``rotation_ms`` prices them apart."""
+    pairs = B * h * attn_live_pairs(T, causal, window)
+    es = torch.tensor([], dtype=dtype).element_size()
+    x = B * h * T * d
+    if what == "fwd":
+        return bound_ms(4 * d * pairs, es * 4 * x + 4 * B * h * T, dtype)
+    return bound_ms(8 * d * pairs, es * 7 * x + 8 * B * h * T, dtype)
+
+
+def rotation_ms(B, h, T, d, n, dtype):
+    """Least time of the ring's rotations at the memory rate: the forward's
+    n - 1 hops of the K/V slots and the backward's n laps of the f32
+    (k, v, dk, dv) bundle, each copy read and written once."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    x = B * h * T * d
+    return ((n - 1) * 2 * 2 * x * es / H100_BYTES_PER_S * 1e3,
+            n * 2 * 4 * x * 4 / H100_BYTES_PER_S * 1e3)
+
+
+def ring_phase():
+    """Phase 14: K10 and K11 against their plain versions at the sp runs'
+    shapes and beside them. Returns the records of K10 and K11 at
+    long_window's shape (bf16) and that case's inputs."""
+    from linalg_tpu_torch.kernels import ring_attention as kr
+    from linalg_tpu_torch.nn.positional import alibi_slopes
+    from linalg_tpu_torch.parallel import make_mesh
+    from linalg_tpu_torch.parallel.ring_pallas import (
+        ring_attention_pallas_bwd_local, ring_attention_pallas_local)
+
+    records, overlap_case = None, None
+    for i, (name, B, h, T, d, n, dtype, causal, window, alibi) in enumerate([
+            ("long_window", 8, 4, 4096, 128, SP, torch.bfloat16, True, 512,
+             False),
+            ("long_window f32", 8, 4, 4096, 128, SP, torch.float32, True,
+             512, False),
+            ("train_big", 24, 8, 1024, 128, SP, torch.bfloat16, True, None,
+             False),
+            ("alibi", 4, 8, 2048, 64, SP, torch.bfloat16, True, None, True),
+            ("no causal ban", 2, 4, 2048, 128, SP, torch.float32, False, None,
+             False),
+            ("n 2", 4, 4, 2048, 128, 2, torch.bfloat16, True, None, False),
+            ("n 8", 4, 4, 4096, 128, 8, torch.bfloat16, True, 512, False),
+            ("ragged T 1000", 2, 4, 1000, 128, SP, torch.float32, True, None,
+             False)]):
+        rng = np.random.default_rng(1400 + i)
+        x = [torch.tensor(rng.standard_normal((B, h, T, d)), dtype=dtype,
+                          device="cuda") for _ in range(4)]
+        kw = dict(causal=causal, window=window,
+                  slopes=tuple(alibi_slopes(h).tolist()) if alibi else None)
+        kr.ring_fwd_step_cuda.launches = kr.ring_bwd_step_cuda.launches = 0
+        got = ring_run(x, n, **kw)
+        torch.cuda.synchronize()
+        launches = [kr.ring_fwd_step_cuda.launches,
+                    kr.ring_bwd_step_cuda.launches]
+        if launches != [n, n]:
+            raise RuntimeError(f"ring {name}: launches {launches}, expected "
+                               f"one per step ({n})")
+        want = ring_run(x, n, plain=True, **kw)
+        dt = str(dtype).split(".")[1]
+        label = (f"{name} B,h,T,d,n={B},{h},{T},{d},{n} {dt}"
+                 f"{f' window {window}' if window else ''}"
+                 f"{' alibi' if alibi else ''}")
+        errs = [flash_compare(label, [(w, g, r) for w, g, r in zip(
+            ("o", "L"), got[:2], want[:2])], dtype, "ring"),
+                flash_compare(label, [(w, g, r) for w, g, r in zip(
+                    ("dq", "dk", "dv"), got[2:], want[2:])], dtype, "ring")]
+        del got, want
+        torch.cuda.empty_cache()
+        if i < 3:  # the sp runs' shapes and dtypes: times
+            mesh = make_mesh((n,), ("sp",), ["cuda"] * n)
+            fwd, plain_fwd = (functools.partial(
+                ring_attention_pallas_local, mesh=mesh, with_lse=True,
+                plain=plain, **kw) for plain in (False, True))
+            o, L = fwd(*x[:3])
+            delta = torch.sum(x[3].float() * o.float(), dim=-1)
+
+            def bwd(plain):
+                return lambda q, k, v, do: ring_attention_pallas_bwd_local(
+                    q, k, v, do, L, delta, mesh=mesh, plain=plain, **kw)
+
+            ms_f = median_ms(fwd, x[:3], trials=7, reps=3)
+            ms_b = median_ms(bwd(False), x, trials=7, reps=3)
+            pl_f = median_ms(plain_fwd, x[:3], trials=3, reps=1, warm=1)
+            pl_b = median_ms(bwd(True), x, trials=3, reps=1, warm=1)
+            del o, L, delta
+            # the gathered sequence's SDPA; its backward alone is the
+            # difference of forward+backward and forward
+            lib_f, lib_fb = library_ms(*x, causal, window)
+            lib_b = lib_fb - lib_f
+            bf, byf = ring_bound(B, h, T, d, dtype, causal, window, "fwd")
+            bb, byb = ring_bound(B, h, T, d, dtype, causal, window, "bwd")
+            rf, rb = rotation_ms(B, h, T, d, n, dtype)
+            phase("ring", f"  K10 fwd {ms_f:.4f} ms, K11 bwd {ms_b:.4f} ms "
+                  f"(fwd+bwd {ms_f + ms_b:.4f}); plain fwd {pl_f:.4f}, bwd "
+                  f"{pl_b:.4f}; F.scaled_dot_product_attention over the "
+                  f"gathered T fwd {lib_f:.4f}, bwd {lib_b:.4f} (fwd+bwd "
+                  f"{lib_fb:.4f}); bound fwd {bf:.4f} ({byf}), bwd "
+                  f"{bb:.4f} ({byb}): {bf / ms_f:.1%} and {bb / ms_b:.1%} "
+                  f"of it; the rotations' bytes alone need fwd {rf:.4f}, "
+                  f"bwd {rb:.4f} ms")
+            if i == 0:
+                records = (
+                    dict(shape=[B, h, T, d, n], window=window,
+                         max_abs_err=errs[0], ms=ms_f, plain_ms=pl_f,
+                         bound_ms=bf, bound_by=byf, library_ms=lib_f),
+                    dict(shape=[B, h, T, d, n], window=window,
+                         max_abs_err=errs[1], ms=ms_b, plain_ms=pl_b,
+                         bound_ms=bb, bound_by=byb, library_ms=lib_b))
+                overlap_case = (x, n, kw)
+                continue
+        del x
+        torch.cuda.empty_cache()
+    return records, overlap_case
+
+
+def ring_overlap(case):
+    """The share of the forward's rotation copy time that overlaps ring
+    compute on the card, from a ``torch.profiler`` trace of one forward
+    (copies: the device-to-device memcpys of the rotations, two per hop;
+    compute: the K10 launches)."""
+    from linalg_tpu_torch.parallel import make_mesh
+    from linalg_tpu_torch.parallel.ring_pallas import (
+        ring_attention_pallas_local)
+
+    x, n, kw = case
+    mesh = make_mesh((n,), ("sp",), ["cuda"] * n)
+    for _ in range(2):
+        ring_attention_pallas_local(*x[:3], mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ring_attention_pallas_local(*x[:3], mesh=mesh, **kw)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(f"{tmp}/trace.json")
+        events = json.load(open(f"{tmp}/trace.json"))["traceEvents"]
+    timed = [e for e in events if "dur" in e]
+    copies = [(e["ts"], e["ts"] + e["dur"]) for e in timed
+              if e.get("cat") == "gpu_memcpy"]
+    compute = [(e["ts"], e["ts"] + e["dur"]) for e in timed
+               if e.get("cat") == "kernel" and "ring_fwd" in e["name"]]
+    total = sum(b - a for a, b in copies)
+    shared = sum(max(0.0, min(b, d) - max(a, c))
+                 for a, b in copies for c, d in compute)
+    phase("ring", f"rotation (long_window, one forward, n {n}): "
+          f"{len(copies)} copies (2 per hop: {2 * (n - 1)}), "
+          f"{total / 1e3:.4f} ms of copy time, "
+          f"{len(compute)} K10 launches taking "
+          f"{sum(b - a for a, b in compute) / 1e3:.4f} ms; "
+          f"{shared / max(total, 1e-9):.1%} of the copy time overlaps K10")
+
+
+def sp_phase(smi):
+    """Phase 15: sequence-parallel training through train.trainer.train
+    with --sp 4: long_window 40 steps and train_big's widths at 2 layers
+    20 steps. Returns {"fwd": K10 launches, "bwd": K11 launches}."""
+    from linalg_tpu_torch.apps.gpt import build_parser
+    from linalg_tpu_torch.kernels import ring_attention as kr
+    from linalg_tpu_torch.parallel import make_mesh, ring as plain_ring
+    from linalg_tpu_torch.parallel.sharding import _sp_ring
+    from linalg_tpu_torch.train.checkpoint import load_ckpt
+    from linalg_tpu_torch.train.optim import tree_leaves
+    from linalg_tpu_torch.train.trainer import train
+
+    counters = (kr.ring_fwd_step_cuda, kr.ring_bwd_step_cuda)
+    plain_calls = []
+    local = plain_ring.ring_attention_local
+    totals = {"fwd": 0, "bwd": 0}
+    big2 = list(TRAIN_BIG)
+    big2[big2.index("--layers") + 1] = "2"
+    big2[big2.index("--steps") + 1] = "20"
+    for name, argv, flops in (
+            ("long_window", LONG_WINDOW, long_step_flops),
+            ("train_big 2 layers", big2, None)):
+        with tempfile.TemporaryDirectory() as tmp:
+            log = f"{tmp}/metrics.jsonl"
+            args = build_parser().parse_args(
+                ["--train", *argv, "--sp", str(SP), "--ckpt_dir", f"{tmp}/ck",
+                 "--log_file", log, "--device", "cuda"])
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters:
+                c.launches = 0
+            with patched((plain_ring, {
+                    "ring_attention_local": lambda *a, **k: plain_calls.append(
+                        1) or local(*a, **k)})):
+                params, cfg, _, _ = train(args)
+            torch.cuda.synchronize()
+            launches = [c.launches for c in counters]
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            rows = [json.loads(ln) for ln in open(log, encoding="utf-8")]
+            n_eval = sum(r["event"] == "eval" for r in rows)
+            want = [cfg.n_layers * SP * (args.steps
+                                         + n_eval * SP_EVAL_BATCHES),
+                    cfg.n_layers * SP * args.steps]
+            phase("sp", f"{name} --sp {SP}: K10/K11 launches {launches}, "
+                  f"expected {want} ({cfg.n_layers} layers x {SP} ring steps "
+                  f"x ({args.steps} steps + {n_eval} evals x "
+                  f"{SP_EVAL_BATCHES} batches) forward, x {args.steps} "
+                  f"backward); plain ring calls {len(plain_calls)}")
+            if launches != want or plain_calls:
+                raise RuntimeError(f"sp {name}: launch counts differ, or the "
+                                   "plain ring ran")
+            totals["fwd"] += launches[0]
+            totals["bwd"] += launches[1]
+            losses = [r.get("loss", r.get("val_loss")) for r in rows
+                      if r["event"] in ("train", "eval")]
+            if not all(math.isfinite(v) for v in losses):
+                raise RuntimeError(f"sp {name}: a loss is not finite")
+            t = {(r["event"], r["step"]): r["elapsed_s"] for r in rows
+                 if "step" in r}
+            last = args.steps
+            ms = (t[("train", last)] - t[("eval", 20)]) / (last - 20) * 1e3 \
+                if last > 20 else (t[("train", last)] - t[("train", 1)]) / (
+                    last - 1) * 1e3
+            tok_s = args.batch_size * cfg.ctx_len / (ms * 1e-3)
+            rate = ""
+            if flops is not None:
+                tf = flops(cfg, args.batch_size) / (ms * 1e-3) / 1e12
+                rate = (f", {tf:.1f} TFLOP/s, mfu "
+                        f"{tf / H100_BF16_TFLOPS:.4f} of "
+                        f"{H100_BF16_TFLOPS:.0f} TFLOP/s")
+            window = ("steps 21-40" if last > 20
+                      else f"steps 2-{last}, after the first")
+            phase("sp", f"{name}: losses (train at steps 1, 20, 40; val at "
+                  f"20, 40) {losses}; ({window}) {ms:.2f} ms/step, "
+                  f"{tok_s:.0f} tok/s{rate}; peak memory {peak_gb:.2f} GB; "
+                  f"{smi}")
+            back, cfg2, _, _ = load_ckpt(f"{tmp}/ck", device="cuda")
+            same = cfg2 == cfg and all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(back), tree_leaves(params)))
+            del params, back
+            # the single-card run from the same seed draws the same batch
+            one = list(argv)
+            one[one.index("--steps") + 1] = "1"
+            log1 = f"{tmp}/one.jsonl"
+            train(build_parser().parse_args(
+                ["--train", *one, "--ckpt_dir", f"{tmp}/ck1", "--log_file",
+                 log1, "--device", "cuda"]))
+            single = json.loads(open(log1, encoding="utf-8").readline())
+            d1 = abs(single["loss"] - losses[0])
+            phase("sp", f"{name}: checkpoint reloaded equal: {same}; step-1 "
+                  f"loss sp {losses[0]:.6f}, single card {single['loss']:.6f}"
+                  f" (|diff| {d1:.3e}, bound 1e-2 in bf16)")
+            if not same or not d1 <= 1e-2:
+                raise RuntimeError(f"sp {name}: checkpoint or step-1 loss")
+        torch.cuda.empty_cache()
+
+        # one step through the ring kernels against the plain ring, at 2
+        # layers (the plain ring keeps every (T/n)^2 score block of every
+        # step for autograd)
+        c2 = dataclasses.replace(cfg, n_layers=2)
+        mesh = make_mesh((1, SP), ("dp", "sp"), ["cuda"] * SP)
+        kern = _sp_ring(mesh, True, c2)
+        plain = _sp_ring(mesh, False, c2)
+        one_step_check("sp", c2, args.batch_size, plain, counters=counters,
+                       kernel=kern)
+        torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1506,6 +1822,13 @@ def main() -> int:
     # -- 13. short ---------------------------------------------------------
     short_launches, short_cfgs = short_phase(smi)
 
+    # -- 14. ring ----------------------------------------------------------
+    report_build("ring", built["ring_attention"])
+    (k10_record, k11_record), overlap_case = ring_phase()
+
+    # -- 15. sp ------------------------------------------------------------
+    sp_launches = sp_phase(smi)
+
     # the profiler breakdowns last: the profiler stays attached to the card
     profile_step("train", big_cfg, big_batch)
     profile_step("long", long_cfg, long_batch)
@@ -1514,6 +1837,13 @@ def main() -> int:
         with switches(**env):
             profile_step(f"short {name}",
                          dataclasses.replace(cfg_, dtype="bfloat16"), batch_)
+    from linalg_tpu_torch.parallel import make_mesh
+    from linalg_tpu_torch.parallel.sharding import _sp_ring
+
+    profile_step("sp", long_cfg, long_batch, _sp_ring(
+        make_mesh((1, SP), ("dp", "sp"), ["cuda"] * SP), True, long_cfg))
+    ring_overlap(overlap_case)
+    del overlap_case
 
     flash_launches = [a + b + c for a, b, c in zip(
         train_launches, long_launches, short_launches["btd"])]
@@ -1543,7 +1873,15 @@ def main() -> int:
         "replaces": "linalg_tpu/nn/fused_layer.py:166, :312",
         "launches": sum(short_launches["fused"]),
         "launches_qkv_fwd_bwd_ffn_fwd_bwd": short_launches["fused"],
-        **fused_record}]}), flush=True)
+        **fused_record}, {
+        "name": "ring_attention_fwd", "route": "cuda",
+        "source": "linalg_tpu_torch/kernels/csrc/ring_attention.cu",
+        "replaces": "linalg_tpu/parallel/ring_pallas.py:209",
+        "launches": sp_launches["fwd"], **k10_record}, {
+        "name": "ring_attention_bwd", "route": "cuda",
+        "source": "linalg_tpu_torch/kernels/csrc/ring_attention.cu",
+        "replaces": "linalg_tpu/parallel/ring_pallas.py:439",
+        "launches": sp_launches["bwd"], **k11_record}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

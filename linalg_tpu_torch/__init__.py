@@ -15,9 +15,11 @@ its panels through a CUDA kernel on the card; and char-GPT training
 trainer), whose causal attention runs through CUDA flash-attention
 kernels on the card (``nn.flash``, ``nn.flash_long``), and long-context
 training (RoPE, ALiBi, gated FFNs, a sliding window and grouped K/V read
-in place by the same kernels, ``nn.flash_stream``). The toolkit's
-public functions are re-exported here, as ``linalg_tpu`` does. See
-ROADMAP.md for what comes next.
+in place by the same kernels, ``nn.flash_stream``), and
+sequence-parallel training (``parallel``: ring attention over a mesh whose
+ranks share the device, through the ring kernels K10/K11 on the card).
+The toolkit's public functions are re-exported here, as ``linalg_tpu``
+does. See ROADMAP.md for what comes next.
 """
 
 from .ops.eigen import matrix_power_binary, matrix_power_eig, power_iteration

@@ -27,9 +27,7 @@ _NOT_PORTED_FLAGS = {
     "tokenizer": ("char", "queue 1, item 2: tokenizers"),
     "experts": (0, "queue 1, item 6: MoE"),
     "lora_rank": (0, "queue 1, item 5: LoRA"),
-    "dp": (1, "queue 1, item 7: parallelism"),
     "tp": (1, "queue 1, item 7: parallelism"),
-    "sp": (1, "queue 1, item 7: parallelism"),
     "pp": (1, "queue 1, item 7: parallelism"),
     "fsdp": (1, "queue 1, item 7: parallelism"),
 }
@@ -89,7 +87,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="mixture-of-experts FFN (not ported yet)")
     ap.add_argument("--lora_rank", type=int, default=0,
                     help="LoRA finetuning (not ported yet)")
-    for axis in ("dp", "tp", "sp", "pp", "fsdp"):
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel mesh axis (with --sp; alone it is "
+                         "not ported yet)")
+    ap.add_argument("--sp", type=int, default=1,
+                    help="sequence-parallel mesh axis (ring attention over "
+                         "the sequence; the ranks share the device)")
+    ap.add_argument("--ring", type=str, default="auto",
+                    choices=("auto", "pallas", "xla"),
+                    help="sp attention ring: the ring kernels K10/K11 "
+                         "(pallas) or the plain ring (xla); auto = the "
+                         "kernels on a CUDA device, the plain ring on the "
+                         "CPU")
+    for axis in ("tp", "pp", "fsdp"):
         ap.add_argument(f"--{axis}", type=int, default=1,
                         help="multi-device mesh axis (not ported yet)")
     ap.add_argument("--serve", action="store_true",

@@ -118,7 +118,7 @@ def _strides(*tensors):
 
 
 def _call(name, fn, dtype, dims, ptrs, causal, window, group, strides,
-          device):
+          device, scale):
     if window is not None and window < 1:
         raise ValueError(f"{name}: window must be >= 1 or None, got "
                          f"{window}")
@@ -126,28 +126,32 @@ def _call(name, fn, dtype, dims, ptrs, causal, window, group, strides,
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         rc = fn(_DTYPE_CODE[dtype], d, *ptrs, B, H, T, int(bool(causal)),
-                window or 0, group, 1.0 / math.sqrt(d), strides, stream)
+                window or 0, group,
+                1.0 / math.sqrt(d) if scale is None else float(scale),
+                strides, stream)
     if rc:
         raise RuntimeError(f"{name} launch failed (code {rc})")
 
 
 def flash_fwd_cuda(q, k, v, causal: bool = True, window=None,
-                   group: int = 1):
+                   group: int = 1, scale=None):
     """Attention forward: q (B, H, T, d), k, v (B, H / group, T, d) ->
-    (o (B, H, T, d) in q's dtype, L (B, H, T) float32 row logsumexp)."""
+    (o (B, H, T, d) in q's dtype, L (B, H, T) float32 row logsumexp).
+    ``scale`` multiplies q k^T (default 1/sqrt(d); a head zero-padded to
+    d passes its true width's)."""
     dims = _check("flash_fwd_cuda", (q, k, v), group=group)
     o = torch.empty_like(q)
     L = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _call("flash_fwd", _lib().flash_fwd_launch, q.dtype, dims,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
            L.data_ptr()), causal, window, group,
-          _strides(q, k, v, o, None, None, None, None), q.device)
+          _strides(q, k, v, o, None, None, None, None), q.device, scale)
     flash_fwd_cuda.launches += 1
     return o, L
 
 
 def flash_dq_cuda(q, k, v, do, L, delta, causal: bool = True, window=None,
-                  group: int = 1):
+                  group: int = 1, scale=None):
     """dq of attention from the forward's L and delta = rowsum(dO * O)
     (both float32 (B, H, T))."""
     dims = _check("flash_dq_cuda", (q, k, v, do), (L, delta), group)
@@ -155,13 +159,14 @@ def flash_dq_cuda(q, k, v, do, L, delta, causal: bool = True, window=None,
     _call("flash_dq", _lib().flash_dq_launch, q.dtype, dims,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            L.data_ptr(), delta.data_ptr(), dq.data_ptr()), causal, window,
-          group, _strides(q, k, v, None, do, dq, None, None), q.device)
+          group, _strides(q, k, v, None, do, dq, None, None), q.device,
+          scale)
     flash_dq_cuda.launches += 1
     return dq
 
 
 def flash_dkdv_cuda(q, k, v, do, L, delta, causal: bool = True, window=None,
-                    group: int = 1):
+                    group: int = 1, scale=None):
     """(dk, dv) of attention from the same inputs as ``flash_dq_cuda``, at
     k's grouped size: each K/V head's gradient summed over its group in
     float32 and rounded once."""
@@ -172,7 +177,7 @@ def flash_dkdv_cuda(q, k, v, do, L, delta, causal: bool = True, window=None,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            L.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
           causal, window, group,
-          _strides(q, k, v, None, do, None, dk, dv), q.device)
+          _strides(q, k, v, None, do, None, dk, dv), q.device, scale)
     flash_dkdv_cuda.launches += 1
     return dk, dv
 

@@ -316,19 +316,27 @@ def _head(params: Params, h, dt):
 _REMAT_SDPA = functools.partial(checkpoint, sdpa, use_reentrant=False)
 
 
+def _flash_width(d_head: int) -> bool:
+    """Whether the flash kernels take a head of ``d_head`` columns: 8 to
+    128 (``nn.flash.kernel_width`` zero-pads the widths between theirs).
+    The JAX rule sends every d_head >= 8 to its kernels; above 128 this
+    port keeps the rematted sdpa (ROADMAP.md queue 3)."""
+    return 8 <= d_head <= FLASH_D[-1]
+
+
 def _pick_attn_cfg(cfg: GPTConfig, T: int, device_type: str):
     """Config-aware attention pick, the JAX package's rule: ALiBi takes
     the rematted sdpa (no kernel threads its per-head bias). A window
     takes the band through ``flash_attention_stream`` on CUDA at T >= 512
     (ragged T right-padded to a multiple of 256, exact under the causal
     band), reading grouped K/V in place; below that, off CUDA, or for a
-    d_head the kernels do not take, the rematted sdpa with the band in its
-    mask. Everything else takes ``_pick_attn``."""
+    d_head outside [8, 128] (``_flash_width``), the rematted sdpa with the
+    band in its mask. Everything else takes ``_pick_attn``."""
     if cfg.pos == "alibi":
         return _REMAT_SDPA
     if cfg.window is None:
         return _pick_attn(T, cfg.d_head, device_type)
-    if device_type != "cuda" or T < 512 or cfg.d_head not in FLASH_D:
+    if device_type != "cuda" or T < 512 or not _flash_width(cfg.d_head):
         return _REMAT_SDPA
     Tp = -(-T // STREAM_BLOCK) * STREAM_BLOCK
     banded = _padded_attn(functools.partial(flash_attention_stream,
@@ -342,15 +350,18 @@ def _pick_attn(T: int, d_head: int, device_type: str):
 
     Off CUDA: ``sdpa`` (the JAX package's rule off the TPU). On CUDA, the
     JAX package's thresholds, TPU measurements that stand until an H100
-    measurement replaces them: the rematted sdpa below T = 512, and for a
-    d_head the kernels do not take (the JAX rule sends d_head < 8 there);
-    otherwise, with T right-padded to Tp, a multiple of 256, the flash
-    kernels (``flash_attention`` for Tp <= 1024, ``flash_attention_long``
-    for Tp <= 4096, ``flash_attention_stream`` beyond, which reads grouped
-    K/V in place: ``gqa_native``)."""
+    measurement replaces them: the rematted sdpa below T = 512 and for
+    d_head < 8, as in JAX; otherwise, with T right-padded to Tp, a
+    multiple of 256, the flash kernels (``flash_attention`` for Tp <= 1024,
+    ``flash_attention_long`` for Tp <= 4096, ``flash_attention_stream``
+    beyond, which reads grouped K/V in place: ``gqa_native``), a d_head
+    between the kernels' widths zero-padded to the next. Where JAX sends
+    a d_head > 128 to its kernels, this port keeps the rematted sdpa: the
+    flash kernels are built for widths up to 128 (ROADMAP.md queue 3), and
+    past T 4096 that sdpa holds the (B, H, T, T) scores in memory."""
     if device_type != "cuda":
         return sdpa
-    if T < 512 or d_head not in FLASH_D:
+    if T < 512 or not _flash_width(d_head):
         return _REMAT_SDPA
     Tp = -(-T // 256) * 256
     if Tp <= FLASH_MAX_T:

@@ -11,7 +11,10 @@ device raises. ``nn.flash_long.flash_attention_long`` (K3) and
 ``nn.flash_stream.flash_attention_stream`` (K4) are the same math behind
 the same kernels; K4 adds the sliding-window band (``window``) and K/V
 with fewer heads than q (``H % hk == 0``), which the plain versions here
-take too.
+take too. A head of 8 <= d < 128 columns outside the kernels' widths is
+zero-padded to the next one (``kernel_width``) with the scale 1/sqrt(d)
+passed explicitly, so every head width the JAX package sends to its flash
+kernels runs here; the outputs and gradients are sliced back to d.
 """
 
 from __future__ import annotations
@@ -19,9 +22,13 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import SUPPORTED_D as FLASH_D
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_fwd",
-           "flash_bwd", "flash_fwd_ref", "flash_bwd_ref", "FLASH_MAX_T"]
+           "flash_bwd", "flash_fwd_ref", "flash_bwd_ref", "kernel_width",
+           "FLASH_MAX_T"]
 
 FLASH_MAX_T = 1024
 
@@ -32,12 +39,13 @@ def _expand(kv, H):
     return kv.float().repeat_interleave(H // kv.shape[1], dim=1)
 
 
-def _scores(q, k, causal, window=None):
-    """scale * q k^T in float32; entries outside the band (future keys when
-    causal, keys window or more behind the query) at the -1e9 fill."""
+def _scores(q, k, causal, window=None, scale=None):
+    """scale * q k^T in float32 (scale 1/sqrt(d) by default); entries
+    outside the band (future keys when causal, keys window or more behind
+    the query) at the -1e9 fill."""
     T, d = q.shape[-2:]
-    s = (1.0 / math.sqrt(d)) * (q.float() @ _expand(k, q.shape[1])
-                                .transpose(-1, -2))
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    s = scale * (q.float() @ _expand(k, q.shape[1]).transpose(-1, -2))
     i = torch.arange(T, device=q.device)
     if causal:
         s = torch.where(i[None, :] <= i[:, None], s, -1e9)
@@ -46,11 +54,11 @@ def _scores(q, k, causal, window=None):
     return s
 
 
-def flash_fwd_ref(q, k, v, causal: bool = True, window=None):
+def flash_fwd_ref(q, k, v, causal: bool = True, window=None, scale=None):
     """Plain version of the forward kernel: (o in q's dtype, L float32
     (B, H, T)). Products of the io dtype accumulate in float32; P is
     rounded to v's dtype before P v. k and v may have fewer heads than q."""
-    s = _scores(q, k, causal, window)
+    s = _scores(q, k, causal, window, scale)
     m = torch.amax(s, dim=-1, keepdim=True)
     e = torch.exp(s - m)
     denom = torch.sum(e, dim=-1, keepdim=True)
@@ -58,15 +66,16 @@ def flash_fwd_ref(q, k, v, causal: bool = True, window=None):
     return o.to(q.dtype), (m + torch.log(denom))[..., 0]
 
 
-def flash_bwd_ref(q, k, v, o, L, do, causal: bool = True, window=None):
+def flash_bwd_ref(q, k, v, o, L, do, causal: bool = True, window=None,
+                  scale=None):
     """Plain version of the dq and dk/dv kernels: (dq, dk, dv) in q's
     dtype, with P recomputed from L and delta = rowsum(dO * O) in float32.
     For grouped k/v, dk and dv are each KV head's group summed in float32
     and rounded once, at k's size."""
     B, H, T, d = q.shape
     hk = k.shape[1]
-    scale = 1.0 / math.sqrt(d)
-    p = torch.exp(_scores(q, k, causal, window) - L[..., None])
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    p = torch.exp(_scores(q, k, causal, window, scale) - L[..., None])
     dof = do.float()
     dv = p.to(do.dtype).float().transpose(-1, -2) @ dof
     dp = dof @ _expand(v, H).transpose(-1, -2)
@@ -87,48 +96,70 @@ def _on_cpu(x, name):
     return x.device.type == "cpu"
 
 
-def flash_fwd(q, k, v, causal: bool = True, window=None):
+def flash_fwd(q, k, v, causal: bool = True, window=None, scale=None):
     """(o, L): the CUDA forward kernel, or its plain version on the CPU."""
     if _on_cpu(q, "flash_fwd"):
-        return flash_fwd_ref(q, k, v, causal, window)
+        return flash_fwd_ref(q, k, v, causal, window, scale)
     from ..kernels.flash_attention import flash_fwd_cuda
 
-    return flash_fwd_cuda(q, k, v, causal, window, q.shape[1] // k.shape[1])
+    return flash_fwd_cuda(q, k, v, causal, window, q.shape[1] // k.shape[1],
+                          scale)
 
 
-def flash_bwd(q, k, v, o, L, do, causal: bool = True, window=None):
+def flash_bwd(q, k, v, o, L, do, causal: bool = True, window=None,
+              scale=None):
     """(dq, dk, dv): the CUDA dq and dk/dv kernels, or their plain version
     on the CPU. delta = rowsum(dO * O) is one float32 pass here, as K3
     and K4 take it outside their kernels (``flash_long.py:213-217``,
     ``flash_stream.py:367-368``)."""
     if _on_cpu(q, "flash_bwd"):
-        return flash_bwd_ref(q, k, v, o, L, do, causal, window)
+        return flash_bwd_ref(q, k, v, o, L, do, causal, window, scale)
     from ..kernels.flash_attention import flash_dkdv_cuda, flash_dq_cuda
 
     group = q.shape[1] // k.shape[1]
     delta = torch.sum(do.float() * o.float(), dim=-1)
-    dq = flash_dq_cuda(q, k, v, do, L, delta, causal, window, group)
-    dk, dv = flash_dkdv_cuda(q, k, v, do, L, delta, causal, window, group)
+    dq = flash_dq_cuda(q, k, v, do, L, delta, causal, window, group, scale)
+    dk, dv = flash_dkdv_cuda(q, k, v, do, L, delta, causal, window, group,
+                             scale)
     return dq, dk, dv
+
+
+def kernel_width(d: int) -> int:
+    """The head width the flash kernels run a d-wide head at: d itself, or
+    for 8 <= d < 128 the next of ``kernels.flash_attention.SUPPORTED_D``,
+    zero-padded (exact: zero columns add nothing to q k^T and give zero
+    output columns; the scale stays 1/sqrt(d)). Other widths are refused
+    by the kernel wrappers."""
+    if 8 <= d < FLASH_D[-1]:
+        return next(w for w in FLASH_D if w >= d)
+    return d
 
 
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, plain):
-        # the kernels take contiguous (B, H, T, d); the model's head split
+        d = q.shape[-1]
+        w = kernel_width(d)
+        # the kernels take contiguous (B, H, T, w); the model's head split
         # hands over transposed views, so they are copied here explicitly
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        q, k, v = (F.pad(t, (0, w - d)) if w != d else t.contiguous()
+                   for t in (q, k, v))
+        scale = 1.0 / math.sqrt(d)
         o, L = (flash_fwd_ref if plain else flash_fwd)(q, k, v, causal,
-                                                       window)
+                                                       window, scale)
         ctx.save_for_backward(q, k, v, o, L)
         ctx.causal, ctx.window, ctx.plain = causal, window, plain
-        return o
+        ctx.d, ctx.scale = d, scale
+        return o[..., :d] if w != d else o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, L = ctx.saved_tensors
-        dq, dk, dv = (flash_bwd_ref if ctx.plain else flash_bwd)(
-            q, k, v, o, L, do.contiguous(), ctx.causal, ctx.window)
+        d, w = ctx.d, q.shape[-1]
+        do = F.pad(do, (0, w - d)) if w != d else do.contiguous()
+        grads = (flash_bwd_ref if ctx.plain else flash_bwd)(
+            q, k, v, o, L, do, ctx.causal, ctx.window, ctx.scale)
+        dq, dk, dv = (g[..., :d] for g in grads)
         return dq, dk, dv, None, None, None
 
 
@@ -136,9 +167,10 @@ def flash_attention(q, k, v, causal: bool = True):
     """Fused attention: q, k, v (B, h, T, d) -> (B, h, T, d).
 
     Drop-in for ``sdpa(q, k, v, causal_mask(T))`` on the training path.
-    On the card T must be a multiple of 64 and d one of 32, 64, 128 (the
-    kernel wrapper raises otherwise); the model's picker pads T to a
-    multiple of 256 and sends other head widths to sdpa."""
+    On the card T must be a multiple of 64 and d in [8, 128] (a d outside
+    32, 64, 128 is zero-padded to the next, ``kernel_width``; the kernel
+    wrapper raises on the rest); the model's picker pads T to a multiple
+    of 256 and sends other head widths to sdpa."""
     return _Flash.apply(q, k, v, causal, None, False)
 
 

@@ -24,9 +24,11 @@ come to the host, where budgets and stop tokens are checked.
 Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md's
 item): prompts longer than ``prefill_window`` (chunked prefill),
 registered prefixes, ``auto_prefix``, ``page_cache``, LoRA, speculative
-decoding, int8 weights (``quant``), int8 KV pages (``kv8``), ring mode and
-mesh serving, and configs with RoPE, ALiBi, a window or a gated FFN (the
-JAX engine serves those in ring mode with its own decode ops).
+decoding, int8 weights (``quant``), int8 KV pages (``kv8``), mesh serving,
+and ring mode: a window combined with RoPE or ALiBi, which the JAX engine
+serves from an O(window) KV ring. Every other RoPE, ALiBi, window and
+SwiGLU/GeGLU config is served in slot and paged mode, as the JAX engine
+serves it.
 """
 
 from __future__ import annotations
@@ -152,6 +154,13 @@ class ServeEngine:
     (table gather + grouped attention) or ``"auto"`` (the kernel on a CUDA
     device from ctx 2048 at d_head 128 — the JAX engine's TPU rule, kept
     until the port measures its own crossover).
+
+    ``schedule`` picks admission under page pressure: ``"fifo"`` admits in
+    arrival order (a large request blocks the ones behind it, and nothing
+    starves); ``"best-fit"`` admits the first queued request whose pages
+    fit, so small requests flow past a blocked large one — which can then
+    starve without bound under a steady stream of small ones, as in the
+    JAX reference (``linalg_tpu/serve/engine.py:443-447``).
     """
 
     def __init__(self, params, cfg: GPTConfig, n_slots: int = 8,
@@ -176,12 +185,12 @@ class ServeEngine:
             if on:
                 raise NotImplementedError(
                     f"{name} serving is not ported yet ({item})")
-        if cfg.pos in ("rope", "alibi") or cfg.window is not None or (
-                cfg.gated_ffn):
+        if cfg.window is not None and cfg.pos in ("rope", "alibi"):
+            # the JAX engine's ring mode (linalg_tpu/serve/engine.py:427):
+            # an O(window) KV ring with unbounded positions
             raise NotImplementedError(
-                f"serving pos={cfg.pos!r}, window={cfg.window}, "
-                f"ffn={cfg.ffn!r} is not ported yet: rope, alibi, window "
-                f"and gated-FFN configs take the JAX engine's ring mode "
+                f"serving a window with pos={cfg.pos!r} takes the JAX "
+                f"engine's ring mode, which is not ported yet "
                 f"({_ROADMAP_LATER})")
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
@@ -409,7 +418,8 @@ class ServeEngine:
                         break
                     self._queue.popleft()
                 else:
-                    # best-fit: the first queued request that fits
+                    # best-fit: the first queued request that fits (it can
+                    # starve a large one; see the class docstring)
                     for i, req in enumerate(self._queue):
                         if self._admit(slot, req):
                             del self._queue[i]

@@ -73,9 +73,11 @@ def synthetic_corpus(n_chars: int = 400_000, seed: int = 7) -> str:
     return "".join(out)
 
 
-def load_text(path: str | None = None) -> str:
+def load_text(path: str | None = None, allow_synthetic: bool = True) -> str:
     """Resolve the training corpus (see the module docstring for the
-    order). A candidate counts when it is a file of more than 1000 bytes."""
+    order). A candidate counts when it is a file of more than 1000 bytes.
+    With ``allow_synthetic=False`` a missing corpus raises
+    ``FileNotFoundError`` instead of falling to the synthetic one."""
     candidates = [c for c in (path, os.environ.get("LINALG_TPU_DATA")) if c]
     here = pathlib.Path(__file__).resolve().parents[2]
     candidates += [str(here / c) for c in _LOCAL_CANDIDATES]
@@ -83,6 +85,8 @@ def load_text(path: str | None = None) -> str:
         p = pathlib.Path(c)
         if p.is_file() and p.stat().st_size > 1000:
             return p.read_text(encoding="utf-8")
+    if not allow_synthetic:
+        raise FileNotFoundError("No training corpus available")
     print("[data] no local corpus; using the deterministic synthetic corpus")
     return synthetic_corpus()
 

@@ -12,9 +12,13 @@ in place. The corpus lives on the device and each step draws its windows
 there from a ``torch.Generator``, so no batch crosses from the host; the
 every-20-steps loss print is the loop's only host sync besides evals.
 
+``--sp N [--dp M]`` trains sequence-parallel (``train_sharded``): the
+mesh's ranks share one device and attention runs the ring kernels.
+
 Not ported yet, and refused with the ROADMAP.md item that brings each:
-BPE (queue 1, item 2), LoRA (item 5), MoE (item 6), the sharded trainers
-(item 7), and sampling (item 2).
+BPE (queue 1, item 2), LoRA (item 5), MoE (item 6), the other sharded
+trainers (--tp, --pp, --fsdp, --dp without --sp: item 7), and sampling
+(item 2).
 """
 
 from __future__ import annotations
@@ -34,15 +38,17 @@ from .data import load_text
 from .optim import (adamw_init, adamw_update, gpt_lr_scales, gpt_wd_mask,
                     tree_leaves, tree_map, warmup_cosine)
 
-__all__ = ["train", "make_train_step", "make_device_train_step", "eval_avg"]
+__all__ = ["train", "train_sharded", "make_train_step",
+           "make_device_train_step", "eval_avg"]
 
 
-def _value_and_grad(params, x, y, cfg):
-    """(loss, grads shaped like params) of ``gpt_loss``."""
+def _value_and_grad(params, x, y, cfg, attn_fn=None):
+    """(loss, grads shaped like params) of ``gpt_loss`` (attention
+    ``attn_fn``, default the model's pick)."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    loss = gpt_loss(params, x, y, cfg)
+    loss = gpt_loss(params, x, y, cfg, attn_fn=attn_fn)
     grads = iter(torch.autograd.grad(loss, leaves))
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
@@ -78,7 +84,7 @@ def make_device_train_step(cfg: GPTConfig, batch_size: int, *,
                            max_steps: int, weight_decay: float,
                            lr_embed_scale: float = 1.0,
                            lr_head_scale: float = 1.0, grad_accum: int = 1,
-                           clip_norm: float = 0.0):
+                           clip_norm: float = 0.0, attn_fn=None):
     """Build ``train_step(params, opt_state, data_ids, generator) ->
     (params, opt_state, generator, loss)``: batch windows are sampled on
     the device holding ``data_ids`` from ``generator``.
@@ -86,7 +92,8 @@ def make_device_train_step(cfg: GPTConfig, batch_size: int, *,
     ``grad_accum`` > 1 splits the batch into that many sequential
     microbatches and applies ONE update on the averaged gradients — the
     full-batch step at 1/grad_accum the activation memory. The schedule is
-    driven by the optimizer's own step count."""
+    driven by the optimizer's own step count. ``attn_fn`` replaces the
+    model's attention pick (the sequence-parallel ring)."""
     B, T = batch_size, cfg.ctx_len
     if grad_accum < 1 or B % grad_accum:
         raise ValueError(
@@ -96,12 +103,12 @@ def make_device_train_step(cfg: GPTConfig, batch_size: int, *,
     def train_step(params, opt_state, data_ids, generator):
         x, y = _windows(data_ids, B, T, generator)
         if grad_accum == 1:
-            loss, grads = _value_and_grad(params, x, y, cfg)
+            loss, grads = _value_and_grad(params, x, y, cfg, attn_fn)
         else:
             loss, grads = 0.0, None
             for i in range(grad_accum):
                 sl = slice(i * micro, (i + 1) * micro)
-                l, g = _value_and_grad(params, x[sl], y[sl], cfg)
+                l, g = _value_and_grad(params, x[sl], y[sl], cfg, attn_fn)
                 loss = loss + l
                 grads = g if grads is None else tree_map(torch.add, grads, g)
             loss = loss / grad_accum
@@ -135,14 +142,14 @@ def eval_avg(params, cfg: GPTConfig, it: Iterator, batches: int = 10
 
 @torch.no_grad()
 def _eval_device(params, val_ids, generator, cfg: GPTConfig, batch: int,
-                 batches: int):
+                 batches: int, attn_fn=None):
     """Mean val loss over ``batches`` random device windows; one scalar
     tensor, no host sync."""
     total = 0.0
     for _ in range(batches):
         total = total + gpt_loss(params, *_windows(val_ids, batch,
                                                    cfg.ctx_len, generator),
-                                 cfg)
+                                 cfg, attn_fn=attn_fn)
     return total / batches
 
 
@@ -269,26 +276,81 @@ def _lr_kwargs(args):
     )
 
 
+def _corpus(tok, text, device):
+    """The 90/10 split of the encoded corpus, on the device once."""
+    ids = tok.encode(text)
+    split = int(0.9 * len(ids))
+    return (torch.as_tensor(ids[:split], dtype=torch.long, device=device),
+            torch.as_tensor(ids[split:], dtype=torch.long, device=device))
+
+
+def train_sharded(args, dp: int, tp: int, device):
+    """Sequence-parallel training over a (dp, sp) mesh whose ranks share
+    ``device``: the JAX package's ``train_sharded`` sp branch, with its
+    refusals. Same loop as ``train``; attention runs the ring kernels
+    (``--ring pallas``, the default on CUDA) or the plain ring (``--ring
+    xla``, the default on the CPU); eval averages 10 batches, as JAX's sp
+    eval does."""
+    from ..parallel.mesh import make_mesh
+    from ..parallel.sharding import make_sp_device_train_step, make_sp_eval
+
+    sp = int(getattr(args, "sp", 1) or 1)
+    if tp > 1:
+        raise AssertionError("--sp composes with --dp only (not --tp)")
+    if int(getattr(args, "experts", 0) or 0) > 0:
+        raise AssertionError("--sp with --experts is not supported")
+    if int(getattr(args, "grad_accum", 1) or 1) > 1:
+        raise ValueError("--grad_accum composes with the single-chip "
+                         "trainer only; use --dp to split the batch "
+                         "across devices instead")
+    text, params, cfg, tok, stoi, itos = _resume_or_init(args, device)
+    if args.batch_size % dp:
+        raise AssertionError("batch_size must divide by dp")
+    if cfg.ctx_len % sp:
+        raise AssertionError("ctx_len must divide by sp")
+    mesh = make_mesh((dp, sp), ("dp", "sp"), [device] * (dp * sp))
+    ring = getattr(args, "ring", "auto") or "auto"
+    if ring not in ("auto", "pallas", "xla"):
+        raise ValueError(f"--ring must be auto, pallas or xla, got {ring!r}")
+    pallas = device.type == "cuda" if ring == "auto" else ring == "pallas"
+    train_ids, val_ids = _corpus(tok, text, device)
+    step_fn = make_sp_device_train_step(
+        cfg, mesh, args.batch_size, pallas=pallas,
+        clip_norm=float(getattr(args, "clip_norm", 0.0) or 0.0),
+        **_lr_kwargs(args))
+    eval_fn = make_sp_eval(cfg, mesh, args.batch_size, 10, pallas=pallas)
+    print(f"mesh dp={dp} sp={sp}: {dp * sp} ranks share {device}; ring "
+          f"{'kernels (K10/K11)' if pallas else 'plain'}")
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    params = _train_loop(args, cfg, params, adamw_init(params), generator,
+                         step_fn, eval_fn, train_ids, val_ids, stoi, itos,
+                         desc=f"mesh dp={dp} sp={sp}, ")
+    for p in tree_leaves(params):
+        p.requires_grad_(False)
+    return params, cfg, stoi, itos
+
+
 def train(args) -> Tuple[dict, GPTConfig, dict, dict]:
     """Run the training loop on ``args.device`` (default: the card; the
-    CPU only when asked for); returns (params, cfg, stoi, itos)."""
-    for axis in ("dp", "tp", "sp", "pp", "fsdp"):
-        if int(getattr(args, axis, 1) or 1) > 1:
+    CPU only when asked for); returns (params, cfg, stoi, itos). ``--sp``
+    (with ``--dp``) trains sequence-parallel (``train_sharded``)."""
+    axes = {a: int(getattr(args, a, 1) or 1)
+            for a in ("dp", "tp", "sp", "pp", "fsdp")}
+    for axis, size in axes.items():
+        if size > 1 and (axis in ("pp", "fsdp") or axes["sp"] == 1):
             raise NotImplementedError(
                 f"--{axis} (multi-device training) is not ported yet "
-                "(ROADMAP.md queue 1, item 7: parallelism)")
+                "(ROADMAP.md queue 1, item 7: parallelism; --sp with --dp "
+                "is)")
     if int(getattr(args, "lora_rank", 0) or 0) > 0:
         raise NotImplementedError(
             "--lora_rank (LoRA finetuning) is not ported yet (ROADMAP.md "
             "queue 1, item 5)")
     device = resolve_device(getattr(args, "device", None))
+    if axes["sp"] > 1:
+        return train_sharded(args, axes["dp"], axes["tp"], device)
     text, params, cfg, tok, stoi, itos = _resume_or_init(args, device)
-
-    ids = tok.encode(text)
-    split = int(0.9 * len(ids))
-    # the whole corpus on the device, once
-    train_ids = torch.as_tensor(ids[:split], dtype=torch.long, device=device)
-    val_ids = torch.as_tensor(ids[split:], dtype=torch.long, device=device)
+    train_ids, val_ids = _corpus(tok, text, device)
 
     opt_state = adamw_init(params)
     step_fn = make_device_train_step(

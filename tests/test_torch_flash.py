@@ -203,8 +203,11 @@ class TestPicker:
         (2048, 64, "flash_attention_long"),
         (3000, 128, "flash_attention_long"),  # padded to 3072
         (4096, 128, "flash_attention_long"),
-        (1024, 16, None),  # d_heads the kernels do not take
-        (2048, 96, None),
+        # d_heads between the kernels' widths: zero-padded inside
+        (1024, 16, "flash_attention"),
+        (2048, 96, "flash_attention_long"),
+        (1024, 4, None),  # d_heads the kernels do not take
+        (2048, 256, None),
     ])
     def test_on_cuda(self, T, d_head, kernel, monkeypatch):
         """None means the rematted sdpa. A kernel pick is called on CPU
@@ -247,7 +250,8 @@ class TestPicker:
         (dict(pos="alibi"), "cpu", 64, None),
         (dict(window=512), "cpu", 4096, None),
         (dict(window=512), "cuda", 511, None),
-        (dict(window=512, d_model=384), "cuda", 1024, None),  # d_head 96
+        (dict(window=512, d_model=384), "cuda", 1024, 1024),  # d_head 96
+        (dict(window=512, d_model=1024), "cuda", 1024, None),  # d_head 256
         (dict(window=512), "cuda", 4096, 4096),
         (dict(window=300, pos="rope"), "cuda", 1000, 1024),
         (dict(window=64, n_kv_heads=1), "cuda", 8192, 8192),
@@ -287,3 +291,40 @@ class TestPicker:
         np.testing.assert_array_equal(a[0], b[0])
         for x, y in zip(a[1], b[1]):
             np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("window", [None, 200], ids=["causal", "window200"])
+@pytest.mark.parametrize("d_model,heads", [(32, 2), (48, 1)],
+                         ids=["d_head16", "d_head48"])
+def test_narrow_heads_take_the_flash_path(d_model, heads, window,
+                                          monkeypatch):
+    """The CUDA pick for a d_head between the kernels' widths (the JAX
+    rule sends every d_head >= 8 to its kernels) is the flash path, run
+    here through its plain versions on CPU tensors: each head is
+    zero-padded to the next width (16 -> 32, 48 -> 64) with the scale of
+    its own width, and gpt_loss and every gradient equal the sdpa's."""
+    from linalg_tpu_torch.nn import flash as nn_flash
+    from linalg_tpu_torch.train.optim import tree_leaves
+
+    widths = []
+    real = nn_flash.flash_fwd
+    monkeypatch.setattr(nn_flash, "flash_fwd", lambda q, *a: widths.append(
+        q.shape[-1]) or real(q, *a))
+    cfg = tgpt.GPTConfig(vocab_size=13, d_model=d_model, n_heads=heads,
+                         n_layers=2, ctx_len=512, window=window)
+    attn = tgpt._pick_attn_cfg(cfg, 512, "cuda")
+    assert attn is not tgpt._REMAT_SDPA
+    rng = np.random.default_rng(heads)
+    x, y = (torch.tensor(rng.integers(0, 13, (2, 512))) for _ in range(2))
+    out = []
+    for fn in (attn, tF.sdpa):
+        p = tgpt.init_gpt_params(cfg, seed=0)
+        leaves = tree_leaves(p)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        loss = tgpt.gpt_loss(p, x, y, cfg, attn_fn=fn)
+        out.append((float(loss.detach()), torch.autograd.grad(loss, leaves)))
+    assert widths == [32 if cfg.d_head == 16 else 64] * cfg.n_layers
+    assert out[0][0] == pytest.approx(out[1][0], rel=1e-6)
+    for a, b in zip(out[0][1], out[1][1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-5)

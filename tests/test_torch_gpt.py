@@ -73,6 +73,10 @@ def test_port_imports_neither_jax_nor_reference():
         ", linalg_tpu_torch.nn.positional\n"
         "import linalg_tpu_torch.nn.flash_btd, linalg_tpu_torch.nn.fused_layer"
         ", linalg_tpu_torch.kernels.fused_layer\n"
+        "import linalg_tpu_torch.parallel, linalg_tpu_torch.parallel.mesh"
+        ", linalg_tpu_torch.parallel.ring, linalg_tpu_torch.parallel.ring_pallas"
+        ", linalg_tpu_torch.parallel.sharding"
+        ", linalg_tpu_torch.kernels.ring_attention\n"
         "for m in pkgutil.walk_packages(p.__path__, 'linalg_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -82,7 +86,7 @@ def test_port_imports_neither_jax_nor_reference():
         "if m.startswith('linalg_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, check=True)
-    assert int(out.stdout.strip()) >= 40  # every module was imported
+    assert int(out.stdout.strip()) >= 46  # every module was imported
 
 
 def test_resolve_device_defaults_to_the_card(monkeypatch):
@@ -186,8 +190,9 @@ class TestParams:
     def test_config_validation(self):
         """The JAX package's validation; rope, alibi, the gated FFNs and a
         window construct (and equal the JAX configs field for field), and
-        the serving engine refuses them, naming ROADMAP.md queue 1 item 5
-        (the JAX engine serves them in ring mode)."""
+        the serving engine takes each of them. It refuses only what the
+        JAX engine serves in ring mode, a window with RoPE or ALiBi,
+        naming ROADMAP.md queue 1 item 5."""
         from linalg_tpu_torch.serve.engine import ServeEngine
 
         with pytest.raises(ValueError, match="n_kv_heads"):
@@ -197,15 +202,21 @@ class TestParams:
         with pytest.raises(ValueError, match="window"):
             tgpt.GPTConfig(vocab_size=8, window=0)
         for kw in (dict(pos="rope"), dict(pos="alibi"), dict(ffn="swiglu"),
-                   dict(ffn="geglu"), dict(window=4)):
+                   dict(ffn="geglu"), dict(window=4),
+                   dict(pos="rope", window=4), dict(pos="alibi", window=4)):
             cfg = tgpt.GPTConfig(vocab_size=8, d_model=16, n_layers=1,
                                  ctx_len=64, **kw)
             assert dataclasses.asdict(cfg) == dataclasses.asdict(
                 jgpt.GPTConfig(vocab_size=8, d_model=16, n_layers=1,
                                ctx_len=64, **kw))
-            with pytest.raises(NotImplementedError, match="item 5"):
-                ServeEngine(tgpt.init_gpt_params(cfg), cfg, chunk=8,
-                            device="cpu")
+            params = tgpt.init_gpt_params(cfg)
+            if "window" in kw and "pos" in kw:
+                with pytest.raises(NotImplementedError, match="item 5"):
+                    ServeEngine(params, cfg, chunk=8, device="cpu")
+            else:
+                for paged in (False, True):
+                    ServeEngine(params, cfg, chunk=8, paged=paged, page=8,
+                                device="cpu")
 
     def test_checkpoint_cross_load(self, tmp_path):
         from linalg_tpu.nn.tokenizers import CharTokenizer as JTok

@@ -576,3 +576,122 @@ def test_fused_kernels_reject_what_they_do_not_take(cuda):
         kf.ln_qkv_fwd_cuda(x, *qkv[1:3], qkv[3].T, *qkv[4:])
     with pytest.raises(ValueError, match="shape"):
         kf.ln_ffn_fwd_cuda(*ffn[:5], ffn[5][:128].contiguous(), ffn[6])
+
+
+# ----- ring attention (K10/K11, csrc/ring_attention.cu) ----------------
+
+def ring_inputs(B, h, T, d, dtype, device, seed):
+    """q, k, v and dO (B, h, T, d) from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.standard_normal((B, h, T, d)), dtype=dtype,
+                         device=device) for _ in range(4)]
+
+
+def ring_both(x, n, plain, **kw):
+    """(o, L, dq, dk, dv) of the ring over n ranks on x's device, through
+    the kernels or (``plain``) their plain versions; the backward from the
+    forward's own o and L."""
+    from linalg_tpu_torch.parallel import make_mesh
+    from linalg_tpu_torch.parallel.ring_pallas import (
+        ring_attention_pallas_bwd_local, ring_attention_pallas_local)
+
+    q, k, v, do = x
+    mesh = make_mesh((n,), ("sp",), [q.device] * n)
+    o, L = ring_attention_pallas_local(q, k, v, mesh=mesh, with_lse=True,
+                                       plain=plain, **kw)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    grads = ring_attention_pallas_bwd_local(q, k, v, do, L, delta,
+                                            mesh=mesh, plain=plain, **kw)
+    return (o, L) + grads
+
+
+def test_ring_wrappers_reject_cpu_tensors():
+    from linalg_tpu_torch.kernels.ring_attention import (ring_bwd_step_cuda,
+                                                         ring_fwd_step_cuda)
+
+    BH, n, Tl, D = 2, 2, 64, 32
+    q = torch.zeros(BH, n * Tl, D)
+    f = torch.zeros(BH, n * Tl)
+    kw = dict(n=n, H=1, step=0, ranks=(0, n), causal=True, window=None,
+              slopes=None, scale=0.125, last=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        ring_fwd_step_cuda(q, torch.zeros(n, 2, BH, Tl, D), f, f,
+                           torch.zeros_like(q), q, f, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        ring_bwd_step_cuda(q, q, f, f, torch.zeros(n, 4, BH, Tl, D),
+                           torch.zeros_like(q), q, **kw)
+
+
+# (B, h, T, d, n, causal, window, alibi): ragged Tl (100, 125, 45, 250),
+# padded widths (48 -> 64), d 256, dead chunks behind the band
+RING_CASES = [
+    (2, 2, 400, 64, 4, True, None, False),
+    (1, 2, 1000, 128, 8, True, 300, False),
+    (2, 4, 512, 128, 2, True, None, True),
+    (2, 2, 360, 64, 8, False, None, False),
+    (1, 2, 1000, 128, 4, True, 200, True),
+    (1, 2, 256, 48, 4, True, 100, True),
+    (1, 1, 128, 256, 2, True, None, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", RING_CASES,
+                         ids=lambda c: "B{}h{}T{}d{}n{}{}{}{}".format(
+                             *c[:5], "c" if c[5] else "f",
+                             f"w{c[6]}" if c[6] else "",
+                             "alibi" if c[7] else ""))
+def test_ring_kernels_match_plain_on_card(cuda, case, dtype):
+    """K10 and K11 against their plain versions on the same inputs, the
+    whole ring (slots, rotations, bundle lap) both ways; launches one per
+    step. Tolerance as chip_smoke.py's: f32 1e-4, bf16 2e-2 x max|want|
+    (sums in another order; bf16 rounds the outputs)."""
+    from linalg_tpu_torch.kernels import ring_attention as kr
+    from linalg_tpu_torch.nn.positional import alibi_slopes
+
+    B, h, T, d, n, causal, window, alibi = case
+    x = ring_inputs(B, h, T, d, dtype, cuda, seed=T + n)
+    kw = dict(causal=causal, window=window,
+              slopes=tuple(alibi_slopes(h).tolist()) if alibi else None)
+    before = (kr.ring_fwd_step_cuda.launches, kr.ring_bwd_step_cuda.launches)
+    got = ring_both(x, n, False, **kw)
+    torch.cuda.synchronize()
+    assert (kr.ring_fwd_step_cuda.launches - before[0],
+            kr.ring_bwd_step_cuda.launches - before[1]) == (n, n)
+    want = ring_both(x, n, True, **kw)
+    rtol = 1e-4 if dtype == torch.float32 else 2e-2
+    for what, g, w in zip(("o", "L", "dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, what
+        err = float((g.float() - w.float()).abs().max())
+        tol = rtol * max(1.0, float(w.float().abs().max()))
+        assert err <= tol, f"{what}: error {err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.cuda
+def test_ring_backward_is_deterministic_on_card(cuda):
+    """No atomics: two backward runs give the same bits."""
+    x = ring_inputs(2, 2, 512, 128, torch.float32, cuda, seed=9)
+    a = ring_both(x, 4, False, window=200)
+    b = ring_both(x, 4, False, window=200)
+    assert all(torch.equal(s, t) for s, t in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_ring_autograd_on_card(cuda):
+    """make_ring_attention_pallas through autograd on the card equals the
+    plain ring (parallel.ring) in f32."""
+    from linalg_tpu_torch.parallel import (make_mesh, make_ring_attention,
+                                           make_ring_attention_pallas)
+
+    mesh = make_mesh((4,), ("sp",), [cuda] * 4)
+    x = ring_inputs(2, 4, 1024, 64, torch.float32, cuda, seed=3)
+    outs = []
+    for make in (make_ring_attention_pallas, make_ring_attention):
+        q, k, v = (t.clone().requires_grad_(True) for t in x[:3])
+        o = make(mesh, window=300)(q, k, v)
+        o.backward(x[3])
+        outs.append((o.detach(), q.grad, k.grad, v.grad))
+    for g, w in zip(*outs):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)

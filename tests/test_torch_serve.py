@@ -80,6 +80,80 @@ def test_engine_matches_jax(jax_tokens, mode, seed, stop):
     assert got == jax_tokens[seed]
 
 
+# RoPE, ALiBi, a window and the gated FFNs: the slot and paged engines
+# serve each as the JAX slot engine does (a window WITH RoPE or ALiBi is
+# the JAX engine's ring mode, which is not ported). RoPE at d_head 128, as
+# tests/test_paged.py:269 holds its kernel; the others at CFG_KW's d 32
+FEATURES = {
+    "rope_d128": dict(vocab_size=31, d_model=256, n_heads=2, n_kv_heads=1,
+                      n_layers=2, ctx_len=64, pos="rope"),
+    "alibi": dict(CFG_KW, pos="alibi"),
+    "window7": dict(CFG_KW, window=7),
+    "swiglu": dict(CFG_KW, ffn="swiglu"),
+    "geglu": dict(CFG_KW, ffn="geglu", n_kv_heads=None),
+}
+_FEATURE_TOKENS = {}
+
+
+def feature_requests(name):
+    rng = np.random.default_rng(len(name))
+    V = FEATURES[name]["vocab_size"]
+    return [(rng.integers(0, V, size=int(rng.integers(3, 14))).tolist(),
+             int(rng.integers(4, 12))) for _ in range(5)]
+
+
+def jax_feature_tokens(name):
+    """The JAX slot engine's greedy tokens for FEATURES[name] (seed-4
+    weights), computed once per config."""
+    if name not in _FEATURE_TOKENS:
+        cfg = JCfg(**FEATURES[name])
+        eng = JEngine(jinit(cfg, seed=4), cfg, **ENGINE_KW)
+        ids = [eng.submit(JRequest(p, n)) for p, n in feature_requests(name)]
+        done = {c.request_id: c.tokens for c in eng.run()}
+        _FEATURE_TOKENS[name] = [done[i] for i in ids]
+    return _FEATURE_TOKENS[name]
+
+
+def port_feature_tokens(name, **mode):
+    cfg = GPTConfig(**FEATURES[name])
+    eng = ServeEngine(init_gpt_params(cfg, seed=4), cfg, device="cpu",
+                      **ENGINE_KW, **mode)
+    ids = [eng.submit(Request(p, n)) for p, n in feature_requests(name)]
+    done = {c.request_id: c.tokens for c in eng.run()}
+    return [done[i] for i in ids]
+
+
+@pytest.mark.parametrize("mode", [
+    dict(),
+    dict(paged=True, page=16, paged_attn="gather"),
+    dict(paged=True, page=16, paged_attn="kernel"),
+], ids=["slot", "paged-gather", "paged-kernel"])
+@pytest.mark.parametrize("name", sorted(FEATURES))
+def test_feature_configs_match_jax_slot_engine(name, mode):
+    """float32 greedy tokens equal to the JAX slot engine's, in slot mode
+    and in paged mode with both reads (the kernel read runs its plain
+    version on the CPU)."""
+    assert port_feature_tokens(name, **mode) == jax_feature_tokens(name)
+
+
+@pytest.mark.parametrize("name", ["rope_d128", "alibi"])
+def test_kernel_engine_matches_gather_engine(name):
+    """tests/test_paged.py:269-305 for the port: the paged engine reads
+    its pool through the kernel's path and through the table gather with
+    the same tokens, at RoPE d_head 128 and under ALiBi's per-head bias."""
+    assert port_feature_tokens(name, paged=True, page=16,
+                               paged_attn="kernel") == port_feature_tokens(
+        name, paged=True, page=16, paged_attn="gather")
+
+
+def test_ring_configs_raise_naming_the_roadmap():
+    for pos in ("rope", "alibi"):
+        cfg = GPTConfig(**dict(CFG_KW, pos=pos, window=7))
+        with pytest.raises(NotImplementedError, match="ring mode.*item 5"):
+            ServeEngine(init_gpt_params(cfg), cfg, device="cpu",
+                        **ENGINE_KW)
+
+
 def test_jax_paged_engine_matches_port():
     """One direct paged-vs-paged check (JAX gather engine, port kernel
     engine), on a small pool that makes requests queue for pages."""

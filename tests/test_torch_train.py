@@ -339,6 +339,23 @@ class TestData:
         for a, b in zip(tx, jx):
             np.testing.assert_array_equal(a, b)
 
+    def test_load_text_can_refuse_the_synthetic_corpus(self, tmp_path,
+                                                       monkeypatch):
+        """``allow_synthetic=False`` with no corpus raises
+        FileNotFoundError, as the JAX package's does; the default still
+        falls back to the synthetic corpus."""
+        from linalg_tpu_torch.train import data as tdata
+
+        monkeypatch.delenv("LINALG_TPU_DATA", raising=False)
+        monkeypatch.setattr(tdata, "_LOCAL_CANDIDATES", ())
+        missing = str(tmp_path / "none.txt")
+        with pytest.raises(FileNotFoundError, match="corpus"):
+            tdata.load_text(missing, allow_synthetic=False)
+        assert tdata.load_text(missing) == tdata.synthetic_corpus()
+        (tmp_path / "c.txt").write_text("x" * 2000, encoding="utf-8")
+        assert tdata.load_text(str(tmp_path / "c.txt"),
+                               allow_synthetic=False) == "x" * 2000
+
     def test_load_text_prefers_a_local_file(self, tmp_path, monkeypatch):
         corpus = tmp_path / "corpus.txt"
         corpus.write_text("to be or not to be\n" * 100, encoding="utf-8")
@@ -394,6 +411,9 @@ class TestCLI:
 
     @pytest.mark.parametrize("argv,item", [
         (["--train", "--dp", "2"], "item 7"),
+        (["--train", "--tp", "2"], "item 7"),
+        (["--train", "--pp", "2"], "item 7"),
+        (["--train", "--sp", "2", "--pp", "2"], "item 7"),
         (["--train", "--fsdp", "2"], "item 7"),
         (["--train", "--lora_rank", "4"], "item 5"),
         (["--train", "--experts", "4"], "item 6"),
