@@ -43,7 +43,8 @@ Phases, each reported on its own line; any failure exits non-zero:
              dk, dv from a random dO) against their plain PyTorch versions
              at (B 24, H 8, T 1024, d 128) in bf16 and f32, (2, 8, 2048,
              128) bf16 through ``flash_attention_long``, (4, 8, 1024, 64)
-             f32, and a ragged T 1000 through the picker's padding; median
+             f32, the widest heads (2, 4, 1024, 256) in bf16 and f32, and a
+             ragged T 1000 through the picker's padding; median
              CUDA-event times of kernel and plain version, forward and
              forward+backward (the T 2048 shape also straight through the
              kernels).
@@ -107,24 +108,27 @@ Phases, each reported on its own line; any failure exits non-zero:
              step of (a) and of (b), last.
 14. ring   — the ring kernels K10 (forward) and K11 (backward) of
              ``csrc/ring_attention.cu``, the ring's 4 ranks sharing the card
-             (``parallel.ring_pallas``: K/V slots rotated on a side stream,
-             the backward's f32 bundle lapping the ring): o, L, dq, dk, dv
-             against the plain versions through the same protocol at
-             long_window's shape (B 8, h 4, T 4096, d 128, window 512) in
-             bf16 and f32, train_big's (24, 8, 1024, 128, causal) bf16,
-             ALiBi, no causal ban, n 2 and 8, and a ragged T 1000 (Tl 250);
-             one launch per ring step; median times of K10 and K11 at the
-             first three beside the plain versions,
-             ``F.scaled_dot_product_attention`` over the gathered sequence
-             (forward, and its backward alone) and the attention's bound,
-             with the rotations' least time beside it; last, the share of
-             the forward's rotation copy time that a profiler trace shows
-             overlapping K10.
+             (``parallel.ring_pallas``: one call per direction, each block
+             looping over the ring's steps and reading the K/V chunks in
+             place): build lines, registers and spills of every kernel (any
+             spill fails); o, L, dq, dk, dv against the plain versions (the
+             TPU's protocol step by step: K/V slots rotated, the backward's
+             f32 bundle lapping the ring) at long_window's shape (B 8, h 4,
+             T 4096, d 128, window 512) in bf16 and f32, train_big's (24, 8,
+             1024, 128, causal) bf16, ALiBi, no causal ban, n 2 and 8, and a
+             ragged T 1000 (Tl 250); one launch per ring call and direction;
+             median times of K10 and K11 at the first three beside the plain
+             versions, ``F.scaled_dot_product_attention`` over the gathered
+             sequence (forward, and its backward alone) and the attention's
+             bound; last, a profiler trace of one forward and backward of
+             the ring through autograd at long_window's shape must show the
+             three kernel launches and no device copy.
 15. sp     — ``train.trainer.train`` with ``--sp 4`` (the mesh's 4 ranks on
              the card, attention through K10/K11): long_window 40 steps and
-             train_big's widths at 2 layers 20 steps: launch counts (K10 n
-             per layer per forward, K11 n per layer per backward; the plain
-             ring never runs), finite losses, ms/step, tok/s, peak memory,
+             train_big's widths at 2 layers 20 steps: launch counts (K10
+             one per layer per forward, K11 one per layer per backward; the
+             plain ring never runs), finite losses, ms/step, tok/s, peak
+             memory,
              the checkpoint reloaded equal, the step-1 loss against the
              single-card run from the same seed (same batch); one step
              through the kernels against the plain ring (``--ring xla``)
@@ -569,7 +573,9 @@ def flash_phase():
             ((24, 8, 1024, 128), torch.bfloat16),
             ((24, 8, 1024, 128), torch.float32),
             ((2, 8, 2048, 128), torch.bfloat16),  # flash_attention_long's
-            ((4, 8, 1024, 64), torch.float32)]):
+            ((4, 8, 1024, 64), torch.float32),
+            ((2, 4, 1024, 256), torch.bfloat16),  # the widest heads
+            ((2, 4, 1024, 256), torch.float32)]):
         q, k, v, do = flash_case(shape, dtype, seed=200 + i)
         o, L = flash_fwd_cuda(q, k, v)
         o_ref, L_ref = flash_fwd_ref(q, k, v)
@@ -598,11 +604,13 @@ def flash_phase():
               f"plain fwd {plain_f:.4f} ms, fwd+bwd {plain_fb_ms:.4f} ms; "
               f"F.scaled_dot_product_attention fwd {lib_f:.4f} ms, fwd+bwd "
               f"{lib_fb:.4f} ms; bound fwd+bwd {bms:.4f} ms ({by})")
+        row = dict(max_abs_err=err, ms=ms_fb, plain_ms=plain_fb_ms,
+                   bound_ms=bms, bound_by=by, library_ms=lib_fb, fwd_ms=ms_f,
+                   plain_fwd_ms=plain_f, library_fwd_ms=lib_f)
         if i == 0:  # the training slice's shape and dtype
-            record = dict(max_abs_err=err, ms=ms_fb, plain_ms=plain_fb_ms,
-                          bound_ms=bms, bound_by=by, library_ms=lib_fb,
-                          fwd_ms=ms_f, plain_fwd_ms=plain_f,
-                          library_fwd_ms=lib_f)
+            record = row
+        elif shape[-1] == 256:
+            record[f"d256_{str(dtype).split('.')[1]}"] = row
         torch.cuda.empty_cache()
 
     for name, (B, H, T, d), dtype, fn, ref in [
@@ -1435,8 +1443,8 @@ def ring_bound(B, h, T, d, dtype, causal, window, what):
     """Bound of the attention the ring computes, as ``attn_bound`` counts
     it: forward (``what`` "fwd": 4 d operations per visible pair; q, k, v
     read, o and L written) or backward ("bwd": 8 d per pair; q, k, v, dO,
-    L, delta read, dq, dk, dv written). The rotations are the protocol's
-    cost, not the function's: ``rotation_ms`` prices them apart."""
+    L, delta read, dq, dk, dv written). With the ranks on one card no chunk
+    has to move, and the kernels move none."""
     pairs = B * h * attn_live_pairs(T, causal, window)
     es = torch.tensor([], dtype=dtype).element_size()
     x = B * h * T * d
@@ -1445,27 +1453,39 @@ def ring_bound(B, h, T, d, dtype, causal, window, what):
     return bound_ms(8 * d * pairs, es * 7 * x + 8 * B * h * T, dtype)
 
 
-def rotation_ms(B, h, T, d, n, dtype):
-    """Least time of the ring's rotations at the memory rate: the forward's
-    n - 1 hops of the K/V slots and the backward's n laps of the f32
-    (k, v, dk, dv) bundle, each copy read and written once."""
-    es = torch.tensor([], dtype=dtype).element_size()
-    x = B * h * T * d
-    return ((n - 1) * 2 * 2 * x * es / H100_BYTES_PER_S * 1e3,
-            n * 2 * 4 * x * 4 / H100_BYTES_PER_S * 1e3)
+def ptxas_spills(lib):
+    """{kernel: (stack frame, spill store, spill load bytes)} of every
+    kernel of a built library with any of the three above 0, from its
+    ``-Xptxas -v`` log."""
+    bad, name = {}, None
+    for ln in lib.with_suffix(".log").read_text().splitlines():
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for")[1].strip()
+        elif "bytes stack frame" in ln and name:
+            nums = [int(w) for w in ln.replace(",", " ").split()
+                    if w.isdigit()]
+            if any(nums[:3]):
+                bad[name] = tuple(nums[:3])
+            name = None
+    return bad
 
 
-def ring_phase():
+def ring_phase(built):
     """Phase 14: K10 and K11 against their plain versions at the sp runs'
     shapes and beside them. Returns the records of K10 and K11 at
-    long_window's shape (bf16) and that case's inputs."""
+    long_window's shape (bf16, with train_big's times beside)."""
     from linalg_tpu_torch.kernels import ring_attention as kr
     from linalg_tpu_torch.nn.positional import alibi_slopes
     from linalg_tpu_torch.parallel import make_mesh
     from linalg_tpu_torch.parallel.ring_pallas import (
         ring_attention_pallas_bwd_local, ring_attention_pallas_local)
 
-    records, overlap_case = None, None
+    spills = ptxas_spills(built[0])
+    phase("ring", f"ptxas: {len(spills)} kernels with a stack frame or "
+          f"spills{f' {spills}' if spills else ''}")
+    if spills:
+        raise RuntimeError("ring kernels spill registers")
+    records = None
     for i, (name, B, h, T, d, n, dtype, causal, window, alibi) in enumerate([
             ("long_window", 8, 4, 4096, 128, SP, torch.bfloat16, True, 512,
              False),
@@ -1485,14 +1505,13 @@ def ring_phase():
                           device="cuda") for _ in range(4)]
         kw = dict(causal=causal, window=window,
                   slopes=tuple(alibi_slopes(h).tolist()) if alibi else None)
-        kr.ring_fwd_step_cuda.launches = kr.ring_bwd_step_cuda.launches = 0
+        kr.ring_fwd_cuda.launches = kr.ring_bwd_cuda.launches = 0
         got = ring_run(x, n, **kw)
         torch.cuda.synchronize()
-        launches = [kr.ring_fwd_step_cuda.launches,
-                    kr.ring_bwd_step_cuda.launches]
-        if launches != [n, n]:
+        launches = [kr.ring_fwd_cuda.launches, kr.ring_bwd_cuda.launches]
+        if launches != [1, 1]:
             raise RuntimeError(f"ring {name}: launches {launches}, expected "
-                               f"one per step ({n})")
+                               "one call per direction [1, 1]")
         want = ring_run(x, n, plain=True, **kw)
         dt = str(dtype).split(".")[1]
         label = (f"{name} B,h,T,d,n={B},{h},{T},{d},{n} {dt}"
@@ -1527,65 +1546,60 @@ def ring_phase():
             lib_b = lib_fb - lib_f
             bf, byf = ring_bound(B, h, T, d, dtype, causal, window, "fwd")
             bb, byb = ring_bound(B, h, T, d, dtype, causal, window, "bwd")
-            rf, rb = rotation_ms(B, h, T, d, n, dtype)
             phase("ring", f"  K10 fwd {ms_f:.4f} ms, K11 bwd {ms_b:.4f} ms "
                   f"(fwd+bwd {ms_f + ms_b:.4f}); plain fwd {pl_f:.4f}, bwd "
                   f"{pl_b:.4f}; F.scaled_dot_product_attention over the "
                   f"gathered T fwd {lib_f:.4f}, bwd {lib_b:.4f} (fwd+bwd "
                   f"{lib_fb:.4f}); bound fwd {bf:.4f} ({byf}), bwd "
                   f"{bb:.4f} ({byb}): {bf / ms_f:.1%} and {bb / ms_b:.1%} "
-                  f"of it; the rotations' bytes alone need fwd {rf:.4f}, "
-                  f"bwd {rb:.4f} ms")
+                  f"of it")
+            rec = [dict(shape=[B, h, T, d, n], window=window,
+                        max_abs_err=errs[0], ms=ms_f, plain_ms=pl_f,
+                        bound_ms=bf, bound_by=byf, library_ms=lib_f),
+                   dict(shape=[B, h, T, d, n], window=window,
+                        max_abs_err=errs[1], ms=ms_b, plain_ms=pl_b,
+                        bound_ms=bb, bound_by=byb, library_ms=lib_b)]
             if i == 0:
-                records = (
-                    dict(shape=[B, h, T, d, n], window=window,
-                         max_abs_err=errs[0], ms=ms_f, plain_ms=pl_f,
-                         bound_ms=bf, bound_by=byf, library_ms=lib_f),
-                    dict(shape=[B, h, T, d, n], window=window,
-                         max_abs_err=errs[1], ms=ms_b, plain_ms=pl_b,
-                         bound_ms=bb, bound_by=byb, library_ms=lib_b))
-                overlap_case = (x, n, kw)
-                continue
+                records = rec
+            elif name == "train_big":
+                for r_, x_ in zip(records, rec):
+                    r_["train_big"] = x_
         del x
         torch.cuda.empty_cache()
-    return records, overlap_case
+    return records
 
 
-def ring_overlap(case):
-    """The share of the forward's rotation copy time that overlaps ring
-    compute on the card, from a ``torch.profiler`` trace of one forward
-    (copies: the device-to-device memcpys of the rotations, two per hop;
-    compute: the K10 launches)."""
-    from linalg_tpu_torch.parallel import make_mesh
-    from linalg_tpu_torch.parallel.ring_pallas import (
-        ring_attention_pallas_local)
-
-    x, n, kw = case
-    mesh = make_mesh((n,), ("sp",), ["cuda"] * n)
+def ring_copies():
+    """A ``torch.profiler`` trace of one forward and backward of the ring
+    (``ring_run``: the kernel ring's forward, delta, its backward) at
+    long_window's shape, bf16: it must hold one K10 launch, K11's dq and
+    dk/dv launches, and no device copy (no ``gpu_memcpy`` event): the
+    kernels read the chunks in place."""
+    rng = np.random.default_rng(1500)
+    x = [torch.tensor(rng.standard_normal((8, 4, 4096, 128)),
+                      dtype=torch.bfloat16, device="cuda") for _ in range(4)]
     for _ in range(2):
-        ring_attention_pallas_local(*x[:3], mesh=mesh, **kw)
+        ring_run(x, SP, window=512)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        ring_attention_pallas_local(*x[:3], mesh=mesh, **kw)
+        ring_run(x, SP, window=512)
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         prof.export_chrome_trace(f"{tmp}/trace.json")
         events = json.load(open(f"{tmp}/trace.json"))["traceEvents"]
     timed = [e for e in events if "dur" in e]
-    copies = [(e["ts"], e["ts"] + e["dur"]) for e in timed
-              if e.get("cat") == "gpu_memcpy"]
-    compute = [(e["ts"], e["ts"] + e["dur"]) for e in timed
-               if e.get("cat") == "kernel" and "ring_fwd" in e["name"]]
-    total = sum(b - a for a, b in copies)
-    shared = sum(max(0.0, min(b, d) - max(a, c))
-                 for a, b in copies for c, d in compute)
-    phase("ring", f"rotation (long_window, one forward, n {n}): "
-          f"{len(copies)} copies (2 per hop: {2 * (n - 1)}), "
-          f"{total / 1e3:.4f} ms of copy time, "
-          f"{len(compute)} K10 launches taking "
-          f"{sum(b - a for a, b in compute) / 1e3:.4f} ms; "
-          f"{shared / max(total, 1e-9):.1%} of the copy time overlaps K10")
+    copies = [e for e in timed if e.get("cat") == "gpu_memcpy"]
+    ring = [e["name"] for e in timed if e.get("cat") == "kernel"
+            and any(f in e["name"] for f in ("fwd_bf16", "dq_bf16",
+                                               "dkdv_bf16"))]
+    phase("ring", f"profiled ring forward+backward (long_window, n {SP}, "
+          f"bf16): {len(ring)} ring kernel launches, {len(copies)} device "
+          f"copies ({sum(e['dur'] for e in copies) / 1e3:.4f} ms)")
+    if len(ring) != 3 or copies:
+        raise RuntimeError("the ring's forward+backward must be 3 kernel "
+                           f"launches and no copy; got {ring}, "
+                           f"{[e['name'] for e in copies]}")
 
 
 def sp_phase(smi):
@@ -1600,7 +1614,7 @@ def sp_phase(smi):
     from linalg_tpu_torch.train.optim import tree_leaves
     from linalg_tpu_torch.train.trainer import train
 
-    counters = (kr.ring_fwd_step_cuda, kr.ring_bwd_step_cuda)
+    counters = (kr.ring_fwd_cuda, kr.ring_bwd_cuda)
     plain_calls = []
     local = plain_ring.ring_attention_local
     totals = {"fwd": 0, "bwd": 0}
@@ -1627,14 +1641,14 @@ def sp_phase(smi):
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             rows = [json.loads(ln) for ln in open(log, encoding="utf-8")]
             n_eval = sum(r["event"] == "eval" for r in rows)
-            want = [cfg.n_layers * SP * (args.steps
-                                         + n_eval * SP_EVAL_BATCHES),
-                    cfg.n_layers * SP * args.steps]
+            want = [cfg.n_layers * (args.steps + n_eval * SP_EVAL_BATCHES),
+                    cfg.n_layers * args.steps]
             phase("sp", f"{name} --sp {SP}: K10/K11 launches {launches}, "
-                  f"expected {want} ({cfg.n_layers} layers x {SP} ring steps "
-                  f"x ({args.steps} steps + {n_eval} evals x "
-                  f"{SP_EVAL_BATCHES} batches) forward, x {args.steps} "
-                  f"backward); plain ring calls {len(plain_calls)}")
+                  f"expected {want} (one ring call per layer: "
+                  f"{cfg.n_layers} layers x ({args.steps} steps + {n_eval} "
+                  f"evals x {SP_EVAL_BATCHES} batches) forward, x "
+                  f"{args.steps} backward); plain ring calls "
+                  f"{len(plain_calls)}")
             if launches != want or plain_calls:
                 raise RuntimeError(f"sp {name}: launch counts differ, or the "
                                    "plain ring ran")
@@ -1824,7 +1838,7 @@ def main() -> int:
 
     # -- 14. ring ----------------------------------------------------------
     report_build("ring", built["ring_attention"])
-    (k10_record, k11_record), overlap_case = ring_phase()
+    k10_record, k11_record = ring_phase(built["ring_attention"])
 
     # -- 15. sp ------------------------------------------------------------
     sp_launches = sp_phase(smi)
@@ -1842,8 +1856,7 @@ def main() -> int:
 
     profile_step("sp", long_cfg, long_batch, _sp_ring(
         make_mesh((1, SP), ("dp", "sp"), ["cuda"] * SP), True, long_cfg))
-    ring_overlap(overlap_case)
-    del overlap_case
+    ring_copies()
 
     flash_launches = [a + b + c for a, b, c in zip(
         train_launches, long_launches, short_launches["btd"])]

@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 (``sm_90a``), then loaded with ``ctypes`` by its wrapper. No PyTorch header
 is included, so a build takes seconds rather than the minutes a
 ``torch.utils.cpp_extension`` build of the same file takes, and it needs no
-``ninja``. The digest covers the source and the flags, so an edited source
+``ninja``. The digest covers the source, the shared headers
+``csrc/*.cuh`` it may include and the flags, so an edited source or header
 is rebuilt and a stale library is never loaded.
 
 Building happens at first use, never at import: importing the package works
@@ -46,6 +47,15 @@ def _nvcc() -> str:
                        "to build the CUDA kernels")
 
 
+def _digest(src: pathlib.Path) -> str:
+    """Digest of a source, every shared header beside it and the flags."""
+    h = hashlib.sha1(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
 def build(name: str) -> pathlib.Path:
     """Return the shared library built from ``csrc/<name>.cu``, compiling
     it first if this source and these flags have not been built yet.
@@ -53,9 +63,7 @@ def build(name: str) -> pathlib.Path:
     The compiler's output (``-Xptxas -v`` prints registers, shared memory
     and spills per kernel) is kept beside the library as ``<stem>.log``."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    out = BUILD_DIR / f"lib{name}-{_digest(src)}.so"
     if out.exists():
         return out
     nvcc = _nvcc()

@@ -62,7 +62,7 @@
 // Contract: q, o, do, dq hold B*H heads and k, v, dk, dv B*H / group, in
 // one dtype (float or bf16), 16-byte aligned, with batch, head and row
 // strides that are multiples of 16 bytes; L and delta contiguous (B*H, T)
-// float. T % 64 == 0, D in {32, 64, 128}. Scores, the
+// float. T % 64 == 0, D in {32, 64, 128, 256}. Scores, the
 // running max and normalizer, and every accumulator are f32. The rules of
 // the Pallas kernels carry over: masked scores take -1e9 (K4 fills -1e30;
 // both give exactly 0 after exp); P is rounded to the io dtype before P V
@@ -105,16 +105,20 @@
 // specialisation -- that is later perf_opt work. Shared memory per block
 // at D 128: bf16 forward 53 KB, dq 88 KB, dk/dv 107 KB; f32 forward
 // 116 KB, dq 149 KB, dk/dv 165 KB -- above the 48 KB static limit, so each
-// launch raises the kernel's dynamic shared-memory cap first.
+// launch raises the kernel's dynamic shared-memory cap first. At D 256 the
+// bf16 forward reloads Q's fragments from shared memory per key tile (its
+// accumulator alone takes 128 registers), dk/dv runs two 128-column
+// slices over a grid dimension, each recomputing its scores, and the f32
+// kernels take 32-row tiles to fit shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "mma_bf16.cuh"
 
-using bf16 = __nv_bfloat16;
+namespace {
 
 constexpr int BM = 64;        // rows per tile (query and key tiles alike)
 constexpr float NEG = -1e9f;  // the Pallas kernels' mask fill
@@ -142,61 +146,8 @@ constexpr int TS = BM + 8;   // row stride (elements) of a transposed tile
 
 template <int D> constexpr int RS = D + 8;  // row stride of a row tile
 
-// c += a * b for one m16n8k16 tile: a 16 x 16 bf16 (row), b 16 x 8 bf16
-// (col), c 16 x 8 f32. Lane (g = lane / 4, t = lane % 4) holds
-// a: (g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..);
-// b: (k 2t..2t+1, n g), (k 2t+8.., n g); c: (g, 2t..2t+1), (g+8, 2t..).
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two floats rounded to bf16 (nearest even), `lo` in the low half
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A operand: the 16 x 16 block at (row0, k0) of a row-major tile
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
-                                       int stride, int row0, int k0, int g,
-                                       int t) {
-  const bf16* p = tile + (row0 + g) * stride + k0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * stride);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * stride + 8);
-}
-
-// B operand B[k][n] = tile[n0 + n][k0 + k]: a tile stored n-major with the
-// contraction axis contiguous
-__device__ __forceinline__ void load_b(uint32_t (&b)[2], const bf16* tile,
-                                       int stride, int n0, int k0, int g,
-                                       int t) {
-  const bf16* p = tile + (n0 + g) * stride + k0 + 2 * t;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
-// The A operand of a product over the 16 columns [16 kk, 16 kk + 16) of a
-// 16 x BM accumulator held as BM / 8 mma tiles: its c layout is the a
-// layout, rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&s)[BM / 8][4],
-                                         int kk) {
-  a[0] = pack(s[2 * kk][0], s[2 * kk][1]);
-  a[1] = pack(s[2 * kk][2], s[2 * kk][3]);
-  a[2] = pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-  a[3] = pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-}
+// The fragment helpers (mma, load_a, load_b, pack, acc_to_a, quad_max,
+// quad_sum) are mma_bf16.cuh's.
 
 // Rows [0, BM) of a (rows, D) bf16 array of row stride `rs` into shared
 // memory (stride RS<D>), 16 bytes a thread, coalesced.
@@ -227,27 +178,18 @@ __device__ __forceinline__ void load_cols(bf16* dst,
   }
 }
 
-// An mma accumulator entry i of tile n sits at row (g + 8 (i / 2)) of the
-// warp's 16 and column (8 n + 2 t + i % 2) of the tile's 64.
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // ===================== the band (causal, window) =======================
 
+// Tiles of B rows (64; the f32 kernels take 32 at d 256).
 // query i may not see key j
 __device__ __forceinline__ bool banned(int i, int j, int causal,
                                        int window) {
   return (causal && j > i) || (window > 0 && i - j >= window);
 }
 // the key tiles [key_start, key_end) of query tile qb hold a visible key
+template <int B>
 __device__ __forceinline__ int key_start(int qb, int window) {
-  return window > 0 ? max(0, qb * BM - (window - 1)) / BM : 0;
+  return window > 0 ? max(0, qb * B - (window - 1)) / B : 0;
 }
 __device__ __forceinline__ int key_end(int qb, int nt, int causal) {
   return causal ? qb + 1 : nt;
@@ -257,15 +199,17 @@ __device__ __forceinline__ int key_end(int qb, int nt, int causal) {
 __device__ __forceinline__ int query_start(int kb, int causal) {
   return causal ? kb : 0;
 }
+template <int B>
 __device__ __forceinline__ int query_end(int kb, int nt, int window) {
-  return window > 0 ? min(nt, (kb * BM + BM + window - 2) / BM + 1) : nt;
+  return window > 0 ? min(nt, (kb * B + B + window - 2) / B + 1) : nt;
 }
 // the tile pair holds a banned entry: it crosses the diagonal or the
 // band's lower edge, so it takes the element-wise fill
+template <int B>
 __device__ __forceinline__ bool edge(int qb, int kb, int causal,
                                      int window) {
   return (causal && kb >= qb) ||
-         (window > 0 && kb * BM <= qb * BM + BM - 1 - window);
+         (window > 0 && kb * B <= qb * B + B - 1 - window);
 }
 
 template <int D>
@@ -290,28 +234,42 @@ __global__ void __launch_bounds__(MT)
 
   load_rows<D>(Qs, q + qb * BM * ly.q.r, ly.q.r);
   __syncthreads();
-  uint32_t qa[D / 16][4];
+  // Q's fragments stay in registers up to d 128; at d 256 they would take
+  // 64 registers beside the 128 of the accumulator, so they are reloaded
+  // from shared memory per key tile
+  constexpr bool kQreg = D <= 128;
+  uint32_t qa[kQreg ? D / 16 : 1][4];
+  if constexpr (kQreg) {
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc)
-    load_a(qa[kc], Qs, RS<D>, r0, kc * 16, g, t);
+    for (int kc = 0; kc < D / 16; ++kc)
+      load_a(qa[kc], Qs, RS<D>, r0, kc * 16, g, t);
+  }
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float acc[D / 8][4] = {};
   const int kend = key_end(qb, nt, causal);
-  for (int kb = key_start(qb, window); kb < kend; ++kb) {
+  for (int kb = key_start<BM>(qb, window); kb < kend; ++kb) {
     __syncthreads();  // the previous tile's K and V are consumed
     load_rows<D>(Ks, k + kb * BM * ly.k.r, ly.k.r);
     load_cols<D>(Vt, v + kb * BM * ly.v.r, ly.v.r);
     __syncthreads();
     float s[BM / 8][4] = {};
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t a[4];
+      if constexpr (kQreg) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qa[kc][i];
+      } else {
+        load_a(a, Qs, RS<D>, r0, kc * 16, g, t);
+      }
 #pragma unroll
       for (int n = 0; n < BM / 8; ++n) {
         uint32_t b[2];
         load_b(b, Ks, RS<D>, n * 8, kc * 16, g, t);
-        mma(s[n], qa[kc], b);
+        mma(s[n], a, b);
       }
-    const bool masked = edge(qb, kb, causal, window);
+    }
+    const bool masked = edge<BM>(qb, kb, causal, window);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int n = 0; n < BM / 8; ++n)
@@ -406,7 +364,7 @@ __global__ void __launch_bounds__(MT)
   }
   float acc[D / 8][4] = {};
   const int kend = key_end(qb, nt, causal);
-  for (int kb = key_start(qb, window); kb < kend; ++kb) {
+  for (int kb = key_start<BM>(qb, window); kb < kend; ++kb) {
     __syncthreads();
     load_rows<D>(Ks, k + kb * BM * ly.k.r, ly.k.r);
     load_rows<D>(Vs, v + kb * BM * ly.v.r, ly.v.r);
@@ -427,7 +385,7 @@ __global__ void __launch_bounds__(MT)
         mma(dp[n], c, b);
       }
     }
-    const bool masked = edge(qb, kb, causal, window);
+    const bool masked = edge<BM>(qb, kb, causal, window);
 #pragma unroll
     for (int n = 0; n < BM / 8; ++n)
 #pragma unroll
@@ -462,10 +420,14 @@ __global__ void __launch_bounds__(MT)
   }
 }
 
-// One block per (KV head, key tile kb), blockIdx.y = b*hk + kv head; it
-// walks the group's query heads and their live query tiles. Warp rows are
-// keys, accumulator columns queries (the transposed scores S^T = K Q^T).
-template <int D>
+// One block per (KV head, key tile kb, column slice), blockIdx.y = b*hk +
+// kv head; it walks the group's query heads and their live query tiles.
+// Warp rows are keys, accumulator columns queries (the transposed scores
+// S^T = K Q^T). The block accumulates the DC columns [c0, c0 + DC) of dk
+// and dv, blockIdx.z = c0 / DC: at d 256 the two accumulators of all 256
+// columns would take 256 registers, so two slices each recompute the
+// scores.
+template <int D, int DC>
 __global__ void __launch_bounds__(MT)
     dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ dO,
@@ -479,11 +441,12 @@ __global__ void __launch_bounds__(MT)
   bf16* Qs = Vs + BM * RS<D>;
   bf16* dOs = Qs + BM * RS<D>;
   bf16* Qt = dOs + BM * RS<D>;
-  bf16* dOt = Qt + D * TS;
-  float* Ls = reinterpret_cast<float*>(dOt + D * TS);
+  bf16* dOt = Qt + DC * TS;
+  float* Ls = reinterpret_cast<float*>(dOt + DC * TS);
   float* Ds = Ls + BM;
   const int nt = Tlen / BM;
   const int kb = blockIdx.x;  // low key tiles see the most query tiles
+  const int c0 = blockIdx.z * DC;
   k += head_at(ly.k, blockIdx.y, ly.hk);
   v += head_at(ly.v, blockIdx.y, ly.hk);
   dk += head_at(ly.dk, blockIdx.y, ly.hk);
@@ -493,9 +456,9 @@ __global__ void __launch_bounds__(MT)
 
   load_rows<D>(Ks, k + kb * BM * ly.k.r, ly.k.r);
   load_rows<D>(Vs, v + kb * BM * ly.v.r, ly.v.r);
-  float accv[D / 8][4] = {}, acck[D / 8][4] = {};
+  float accv[DC / 8][4] = {}, acck[DC / 8][4] = {};
   const int qstart = query_start(kb, causal);
-  const int nq = query_end(kb, nt, window) - qstart;
+  const int nq = query_end<BM>(kb, nt, window) - qstart;
   for (int it = 0; it < group * nq; ++it) {
     const int qh = blockIdx.y * group + it / nq;  // query head b*H + h
     const int qb = qstart + it % nq;
@@ -504,8 +467,8 @@ __global__ void __launch_bounds__(MT)
     const bf16* dot = dO + head_at(ly.dO, qh, ly.H) + qb * BM * ly.dO.r;
     load_rows<D>(Qs, qt, ly.q.r);
     load_rows<D>(dOs, dot, ly.dO.r);
-    load_cols<D>(Qt, qt, ly.q.r);
-    load_cols<D>(dOt, dot, ly.dO.r);
+    load_cols<DC>(Qt, qt + c0, ly.q.r);
+    load_cols<DC>(dOt, dot + c0, ly.dO.r);
     if (threadIdx.x < BM) {
       const size_t r = (size_t)qh * Tlen + qb * BM + threadIdx.x;
       Ls[threadIdx.x] = L[r];
@@ -527,7 +490,7 @@ __global__ void __launch_bounds__(MT)
         mma(dpt[n], c, b);
       }
     }
-    const bool masked = edge(qb, kb, causal, window);
+    const bool masked = edge<BM>(qb, kb, causal, window);
 #pragma unroll
     for (int n = 0; n < BM / 8; ++n)
 #pragma unroll
@@ -548,7 +511,7 @@ __global__ void __launch_bounds__(MT)
       acc_to_a(pa, st, kk);
       acc_to_a(da, dpt, kk);
 #pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
+      for (int dn = 0; dn < DC / 8; ++dn) {
         uint32_t b[2];
         load_b(b, dOt, TS, dn * 8, kk * 16, g, t);
         mma(accv[dn], pa, b);
@@ -561,8 +524,8 @@ __global__ void __launch_bounds__(MT)
   for (int h = 0; h < 2; ++h) {
     const long long r = (long long)kb * BM + r0 + g + 8 * h;
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      const int c = dn * 8 + 2 * t;
+    for (int dn = 0; dn < DC / 8; ++dn) {
+      const int c = c0 + dn * 8 + 2 * t;
       *reinterpret_cast<uint32_t*>(dv + r * ly.dv.r + c) =
           pack(accv[dn][2 * h], accv[dn][2 * h + 1]);
       *reinterpret_cast<uint32_t*>(dk + r * ly.dk.r + c) =
@@ -573,8 +536,10 @@ __global__ void __launch_bounds__(MT)
 
 // ===================== f32: element-wise FMA ===========================
 
-constexpr int NT = 256;     // threads per block: a 16 x 16 grid
-constexpr int PS = BM + 1;  // padded row stride of a score tile
+// Tiles of BR rows: 64, or 32 at d 256, where six 64-row f32 tiles would
+// not fit the 227 KB of shared memory a block can have. Thread (ty, tx)
+// owns rows ty + 16 i, i < BR / 16.
+constexpr int NT = 256;  // threads per block: a 16 x 16 grid
 
 // reductions over the 16 threads that own one row (one half of a warp)
 __device__ __forceinline__ float row_max(float v) {
@@ -587,73 +552,73 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// Rows [0, BM) of a (rows, D) array of row stride `rs` into shared
+// Rows [0, BR) of a (rows, D) array of row stride `rs` into shared
 // memory, row stride D + 1.
-template <int D>
+template <int D, int BR>
 __device__ __forceinline__ void load_tile(float* dst,
                                           const float* __restrict__ src,
                                           long long rs) {
-  for (int i = threadIdx.x; i < BM * D; i += NT)
+  for (int i = threadIdx.x; i < BR * D; i += NT)
     dst[(i / D) * (D + 1) + i % D] = src[(i / D) * rs + i % D];
 }
 
 // acc[i][j] += sum_e A[(ty + 16 i)][e] * B[(tx + 16 j)][e] over two tiles
 // of stride D + 1: the score products Q K^T, dO V^T and their transposes.
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&acc)[4][4],
+template <int D, int R>
+__device__ __forceinline__ void tile_dot(float (&acc)[R][R],
                                          const float* __restrict__ A,
                                          const float* __restrict__ B, int ty,
                                          int tx) {
   constexpr int S = D + 1;
 #pragma unroll 4
   for (int e = 0; e < D; ++e) {
-    float a[4], b[4];
+    float a[R], b[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * S + e];
+    for (int i = 0; i < R; ++i) a[i] = A[(ty + 16 * i) * S + e];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * S + e];
+    for (int j = 0; j < R; ++j) b[j] = B[(tx + 16 * j) * S + e];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int j = 0; j < R; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
 }
 
 // acc[i][c] += sum_k P[(ty + 16 i)][k] * V[k][(tx + 16 c)]: a score tile
-// (stride PS) times a row tile (stride D + 1).
-template <int D>
-__device__ __forceinline__ void tile_mul(float (&acc)[4][D / 16],
+// (stride BR + 1) times a row tile (stride D + 1).
+template <int D, int BR>
+__device__ __forceinline__ void tile_mul(float (&acc)[BR / 16][D / 16],
                                          const float* __restrict__ P,
                                          const float* __restrict__ V, int ty,
                                          int tx) {
-  constexpr int S = D + 1;
+  constexpr int R = BR / 16, S = D + 1, PS = BR + 1;
 #pragma unroll 4
-  for (int k = 0; k < BM; ++k) {
-    float p[4];
+  for (int k = 0; k < BR; ++k) {
+    float p[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = P[(ty + 16 * i) * PS + k];
+    for (int i = 0; i < R; ++i) p[i] = P[(ty + 16 * i) * PS + k];
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) {
       const float x = V[k * S + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], x, acc[i][c]);
+      for (int i = 0; i < R; ++i) acc[i][c] = fmaf(p[i], x, acc[i][c]);
     }
   }
 }
 
-template <int D>
+template <int D, int BR>
 __global__ void __launch_bounds__(NT)
     fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, float* __restrict__ o,
             float* __restrict__ L, int Tlen, int causal, int window,
             int group, float scale, const Lays ly) {
   extern __shared__ float smem[];
-  constexpr int S = D + 1;
+  constexpr int R = BR / 16, S = D + 1, PS = BR + 1;
   float* Qs = smem;
-  float* Ks = Qs + BM * S;
-  float* Vs = Ks + BM * S;
-  float* Ps = Vs + BM * S;
-  const int nt = Tlen / BM;
+  float* Ks = Qs + BR * S;
+  float* Vs = Ks + BR * S;
+  float* Ps = Vs + BR * S;
+  const int nt = Tlen / BR;
   const int qb = nt - 1 - blockIdx.x;
   const int kvh = blockIdx.y / group;
   q += head_at(ly.q, blockIdx.y, ly.H);
@@ -662,31 +627,31 @@ __global__ void __launch_bounds__(NT)
   v += head_at(ly.v, kvh, ly.hk);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  load_tile<D>(Qs, q + qb * BM * ly.q.r, ly.q.r);
-  float m[4], l[4], acc[4][D / 16];
+  load_tile<D, BR>(Qs, q + qb * BR * ly.q.r, ly.q.r);
+  float m[R], l[R], acc[R][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
   }
   const int kend = key_end(qb, nt, causal);
-  for (int kb = key_start(qb, window); kb < kend; ++kb) {
+  for (int kb = key_start<BR>(qb, window); kb < kend; ++kb) {
     __syncthreads();  // the previous tile's K, V and P are consumed
-    load_tile<D>(Ks, k + kb * BM * ly.k.r, ly.k.r);
-    load_tile<D>(Vs, v + kb * BM * ly.v.r, ly.v.r);
+    load_tile<D, BR>(Ks, k + kb * BR * ly.k.r, ly.k.r);
+    load_tile<D, BR>(Vs, v + kb * BR * ly.v.r, ly.v.r);
     __syncthreads();
-    float s[4][4] = {};
-    tile_dot<D>(s, Qs, Ks, ty, tx);
-    const bool masked = edge(qb, kb, causal, window);
+    float s[R][R] = {};
+    tile_dot<D, R>(s, Qs, Ks, ty, tx);
+    const bool masked = edge<BR>(qb, kb, causal, window);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         s[i][j] *= scale;
-        if (masked && banned(qb * BM + ty + 16 * i, kb * BM + tx + 16 * j,
+        if (masked && banned(qb * BR + ty + 16 * i, kb * BR + tx + 16 * j,
                              causal, window))
           s[i][j] = NEG;
         mx = fmaxf(mx, s[i][j]);
@@ -697,7 +662,7 @@ __global__ void __launch_bounds__(NT)
       const float alpha = expf(m[i] - mn);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const float p = expf(s[i][j] - mn);
         rs += p;
         Ps[(ty + 16 * i) * PS + tx + 16 * j] = p;
@@ -708,11 +673,11 @@ __global__ void __launch_bounds__(NT)
       for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();  // P complete
-    tile_mul<D>(acc, Ps, Vs, ty, tx);
+    tile_mul<D, BR>(acc, Ps, Vs, ty, tx);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = qb * BM + ty + 16 * i;
+  for (int i = 0; i < R; ++i) {
+    const int r = qb * BR + ty + 16 * i;
     const float inv = 1.f / l[i];
 #pragma unroll
     for (int c = 0; c < D / 16; ++c)
@@ -721,7 +686,7 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <int D>
+template <int D, int BR>
 __global__ void __launch_bounds__(NT)
     dq_f32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ dO,
@@ -729,13 +694,13 @@ __global__ void __launch_bounds__(NT)
            float* __restrict__ dq, int Tlen, int causal, int window,
            int group, float scale, const Lays ly) {
   extern __shared__ float smem[];
-  constexpr int S = D + 1;
+  constexpr int R = BR / 16, S = D + 1, PS = BR + 1;
   float* Qs = smem;
-  float* dOs = Qs + BM * S;
-  float* Ks = dOs + BM * S;
-  float* Vs = Ks + BM * S;
-  float* dSs = Vs + BM * S;
-  const int nt = Tlen / BM;
+  float* dOs = Qs + BR * S;
+  float* Ks = dOs + BR * S;
+  float* Vs = Ks + BR * S;
+  float* dSs = Vs + BR * S;
+  const int nt = Tlen / BR;
   const int qb = nt - 1 - blockIdx.x;
   const int kvh = blockIdx.y / group;
   q += head_at(ly.q, blockIdx.y, ly.H);
@@ -745,44 +710,44 @@ __global__ void __launch_bounds__(NT)
   v += head_at(ly.v, kvh, ly.hk);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  load_tile<D>(Qs, q + qb * BM * ly.q.r, ly.q.r);
-  load_tile<D>(dOs, dO + qb * BM * ly.dO.r, ly.dO.r);
-  float Lr[4], dr[4], acc[4][D / 16];
+  load_tile<D, BR>(Qs, q + qb * BR * ly.q.r, ly.q.r);
+  load_tile<D, BR>(dOs, dO + qb * BR * ly.dO.r, ly.dO.r);
+  float Lr[R], dr[R], acc[R][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t r = (size_t)blockIdx.y * Tlen + qb * BM + ty + 16 * i;
+  for (int i = 0; i < R; ++i) {
+    const size_t r = (size_t)blockIdx.y * Tlen + qb * BR + ty + 16 * i;
     Lr[i] = L[r];
     dr[i] = delta[r];
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
   }
   const int kend = key_end(qb, nt, causal);
-  for (int kb = key_start(qb, window); kb < kend; ++kb) {
+  for (int kb = key_start<BR>(qb, window); kb < kend; ++kb) {
     __syncthreads();
-    load_tile<D>(Ks, k + kb * BM * ly.k.r, ly.k.r);
-    load_tile<D>(Vs, v + kb * BM * ly.v.r, ly.v.r);
+    load_tile<D, BR>(Ks, k + kb * BR * ly.k.r, ly.k.r);
+    load_tile<D, BR>(Vs, v + kb * BR * ly.v.r, ly.v.r);
     __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_dot<D>(s, Qs, Ks, ty, tx);
-    tile_dot<D>(dp, dOs, Vs, ty, tx);
-    const bool masked = edge(qb, kb, causal, window);
+    float s[R][R] = {}, dp[R][R] = {};
+    tile_dot<D, R>(s, Qs, Ks, ty, tx);
+    tile_dot<D, R>(dp, dOs, Vs, ty, tx);
+    const bool masked = edge<BR>(qb, kb, causal, window);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         float sv = s[i][j] * scale;
-        if (masked && banned(qb * BM + ty + 16 * i, kb * BM + tx + 16 * j,
+        if (masked && banned(qb * BR + ty + 16 * i, kb * BR + tx + 16 * j,
                              causal, window))
           sv = NEG;
         const float p = expf(sv - Lr[i]);
         dSs[(ty + 16 * i) * PS + tx + 16 * j] = (dp[i][j] - dr[i]) * p;
       }
     __syncthreads();
-    tile_mul<D>(acc, dSs, Ks, ty, tx);
+    tile_mul<D, BR>(acc, dSs, Ks, ty, tx);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = qb * BM + ty + 16 * i;
+  for (int i = 0; i < R; ++i) {
+    const int r = qb * BR + ty + 16 * i;
 #pragma unroll
     for (int c = 0; c < D / 16; ++c)
       dq[r * ly.dq.r + tx + 16 * c] = scale * acc[i][c];
@@ -793,7 +758,7 @@ __global__ void __launch_bounds__(NT)
 // and their live query tiles. Thread (ty, tx) owns the transposed score
 // entries (key ty + 16 i, query tx + 16 j) and the dk/dv entries
 // (key ty + 16 i, column tx + 16 c).
-template <int D>
+template <int D, int BR>
 __global__ void __launch_bounds__(NT)
     dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dO,
@@ -802,14 +767,14 @@ __global__ void __launch_bounds__(NT)
              int causal, int window, int group, float scale,
              const Lays ly) {
   extern __shared__ float smem[];
-  constexpr int S = D + 1;
+  constexpr int R = BR / 16, S = D + 1, PS = BR + 1;
   float* Ks = smem;
-  float* Vs = Ks + BM * S;
-  float* Qs = Vs + BM * S;
-  float* dOs = Qs + BM * S;
-  float* Pt = dOs + BM * S;
-  float* dSt = Pt + BM * PS;
-  const int nt = Tlen / BM;
+  float* Vs = Ks + BR * S;
+  float* Qs = Vs + BR * S;
+  float* dOs = Qs + BR * S;
+  float* Pt = dOs + BR * S;
+  float* dSt = Pt + BR * PS;
+  const int nt = Tlen / BR;
   const int kb = blockIdx.x;
   k += head_at(ly.k, blockIdx.y, ly.hk);
   v += head_at(ly.v, blockIdx.y, ly.hk);
@@ -817,41 +782,41 @@ __global__ void __launch_bounds__(NT)
   dv += head_at(ly.dv, blockIdx.y, ly.hk);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  load_tile<D>(Ks, k + kb * BM * ly.k.r, ly.k.r);
-  load_tile<D>(Vs, v + kb * BM * ly.v.r, ly.v.r);
-  float accv[4][D / 16], acck[4][D / 16];
+  load_tile<D, BR>(Ks, k + kb * BR * ly.k.r, ly.k.r);
+  load_tile<D, BR>(Vs, v + kb * BR * ly.v.r, ly.v.r);
+  float accv[R][D / 16], acck[R][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) accv[i][c] = acck[i][c] = 0.f;
   const int qstart = query_start(kb, causal);
-  const int nq = query_end(kb, nt, window) - qstart;
+  const int nq = query_end<BR>(kb, nt, window) - qstart;
   for (int it = 0; it < group * nq; ++it) {
     const int qh = blockIdx.y * group + it / nq;  // query head b*H + h
     const int qb = qstart + it % nq;
     __syncthreads();
-    load_tile<D>(Qs, q + head_at(ly.q, qh, ly.H) + qb * BM * ly.q.r,
-                 ly.q.r);
-    load_tile<D>(dOs, dO + head_at(ly.dO, qh, ly.H) + qb * BM * ly.dO.r,
-                 ly.dO.r);
-    float Lq[4], dq_[4];
+    load_tile<D, BR>(Qs, q + head_at(ly.q, qh, ly.H) + qb * BR * ly.q.r,
+                     ly.q.r);
+    load_tile<D, BR>(dOs, dO + head_at(ly.dO, qh, ly.H) + qb * BR * ly.dO.r,
+                     ly.dO.r);
+    float Lq[R], dq_[R];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const size_t r = (size_t)qh * Tlen + qb * BM + tx + 16 * j;
+    for (int j = 0; j < R; ++j) {
+      const size_t r = (size_t)qh * Tlen + qb * BR + tx + 16 * j;
       Lq[j] = L[r];
       dq_[j] = delta[r];
     }
     __syncthreads();
-    float st[4][4] = {}, dpt[4][4] = {};
-    tile_dot<D>(st, Ks, Qs, ty, tx);
-    tile_dot<D>(dpt, Vs, dOs, ty, tx);
-    const bool masked = edge(qb, kb, causal, window);
+    float st[R][R] = {}, dpt[R][R] = {};
+    tile_dot<D, R>(st, Ks, Qs, ty, tx);
+    tile_dot<D, R>(dpt, Vs, dOs, ty, tx);
+    const bool masked = edge<BR>(qb, kb, causal, window);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         float sv = st[i][j] * scale;
-        if (masked && banned(qb * BM + tx + 16 * j, kb * BM + ty + 16 * i,
+        if (masked && banned(qb * BR + tx + 16 * j, kb * BR + ty + 16 * i,
                              causal, window))
           sv = NEG;
         const float p = expf(sv - Lq[j]);
@@ -859,12 +824,12 @@ __global__ void __launch_bounds__(NT)
         dSt[(ty + 16 * i) * PS + tx + 16 * j] = (dpt[i][j] - dq_[j]) * p;
       }
     __syncthreads();
-    tile_mul<D>(accv, Pt, dOs, ty, tx);
-    tile_mul<D>(acck, dSt, Qs, ty, tx);
+    tile_mul<D, BR>(accv, Pt, dOs, ty, tx);
+    tile_mul<D, BR>(acck, dSt, Qs, ty, tx);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long r = (long long)kb * BM + ty + 16 * i;
+  for (int i = 0; i < R; ++i) {
+    const long long r = (long long)kb * BR + ty + 16 * i;
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) {
       dv[r * ly.dv.r + tx + 16 * c] = accv[i][c];
@@ -888,48 +853,57 @@ struct Args {
 
 // Raise the kernel's dynamic shared-memory cap to `smem` where it is over
 // the 48 KB default (a launch over the cap is refused and never runs),
-// launch it on the (T / 64, rows) grid, and return the launch's error.
+// launch it on the (T / tile, rows, slices) grid, and return the launch's
+// error.
 template <typename... P, typename... A>
-int launch(void (*kern)(P...), int threads, size_t smem, int rows,
-           const Args& a, A... args) {
+int launch(void (*kern)(P...), int threads, size_t smem, int tile,
+           dim3 rows, const Args& a, A... args) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kern<<<dim3(a.T / BM, rows), threads, smem, a.stream>>>(args...);
+  kern<<<dim3(a.T / tile, rows.x, rows.y), threads, smem, a.stream>>>(
+      args...);
   return (int)cudaGetLastError();
 }
 
-// shared-memory bytes: bf16 row tiles, bf16 transposed tiles, f32 floats
-constexpr size_t bf16_smem(int D, int rows, int cols, int floats) {
-  return ((size_t)rows * BM * (D + 8) + (size_t)cols * D * TS) * 2 +
+// shared-memory bytes: bf16 row tiles, bf16 transposed tiles of `width`
+// columns, f32 floats
+constexpr size_t bf16_smem(int D, int rows, int cols, int width,
+                           int floats) {
+  return ((size_t)rows * BM * (D + 8) + (size_t)cols * width * TS) * 2 +
          (size_t)floats * 4;
 }
-constexpr size_t f32_smem(int D, int tiles, int scores) {
-  return ((size_t)tiles * BM * (D + 1) + (size_t)scores * BM * PS) * 4;
+constexpr size_t f32_smem(int D, int BR, int tiles, int scores) {
+  return ((size_t)tiles * BR * (D + 1) + (size_t)scores * BR * (BR + 1)) *
+         4;
 }
 
-// which: 0 forward, 1 dq (grid rows: query heads), 2 dk/dv (KV heads)
+// which: 0 forward, 1 dq (grid rows: query heads), 2 dk/dv (KV heads; at
+// d 256 two column slices)
 template <int D>
 int run_bf16(int which, const Args& a) {
+  constexpr int DC = D == 256 ? 128 : D;
   auto in = [](const void* p) { return static_cast<const bf16*>(p); };
   auto out = [](void* p) { return static_cast<bf16*>(p); };
   switch (which) {
     case 0:
-      return launch(fwd_bf16<D>, MT, bf16_smem(D, 2, 1, 0), a.BH, a,
-                    in(a.q), in(a.k), in(a.v), out(a.out0), a.L_out, a.T,
-                    a.causal, a.window, a.group, a.scale, a.ly);
+      return launch(fwd_bf16<D>, MT, bf16_smem(D, 2, 1, D, 0), BM,
+                    dim3(a.BH, 1), a, in(a.q), in(a.k), in(a.v),
+                    out(a.out0), a.L_out, a.T, a.causal, a.window, a.group,
+                    a.scale, a.ly);
     case 1:
-      return launch(dq_bf16<D>, MT, bf16_smem(D, 4, 1, 0), a.BH, a,
-                    in(a.q), in(a.k), in(a.v), in(a.dO), a.L, a.delta,
-                    out(a.out0), a.T, a.causal, a.window, a.group, a.scale,
-                    a.ly);
+      return launch(dq_bf16<D>, MT, bf16_smem(D, 4, 1, D, 0), BM,
+                    dim3(a.BH, 1), a, in(a.q), in(a.k), in(a.v), in(a.dO),
+                    a.L, a.delta, out(a.out0), a.T, a.causal, a.window,
+                    a.group, a.scale, a.ly);
     case 2:
-      return launch(dkdv_bf16<D>, MT, bf16_smem(D, 4, 2, 2 * BM),
-                    a.BH / a.group, a, in(a.q), in(a.k), in(a.v), in(a.dO),
-                    a.L, a.delta, out(a.out0), out(a.out1), a.T, a.causal,
-                    a.window, a.group, a.scale, a.ly);
+      return launch(dkdv_bf16<D, DC>, MT, bf16_smem(D, 4, 2, DC, 2 * BM),
+                    BM, dim3(a.BH / a.group, D / DC), a, in(a.q), in(a.k),
+                    in(a.v), in(a.dO), a.L, a.delta, out(a.out0),
+                    out(a.out1), a.T, a.causal, a.window, a.group, a.scale,
+                    a.ly);
     default:
       return -1;
   }
@@ -937,22 +911,25 @@ int run_bf16(int which, const Args& a) {
 
 template <int D>
 int run_f32(int which, const Args& a) {
+  constexpr int BR = D == 256 ? 32 : BM;
   auto in = [](const void* p) { return static_cast<const float*>(p); };
   auto out = [](void* p) { return static_cast<float*>(p); };
   switch (which) {
     case 0:
-      return launch(fwd_f32<D>, NT, f32_smem(D, 3, 1), a.BH, a, in(a.q),
-                    in(a.k), in(a.v), out(a.out0), a.L_out, a.T, a.causal,
-                    a.window, a.group, a.scale, a.ly);
+      return launch(fwd_f32<D, BR>, NT, f32_smem(D, BR, 3, 1), BR,
+                    dim3(a.BH, 1), a, in(a.q), in(a.k), in(a.v),
+                    out(a.out0), a.L_out, a.T, a.causal, a.window, a.group,
+                    a.scale, a.ly);
     case 1:
-      return launch(dq_f32<D>, NT, f32_smem(D, 4, 1), a.BH, a, in(a.q),
-                    in(a.k), in(a.v), in(a.dO), a.L, a.delta, out(a.out0),
-                    a.T, a.causal, a.window, a.group, a.scale, a.ly);
-    case 2:
-      return launch(dkdv_f32<D>, NT, f32_smem(D, 4, 2), a.BH / a.group, a,
-                    in(a.q), in(a.k), in(a.v), in(a.dO), a.L, a.delta,
-                    out(a.out0), out(a.out1), a.T, a.causal, a.window,
+      return launch(dq_f32<D, BR>, NT, f32_smem(D, BR, 4, 1), BR,
+                    dim3(a.BH, 1), a, in(a.q), in(a.k), in(a.v), in(a.dO),
+                    a.L, a.delta, out(a.out0), a.T, a.causal, a.window,
                     a.group, a.scale, a.ly);
+    case 2:
+      return launch(dkdv_f32<D, BR>, NT, f32_smem(D, BR, 4, 2), BR,
+                    dim3(a.BH / a.group, 1), a, in(a.q), in(a.k), in(a.v),
+                    in(a.dO), a.L, a.delta, out(a.out0), out(a.out1), a.T,
+                    a.causal, a.window, a.group, a.scale, a.ly);
     default:
       return -1;
   }
@@ -981,6 +958,7 @@ int dispatch(int dtype, int d, int which, Args& a, int B, int H,
     case 32: return run<32>(dtype, which, a);
     case 64: return run<64>(dtype, which, a);
     case 128: return run<128>(dtype, which, a);
+    case 256: return run<256>(dtype, which, a);
     default: return -1;
   }
 }

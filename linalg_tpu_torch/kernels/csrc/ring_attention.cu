@@ -1,5 +1,6 @@
-// Ring attention, one ring step at a time, for Hopper (sm_90a), plain C
-// interface.
+// Ring attention for Hopper (sm_90a), plain C interface: every step of the
+// ring in one launch, the running state in registers, the K/V chunks read
+// where they lie.
 //
 // Replaces the Pallas TPU kernels of
 //   linalg_tpu/parallel/ring_pallas.py:209  ring_attention_pallas_local (K10,
@@ -9,90 +10,617 @@
 //
 // Sequence parallelism over a ring of n ranks: rank r holds the query rows
 // [r Tl, (r + 1) Tl) of a sequence of T = n Tl, and over n steps each K/V
-// chunk passes every rank once. At step s rank r holds the chunk of rank
-// src = (r - s) mod n. On the TPU one kernel per device loops over the n
-// steps and moves the chunks itself with remote DMAs. Here the ranks are
-// rank-stacked buffers, the caller moves the chunks between steps (device
-// copies on a side stream, CUDA events as the credits), and each kernel
-// below is ONE step for a range of ranks [r0, r0 + nr): blockIdx.z picks
-// the rank, so a placement of ranks on several cards launches one range per
-// card. Blocks carry nothing between launches except what they store:
+// chunk passes every rank once. On the TPU one kernel per device loops over
+// the n steps, keeps its running state in VMEM and moves the chunks with
+// remote DMAs. Here the ranks share one card and every head tensor is
+// rank-stacked, (BH, T, D), so chunk src is rows [src Tl, (src + 1) Tl) of
+// k and v: a block reads it in place and no chunk is ever copied. Each
+// block loops over the ring's steps itself, in the ring's order, so the
+// sums are taken in the order the TPU takes them:
 //
-//   forward (K10)  ring_fwd: the online softmax of the chunk folded into
-//                  f32 running max m, normalizer l and accumulator acc,
-//                  stored per row between steps; the last step writes
-//                  O = acc / l in the io dtype and L = m + log l (f32).
-//   backward (K11) ring_dq: P = exp(S - L), dP = dO V^T, dS = (dP - delta)
-//                  P, dq += dS K, accumulated in f32 between steps, scaled
-//                  and written in the io dtype at the last step;
-//                  ring_dkdv: the traveling bundle's dk += scale dS^T Q and
-//                  dv += P^T dO for the chunk it holds now (the bundle is
-//                  f32 (k, v, dk, dv), as on the TPU).
+//   forward (K10)  fwd: one block per (row tile, bh, rank r) folds chunk
+//                  src = (r - s) mod n at step s = 0..n-1 into its online
+//                  softmax (f32 m, l and O accumulator in registers for the
+//                  whole ring) and writes O = acc / l in the io dtype and
+//                  L = m + log l (f32) once.
+//   backward (K11) dq: one block per (row tile, bh, rank r), the same walk:
+//                  P = exp(S - L), dP = dO V^T, dS = (dP - delta) P,
+//                  dq += dS K in f32 registers, written once, scaled.
+//                  dkdv: one block per (key tile, bh, chunk c): at step s
+//                  the chunk's keys gain rank (c + s) mod n's share,
+//                  dv += P^T dO and dk += scale dS^T Q, the TPU bundle's lap
+//                  (ring_pallas.py:375) without the bundle; written once.
 //
-// Each (rank, row tile) owns its rows of m/l/acc and dq, and each (rank, key
-// tile) its rows of the bundle, so there are no atomics and two runs give
-// the same bits. delta = rowsum(dO * O) is one f32 pass the caller makes,
-// as the TPU wrapper does (ring_pallas.py:561).
+// Every output row is owned by one block: no atomics, and two runs give the
+// same bits. delta = rowsum(dO * O) is one f32 pass the caller makes, as the
+// TPU wrapper does (ring_pallas.py:561). `r0` and the grid's z extent pick a
+// range of ranks (chunks for dk/dv); one card runs them all.
 //
 // Masks use global positions, row = r Tl + i and col = src Tl + j: causal
 // (col <= row), the sliding-window band (col > row - window) and the ALiBi
 // bias slope_h (col - row) added to the scaled scores, as _ring_kernel does.
-// _chunk_live (ring_pallas.py:74) decides per (rank, step) whether the chunk
-// can hold a visible key; a dead chunk's blocks return at once (the forward
-// and dq still finalize at the last step). Inside a live chunk a block walks
-// only the key (or query) tiles that hold a visible entry, as K4 does, and
-// applies the element-wise mask to every tile, so Tl needs no relation to
-// the tile size: rows and columns past Tl are banned and never stored.
-// Banned scores are -inf and give exactly 0; a row that has seen nothing
-// yet keeps m = -inf (alpha 1, p 0). The own chunk (step 0) is always live
-// and holds the diagonal, so every row has a finite max after step 0, and
-// l > 0 at the end; the l == 0 guard of the TPU kernel stays.
+// _chunk_live (ring_pallas.py:74) decides per (rank, chunk) whether the
+// chunk can hold a visible key; a dead one is skipped. Inside a live chunk
+// a block walks only the tiles that hold a visible entry (key tiles for
+// query rows, query tiles for keys). Tl needs no relation to the tile size:
+// keys and queries at j >= Tl are banned, and tile rows past Tl are
+// zero-filled by the copy, never read. Banned scores are -inf and give
+// exactly 0; a row that has seen nothing yet keeps m = -inf (alpha 1, p 0);
+// the l == 0 guard of the TPU kernel stays. Tiles wholly inside the band
+// skip the element-wise test.
 //
-// Precision: as the TPU kernels (ring_pallas.py:136, :167-168, :346-347),
-// all math is f32 on the FMA units for f32 and bf16 inputs alike; bf16 is
-// widened when staged into shared memory. Scores, P and dS never round.
+// Two paths, one contract:
+//   bf16  tensor cores, mma.sync m16n8k16 (bf16 operands, f32 accumulate),
+//         4 warps x 16 rows of a 64-row tile; the helpers are
+//         mma_bf16.cuh's, shared with flash_attention.cu. Q K^T and dO V^T
+//         are exact products of bf16 values. P and dS are f32, as in the
+//         TPU kernel (`jnp.dot(p, v)` with f32 p, ring_pallas.py:184-185,
+//         :397-408): each is split into hi = bf16(x) and lo = bf16(x - hi)
+//         and multiplied twice (hi B + lo B), which keeps ~16 bits of it.
+//         Every operand tile is row-major in shared memory as it lies in
+//         device memory (rows padded by 8 elements); the products that
+//         contract over its rows read it transposed with ldmatrix.trans.
+//   f32   f32 FMA on the CUDA cores, never TF32: 256 threads as a 16 x 16
+//         grid, thread (ty, tx) owns score entries (ty + 16 i, tx + 16 j)
+//         and output entries (ty + 16 i, tx + 16 c); rows padded by one
+//         float. 64-row tiles, 32 at d 256 to fit shared memory.
+// Both stage their tiles with cp.async (16-byte copies for bf16, 4-byte for
+// the padded f32 rows; zero fill past Tl) into a two-stage ring of
+// shared-memory tiles: the next tile's copy runs while this one computes,
+// across step boundaries too.
 //
-// What bounds it on this card: arithmetic. At long_window's shape (B 8, h 4,
-// T 4096, d 128, n 4, window 512) the live pairs cost 4 d flops each
-// forward and 8 d (with recomputation) backward on FMA units of 67 TFLOP/s,
-// against a few MB of q/k/v/o traffic. Design: each tile product stays in
-// registers and shared memory; dead chunks and tiles outside the band are
-// skipped, not masked. Simple and right first: 256 threads as a 16 x 16
-// grid, thread (ty, tx) owns score entries (ty + 16 i, tx + 16 j) and output
-// entries (ty + 16 i, tx + 16 c); tiles of BR rows (64, or 32 at d 256 to
-// fit shared memory) padded by one float. Tensor cores, cp.async/TMA and the
-// f32 state kept in registers across steps are perf_opt work.
+// What bounds it on this card: at long_window's shape (B 8, h 4, T 4096,
+// d 128, n 4, window 512) the band leaves 62.9M visible pairs, 4 d flops
+// each forward and 8 d backward: tens of microseconds of bf16 tensor-core
+// time against ~40-70 us of q/k/v/o traffic. Neither decides: the hi/lo
+// split issues 3 products per score tile forward and 8 backward where one
+// rounding would issue 2 and 5, mma.sync reaches about two thirds of
+// wgmma's rate, and each warp runs its products, softmax and products in
+// series, with 128-thread blocks of 52-203 KB of shared memory and
+// 118-242 registers leaving few warps an SM to hide that.
 //
-// Layouts (all contiguous, elements): q, dO, o, dq: (BH, T, D); m, l, L,
-// delta: (BH, T) f32; acc, dq_acc: (BH, T, D) f32; the forward's K/V slot:
-// (n, 2, BH, Tl, D) in the io dtype; the backward's bundle slot: (n, 4, BH,
-// Tl, D) f32. D is the padded head width (32, 64, 128, 256): zero columns
-// add nothing to q.k and give zero output columns, and `scale` is
-// 1 / sqrt(true d).
+// Layouts (all contiguous, elements): q, k, v, dO, o, dq, dk, dv: (BH, T,
+// D) in the io dtype; L, delta: (BH, T) f32. D is the padded head width
+// (32, 64, 128, 256): zero columns add nothing to q.k and give zero output
+// columns, and `scale` is 1 / sqrt(true d).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+constexpr int BM = 64;   // bf16: rows a block owns (queries; keys in dk/dv)
+constexpr int BN = 64;   // bf16: keys per tile of the forward and dq walks
+constexpr int MT = 128;  // bf16 threads: 4 warps x 16 rows
+constexpr int NT = 256;  // f32 threads: a 16 x 16 grid
 
-constexpr int NT = 256;  // threads per block: a 16 x 16 grid
+struct Ring {
+  int BH, H, n, Tl, r0, causal, window;
+  float scale;
+  const float* slopes;  // (H,) ALiBi slopes, or null
+};
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
+__device__ __forceinline__ float slope_of(const Ring& a, int bh) {
+  return a.slopes ? a.slopes[bh % a.H] : 0.f;
 }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);
+
+// _chunk_live: whether the chunk of rank src can hold a key visible to
+// rank r. Causal: not in the future. Window: its newest key is less than
+// window - 1 behind r's oldest row, (r - src - 1) Tl < window - 1.
+__device__ __forceinline__ bool chunk_live(const Ring& a, int src, int r) {
+  if (!a.causal) return true;
+  if (src > r) return false;
+  return a.window <= 0 || (long long)(r - src - 1) * a.Tl < a.window - 1;
 }
+
+// The scaled, biased score of query `row` and key `col` (global
+// positions). In a `masked` tile it is -inf where the pair is banned or
+// `in` is false (a row or key past Tl); other tiles hold no banned pair.
+__device__ __forceinline__ float score(float dot, const Ring& a, float slope,
+                                       int row, int col, bool masked,
+                                       bool in) {
+  if (masked && (!in || (a.causal && col > row) ||
+                 (a.window > 0 && row - col >= a.window)))
+    return -INFINITY;
+  return dot * a.scale + slope * (float)(col - row);
+}
+
+// Whether a tile of rows [row0, row0 + R) and keys [col0, col0 + C) can hold
+// a banned pair: it crosses the diagonal or the band's lower edge, or runs
+// past Tl (`full` false).
+__device__ __forceinline__ bool edge(const Ring& a, int row0, int R,
+                                     int col0, int C, bool full) {
+  return !full || (a.causal && col0 + C - 1 > row0) ||
+         (a.window > 0 && row0 + R - 1 - col0 >= a.window);
+}
+
+// The tiles a block visits, in the ring's order. KeyWalk: query rows
+// [row0, row1] of rank r; at step s the chunk src = (r - s) mod n, if
+// live, key tiles [t, t1) of width B that hold a key visible to a row.
+struct KeyWalk {
+  Ring a;
+  int r, row0, row1, B;
+  int s, src, t, t1;
+
+  __device__ bool seek() {
+    for (; s < a.n; ++s) {
+      src = (r - s + a.n) % a.n;
+      if (!chunk_live(a, src, r)) continue;
+      const int c0 = src * a.Tl;
+      int jlo = 0, jhi = a.Tl - 1;
+      if (a.window > 0) jlo = max(jlo, row0 - a.window + 1 - c0);
+      if (a.causal) jhi = min(jhi, row1 - c0);
+      if (jhi < jlo) continue;
+      t = jlo / B;
+      t1 = jhi / B + 1;
+      return true;
+    }
+    return false;
+  }
+  __device__ bool start() {
+    s = 0;
+    return seek();
+  }
+  __device__ bool next() {
+    if (++t < t1) return true;
+    ++s;
+    return seek();
+  }
+};
+
+// QueryWalk: keys [col0, col1] of chunk c; at step s the rank r = (c + s)
+// mod n, if c is live for it, query tiles [t, t1) of width B that see one.
+struct QueryWalk {
+  Ring a;
+  int c, col0, col1, B;
+  int s, r, t, t1;
+
+  __device__ bool seek() {
+    for (; s < a.n; ++s) {
+      r = (c + s) % a.n;
+      if (!chunk_live(a, c, r)) continue;
+      const int r0 = r * a.Tl;
+      int ilo = 0, ihi = a.Tl - 1;
+      if (a.causal) ilo = max(ilo, col0 - r0);
+      if (a.window > 0) ihi = min(ihi, col1 + a.window - 1 - r0);
+      if (ihi < ilo) continue;
+      t = ilo / B;
+      t1 = ihi / B + 1;
+      return true;
+    }
+    return false;
+  }
+  __device__ bool start() {
+    s = 0;
+    return seek();
+  }
+  __device__ bool next() {
+    if (++t < t1) return true;
+    ++s;
+    return seek();
+  }
+};
+
+// Rows [0, R) of a (rows, D) bf16 array into shared memory of row stride
+// D + 8, one 16-byte cp.async per thread and step; rows at or past `valid`
+// are zero-filled and not read.
+template <int D, int R>
+__device__ __forceinline__ void stage_bf16(bf16* dst,
+                                           const bf16* __restrict__ src,
+                                           int valid) {
+  constexpr int V = D / 8;
+  for (int i = threadIdx.x; i < R * V; i += MT) {
+    const int r = i / V, c = (i % V) * 8;
+    const bool ok = r < valid;
+    cp_async16(dst + r * (D + 8) + c, src + (ok ? (size_t)r * D + c : 0), ok);
+  }
+}
+
+// The same for f32 rows into row stride D + 1, 4 bytes a copy.
+template <int D, int R>
+__device__ __forceinline__ void stage_f32(float* dst,
+                                          const float* __restrict__ src,
+                                          int valid) {
+  for (int i = threadIdx.x; i < R * D; i += NT) {
+    const int r = i / D, c = i % D;
+    const bool ok = r < valid;
+    cp_async4(dst + r * (D + 1) + c, src + (ok ? (size_t)r * D + c : 0), ok);
+  }
+}
+
+// R floats (L or delta of a tile's rows), zero at or past `valid`.
+template <int R>
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ src,
+                                           int valid) {
+  for (int i = threadIdx.x; i < R; i += MT)
+    cp_async4(dst + i, src + (i < valid ? i : 0), i < valid);
+}
+
+// ===================== bf16: tensor-core tiles ==========================
+
+// K10. Grid (row tiles of Tl, BH, ranks x D / DC column slices). A block
+// accumulates the DC columns [c0, c0 + DC) of O; at d 256 two slices each
+// recompute the scores, so the accumulator stays at 64 registers.
+template <int D, int DC>
+__global__ void __launch_bounds__(MT, 1)
+    fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, bf16* __restrict__ o,
+             float* __restrict__ L, const Ring a) {
+  constexpr int RS = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + BM * RS;      // two stages of BN rows
+  bf16* Vs = Ks + 2 * BN * RS;  // two stages
+  const int r = a.r0 + blockIdx.z / (D / DC), bh = blockIdx.y;
+  const int c0 = (blockIdx.z % (D / DC)) * DC;
+  const int i0 = blockIdx.x * BM;
+  const int rows = min(BM, a.Tl - i0);
+  const int row0 = r * a.Tl + i0;                // global row of the tile
+  const size_t head = (size_t)bh * a.n * a.Tl;  // row index of (bh, 0)
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
+  const float slope = slope_of(a, bh);
+
+  stage_bf16<D, BM>(Qs, q + (head + row0) * D, rows);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[DC / 8][4] = {};
+  KeyWalk w{a, r, row0, row0 + rows - 1, BN};
+  bool have = w.start();
+  if (have) {
+    const size_t at = (head + (size_t)w.src * a.Tl + w.t * BN) * D;
+    stage_bf16<D, BN>(Ks, k + at, a.Tl - w.t * BN);
+    stage_bf16<D, BN>(Vs, v + at, a.Tl - w.t * BN);
+  }
+  cp_async_commit();
+  for (int buf = 0; have; buf ^= 1) {
+    KeyWalk nx = w;
+    const bool more = nx.next();
+    if (more) {  // the next tile's copy flies while this one computes
+      const size_t at = (head + (size_t)nx.src * a.Tl + nx.t * BN) * D;
+      stage_bf16<D, BN>(Ks + (buf ^ 1) * BN * RS, k + at, a.Tl - nx.t * BN);
+      stage_bf16<D, BN>(Vs + (buf ^ 1) * BN * RS, v + at, a.Tl - nx.t * BN);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Kt = Ks + buf * BN * RS;
+    const bf16* Vt = Vs + buf * BN * RS;
+    const int j0 = w.t * BN, col0 = w.src * a.Tl + j0;
+    float s[BN / 8][4] = {};
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t qa[4];
+      load_a(qa, Qs, RS, wr, kc * 16, g, t);
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        uint32_t b[2];
+        load_b(b, Kt, RS, nt * 8, kc * 16, g, t);
+        mma(s[nt], qa, b);
+      }
+    }
+    const bool masked =
+        edge(a, row0, BM, col0, BN, rows == BM && j0 + BN <= a.Tl);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int li = wr + g + 8 * (i >> 1), lj = 8 * nt + 2 * t + (i & 1);
+        s[nt][i] = score(s[nt][i], a, slope, row0 + li, col0 + lj,
+                         masked, li < rows && j0 + lj < a.Tl);
+        mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+    bool none[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mn = fmaxf(m[h], quad_max(mx[h]));
+      none[h] = mn == -INFINITY;  // nothing visible yet
+      alpha[h] = none[h] ? 1.f : expf(m[h] - mn);
+      m[h] = mn;
+    }
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = none[i >> 1] ? 0.f : expf(s[nt][i] - m[i >> 1]);
+        s[nt][i] = p;
+        rs[i >> 1] += p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(rs[h]);
+#pragma unroll
+    for (int dn = 0; dn < DC / 8; ++dn)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[dn][i] *= alpha[i >> 1];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      acc_to_a_split(hi, lo, s, kk);
+#pragma unroll
+      for (int dn = 0; dn < DC / 16; ++dn) {
+        uint32_t b0[2], b1[2];
+        load_bt(b0, b1, Vt, RS, kk * 16, c0 + dn * 16, lane);
+        mma(acc[2 * dn], hi, b0);
+        mma(acc[2 * dn], lo, b0);
+        mma(acc[2 * dn + 1], hi, b1);
+        mma(acc[2 * dn + 1], lo, b1);
+      }
+    }
+    __syncthreads();  // this stage's K and V are consumed
+    w = nx;
+    have = more;
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int li = wr + g + 8 * h;
+    if (li >= rows) continue;
+    const size_t row = head + row0 + li;
+    const float denom = l[h] == 0.f ? 1.f : l[h];
+    const float inv = 1.f / denom;
+#pragma unroll
+    for (int dn = 0; dn < DC / 8; ++dn)
+      *reinterpret_cast<uint32_t*>(o + row * D + c0 + dn * 8 + 2 * t) =
+          pack(acc[dn][2 * h] * inv, acc[dn][2 * h + 1] * inv);
+    if (t == 0 && c0 == 0) L[row] = m[h] + logf(denom);
+  }
+}
+
+// K11's dq pass. Grid (row tiles of Tl, BH, ranks x D / DC column
+// slices); dq's columns [c0, c0 + DC).
+template <int D, int DC>
+__global__ void __launch_bounds__(MT, 1)
+    dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, const bf16* __restrict__ dO,
+            const float* __restrict__ L, const float* __restrict__ delta,
+            bf16* __restrict__ dq, const Ring a) {
+  constexpr int RS = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + BM * RS;
+  bf16* Ks = dOs + BM * RS;     // two stages of BN rows
+  bf16* Vs = Ks + 2 * BN * RS;  // two stages
+  const int r = a.r0 + blockIdx.z / (D / DC), bh = blockIdx.y;
+  const int c0 = (blockIdx.z % (D / DC)) * DC;
+  const int i0 = blockIdx.x * BM;
+  const int rows = min(BM, a.Tl - i0);
+  const int row0 = r * a.Tl + i0;
+  const size_t head = (size_t)bh * a.n * a.Tl;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wr = (threadIdx.x >> 5) * 16;
+  const float slope = slope_of(a, bh);
+
+  stage_bf16<D, BM>(Qs, q + (head + row0) * D, rows);
+  stage_bf16<D, BM>(dOs, dO + (head + row0) * D, rows);
+  float Lr[2], dr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int li = wr + g + 8 * h;
+    Lr[h] = li < rows ? L[head + row0 + li] : 0.f;
+    dr[h] = li < rows ? delta[head + row0 + li] : 0.f;
+  }
+  float acc[DC / 8][4] = {};
+  KeyWalk w{a, r, row0, row0 + rows - 1, BN};
+  bool have = w.start();
+  if (have) {
+    const size_t at = (head + (size_t)w.src * a.Tl + w.t * BN) * D;
+    stage_bf16<D, BN>(Ks, k + at, a.Tl - w.t * BN);
+    stage_bf16<D, BN>(Vs, v + at, a.Tl - w.t * BN);
+  }
+  cp_async_commit();
+  for (int buf = 0; have; buf ^= 1) {
+    KeyWalk nx = w;
+    const bool more = nx.next();
+    if (more) {
+      const size_t at = (head + (size_t)nx.src * a.Tl + nx.t * BN) * D;
+      stage_bf16<D, BN>(Ks + (buf ^ 1) * BN * RS, k + at, a.Tl - nx.t * BN);
+      stage_bf16<D, BN>(Vs + (buf ^ 1) * BN * RS, v + at, a.Tl - nx.t * BN);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Kt = Ks + buf * BN * RS;
+    const bf16* Vt = Vs + buf * BN * RS;
+    const int j0 = w.t * BN, col0 = w.src * a.Tl + j0;
+    float s[BN / 8][4] = {}, dp[BN / 8][4] = {};
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t qa[4], da[4];
+      load_a(qa, Qs, RS, wr, kc * 16, g, t);
+      load_a(da, dOs, RS, wr, kc * 16, g, t);
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        uint32_t b[2];
+        load_b(b, Kt, RS, nt * 8, kc * 16, g, t);
+        mma(s[nt], qa, b);
+        load_b(b, Vt, RS, nt * 8, kc * 16, g, t);
+        mma(dp[nt], da, b);
+      }
+    }
+    const bool masked =
+        edge(a, row0, BM, col0, BN, rows == BM && j0 + BN <= a.Tl);
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int li = wr + g + 8 * (i >> 1), lj = 8 * nt + 2 * t + (i & 1);
+        const float x = score(s[nt][i], a, slope, row0 + li, col0 + lj,
+                              masked, li < rows && j0 + lj < a.Tl);
+        const float p = x == -INFINITY ? 0.f : expf(x - Lr[i >> 1]);
+        s[nt][i] = (dp[nt][i] - dr[i >> 1]) * p;  // dS
+      }
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      acc_to_a_split(hi, lo, s, kk);
+#pragma unroll
+      for (int dn = 0; dn < DC / 16; ++dn) {
+        uint32_t b0[2], b1[2];
+        load_bt(b0, b1, Kt, RS, kk * 16, c0 + dn * 16, lane);
+        mma(acc[2 * dn], hi, b0);
+        mma(acc[2 * dn], lo, b0);
+        mma(acc[2 * dn + 1], hi, b1);
+        mma(acc[2 * dn + 1], lo, b1);
+      }
+    }
+    __syncthreads();
+    w = nx;
+    have = more;
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int li = wr + g + 8 * h;
+    if (li >= rows) continue;
+    const size_t row = head + row0 + li;
+#pragma unroll
+    for (int dn = 0; dn < DC / 8; ++dn)
+      *reinterpret_cast<uint32_t*>(dq + row * D + c0 + dn * 8 + 2 * t) =
+          pack(a.scale * acc[dn][2 * h], a.scale * acc[dn][2 * h + 1]);
+  }
+}
+
+// K11's dk/dv pass. Grid (key tiles of Tl, BH, chunks x D / DC column
+// slices); BQ queries per tile. Warp rows are keys, accumulator columns
+// queries (the transposed scores S^T = K Q^T); a block accumulates the DC
+// columns [c0, c0 + DC) of dk and dv, recomputing the scores per slice.
+template <int D, int BQ, int DC>
+__global__ void __launch_bounds__(MT, 1)
+    dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ dO,
+              const float* __restrict__ L, const float* __restrict__ delta,
+              bf16* __restrict__ dk, bf16* __restrict__ dv, const Ring a) {
+  constexpr int RS = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + BM * RS;
+  bf16* Qs = Vs + BM * RS;       // two stages of BQ rows
+  bf16* dOs = Qs + 2 * BQ * RS;  // two stages
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * RS);  // two stages
+  float* Ds = Ls + 2 * BQ;                                  // two stages
+  const int c = a.r0 + blockIdx.z / (D / DC);
+  const int c0 = (blockIdx.z % (D / DC)) * DC;
+  const int bh = blockIdx.y;
+  const int j0 = blockIdx.x * BM;  // first local key of the tile
+  const int cols = min(BM, a.Tl - j0);
+  const int col0 = c * a.Tl + j0;  // its global position
+  const size_t head = (size_t)bh * a.n * a.Tl;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's keys in the tile
+  const float slope = slope_of(a, bh);
+
+  stage_bf16<D, BM>(Ks, k + (head + col0) * D, cols);
+  stage_bf16<D, BM>(Vs, v + (head + col0) * D, cols);
+  float accv[DC / 8][4] = {}, acck[DC / 8][4] = {};
+  QueryWalk w{a, c, col0, col0 + cols - 1, BQ};
+  bool have = w.start();
+  if (have) {
+    const size_t at = head + (size_t)w.r * a.Tl + w.t * BQ;
+    const int valid = a.Tl - w.t * BQ;
+    stage_bf16<D, BQ>(Qs, q + at * D, valid);
+    stage_bf16<D, BQ>(dOs, dO + at * D, valid);
+    stage_rows<BQ>(Ls, L + at, valid);
+    stage_rows<BQ>(Ds, delta + at, valid);
+  }
+  cp_async_commit();
+  for (int buf = 0; have; buf ^= 1) {
+    QueryWalk nx = w;
+    const bool more = nx.next();
+    if (more) {
+      const int nb = buf ^ 1;
+      const size_t at = head + (size_t)nx.r * a.Tl + nx.t * BQ;
+      const int valid = a.Tl - nx.t * BQ;
+      stage_bf16<D, BQ>(Qs + nb * BQ * RS, q + at * D, valid);
+      stage_bf16<D, BQ>(dOs + nb * BQ * RS, dO + at * D, valid);
+      stage_rows<BQ>(Ls + nb * BQ, L + at, valid);
+      stage_rows<BQ>(Ds + nb * BQ, delta + at, valid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Qt = Qs + buf * BQ * RS;
+    const bf16* dOt = dOs + buf * BQ * RS;
+    const float* Lt = Ls + buf * BQ;
+    const float* Dt = Ds + buf * BQ;
+    const int i0 = w.t * BQ, row0 = w.r * a.Tl + i0;
+    const int rows = min(BQ, a.Tl - i0);
+    float st[BQ / 8][4] = {}, dpt[BQ / 8][4] = {};
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t ka[4], va[4];
+      load_a(ka, Ks, RS, wr, kc * 16, g, t);
+      load_a(va, Vs, RS, wr, kc * 16, g, t);
+#pragma unroll
+      for (int nt = 0; nt < BQ / 8; ++nt) {
+        uint32_t b[2];
+        load_b(b, Qt, RS, nt * 8, kc * 16, g, t);
+        mma(st[nt], ka, b);
+        load_b(b, dOt, RS, nt * 8, kc * 16, g, t);
+        mma(dpt[nt], va, b);
+      }
+    }
+    const bool masked =
+        edge(a, row0, BQ, col0, BM, cols == BM && rows == BQ);
+#pragma unroll
+    for (int nt = 0; nt < BQ / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qi = 8 * nt + 2 * t + (i & 1);  // query in the tile
+        const int kj = wr + g + 8 * (i >> 1);     // key in the tile
+        const float x = score(st[nt][i], a, slope, row0 + qi, col0 + kj,
+                              masked, qi < rows && kj < cols);
+        const float p = x == -INFINITY ? 0.f : expf(x - Lt[qi]);
+        st[nt][i] = p;
+        dpt[nt][i] = (dpt[nt][i] - Dt[qi]) * p;  // dS^T
+      }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t ph[4], pl[4], dh[4], dl[4];
+      acc_to_a_split(ph, pl, st, kk);
+      acc_to_a_split(dh, dl, dpt, kk);
+#pragma unroll
+      for (int dn = 0; dn < DC / 16; ++dn) {
+        uint32_t b0[2], b1[2];
+        load_bt(b0, b1, dOt, RS, kk * 16, c0 + dn * 16, lane);
+        mma(accv[2 * dn], ph, b0);
+        mma(accv[2 * dn], pl, b0);
+        mma(accv[2 * dn + 1], ph, b1);
+        mma(accv[2 * dn + 1], pl, b1);
+        load_bt(b0, b1, Qt, RS, kk * 16, c0 + dn * 16, lane);
+        mma(acck[2 * dn], dh, b0);
+        mma(acck[2 * dn], dl, b0);
+        mma(acck[2 * dn + 1], dh, b1);
+        mma(acck[2 * dn + 1], dl, b1);
+      }
+    }
+    __syncthreads();
+    w = nx;
+    have = more;
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // written whether or not a rank saw it
+    const int kj = wr + g + 8 * h;
+    if (kj >= cols) continue;
+    const size_t row = (head + col0 + kj) * D + c0;
+#pragma unroll
+    for (int dn = 0; dn < DC / 8; ++dn) {
+      const int col = dn * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(dv + row + col) =
+          pack(accv[dn][2 * h], accv[dn][2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(dk + row + col) =
+          pack(a.scale * acck[dn][2 * h], a.scale * acck[dn][2 * h + 1]);
+    }
+  }
+}
+
+// ===================== f32: element-wise FMA ============================
 
 // reductions over the 16 threads that own one row (one half of a warp)
 __device__ __forceinline__ float row_max(float v) {
@@ -105,33 +633,6 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// _chunk_live: whether the chunk of rank src can hold a key visible to
-// rank r. Causal: not in the future. Window: its newest key is less than
-// window - 1 behind r's oldest row, (r - src - 1) Tl < window - 1.
-__device__ __forceinline__ bool chunk_live(int src, int r, int Tl, int causal,
-                                           int window) {
-  if (!causal) return true;
-  if (src > r) return false;
-  return window <= 0 || (long long)(r - src - 1) * Tl < window - 1;
-}
-
-// query `row` may not see key `col` (global positions)
-__device__ __forceinline__ bool banned(long long row, long long col,
-                                       int causal, int window) {
-  return (causal && col > row) || (window > 0 && row - col >= window);
-}
-
-// Rows [0, BR) of a (rows, D) array of row stride D, widened to f32, into
-// shared memory of row stride D + 1; rows at or past `valid` are zero.
-template <int D, int BR, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int valid) {
-  for (int i = threadIdx.x; i < BR * D; i += NT) {
-    const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = r < valid ? to_f(src[(size_t)r * D + c]) : 0.f;
-  }
-}
-
 // acc[i][j] += sum_e A[(ty + 16 i)][e] * B[(tx + 16 j)][e] over two tiles of
 // stride D + 1: Q K^T, dO V^T and their transposes.
 template <int D, int R>
@@ -142,15 +643,15 @@ __device__ __forceinline__ void tile_dot(float (&acc)[R][R],
   constexpr int S = D + 1;
 #pragma unroll 4
   for (int e = 0; e < D; ++e) {
-    float a[R], b[R];
+    float x[R], y[R];
 #pragma unroll
-    for (int i = 0; i < R; ++i) a[i] = A[(ty + 16 * i) * S + e];
+    for (int i = 0; i < R; ++i) x[i] = A[(ty + 16 * i) * S + e];
 #pragma unroll
-    for (int j = 0; j < R; ++j) b[j] = B[(tx + 16 * j) * S + e];
+    for (int j = 0; j < R; ++j) y[j] = B[(tx + 16 * j) * S + e];
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < R; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int j = 0; j < R; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
   }
 }
 
@@ -163,459 +664,449 @@ __device__ __forceinline__ void tile_mul(float (&acc)[BR / 16][D / 16],
                                          int tx) {
   constexpr int R = BR / 16, S = D + 1, PS = BR + 1;
 #pragma unroll 4
-  for (int k = 0; k < BR; ++k) {
+  for (int kk = 0; kk < BR; ++kk) {
     float p[R];
 #pragma unroll
-    for (int i = 0; i < R; ++i) p[i] = P[(ty + 16 * i) * PS + k];
+    for (int i = 0; i < R; ++i) p[i] = P[(ty + 16 * i) * PS + kk];
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) {
-      const float x = V[k * S + tx + 16 * c];
+      const float x = V[kk * S + tx + 16 * c];
 #pragma unroll
       for (int i = 0; i < R; ++i) acc[i][c] = fmaf(p[i], x, acc[i][c]);
     }
   }
 }
 
-// The scaled, biased and masked score of (row, col) from the raw product.
-__device__ __forceinline__ float score(float dot, float scale, float slope,
-                                       long long row, long long col,
-                                       bool in_chunk, int causal, int window) {
-  if (!in_chunk || banned(row, col, causal, window)) return -INFINITY;
-  return dot * scale + slope * (float)(col - row);
-}
-
-struct Step {
-  int BH, H, n, Tl, step, r0, causal, window, last;
-  float scale;
-  const float* slopes;  // (H,) ALiBi slopes, or null
-};
-
-// The key tiles [kb0, kb1) of chunk `src` that hold a key visible to the
-// query rows [row0, row1] (global).
-__device__ __forceinline__ void key_tiles(const Step& a, int src,
-                                          long long row0, long long row1,
-                                          int BR, int& kb0, int& kb1) {
-  const long long c0 = (long long)src * a.Tl;
-  long long jlo = 0, jhi = a.Tl - 1;
-  if (a.window > 0) jlo = max(jlo, row0 - a.window + 1 - c0);
-  if (a.causal) jhi = min(jhi, row1 - c0);
-  kb0 = (int)(jlo / BR);
-  kb1 = jhi < jlo ? kb0 : (int)(jhi / BR) + 1;
-}
-
-// ===================== K10: one forward step ============================
-
-template <int D, int BR, typename IO>
-__global__ void __launch_bounds__(NT)
-    ring_fwd(const IO* __restrict__ q, const IO* __restrict__ kv,
-             float* __restrict__ m_s, float* __restrict__ l_s,
-             float* __restrict__ acc_s, IO* __restrict__ o,
-             float* __restrict__ L, const Step a) {
-  extern __shared__ float smem[];
+// K10. Grid (row tiles of Tl, BH, ranks); BR rows and keys per tile.
+template <int D, int BR>
+__global__ void __launch_bounds__(NT, 1)
+    fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, float* __restrict__ o,
+            float* __restrict__ L, const Ring a) {
+  extern __shared__ __align__(16) float smem[];
   constexpr int R = BR / 16, C = D / 16, S = D + 1, PS = BR + 1;
   float* Qs = smem;
-  float* Ks = Qs + BR * S;
-  float* Vs = Ks + BR * S;
-  float* Ps = Vs + BR * S;
-  const int r = a.r0 + blockIdx.z;
-  const int bh = blockIdx.y;
-  const int src = (r - a.step % a.n + a.n) % a.n;
-  const bool live = chunk_live(src, r, a.Tl, a.causal, a.window);
-  if (!live && !a.last) return;
-  const int i0 = blockIdx.x * BR;  // first local row of the tile
+  float* Ks = Qs + BR * S;      // two stages
+  float* Vs = Ks + 2 * BR * S;  // two stages
+  float* Ps = Vs + 2 * BR * S;
+  const int r = a.r0 + blockIdx.z, bh = blockIdx.y;
+  const int i0 = blockIdx.x * BR;
   const int rows = min(BR, a.Tl - i0);
-  const long long Tg = (long long)a.n * a.Tl;
-  const long long grow0 = (long long)r * a.Tl + i0;  // its global row
-  const size_t rbase = (size_t)bh * Tg + grow0;       // its (bh, row) index
+  const int row0 = r * a.Tl + i0;
+  const size_t head = (size_t)bh * a.n * a.Tl;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float slope = a.slopes ? a.slopes[bh % a.H] : 0.f;
+  const float slope = slope_of(a, bh);
 
+  stage_f32<D, BR>(Qs, q + (head + row0) * D, rows);
   float m[R], l[R], acc[R][C];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
-    const int li = ty + 16 * i;
-    const bool ok = a.step > 0 && li < rows;
-    m[i] = ok ? m_s[rbase + li] : -INFINITY;
-    l[i] = ok ? l_s[rbase + li] : 0.f;
+    m[i] = -INFINITY;
+    l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-      acc[i][c] = ok ? acc_s[(rbase + li) * D + tx + 16 * c] : 0.f;
+    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
   }
-
-  if (live) {
-    load_tile<D, BR>(Qs, q + rbase * D, rows);
-    const IO* kc = kv + (((size_t)r * 2 + 0) * a.BH + bh) * a.Tl * D;
-    const IO* vc = kv + (((size_t)r * 2 + 1) * a.BH + bh) * a.Tl * D;
-    int kb0, kb1;
-    key_tiles(a, src, grow0, grow0 + rows - 1, BR, kb0, kb1);
-    for (int kb = kb0; kb < kb1; ++kb) {
-      const int j0 = kb * BR;
-      const int cols = min(BR, a.Tl - j0);
-      __syncthreads();  // the previous tile's K, V and P are consumed
-      load_tile<D, BR>(Ks, kc + (size_t)j0 * D, cols);
-      load_tile<D, BR>(Vs, vc + (size_t)j0 * D, cols);
-      __syncthreads();
-      float s[R][R] = {};
-      tile_dot<D, R>(s, Qs, Ks, ty, tx);
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const long long row = grow0 + ty + 16 * i;
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          const int lj = tx + 16 * j;
-          s[i][j] = score(s[i][j], a.scale, slope, row,
-                          (long long)src * a.Tl + j0 + lj,
-                          lj < cols && ty + 16 * i < rows, a.causal,
-                          a.window);
-          mx = fmaxf(mx, s[i][j]);
-        }
-        const float mn = fmaxf(m[i], row_max(mx));
-        const bool none = mn == -INFINITY;  // nothing visible yet
-        const float alpha = none ? 1.f : expf(m[i] - mn);
-        float rs = 0.f;
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          const float p = none ? 0.f : expf(s[i][j] - mn);
-          rs += p;
-          Ps[(ty + 16 * i) * PS + tx + 16 * j] = p;
-        }
-        l[i] = l[i] * alpha + row_sum(rs);
-        m[i] = mn;
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
-      }
-      __syncthreads();  // P complete
-      tile_mul<D, BR>(acc, Ps, Vs, ty, tx);
+  KeyWalk w{a, r, row0, row0 + rows - 1, BR};
+  bool have = w.start();
+  if (have) {
+    const size_t at = (head + (size_t)w.src * a.Tl + w.t * BR) * D;
+    stage_f32<D, BR>(Ks, k + at, a.Tl - w.t * BR);
+    stage_f32<D, BR>(Vs, v + at, a.Tl - w.t * BR);
+  }
+  cp_async_commit();
+  for (int buf = 0; have; buf ^= 1) {
+    KeyWalk nx = w;
+    const bool more = nx.next();
+    if (more) {
+      const size_t at = (head + (size_t)nx.src * a.Tl + nx.t * BR) * D;
+      stage_f32<D, BR>(Ks + (buf ^ 1) * BR * S, k + at, a.Tl - nx.t * BR);
+      stage_f32<D, BR>(Vs + (buf ^ 1) * BR * S, v + at, a.Tl - nx.t * BR);
     }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Kt = Ks + buf * BR * S;
+    const float* Vt = Vs + buf * BR * S;
+    const int j0 = w.t * BR, col0 = w.src * a.Tl + j0;
+    const bool masked =
+        edge(a, row0, BR, col0, BR, rows == BR && j0 + BR <= a.Tl);
+    float s[R][R] = {};
+    tile_dot<D, R>(s, Qs, Kt, ty, tx);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int li = ty + 16 * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int lj = tx + 16 * j;
+        s[i][j] = score(s[i][j], a, slope, row0 + li, col0 + lj,
+                        masked, li < rows && j0 + lj < a.Tl);
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float mn = fmaxf(m[i], row_max(mx));
+      const bool none = mn == -INFINITY;  // nothing visible yet
+      const float alpha = none ? 1.f : expf(m[i] - mn);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const float p = none ? 0.f : expf(s[i][j] - mn);
+        rs += p;
+        Ps[li * PS + tx + 16 * j] = p;
+      }
+      l[i] = l[i] * alpha + row_sum(rs);
+      m[i] = mn;
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();  // P complete
+    tile_mul<D, BR>(acc, Ps, Vt, ty, tx);
+    __syncthreads();  // K, V and P consumed
+    w = nx;
+    have = more;
   }
-
+  cp_async_wait<0>();
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int li = ty + 16 * i;
     if (li >= rows) continue;
-    const size_t g = rbase + li;
-    if (a.last) {
-      const float denom = l[i] == 0.f ? 1.f : l[i];
-      const float inv = 1.f / denom;
+    const size_t row = head + row0 + li;
+    const float denom = l[i] == 0.f ? 1.f : l[i];
+    const float inv = 1.f / denom;
 #pragma unroll
-      for (int c = 0; c < C; ++c)
-        o[g * D + tx + 16 * c] = from_f<IO>(acc[i][c] * inv);
-      if (tx == 0) L[g] = m[i] + logf(denom);
-    } else {
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc_s[g * D + tx + 16 * c] = acc[i][c];
-      if (tx == 0) {
-        m_s[g] = m[i];
-        l_s[g] = l[i];
-      }
-    }
+    for (int c = 0; c < C; ++c) o[row * D + tx + 16 * c] = acc[i][c] * inv;
+    if (tx == 0) L[row] = m[i] + logf(denom);
   }
 }
 
-// ===================== K11: one backward step ===========================
-
-// dq of rank r's query rows against the chunk the bundle slot holds.
-template <int D, int BR, typename IO>
-__global__ void __launch_bounds__(NT)
-    ring_dq(const IO* __restrict__ q, const IO* __restrict__ dO,
-            const float* __restrict__ L, const float* __restrict__ delta,
-            const float* __restrict__ bundle, float* __restrict__ dq_acc,
-            IO* __restrict__ dq, const Step a) {
-  extern __shared__ float smem[];
+// K11's dq pass, f32.
+template <int D, int BR>
+__global__ void __launch_bounds__(NT, 1)
+    dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dO,
+           const float* __restrict__ L, const float* __restrict__ delta,
+           float* __restrict__ dq, const Ring a) {
+  extern __shared__ __align__(16) float smem[];
   constexpr int R = BR / 16, C = D / 16, S = D + 1, PS = BR + 1;
   float* Qs = smem;
   float* dOs = Qs + BR * S;
-  float* Ks = dOs + BR * S;
-  float* Vs = Ks + BR * S;
-  float* dSs = Vs + BR * S;
-  const int r = a.r0 + blockIdx.z;
-  const int bh = blockIdx.y;
-  const int src = (r - a.step % a.n + a.n) % a.n;
-  const bool live = chunk_live(src, r, a.Tl, a.causal, a.window);
-  if (!live && !a.last) return;
+  float* Ks = dOs + BR * S;     // two stages
+  float* Vs = Ks + 2 * BR * S;  // two stages
+  float* dSs = Vs + 2 * BR * S;
+  const int r = a.r0 + blockIdx.z, bh = blockIdx.y;
   const int i0 = blockIdx.x * BR;
   const int rows = min(BR, a.Tl - i0);
-  const long long Tg = (long long)a.n * a.Tl;
-  const long long grow0 = (long long)r * a.Tl + i0;
-  const size_t rbase = (size_t)bh * Tg + grow0;
+  const int row0 = r * a.Tl + i0;
+  const size_t head = (size_t)bh * a.n * a.Tl;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float slope = a.slopes ? a.slopes[bh % a.H] : 0.f;
+  const float slope = slope_of(a, bh);
 
-  float acc[R][C], Lr[R], dr[R];
+  stage_f32<D, BR>(Qs, q + (head + row0) * D, rows);
+  stage_f32<D, BR>(dOs, dO + (head + row0) * D, rows);
+  float Lr[R], dr[R], acc[R][C];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int li = ty + 16 * i;
-    const bool ok = li < rows;
-    Lr[i] = ok ? L[rbase + li] : 0.f;
-    dr[i] = ok ? delta[rbase + li] : 0.f;
+    Lr[i] = li < rows ? L[head + row0 + li] : 0.f;
+    dr[i] = li < rows ? delta[head + row0 + li] : 0.f;
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-      acc[i][c] = ok && a.step > 0 ? dq_acc[(rbase + li) * D + tx + 16 * c]
-                                   : 0.f;
+    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
   }
-
-  if (live) {
-    load_tile<D, BR>(Qs, q + rbase * D, rows);
-    load_tile<D, BR>(dOs, dO + rbase * D, rows);
-    const float* kc = bundle + (((size_t)r * 4 + 0) * a.BH + bh) * a.Tl * D;
-    const float* vc = bundle + (((size_t)r * 4 + 1) * a.BH + bh) * a.Tl * D;
-    int kb0, kb1;
-    key_tiles(a, src, grow0, grow0 + rows - 1, BR, kb0, kb1);
-    for (int kb = kb0; kb < kb1; ++kb) {
-      const int j0 = kb * BR;
-      const int cols = min(BR, a.Tl - j0);
-      __syncthreads();
-      load_tile<D, BR>(Ks, kc + (size_t)j0 * D, cols);
-      load_tile<D, BR>(Vs, vc + (size_t)j0 * D, cols);
-      __syncthreads();
-      float s[R][R] = {}, dp[R][R] = {};
-      tile_dot<D, R>(s, Qs, Ks, ty, tx);
-      tile_dot<D, R>(dp, dOs, Vs, ty, tx);
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          const int lj = tx + 16 * j;
-          const float sv = score(s[i][j], a.scale, slope, grow0 + ty + 16 * i,
-                                 (long long)src * a.Tl + j0 + lj,
-                                 lj < cols && ty + 16 * i < rows, a.causal,
-                                 a.window);
-          const float p = sv == -INFINITY ? 0.f : expf(sv - Lr[i]);
-          dSs[(ty + 16 * i) * PS + lj] = (dp[i][j] - dr[i]) * p;
-        }
-      __syncthreads();
-      tile_mul<D, BR>(acc, dSs, Ks, ty, tx);
+  KeyWalk w{a, r, row0, row0 + rows - 1, BR};
+  bool have = w.start();
+  if (have) {
+    const size_t at = (head + (size_t)w.src * a.Tl + w.t * BR) * D;
+    stage_f32<D, BR>(Ks, k + at, a.Tl - w.t * BR);
+    stage_f32<D, BR>(Vs, v + at, a.Tl - w.t * BR);
+  }
+  cp_async_commit();
+  for (int buf = 0; have; buf ^= 1) {
+    KeyWalk nx = w;
+    const bool more = nx.next();
+    if (more) {
+      const size_t at = (head + (size_t)nx.src * a.Tl + nx.t * BR) * D;
+      stage_f32<D, BR>(Ks + (buf ^ 1) * BR * S, k + at, a.Tl - nx.t * BR);
+      stage_f32<D, BR>(Vs + (buf ^ 1) * BR * S, v + at, a.Tl - nx.t * BR);
     }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int li = ty + 16 * i;
-    if (li >= rows) continue;
-    const size_t g = rbase + li;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      if (a.last)
-        dq[g * D + tx + 16 * c] = from_f<IO>(a.scale * acc[i][c]);
-      else
-        dq_acc[g * D + tx + 16 * c] = acc[i][c];
-    }
-  }
-}
-
-// The bundle's dk/dv rows of key tile blockIdx.x of the chunk rank r holds,
-// from r's query rows. Thread (ty, tx) owns the transposed score entries
-// (key ty + 16 i, query tx + 16 j) and the dk/dv entries (key ty + 16 i,
-// column tx + 16 c).
-template <int D, int BR, typename IO>
-__global__ void __launch_bounds__(NT)
-    ring_dkdv(const IO* __restrict__ q, const IO* __restrict__ dO,
-              const float* __restrict__ L, const float* __restrict__ delta,
-              float* __restrict__ bundle, const Step a) {
-  extern __shared__ float smem[];
-  constexpr int R = BR / 16, C = D / 16, S = D + 1, PS = BR + 1;
-  float* Ks = smem;
-  float* Vs = Ks + BR * S;
-  float* Qs = Vs + BR * S;
-  float* dOs = Qs + BR * S;
-  float* Pt = dOs + BR * S;
-  float* dSt = Pt + BR * PS;
-  const int r = a.r0 + blockIdx.z;
-  const int bh = blockIdx.y;
-  const int src = (r - a.step % a.n + a.n) % a.n;
-  if (!chunk_live(src, r, a.Tl, a.causal, a.window)) return;
-  const int j0 = blockIdx.x * BR;  // first local key of the tile
-  const int cols = min(BR, a.Tl - j0);
-  const long long Tg = (long long)a.n * a.Tl;
-  const long long gcol0 = (long long)src * a.Tl + j0;
-  const long long qrow0 = (long long)r * a.Tl;  // r's first global row
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float slope = a.slopes ? a.slopes[bh % a.H] : 0.f;
-  float* kc = bundle + (((size_t)r * 4 + 0) * a.BH + bh) * a.Tl * D;
-  float* vc = bundle + (((size_t)r * 4 + 1) * a.BH + bh) * a.Tl * D;
-  float* dkc = bundle + (((size_t)r * 4 + 2) * a.BH + bh) * a.Tl * D;
-  float* dvc = bundle + (((size_t)r * 4 + 3) * a.BH + bh) * a.Tl * D;
-
-  load_tile<D, BR>(Ks, kc + (size_t)j0 * D, cols);
-  load_tile<D, BR>(Vs, vc + (size_t)j0 * D, cols);
-  float accv[R][C], acck[R][C];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < C; ++c) accv[i][c] = acck[i][c] = 0.f;
-
-  // r's query rows that see a key of the tile: causal, rows >= the first
-  // key; window, rows < the last key + window
-  long long ilo = 0, ihi = a.Tl - 1;
-  if (a.causal) ilo = max(ilo, gcol0 - qrow0);
-  if (a.window > 0) ihi = min(ihi, gcol0 + cols - 1 + a.window - 1 - qrow0);
-  const int qb0 = (int)(ilo / BR);
-  const int qb1 = ihi < ilo ? qb0 : (int)(ihi / BR) + 1;
-  for (int qb = qb0; qb < qb1; ++qb) {
-    const int i0 = qb * BR;
-    const int rows = min(BR, a.Tl - i0);
-    const size_t rbase = (size_t)bh * Tg + qrow0 + i0;
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    load_tile<D, BR>(Qs, q + rbase * D, rows);
-    load_tile<D, BR>(dOs, dO + rbase * D, rows);
-    float Lq[R], dq_[R];
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int lj = tx + 16 * j;
-      Lq[j] = lj < rows ? L[rbase + lj] : 0.f;
-      dq_[j] = lj < rows ? delta[rbase + lj] : 0.f;
-    }
-    __syncthreads();
-    float st[R][R] = {}, dpt[R][R] = {};
-    tile_dot<D, R>(st, Ks, Qs, ty, tx);
-    tile_dot<D, R>(dpt, Vs, dOs, ty, tx);
+    const float* Kt = Ks + buf * BR * S;
+    const float* Vt = Vs + buf * BR * S;
+    const int j0 = w.t * BR, col0 = w.src * a.Tl + j0;
+    const bool masked =
+        edge(a, row0, BR, col0, BR, rows == BR && j0 + BR <= a.Tl);
+    float s[R][R] = {}, dp[R][R] = {};
+    tile_dot<D, R>(s, Qs, Kt, ty, tx);
+    tile_dot<D, R>(dp, dOs, Vt, ty, tx);
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < R; ++j) {
-        const int lj = tx + 16 * j;
-        const float sv = score(st[i][j], a.scale, slope, qrow0 + i0 + lj,
-                               gcol0 + ty + 16 * i,
-                               lj < rows && ty + 16 * i < cols, a.causal,
-                               a.window);
-        const float p = sv == -INFINITY ? 0.f : expf(sv - Lq[j]);
-        Pt[(ty + 16 * i) * PS + lj] = p;
-        dSt[(ty + 16 * i) * PS + lj] = (dpt[i][j] - dq_[j]) * p;
+        const int li = ty + 16 * i, lj = tx + 16 * j;
+        const float x = score(s[i][j], a, slope, row0 + li, col0 + lj,
+                              masked, li < rows && j0 + lj < a.Tl);
+        const float p = x == -INFINITY ? 0.f : expf(x - Lr[i]);
+        dSs[li * PS + lj] = (dp[i][j] - dr[i]) * p;
       }
+    __syncthreads();  // dS complete
+    tile_mul<D, BR>(acc, dSs, Kt, ty, tx);
     __syncthreads();
-    tile_mul<D, BR>(accv, Pt, dOs, ty, tx);
-    tile_mul<D, BR>(acck, dSt, Qs, ty, tx);
+    w = nx;
+    have = more;
   }
-  if (qb1 <= qb0) return;
+  cp_async_wait<0>();
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int li = ty + 16 * i;
-    if (li >= cols) continue;
-    const size_t g = (size_t)(j0 + li) * D;
+    if (li >= rows) continue;
+    const size_t row = head + row0 + li;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      dvc[g + tx + 16 * c] += accv[i][c];
-      dkc[g + tx + 16 * c] += a.scale * acck[i][c];
+    for (int c = 0; c < C; ++c)
+      dq[row * D + tx + 16 * c] = a.scale * acc[i][c];
+  }
+}
+
+// K11's dk/dv pass, f32. Thread (ty, tx) owns the transposed score
+// entries (key ty + 16 i, query tx + 16 j) and the dk/dv entries (key
+// ty + 16 i, column tx + 16 c).
+template <int D, int BR>
+__global__ void __launch_bounds__(NT, 1)
+    dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dO,
+             const float* __restrict__ L, const float* __restrict__ delta,
+             float* __restrict__ dk, float* __restrict__ dv, const Ring a) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int R = BR / 16, C = D / 16, S = D + 1, PS = BR + 1;
+  float* Ks = smem;
+  float* Vs = Ks + BR * S;
+  float* Qs = Vs + BR * S;       // two stages
+  float* dOs = Qs + 2 * BR * S;  // two stages
+  float* Pt = dOs + 2 * BR * S;
+  float* dSt = Pt + BR * PS;
+  const int c = a.r0 + blockIdx.z, bh = blockIdx.y;
+  const int j0 = blockIdx.x * BR;
+  const int cols = min(BR, a.Tl - j0);
+  const int col0 = c * a.Tl + j0;
+  const size_t head = (size_t)bh * a.n * a.Tl;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float slope = slope_of(a, bh);
+
+  stage_f32<D, BR>(Ks, k + (head + col0) * D, cols);
+  stage_f32<D, BR>(Vs, v + (head + col0) * D, cols);
+  float accv[R][C], acck[R][C];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc) accv[i][cc] = acck[i][cc] = 0.f;
+  QueryWalk w{a, c, col0, col0 + cols - 1, BR};
+  bool have = w.start();
+  if (have) {
+    const size_t at = (head + (size_t)w.r * a.Tl + w.t * BR) * D;
+    stage_f32<D, BR>(Qs, q + at, a.Tl - w.t * BR);
+    stage_f32<D, BR>(dOs, dO + at, a.Tl - w.t * BR);
+  }
+  cp_async_commit();
+  for (int buf = 0; have; buf ^= 1) {
+    QueryWalk nx = w;
+    const bool more = nx.next();
+    if (more) {
+      const size_t at = (head + (size_t)nx.r * a.Tl + nx.t * BR) * D;
+      stage_f32<D, BR>(Qs + (buf ^ 1) * BR * S, q + at, a.Tl - nx.t * BR);
+      stage_f32<D, BR>(dOs + (buf ^ 1) * BR * S, dO + at, a.Tl - nx.t * BR);
+    }
+    cp_async_commit();
+    const int i0 = w.t * BR, row0 = w.r * a.Tl + i0;
+    const int rows = min(BR, a.Tl - i0);
+    float Lq[R], dq_[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int lj = tx + 16 * j;
+      Lq[j] = lj < rows ? L[head + row0 + lj] : 0.f;
+      dq_[j] = lj < rows ? delta[head + row0 + lj] : 0.f;
+    }
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Qt = Qs + buf * BR * S;
+    const float* dOt = dOs + buf * BR * S;
+    const bool masked =
+        edge(a, row0, BR, col0, BR, cols == BR && rows == BR);
+    float st[R][R] = {}, dpt[R][R] = {};
+    tile_dot<D, R>(st, Ks, Qt, ty, tx);
+    tile_dot<D, R>(dpt, Vs, dOt, ty, tx);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int ki = ty + 16 * i, lj = tx + 16 * j;
+        const float x = score(st[i][j], a, slope, row0 + lj, col0 + ki,
+                              masked, lj < rows && ki < cols);
+        const float p = x == -INFINITY ? 0.f : expf(x - Lq[j]);
+        Pt[ki * PS + lj] = p;
+        dSt[ki * PS + lj] = (dpt[i][j] - dq_[j]) * p;
+      }
+    __syncthreads();  // P^T and dS^T complete
+    tile_mul<D, BR>(accv, Pt, dOt, ty, tx);
+    tile_mul<D, BR>(acck, dSt, Qt, ty, tx);
+    __syncthreads();
+    w = nx;
+    have = more;
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < R; ++i) {  // written whether or not a rank saw it
+    const int ki = ty + 16 * i;
+    if (ki >= cols) continue;
+    const size_t row = (head + col0 + ki) * D;
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc) {
+      dv[row + tx + 16 * cc] = accv[i][cc];
+      dk[row + tx + 16 * cc] = a.scale * acck[i][cc];
     }
   }
 }
 
 // ===================== launch =========================================
 
-constexpr size_t smem_bytes(int D, int BR, int tiles, int scores) {
-  return ((size_t)tiles * BR * (D + 1) + (size_t)scores * BR * (BR + 1)) * 4;
-}
-
 // Raise the kernel's dynamic shared-memory cap where it is over the 48 KB
-// default (a launch over the cap is refused and never runs), launch it on
-// the (tiles of Tl, BH, ranks) grid, and return the launch's error.
+// default (a launch over the cap is refused and never runs), launch it and
+// return the launch's error.
 template <typename... P, typename... A>
-int launch(void (*kern)(P...), size_t smem, int BR, int nr, const Step& a,
+int launch(void (*kern)(P...), dim3 grid, int threads, size_t smem,
            cudaStream_t stream, A... args) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kern<<<dim3((a.Tl + BR - 1) / BR, a.BH, nr), NT, smem, stream>>>(args...);
+  kern<<<grid, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
-// The pointers of one launch: the io-dtype inputs q and kv slot (forward)
-// or q and dO (backward), the f32 inputs, the f32 state it updates, and the
-// io-dtype output.
+// The tensors of one call: the forward's (q, k, v) -> (o, L), or the
+// backward's (q, k, v, dO, L, delta) -> (dq, dk, dv).
 struct Ptrs {
-  const void *in0, *in1;
-  const float *L, *delta;         // backward: the forward's L and delta
-  float *s0, *s1, *s2;            // forward m, l, acc; backward bundle, dq_acc
-  void* out;                      // forward o, backward dq
-  float* L_out;                   // forward L
+  const void *q, *k, *v, *dO;
+  const float *L, *delta;
+  void *out0, *out1, *out2;  // o (L_out); dq, dk, dv
+  float* L_out;
 };
 
-template <int D, int BR, typename T>
-int run(int which, const Step& a, int nr, const Ptrs& p,
-        cudaStream_t stream) {
-  const T* in0 = static_cast<const T*>(p.in0);
-  const T* in1 = static_cast<const T*>(p.in1);
-  T* out = static_cast<T*>(p.out);
-  if (which == 0)
-    return launch(ring_fwd<D, BR, T>, smem_bytes(D, BR, 3, 1), BR, nr, a,
-                  stream, in0, in1, p.s0, p.s1, p.s2, out, p.L_out, a);
-  int err = launch(ring_dq<D, BR, T>, smem_bytes(D, BR, 4, 1), BR, nr, a,
-                   stream, in0, in1, p.L, p.delta, p.s0, p.s1, out, a);
-  if (err) return err;
-  return launch(ring_dkdv<D, BR, T>, smem_bytes(D, BR, 4, 2), BR, nr, a,
-                stream, in0, in1, p.L, p.delta, p.s0, a);
+// Tile sizes per width, chosen so that no kernel spills: bf16 queries per
+// tile of dk/dv BQ (16 from d 128,
+// where its two f32 accumulators take 128 registers); the column slice DC
+// of every accumulator (128: two slices at d 256); f32 rows per tile BR
+// (32 at d 256, for shared memory).
+template <int D>
+struct Tiles {
+  static constexpr int BQ = D >= 128 ? 16 : 32;
+  static constexpr int DC = D == 256 ? 128 : D;
+  static constexpr int BR = D == 256 ? 32 : 64;
+};
+
+constexpr size_t bf16_smem(int D, int own, int staged, int BN) {
+  return ((size_t)own * BM + (size_t)staged * 2 * BN) * (D + 8) * 2;
+}
+constexpr size_t f32_smem(int D, int tiles, int scores, int BR) {
+  return ((size_t)tiles * BR * (D + 1) + (size_t)scores * BR * (BR + 1)) * 4;
 }
 
-template <int D, int BR>
-int run_dtype(int dtype, int which, const Step& a, int nr, const Ptrs& p,
-              cudaStream_t stream) {
-  if (dtype == 0) return run<D, BR, float>(which, a, nr, p, stream);
-  if (dtype == 1) return run<D, BR, bf16>(which, a, nr, p, stream);
+template <int D>
+int run_bf16(int which, const Ring& a, int nr, const Ptrs& p,
+             cudaStream_t st) {
+  using C = Tiles<D>;
+  auto in = [](const void* x) { return static_cast<const bf16*>(x); };
+  auto out = [](void* x) { return static_cast<bf16*>(x); };
+  const dim3 grid((a.Tl + BM - 1) / BM, a.BH, nr * (D / C::DC));
+  if (which == 0)
+    return launch(fwd_bf16<D, C::DC>, grid, MT, bf16_smem(D, 1, 2, BN), st,
+                  in(p.q), in(p.k), in(p.v), out(p.out0), p.L_out, a);
+  int err = launch(dq_bf16<D, C::DC>, grid, MT, bf16_smem(D, 2, 2, BN), st,
+                   in(p.q), in(p.k), in(p.v), in(p.dO), p.L, p.delta,
+                   out(p.out0), a);
+  if (err) return err;
+  return launch(dkdv_bf16<D, C::BQ, C::DC>, grid, MT,
+                bf16_smem(D, 2, 2, C::BQ) + 4 * C::BQ * 4, st, in(p.q),
+                in(p.k), in(p.v), in(p.dO), p.L, p.delta, out(p.out1),
+                out(p.out2), a);
+}
+
+template <int D>
+int run_f32(int which, const Ring& a, int nr, const Ptrs& p,
+            cudaStream_t st) {
+  constexpr int BR = Tiles<D>::BR;
+  auto in = [](const void* x) { return static_cast<const float*>(x); };
+  auto out = [](void* x) { return static_cast<float*>(x); };
+  const dim3 grid((a.Tl + BR - 1) / BR, a.BH, nr);
+  if (which == 0)
+    return launch(fwd_f32<D, BR>, grid, NT, f32_smem(D, 5, 1, BR), st,
+                  in(p.q), in(p.k), in(p.v), out(p.out0), p.L_out, a);
+  int err = launch(dq_f32<D, BR>, grid, NT, f32_smem(D, 6, 1, BR), st,
+                   in(p.q), in(p.k), in(p.v), in(p.dO), p.L, p.delta,
+                   out(p.out0), a);
+  if (err) return err;
+  return launch(dkdv_f32<D, BR>, grid, NT, f32_smem(D, 6, 2, BR), st,
+                in(p.q), in(p.k), in(p.v), in(p.dO), p.L, p.delta,
+                out(p.out1), out(p.out2), a);
+}
+
+template <int D>
+int run(int dtype, int which, const Ring& a, int nr, const Ptrs& p,
+        cudaStream_t st) {
+  if (dtype == 0) return run_f32<D>(which, a, nr, p, st);
+  if (dtype == 1) return run_bf16<D>(which, a, nr, p, st);
   return -1;
 }
 
-int dispatch(int dtype, int d, int which, const Step& a, int nr,
+int dispatch(int dtype, int d, int which, const Ring& a, int nr,
              const Ptrs& p, void* stream) {
-  if (a.n < 1 || a.Tl < 1 || a.BH < 1 || a.BH > 65535 || a.H < 1 ||
-      a.BH % a.H || a.step < 0 || a.step >= a.n || a.r0 < 0 || nr < 1 ||
-      nr > 65535 || a.r0 + nr > a.n || a.window < 0)
+  if (a.n < 1 || a.Tl < 1 || (long long)a.n * a.Tl > 0x7fffffff ||
+      a.BH < 1 || a.BH > 65535 || a.H < 1 || a.BH % a.H || a.r0 < 0 ||
+      nr < 1 || nr > 32767 || a.r0 + nr > a.n || a.window < 0)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return run_dtype<32, 64>(dtype, which, a, nr, p, s);
-    case 64: return run_dtype<64, 64>(dtype, which, a, nr, p, s);
-    case 128: return run_dtype<128, 64>(dtype, which, a, nr, p, s);
-    case 256: return run_dtype<256, 32>(dtype, which, a, nr, p, s);
+    case 32: return run<32>(dtype, which, a, nr, p, s);
+    case 64: return run<64>(dtype, which, a, nr, p, s);
+    case 128: return run<128>(dtype, which, a, nr, p, s);
+    case 256: return run<256>(dtype, which, a, nr, p, s);
     default: return -1;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, dO, the forward's K/V slot, o, dq).
-// d is the padded head width (32, 64, 128 or 256), BH = batch * heads, H
-// the heads (ALiBi slope of head bh % H; `slopes` null for none), n the
-// ring's ranks, Tl the rows per rank, step in [0, n), ranks [r0, r0 + nr),
-// window 0 for no band, last 1 on step n - 1. Each returns 0 on success,
-// -1 for an unsupported dtype, d or shape, else the cudaError_t of a launch.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO, o, dq, dk, dv). d is the
+// padded head width (32, 64, 128 or 256), BH = batch * heads, H the heads
+// (ALiBi slope of head bh % H; `slopes` null for none), n the ring's ranks,
+// Tl the rows per rank, ranks [r0, r0 + nr), window 0 for no band. Each
+// returns 0 on success, -1 for an unsupported dtype, d or shape, else the
+// cudaError_t of a launch.
 
-// One forward step (K10): fold the chunk in kv_slot (n, 2, BH, Tl, d) into
-// m, l (BH, T) and acc (BH, T, d), all f32; at the last step write o (BH,
-// T, d) and L (BH, T) instead.
-extern "C" int ring_fwd_step_launch(int dtype, int d, const void* q,
-                                    const void* kv_slot, void* m, void* l,
-                                    void* acc, void* o, void* L,
-                                    const void* slopes, int BH, int H, int n,
-                                    int Tl, int step, int r0, int nr,
-                                    int causal, int window, float scale,
-                                    int last, void* stream) {
-  Step a{BH, H, n, Tl, step, r0, causal, window, last, scale,
+// The forward over the whole ring (K10): o (BH, T, d) and L (BH, T) f32.
+extern "C" int ring_fwd_launch(int dtype, int d, const void* q,
+                               const void* k, const void* v, void* o,
+                               void* L, const void* slopes, int BH, int H,
+                               int n, int Tl, int r0, int nr, int causal,
+                               int window, float scale, void* stream) {
+  Ring a{BH, H, n, Tl, r0, causal, window, scale,
          static_cast<const float*>(slopes)};
-  Ptrs p{q, kv_slot, nullptr, nullptr, static_cast<float*>(m),
-         static_cast<float*>(l), static_cast<float*>(acc), o,
+  Ptrs p{q, k, v, nullptr, nullptr, nullptr, o, nullptr, nullptr,
          static_cast<float*>(L)};
   return dispatch(dtype, d, 0, a, nr, p, stream);
 }
 
-// One backward step (K11): dq of every rank's rows against the chunk in
-// bundle_slot (n, 4, BH, Tl, d) f32 = (k, v, dk, dv), accumulated in dq_acc
-// (BH, T, d) f32 and written to dq at the last step; then the chunk's dk
-// and dv in the bundle gain this rank's share.
-extern "C" int ring_bwd_step_launch(int dtype, int d, const void* q,
-                                    const void* dO, const void* L,
-                                    const void* delta, void* bundle_slot,
-                                    void* dq_acc, void* dq,
-                                    const void* slopes, int BH, int H, int n,
-                                    int Tl, int step, int r0, int nr,
-                                    int causal, int window, float scale,
-                                    int last, void* stream) {
-  Step a{BH, H, n, Tl, step, r0, causal, window, last, scale,
+// The backward over the whole ring (K11): the dq pass, then the dk/dv
+// pass, from the forward's L and delta = rowsum(dO * O), both (BH, T) f32.
+extern "C" int ring_bwd_launch(int dtype, int d, const void* q,
+                               const void* k, const void* v, const void* dO,
+                               const void* L, const void* delta, void* dq,
+                               void* dk, void* dv, const void* slopes,
+                               int BH, int H, int n, int Tl, int r0, int nr,
+                               int causal, int window, float scale,
+                               void* stream) {
+  Ring a{BH, H, n, Tl, r0, causal, window, scale,
          static_cast<const float*>(slopes)};
-  Ptrs p{q, dO, static_cast<const float*>(L),
-         static_cast<const float*>(delta), static_cast<float*>(bundle_slot),
-         static_cast<float*>(dq_acc), nullptr, dq, nullptr};
+  Ptrs p{q, k, v, dO, static_cast<const float*>(L),
+         static_cast<const float*>(delta), dq, dk, dv, nullptr};
   return dispatch(dtype, d, 1, a, nr, p, stream);
 }

@@ -37,7 +37,7 @@ from .build import build
 __all__ = ["flash_fwd_cuda", "flash_dq_cuda", "flash_dkdv_cuda",
            "SUPPORTED_D", "BLOCK"]
 
-SUPPORTED_D = (32, 64, 128)
+SUPPORTED_D = (32, 64, 128, 256)
 BLOCK = 64  # rows per tile: T must be a multiple
 MAX_BH = 65535  # batch * heads rides the grid's y dimension
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

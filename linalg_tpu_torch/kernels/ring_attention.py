@@ -1,35 +1,40 @@
-"""One step of ring attention: wrappers of the hand-written CUDA kernels
-of ``csrc/ring_attention.cu`` (K10 forward, K11 backward), their plain
-PyTorch versions, and the rotation of the rank-stacked K/V slots.
+"""Ring attention: wrappers of the hand-written CUDA kernels of
+``csrc/ring_attention.cu`` (K10 forward, K11 backward), which run the
+whole ring in one launch, and the plain PyTorch versions of one ring step
+with the rotation of the rank-stacked K/V slots.
 
 A ring of n ranks holds a sequence of T = n * Tl rows: rank r owns rows
-[r Tl, (r + 1) Tl). At step s rank r holds the K/V chunk of rank
+[r Tl, (r + 1) Tl). At step s rank r folds the K/V chunk of rank
 ``src = (r - s) mod n``. Every buffer is rank-stacked on one device:
 
-- ``q``, ``do``, ``o``, ``dq``: (BH, T, D) in the io dtype (float32 or
-  bfloat16), rank r's rows at [r Tl, (r + 1) Tl);
-- ``m``, ``l``, ``L``, ``delta``: (BH, T) float32; ``acc``, ``dq_acc``:
-  (BH, T, D) float32, each rank's state between steps;
-- the forward's K/V slot: (n, 2, BH, Tl, D) in the io dtype (the TPU's
-  double-buffered ``kv`` scratch, ``ring_pallas.py:259``, one per rank);
-- the backward's bundle slot: (n, 4, BH, Tl, D) float32 = (k, v, dk, dv)
-  (``ring_pallas.py:468``).
+- ``q``, ``k``, ``v``, ``do``, ``o``, ``dq``, ``dk``, ``dv``: (BH, T, D)
+  in the io dtype (float32 or bfloat16), rank r's rows at [r Tl, (r + 1)
+  Tl);
+- ``L``, ``delta``: (BH, T) float32.
 
-``ring_fwd_step_cuda`` folds the chunk in the slot into (m, l, acc) and,
-at the last step, writes o and L; ``ring_bwd_step_cuda`` adds the chunk's
-share to dq (written at the last step) and to the bundle's dk/dv. Both
-take a range of ranks ``(r0, nr)``: one device launches the whole ring
-here, and a placement over several cards would launch one range per card.
-D is the padded head width, one of ``SUPPORTED_D``; ``scale`` is
-1/sqrt(true d_head). ``slopes`` is a float32 (H,) tensor of ALiBi slopes
-(head h of batch b is row b H + h) or None.
+``ring_fwd_cuda`` returns (o, L) and ``ring_bwd_cuda`` (dq, dk, dv), each
+from ONE call over all n steps: each block loops over the steps in the
+ring's order and reads chunk src's rows of k and v where they lie, with
+its running state in registers, so no chunk is copied and no state goes
+to device memory between steps. The kernels take a range of ranks (of
+chunks for dk/dv); one card runs them all. D is the padded head
+width, one of ``SUPPORTED_D``; ``scale`` is 1/sqrt(true d_head).
+``slopes`` is a float32 (H,) tensor of ALiBi slopes (head h of batch b is
+row b H + h) or None.
 
-On a CUDA tensor the wrappers launch the kernel or raise; they validate
-what the kernel does not take and substitute nothing. The plain versions
-``ring_fwd_step_ref`` / ``ring_bwd_step_ref`` update the same buffers the
-same way, rank by rank, with ``chunk_live`` deciding as the kernels do;
-the callers in ``parallel.ring_pallas`` take them for CPU tensors. Each
-wrapper's ``launches`` counts its launches (one per ring step).
+On a CUDA tensor the wrappers launch the kernels or raise; they validate
+what the kernels do not take and substitute nothing. Each wrapper's
+``launches`` counts its calls (one per ring call; K11's dq and dk/dv
+kernels count as one).
+
+The plain versions compute the same function the TPU's way, one step at a
+time: ``ring_fwd_step_ref`` / ``ring_bwd_step_ref`` update per-rank state
+buffers from the chunk in a K/V slot (n, 2, BH, Tl, D) or an f32 bundle
+slot (n, 4, BH, Tl, D) = (k, v, dk, dv), which ``rotate`` moves one hop
+between steps (``parallel.ring_pallas`` drives them; ``chunk_live``
+decides as the kernels do). The CPU tests hold them against the JAX
+package's ring in interpret mode, and a card run holds the kernels
+against them.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ import torch
 
 from .build import build
 
-__all__ = ["ring_fwd_step_cuda", "ring_bwd_step_cuda", "ring_fwd_step_ref",
+__all__ = ["ring_fwd_cuda", "ring_bwd_cuda", "ring_fwd_step_ref",
            "ring_bwd_step_ref", "rotate", "chunk_live", "padded_d",
            "SUPPORTED_D"]
 
@@ -74,7 +79,7 @@ def chunk_live(src: int, r: int, Tl: int, causal: bool, window) -> bool:
 
 def rotate(cur, nxt):
     """One hop of the ring on rank-stacked slots: rank r + 1 receives rank
-    r's chunk, rank 0 rank n - 1's. Two device copies, no temporary."""
+    r's chunk, rank 0 rank n - 1's. Two copies, no temporary."""
     nxt[1:].copy_(cur[:-1])
     nxt[0].copy_(cur[-1])
 
@@ -83,109 +88,101 @@ def rotate(cur, nxt):
 def _lib():
     lib = ctypes.CDLL(str(build("ring_attention")))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # BH, H, n, Tl, step, r0, nr, causal, window, scale, last, stream
-    tail = [i32] * 9 + [f32, i32, ptr]
-    lib.ring_fwd_step_launch.argtypes = [i32, i32] + [ptr] * 8 + tail
-    lib.ring_bwd_step_launch.argtypes = [i32, i32] + [ptr] * 8 + tail
-    lib.ring_fwd_step_launch.restype = i32
-    lib.ring_bwd_step_launch.restype = i32
+    # slopes, BH, H, n, Tl, r0, nr, causal, window, scale, stream
+    tail = [ptr] + [i32] * 8 + [f32, ptr]
+    lib.ring_fwd_launch.argtypes = [i32, i32] + [ptr] * 5 + tail
+    lib.ring_bwd_launch.argtypes = [i32, i32] + [ptr] * 9 + tail
+    lib.ring_fwd_launch.restype = i32
+    lib.ring_bwd_launch.restype = i32
     return lib
 
 
-def _check(name, io, f32, slot, slot_dtype, n, H, ranks, slopes):
-    """Validate a step's tensors: ``io`` (BH, T, D) in one dtype, ``f32``
-    float32 (BH, T) or (BH, T, D), the (n, k, BH, Tl, D) ``slot``; return
-    (BH, T, D, Tl)."""
+def _check(name, io, rows, n, H, slopes, window):
+    """Validate a call's tensors: ``io`` (BH, T, D) in one dtype, ``rows``
+    float32 (BH, T); return (BH, T, D, Tl)."""
     q = io[0]
     if q.dim() != 3:
         raise ValueError(f"{name}: q must be (BH, T, D), got "
                          f"{tuple(q.shape)}")
     BH, T, D = q.shape
-    tensors = io + f32 + (slot,) + ((slopes,) if slopes is not None else ())
+    tensors = io + rows + ((slopes,) if slopes is not None else ())
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(f"{name} needs every tensor on one CUDA device")
     if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in io):
-        raise ValueError(f"{name}: q and its io tensors must share float32 "
-                         f"or bfloat16, got {[t.dtype for t in io]}")
+        raise ValueError(f"{name}: q, k, v (and do) must share float32 or "
+                         f"bfloat16, got {[t.dtype for t in io]}")
+    if any(t.shape != q.shape for t in io):
+        raise ValueError(f"{name}: q, k, v (and do) must all be "
+                         f"{tuple(q.shape)}, got "
+                         f"{[tuple(t.shape) for t in io]}")
+    if any(t.dtype != torch.float32 or t.shape != (BH, T) for t in rows):
+        raise ValueError(f"{name}: L and delta must be float32 ({BH}, {T})")
     if D not in SUPPORTED_D:
         raise ValueError(f"{name}: head width {D} unsupported (the kernels "
                          f"are built for {SUPPORTED_D}; pad with padded_d)")
     if n < 1 or T % n:
         raise ValueError(f"{name}: T {T} must divide into n = {n} ranks")
-    Tl = T // n
+    if T >= 2 ** 31:
+        raise ValueError(f"{name}: T {T} past the kernels' int positions")
     if not 0 < BH <= MAX_BH or H < 1 or BH % H:
         raise ValueError(f"{name}: BH {BH} must be in (0, {MAX_BH}] and a "
                          f"multiple of H {H}")
-    r0, nr = ranks
-    if not (0 <= r0 and nr >= 1 and r0 + nr <= n):
-        raise ValueError(f"{name}: ranks {ranks} outside the ring of {n}")
-    if any(t.shape != q.shape for t in io) or any(
-            t.dtype != torch.float32 or t.shape not in ((BH, T), (BH, T, D))
-            for t in f32):
-        raise ValueError(f"{name}: io tensors must be {tuple(q.shape)} and "
-                         f"the f32 state (BH, T) or (BH, T, D)")
-    if slot.dtype != slot_dtype or slot.shape[0] != n or tuple(
-            slot.shape[2:]) != (BH, Tl, D):
-        raise ValueError(f"{name}: slot must be {slot_dtype} (n, k, BH, Tl, "
-                         f"D) = ({n}, k, {BH}, {Tl}, {D}), got "
-                         f"{slot.dtype} {tuple(slot.shape)}")
+    if window is not None and window < 1:
+        raise ValueError(f"{name}: window must be >= 1 or None, got "
+                         f"{window}")
     if slopes is not None and (slopes.dtype != torch.float32
                                or slopes.shape != (H,)):
         raise ValueError(f"{name}: slopes must be float32 ({H},)")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous tensors")
-    return BH, T, D, Tl
+    if any(t.data_ptr() % 16 for t in io):
+        raise ValueError(f"{name} needs 16-byte aligned tensors")
+    return BH, T, D, T // n
 
 
-def _call(name, fn, q, ptrs, slopes, BH, H, n, Tl, step, ranks, causal,
-          window, scale, last):
-    if window is not None and window < 1:
-        raise ValueError(f"{name}: window must be >= 1 or None, got "
-                         f"{window}")
-    if not 0 <= step < n:
-        raise ValueError(f"{name}: step {step} outside [0, {n})")
+def _call(name, fn, q, ptrs, slopes, BH, H, n, Tl, causal, window, scale):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = fn(_DTYPE_CODE[q.dtype], q.shape[-1], *ptrs,
                 None if slopes is None else slopes.data_ptr(), BH, H, n, Tl,
-                step, ranks[0], ranks[1], int(bool(causal)), window or 0,
-                float(scale), int(bool(last)), stream)
+                0, n, int(bool(causal)), window or 0, float(scale), stream)
     if rc:
         raise RuntimeError(f"{name} launch failed (code {rc})")
 
 
-def ring_fwd_step_cuda(q, kv, m, l, acc, o, L, *, n: int, H: int, step: int,
-                       ranks, causal: bool, window, slopes, scale: float,
-                       last: bool):
-    """K10, one step: fold the chunks in ``kv`` (this step's slot) into
-    (m, l, acc), or at the last step finalize o and L, for ``ranks``."""
-    BH, _, _, Tl = _check("ring_fwd_step_cuda", (q, o), (m, l, acc, L), kv,
-                          q.dtype, n, H, ranks, slopes)
-    _call("ring_fwd_step", _lib().ring_fwd_step_launch, q,
-          (q.data_ptr(), kv.data_ptr(), m.data_ptr(), l.data_ptr(),
-           acc.data_ptr(), o.data_ptr(), L.data_ptr()), slopes, BH, H, n,
-          Tl, step, ranks, causal, window, scale, last)
-    ring_fwd_step_cuda.launches += 1
+def ring_fwd_cuda(q, k, v, *, n: int, H: int, causal: bool, window,
+                  slopes, scale: float):
+    """K10 over the whole ring: q, k, v (BH, T, D) -> (o (BH, T, D) in q's
+    dtype, L (BH, T) float32)."""
+    BH, T, _, Tl = _check("ring_fwd_cuda", (q, k, v), (), n, H, slopes,
+                          window)
+    o = torch.empty_like(q)
+    L = torch.empty((BH, T), dtype=torch.float32, device=q.device)
+    _call("ring_fwd", _lib().ring_fwd_launch, q,
+          (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+           L.data_ptr()), slopes, BH, H, n, Tl, causal, window, scale)
+    ring_fwd_cuda.launches += 1
+    return o, L
 
 
-def ring_bwd_step_cuda(q, do, L, delta, bundle, dq_acc, dq, *, n: int,
-                       H: int, step: int, ranks, causal: bool, window,
-                       slopes, scale: float, last: bool):
-    """K11, one step: the dq pass (accumulated in ``dq_acc``, written to
-    ``dq`` at the last step) and the dk/dv pass into ``bundle`` (this
-    step's slot), for ``ranks``."""
-    BH, _, _, Tl = _check("ring_bwd_step_cuda", (q, do, dq),
-                          (L, delta, dq_acc), bundle, torch.float32, n, H,
-                          ranks, slopes)
-    _call("ring_bwd_step", _lib().ring_bwd_step_launch, q,
-          (q.data_ptr(), do.data_ptr(), L.data_ptr(), delta.data_ptr(),
-           bundle.data_ptr(), dq_acc.data_ptr(), dq.data_ptr()), slopes, BH,
-          H, n, Tl, step, ranks, causal, window, scale, last)
-    ring_bwd_step_cuda.launches += 1
+def ring_bwd_cuda(q, k, v, do, L, delta, *, n: int, H: int, causal: bool,
+                  window, slopes, scale: float):
+    """K11 over the whole ring: (dq, dk, dv), each (BH, T, D) in q's dtype,
+    from the forward's L and delta = rowsum(dO * O) (both float32 (BH,
+    T)); the dq pass, then the dk/dv pass."""
+    BH, _, _, Tl = _check("ring_bwd_cuda", (q, k, v, do), (L, delta), n, H,
+                          slopes, window)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    _call("ring_bwd", _lib().ring_bwd_launch, q,
+          (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           L.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+           dv.data_ptr()), slopes, BH, H, n, Tl, causal, window, scale)
+    ring_bwd_cuda.launches += 1
+    return dq, dk, dv
 
 
-ring_fwd_step_cuda.launches = 0
-ring_bwd_step_cuda.launches = 0
+ring_fwd_cuda.launches = 0
+ring_bwd_cuda.launches = 0
 
 
 def _scores(q_r, k, r, src, Tl, H, causal, window, slopes, scale):
@@ -210,8 +207,11 @@ def _scores(q_r, k, r, src, Tl, H, causal, window, slopes, scale):
 def ring_fwd_step_ref(q, kv, m, l, acc, o, L, *, n: int, H: int, step: int,
                       ranks, causal: bool, window, slopes, scale: float,
                       last: bool):
-    """Plain version of ``ring_fwd_step_cuda``: the same buffers, the same
-    online softmax (float32, -inf for banned scores), rank by rank."""
+    """One forward step the TPU's way, the plain version of K10: fold the
+    chunk in the K/V slot ``kv`` (n, 2, BH, Tl, D) into the float32 running
+    max ``m``, normalizer ``l`` (BH, T) and accumulator ``acc`` (BH, T, D),
+    the same online softmax (-inf for banned scores), rank by rank; at the
+    last step write o and L instead."""
     Tl = q.shape[1] // n
     ninf = float("-inf")
     for r in range(ranks[0], ranks[0] + ranks[1]):
@@ -248,8 +248,10 @@ def ring_fwd_step_ref(q, kv, m, l, acc, o, L, *, n: int, H: int, step: int,
 def ring_bwd_step_ref(q, do, L, delta, bundle, dq_acc, dq, *, n: int,
                       H: int, step: int, ranks, causal: bool, window, slopes,
                       scale: float, last: bool):
-    """Plain version of ``ring_bwd_step_cuda``: P recomputed from L, dq
-    accumulated in float32, the bundle's dk/dv gaining each rank's share."""
+    """One backward step the TPU's way, the plain version of K11: P
+    recomputed from L, dq accumulated in float32 ``dq_acc`` (written to
+    ``dq`` at the last step), the bundle slot's dk/dv gaining each rank's
+    share of the chunk it holds."""
     Tl = q.shape[1] // n
     for r in range(ranks[0], ranks[0] + ranks[1]):
         src = (r - step) % n

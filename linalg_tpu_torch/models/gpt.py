@@ -318,9 +318,8 @@ _REMAT_SDPA = functools.partial(checkpoint, sdpa, use_reentrant=False)
 
 def _flash_width(d_head: int) -> bool:
     """Whether the flash kernels take a head of ``d_head`` columns: 8 to
-    128 (``nn.flash.kernel_width`` zero-pads the widths between theirs).
-    The JAX rule sends every d_head >= 8 to its kernels; above 128 this
-    port keeps the rematted sdpa (ROADMAP.md queue 3)."""
+    256 (``nn.flash.kernel_width`` zero-pads the widths between theirs),
+    the JAX rule's every d_head >= 8 up to the kernels' widest width."""
     return 8 <= d_head <= FLASH_D[-1]
 
 
@@ -330,7 +329,7 @@ def _pick_attn_cfg(cfg: GPTConfig, T: int, device_type: str):
     takes the band through ``flash_attention_stream`` on CUDA at T >= 512
     (ragged T right-padded to a multiple of 256, exact under the causal
     band), reading grouped K/V in place; below that, off CUDA, or for a
-    d_head outside [8, 128] (``_flash_width``), the rematted sdpa with the
+    d_head outside [8, 256] (``_flash_width``), the rematted sdpa with the
     band in its mask. Everything else takes ``_pick_attn``."""
     if cfg.pos == "alibi":
         return _REMAT_SDPA
@@ -355,10 +354,8 @@ def _pick_attn(T: int, d_head: int, device_type: str):
     multiple of 256, the flash kernels (``flash_attention`` for Tp <= 1024,
     ``flash_attention_long`` for Tp <= 4096, ``flash_attention_stream``
     beyond, which reads grouped K/V in place: ``gqa_native``), a d_head
-    between the kernels' widths zero-padded to the next. Where JAX sends
-    a d_head > 128 to its kernels, this port keeps the rematted sdpa: the
-    flash kernels are built for widths up to 128 (ROADMAP.md queue 3), and
-    past T 4096 that sdpa holds the (B, H, T, T) scores in memory."""
+    between the kernels' widths zero-padded to the next, up to 256, the
+    kernels' widest."""
     if device_type != "cuda":
         return sdpa
     if T < 512 or not _flash_width(d_head):

@@ -11,7 +11,7 @@ device raises. ``nn.flash_long.flash_attention_long`` (K3) and
 ``nn.flash_stream.flash_attention_stream`` (K4) are the same math behind
 the same kernels; K4 adds the sliding-window band (``window``) and K/V
 with fewer heads than q (``H % hk == 0``), which the plain versions here
-take too. A head of 8 <= d < 128 columns outside the kernels' widths is
+take too. A head of 8 <= d < 256 columns outside the kernels' widths is
 zero-padded to the next one (``kernel_width``) with the scale 1/sqrt(d)
 passed explicitly, so every head width the JAX package sends to its flash
 kernels runs here; the outputs and gradients are sliced back to d.
@@ -126,7 +126,7 @@ def flash_bwd(q, k, v, o, L, do, causal: bool = True, window=None,
 
 def kernel_width(d: int) -> int:
     """The head width the flash kernels run a d-wide head at: d itself, or
-    for 8 <= d < 128 the next of ``kernels.flash_attention.SUPPORTED_D``,
+    for 8 <= d < 256 the next of ``kernels.flash_attention.SUPPORTED_D``,
     zero-padded (exact: zero columns add nothing to q k^T and give zero
     output columns; the scale stays 1/sqrt(d)). Other widths are refused
     by the kernel wrappers."""
@@ -167,10 +167,10 @@ def flash_attention(q, k, v, causal: bool = True):
     """Fused attention: q, k, v (B, h, T, d) -> (B, h, T, d).
 
     Drop-in for ``sdpa(q, k, v, causal_mask(T))`` on the training path.
-    On the card T must be a multiple of 64 and d in [8, 128] (a d outside
-    32, 64, 128 is zero-padded to the next, ``kernel_width``; the kernel
-    wrapper raises on the rest); the model's picker pads T to a multiple
-    of 256 and sends other head widths to sdpa."""
+    On the card T must be a multiple of 64 and d in [8, 256] (a d outside
+    32, 64, 128, 256 is zero-padded to the next, ``kernel_width``; the
+    kernel wrapper raises on the rest); the model's picker pads T to a
+    multiple of 256 and sends other head widths to sdpa."""
     return _Flash.apply(q, k, v, causal, None, False)
 
 

@@ -18,9 +18,8 @@ carry over). On a CPU tensor it runs the plain versions ``btd_fwd_ref``
 / ``btd_bwd_ref``; any other device raises.
 
 ``btd_supported`` is the JAX rule (T <= 1024, T % 8, d % 128) plus what
-the kernels add: d_head one of theirs (32, 64, 128, so of the JAX rule's
-widths only d 128) and T a multiple of 64. A d 256 model goes to the
-rematted sdpa instead.
+the kernels add: d_head one of theirs (32, 64, 128, 256, so of the JAX
+rule's widths d 128 and 256) and T a multiple of 64.
 """
 
 from __future__ import annotations

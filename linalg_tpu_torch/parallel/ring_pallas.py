@@ -5,27 +5,26 @@ On the TPU one Pallas kernel per device runs all n ring steps and moves
 the K/V chunks with remote DMAs, issuing step s+1's transfer before it
 computes step s and holding it back with credits until the neighbour's
 slot is free. Here the ring's ranks are rank-stacked on one device
-(``mesh`` devices may repeat) and the protocol is driven from the host:
+(``mesh`` devices may repeat), and on CUDA tensors each direction is one
+call of the kernels (``kernels.ring_attention``): the forward is one K10
+launch, the backward K11's dq and dk/dv launches, once each, for every
+rank. Every block loops over the ring's steps in the ring's order and
+reads the chunk a step needs where it already lies, rows [src Tl,
+(src + 1) Tl) of the (B*h, T, D) head tensors: no chunk is copied and no
+running state leaves the registers between steps. A build or launch
+failure raises.
 
-- the forward keeps two K/V slots of (n, 2, BH, Tl, d). Before step s is
-  launched, the copy that fills the other slot for step s+1 (rank r+1
-  receives rank r's chunk, ``kernels.ring_attention.rotate``) is enqueued
-  on a side stream. The copy waits on an event recorded after step s-1's
-  compute (the credit: step s-1 read that slot), and step s+1 waits on the
-  copy's event, so the rotation overlaps step s's compute;
-- the backward laps an f32 bundle (k, v, dk, dv) of (n, 4, BH, Tl, d):
-  each step runs K11's dq and dk/dv passes, then rotates the bundle, which
-  the passes just changed (no overlap, as on the TPU). After n rotations
-  each chunk's bundle is home, in slot n % 2 (``ring_pallas.py:433``).
-
-``ring_attention_pallas_local`` and ``ring_attention_pallas_bwd_local``
-are these rank-stacked bodies. On CUDA tensors they launch the kernels
-(``kernels.ring_attention``), one launch per step for the whole range of
-ranks, and a build or launch failure raises; on CPU tensors they run the
-kernels' plain versions through the same slots, ``src = (r - s) mod n``,
-``chunk_live`` and bundle lap. Head widths from 8 up are zero-padded to
-the kernels' next width with the scale of the true width; no
-``torch.cuda.synchronize()`` is on the path.
+On CPU tensors, and with ``plain=True`` on the card, the kernels' plain
+versions run the TPU's protocol step by step: the forward keeps two K/V
+slots of (n, 2, BH, Tl, d) and rotates one hop per step
+(``kernels.ring_attention.rotate``: rank r+1 receives rank r's chunk);
+the backward laps an f32 bundle (k, v, dk, dv) of (n, 4, BH, Tl, d),
+each step running the dq and dk/dv passes and then rotating the bundle,
+which after n rotations is home, in slot n % 2 (``ring_pallas.py:433``).
+Both ways fold chunk ``src = (r - s) mod n`` at step s, with
+``chunk_live`` skipping dead chunks, so they sum in the same order. Head
+widths from 8 up are zero-padded to the kernels' next width with the
+scale of the true width; no ``torch.cuda.synchronize()`` is on the path.
 """
 
 from __future__ import annotations
@@ -35,22 +34,12 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..kernels.ring_attention import (padded_d, ring_bwd_step_cuda,
-                                      ring_bwd_step_ref, ring_fwd_step_cuda,
+from ..kernels.ring_attention import (padded_d, ring_bwd_cuda,
+                                      ring_bwd_step_ref, ring_fwd_cuda,
                                       ring_fwd_step_ref, rotate)
 
 __all__ = ["make_ring_attention_pallas", "ring_attention_pallas_local",
            "ring_attention_pallas_bwd_local"]
-
-_SIDE_STREAMS = {}
-
-
-def _side_stream(device):
-    """The side stream the forward's rotation copies run on, one per
-    device."""
-    if device not in _SIDE_STREAMS:
-        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
-    return _SIDE_STREAMS[device]
 
 
 def _ring_size(mesh, axis: str, device) -> int:
@@ -117,45 +106,28 @@ def ring_attention_pallas_local(q, k, v, *, mesh, axis: str = "sp",
     B, h, T, d = q.shape
     D = padded_d(d)
     Tl = T // n
-    dev, cpu = q.device, q.device.type == "cpu"
+    dev = q.device
     qf = _heads(q, D)
-    kv = torch.empty((2, n, 2, B * h, Tl, D), dtype=q.dtype, device=dev)
-    kv[0, :, 0] = _slot_chunks(_heads(k.to(q.dtype), D), n)
-    kv[0, :, 1] = _slot_chunks(_heads(v.to(q.dtype), D), n)
-    m = torch.empty((B * h, T), dtype=torch.float32, device=dev)
-    l = torch.empty_like(m)
-    acc = torch.empty((B * h, T, D), dtype=torch.float32, device=dev)
-    o = torch.empty_like(qf)
-    L = torch.empty_like(m)
-    step_fn = ring_fwd_step_ref if cpu or plain else ring_fwd_step_cuda
-    kw = dict(n=n, H=h, ranks=(0, n), causal=causal, window=window,
+    kf, vf = _heads(k.to(q.dtype), D), _heads(v.to(q.dtype), D)
+    kw = dict(n=n, H=h, causal=causal, window=window,
               slopes=_slopes_on(slopes, dev), scale=1.0 / math.sqrt(d))
-    if not cpu:
-        main = torch.cuda.current_stream(dev)
-        side = _side_stream(dev)
-        side.wait_stream(main)  # slot 0 is filled
-    done = None  # the event after the previous step's compute
-    for s in range(n):
-        cur, nxt = kv[s % 2], kv[(s + 1) % 2]
-        if s < n - 1:
-            if cpu:
-                rotate(cur, nxt)
-            else:
-                # step s+1's chunks fly while step s computes; the credit:
-                # step s-1, which read the target slot, has finished
-                with torch.cuda.stream(side):
-                    if done is not None:
-                        side.wait_event(done)
-                    rotate(cur, nxt)
-                    arrived = torch.cuda.Event()
-                    arrived.record(side)
-        step_fn(qf, cur, m, l, acc, o, L, step=s, last=s == n - 1, **kw)
-        if not cpu and s < n - 1:
-            done = torch.cuda.Event()
-            done.record(main)
-            main.wait_event(arrived)
-    # the side stream's last copy is waited on by step n-1 on the main
-    # stream, so memory freed after this call is not still being written
+    if dev.type == "cuda" and not plain:
+        o, L = ring_fwd_cuda(qf, kf, vf, **kw)
+    else:
+        kv = torch.empty((2, n, 2, B * h, Tl, D), dtype=q.dtype, device=dev)
+        kv[0, :, 0] = _slot_chunks(kf, n)
+        kv[0, :, 1] = _slot_chunks(vf, n)
+        m = torch.empty((B * h, T), dtype=torch.float32, device=dev)
+        l = torch.empty_like(m)
+        acc = torch.empty((B * h, T, D), dtype=torch.float32, device=dev)
+        o = torch.empty_like(qf)
+        L = torch.empty_like(m)
+        for s in range(n):
+            cur = kv[s % 2]
+            if s < n - 1:
+                rotate(cur, kv[(s + 1) % 2])
+            ring_fwd_step_ref(qf, cur, m, l, acc, o, L, step=s, ranks=(0, n),
+                              last=s == n - 1, **kw)
     o = o.view(B, h, T, D)[..., :d]
     if not with_lse:
         return o
@@ -174,8 +146,20 @@ def ring_attention_pallas_bwd_local(q, k, v, do, lse, delta, *, mesh,
     B, h, T, d = q.shape
     D = padded_d(d)
     Tl = T // n
-    dev, cpu = q.device, q.device.type == "cpu"
+    dev = q.device
     qf, dof = _heads(q, D), _heads(do.to(q.dtype), D)
+    L = lse.reshape(B * h, T).float().contiguous()
+    dl = delta.reshape(B * h, T).float().contiguous()
+    kw = dict(n=n, H=h, causal=causal, window=window,
+              slopes=_slopes_on(slopes, dev), scale=1.0 / math.sqrt(d))
+
+    def back(x):  # (B*h, T, D) -> (B, h, T, d)
+        return x.view(B, h, T, D)[..., :d]
+
+    if dev.type == "cuda" and not plain:
+        kf, vf = _heads(k.to(q.dtype), D), _heads(v.to(q.dtype), D)
+        return tuple(back(x) for x in ring_bwd_cuda(qf, kf, vf, dof, L, dl,
+                                                    **kw))
     bundle = torch.empty((2, n, 4, B * h, Tl, D), dtype=torch.float32,
                          device=dev)
     bundle[0, :, 0] = _slot_chunks(_heads(k.float(), D), n)
@@ -183,23 +167,18 @@ def ring_attention_pallas_bwd_local(q, k, v, do, lse, delta, *, mesh,
     bundle[0, :, 2:] = 0
     dq_acc = torch.empty((B * h, T, D), dtype=torch.float32, device=dev)
     dq = torch.empty_like(qf)
-    L = lse.reshape(B * h, T).float().contiguous()
-    dl = delta.reshape(B * h, T).float().contiguous()
-    step_fn = ring_bwd_step_ref if cpu or plain else ring_bwd_step_cuda
-    kw = dict(n=n, H=h, ranks=(0, n), causal=causal, window=window,
-              slopes=_slopes_on(slopes, dev), scale=1.0 / math.sqrt(d))
     for s in range(n):
         cur, nxt = bundle[s % 2], bundle[(s + 1) % 2]
-        step_fn(qf, dof, L, dl, cur, dq_acc, dq, step=s, last=s == n - 1,
-                **kw)
+        ring_bwd_step_ref(qf, dof, L, dl, cur, dq_acc, dq, step=s,
+                          ranks=(0, n), last=s == n - 1, **kw)
         if n > 1:  # every step, so the bundle finishes its lap at home
             rotate(cur, nxt)
     home = bundle[n % 2 if n > 1 else 0]
 
-    def back(x):  # (n, BH, Tl, D) rank-stacked -> (B, h, T, d)
-        return x.transpose(0, 1).reshape(B, h, T, D)[..., :d].to(q.dtype)
+    def gather(x):  # (n, BH, Tl, D) rank-stacked -> (B, h, T, d)
+        return back(x.transpose(0, 1).reshape(B * h, T, D)).to(q.dtype)
 
-    return dq.view(B, h, T, D)[..., :d], back(home[:, 2]), back(home[:, 3])
+    return back(dq), gather(home[:, 2]), gather(home[:, 3])
 
 
 class _RingAttention(torch.autograd.Function):

@@ -101,12 +101,12 @@ def test_bf16_io():
 
 
 def test_supported_gate():
-    """The JAX gate's cases, plus the kernels' terms: d_head 256 passes the
-    JAX rule but no kernel takes it; T must fill 64-row tiles."""
+    """The JAX gate's cases, plus the kernels' terms: d_head 256 passes
+    both (the kernels take widths up to 256); T must fill 64-row tiles."""
     for args in ((4, 256, 512, 4), (4, 256, 512, 8), (4, 2048, 512, 4),
-                 (2, 64, 256, 2), (3, 128, 512, 4)):
+                 (2, 64, 256, 2), (3, 128, 512, 4), (4, 256, 512, 2)):
         assert btd_supported(*args) == j_supported(*args), args
-    assert j_supported(4, 256, 512, 2) and not btd_supported(4, 256, 512, 2)
+    assert j_supported(4, 256, 512, 2) and btd_supported(4, 256, 512, 2)
     assert j_supported(4, 40, 256, 2) and not btd_supported(4, 40, 256, 2)
 
 

@@ -207,14 +207,22 @@ class TestPicker:
         (1024, 16, "flash_attention"),
         (2048, 96, "flash_attention_long"),
         (1024, 4, None),  # d_heads the kernels do not take
-        (2048, 256, None),
+        (1024, 512, None),
+        # JAX's rule (linalg_tpu/models/gpt.py:444): every d_head >= 8 to
+        # the kernels; 160 zero-padded to 256
+        (2048, 256, "flash_attention_long"),
+        (1024, 160, "flash_attention"),
+        (1024, 256, "flash_attention"),
+        (8192, 160, "flash_attention_stream"),
+        (8192, 256, "flash_attention_stream"),
     ])
     def test_on_cuda(self, T, d_head, kernel, monkeypatch):
         """None means the rematted sdpa. A kernel pick is called on CPU
         tensors with the kernels' entry points recorded, so the choice and
         the padded length show without a card."""
         seen = []
-        for name in ("flash_attention", "flash_attention_long"):
+        for name in ("flash_attention", "flash_attention_long",
+                     "flash_attention_stream"):
             monkeypatch.setattr(tgpt, name, lambda q, k, v, c, _n=name:
                                 seen.append((_n, q.shape[-2])) or q)
         fn = tgpt._pick_attn(T, d_head, "cuda")
@@ -251,7 +259,8 @@ class TestPicker:
         (dict(window=512), "cpu", 4096, None),
         (dict(window=512), "cuda", 511, None),
         (dict(window=512, d_model=384), "cuda", 1024, 1024),  # d_head 96
-        (dict(window=512, d_model=1024), "cuda", 1024, None),  # d_head 256
+        (dict(window=512, d_model=1024), "cuda", 1024, 1024),  # d_head 256
+        (dict(window=512, d_model=2048), "cuda", 1024, None),  # d_head 512
         (dict(window=512), "cuda", 4096, 4096),
         (dict(window=300, pos="rope"), "cuda", 1000, 1024),
         (dict(window=64, n_kv_heads=1), "cuda", 8192, 8192),

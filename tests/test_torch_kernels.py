@@ -8,6 +8,8 @@ card carry the ``cuda`` marker and skip where there is none; the rest
 check, on the CPU, what the wrappers do without a card.
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -110,6 +112,34 @@ def test_build_raises_without_nvcc(monkeypatch):
         pytest.skip("the toolkit's default nvcc is installed here")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kbuild.build("paged_attention")
+
+
+def test_build_rebuilds_when_a_shared_header_changes(monkeypatch, tmp_path):
+    """The library's digest covers the csrc/*.cuh headers a source
+    includes: an edited header builds a new library, never loads the stale
+    one (nvcc mocked: it writes the file it is asked for)."""
+    import subprocess
+
+    csrc, out = tmp_path / "csrc", tmp_path / "_build"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "h.cuh"\n')
+    (csrc / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(kbuild, "CSRC_DIR", csrc)
+    monkeypatch.setattr(kbuild, "BUILD_DIR", out)
+    monkeypatch.setattr(kbuild, "_nvcc", lambda: "nvcc")
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        pathlib.Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(kbuild.subprocess, "run", fake_run)
+    first = kbuild.build("k")
+    assert kbuild.build("k") == first and len(calls) == 1  # cached
+    (csrc / "h.cuh").write_text("// two\n")
+    second = kbuild.build("k")
+    assert second != first and second.exists() and len(calls) == 2
 
 
 @pytest.mark.cuda
@@ -281,6 +311,57 @@ def test_flash_kernels_match_ref_on_card(cuda, shape, dtype, causal):
         assert_close_of_max(got, w, dtype, what)
     assert (flash_fwd_cuda.launches, flash_dq_cuda.launches,
             flash_dkdv_cuda.launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal,window,group", [(True, None, 1),
+                                                 (False, None, 1),
+                                                 (True, 300, 2)],
+                         ids=["causal", "full", "window_gqa"])
+def test_flash_d256_kernels_match_ref_on_card(cuda, dtype, causal, window,
+                                              group):
+    """The widest heads, d 256: the bf16 forward reloads Q's fragments per
+    key tile, dk/dv runs two 128-column slices, f32 takes 32-row tiles."""
+    B, H, T, d = 2, 4, 1024, 256
+    q, k, v, do = flash_inputs((B, H, T, d), dtype, cuda, seed=256 + group)
+    k, v = k[:, :H // group].contiguous(), v[:, :H // group].contiguous()
+    o, L = flash_fwd_cuda(q, k, v, causal, window, group)
+    o_ref, L_ref = flash_fwd_ref(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert_close_of_max(o, o_ref, dtype, "o")
+    assert_close_of_max(L, L_ref, dtype, "L")
+    delta = torch.sum(do.float() * o_ref.float(), dim=-1)
+    dq = flash_dq_cuda(q, k, v, do, L_ref, delta, causal, window, group)
+    dk, dv = flash_dkdv_cuda(q, k, v, do, L_ref, delta, causal, window,
+                             group)
+    torch.cuda.synchronize()
+    want = flash_bwd_ref(q, k, v, o_ref, L_ref, do, causal, window)
+    for got, w, what in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        assert_close_of_max(got, w, dtype, what)
+
+
+@pytest.mark.cuda
+def test_flash_d160_through_the_picker_on_card(cuda):
+    """A d_head of 160 takes the flash kernels at 256 wide (JAX's rule:
+    every d_head >= 8), zero-padded, against the same through the plain
+    versions."""
+    from linalg_tpu_torch.models.gpt import _REMAT_SDPA, _pick_attn
+
+    attn = _pick_attn(1024, 160, "cuda")
+    assert attn is not _REMAT_SDPA
+    x = flash_inputs((2, 1024, 2, 160), torch.float32, cuda, seed=160)
+    before = flash_fwd_cuda.launches
+    grads = []
+    for f in (attn, lambda q, k, v, mask: flash_attention_ref(q, k, v)):
+        q, k, v = (t.clone().requires_grad_(True) for t in x[:3])
+        o = f(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), None)
+        o.backward(x[3].transpose(1, 2))
+        grads.append([o.detach(), q.grad, k.grad, v.grad])
+    assert flash_fwd_cuda.launches == before + 1
+    for got, w, what in zip(*grads, ("o", "dq", "dk", "dv")):
+        assert_close_of_max(got, w, torch.float32, what)
 
 
 @pytest.mark.cuda
@@ -606,20 +687,17 @@ def ring_both(x, n, plain, **kw):
 
 
 def test_ring_wrappers_reject_cpu_tensors():
-    from linalg_tpu_torch.kernels.ring_attention import (ring_bwd_step_cuda,
-                                                         ring_fwd_step_cuda)
+    from linalg_tpu_torch.kernels.ring_attention import (ring_bwd_cuda,
+                                                         ring_fwd_cuda)
 
     BH, n, Tl, D = 2, 2, 64, 32
     q = torch.zeros(BH, n * Tl, D)
     f = torch.zeros(BH, n * Tl)
-    kw = dict(n=n, H=1, step=0, ranks=(0, n), causal=True, window=None,
-              slopes=None, scale=0.125, last=False)
+    kw = dict(n=n, H=1, causal=True, window=None, slopes=None, scale=0.125)
     with pytest.raises(ValueError, match="CUDA"):
-        ring_fwd_step_cuda(q, torch.zeros(n, 2, BH, Tl, D), f, f,
-                           torch.zeros_like(q), q, f, **kw)
+        ring_fwd_cuda(q, q, q, **kw)
     with pytest.raises(ValueError, match="CUDA"):
-        ring_bwd_step_cuda(q, q, f, f, torch.zeros(n, 4, BH, Tl, D),
-                           torch.zeros_like(q), q, **kw)
+        ring_bwd_cuda(q, q, q, q, f, f, **kw)
 
 
 # (B, h, T, d, n, causal, window, alibi): ragged Tl (100, 125, 45, 250),
@@ -644,10 +722,11 @@ RING_CASES = [
                              f"w{c[6]}" if c[6] else "",
                              "alibi" if c[7] else ""))
 def test_ring_kernels_match_plain_on_card(cuda, case, dtype):
-    """K10 and K11 against their plain versions on the same inputs, the
-    whole ring (slots, rotations, bundle lap) both ways; launches one per
-    step. Tolerance as chip_smoke.py's: f32 1e-4, bf16 2e-2 x max|want|
-    (sums in another order; bf16 rounds the outputs)."""
+    """K10 and K11 against their plain versions on the same inputs: the
+    kernels' one call per direction against the plain steps through the
+    slots, rotations and bundle lap; launches one per ring call, at any n.
+    Tolerance as chip_smoke.py's: f32 1e-4, bf16 2e-2 x max|want| (sums in
+    another order; bf16 rounds the outputs)."""
     from linalg_tpu_torch.kernels import ring_attention as kr
     from linalg_tpu_torch.nn.positional import alibi_slopes
 
@@ -655,11 +734,11 @@ def test_ring_kernels_match_plain_on_card(cuda, case, dtype):
     x = ring_inputs(B, h, T, d, dtype, cuda, seed=T + n)
     kw = dict(causal=causal, window=window,
               slopes=tuple(alibi_slopes(h).tolist()) if alibi else None)
-    before = (kr.ring_fwd_step_cuda.launches, kr.ring_bwd_step_cuda.launches)
+    before = (kr.ring_fwd_cuda.launches, kr.ring_bwd_cuda.launches)
     got = ring_both(x, n, False, **kw)
     torch.cuda.synchronize()
-    assert (kr.ring_fwd_step_cuda.launches - before[0],
-            kr.ring_bwd_step_cuda.launches - before[1]) == (n, n)
+    assert (kr.ring_fwd_cuda.launches - before[0],
+            kr.ring_bwd_cuda.launches - before[1]) == (1, 1)
     want = ring_both(x, n, True, **kw)
     rtol = 1e-4 if dtype == torch.float32 else 2e-2
     for what, g, w in zip(("o", "L", "dq", "dk", "dv"), got, want):
@@ -667,6 +746,34 @@ def test_ring_kernels_match_plain_on_card(cuda, case, dtype):
         err = float((g.float() - w.float()).abs().max())
         tol = rtol * max(1.0, float(w.float().abs().max()))
         assert err <= tol, f"{what}: error {err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 4, 1024, 128, 4, True, 300, False),
+                                  (2, 2, 1000, 64, 4, True, None, True),
+                                  (1, 2, 512, 256, 2, False, None, False)],
+                         ids=["window", "ragged_alibi", "d256_full"])
+def test_ring_bf16_kernels_track_f32_as_the_plain_ring(cuda, case):
+    """The bf16 kernels keep P and dS in ~16 bits (hi + lo products), as
+    the TPU kernel keeps them in f32: on the same bf16 inputs, their o, dq,
+    dk and dv are no farther from the f32 plain ring than the bf16 plain
+    ring (f32 math, outputs rounded to bf16) is, x 1.1. Rounding P or dS
+    once to bf16 would put them ~2^-9 of max|o| farther."""
+    from linalg_tpu_torch.nn.positional import alibi_slopes
+
+    B, h, T, d, n, causal, window, alibi = case
+    x = ring_inputs(B, h, T, d, torch.bfloat16, cuda, seed=T + d)
+    kw = dict(causal=causal, window=window,
+              slopes=tuple(alibi_slopes(h).tolist()) if alibi else None)
+    ref = ring_both([t.float() for t in x], n, True, **kw)
+    plain = ring_both(x, n, True, **kw)
+    kern = ring_both(x, n, False, **kw)
+    torch.cuda.synchronize()
+    for i, what in ((0, "o"), (2, "dq"), (3, "dk"), (4, "dv")):
+        off_plain = float((plain[i].float() - ref[i]).abs().max())
+        off_kern = float((kern[i].float() - ref[i]).abs().max())
+        assert off_kern <= 1.1 * off_plain, (
+            f"{what}: kernels {off_kern:.3e} off f32, plain {off_plain:.3e}")
 
 
 @pytest.mark.cuda
