@@ -38,16 +38,19 @@ Phases, each reported on its own line; any failure exits non-zero:
              the kernel, through the same driver with the plain strip, and
              of ``torch.linalg.qr`` (GFLOP/s as 2 N^3 / t); and once more
              with the caller's TF32 switched on, still <= 1e-6.
-7. flash   — the flash-attention kernels (``csrc/flash_attention.cu``):
-             build time and ptxas lines; forward (O, L) and backward (dq,
-             dk, dv from a random dO) against their plain PyTorch versions
-             at (B 24, H 8, T 1024, d 128) in bf16 and f32, (2, 8, 2048,
+7. flash   — the flash-attention kernels (``csrc/flash_attention.cu``;
+             bf16 on wgmma fed by a TMA ring): build time and ptxas lines,
+             the registers, shared memory and spills of every
+             instantiation (any stack frame or spill fails); forward (O,
+             L) and backward (dq, dk, dv from a random dO) against their
+             plain PyTorch versions at (B 24, H 8, T 1024, d 128) in bf16
+             and f32, (2, 8, 2048,
              128) bf16 through ``flash_attention_long``, (4, 8, 1024, 64)
              f32, the widest heads (2, 4, 1024, 256) in bf16 and f32, and a
              ragged T 1000 through the picker's padding; median
              CUDA-event times of kernel and plain version, forward and
              forward+backward (the T 2048 shape also straight through the
-             kernels).
+             kernels), each as a factor of SDPA's and a share of its bound.
 8. train   — ``train.trainer.train`` at the train_big configuration
              (``bench.py::bench_train_big``: d1024, 8 heads, 8 layers, ctx
              1024, bf16, batch 24, AdamW lr 3e-4, warmup 200, wd 0.01) on
@@ -69,7 +72,8 @@ Phases, each reported on its own line; any failure exits non-zero:
              causal=False at T 1024; median CUDA-event times of the kernels,
              the plain versions and ``F.scaled_dot_product_attention(...,
              enable_gqa=True)`` (is_causal, or a boolean band mask), forward
-             and forward+backward, launch counts and the bound.
+             and forward+backward, launch counts and the bound; the
+             kernels' factor of SDPA's time and share of the bound.
 10. long   — ``train.trainer.train`` at long_window (GPTConfig(vocab 65,
              d512, 4 heads, 2 KV heads, 8 layers, ctx 4096, bf16, rope,
              swiglu, window 512), batch 8, AdamW lr 3e-4, warmup 200, wd
@@ -87,7 +91,8 @@ Phases, each reported on its own line; any failure exits non-zero:
              (B 128, T 256, H 4, d 128) in f32 and bf16 and (2, 64, 2,
              128) f32; median CUDA-event times of the kernels, the plain
              versions and ``F.scaled_dot_product_attention`` on the head
-             views, and the bound.
+             views, and the bound; the kernels' factor of SDPA's time and
+             share of the bound.
 12. fused  — K8 ``ln_qkv`` and K9 ``ln_ffn`` (``csrc/fused_layer.cu``):
              build lines; forward and every gradient against the plain
              versions at N 16384 (B 64 x T 256), D 512, F 2048 in f32 and
@@ -547,20 +552,27 @@ def library_ms(q, k, v, do, causal, window):
             median_ms(fb, x, trials=5, reps=3))
 
 
+def against_library(ms, lib, bms):
+    """A kernel's time as a factor of the library call's and as the share
+    of its bound that it reaches."""
+    return f"{ms / lib:.2f}x SDPA's time, {bms / ms:.1%} of the bound"
+
+
 def flash_phase():
     """Phase 7: the flash kernels against their plain versions. Returns
     the kernel's JSON record (errors and times at the training shape)."""
     from linalg_tpu_torch.kernels.flash_attention import (
-        flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
+        flash_delta_cuda, flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
     from linalg_tpu_torch.models.gpt import _padded_attn
     from linalg_tpu_torch.nn.flash import (flash_attention,
                                            flash_attention_ref,
-                                           flash_bwd_ref, flash_fwd_ref)
+                                           flash_bwd_ref, flash_delta_ref,
+                                           flash_fwd_ref)
     from linalg_tpu_torch.nn.flash_long import flash_attention_long
 
     def kernel_fb(q, k, v, do):
         o, L = flash_fwd_cuda(q, k, v)
-        delta = torch.sum(do.float() * o.float(), dim=-1)
+        delta = flash_delta_cuda(o, do)
         return (flash_dq_cuda(q, k, v, do, L, delta),
                 flash_dkdv_cuda(q, k, v, do, L, delta))
 
@@ -581,16 +593,18 @@ def flash_phase():
         o_ref, L_ref = flash_fwd_ref(q, k, v)
         # the backward kernels from the plain forward's o and L, so each
         # kernel is held alone
-        delta = torch.sum(do.float() * o_ref.float(), dim=-1)
-        dq = flash_dq_cuda(q, k, v, do, L_ref, delta)
-        dk, dv = flash_dkdv_cuda(q, k, v, do, L_ref, delta)
+        delta = flash_delta_cuda(o_ref, do)
+        delta_ref = flash_delta_ref(o_ref, do)
+        dq = flash_dq_cuda(q, k, v, do, L_ref, delta_ref)
+        dk, dv = flash_dkdv_cuda(q, k, v, do, L_ref, delta_ref)
         torch.cuda.synchronize()
         want = flash_bwd_ref(q, k, v, o_ref, L_ref, do)
         dt = str(dtype).split(".")[1]
         err = flash_compare(f"B,H,T,d={shape} {dt}", [
-            ("o", o, o_ref), ("L", L, L_ref), ("dq", dq, want[0]),
-            ("dk", dk, want[1]), ("dv", dv, want[2])], dtype)
-        del o, L, o_ref, L_ref, dq, dk, dv, want
+            ("o", o, o_ref), ("L", L, L_ref), ("delta", delta, delta_ref),
+            ("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])],
+            dtype)
+        del o, L, o_ref, L_ref, delta, delta_ref, dq, dk, dv, want
         args = (q, k, v)
         ms_f = median_ms(flash_fwd_cuda, args, trials=7, reps=3)
         plain_f = median_ms(flash_fwd_ref, args, trials=5, reps=2, warm=1)
@@ -603,7 +617,8 @@ def flash_phase():
         phase("flash", f"  kernel fwd {ms_f:.4f} ms, fwd+bwd {ms_fb:.4f} ms; "
               f"plain fwd {plain_f:.4f} ms, fwd+bwd {plain_fb_ms:.4f} ms; "
               f"F.scaled_dot_product_attention fwd {lib_f:.4f} ms, fwd+bwd "
-              f"{lib_fb:.4f} ms; bound fwd+bwd {bms:.4f} ms ({by})")
+              f"{lib_fb:.4f} ms; bound fwd+bwd {bms:.4f} ms ({by}); "
+              + against_library(ms_fb, lib_fb, bms))
         row = dict(max_abs_err=err, ms=ms_fb, plain_ms=plain_fb_ms,
                    bound_ms=bms, bound_by=by, library_ms=lib_fb, fwd_ms=ms_f,
                    plain_fwd_ms=plain_f, library_fwd_ms=lib_f)
@@ -732,18 +747,40 @@ def one_step_check(tag, cfg, batch_size, plain, patch=(), counters=(),
         torch.cuda.empty_cache()
 
 
+def checkpoint_reloads(ckpt_dir, rows, params, cfg, stoi, itos):
+    """(steps whose eval saved the best checkpoint, its config, equal): the
+    trainer keeps only the best checkpoint, so it is held against the
+    trained params when the last eval saved it; when an earlier eval's val
+    loss stayed the best, the trained params go through ``save_ckpt`` and
+    ``load_ckpt`` beside it and are held against themselves (the best
+    checkpoint must still load with the run's config)."""
+    from linalg_tpu_torch.train.checkpoint import load_ckpt, save_ckpt
+    from linalg_tpu_torch.train.optim import tree_leaves
+
+    saved = [r["step"] for r in rows if r["event"] == "eval" and r["ckpt"]]
+    evals = [r["step"] for r in rows if r["event"] == "eval"]
+    back, cfg2, _, _ = load_ckpt(ckpt_dir, device="cuda")
+    if not saved or saved[-1] != evals[-1]:
+        save_ckpt(f"{ckpt_dir}_last", params, cfg, stoi, itos)
+        back, cfg3, _, _ = load_ckpt(f"{ckpt_dir}_last", device="cuda")
+        cfg2 = cfg2 if cfg3 == cfg2 else cfg3
+    same = cfg2 == cfg and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                          tree_leaves(params)))
+    return saved, cfg2, same
+
+
 def train_phase(smi):
     """Phase 8: the training path on the card. Returns the flash launch
     counts of the train_big run, its config and its batch size."""
     from linalg_tpu_torch.apps.gpt import build_parser
     from linalg_tpu_torch.kernels.flash_attention import (
-        flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
+        flash_delta_cuda, flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
     from linalg_tpu_torch.nn.flash import flash_attention_ref
-    from linalg_tpu_torch.train.checkpoint import load_ckpt
-    from linalg_tpu_torch.train.optim import tree_leaves
     from linalg_tpu_torch.train.trainer import train
 
-    counters = (flash_fwd_cuda, flash_dq_cuda, flash_dkdv_cuda)
+    counters = (flash_fwd_cuda, flash_dq_cuda, flash_dkdv_cuda,
+                flash_delta_cuda)
     with tempfile.TemporaryDirectory() as tmp:
         log = f"{tmp}/metrics.jsonl"
         args = build_parser().parse_args(
@@ -752,15 +789,16 @@ def train_phase(smi):
         torch.cuda.reset_peak_memory_stats()
         for c in counters:
             c.launches = 0
-        params, cfg, _, _ = train(args)
+        params, cfg, stoi, itos = train(args)
         torch.cuda.synchronize()
         launches = [c.launches for c in counters]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         rows = [json.loads(ln) for ln in open(log, encoding="utf-8")]
         n_eval = sum(r["event"] == "eval" for r in rows)
-        want = [cfg.n_layers * (args.steps + n_eval * EVAL_BATCHES),
-                cfg.n_layers * args.steps, cfg.n_layers * args.steps]
-        phase("train", f"train_big: flash launches fwd/dq/dkdv {launches}, "
+        want = [cfg.n_layers * (args.steps + n_eval * EVAL_BATCHES)] + [
+            cfg.n_layers * args.steps] * 3
+        phase("train", f"train_big: flash launches fwd/dq/dkdv/delta "
+              f"{launches}, "
               f"expected {want} ({cfg.n_layers} layers x ({args.steps} "
               f"steps + {n_eval} evals x {EVAL_BATCHES} batches) forward, "
               f"{cfg.n_layers} x {args.steps} backward)")
@@ -784,18 +822,14 @@ def train_phase(smi):
               f"ms/step, {tok_s:.0f} tok/s, {tflops:.1f} TFLOP/s, mfu "
               f"{tflops / H100_BF16_TFLOPS:.4f} of {H100_BF16_TFLOPS:.0f} "
               f"TFLOP/s; peak memory {peak_gb:.2f} GB; {smi}")
-        saved = [r["step"] for r in rows if r["event"] == "eval"
-                 and r["ckpt"]]
-        back, cfg2, _, _ = load_ckpt(f"{tmp}/ck", device="cuda")
-        same = cfg2 == cfg and all(
-            torch.equal(a, b) for a, b in zip(tree_leaves(back),
-                                              tree_leaves(params)))
+        saved, _, same = checkpoint_reloads(f"{tmp}/ck", rows, params, cfg,
+                                            stoi, itos)
         phase("train", f"checkpoint saved at steps {saved}, reloaded equal "
               f"to the trained params: {same}")
         if not same:
             raise RuntimeError("the checkpoint does not reload equal to the "
                                "trained params")
-    del params, back
+    del params
 
     # one step's loss and gradients: kernels vs plain versions
     plain = lambda q, k, v, mask: flash_attention_ref(q, k, v, True)
@@ -822,7 +856,8 @@ def train_phase(smi):
         n = [ctr.launches for ctr in counters]
         phase("train", f"published config (d512, 4 layers, ctx 256, B 64, "
               f"f32), {args2.steps} steps: losses {losses}, launches of "
-              f"flash fwd/dq/dkdv and ln_qkv fwd/bwd, ln_ffn fwd/bwd {n}")
+              f"flash fwd/dq/dkdv/delta and ln_qkv fwd/bwd, ln_ffn fwd/bwd "
+              f"{n}")
         if any(n) or not all(math.isfinite(v) for v in losses):
             raise RuntimeError("published config: a kernel launch or a "
                                "non-finite loss")
@@ -884,7 +919,7 @@ def stream_phase():
     """Phase 9: the flash kernels with K4's band and grouped K/V against
     their plain versions. Returns the record of the long_window shape."""
     from linalg_tpu_torch.kernels.flash_attention import (
-        flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
+        flash_delta_cuda, flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
     from linalg_tpu_torch.nn.flash_stream import (stream_bwd_ref,
                                                   stream_fwd_ref)
 
@@ -907,7 +942,7 @@ def stream_phase():
 
         def kernel_fb(q, k, v, do):
             o, L = flash_fwd_cuda(q, k, v, causal, window, g)
-            delta = torch.sum(do.float() * o.float(), dim=-1)
+            delta = flash_delta_cuda(o, do)
             return (flash_dq_cuda(q, k, v, do, L, delta, causal, window, g),
                     flash_dkdv_cuda(q, k, v, do, L, delta, causal, window,
                                     g))
@@ -952,8 +987,8 @@ def stream_phase():
               f"{ms_f:.4f} ms, fwd+bwd {ms_fb:.4f} ms; plain fwd "
               f"{plain_f:.4f} ms, fwd+bwd {plain_fb_ms:.4f} ms; "
               f"F.scaled_dot_product_attention fwd {lib_f:.4f} ms, "
-              f"fwd+bwd {lib_fb:.4f} ms; bound fwd+bwd {bms:.4f} ms ({by}), "
-              f"{bms / ms_fb:.1%} of it")
+              f"fwd+bwd {lib_fb:.4f} ms; bound fwd+bwd {bms:.4f} ms ({by}); "
+              + against_library(ms_fb, lib_fb, bms))
         if i == 0:
             record = dict(shape=[B, H, hk, T, d], window=window,
                           max_abs_err=err, ms=ms_fb, plain_ms=plain_fb_ms,
@@ -991,11 +1026,11 @@ def long_phase(smi):
                                              init_gpt_params)
     from linalg_tpu_torch.nn import flash as nn_flash
     from linalg_tpu_torch.nn.flash import flash_attention_ref
-    from linalg_tpu_torch.train.checkpoint import load_ckpt
-    from linalg_tpu_torch.train.optim import adamw_init, tree_leaves
+    from linalg_tpu_torch.train.optim import adamw_init
     from linalg_tpu_torch.train.trainer import make_device_train_step, train
 
-    counters = (kfa.flash_fwd_cuda, kfa.flash_dq_cuda, kfa.flash_dkdv_cuda)
+    counters = (kfa.flash_fwd_cuda, kfa.flash_dq_cuda, kfa.flash_dkdv_cuda,
+                kfa.flash_delta_cuda)
     dispatch = nn_flash.flash_fwd
     seen = set()
 
@@ -1015,7 +1050,7 @@ def long_phase(smi):
         try:
             for c in counters:
                 c.launches = 0
-            params, cfg, _, _ = train(args)
+            params, cfg, stoi, itos = train(args)
             torch.cuda.synchronize()
             launches = [c.launches for c in counters]
         finally:
@@ -1023,9 +1058,10 @@ def long_phase(smi):
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         rows = [json.loads(ln) for ln in open(log, encoding="utf-8")]
         n_eval = sum(r["event"] == "eval" for r in rows)
-        want = [cfg.n_layers * (args.steps + n_eval * EVAL_BATCHES),
-                cfg.n_layers * args.steps, cfg.n_layers * args.steps]
-        phase("long", f"long_window: flash launches fwd/dq/dkdv {launches}, "
+        want = [cfg.n_layers * (args.steps + n_eval * EVAL_BATCHES)] + [
+            cfg.n_layers * args.steps] * 3
+        phase("long", f"long_window: flash launches fwd/dq/dkdv/delta "
+              f"{launches}, "
               f"expected {want} ({cfg.n_layers} layers x ({args.steps} "
               f"steps + {n_eval} evals x {EVAL_BATCHES} batches) forward, "
               f"{cfg.n_layers} x {args.steps} backward); (H, hk, window, "
@@ -1054,16 +1090,15 @@ def long_phase(smi):
               f"TFLOP/s (long_step_flops: "
               f"{long_step_flops(cfg, args.batch_size) / 1e12:.3f} TFLOP a "
               f"step); peak memory {peak_gb:.2f} GB; {smi}")
-        back, cfg2, _, _ = load_ckpt(f"{tmp}/ck", device="cuda")
-        same = cfg2 == cfg and cfg2.window == 512 and all(
-            torch.equal(a, b) for a, b in zip(tree_leaves(back),
-                                              tree_leaves(params)))
-        phase("long", f"checkpoint reloaded equal to the trained params, "
-              f"window {cfg2.window}: {same}")
+        saved, cfg2, same = checkpoint_reloads(f"{tmp}/ck", rows, params,
+                                               cfg, stoi, itos)
+        same = same and cfg2.window == 512
+        phase("long", f"checkpoint saved at steps {saved}, reloaded equal to "
+              f"the trained params, window {cfg2.window}: {same}")
         if not same:
             raise RuntimeError("the long_window checkpoint does not reload "
                                "equal")
-    del params, back
+    del params
     torch.cuda.empty_cache()
 
     def plain(q, k, v, mask):  # the same band through the plain versions
@@ -1092,8 +1127,9 @@ def long_phase(smi):
     n8 = [c.launches for c in counters]
     phase("long", f"ctx 8192 (d512, 4 heads, 2 layers, batch 1, bf16): pick "
           f"gqa_native={getattr(pick, 'gqa_native', False)}, launches "
-          f"fwd/dq/dkdv {n8}, loss {loss:.4f}, first step {first_ms:.1f} ms")
-    if n8 != [2, 2, 2] or not getattr(pick, "gqa_native", False) or (
+          f"fwd/dq/dkdv/delta {n8}, loss {loss:.4f}, first step "
+          f"{first_ms:.1f} ms")
+    if n8 != [2, 2, 2, 2] or not getattr(pick, "gqa_native", False) or (
             not math.isfinite(loss)):
         raise RuntimeError("the ctx-8192 step did not stream through the "
                            "kernels")
@@ -1108,7 +1144,7 @@ def btd_phase():
     tensors, against the plain versions. Returns the record of the
     published shape in bf16 (phase 13's batch 128)."""
     from linalg_tpu_torch.kernels.flash_attention import (
-        flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
+        flash_delta_cuda, flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
     from linalg_tpu_torch.nn import flash_btd as fb
 
     def kernel_fb(q, k, v, do, H):
@@ -1119,7 +1155,8 @@ def btd_phase():
         o, L = fb.btd_fwd_ref(q, k, v, H)
         return fb.btd_bwd_ref(q, k, v, o, L, do, H)
 
-    counters = (flash_fwd_cuda, flash_dq_cuda, flash_dkdv_cuda)
+    counters = (flash_fwd_cuda, flash_dq_cuda, flash_dkdv_cuda,
+                flash_delta_cuda)
     record = None
     for i, ((B, T, H, d), dtype) in enumerate([
             ((128, 256, 4, 128), torch.bfloat16),
@@ -1134,7 +1171,7 @@ def btd_phase():
         dq, dk, dv = fb._btd_bwd(q, k, v, o_ref, L_ref, do, H, True)
         torch.cuda.synchronize()
         launches = [c.launches for c in counters]
-        if launches != [1, 1, 1] or o.shape != q.shape or not (
+        if launches != [1, 1, 1, 1] or o.shape != q.shape or not (
                 o.is_contiguous() and dq.is_contiguous()):
             raise RuntimeError(f"btd: launches {launches}, o "
                                f"{tuple(o.shape)}; outputs must come back "
@@ -1156,7 +1193,7 @@ def btd_phase():
               f"plain fwd+bwd {plain_fb_ms:.4f} ms; "
               f"F.scaled_dot_product_attention on the head views fwd "
               f"{lib_f:.4f} ms, fwd+bwd {lib_fb:.4f} ms; bound fwd+bwd "
-              f"{bms:.4f} ms ({by}), {bms / ms_fb:.1%} of it")
+              f"{bms:.4f} ms ({by}); " + against_library(ms_fb, lib_fb, bms))
         if i == 0:
             record = dict(shape=[B, T, H, d], max_abs_err=err, ms=ms_fb,
                           plain_ms=plain_fb_ms, library_ms=lib_fb,
@@ -1331,21 +1368,22 @@ def short_phase(smi):
     """Phase 13: the published config through K7 (batch 128) and K8/K9
     (batch 64, LINALG_TPU_FUSED_LN=1), against the same batches with the
     kernels off. Returns the launches of the kernel runs ({"btd": [fwd, dq,
-    dkdv], "fused": [qkv fwd, qkv bwd, ffn fwd, ffn bwd]}) and the config
-    and batch of the profiled steps."""
+    dkdv, delta], "fused": [qkv fwd, qkv bwd, ffn fwd, ffn bwd]}) and the
+    config and batch of the profiled steps."""
     from linalg_tpu_torch.apps.gpt import build_parser
     from linalg_tpu_torch.kernels import fused_layer as kf
     from linalg_tpu_torch.kernels.flash_attention import (
-        flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
+        flash_delta_cuda, flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
     from linalg_tpu_torch.train.trainer import train
 
-    flash = (flash_fwd_cuda, flash_dq_cuda, flash_dkdv_cuda)
+    flash = (flash_fwd_cuda, flash_dq_cuda, flash_dkdv_cuda,
+             flash_delta_cuda)
     fused = (kf.ln_qkv_fwd_cuda, kf.ln_qkv_bwd_cuda, kf.ln_ffn_fwd_cuda,
              kf.ln_ffn_bwd_cuda)
     runs = [("btd", 128, {}), ("fused", 64, {"LINALG_TPU_FUSED_LN": "1"}),
             ("btd off", 128, {"LINALG_TPU_BTD_ATTN": "0"}),
             ("fused off", 64, {})]
-    totals = {"btd": [0, 0, 0], "fused": [0, 0, 0, 0]}
+    totals = {"btd": [0, 0, 0, 0], "fused": [0, 0, 0, 0]}
     ms = {}
     cfgs = {}
     for dtype in ("bfloat16", "float32"):
@@ -1368,9 +1406,9 @@ def short_phase(smi):
             n_eval = sum(r["event"] == "eval" for r in rows)
             L, steps = cfg.n_layers, args.steps
             fwd = L * (steps + n_eval * EVAL_BATCHES)
-            want_flash, want_fused = [0, 0, 0], [0, 0, 0, 0]
+            want_flash, want_fused = [0, 0, 0, 0], [0, 0, 0, 0]
             if name == "btd":
-                want_flash = [fwd, L * steps, L * steps]
+                want_flash = [fwd, L * steps, L * steps, L * steps]
             elif name == "fused":
                 want_fused = [fwd, L * steps, fwd, L * steps]
             losses = [r.get("loss", r.get("val_loss")) for r in rows
@@ -1382,7 +1420,8 @@ def short_phase(smi):
             ms[dtype, name] = (t[("train", 40)] - t[("eval", 20)]) / 20 * 1e3
             tok_s = batch * cfg.ctx_len / (ms[dtype, name] * 1e-3)
             phase("short", f"{dtype} B {batch} {name}: launches flash "
-                  f"fwd/dq/dkdv {n_flash} (expected {want_flash}), fused "
+                  f"fwd/dq/dkdv/delta {n_flash} (expected {want_flash}), "
+                  f"fused "
                   f"qkv fwd/bwd, ffn fwd/bwd {n_fused} (expected "
                   f"{want_fused}; {L} layers x ({steps} steps + {n_eval} "
                   f"evals x {EVAL_BATCHES} batches) forward, {L} x {steps} "
@@ -1453,21 +1492,54 @@ def ring_bound(B, h, T, d, dtype, causal, window, what):
     return bound_ms(8 * d * pairs, es * 7 * x + 8 * B * h * T, dtype)
 
 
-def ptxas_spills(lib):
-    """{kernel: (stack frame, spill store, spill load bytes)} of every
-    kernel of a built library with any of the three above 0, from its
-    ``-Xptxas -v`` log."""
-    bad, name = {}, None
+def ptxas_kernels(lib):
+    """{kernel: (registers, stack frame, spill store, spill load bytes)} of
+    every kernel of a built library, from its ``-Xptxas -v`` log."""
+    out, name, frame = {}, None, None
     for ln in lib.with_suffix(".log").read_text().splitlines():
         if "Function properties for" in ln:
             name = ln.split("Function properties for")[1].strip()
         elif "bytes stack frame" in ln and name:
-            nums = [int(w) for w in ln.replace(",", " ").split()
-                    if w.isdigit()]
-            if any(nums[:3]):
-                bad[name] = tuple(nums[:3])
-            name = None
-    return bad
+            frame = tuple(int(w) for w in ln.replace(",", " ").split()
+                          if w.isdigit())[:3]
+        elif "Used" in ln and "registers" in ln and name and frame:
+            out[name] = (int(ln.split("Used")[1].split()[0]),) + frame
+            name = frame = None
+    return out
+
+
+def ptxas_spills(lib):
+    """{kernel: (stack frame, spill store, spill load bytes)} of every
+    kernel of a built library with any of the three above 0."""
+    return {k: v[1:] for k, v in ptxas_kernels(lib).items() if any(v[1:])}
+
+
+def flash_builds(lib):
+    """Phase 7's build check: registers, dynamic shared memory and spills
+    of every flash_attention instantiation, and ptxas's notes on wgmma and
+    setmaxnreg; any stack frame or spill fails."""
+    import re
+
+    from linalg_tpu_torch.kernels.flash_attention import smem_bytes
+
+    for ln in lib.with_suffix(".log").read_text().splitlines():
+        if "wgmma" in ln or "setmaxnreg" in ln:
+            phase("flash", f"ptxas: {ln.strip()}")
+    kernels = ptxas_kernels(lib)
+    for name, (regs, *frame) in sorted(kernels.items()):
+        m = re.search(r"(fwd|dq|dkdv)_(bf16|f32)I((?:Li\d+E)+)E", name)
+        if not m:
+            continue
+        args = re.findall(r"Li(\d+)E", m.group(3))
+        which = ("fwd", "dq", "dkdv").index(m.group(1))
+        smem = smem_bytes(int(m.group(2) == "bf16"), int(args[0]), which)
+        phase("flash", f"{m.group(1)}_{m.group(2)}<{', '.join(args)}>: "
+              f"{regs} registers, {smem} bytes of shared memory, stack "
+              f"frame {frame[0]}, spill stores {frame[1]}, loads {frame[2]}")
+    spills = ptxas_spills(lib)
+    if not kernels or spills:
+        raise RuntimeError(f"flash kernels spill registers: {spills}"
+                           if spills else "no ptxas lines in the build log")
 
 
 def ring_phase(built):
@@ -1815,6 +1887,7 @@ def main() -> int:
 
     # -- 7. flash --------------------------------------------------------
     report_build("flash", built["flash_attention"])
+    flash_builds(built["flash_attention"][0])
     flash_record = flash_phase()
 
     # -- 8. train --------------------------------------------------------
@@ -1876,7 +1949,7 @@ def main() -> int:
                     "linalg_tpu/nn/flash_stream.py:327, "
                     "linalg_tpu/nn/flash_btd.py:178",
         "launches": sum(flash_launches),
-        "launches_fwd_dq_dkdv": flash_launches,
+        "launches_fwd_dq_dkdv_delta": flash_launches,
         "launches_train_big_long_window_btd": [
             sum(train_launches), sum(long_launches),
             sum(short_launches["btd"])],

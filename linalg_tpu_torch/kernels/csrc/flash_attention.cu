@@ -86,37 +86,47 @@
 // d 128, window 512) the band leaves ~1/7 of the causal tile pairs.
 //
 // Two paths, one contract:
-//   bf16  tensor cores: mma.sync m16n8k16 (bf16 operands, f32 accumulate),
-//         4 warps per 64-row tile, 16 rows per warp. The S/dP accumulators
-//         are rearranged in registers into the A operand of the next
-//         product (P V, dS K, P^T dO, dS^T Q), rounded to bf16 on the way --
-//         exactly the Pallas kernels' .astype(io dtype). Operands that a
-//         product needs with the other axis contiguous (V, K, Q, dO as the
-//         B operand of a P- or dS-product) get a transposed copy in shared
-//         memory. Rows are padded by 8 elements so the 32-bit fragment
-//         loads of a warp hit 32 distinct banks.
+//   bf16  Hopper's warpgroup products (wgmma: bf16 operands, f32
+//         accumulate) fed by the Tensor Memory Accelerator. A block is two
+//         consumer warpgroups, each owning one 64-row tile, and a producer
+//         warpgroup that streams the other side's tiles through a two-slot
+//         ring of shared memory guarded by mbarriers, so the next tile's
+//         copy runs under this tile's products; the producer's registers go
+//         to the consumers (setmaxnreg). The score products (S = Q K^T, dP =
+//         dO V^T and their transposes) read both operands from shared
+//         memory. The P- and dS-products (P V, dS K, P^T dO, dS^T Q) take
+//         P or dS from registers, rounded to bf16 on the way -- exactly the
+//         Pallas kernels' .astype(io dtype) -- and read V, K, dO or Q
+//         MN-major through wgmma's transpose bit: no operand is copied
+//         transposed. The TMA reads each head through a 4-D tensor map
+//         built from its strides (the layouts: wgmma_bf16.cuh); rows past T
+//         arrive as zeros and are never stored, so T % 128 == 64 leaves the
+//         last block's second warpgroup idle.
 //   f32   element-wise f32 FMA on the CUDA cores, never TF32 (the TPU's
 //         MXU truncation is not carried over): 256 threads as a 16 x 16
 //         grid, thread (ty, tx) owns score entries (ty + 16 i, tx + 16 j)
 //         and output entries (ty + 16 i, tx + 16 c); rows are padded by one
 //         float. A row's 16 owners are half a warp, so row reductions are
 //         four xor-shuffles.
-// Simple and right first: no cp.async/TMA pipelining, no wgmma, no warp
-// specialisation -- that is later perf_opt work. Shared memory per block
-// at D 128: bf16 forward 53 KB, dq 88 KB, dk/dv 107 KB; f32 forward
-// 116 KB, dq 149 KB, dk/dv 165 KB -- above the 48 KB static limit, so each
-// launch raises the kernel's dynamic shared-memory cap first. At D 256 the
-// bf16 forward reloads Q's fragments from shared memory per key tile (its
-// accumulator alone takes 128 registers), dk/dv runs two 128-column
-// slices over a grid dimension, each recomputing its scores, and the f32
-// kernels take 32-row tiles to fit shared memory.
+// Shared memory per block at D 128: bf16 forward 97 KB, dq 129 KB, dk/dv
+// 99 KB; f32 forward 116 KB, dq 149 KB, dk/dv 165 KB -- above the 48 KB
+// static limit, so each launch raises the kernel's dynamic shared-memory
+// cap first. At D 256 the bf16 forward and dq blocks are one consumer
+// warpgroup (64 rows), to fit shared memory and the registers, dk/dv runs
+// two 128-column slices over a grid dimension, each recomputing its
+// scores, and the f32 kernels take 32-row tiles.
+// Scheduling is the plain grid: one block per (head, row block), the
+// blocks that walk the most tiles first, every head's before any head's
+// lighter ones, so the last wave holds the short blocks; no atomics.
 
+#include <cuda.h>  // CUtensorMap and its enums only: nothing links libcuda
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "mma_bf16.cuh"  // bf16, pack, quad_max, quad_sum
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -137,45 +147,6 @@ struct Lays {
 // Offset of head `bh` (= batch * heads + head) of a tensor of layout `l`.
 __device__ __forceinline__ size_t head_at(const Lay& l, int bh, int heads) {
   return (size_t)(bh / heads) * l.b + (size_t)(bh % heads) * l.h;
-}
-
-// ===================== bf16: tensor-core tiles =========================
-
-constexpr int MT = 128;      // threads per block: 4 warps x 16 rows
-constexpr int TS = BM + 8;   // row stride (elements) of a transposed tile
-
-template <int D> constexpr int RS = D + 8;  // row stride of a row tile
-
-// The fragment helpers (mma, load_a, load_b, pack, acc_to_a, quad_max,
-// quad_sum) are mma_bf16.cuh's.
-
-// Rows [0, BM) of a (rows, D) bf16 array of row stride `rs` into shared
-// memory (stride RS<D>), 16 bytes a thread, coalesced.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst,
-                                          const bf16* __restrict__ src,
-                                          long long rs) {
-  constexpr int V = D / 8;
-  for (int i = threadIdx.x; i < BM * V; i += MT) {
-    const int r = i / V, c = (i % V) * 8;
-    *reinterpret_cast<uint4*>(dst + r * RS<D> + c) =
-        *reinterpret_cast<const uint4*>(src + r * rs + c);
-  }
-}
-
-// The same rows transposed: dst[c][r] (stride TS). Consecutive threads
-// take consecutive rows, so a warp's stores of one column are contiguous.
-template <int D>
-__device__ __forceinline__ void load_cols(bf16* dst,
-                                          const bf16* __restrict__ src,
-                                          long long rs) {
-  for (int i = threadIdx.x; i < BM * (D / 8); i += MT) {
-    const int r = i % BM, c = (i / BM) * 8;
-    const uint4 x = *reinterpret_cast<const uint4*>(src + r * rs + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&x);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[(c + j) * TS + r] = e[j];
-  }
 }
 
 // ===================== the band (causal, window) =======================
@@ -212,325 +183,562 @@ __device__ __forceinline__ bool edge(int qb, int kb, int causal,
          (window > 0 && kb * B <= qb * B + B - 1 - window);
 }
 
+// ===================== bf16: wgmma fed by TMA ==========================
+
+// One block: NWG consumer warpgroups, each owning one 64-row tile (query
+// rows in the forward and dq, key rows in dk/dv), then one producer
+// warpgroup, one thread of which keeps the streamed tiles of the other
+// side in flight through a ring of STAGES shared-memory slots. Slot s is
+// guarded by two mbarriers: full[s] (one arrival from the producer plus
+// the TMA's bytes) and
+// empty[s] (one arrival from each consumer warp once its products have
+// read the slot). Every consumer warp passes through every streamed tile
+// of the block -- waits full, arrives empty -- and computes only on the
+// tiles its own rows see, so the phases of the two barriers never run
+// ahead of each other. With two consumer warpgroups the block's register
+// pool is 384 threads x 168 (what ptxas gives a 384-thread block); the
+// producer drops to 40 (its loop state) and the consumers take 232:
+// 128 x 40 + 256 x 232 = 384 x 168 (setmaxnreg.inc waits until the pool
+// has them).
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int STAGES = 2;
+// dk/dv's P^T hand-over: 64 x 64 f32 per buffer, two buffers (one at d
+// 256, where a second would not fit shared memory)
+constexpr int P_BYTES = 64 * 64 * 4;
 template <int D>
-__global__ void __launch_bounds__(MT)
-    fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o,
+constexpr int P_BUFS = D == 256 ? 1 : 2;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int NWG>
+constexpr int threads_of() {
+  return 128 * (NWG + 1);
+}
+
+// Shared-memory geometry of one 64-row bf16 tile of D columns, as the TMA
+// writes it: D / SW boxes of 64 rows x SW columns, each swizzled.
+template <int D>
+struct Tile {
+  static constexpr int SW = D < 64 ? D : 64;      // columns per box row
+  static constexpr int ROWB = 2 * SW;             // bytes per box row
+  static constexpr int BOXES = D / SW;
+  static constexpr int BOXB = BM * ROWB;          // bytes per box
+  static constexpr int BYTES = BM * D * 2;        // bytes per tile
+  static constexpr int SWZ = ROWB == 128 ? 1 : 2; // 128- or 64-byte swizzle
+};
+
+// Descriptor of a K-major operand: the tile at `t`, its columns
+// [16 kk, 16 kk + 16) as the contraction.
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t t, int kk) {
+  using G = Tile<D>;
+  return make_desc(
+      fresh(t) + (16 * kk / G::SW) * G::BOXB + (16 * kk % G::SW) * 2, 16,
+      8 * G::ROWB, G::SWZ);
+}
+
+// Descriptor of an MN-major operand: the tile at `t`, its rows
+// [16 kk, 16 kk + 16) as the contraction, its columns from c0 (a multiple
+// of SW) as N.
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t t, int kk, int c0) {
+  using G = Tile<D>;
+  return make_desc(fresh(t) + (c0 / G::SW) * G::BOXB + 16 * kk * G::ROWB,
+                   G::BOXB, 8 * G::ROWB, G::SWZ);
+}
+
+// Rows [row, row + 64) of head (head, batch) of a tensor map into the tile
+// at `dst`, one TMA box per SW columns; rows past T arrive as zeros.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* m,
+                                          uint32_t bar, int row, int head,
+                                          int batch) {
+#pragma unroll
+  for (int x = 0; x < Tile<D>::BOXES; ++x)
+    tma_load_4d(dst + x * Tile<D>::BOXB, m, bar, x * Tile<D>::SW, row, head,
+                batch);
+}
+
+// The block's dynamic shared memory from a 1024-byte boundary (the
+// swizzle atom); the launch asks for 1024 bytes more than it uses.
+__device__ __forceinline__ unsigned char* smem_aligned() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t a = smem_u32(smem_raw);
+  return smem_raw + (((a + 1023) & ~1023u) - a);
+}
+
+// The A operand of the 16-column block kk of a 64 x 64 accumulator,
+// rounded to bf16 (entry 4 n + i of the flat accumulator is entry i of
+// mma.sync tile n).
+__device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&s)[32],
+                                     int kk) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    a[i] = pack(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+}
+
+// Accumulator entry j of a thread: its row in the warpgroup's 64 (r0 is
+// the warp's first) and its column.
+__device__ __forceinline__ int acc_row(int r0, int g, int j) {
+  return r0 + g + 8 * ((j >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int t, int j) {
+  return 8 * (j >> 2) + 2 * t + (j & 1);
+}
+
+// The query tiles [qb0, qlast] of a forward or dq block (blocks - 1 - y:
+// the longest causal rows first, every head's before any head's shorter
+// ones) and the key tiles [ks, ke) any of them sees. Each role computes it
+// after the split, so nothing of it lives across setmaxnreg.
+struct QueryBlock {
+  int nt, qb0, qlast, ks, ke;
+  __device__ __forceinline__ QueryBlock(int nwg, int Tlen, int causal,
+                                        int window) {
+    nt = Tlen / BM;
+    qb0 = nwg * ((nt + nwg - 1) / nwg - 1 - (int)blockIdx.y);
+    qlast = min(qb0 + nwg, nt) - 1;
+    ks = key_start<BM>(qb0, window);
+    ke = key_end(qlast, nt, causal);
+  }
+};
+
+// One thread initialises the block's barriers: `resident` (the tiles
+// loaded once) and full[s], empty[s] per slot, 8 bytes apart from `bars`.
+template <int NWG>
+__device__ __forceinline__ void init_barriers(uint32_t bars) {
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 + 8 * s, 1);
+      mbar_init(bars + 8 + 8 * (STAGES + s), 4 * NWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// Forward. Block (bh, y) owns query tiles [NWG b0, NWG b0 + NWG), b0 =
+// blocks - 1 - y: the longest causal rows first, every head's before any
+// head's shorter ones. Q is loaded once; K and V tiles stream through the
+// ring. Per key tile a warpgroup issues S = Q K^T (K-major Q and K), the
+// online softmax in registers, P rounded to bf16 as the register A operand
+// of O += P V (V MN-major).
+template <int D, int NWG>
+__global__ void __launch_bounds__(threads_of<NWG>(), 1)
+    fwd_bf16(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
              float* __restrict__ L, int Tlen, int causal, int window,
              int group, float scale, const Lays ly) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BM * RS<D>;
-  bf16* Vt = Ks + BM * RS<D>;
-  const int nt = Tlen / BM;
-  const int qb = nt - 1 - blockIdx.x;  // the longest causal rows first
-  const int kvh = blockIdx.y / group;
-  q += head_at(ly.q, blockIdx.y, ly.H);
-  o += head_at(ly.o, blockIdx.y, ly.H);
-  k += head_at(ly.k, kvh, ly.hk);
-  v += head_at(ly.v, kvh, ly.hk);
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
+  using G = Tile<D>;
+  // NWG Q tiles, then per slot K and V, then the barriers
+  const uint32_t Qs = smem_u32(smem_aligned());
+  const uint32_t KV = Qs + NWG * G::BYTES;
+  const uint32_t qbar = KV + STAGES * 2 * G::BYTES;
+  const uint32_t full = qbar + 8, empty = full + 8 * STAGES;
+  const int bh = blockIdx.x;
+  init_barriers<NWG>(qbar);
 
-  load_rows<D>(Qs, q + qb * BM * ly.q.r, ly.q.r);
-  __syncthreads();
-  // Q's fragments stay in registers up to d 128; at d 256 they would take
-  // 64 registers beside the 128 of the accumulator, so they are reloaded
-  // from shared memory per key tile
-  constexpr bool kQreg = D <= 128;
-  uint32_t qa[kQreg ? D / 16 : 1][4];
-  if constexpr (kQreg) {
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
-      load_a(qa[kc], Qs, RS<D>, r0, kc * 16, g, t);
+  if (threadIdx.x >= 128 * NWG) {  // the producer warpgroup
+    if constexpr (NWG > 1) reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == 128 * NWG) {
+      const QueryBlock blk(NWG, Tlen, causal, window);
+      const int qb0 = blk.qb0, qlast = blk.qlast, ks = blk.ks, ke = blk.ke;
+      const int kvh = bh / group;
+      mbar_expect_tx(qbar, (qlast - qb0 + 1) * G::BYTES);
+      for (int w = 0; qb0 + w <= qlast; ++w)
+        load_tile<D>(Qs + w * G::BYTES, &tq, qbar, (qb0 + w) * BM,
+                     bh % ly.H, bh / ly.H);
+      for (int i = 0, kb = ks; kb < ke; ++i, ++kb) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty + 8 * s, (i / STAGES - 1) & 1);
+        const uint32_t kt = KV + s * 2 * G::BYTES;
+        mbar_expect_tx(full + 8 * s, 2 * G::BYTES);
+        load_tile<D>(kt, &tk, full + 8 * s, kb * BM, kvh % ly.hk,
+                     kvh / ly.hk);
+        load_tile<D>(kt + G::BYTES, &tv, full + 8 * s, kb * BM, kvh % ly.hk,
+                     kvh / ly.hk);
+      }
+    }
+    return;
   }
+  if constexpr (NWG > 1) reg_alloc<CONSUMER_REGS>();
+
+  const QueryBlock blk(NWG, Tlen, causal, window);
+  const int nt = blk.nt, ks = blk.ks, ke = blk.ke;
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, r0 = 16 * (threadIdx.x / 32 % 4);
+  const int qb = blk.qb0 + wg;
+  const bool live = qb < nt;  // T % 128 == 64 leaves the last block's
+                              // second warpgroup without rows
+  const int ks_w = live ? key_start<BM>(qb, window) : ks;
+  const int ke_w = live ? key_end(qb, nt, causal) : ks;
+  const uint32_t Qw = Qs + wg * G::BYTES;
+  const float sl2 = scale * LOG2E;  // exp(x) = exp2(x log2 e)
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4] = {};
-  const int kend = key_end(qb, nt, causal);
-  for (int kb = key_start<BM>(qb, window); kb < kend; ++kb) {
-    __syncthreads();  // the previous tile's K and V are consumed
-    load_rows<D>(Ks, k + kb * BM * ly.k.r, ly.k.r);
-    load_cols<D>(Vt, v + kb * BM * ly.v.r, ly.v.r);
-    __syncthreads();
-    float s[BM / 8][4] = {};
+  float acc[D / 2];
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t a[4];
-      if constexpr (kQreg) {
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+  if (live) mbar_wait(qbar, 0);
+  for (int i = 0, kb = ks; kb < ke; ++i, ++kb) {
+    const int s = i % STAGES;
+    const uint32_t kt = KV + s * 2 * G::BYTES;
+    mbar_wait(full + 8 * s, (i / STAGES) & 1);
+    if (kb >= ks_w && kb < ke_w) {
+      float sc[32];
+      wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qa[kc][i];
-      } else {
-        load_a(a, Qs, RS<D>, r0, kc * 16, g, t);
-      }
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(sc, desc_k<D>(Qw, kk), desc_k<D>(kt, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      const bool masked = edge<BM>(qb, kb, causal, window);
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int n = 0; n < BM / 8; ++n) {
-        uint32_t b[2];
-        load_b(b, Ks, RS<D>, n * 8, kc * 16, g, t);
-        mma(s[n], a, b);
-      }
-    }
-    const bool masked = edge<BM>(qb, kb, causal, window);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < BM / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float x = s[n][i] * scale;
-        if (masked && banned(qb * BM + r0 + g + 8 * (i >> 1),
-                             kb * BM + 8 * n + 2 * t + (i & 1), causal,
-                             window))
+      for (int j = 0; j < 32; ++j) {
+        float x = sc[j] * sl2;
+        if (masked && banned(qb * BM + acc_row(r0, g, j),
+                             kb * BM + acc_col(t, j), causal, window))
           x = NEG;
-        s[n][i] = x;
-        mx[i >> 1] = fmaxf(mx[i >> 1], x);
+        sc[j] = x;
+        mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], x);
       }
-    float alpha[2], rs[2] = {0.f, 0.f};
+      float alpha[2], rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float mn = fmaxf(m[h], quad_max(mx[h]));
-      // 0 on the first tile, and on the first live tile after a tile
-      // wholly banned for this row
-      alpha[h] = expf(m[h] - mn);
-      m[h] = mn;
+      for (int h = 0; h < 2; ++h) {
+        const float mn = fmaxf(m[h], quad_max(mx[h]));
+        // 0 on the first tile, and on the first live tile after a tile
+        // wholly banned for this row
+        alpha[h] = exp2f(m[h] - mn);
+        m[h] = mn;
+      }
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        sc[j] = exp2f(sc[j] - m[(j >> 1) & 1]);
+        rs[(j >> 1) & 1] += sc[j];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(rs[h]);
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) to_a(pa[kk], sc, kk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<D>(acc, pa[kk], desc_mn<D>(kt + G::BYTES, kk, 0), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
     }
-#pragma unroll
-    for (int n = 0; n < BM / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[n][i] = expf(s[n][i] - m[i >> 1]);
-        rs[i >> 1] += s[n][i];
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(rs[h]);
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[dn][i] *= alpha[i >> 1];
-#pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s, kk);
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        uint32_t b[2];
-        load_b(b, Vt, TS, dn * 8, kk * 16, g, t);
-        mma(acc[dn], a, b);
-      }
-    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
   }
+  if (!live) return;
+  o += head_at(ly.o, bh, ly.H);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = qb * BM + r0 + g + 8 * h;
     const float inv = 1.f / l[h];
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(o + r * ly.o.r + dn * 8 + 2 * t) =
-          pack(acc[dn][2 * h] * inv, acc[dn][2 * h + 1] * inv);
-    if (t == 0) L[(size_t)blockIdx.y * Tlen + r] = m[h] + logf(l[h]);
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(o + r * ly.o.r + 8 * n + 2 * t) =
+          pack(acc[4 * n + 2 * h] * inv, acc[4 * n + 2 * h + 1] * inv);
+    if (t == 0) L[(size_t)bh * Tlen + r] = (m[h] + log2f(l[h])) * LN2;
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(MT)
-    dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const bf16* __restrict__ dO,
+// dq. Blocks as the forward's; Q and dO are loaded once, K and V tiles
+// stream. Per key tile: S = Q K^T and dP = dO V^T (K-major), dS = P (dP -
+// delta) rounded to bf16 as the register A operand of dq += dS K (K
+// MN-major).
+template <int D, int NWG>
+__global__ void __launch_bounds__(threads_of<NWG>(), 1)
+    dq_bf16(const __grid_constant__ CUtensorMap tq,
+            const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv,
+            const __grid_constant__ CUtensorMap tdo,
             const float* __restrict__ L, const float* __restrict__ delta,
             bf16* __restrict__ dq, int Tlen, int causal, int window,
             int group, float scale, const Lays ly) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + BM * RS<D>;
-  bf16* Ks = dOs + BM * RS<D>;
-  bf16* Vs = Ks + BM * RS<D>;
-  bf16* Kt = Vs + BM * RS<D>;
-  const int nt = Tlen / BM;
-  const int qb = nt - 1 - blockIdx.x;
-  const int kvh = blockIdx.y / group;
-  q += head_at(ly.q, blockIdx.y, ly.H);
-  dO += head_at(ly.dO, blockIdx.y, ly.H);
-  dq += head_at(ly.dq, blockIdx.y, ly.H);
-  k += head_at(ly.k, kvh, ly.hk);
-  v += head_at(ly.v, kvh, ly.hk);
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;
+  using G = Tile<D>;
+  // NWG Q tiles, NWG dO tiles, then per slot K and V, then the barriers
+  const uint32_t Qs = smem_u32(smem_aligned());
+  const uint32_t dOs = Qs + NWG * G::BYTES;
+  const uint32_t KV = dOs + NWG * G::BYTES;
+  const uint32_t qbar = KV + STAGES * 2 * G::BYTES;
+  const uint32_t full = qbar + 8, empty = full + 8 * STAGES;
+  const int bh = blockIdx.x;
+  init_barriers<NWG>(qbar);
 
-  load_rows<D>(Qs, q + qb * BM * ly.q.r, ly.q.r);
-  load_rows<D>(dOs, dO + qb * BM * ly.dO.r, ly.dO.r);
-  float Lr[2], dr[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const size_t r = (size_t)blockIdx.y * Tlen + qb * BM + r0 + g + 8 * h;
-    Lr[h] = L[r];
-    dr[h] = delta[r];
-  }
-  float acc[D / 8][4] = {};
-  const int kend = key_end(qb, nt, causal);
-  for (int kb = key_start<BM>(qb, window); kb < kend; ++kb) {
-    __syncthreads();
-    load_rows<D>(Ks, k + kb * BM * ly.k.r, ly.k.r);
-    load_rows<D>(Vs, v + kb * BM * ly.v.r, ly.v.r);
-    load_cols<D>(Kt, k + kb * BM * ly.k.r, ly.k.r);
-    __syncthreads();
-    float s[BM / 8][4] = {}, dp[BM / 8][4] = {};
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t a[4], c[4];
-      load_a(a, Qs, RS<D>, r0, kc * 16, g, t);
-      load_a(c, dOs, RS<D>, r0, kc * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < BM / 8; ++n) {
-        uint32_t b[2];
-        load_b(b, Ks, RS<D>, n * 8, kc * 16, g, t);
-        mma(s[n], a, b);
-        load_b(b, Vs, RS<D>, n * 8, kc * 16, g, t);
-        mma(dp[n], c, b);
+  if (threadIdx.x >= 128 * NWG) {  // the producer warpgroup
+    if constexpr (NWG > 1) reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == 128 * NWG) {
+      const QueryBlock blk(NWG, Tlen, causal, window);
+      const int qb0 = blk.qb0, qlast = blk.qlast, ks = blk.ks, ke = blk.ke;
+      const int kvh = bh / group;
+      mbar_expect_tx(qbar, 2 * (qlast - qb0 + 1) * G::BYTES);
+      for (int w = 0; qb0 + w <= qlast; ++w) {
+        load_tile<D>(Qs + w * G::BYTES, &tq, qbar, (qb0 + w) * BM,
+                     bh % ly.H, bh / ly.H);
+        load_tile<D>(dOs + w * G::BYTES, &tdo, qbar, (qb0 + w) * BM,
+                     bh % ly.H, bh / ly.H);
+      }
+      for (int i = 0, kb = ks; kb < ke; ++i, ++kb) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty + 8 * s, (i / STAGES - 1) & 1);
+        const uint32_t kt = KV + s * 2 * G::BYTES;
+        mbar_expect_tx(full + 8 * s, 2 * G::BYTES);
+        load_tile<D>(kt, &tk, full + 8 * s, kb * BM, kvh % ly.hk,
+                     kvh / ly.hk);
+        load_tile<D>(kt + G::BYTES, &tv, full + 8 * s, kb * BM, kvh % ly.hk,
+                     kvh / ly.hk);
       }
     }
-    const bool masked = edge<BM>(qb, kb, causal, window);
+    return;
+  }
+  if constexpr (NWG > 1) reg_alloc<CONSUMER_REGS>();
+
+  const QueryBlock blk(NWG, Tlen, causal, window);
+  const int nt = blk.nt, ks = blk.ks, ke = blk.ke;
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, r0 = 16 * (threadIdx.x / 32 % 4);
+  const int qb = blk.qb0 + wg;
+  const bool live = qb < nt;
+  const int ks_w = live ? key_start<BM>(qb, window) : ks;
+  const int ke_w = live ? key_end(qb, nt, causal) : ks;
+  const uint32_t Qw = Qs + wg * G::BYTES, dOw = dOs + wg * G::BYTES;
+  const float sl2 = scale * LOG2E;
+  float Lr[2] = {0.f, 0.f}, dr[2] = {0.f, 0.f};
+  if (live) {
 #pragma unroll
-    for (int n = 0; n < BM / 8; ++n)
+    for (int h = 0; h < 2; ++h) {
+      const size_t r = (size_t)bh * Tlen + qb * BM + r0 + g + 8 * h;
+      Lr[h] = L[r] * LOG2E;
+      dr[h] = delta[r];
+    }
+  }
+  float acc[D / 2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float x = s[n][i] * scale;
-        if (masked && banned(qb * BM + r0 + g + 8 * (i >> 1),
-                             kb * BM + 8 * n + 2 * t + (i & 1), causal,
-                             window))
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+  if (live) mbar_wait(qbar, 0);
+  for (int i = 0, kb = ks; kb < ke; ++i, ++kb) {
+    const int s = i % STAGES;
+    const uint32_t kt = KV + s * 2 * G::BYTES;
+    mbar_wait(full + 8 * s, (i / STAGES) & 1);
+    if (kb >= ks_w && kb < ke_w) {
+      float sc[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss(sc, desc_k<D>(Qw, kk), desc_k<D>(kt, kk), kk > 0);
+        wgmma_ss(dp, desc_k<D>(dOw, kk), desc_k<D>(kt + G::BYTES, kk),
+                     kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      const bool masked = edge<BM>(qb, kb, causal, window);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        float x = sc[j] * sl2;
+        if (masked && banned(qb * BM + acc_row(r0, g, j),
+                             kb * BM + acc_col(t, j), causal, window))
           x = NEG;
-        const float p = expf(x - Lr[i >> 1]);
-        s[n][i] = (dp[n][i] - dr[i >> 1]) * p;  // dS
+        const int h = (j >> 1) & 1;
+        sc[j] = (dp[j] - dr[h]) * exp2f(x - Lr[h]);  // dS
       }
+      uint32_t da[4][4];
 #pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s, kk);
+      for (int kk = 0; kk < 4; ++kk) to_a(da[kk], sc, kk);
+      wgmma_fence();
 #pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        uint32_t b[2];
-        load_b(b, Kt, TS, dn * 8, kk * 16, g, t);
-        mma(acc[dn], a, b);
-      }
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<D>(acc, da[kk], desc_mn<D>(kt, kk, 0), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
   }
+  if (!live) return;
+  dq += head_at(ly.dq, bh, ly.H);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = qb * BM + r0 + g + 8 * h;
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(dq + r * ly.dq.r + dn * 8 + 2 * t) =
-          pack(scale * acc[dn][2 * h], scale * acc[dn][2 * h + 1]);
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(dq + r * ly.dq.r + 8 * n + 2 * t) =
+          pack(scale * acc[4 * n + 2 * h], scale * acc[4 * n + 2 * h + 1]);
   }
 }
 
-// One block per (KV head, key tile kb, column slice), blockIdx.y = b*hk +
-// kv head; it walks the group's query heads and their live query tiles.
-// Warp rows are keys, accumulator columns queries (the transposed scores
-// S^T = K Q^T). The block accumulates the DC columns [c0, c0 + DC) of dk
-// and dv, blockIdx.z = c0 / DC: at d 256 the two accumulators of all 256
-// columns would take 256 registers, so two slices each recompute the
-// scores.
+// dk/dv. Block (kvh, y, z) owns key tile y of KV head kvh = b*hk + kv head
+// (low key tiles, which the most query tiles see, first) and the DC
+// columns [z DC, z DC + DC) of dk and dv. K and V are loaded once; the
+// group's query heads and their live query tiles stream (Q, dO, and their
+// rows of L and delta). The two consumer warpgroups share the 64 keys and
+// split the work of each query tile: the first computes S^T = K Q^T and
+// P^T, hands P^T (f32) to the second through shared memory and
+// accumulates dv += P^T dO; the second computes dP^T = V dO^T, takes P^T,
+// forms dS^T and accumulates dk += dS^T Q. K, V, Q and dO are K-major in
+// the score products, dO and Q MN-major in the others, P^T and dS^T are
+// rounded to bf16 as the register A operands. Each warpgroup holds one
+// 64 x DC accumulator (both in one would not fit its registers beside the
+// scores) and issues 2 of the tile's 4 products. At d 256 the
+// accumulators of all 256 columns would not fit either, so two 128-column
+// slices each recompute the scores.
 template <int D, int DC>
-__global__ void __launch_bounds__(MT)
-    dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dO,
+__global__ void __launch_bounds__(threads_of<2>(), 1)
+    dkdv_bf16(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv,
+              const __grid_constant__ CUtensorMap tdo,
               const float* __restrict__ L, const float* __restrict__ delta,
               bf16* __restrict__ dk, bf16* __restrict__ dv, int Tlen,
               int causal, int window, int group, float scale,
               const Lays ly) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + BM * RS<D>;
-  bf16* Qs = Vs + BM * RS<D>;
-  bf16* dOs = Qs + BM * RS<D>;
-  bf16* Qt = dOs + BM * RS<D>;
-  bf16* dOt = Qt + DC * TS;
-  float* Ls = reinterpret_cast<float*>(dOt + DC * TS);
-  float* Ds = Ls + BM;
-  const int nt = Tlen / BM;
-  const int kb = blockIdx.x;  // low key tiles see the most query tiles
-  const int c0 = blockIdx.z * DC;
-  k += head_at(ly.k, blockIdx.y, ly.hk);
-  v += head_at(ly.v, blockIdx.y, ly.hk);
-  dk += head_at(ly.dk, blockIdx.y, ly.hk);
-  dv += head_at(ly.dv, blockIdx.y, ly.hk);
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;
-
-  load_rows<D>(Ks, k + kb * BM * ly.k.r, ly.k.r);
-  load_rows<D>(Vs, v + kb * BM * ly.v.r, ly.v.r);
-  float accv[DC / 8][4] = {}, acck[DC / 8][4] = {};
-  const int qstart = query_start(kb, causal);
-  const int nq = query_end<BM>(kb, nt, window) - qstart;
-  for (int it = 0; it < group * nq; ++it) {
-    const int qh = blockIdx.y * group + it / nq;  // query head b*H + h
-    const int qb = qstart + it % nq;
-    __syncthreads();
-    const bf16* qt = q + head_at(ly.q, qh, ly.H) + qb * BM * ly.q.r;
-    const bf16* dot = dO + head_at(ly.dO, qh, ly.H) + qb * BM * ly.dO.r;
-    load_rows<D>(Qs, qt, ly.q.r);
-    load_rows<D>(dOs, dot, ly.dO.r);
-    load_cols<DC>(Qt, qt + c0, ly.q.r);
-    load_cols<DC>(dOt, dot + c0, ly.dO.r);
-    if (threadIdx.x < BM) {
-      const size_t r = (size_t)qh * Tlen + qb * BM + threadIdx.x;
-      Ls[threadIdx.x] = L[r];
-      Ds[threadIdx.x] = delta[r];
+  using G = Tile<D>;
+  // a slot: the Q tile, the dO tile, 64 floats of L and 64 of delta,
+  // padded to the next 1024 bytes
+  constexpr int SLOT = 2 * G::BYTES + 1024;
+  // the K tile, the V tile, the slots, the P^T buffers, then the barriers:
+  // resident, full and empty per slot, pfull and pempty per P^T buffer
+  unsigned char* sm = smem_aligned();
+  const uint32_t Ks = smem_u32(sm), Vs = Ks + G::BYTES;
+  const uint32_t QS = Vs + G::BYTES;
+  const uint32_t PS = QS + STAGES * SLOT;
+  const uint32_t kvbar = PS + P_BUFS<D> * P_BYTES;
+  const uint32_t full = kvbar + 8, empty = full + 8 * STAGES;
+  const uint32_t pfull = empty + 8 * STAGES, pempty = pfull + 8 * P_BUFS<D>;
+  const int kvh = blockIdx.x, kb = blockIdx.y;
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
     }
-    __syncthreads();
-    float st[BM / 8][4] = {}, dpt[BM / 8][4] = {};
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t a[4], c[4];
-      load_a(a, Ks, RS<D>, r0, kc * 16, g, t);
-      load_a(c, Vs, RS<D>, r0, kc * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < BM / 8; ++n) {
-        uint32_t b[2];
-        load_b(b, Qs, RS<D>, n * 8, kc * 16, g, t);
-        mma(st[n], a, b);
-        load_b(b, dOs, RS<D>, n * 8, kc * 16, g, t);
-        mma(dpt[n], c, b);
+    for (int b = 0; b < P_BUFS<D>; ++b) {  // every thread of a warpgroup
+      mbar_init(pfull + 8 * b, 128);
+      mbar_init(pempty + 8 * b, 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // the producer warpgroup
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      // the query tiles that see the key tile
+      const int qs = query_start(kb, causal);
+      const int nq = query_end<BM>(kb, Tlen / BM, window) - qs;
+      mbar_expect_tx(kvbar, 2 * G::BYTES);
+      load_tile<D>(Ks, &tk, kvbar, kb * BM, kvh % ly.hk, kvh / ly.hk);
+      load_tile<D>(Vs, &tv, kvbar, kb * BM, kvh % ly.hk, kvh / ly.hk);
+      for (int i = 0; i < group * nq; ++i) {
+        const int qh = kvh * group + i / nq;  // query head b*H + h
+        const int qb = qs + i % nq;
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty + 8 * s, (i / STAGES - 1) & 1);
+        const uint32_t st = QS + s * SLOT, bar = full + 8 * s;
+        const size_t rows = (size_t)qh * Tlen + qb * BM;
+        mbar_expect_tx(bar, 2 * G::BYTES + 2 * BM * 4);
+        load_tile<D>(st, &tq, bar, qb * BM, qh % ly.H, qh / ly.H);
+        load_tile<D>(st + G::BYTES, &tdo, bar, qb * BM, qh % ly.H,
+                     qh / ly.H);
+        bulk_load(st + 2 * G::BYTES, L + rows, BM * 4, bar);
+        bulk_load(st + 2 * G::BYTES + BM * 4, delta + rows, BM * 4, bar);
       }
     }
-    const bool masked = edge<BM>(qb, kb, causal, window);
+    return;
+  }
+  reg_alloc<CONSUMER_REGS>();
+
+  const int qs = query_start(kb, causal);
+  const int nq = query_end<BM>(kb, Tlen / BM, window) - qs;
+  const int c0 = blockIdx.z * DC;
+  const bool dk_wg = threadIdx.x >= 128;  // else the dv warpgroup
+  const int tid = threadIdx.x % 128, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, r0 = 16 * (tid / 32);
+  const float sl2 = scale * LOG2E;
+  float acc[DC / 2];
 #pragma unroll
-    for (int n = 0; n < BM / 8; ++n)
+  for (int j = 0; j < DC / 2; ++j) acc[j] = 0.f;
+  mbar_wait(kvbar, 0);
+  for (int i = 0; i < group * nq; ++i) {
+    const int qb = qs + i % nq;
+    const int s = i % STAGES, b = i % P_BUFS<D>, use = i / P_BUFS<D>;
+    const uint32_t st = QS + s * SLOT;
+    const float* Ls =
+        reinterpret_cast<const float*>(sm + (st - Ks) + 2 * G::BYTES);
+    // P^T in the accumulator's layout: entry j of thread tid at j 128 + tid
+    float* pt = reinterpret_cast<float*>(sm + (PS - Ks) + b * P_BYTES) + tid;
+    mbar_wait(full + 8 * s, (i / STAGES) & 1);
+    // dP^T = V dO^T, or S^T = K Q^T: one product, its operands picked by
+    // the role, so no wgmma sits on a divergent path
+    const uint32_t sa = dk_wg ? Vs : Ks, sb = dk_wg ? st + G::BYTES : st;
+    float sc[32];
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = 8 * n + 2 * t + (i & 1);  // query in the tile
-        float x = st[n][i] * scale;
-        // the query row is the column here, the key the row
-        if (masked && banned(qb * BM + col, kb * BM + r0 + g + 8 * (i >> 1),
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(sc, desc_k<D>(sa, kk), desc_k<D>(sb, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (dk_wg) {
+      const float* Ds = Ls + BM;
+      mbar_wait(pfull + 8 * b, use & 1);
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        sc[j] = (sc[j] - Ds[acc_col(t, j)]) * pt[128 * j];  // dS^T
+      mbar_arrive(pempty + 8 * b);
+    } else {
+      const bool masked = edge<BM>(qb, kb, causal, window);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = acc_col(t, j);  // the query in the tile
+        float x = sc[j] * sl2;
+        // the query is the column here, the key the row
+        if (masked && banned(qb * BM + col, kb * BM + acc_row(r0, g, j),
                              causal, window))
           x = NEG;
-        const float p = expf(x - Ls[col]);
-        st[n][i] = p;
-        dpt[n][i] = (dpt[n][i] - Ds[col]) * p;  // dS^T
+        sc[j] = exp2f(x - Ls[col] * LOG2E);  // P^T
       }
+      if (use > 0) mbar_wait(pempty + 8 * b, (use - 1) & 1);
 #pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      acc_to_a(pa, st, kk);
-      acc_to_a(da, dpt, kk);
-#pragma unroll
-      for (int dn = 0; dn < DC / 8; ++dn) {
-        uint32_t b[2];
-        load_b(b, dOt, TS, dn * 8, kk * 16, g, t);
-        mma(accv[dn], pa, b);
-        load_b(b, Qt, TS, dn * 8, kk * 16, g, t);
-        mma(acck[dn], da, b);
-      }
+      for (int j = 0; j < 32; ++j) pt[128 * j] = sc[j];
+      mbar_arrive(pfull + 8 * b);
     }
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) to_a(a[kk], sc, kk);
+    // dk += dS^T Q, or dv += P^T dO
+    const uint32_t bt = dk_wg ? st : st + G::BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<DC>(acc, a[kk], desc_mn<D>(bt, kk, c0), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
   }
+  bf16* out = dk_wg ? dk + head_at(ly.dk, kvh, ly.hk)
+                    : dv + head_at(ly.dv, kvh, ly.hk);
+  const long long rs = dk_wg ? ly.dk.r : ly.dv.r;
+  const float f = dk_wg ? scale : 1.f;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const long long r = (long long)kb * BM + r0 + g + 8 * h;
 #pragma unroll
-    for (int dn = 0; dn < DC / 8; ++dn) {
-      const int c = c0 + dn * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(dv + r * ly.dv.r + c) =
-          pack(accv[dn][2 * h], accv[dn][2 * h + 1]);
-      *reinterpret_cast<uint32_t*>(dk + r * ly.dk.r + c) =
-          pack(scale * acck[dn][2 * h], scale * acck[dn][2 * h + 1]);
-    }
+    for (int n = 0; n < DC / 8; ++n)
+      *reinterpret_cast<uint32_t*>(out + r * rs + c0 + 8 * n + 2 * t) =
+          pack(f * acc[4 * n + 2 * h], f * acc[4 * n + 2 * h + 1]);
   }
 }
 
@@ -539,7 +747,10 @@ __global__ void __launch_bounds__(MT)
 // Tiles of BR rows: 64, or 32 at d 256, where six 64-row f32 tiles would
 // not fit the 227 KB of shared memory a block can have. Thread (ty, tx)
 // owns rows ty + 16 i, i < BR / 16.
-constexpr int NT = 256;  // threads per block: a 16 x 16 grid
+// threads per block: a 16 x 16 grid. The kernels are declared with a
+// minimum of one block per SM: without it ptxas trades a few spilled bytes
+// for a 64-register budget at d 32 and 64.
+constexpr int NT = 256;
 
 // reductions over the 16 threads that own one row (one half of a warp)
 __device__ __forceinline__ float row_max(float v) {
@@ -607,7 +818,7 @@ __device__ __forceinline__ void tile_mul(float (&acc)[BR / 16][D / 16],
 }
 
 template <int D, int BR>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
     fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, float* __restrict__ o,
             float* __restrict__ L, int Tlen, int causal, int window,
@@ -687,7 +898,7 @@ __global__ void __launch_bounds__(NT)
 }
 
 template <int D, int BR>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
     dq_f32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ dO,
            const float* __restrict__ L, const float* __restrict__ delta,
@@ -759,7 +970,7 @@ __global__ void __launch_bounds__(NT)
 // entries (key ty + 16 i, query tx + 16 j) and the dk/dv entries
 // (key ty + 16 i, column tx + 16 c).
 template <int D, int BR>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
     dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dO,
              const float* __restrict__ L, const float* __restrict__ delta,
@@ -838,6 +1049,55 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// ===================== delta = rowsum(dO * O) =========================
+
+// delta[bh T + r] = sum over the D columns of dO[r] * O[r] in f32: the
+// backward's one pass outside the dq and dk/dv kernels (K3 and K4 take it
+// outside theirs, flash_long.py:213-217, flash_stream.py:367-368). It
+// reads O and dO once and writes 4 bytes a row, so memory bounds it: each
+// thread loads 16 bytes of one row of each, a row's threads are
+// neighbouring lanes, and their sums meet by xor-shuffles.
+template <typename T, int D>
+__global__ void __launch_bounds__(256)
+    delta_rows(const T* __restrict__ o, const T* __restrict__ dO,
+               float* __restrict__ delta, int Tlen, int rows,
+               const Lays ly) {
+  constexpr int V = 16 / sizeof(T);             // elements in 16 bytes
+  constexpr int TPR = D / V < 32 ? D / V : 32;  // threads per row
+  const int row = blockIdx.x * (256 / TPR) + threadIdx.x / TPR;
+  const int lane = threadIdx.x % TPR;
+  const int bh = row / Tlen, r = row % Tlen;
+  float sum = 0.f;
+  if (row < rows) {
+    const T* a = o + head_at(ly.o, bh, ly.H) + r * ly.o.r;
+    const T* b = dO + head_at(ly.dO, bh, ly.H) + r * ly.dO.r;
+#pragma unroll
+    for (int c = lane * V; c < D; c += TPR * V) {
+      const uint4 x = *reinterpret_cast<const uint4*>(a + c);
+      const uint4 y = *reinterpret_cast<const uint4*>(b + c);
+      if constexpr (sizeof(T) == 2) {
+        const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
+        const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 u = __bfloat1622float2(xs[i]);
+          const float2 w = __bfloat1622float2(ys[i]);
+          sum = fmaf(u.x, w.x, fmaf(u.y, w.y, sum));
+        }
+      } else {
+        const float* xs = reinterpret_cast<const float*>(&x);
+        const float* ys = reinterpret_cast<const float*>(&y);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sum = fmaf(xs[i], ys[i], sum);
+      }
+    }
+  }
+#pragma unroll
+  for (int m = TPR / 2; m > 0; m >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, m);
+  if (row < rows && lane == 0) delta[row] = sum;
+}
+
 // ===================== launch =========================================
 
 struct Args {
@@ -845,7 +1105,7 @@ struct Args {
   const float *L, *delta;
   void *out0, *out1;
   float* L_out;
-  int BH, T, causal, window, group;  // BH counts query heads
+  int B, BH, T, causal, window, group;  // BH counts query heads
   float scale;
   cudaStream_t stream;
   Lays ly;
@@ -853,55 +1113,177 @@ struct Args {
 
 // Raise the kernel's dynamic shared-memory cap to `smem` where it is over
 // the 48 KB default (a launch over the cap is refused and never runs),
-// launch it on the (T / tile, rows, slices) grid, and return the launch's
-// error.
+// launch it on `grid`, and return the launch's error.
 template <typename... P, typename... A>
-int launch(void (*kern)(P...), int threads, size_t smem, int tile,
-           dim3 rows, const Args& a, A... args) {
+int launch(void (*kern)(P...), int threads, size_t smem, dim3 grid,
+           cudaStream_t stream, A... args) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kern<<<dim3(a.T / tile, rows.x, rows.y), threads, smem, a.stream>>>(
-      args...);
+  kern<<<grid, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
-// shared-memory bytes: bf16 row tiles, bf16 transposed tiles of `width`
-// columns, f32 floats
-constexpr size_t bf16_smem(int D, int rows, int cols, int width,
-                           int floats) {
-  return ((size_t)rows * BM * (D + 8) + (size_t)cols * width * TS) * 2 +
-         (size_t)floats * 4;
+constexpr int MAP_FAILED = -2;  // a tensor map could not be encoded
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry
+// point, so the library links no libcuda of its own
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
 }
+
+// The 4-D tensor map (d, T, heads, batch) of a bf16 head tensor of layout
+// `l`, with its element strides as bytes: any layout the wrappers accept
+// (contiguous heads, K7's head views of (B, T, H*d)) is read in place, in
+// boxes of 64 rows x SW columns under the swizzle the descriptors name.
+// Rows past T read as zeros.
+template <int D>
+int make_map(CUtensorMap* m, const void* p, const Lay& l, int heads, int B,
+             int T) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return MAP_FAILED;
+  const cuuint64_t dims[4] = {D, (cuuint64_t)T, (cuuint64_t)heads,
+                              (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)(2 * l.r), (cuuint64_t)(2 * l.h),
+                           (cuuint64_t)(2 * l.b)};
+  // a dimension of extent 1 is never stepped: its stride need only be one
+  // the encoder takes
+  for (int i = 1; i < 3; ++i)
+    if (dims[i + 1] == 1) strides[i] = strides[i - 1] * dims[i];
+  const cuuint32_t box[4] = {Tile<D>::SW, BM, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      Tile<D>::SWZ == 1 ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : MAP_FAILED;
+}
+
+// bytes of the mbarriers after the tiles: one for the resident tiles,
+// full and empty per slot
+constexpr size_t BARS = 8 * (1 + 2 * STAGES);
+
+// Forward and dq blocks: two consumer warpgroups (128 query rows); one at
+// d 256, where dq's two resident 128-row tiles and a ring would not fit
+// the 227 KB of shared memory a block can have and the forward's
+// 128-column accumulator would not fit the 232 registers setmaxnreg
+// gives. dk/dv blocks: two warpgroups on one 64-row key tile, in two
+// 128-column slices at d 256.
+template <int D>
+constexpr int warpgroups() {
+  return D == 256 ? 1 : 2;
+}
+template <int D>
+constexpr int dkdv_cols() {
+  return D == 256 ? 128 : D;
+}
+
+// Dynamic shared memory of a bf16 launch (which: 0 forward, 1 dq, 2
+// dk/dv): the resident tiles, the ring's slots (dk/dv's with L and delta),
+// the barriers, and 1024 bytes to align the tiles to the swizzle atom.
+template <int D>
+constexpr size_t bf16_smem(int which) {
+  using G = Tile<D>;
+  constexpr int W = warpgroups<D>();
+  return which == 0   ? W * G::BYTES + STAGES * 2 * G::BYTES + BARS + 1024
+         : which == 1 ? 2 * W * G::BYTES + STAGES * 2 * G::BYTES + BARS + 1024
+                      : 2 * G::BYTES + STAGES * (2 * G::BYTES + 1024) +
+                            P_BUFS<D> * (P_BYTES + 16) + BARS + 1024;
+}
+
+template <int D>
+int run_bf16(int which, const Args& a) {
+  constexpr int W = warpgroups<D>(), DC = dkdv_cols<D>();
+  const Lays& ly = a.ly;
+  CUtensorMap tq, tk, tv, tdo;
+  int e = make_map<D>(&tq, a.q, ly.q, ly.H, a.B, a.T);
+  if (!e) e = make_map<D>(&tk, a.k, ly.k, ly.hk, a.B, a.T);
+  if (!e) e = make_map<D>(&tv, a.v, ly.v, ly.hk, a.B, a.T);
+  if (!e && which) e = make_map<D>(&tdo, a.dO, ly.dO, ly.H, a.B, a.T);
+  if (e) return e;
+  const int nt = a.T / BM;
+  auto out = [](void* p) { return static_cast<bf16*>(p); };
+  switch (which) {
+    case 0:
+      return launch(fwd_bf16<D, W>, threads_of<W>(), bf16_smem<D>(0),
+                    dim3(a.BH, (nt + W - 1) / W), a.stream, tq, tk, tv,
+                    out(a.out0), a.L_out, a.T, a.causal, a.window, a.group,
+                    a.scale, ly);
+    case 1:
+      return launch(dq_bf16<D, W>, threads_of<W>(), bf16_smem<D>(1),
+                    dim3(a.BH, (nt + W - 1) / W), a.stream, tq, tk, tv, tdo,
+                    a.L, a.delta, out(a.out0), a.T, a.causal, a.window,
+                    a.group, a.scale, ly);
+    case 2:
+      return launch(dkdv_bf16<D, DC>, threads_of<2>(), bf16_smem<D>(2),
+                    dim3(a.BH / a.group, nt, D / DC), a.stream,
+                    tq, tk, tv, tdo, a.L, a.delta, out(a.out0), out(a.out1),
+                    a.T, a.causal, a.window, a.group, a.scale, ly);
+    default:
+      return -1;
+  }
+}
+
 constexpr size_t f32_smem(int D, int BR, int tiles, int scores) {
   return ((size_t)tiles * BR * (D + 1) + (size_t)scores * BR * (BR + 1)) *
          4;
 }
-
-// which: 0 forward, 1 dq (grid rows: query heads), 2 dk/dv (KV heads; at
-// d 256 two column slices)
 template <int D>
-int run_bf16(int which, const Args& a) {
-  constexpr int DC = D == 256 ? 128 : D;
-  auto in = [](const void* p) { return static_cast<const bf16*>(p); };
-  auto out = [](void* p) { return static_cast<bf16*>(p); };
+constexpr int f32_rows() {
+  return D == 256 ? 32 : BM;
+}
+// the f32 launches' dynamic shared memory: Q, K, V, P (forward); Q, dO,
+// K, V, dS (dq); K, V, Q, dO, P^T, dS^T (dk/dv)
+template <int D>
+constexpr size_t f32_smem_of(int which) {
+  return f32_smem(D, f32_rows<D>(), which == 0 ? 3 : 4, which == 2 ? 2 : 1);
+}
+
+template <int D>
+int run_f32(int which, const Args& a) {
+  constexpr int BR = f32_rows<D>();
+  auto in = [](const void* p) { return static_cast<const float*>(p); };
+  auto out = [](void* p) { return static_cast<float*>(p); };
   switch (which) {
     case 0:
-      return launch(fwd_bf16<D>, MT, bf16_smem(D, 2, 1, D, 0), BM,
-                    dim3(a.BH, 1), a, in(a.q), in(a.k), in(a.v),
-                    out(a.out0), a.L_out, a.T, a.causal, a.window, a.group,
-                    a.scale, a.ly);
-    case 1:
-      return launch(dq_bf16<D>, MT, bf16_smem(D, 4, 1, D, 0), BM,
-                    dim3(a.BH, 1), a, in(a.q), in(a.k), in(a.v), in(a.dO),
-                    a.L, a.delta, out(a.out0), a.T, a.causal, a.window,
+      return launch(fwd_f32<D, BR>, NT, f32_smem_of<D>(0),
+                    dim3(a.T / BR, a.BH), a.stream, in(a.q), in(a.k),
+                    in(a.v), out(a.out0), a.L_out, a.T, a.causal, a.window,
                     a.group, a.scale, a.ly);
+    case 1:
+      return launch(dq_f32<D, BR>, NT, f32_smem_of<D>(1),
+                    dim3(a.T / BR, a.BH), a.stream, in(a.q), in(a.k),
+                    in(a.v), in(a.dO), a.L, a.delta, out(a.out0), a.T,
+                    a.causal, a.window, a.group, a.scale, a.ly);
     case 2:
-      return launch(dkdv_bf16<D, DC>, MT, bf16_smem(D, 4, 2, DC, 2 * BM),
-                    BM, dim3(a.BH / a.group, D / DC), a, in(a.q), in(a.k),
-                    in(a.v), in(a.dO), a.L, a.delta, out(a.out0),
+      return launch(dkdv_f32<D, BR>, NT, f32_smem_of<D>(2),
+                    dim3(a.T / BR, a.BH / a.group), a.stream, in(a.q),
+                    in(a.k), in(a.v), in(a.dO), a.L, a.delta, out(a.out0),
                     out(a.out1), a.T, a.causal, a.window, a.group, a.scale,
                     a.ly);
     default:
@@ -909,34 +1291,24 @@ int run_bf16(int which, const Args& a) {
   }
 }
 
-template <int D>
-int run_f32(int which, const Args& a) {
-  constexpr int BR = D == 256 ? 32 : BM;
-  auto in = [](const void* p) { return static_cast<const float*>(p); };
-  auto out = [](void* p) { return static_cast<float*>(p); };
-  switch (which) {
-    case 0:
-      return launch(fwd_f32<D, BR>, NT, f32_smem(D, BR, 3, 1), BR,
-                    dim3(a.BH, 1), a, in(a.q), in(a.k), in(a.v),
-                    out(a.out0), a.L_out, a.T, a.causal, a.window, a.group,
-                    a.scale, a.ly);
-    case 1:
-      return launch(dq_f32<D, BR>, NT, f32_smem(D, BR, 4, 1), BR,
-                    dim3(a.BH, 1), a, in(a.q), in(a.k), in(a.v), in(a.dO),
-                    a.L, a.delta, out(a.out0), a.T, a.causal, a.window,
-                    a.group, a.scale, a.ly);
-    case 2:
-      return launch(dkdv_f32<D, BR>, NT, f32_smem(D, BR, 4, 2), BR,
-                    dim3(a.BH / a.group, 1), a, in(a.q), in(a.k), in(a.v),
-                    in(a.dO), a.L, a.delta, out(a.out0), out(a.out1), a.T,
-                    a.causal, a.window, a.group, a.scale, a.ly);
-    default:
-      return -1;
-  }
+// rowsum(dO * O) into a.L_out, 256 threads over 256 / (threads per row)
+// rows each
+template <typename T, int D>
+int run_delta(const Args& a) {
+  constexpr int TPR = D / (16 / sizeof(T)) < 32 ? D / (16 / sizeof(T)) : 32;
+  const int rows = a.BH * a.T, per = 256 / TPR;
+  return launch(delta_rows<T, D>, 256, 0, dim3((rows + per - 1) / per),
+                a.stream, static_cast<const T*>(a.out0),
+                static_cast<const T*>(a.dO), a.L_out, a.T, rows, a.ly);
 }
 
+// which: 0 forward, 1 dq, 2 dk/dv, 3 delta
 template <int D>
 int run(int dtype, int which, const Args& a) {
+  if (which == 3)
+    return dtype == 0 ? run_delta<float, D>(a)
+           : dtype == 1 ? run_delta<bf16, D>(a)
+                        : -1;
   if (dtype == 0) return run_f32<D>(which, a);
   if (dtype == 1) return run_bf16<D>(which, a);
   return -1;
@@ -947,6 +1319,7 @@ int dispatch(int dtype, int d, int which, Args& a, int B, int H,
   if (a.T <= 0 || a.T % BM || B <= 0 || H <= 0 || B * H > 65535 ||
       a.window < 0 || a.group < 1 || H % a.group)
     return -1;
+  a.B = B;
   a.BH = B * H;
   Lay* lay[] = {&a.ly.q, &a.ly.k, &a.ly.v, &a.ly.o,
                 &a.ly.dO, &a.ly.dq, &a.ly.dk, &a.ly.dv};
@@ -963,14 +1336,36 @@ int dispatch(int dtype, int d, int which, Args& a, int B, int H,
   }
 }
 
+template <int D>
+long long smem_of(int dtype, int which) {
+  if (which < 0 || which > 2) return -1;
+  return dtype == 0 ? (long long)f32_smem_of<D>(which)
+                    : (long long)bf16_smem<D>(which);
+}
+
 }  // namespace
+
+// Dynamic shared memory (bytes) a launch of dtype (0 float32, 1 bfloat16),
+// head width d and kernel `which` (0 forward, 1 dq, 2 dk/dv) asks for, or
+// -1 for one that does not exist.
+extern "C" long long flash_smem_bytes(int dtype, int d, int which) {
+  if (dtype != 0 && dtype != 1) return -1;
+  switch (d) {
+    case 32: return smem_of<32>(dtype, which);
+    case 64: return smem_of<64>(dtype, which);
+    case 128: return smem_of<128>(dtype, which);
+    case 256: return smem_of<256>(dtype, which);
+    default: return -1;
+  }
+}
 
 // dtype: 0 = float32, 1 = bfloat16. B batches of H query heads; k and v
 // hold H / group heads per batch. window 0 means no band. `strides` holds
 // the (batch, head, row) element strides of q, k, v, o, dO, dq, dk, dv in
 // that order (24 values; those of tensors a launch does not take are not
 // read). Each returns 0 on success, -1 for an unsupported dtype, d or
-// shape, else the cudaError_t of the launch.
+// shape, -2 when a bf16 launch's tensor maps cannot be encoded, else the
+// cudaError_t of the launch.
 
 // o = attention(q, k, v); L = its row logsumexp (f32, (B*H, T)).
 extern "C" int flash_fwd_launch(int dtype, int d, const void* q,
@@ -979,7 +1374,7 @@ extern "C" int flash_fwd_launch(int dtype, int d, const void* q,
                                 int window, int group, float scale,
                                 const long long* strides, void* stream) {
   Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr,
-         static_cast<float*>(L), 0, T, causal, window, group, scale,
+         static_cast<float*>(L), 0, 0, T, causal, window, group, scale,
          static_cast<cudaStream_t>(stream), {}};
   return dispatch(dtype, d, 0, a, B, H, strides);
 }
@@ -992,10 +1387,24 @@ extern "C" int flash_dq_launch(int dtype, int d, const void* q, const void* k,
                                float scale, const long long* strides,
                                void* stream) {
   Args a{q, k, v, dO, static_cast<const float*>(L),
-         static_cast<const float*>(delta), dq, nullptr, nullptr, 0, T,
+         static_cast<const float*>(delta), dq, nullptr, nullptr, 0, 0, T,
          causal, window, group, scale, static_cast<cudaStream_t>(stream),
          {}};
   return dispatch(dtype, d, 1, a, B, H, strides);
+}
+
+// delta = rowsum(dO * O) (f32, (B*H, T)) from o and dO of q's layout
+// (strides: o's and dO's places).
+extern "C" int flash_delta_launch(int dtype, int d, const void* o,
+                                  const void* dO, void* delta, int B, int H,
+                                  int T, int causal, int window, int group,
+                                  float scale, const long long* strides,
+                                  void* stream) {
+  Args a{nullptr, nullptr, nullptr, dO, nullptr, nullptr,
+         const_cast<void*>(o), nullptr, static_cast<float*>(delta), 0, 0, T,
+         causal, window, group, scale, static_cast<cudaStream_t>(stream),
+         {}};
+  return dispatch(dtype, d, 3, a, B, H, strides);
 }
 
 // dk and dv (H / group heads per batch, each summed over its group) from
@@ -1007,7 +1416,7 @@ extern "C" int flash_dkdv_launch(int dtype, int d, const void* q,
                                  int window, int group, float scale,
                                  const long long* strides, void* stream) {
   Args a{q, k, v, dO, static_cast<const float*>(L),
-         static_cast<const float*>(delta), dk, dv, nullptr, 0, T, causal,
+         static_cast<const float*>(delta), dk, dv, nullptr, 0, 0, T, causal,
          window, group, scale, static_cast<cudaStream_t>(stream), {}};
   return dispatch(dtype, d, 2, a, B, H, strides);
 }

@@ -1,12 +1,14 @@
 """Wrappers of the hand-written CUDA flash-attention kernels.
 
 ``flash_fwd_cuda``, ``flash_dq_cuda`` and ``flash_dkdv_cuda`` launch the
-three kernels of ``csrc/flash_attention.cu`` on the current CUDA stream.
+three kernels of ``csrc/flash_attention.cu`` on the current CUDA stream;
+``flash_delta_cuda`` launches its one pass of the backward outside them,
+delta = rowsum(dO * O).
 Each validates its arguments and raises on what the kernel does not take;
 none substitutes another implementation. The plain PyTorch versions are
-``linalg_tpu_torch.nn.flash.flash_fwd_ref`` / ``flash_bwd_ref``, and the
-dispatchers ``nn.flash.flash_fwd`` / ``flash_bwd`` pick between the two by
-the device the tensors lie on.
+``linalg_tpu_torch.nn.flash.flash_fwd_ref`` / ``flash_bwd_ref`` /
+``flash_delta_ref``, and the dispatchers ``nn.flash.flash_fwd`` /
+``flash_bwd`` pick between the two by the device the tensors lie on.
 
 ``window`` (a sliding-window band, None for none) and ``group`` (query
 heads per K/V head) are K4's: with ``group`` g > 1, k and v are
@@ -35,7 +37,7 @@ import torch
 from .build import build
 
 __all__ = ["flash_fwd_cuda", "flash_dq_cuda", "flash_dkdv_cuda",
-           "SUPPORTED_D", "BLOCK"]
+           "flash_delta_cuda", "reads_in_place", "SUPPORTED_D", "BLOCK"]
 
 SUPPORTED_D = (32, 64, 128, 256)
 BLOCK = 64  # rows per tile: T must be a multiple
@@ -52,10 +54,34 @@ def _lib():
     lib.flash_fwd_launch.argtypes = [i32, i32] + [ptr] * 5 + tail
     lib.flash_dq_launch.argtypes = [i32, i32] + [ptr] * 7 + tail
     lib.flash_dkdv_launch.argtypes = [i32, i32] + [ptr] * 8 + tail
+    lib.flash_delta_launch.argtypes = [i32, i32] + [ptr] * 3 + tail
     for fn in (lib.flash_fwd_launch, lib.flash_dq_launch,
-               lib.flash_dkdv_launch):
+               lib.flash_dkdv_launch, lib.flash_delta_launch):
         fn.restype = i32
+    lib.flash_smem_bytes.argtypes = [i32, i32, i32]
+    lib.flash_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+def smem_bytes(dtype_code: int, d: int, which: int) -> int:
+    """Dynamic shared memory (bytes) of one kernel: dtype_code 0 float32,
+    1 bfloat16; which 0 forward, 1 dq, 2 dk/dv (-1 for none)."""
+    return int(_lib().flash_smem_bytes(dtype_code, d, which))
+
+
+def _strides_ok(t):
+    """The d axis contiguous and the batch, head and row strides multiples
+    of 16 bytes: the layouts the kernels read and write in place."""
+    vec = 16 // t.element_size()  # elements in 16 bytes
+    return t.stride(3) == 1 and not any(st % vec for st in t.stride()[:3])
+
+
+def reads_in_place(t) -> bool:
+    """True when the kernels take the (B, H, T, d) tensor ``t`` as it lies
+    (``_check``'s stride and alignment rules), so a caller need not copy
+    it: contiguous heads and the model's transposed head views of
+    (B, T, H*d) both qualify."""
+    return _strides_ok(t) and t.data_ptr() % 16 == 0
 
 
 def _check(name, heads, rows=(), group=1):
@@ -97,9 +123,7 @@ def _check(name, heads, rows=(), group=1):
         raise ValueError(f"{name}: B*H {B * H} outside (0, {MAX_BH}]")
     if not all(t.is_contiguous() for t in rows):
         raise ValueError(f"{name} needs contiguous L and delta")
-    vec = 16 // q.element_size()  # elements in 16 bytes
-    if any(t.stride(3) != 1 or any(st % vec for st in t.stride()[:3])
-           for t in heads):
+    if not all(_strides_ok(t) for t in heads):
         raise ValueError(f"{name}: each head's d axis must be contiguous "
                          "and the batch, head and row strides multiples of "
                          "16 bytes")
@@ -182,6 +206,22 @@ def flash_dkdv_cuda(q, k, v, do, L, delta, causal: bool = True, window=None,
     return dk, dv
 
 
+def flash_delta_cuda(o, do):
+    """delta = rowsum(dO * O) in float32, (B, H, T), from the forward's o
+    and the incoming dO (both (B, H, T, d), one dtype, any layout the
+    other wrappers take): the input the dq and dk/dv kernels take besides
+    L, read once from each tensor."""
+    dims = _check("flash_delta_cuda", (o, o, o, do))
+    delta = torch.empty(o.shape[:3], dtype=torch.float32, device=o.device)
+    _call("flash_delta", _lib().flash_delta_launch, o.dtype, dims,
+          (o.data_ptr(), do.data_ptr(), delta.data_ptr()), False, None, 1,
+          _strides(None, None, None, o, do, None, None, None), o.device,
+          None)
+    flash_delta_cuda.launches += 1
+    return delta
+
+
 flash_fwd_cuda.launches = 0
 flash_dq_cuda.launches = 0
 flash_dkdv_cuda.launches = 0
+flash_delta_cuda.launches = 0

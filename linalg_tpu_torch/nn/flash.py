@@ -25,10 +25,11 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import SUPPORTED_D as FLASH_D
+from ..kernels.flash_attention import reads_in_place
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_fwd",
-           "flash_bwd", "flash_fwd_ref", "flash_bwd_ref", "kernel_width",
-           "FLASH_MAX_T"]
+           "flash_bwd", "flash_fwd_ref", "flash_bwd_ref", "flash_delta",
+           "flash_delta_ref", "kernel_width", "FLASH_MAX_T"]
 
 FLASH_MAX_T = 1024
 
@@ -87,6 +88,12 @@ def flash_bwd_ref(q, k, v, o, L, do, causal: bool = True, window=None,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def flash_delta_ref(o, do):
+    """Plain version of the delta kernel: rowsum(dO * O) in float32,
+    (B, H, T)."""
+    return torch.sum(do.float() * o.float(), dim=-1)
+
+
 def _on_cpu(x, name):
     """True for a CPU tensor, False for a CUDA one; any other device
     raises."""
@@ -106,18 +113,28 @@ def flash_fwd(q, k, v, causal: bool = True, window=None, scale=None):
                           scale)
 
 
+def flash_delta(o, do):
+    """delta = rowsum(dO * O): the CUDA kernel, or its plain version on the
+    CPU."""
+    if _on_cpu(o, "flash_delta"):
+        return flash_delta_ref(o, do)
+    from ..kernels.flash_attention import flash_delta_cuda
+
+    return flash_delta_cuda(o, do)
+
+
 def flash_bwd(q, k, v, o, L, do, causal: bool = True, window=None,
               scale=None):
     """(dq, dk, dv): the CUDA dq and dk/dv kernels, or their plain version
-    on the CPU. delta = rowsum(dO * O) is one float32 pass here, as K3
-    and K4 take it outside their kernels (``flash_long.py:213-217``,
-    ``flash_stream.py:367-368``)."""
+    on the CPU. delta = rowsum(dO * O) is one float32 pass before them
+    (``flash_delta``), as K3 and K4 take it outside their kernels
+    (``flash_long.py:213-217``, ``flash_stream.py:367-368``)."""
     if _on_cpu(q, "flash_bwd"):
         return flash_bwd_ref(q, k, v, o, L, do, causal, window, scale)
     from ..kernels.flash_attention import flash_dkdv_cuda, flash_dq_cuda
 
     group = q.shape[1] // k.shape[1]
-    delta = torch.sum(do.float() * o.float(), dim=-1)
+    delta = flash_delta(o, do)
     dq = flash_dq_cuda(q, k, v, do, L, delta, causal, window, group, scale)
     dk, dv = flash_dkdv_cuda(q, k, v, do, L, delta, causal, window, group,
                              scale)
@@ -135,14 +152,20 @@ def kernel_width(d: int) -> int:
     return d
 
 
+def _in_place(t):
+    """``t`` itself where the kernels read it as it lies, else a contiguous
+    copy."""
+    return t if reads_in_place(t) else t.contiguous()
+
+
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, plain):
         d = q.shape[-1]
         w = kernel_width(d)
-        # the kernels take contiguous (B, H, T, w); the model's head split
-        # hands over transposed views, so they are copied here explicitly
-        q, k, v = (F.pad(t, (0, w - d)) if w != d else t.contiguous()
+        # the kernels read the model's transposed head views in place; only
+        # a tensor whose strides they cannot take is copied
+        q, k, v = (F.pad(t, (0, w - d)) if w != d else _in_place(t)
                    for t in (q, k, v))
         scale = 1.0 / math.sqrt(d)
         o, L = (flash_fwd_ref if plain else flash_fwd)(q, k, v, causal,
@@ -156,7 +179,7 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, L = ctx.saved_tensors
         d, w = ctx.d, q.shape[-1]
-        do = F.pad(do, (0, w - d)) if w != d else do.contiguous()
+        do = F.pad(do, (0, w - d)) if w != d else _in_place(do)
         grads = (flash_bwd_ref if ctx.plain else flash_bwd)(
             q, k, v, o, L, do, ctx.causal, ctx.window, ctx.scale)
         dq, dk, dv = (g[..., :d] for g in grads)

@@ -101,11 +101,13 @@ def _btd_fwd(q, k, v, n_heads, causal):
 def _btd_bwd(q, k, v, o, L, do, n_heads, causal):
     if q.device.type == "cpu":
         return btd_bwd_ref(q, k, v, o, L, do, n_heads, causal)
-    from ..kernels.flash_attention import flash_dkdv_cuda, flash_dq_cuda
+    from ..kernels.flash_attention import (flash_delta_cuda,
+                                           flash_dkdv_cuda, flash_dq_cuda)
 
     qh, kh, vh, doh = (_heads(t, n_heads) for t in (q, k, v, do))
-    # one float32 pass, as the K2 path takes it outside the kernels
-    delta = torch.sum(doh.float() * _heads(o, n_heads).float(), dim=-1)
+    # rowsum(dO * O) in float32 outside the dq and dk/dv kernels, as the K2
+    # path takes it
+    delta = flash_delta_cuda(_heads(o, n_heads), doh)
     dq = flash_dq_cuda(qh, kh, vh, doh, L, delta, causal)
     dk, dv = flash_dkdv_cuda(qh, kh, vh, doh, L, delta, causal)
     return _unheads(dq), _unheads(dk), _unheads(dv)

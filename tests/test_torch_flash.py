@@ -21,6 +21,7 @@ from jax.experimental.pallas import tpu as pltpu
 from linalg_tpu.nn import functional as jF
 from linalg_tpu.nn.flash import flash_attention as j_flash
 from linalg_tpu.nn.flash_long import flash_attention_long as j_flash_long
+from linalg_tpu_torch.kernels.flash_attention import reads_in_place
 from linalg_tpu_torch.models import gpt as tgpt
 from linalg_tpu_torch.nn import functional as tF
 from linalg_tpu_torch.nn.flash import FLASH_MAX_T, flash_attention
@@ -164,6 +165,33 @@ class TestFlash:
                              ids=["flash", "flash_long"])
     def test_matches_jax_kernel(self, port_fn, jax_fn, T, causal):
         assert_flash_close(*run_flash(port_fn, jax_fn, T, causal, seed=T))
+
+    def test_transposed_head_views_pass_uncopied(self):
+        """The model's head split hands (B, T, h, d) projections over as
+        transposed (B, h, T, d) views; the kernels read those in place, so
+        flash_attention copies none of them (``reads_in_place``). Output and
+        gradients on the views equal the contiguous call's and JAX's K2 in
+        interpret mode."""
+        T, causal = 128, True
+        btd = [rand((1, T, 2, 16), 40 + i, np.float32) for i in range(3)]
+        cot = rand((1, 2, T, 16), 43, np.float32)
+        views = [torch.tensor(a).transpose(1, 2) for a in btd]
+        assert all(not t.is_contiguous() and reads_in_place(t)
+                   for t in views)
+        vout, vg = torch_vjp(lambda q, k, v: flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal), btd, cot)
+        vg = [g.transpose(0, 2, 1, 3) for g in vg]  # to (B, h, T, d)
+        heads = [np.ascontiguousarray(a.transpose(0, 2, 1, 3)) for a in btd]
+        tout, tg = torch_vjp(lambda q, k, v: flash_attention(q, k, v, causal),
+                             heads, cot)
+        np.testing.assert_allclose(vout, tout, rtol=0, atol=1e-6)
+        for a, b in zip(vg, tg):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+        with pltpu.force_tpu_interpret_mode():
+            jout, jg = jax_vjp(lambda q, k, v: j_flash(q, k, v, causal),
+                               heads, cot)
+        assert_flash_close(vout, vg, jout, jg)
 
     def test_ragged_T_through_padding(self):
         """T 200 right-padded to 256 by the picker's wrapper against JAX's

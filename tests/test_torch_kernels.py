@@ -16,6 +16,7 @@ import torch
 
 from linalg_tpu_torch.kernels import build as kbuild
 from linalg_tpu_torch.kernels.flash_attention import (
+    flash_delta_cuda,
     flash_dkdv_cuda,
     flash_dq_cuda,
     flash_fwd_cuda,
@@ -266,6 +267,8 @@ def test_flash_wrappers_reject_cpu_tensors():
         flash_dq_cuda(q, q, q, q, L, L)
     with pytest.raises(ValueError, match="CUDA"):
         flash_dkdv_cuda(q, q, q, q, L, L)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_delta_cuda(q, q)
 
 
 def test_flash_dispatcher_takes_plain_version_on_cpu():
@@ -340,6 +343,100 @@ def test_flash_d256_kernels_match_ref_on_card(cuda, dtype, causal, window,
     want = flash_bwd_ref(q, k, v, o_ref, L_ref, do, causal, window)
     for got, w, what in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
         assert_close_of_max(got, w, dtype, what)
+
+
+# The bf16 kernels (wgmma, TMA ring) at every width, (B, H, hk, T, d,
+# window, causal): T 320 leaves the last 128-row block half empty (T % 128
+# == 64), T 1024 fills it; windows 200 and 300 put the band's edge inside a
+# tile, 512 on a tile boundary; groups 1, 2 and 4 (MQA).
+BF16_CASES = [(2, 4, 4, 320, 32, None, True),
+              (2, 4, 2, 320, 64, 200, True),
+              (1, 4, 1, 320, 128, 300, False),
+              (1, 4, 4, 320, 256, None, False),
+              (2, 4, 2, 1024, 32, 512, True),
+              (1, 8, 2, 1024, 64, None, False),
+              (2, 4, 1, 1024, 128, 200, True),
+              (1, 4, 2, 1024, 256, 300, True),
+              (2, 4, 4, 1024, 128, 512, False)]
+
+
+def check_bf16_kernels(q, k, v, do, causal, window, group):
+    """o, L, dq, dk, dv of the kernels against the plain versions (the
+    backward kernels from the plain forward's o and L); each kernel
+    launches once. Returns the kernels' five outputs."""
+    before = (flash_fwd_cuda.launches, flash_dq_cuda.launches,
+              flash_dkdv_cuda.launches)
+    o, L = flash_fwd_cuda(q, k, v, causal, window, group)
+    o_ref, L_ref = flash_fwd_ref(q, k, v, causal, window)
+    delta = torch.sum(do.float() * o_ref.float(), dim=-1)
+    dq = flash_dq_cuda(q, k, v, do, L_ref, delta, causal, window, group)
+    dk, dv = flash_dkdv_cuda(q, k, v, do, L_ref, delta, causal, window,
+                             group)
+    torch.cuda.synchronize()
+    assert (flash_fwd_cuda.launches, flash_dq_cuda.launches,
+            flash_dkdv_cuda.launches) == tuple(n + 1 for n in before)
+    want = (o_ref, L_ref) + flash_bwd_ref(q, k, v, o_ref, L_ref, do, causal,
+                                          window)
+    got = (o, L, dq, dk, dv)
+    for g, w, what in zip(got, want, ("o", "L", "dq", "dk", "dv")):
+        assert g.shape == w.shape, what
+        assert_close_of_max(g, w, torch.bfloat16, what)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_CASES,
+                         ids=lambda c: "B{}H{}hk{}T{}d{}w{}{}".format(
+                             *c[:6], "c" if c[6] else "n"))
+def test_flash_bf16_kernels_match_ref_on_card(cuda, case):
+    B, H, hk, T, d, window, causal = case
+    q, k, v, do = stream_inputs(B, H, hk, T, d, torch.bfloat16, cuda,
+                                seed=T + d + hk)
+    check_bf16_kernels(q, k, v, do, causal, window, H // hk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,window", [(320, 300), (1024, None)],
+                         ids=["T320_w300", "T1024"])
+def test_flash_bf16_kernels_on_head_views_on_card(cuda, T, window):
+    """K7's layout: each head a strided column slice of (B, T, H*d), read
+    and written in place; outputs keep that layout."""
+    B, H, d = 2, 4, 128
+    x = flash_inputs((B, T, H * d), torch.bfloat16, cuda, seed=T)
+    heads = [t.view(B, T, H, d).transpose(1, 2) for t in x]
+    o, _, dq, _, _ = check_bf16_kernels(*heads, True, window, 1)
+    assert o.stride() == heads[0].stride() and dq.stride() == o.stride()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [32, 128, 256])
+def test_flash_delta_kernel_matches_ref_on_card(cuda, d, dtype):
+    """rowsum(dO * O) in float32 through the kernel, on head views of
+    (B, T, H*d) as the model hands them over, against the plain version
+    (the same products, summed in another order)."""
+    from linalg_tpu_torch.nn.flash import flash_delta_ref
+
+    o, do = (t.view(2, 320, 4, d).transpose(1, 2) for t in flash_inputs(
+        (2, 320, 4 * d), dtype, cuda, seed=d)[:2])
+    before = flash_delta_cuda.launches
+    got = flash_delta_cuda(o, do)
+    torch.cuda.synchronize()
+    assert flash_delta_cuda.launches == before + 1
+    want = flash_delta_ref(o, do)
+    assert got.shape == want.shape == (2, 4, 320)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_kernels_give_equal_bits_twice(cuda):
+    """No atomics: each output tile has one owner and every sum runs in a
+    fixed order, so two runs agree bit for bit."""
+    q, k, v, do = stream_inputs(2, 4, 2, 1024, 128, torch.bfloat16, cuda, 7)
+    runs = [check_bf16_kernels(q, k, v, do, True, 300, 2) for _ in range(2)]
+    for a, b, what in zip(*runs, ("o", "L", "dq", "dk", "dv")):
+        assert torch.equal(a, b), what
 
 
 @pytest.mark.cuda
