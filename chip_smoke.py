@@ -94,12 +94,15 @@ Phases, each reported on its own line; any failure exits non-zero:
              views, and the bound; the kernels' factor of SDPA's time and
              share of the bound.
 12. fused  — K8 ``ln_qkv`` and K9 ``ln_ffn`` (``csrc/fused_layer.cu``):
-             build lines; forward and every gradient against the plain
-             versions at N 16384 (B 64 x T 256), D 512, F 2048 in f32 and
-             bf16; median times of the kernels, the plain versions and the
-             unfused PyTorch composition (``F.layer_norm`` and matmuls, the
-             path the picker takes otherwise; no single library call
-             computes either function), and the bound.
+             build lines; the registers, shared memory and spills of every
+             instantiation (any stack frame or spill fails); forward and
+             every gradient against the plain versions at N 16384 (B 64 x
+             T 256), D 512, F 2048 and at train_big's width N 24576 (B 24
+             x T 1024), D 1024, F 4096, in f32 and bf16; median times of
+             the kernels, the plain versions and the unfused PyTorch
+             composition (``F.layer_norm`` and matmuls, the path the
+             picker takes otherwise; no single library call computes
+             either function), the bound and each kernel's share of it.
 13. short  — ``train.trainer.train`` at the published config (d512, 4
              heads, 4 layers, ctx 256, vocab 65) in bf16 and f32, 40 steps
              each (eval every 20): (a) batch 128 with default switches
@@ -1235,121 +1238,163 @@ def fused_error(got, want, dtype, what):
             "max abs")
 
 
+def fused_builds(lib):
+    """Phase 12's build check: registers, shared memory and spills of every
+    fused_layer instantiation; any stack frame or spill fails."""
+    import ctypes
+    import re
+
+    smem = ctypes.CDLL(str(lib)).fused_smem_bytes
+    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem.restype = ctypes.c_longlong
+    dyn = {"qkv_fwd_bf16": 0, "ffn_fwd_bf16": 1, "gemm_bf16": 2,
+           "ffn_fwd_f32": 3}
+    kernels = ptxas_kernels(lib)
+    for name, (regs, *frame) in sorted(kernels.items()):
+        short = next((k for k in (*dyn, "gemm_f32", "ln_stats", "ln_bwd_dx",
+                                  "ln_bwd_dgb") if k in name), name)
+        m = re.match(r"I((?:Li\d+E)+)E", name.split(short, 1)[-1])
+        args = re.findall(r"Li(\d+)E", m.group(1)) if m else []
+        if not args and short.startswith("ln_"):  # ln_*<T>
+            args = ["bf16" if "bfloat16" in name else "f32"]
+        inst = f"<{', '.join(args)}>" if args else ""
+        where = (f", dynamic shared memory {smem(dyn[short], 512)} B at D "
+                 f"512, {smem(dyn[short], 1024)} B at D 1024, "
+                 f"{smem(dyn[short], 2048)} B at D 2048"
+                 if short in dyn else "")
+        phase("fused", f"{short}{inst}: {regs} registers{where}, stack frame "
+              f"{frame[0]}, spill stores {frame[1]}, loads {frame[2]}")
+    spills = ptxas_spills(lib)
+    if not kernels or spills:
+        raise RuntimeError(f"fused kernels spill registers: {spills}"
+                           if spills else "no ptxas lines in the build log")
+
+
 def fused_phase():
     """Phase 12: K8 and K9 against their plain versions at the published
-    width. Returns the kernel's JSON record (bf16)."""
+    width and at train_big's (D 1024, F 4096), bf16 and f32, beside the
+    unfused composition and the bound. Returns the kernel's JSON record
+    (bf16 at the published width, train_big's width under "d1024")."""
     import torch.nn.functional as F_
 
     from linalg_tpu_torch.kernels import fused_layer as kf
     from linalg_tpu_torch.nn import fused_layer as fl
 
-    N, D, F = 64 * 256, 512, 2048
     names = ["q", "k", "v", "dx", "dg", "db", "dWq", "dWk", "dWv", "f",
              "ffn dx", "ffn dg", "ffn db", "dW1", "db1", "dW2", "db2"]
     counters = (kf.ln_qkv_fwd_cuda, kf.ln_qkv_bwd_cuda, kf.ln_ffn_fwd_cuda,
                 kf.ln_ffn_bwd_cuda)
-    record = None
-    for dtype in (torch.bfloat16, torch.float32):
-        rng = np.random.default_rng(500)
+    records = {}
+    for N, D, F in ((64 * 256, 512, 2048), (24 * 1024, 1024, 4096)):
+        for dtype in (torch.bfloat16, torch.float32):
+            rec = fused_case(N, D, F, dtype, names, counters, kf, fl, F_)
+            if dtype == torch.bfloat16:
+                records[D] = rec
+    return {**records[512], "d1024": records[1024]}
 
-        def t(*shape, scale=1.0, shift=0.0):
-            return torch.tensor(rng.standard_normal(shape) * scale + shift,
-                                dtype=dtype, device="cuda")
 
-        x = t(N, D)
-        g, b = t(D, scale=0.1, shift=1.0), t(D, scale=0.1)
-        qkv = (x, g, b, *(t(D, D, scale=D ** -0.5) for _ in range(3)))
-        ffn = (x, g, b, t(D, F, scale=D ** -0.5), t(F, scale=0.1),
-               t(F, D, scale=F ** -0.5), t(D, scale=0.1))
-        dys = [t(N, D) for _ in range(3)]
-        for c in counters:
-            c.launches = 0
-        got = [*kf.ln_qkv_fwd_cuda(*qkv), *kf.ln_qkv_bwd_cuda(*qkv, *dys),
-               kf.ln_ffn_fwd_cuda(*ffn),
-               *kf.ln_ffn_bwd_cuda(*ffn[:6], dys[0])]
-        torch.cuda.synchronize()
-        if [c.launches for c in counters] != [1, 1, 1, 1]:
-            raise RuntimeError("fused: a wrapper did not launch once")
-        want = [*fl.ln_qkv_ref(*qkv), *fl.ln_qkv_bwd_ref(*qkv, *dys),
-                fl.ln_ffn_ref(*ffn), *fl.ln_ffn_bwd_ref(*ffn[:6], dys[0])]
-        errs = {}
-        for gt, w, what in zip(got, want, names):
-            err, tol, kind = fused_error(gt, w, dtype, what)
-            if not (gt.shape == w.shape and err <= tol):
-                raise RuntimeError(f"fused {what}: {kind} error {err:.3e} "
-                                   f"> tolerance {tol:.3e}")
-            errs[what] = (err, kind)
-        dt = str(dtype).split(".")[1]
-        phase("fused", f"N,D,F={N},{D},{F} {dt}: " + ", ".join(
-            f"{k} {e:.3e}" for k, (e, _) in errs.items())
-            + f" (max abs within {FUSED_RTOL_OF_MAX[dtype]} x max|want|; "
-            f"dx, dg, db, dW1, db1 of ln_ffn by relative norm within "
-            f"{FUSED_RTOL_OF_NORM[dtype]})")
-        del got, want
+def fused_case(N, D, F, dtype, names, counters, kf, fl, F_):
+    """One shape and dtype of phase 12: every output against the plain
+    versions, then the times. Returns the JSON record of the shape."""
+    rng = np.random.default_rng(500)
 
-        def k_qkv(*a):
-            return kf.ln_qkv_bwd_cuda(*a[:6], *kf.ln_qkv_fwd_cuda(*a[:6]))
+    def t(*shape, scale=1.0, shift=0.0):
+        return torch.tensor(rng.standard_normal(shape) * scale + shift,
+                            dtype=dtype, device="cuda")
 
-        def p_qkv(*a):
-            return fl.ln_qkv_bwd_ref(*a[:6], *fl.ln_qkv_ref(*a[:6]))
+    x = t(N, D)
+    g, b = t(D, scale=0.1, shift=1.0), t(D, scale=0.1)
+    qkv = (x, g, b, *(t(D, D, scale=D ** -0.5) for _ in range(3)))
+    ffn = (x, g, b, t(D, F, scale=D ** -0.5), t(F, scale=0.1),
+           t(F, D, scale=F ** -0.5), t(D, scale=0.1))
+    dys = [t(N, D) for _ in range(3)]
+    for c in counters:
+        c.launches = 0
+    got = [*kf.ln_qkv_fwd_cuda(*qkv), *kf.ln_qkv_bwd_cuda(*qkv, *dys),
+           kf.ln_ffn_fwd_cuda(*ffn),
+           *kf.ln_ffn_bwd_cuda(*ffn[:6], dys[0])]
+    torch.cuda.synchronize()
+    if [c.launches for c in counters] != [1, 1, 1, 1]:
+        raise RuntimeError("fused: a wrapper did not launch once")
+    want = [*fl.ln_qkv_ref(*qkv), *fl.ln_qkv_bwd_ref(*qkv, *dys),
+            fl.ln_ffn_ref(*ffn), *fl.ln_ffn_bwd_ref(*ffn[:6], dys[0])]
+    errs = {}
+    for gt, w, what in zip(got, want, names):
+        err, tol, kind = fused_error(gt, w, dtype, what)
+        if not (gt.shape == w.shape and err <= tol):
+            raise RuntimeError(f"fused {what} at N,D,F={N},{D},{F}: {kind} "
+                               f"error {err:.3e} > tolerance {tol:.3e}")
+        errs[what] = (err, kind)
+    dt = str(dtype).split(".")[1]
+    phase("fused", f"N,D,F={N},{D},{F} {dt}: " + ", ".join(
+        f"{k} {e:.3e}" for k, (e, _) in errs.items())
+        + f" (max abs within {FUSED_RTOL_OF_MAX[dtype]} x max|want|; "
+        f"dx, dg, db, dW1, db1 of ln_ffn by relative norm within "
+        f"{FUSED_RTOL_OF_NORM[dtype]})")
+    del got, want
 
-        def k_ffn(*a):
-            return kf.ln_ffn_bwd_cuda(*a[:6], kf.ln_ffn_fwd_cuda(*a))
+    def k_qkv(*a):
+        return kf.ln_qkv_bwd_cuda(*a[:6], *kf.ln_qkv_fwd_cuda(*a[:6]))
 
-        def p_ffn(*a):
-            return fl.ln_ffn_bwd_ref(*a[:6], fl.ln_ffn_ref(*a))
+    def p_qkv(*a):
+        return fl.ln_qkv_bwd_ref(*a[:6], *fl.ln_qkv_ref(*a[:6]))
 
-        ps = [t_.detach().clone().requires_grad_(True)
-              for t_ in qkv + ffn[3:]]
+    def k_ffn(*a):
+        return kf.ln_ffn_bwd_cuda(*a[:6], kf.ln_ffn_fwd_cuda(*a))
 
-        def u_qkv(x, g, b, wq, wk, wv, *_):
-            y = F_.layer_norm(x, (D,), g, b, 1e-5)
-            outs = (y @ wq, y @ wk, y @ wv)
-            return torch.autograd.grad(outs, (x, g, b, wq, wk, wv), dys)
+    def p_ffn(*a):
+        return fl.ln_ffn_bwd_ref(*a[:6], fl.ln_ffn_ref(*a))
 
-        def u_ffn(x, g, b, wq, wk, wv, w1, b1, w2, b2):
-            y = F_.layer_norm(x, (D,), g, b, 1e-5)
-            f = torch.relu(y @ w1 + b1) @ w2 + b2
-            return torch.autograd.grad(f, (x, g, b, w1, b1, w2, b2), dys[0])
+    ps = [t_.detach().clone().requires_grad_(True)
+          for t_ in qkv + ffn[3:]]
 
-        times = {}
-        for name, fn, args in (
-                ("ln_qkv fwd", kf.ln_qkv_fwd_cuda, qkv),
-                ("ln_qkv fwd+bwd", k_qkv, qkv),
-                ("ln_qkv plain fwd+bwd", p_qkv, qkv),
-                ("ln_qkv unfused fwd+bwd", u_qkv, ps),
-                ("ln_ffn fwd", kf.ln_ffn_fwd_cuda, ffn),
-                ("ln_ffn fwd+bwd", k_ffn, ffn),
-                ("ln_ffn plain fwd+bwd", p_ffn, ffn),
-                ("ln_ffn unfused fwd+bwd", u_ffn, ps)):
-            slow = "plain" in name
-            times[name] = median_ms(fn, args, trials=5 if slow else 7,
-                                    reps=2 if slow else 5,
-                                    warm=1 if slow else 3)
-        bq, bf, both = fused_bound(N, D, F, dtype)
-        phase("fused", "  " + "; ".join(f"{k} {v:.4f} ms"
-                                         for k, v in times.items()))
-        phase("fused", f"  bound fwd+bwd ln_qkv {bq[0]:.4f} ms ({bq[1]}), "
-              f"{bq[0] / times['ln_qkv fwd+bwd']:.1%} of it; ln_ffn "
-              f"{bf[0]:.4f} ms ({bf[1]}), "
-              f"{bf[0] / times['ln_ffn fwd+bwd']:.1%} of it; no single "
-              "library call computes either function")
-        if dtype == torch.bfloat16:
-            bms, by = bound_ms(*both, dtype)
-            record = dict(
-                shape=[N, D, F], max_abs_err=max(
-                    e for e, kind in errs.values() if kind == "max abs"),
-                max_rel_norm_err=max(
-                    e for e, kind in errs.values() if kind == "rel norm"),
-                ms=times["ln_qkv fwd+bwd"] + times["ln_ffn fwd+bwd"],
-                plain_ms=(times["ln_qkv plain fwd+bwd"]
-                          + times["ln_ffn plain fwd+bwd"]),
-                bound_ms=bms, bound_by=by, library_ms=None,
-                unfused_ms=(times["ln_qkv unfused fwd+bwd"]
-                            + times["ln_ffn unfused fwd+bwd"]),
-                ms_by_kernel={k: v for k, v in times.items()})
-        del qkv, ffn, dys, ps, x
-        torch.cuda.empty_cache()
+    def u_qkv(x, g, b, wq, wk, wv, *_):
+        y = F_.layer_norm(x, (D,), g, b, 1e-5)
+        outs = (y @ wq, y @ wk, y @ wv)
+        return torch.autograd.grad(outs, (x, g, b, wq, wk, wv), dys)
+
+    def u_ffn(x, g, b, wq, wk, wv, w1, b1, w2, b2):
+        y = F_.layer_norm(x, (D,), g, b, 1e-5)
+        f = torch.relu(y @ w1 + b1) @ w2 + b2
+        return torch.autograd.grad(f, (x, g, b, w1, b1, w2, b2), dys[0])
+
+    times = {}
+    for name, fn, args in (
+            ("ln_qkv fwd", kf.ln_qkv_fwd_cuda, qkv),
+            ("ln_qkv fwd+bwd", k_qkv, qkv),
+            ("ln_qkv plain fwd+bwd", p_qkv, qkv),
+            ("ln_qkv unfused fwd+bwd", u_qkv, ps),
+            ("ln_ffn fwd", kf.ln_ffn_fwd_cuda, ffn),
+            ("ln_ffn fwd+bwd", k_ffn, ffn),
+            ("ln_ffn plain fwd+bwd", p_ffn, ffn),
+            ("ln_ffn unfused fwd+bwd", u_ffn, ps)):
+        slow = "plain" in name
+        times[name] = median_ms(fn, args, trials=5 if slow else 7,
+                                reps=2 if slow else 5,
+                                warm=1 if slow else 3)
+    bq, bf, both = fused_bound(N, D, F, dtype)
+    phase("fused", "  " + "; ".join(f"{k} {v:.4f} ms"
+                                     for k, v in times.items()))
+    phase("fused", f"  bound fwd+bwd ln_qkv {bq[0]:.4f} ms ({bq[1]}), "
+          f"{bq[0] / times['ln_qkv fwd+bwd']:.1%} of it; ln_ffn "
+          f"{bf[0]:.4f} ms ({bf[1]}), "
+          f"{bf[0] / times['ln_ffn fwd+bwd']:.1%} of it; no single "
+          "library call computes either function")
+    bms, by = bound_ms(*both, dtype)
+    record = dict(
+        shape=[N, D, F], max_abs_err=max(
+            e for e, kind in errs.values() if kind == "max abs"),
+        max_rel_norm_err=max(
+            e for e, kind in errs.values() if kind == "rel norm"),
+        ms=times["ln_qkv fwd+bwd"] + times["ln_ffn fwd+bwd"],
+        plain_ms=(times["ln_qkv plain fwd+bwd"]
+                  + times["ln_ffn plain fwd+bwd"]),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        unfused_ms=(times["ln_qkv unfused fwd+bwd"]
+                    + times["ln_ffn unfused fwd+bwd"]),
+        ms_by_kernel={k: v for k, v in times.items()})
+    del qkv, ffn, dys, ps, x
+    torch.cuda.empty_cache()
     return record
 
 
@@ -1904,6 +1949,7 @@ def main() -> int:
 
     # -- 12. fused ---------------------------------------------------------
     report_build("fused", built["fused_layer"])
+    fused_builds(built["fused_layer"][0])
     fused_record = fused_phase()
 
     # -- 13. short ---------------------------------------------------------

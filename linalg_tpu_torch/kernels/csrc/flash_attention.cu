@@ -259,14 +259,6 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* m,
                 batch);
 }
 
-// The block's dynamic shared memory from a 1024-byte boundary (the
-// swizzle atom); the launch asks for 1024 bytes more than it uses.
-__device__ __forceinline__ unsigned char* smem_aligned() {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t a = smem_u32(smem_raw);
-  return smem_raw + (((a + 1023) & ~1023u) - a);
-}
-
 // The A operand of the 16-column block kk of a 64 x 64 accumulator,
 // rounded to bf16 (entry 4 n + i of the flat accumulator is entry i of
 // mma.sync tile n).
@@ -1110,50 +1102,6 @@ struct Args {
   cudaStream_t stream;
   Lays ly;
 };
-
-// Raise the kernel's dynamic shared-memory cap to `smem` where it is over
-// the 48 KB default (a launch over the cap is refused and never runs),
-// launch it on `grid`, and return the launch's error.
-template <typename... P, typename... A>
-int launch(void (*kern)(P...), int threads, size_t smem, dim3 grid,
-           cudaStream_t stream, A... args) {
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kern<<<grid, threads, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
-}
-
-constexpr int MAP_FAILED = -2;  // a tensor map could not be encoded
-
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry
-// point, so the library links no libcuda of its own
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // The 4-D tensor map (d, T, heads, batch) of a bf16 head tensor of layout
 // `l`, with its element strides as bytes: any layout the wrappers accept

@@ -11,10 +11,11 @@ plain PyTorch versions are ``linalg_tpu_torch.nn.fused_layer.ln_qkv_ref``
 and friends, and the dispatchers there pick between the two by the device
 the tensors lie on.
 
-The kernels sum weight, gamma/beta and bias gradients over ``SPLITS`` row
-groups as float32 partials; the wrappers add the partials in a fixed order
-(``torch.sum`` over the group axis) and round once to the parameter's
-dtype, so two runs give the same bits. db2 = column sums of df is one
+The kernels sum weight, gamma and beta gradients over ``SPLITS`` row
+groups, and b1 gradients over 64-row tiles, as float32 partials; the
+backward also writes the normalized x once as scratch. The wrappers add
+the partials in a fixed order (``torch.sum`` over the group axis) and
+round once to the parameter's dtype, so two runs give the same bits. db2 = column sums of df is one
 float32 ``torch.sum`` here, as the JAX package takes it outside its
 kernels.
 
@@ -36,7 +37,7 @@ __all__ = ["ln_qkv_fwd_cuda", "ln_qkv_bwd_cuda", "ln_ffn_fwd_cuda",
 
 ROW_BLOCK = 64   # rows of a tile: N must be a multiple
 COL_BLOCK = 128  # columns of a tile: D and F must be multiples
-SPLITS = 8       # row groups of the cross-row gradient sums
+SPLITS = 8       # row groups of the weight-gradient sums
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -45,10 +46,10 @@ def _lib():
     lib = ctypes.CDLL(str(build("fused_layer")))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.ln_qkv_fwd_launch.argtypes = [i32] + [ptr] * 10 + [i32, i32, ptr]
-    lib.ln_qkv_bwd_launch.argtypes = ([i32] + [ptr] * 14
+    lib.ln_qkv_bwd_launch.argtypes = ([i32] + [ptr] * 15
                                       + [i32, i32, i32, ptr])
     lib.ln_ffn_fwd_launch.argtypes = [i32] + [ptr] * 9 + [i32, i32, i32, ptr]
-    lib.ln_ffn_bwd_launch.argtypes = ([i32] + [ptr] * 16
+    lib.ln_ffn_bwd_launch.argtypes = ([i32] + [ptr] * 17
                                       + [i32, i32, i32, i32, ptr])
     for fn in (lib.ln_qkv_fwd_launch, lib.ln_qkv_bwd_launch,
                lib.ln_ffn_fwd_launch, lib.ln_ffn_bwd_launch):
@@ -131,12 +132,12 @@ def ln_qkv_bwd_cuda(x, g, b, wq, wk, wv, dq, dk, dv):
         (g, (D_,)), (b, (D_,)), (wq, (D_, D_)), (wk, (D_, D_)),
         (wv, (D_, D_)), (dq, x.shape), (dk, x.shape), (dv, x.shape)])
     dev = x.device
-    dx = torch.empty_like(x)
+    dx, xhat = torch.empty_like(x), torch.empty_like(x)
     stats, dxn = _stats(x), _f32(N, D, device=dev)
     dw_part = _f32(3, SPLITS, D, D, device=dev)
     dgb_part = _f32(SPLITS, 2, D, device=dev)
     _run("ln_qkv_bwd", _lib().ln_qkv_bwd_launch, x,
-         *_p(x, g, b, wq, wk, wv, dq, dk, dv, dx, stats, dxn, dw_part,
+         *_p(x, g, b, wq, wk, wv, dq, dk, dv, dx, stats, xhat, dxn, dw_part,
              dgb_part), N, D, SPLITS)
     ln_qkv_bwd_cuda.launches += 1
     dw = dw_part.sum(dim=1).to(wq.dtype)
@@ -168,7 +169,7 @@ def ln_ffn_bwd_cuda(x, g, b, w1, b1, w2, df):
         (df, x.shape)])
     _check_f(F, "ln_ffn_bwd_cuda")
     dev = x.device
-    dx = torch.empty_like(x)
+    dx, xhat = torch.empty_like(x), torch.empty_like(x)
     db1_part = _f32(N // ROW_BLOCK, F, device=dev)
     dw1_part = _f32(SPLITS, D, F, device=dev)
     dw2_part = _f32(SPLITS, F, D, device=dev)
@@ -176,8 +177,8 @@ def ln_ffn_bwd_cuda(x, g, b, w1, b1, w2, df):
     stats, dxn = _stats(x), _f32(N, D, device=dev)
     a, dz = (torch.empty(N, F, dtype=x.dtype, device=dev) for _ in range(2))
     _run("ln_ffn_bwd", _lib().ln_ffn_bwd_launch, x,
-         *_p(x, g, b, w1, b1, w2, df, dx, stats, a, dz, db1_part, dw1_part,
-             dw2_part, dxn, dgb_part), N, D, F, SPLITS)
+         *_p(x, g, b, w1, b1, w2, df, dx, stats, xhat, a, dz, db1_part,
+             dw1_part, dw2_part, dxn, dgb_part), N, D, F, SPLITS)
     ln_ffn_bwd_cuda.launches += 1
     dgb = dgb_part.sum(dim=0)
     return (dx, dgb[0].to(g.dtype), dgb[1].to(b.dtype),

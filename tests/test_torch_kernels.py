@@ -646,9 +646,14 @@ def fused_error(got, want, dtype, what):
                 FUSED_RTOL_OF_NORM[dtype])
     return (float((g - w).abs().max()),
             FUSED_RTOL_OF_MAX[dtype] * max(1.0, float(w.abs().max())))
-# (N, D, F): the published width at B 64 x T 256; a ragged N (5 row tiles:
-# the 8 row groups of the gradient sums are uneven, some empty); one tile
-FUSED_SHAPES = [(16384, 512, 2048), (320, 128, 256), (64, 256, 384)]
+# (N, D, F): the published width at B 64 x T 256; train_big's width (D
+# 1024: K9's forward runs two 512-column groups); a D past 1024 whose
+# normalized rows no longer fit in shared memory (K9's bf16 forward streams
+# x; five column groups, the last 128 wide); a ragged N (5 row tiles: the
+# 8 row groups of the cross-row sums are uneven, some empty, and the
+# 128-row tiles of the bf16 kernels end half past N); one tile
+FUSED_SHAPES = [(16384, 512, 2048), (4096, 1024, 4096), (192, 2176, 384),
+                (320, 128, 256), (64, 256, 384)]
 
 
 def fused_inputs(N, D, F, dtype, device, seed):
