@@ -9,20 +9,31 @@ through the ring kernels.
 Phases, each reported on its own line; any failure exits non-zero:
 
 1. device  — require CUDA; print the card and its power limit.
-2. build   — build the CUDA paged-attention kernel from
-             ``linalg_tpu_torch/kernels/csrc`` and time the build.
-3. kernel  — the kernel against its plain PyTorch version at the serving
-             shape (B 8, H 4, kv heads 2, d 128, page 256, 16 pages per
-             slot; ragged positions and an idle slot on the trash page) in
-             float32 and bfloat16, plus d 64 with a per-head mask; max
-             error and median CUDA-event times of both.
+2. build   — build the CUDA paged-attention kernels from
+             ``linalg_tpu_torch/kernels/csrc`` and time the build; the
+             registers, shared memory and spills of every instantiation
+             (any stack frame or spill fails).
+3. kernel  — the paged kernels (split-K partials, then the combine)
+             against their plain PyTorch version at the serving shape (B
+             8, H 4, kv heads 2, d 128, page 256, 16 pages per slot;
+             ragged positions and an idle slot on the trash page) in
+             float32 and bfloat16, d 64 with 8 query heads per KV head and
+             a per-head mask, d 256, and one slot at the last position of
+             its context (``PAGED_CASES``, each in both dtypes; bfloat16
+             held to 2% of max|want|); the split count S, max error,
+             median CUDA-event times of both called from Python and
+             replayed from a CUDA graph over input copies larger than the
+             L2 (the device time without the host's launch overhead), and
+             the bound.
 4. engine  — ServeEngine(paged, page 256, 8 slots, chunk 32, prefill
              window 2048) over GPTConfig(d512, 4 heads, 2 KV heads, 8
              layers, ctx 4096, bf16), random weights from seed 0, 16
              requests (prompts 512-2048 ids, budgets 64-256 from
              ``np.random.default_rng(0)``), with paged_attn="kernel" and
              "gather". Every request must finish with its full budget, and
-             the kernel run must launch the kernel once per layer per step.
+             the kernel run must launch the kernel once per layer per step;
+             a ``torch.profiler`` breakdown of one more kernel-mode run
+             (the very last step: device time, idle share, top kernels).
 5. equality — the same engine in float32 (TF32 off), greedy, on 4 of the
              requests: the kernel engine's tokens must equal the gather
              engine's.
@@ -212,6 +223,27 @@ LONG_WINDOW = ["--d_model", "512", "--heads", "4", "--kv_heads", "2",
 EVAL_BATCHES = 20   # trainer._eval_device batches per eval
 SP_EVAL_BATCHES = 10  # the sp trainer's eval batches (JAX's make_sp_eval)
 SP = 4  # phase 15's ring: 4 ranks sharing the card
+# phase 3 (and tools/bench_paged.py): name, (B, H, hk, d, page, Pmax),
+# dtype, mask per head, every slot at the end of its context; case i's
+# inputs come from seed i
+PAGED_CASES = (
+    ("serve f32", (8, 4, 2, 128, 256, 16), torch.float32, False, False),
+    ("serve bf16", (8, 4, 2, 128, 256, 16), torch.bfloat16, False, False),
+    ("d64 f32", (8, 8, 1, 64, 256, 16), torch.float32, True, False),
+    ("d64 bf16", (8, 8, 1, 64, 256, 16), torch.bfloat16, True, False),
+    ("d256 bf16", (8, 4, 2, 256, 256, 16), torch.bfloat16, False, False),
+    ("B1 full ctx bf16", (1, 4, 2, 128, 256, 16), torch.bfloat16, False,
+     True),
+    ("d256 f32", (8, 4, 2, 256, 256, 16), torch.float32, False, False),
+    ("B1 full ctx f32", (1, 4, 2, 128, 256, 16), torch.float32, False,
+     True),
+)
+# paged kernels vs their plain version: float32 sums in another order; a
+# bf16 output keeps 8 bits of mantissa (an ulp of max|want| is ~0.4% of
+# it) and p is rounded before p*v, so bf16 is held to 2% of max|want|,
+# never more than 2e-2
+PAGED_F32_TOL = (2e-5, 2e-6)  # rtol, atol
+PAGED_BF16_ATOL_OF_MAX = 2e-2
 H100_BF16_TFLOPS = 989.0  # dense bf16, NVIDIA's H100 SXM data sheet
 # the H100 SXM's data sheet: HBM rate, dense peaks by operand type (f32
 # runs on the FMA units: the kernels never use TF32)
@@ -272,10 +304,12 @@ def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
 
 
-def kernel_case(B, H, hk, d, page, Pmax, dtype, seed, per_head_mask=False):
+def kernel_case(B, H, hk, d, page, Pmax, dtype, seed, per_head_mask=False,
+                full=False):
     """Random inputs on the card in the engine's layout: distinct pages per
     slot, ragged positions, the last slot idle (all-trash table row, a
-    position past ctx)."""
+    position past ctx); with ``full`` every slot at the last position of
+    its context instead."""
     rng = np.random.default_rng(seed)
     ctx = page * Pmax
     n_pages = 1 + B * Pmax
@@ -288,9 +322,12 @@ def kernel_case(B, H, hk, d, page, Pmax, dtype, seed, per_head_mask=False):
     pk = t(rng.normal(size=(n_pages, hk, page, d)))
     pv = t(rng.normal(size=(n_pages, hk, page, d)))
     table = rng.permutation(np.arange(1, n_pages)).reshape(B, Pmax)
-    table[-1] = 0
     pos = rng.integers(0, ctx, size=B)
-    pos[-1] = ctx + 37
+    if full:
+        pos[:] = ctx - 1
+    else:
+        table[-1] = 0
+        pos[-1] = ctx + 37
     live = np.arange(ctx)[None, :] <= pos[:, None]
     mask = np.where(live, 0.0, -1e9)[:, None, None, :]
     if per_head_mask:  # an additive per-head bias on the live rows
@@ -316,6 +353,127 @@ def median_ms(fn, args, trials=15, reps=10, warm=3):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / reps)
     return float(np.median(times))
+
+
+def graph_ms(fn, arg_sets, rounds=5, trials=10):
+    """Device time of one call of ``fn``: the median over ``trials`` of the
+    CUDA-event time of one replay of a CUDA graph that calls ``fn`` once
+    per argument set, ``rounds`` times over, divided by the calls. The
+    graph takes the host's launch overhead out; argument sets of more
+    bytes together than the 50 MB L2 holds keep each call's reads cold."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream
+        for a in arg_sets:
+            fn(*a)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(rounds):
+            for a in arg_sets:
+                fn(*a)
+    calls = rounds * len(arg_sets)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    return float(np.median(times))
+
+
+def cold_copies(args, nbytes=200 << 20):
+    """``args`` and copies of it in fresh memory, enough that the sets
+    hold ``nbytes`` together (four times the L2) and at least two."""
+    size = sum(a.numel() * a.element_size() for a in args)
+    n = max(2, -(-nbytes // size))
+    return [args] + [tuple(a.clone() for a in args) for _ in range(n - 1)]
+
+
+def paged_builds(lib):
+    """Phase 2's build check: registers, shared memory and spills of every
+    paged_attention instantiation; any stack frame or spill fails."""
+    import ctypes
+    import re
+
+    smem = ctypes.CDLL(str(lib)).paged_partials_smem
+    smem.argtypes = [ctypes.c_int] * 4
+    smem.restype = ctypes.c_longlong
+    kernels = ptxas_kernels(lib)
+    for name, (regs, *frame) in sorted(kernels.items()):
+        m = re.search(r"paged_(partials|combine)I(f|13__nv_bfloat16)"
+                      r"((?:Li\d+E)*)E", name)
+        if not m:
+            continue
+        bf16 = m.group(2) != "f"
+        args = [int(a) for a in re.findall(r"Li(\d+)E", m.group(3))]
+        what = (f"{m.group(1)}_{'bf16' if bf16 else 'f32'}"
+                f"{'<%d, %d>' % tuple(args) if args else ''}: {regs} "
+                f"registers, ")
+        if args:  # <DP, GB>: d DP, one mask row a slot or one a head
+            dp, gb = args
+            what += (f"dynamic shared memory {smem(int(bf16), dp, 1, gb)} B"
+                     f" ({smem(int(bf16), dp, gb, gb)} B with a per-head "
+                     f"mask) at d {dp}, ")
+        else:
+            what += "dynamic shared memory 4 B a split, "
+        phase("build", f"{what}stack frame {frame[0]}, spill stores "
+              f"{frame[1]}, loads {frame[2]}")
+    spills = ptxas_spills(lib)
+    if not any("paged_" in k for k in kernels) or spills:
+        raise RuntimeError(f"paged kernels spill registers: {spills}"
+                           if spills else "no ptxas lines in the build log")
+
+
+def paged_phase():
+    """Phase 3: the paged kernels against their plain version at every
+    ``PAGED_CASES`` case; returns the serving bf16 case's record."""
+    from linalg_tpu_torch.kernels.paged_attention import (
+        paged_attention_cuda, paged_splits)
+    from linalg_tpu_torch.serve.paged import paged_attention_ref
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    record = None
+    for i, (name, shp, dt, per_head, full) in enumerate(PAGED_CASES):
+        args = kernel_case(*shp, dt, seed=i, per_head_mask=per_head,
+                           full=full)
+        B_, H_, hk_, _, page_, Pmax_ = shp
+        splits = paged_splits(B_, H_, hk_, page_, Pmax_, n_sm)
+        got = paged_attention_cuda(*args)
+        want = paged_attention_ref(*args)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        rtol, atol = (PAGED_F32_TOL if dt == torch.float32 else (0, min(
+            2e-2, PAGED_BF16_ATOL_OF_MAX * float(want.float().abs().max()))))
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+        ms = median_ms(paged_attention_cuda, args)
+        plain_ms = median_ms(paged_attention_ref, args)
+        sets = cold_copies(args)
+        dev_ms = graph_ms(paged_attention_cuda, sets)
+        plain_dev_ms = graph_ms(paged_attention_ref, sets)
+        del sets
+        phase("kernel", f"{name} B,H,hk,d,page,Pmax={shp}, S {splits}: "
+              f"max_abs_err {err:.3e} (rtol {rtol}, atol {atol:.3e}); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; from a CUDA "
+              f"graph, cold L2: kernel {dev_ms:.4f} ms, plain "
+              f"{plain_dev_ms:.4f}")
+        bms, by = paged_bound(*args)
+        phase("kernel", f"  bound {bms:.4f} ms ({by}), {bms / ms:.1%} of "
+              f"it, {bms / dev_ms:.1%} from the graph")
+        if name == "serve bf16":  # the engine's shape and dtype
+            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          device_ms=dev_ms, plain_device_ms=plain_dev_ms,
+                          bound_ms=bms, bound_by=by, library_ms=None)
+        del args, got, want
+        torch.cuda.empty_cache()
+    return record
 
 
 def make_requests(Request, n, greedy=False):
@@ -868,6 +1026,10 @@ def train_phase(smi):
     return launches, cfg, args.batch_size
 
 
+PROFILED = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+
 def profile_step(tag, cfg, batch_size, attn_fn=None):
     """A ``torch.profiler`` breakdown of one train step (attention
     ``attn_fn``, default the model's pick) after three warm ones. Run after
@@ -889,13 +1051,17 @@ def profile_step(tag, cfg, batch_size, attn_fn=None):
     for _ in range(3):
         p, state, gen, loss = step(p, state, data, gen)
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=PROFILED) as prof:
         t0 = time.perf_counter()
         p, state, gen, loss = step(p, state, data, gen)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    report_profile(tag, "step", prof, wall)
+
+
+def report_profile(tag, run, prof, wall):
+    """Print a profiled run's wall time (ms), device time, idle share,
+    kernel launches, and the top kernels and ops by device time."""
     avgs = prof.key_averages()
 
     def by_device_time(device_type):
@@ -905,7 +1071,7 @@ def profile_step(tag, cfg, batch_size, attn_fn=None):
 
     kernels = by_device_time(torch.autograd.DeviceType.CUDA)
     total = sum(ms_ for ms_, _, _ in kernels)
-    phase(tag, f"profiled step: wall {wall:.2f} ms, device time "
+    phase(tag, f"profiled {run}: wall {wall:.2f} ms, device time "
           f"{total:.2f} ms (idle {max(0.0, 1 - total / wall):.1%}), "
           f"{sum(n_ for _, n_, _ in kernels)} kernel launches")
     for what, rows in (("kernels", kernels),
@@ -916,6 +1082,16 @@ def profile_step(tag, cfg, batch_size, attn_fn=None):
             phase(tag, f"  {ms_:9.3f} ms "
                   f"{100 * ms_ / max(total, 1e-9):5.1f}%  x{n_:<5d} "
                   f"{key[:80]}")
+
+
+def profile_engine(ServeEngine, params, cfg, reqs):
+    """A ``torch.profiler`` breakdown of one kernel-mode engine run over
+    ``reqs`` (run last, as ``profile_step``)."""
+    with torch.profiler.profile(activities=PROFILED) as prof:
+        _, wall, n_tok, _ = run_engine(ServeEngine, params, cfg, reqs,
+                                       "kernel")
+    report_profile("engine", f"kernel-mode run ({len(reqs)} requests, "
+                   f"{n_tok} tokens)", prof, wall * 1e3)
 
 
 def stream_phase():
@@ -1837,7 +2013,6 @@ def main() -> int:
     from linalg_tpu_torch.kernels.paged_attention import paged_attention_cuda
     from linalg_tpu_torch.models.gpt import GPTConfig, init_gpt_params
     from linalg_tpu_torch.serve import Request, ServeEngine
-    from linalg_tpu_torch.serve.paged import paged_attention_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1852,38 +2027,12 @@ def main() -> int:
 
     # -- 2. build -------------------------------------------------------
     built = build_all(kbuild)
-    report_build("build", built["paged_attention"])
+    lib, seconds = built["paged_attention"]
+    phase("build", f"{lib.name} in {seconds:.2f} s")
+    paged_builds(lib)
 
     # -- 3. kernel vs plain version -------------------------------------
-    cases = [  # name, shape args, dtype, tolerance (rtol, atol)
-        ("serve f32", (8, 4, 2, 128, 256, 16), torch.float32, (2e-5, 2e-6),
-         False),
-        ("serve bf16", (8, 4, 2, 128, 256, 16), torch.bfloat16, (0, 2e-2),
-         False),
-        ("d64 f32", (8, 8, 1, 64, 256, 16), torch.float32, (2e-5, 2e-6),
-         True),
-        ("d64 bf16", (8, 8, 1, 64, 256, 16), torch.bfloat16, (0, 2e-2),
-         True),
-    ]
-    record = None
-    for i, (name, shp, dt, (rtol, atol), per_head) in enumerate(cases):
-        args = kernel_case(*shp, dt, seed=i, per_head_mask=per_head)
-        got = paged_attention_cuda(*args)
-        want = paged_attention_ref(*args)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                                   atol=atol)
-        ms = median_ms(paged_attention_cuda, args)
-        plain_ms = median_ms(paged_attention_ref, args)
-        phase("kernel", f"{name} B,H,hk,d,page,Pmax={shp}: max_abs_err "
-              f"{err:.3e} (rtol {rtol}, atol {atol}); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
-        bms, by = paged_bound(*args)
-        phase("kernel", f"  bound {bms:.4f} ms ({by}), {bms / ms:.1%} of it")
-        if name == "serve bf16":  # the engine's shape and dtype
-            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bms, bound_by=by, library_ms=None)
+    record = paged_phase()
 
     # -- 4. engine ------------------------------------------------------
     cfg = GPTConfig(dtype="bfloat16", **SERVE_CFG)
@@ -1976,6 +2125,9 @@ def main() -> int:
     profile_step("sp", long_cfg, long_batch, _sp_ring(
         make_mesh((1, SP), ("dp", "sp"), ["cuda"] * SP), True, long_cfg))
     ring_copies()
+    # last: a profiler session after this one's ~200k launches recorded no
+    # kernels
+    profile_engine(ServeEngine, params, cfg, reqs)
 
     flash_launches = [a + b + c for a, b, c in zip(
         train_launches, long_launches, short_launches["btd"])]

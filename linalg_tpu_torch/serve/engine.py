@@ -49,7 +49,7 @@ from ..utils.device import resolve_device
 from .paged import SUPPORTED_KERNEL_D
 
 __all__ = ["Request", "Completion", "ServeEngine", "serve",
-           "decode_chunk_slots"]
+           "decode_chunk_slots", "pick_paged_kernel"]
 
 _ROADMAP_SERVE = "ROADMAP.md queue 1, item 3 (engine: chunked prefill, " \
                  "prefixes)"
@@ -137,6 +137,19 @@ def _params_to(params, device):
     return params.to(device)
 
 
+def pick_paged_kernel(paged_attn: str, device_type: str, page: int,
+                      ctx_len: int, d_head: int) -> bool:
+    """Whether a paged engine reads its pool through the kernel: always for
+    ``"kernel"``; for ``"auto"`` the JAX engine's rule
+    (``linalg_tpu/serve/engine.py:517-523``: its accelerator, page % 8 ==
+    0, ctx_len >= 2048, d_head % 128 == 0), with the CUDA card as the
+    accelerator and d_head within the kernel's widths."""
+    return paged_attn == "kernel" or (
+        paged_attn == "auto" and device_type == "cuda" and page % 8 == 0
+        and ctx_len >= 2048 and d_head % 128 == 0
+        and d_head in SUPPORTED_KERNEL_D)
+
+
 class ServeEngine:
     """Slot-based continuous-batching engine over one GPT.
 
@@ -151,9 +164,10 @@ class ServeEngine:
 
     ``paged=True`` keeps the KV in a page pool. ``paged_attn`` picks its
     read: ``"kernel"`` (the CUDA paged-attention kernel), ``"gather"``
-    (table gather + grouped attention) or ``"auto"`` (the kernel on a CUDA
-    device from ctx 2048 at d_head 128 — the JAX engine's TPU rule, kept
-    until the port measures its own crossover).
+    (table gather + grouped attention) or ``"auto"`` (``pick_paged_kernel``:
+    the kernel on a CUDA device from ctx 2048 at d_head % 128 == 0 — the
+    JAX engine's TPU rule, kept until the port measures its own
+    crossover).
 
     ``schedule`` picks admission under page pressure: ``"fifo"`` admits in
     arrival order (a large request blocks the ones behind it, and nothing
@@ -231,13 +245,10 @@ class ServeEngine:
             if (paged_attn == "kernel"
                     and cfg.d_head not in SUPPORTED_KERNEL_D):
                 raise ValueError(
-                    f"the paged-attention kernel takes d_head in "
-                    f"{SUPPORTED_KERNEL_D}; got {cfg.d_head}")
-            self._paged_kernel = (
-                paged_attn == "kernel"
-                or (paged_attn == "auto" and self.device.type == "cuda"
-                    and page % 8 == 0 and cfg.ctx_len >= 2048
-                    and cfg.d_head == 128))
+                    f"the paged-attention kernel takes d_head a multiple "
+                    f"of 8 from 8 to 256; got {cfg.d_head}")
+            self._paged_kernel = pick_paged_kernel(
+                paged_attn, self.device.type, page, cfg.ctx_len, cfg.d_head)
         else:
             shape = (cfg.n_layers, n_slots, cfg.kv_heads, cfg.ctx_len,
                      cfg.d_head)

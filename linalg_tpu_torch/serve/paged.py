@@ -15,12 +15,16 @@ reserves pages from a host-side free list (``PageAllocator``).
 
 Decode attention reads the pool one of two ways:
 
-- ``paged_attention``: the hand-written CUDA kernel
-  (``kernels/csrc/paged_attention.cu``) reads each slot's live pages in
-  place and stops its walk at the slot's position. It replaces both Pallas
-  kernels of the JAX package (``paged_attn_pallas_dma`` and
-  ``paged_attn_pallas``). On a CPU tensor it computes its plain version,
-  ``paged_attention_ref``.
+- ``paged_attention``: the hand-written CUDA kernels
+  (``kernels/csrc/paged_attention.cu``) read each slot's live pages in
+  place and stop the walk at the slot's position: a partials kernel splits
+  the live tiles of each (slot, KV head) over S blocks, a combine kernel
+  merges their partial softmax states. They replace both Pallas kernels of
+  the JAX package (``paged_attn_pallas_dma`` and ``paged_attn_pallas``).
+  On a CPU tensor the dispatcher computes the plain version,
+  ``paged_attention_ref``; ``paged_attention_partials_ref`` and
+  ``paged_attention_combine_ref`` are the plain versions of the two
+  kernels, split rule included.
 - the table gather: materialize each slot's (kv_heads, ctx, d) view and
   run the grouped decode attention over it — the JAX ``use_kernel=False``
   path, kept as an engine mode the user picks (``paged_attn="gather"``).
@@ -30,16 +34,22 @@ The pools, table and positions are updated IN PLACE.
 
 from __future__ import annotations
 
+import math
 from typing import List
 
 import torch
 
 from ..kernels.paged_attention import SUPPORTED_D as SUPPORTED_KERNEL_D
-from ..kernels.paged_attention import paged_attention_cuda
+from ..kernels.paged_attention import TILE_ROWS, paged_attention_cuda
 from ..models.gpt import GPTConfig, _decode_chunk_core, _gqa_decode_attn
 
 __all__ = ["init_paged_cache", "PageAllocator", "decode_chunk_paged",
-           "paged_attention", "paged_attention_ref", "SUPPORTED_KERNEL_D"]
+           "paged_attention", "paged_attention_ref",
+           "paged_attention_partials_ref", "paged_attention_combine_ref",
+           "SUPPORTED_KERNEL_D"]
+
+# the running max of a split that saw no row (float32 min / 2, as in Pallas)
+NEG_INIT = float(torch.finfo(torch.float32).min) / 2
 
 
 def init_paged_cache(cfg: GPTConfig, n_slots: int, n_pages: int, page: int,
@@ -143,6 +153,59 @@ def paged_attention_ref(q, pool_k, pool_v, mask, table, pos):
     del pos
     return _gqa_decode_attn(q, _gather_pages(pool_k, table),
                             _gather_pages(pool_v, table), mask)
+
+
+def split_rows(pos, page: int, Pmax: int, splits: int):
+    """(B, splits) first row and row past the last of each split: slot b's
+    walk covers its min(pos/page + 1, Pmax) live pages, cut into tiles of
+    TILE_ROWS rows within each page, and split s takes tiles
+    [s * n / splits, (s + 1) * n / splits) of its n live tiles."""
+    n_live = torch.clamp(torch.clamp(pos.long(), min=0) // page + 1,
+                         max=Pmax)
+    tpp = -(-page // TILE_ROWS)  # tiles per page
+    edges = (torch.arange(splits + 1, device=pos.device)[None, :]
+             * (n_live * tpp)[:, None] // splits)
+    rows = (edges // tpp) * page + (edges % tpp) * TILE_ROWS
+    return rows[:, :-1], rows[:, 1:]
+
+
+def paged_attention_partials_ref(q, pool_k, pool_v, mask, table, pos,
+                                 splits: int):
+    """Plain PyTorch version of the partials kernel: for every slot,
+    query head and split of ``split_rows``, the split's f32 softmax state
+    m (B, H, S), l (B, H, S) and acc (B, H, S, d): m the max of its scores
+    (q.k / sqrt(d) + mask, in f32), l the sum of p = exp(s - m), acc the
+    sum of p (rounded to the compute dtype) times v. A split with no row
+    has m = NEG_INIT, l = 0, acc = 0."""
+    B, H, _, d = q.shape
+    hk, page = pool_k.shape[1], pool_k.shape[2]
+    Pmax = table.shape[1]
+    ctx = Pmax * page
+    k = _gather_pages(pool_k, table).float()  # (B, hk, ctx, d)
+    v = _gather_pages(pool_v, table).float()
+    qg = q.float().reshape(B, hk, H // hk, d)
+    sc = (qg @ k.transpose(-1, -2)).reshape(B, H, ctx) * (1.0 / math.sqrt(d))
+    sc = sc + mask.float().expand(B, H, 1, ctx)[:, :, 0]
+    lo, hi = split_rows(pos, page, Pmax, splits)
+    t = torch.arange(ctx, device=q.device)
+    member = (t >= lo[..., None]) & (t < hi[..., None])  # (B, S, ctx)
+    s = torch.where(member[:, None], sc[:, :, None], -math.inf)
+    m = torch.where(member.any(-1)[:, None], s.amax(-1), NEG_INIT)
+    p = torch.exp(s - m[..., None])  # (B, H, S, ctx)
+    pr = p.to(q.dtype).float().reshape(B, hk, -1, ctx)  # (g * S) rows
+    acc = (pr @ v).reshape(B, H, splits, d)
+    return m, p.sum(-1), acc
+
+
+def paged_attention_combine_ref(m, l, acc, dtype):
+    """Plain PyTorch version of the combine kernel: merge the S partials
+    of each (slot, head), M = max m_s, L = sum l_s e^(m_s - M), out = sum
+    acc_s e^(m_s - M) / (L, or 1 if L = 0), in ``dtype``. Returns
+    (B, H, 1, d)."""
+    w = torch.exp(m - m.amax(-1, keepdim=True))
+    L = (l * w).sum(-1)
+    out = (acc * w[..., None]).sum(-2) / torch.where(L == 0, 1.0, L)[..., None]
+    return out[:, :, None].to(dtype)
 
 
 def paged_attention(q, pool_k, pool_v, mask, table, pos):

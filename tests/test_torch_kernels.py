@@ -21,7 +21,8 @@ from linalg_tpu_torch.kernels.flash_attention import (
     flash_dq_cuda,
     flash_fwd_cuda,
 )
-from linalg_tpu_torch.kernels.paged_attention import paged_attention_cuda
+from linalg_tpu_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                      paged_splits)
 from linalg_tpu_torch.models.gpt import _padded_attn
 from linalg_tpu_torch.nn.flash import (
     flash_attention,
@@ -53,6 +54,9 @@ BF16_ATOL = 2e-2
 QR_RTOL_OF_MAX = 1e-5
 
 SHAPES = [(4, 2, 128), (8, 1, 64), (4, 4, 64), (2, 2, 128)]
+# the widest head the kernel takes, one between its padded widths (with a
+# query group of 3), the narrowest
+EXTRA_SHAPES = [(2, 1, 256), (6, 2, 96), (4, 4, 8)]
 
 
 @pytest.fixture
@@ -143,14 +147,13 @@ def test_build_rebuilds_when_a_shared_header_changes(monkeypatch, tmp_path):
     assert second != first and second.exists() and len(calls) == 2
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,rtol,atol",
-                         [(torch.float32, RTOL, ATOL),
-                          (torch.bfloat16, 0.0, BF16_ATOL)],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("H,hk,d", SHAPES + [(8, 2, 32)])
-def test_kernel_matches_ref_on_card(cuda, H, hk, d, dtype, rtol, atol):
-    args = on(cuda, paged_inputs(H, hk, d, seed=H + hk + d), dtype)
+PAGED_DTYPES = pytest.mark.parametrize(
+    "dtype,rtol,atol", [(torch.float32, RTOL, ATOL),
+                        (torch.bfloat16, 0.0, BF16_ATOL)],
+    ids=["f32", "bf16"])
+
+
+def check_paged_on_card(args, rtol, atol):
     before = paged_attention_cuda.launches
     got = paged_attention(*args)
     torch.cuda.synchronize()
@@ -161,10 +164,63 @@ def test_kernel_matches_ref_on_card(cuda, H, hk, d, dtype, rtol, atol):
 
 
 @pytest.mark.cuda
+@PAGED_DTYPES
+@pytest.mark.parametrize("H,hk,d",
+                         SHAPES + [(8, 2, 32)] + EXTRA_SHAPES
+                         + [(16, 1, 32), (8, 2, 256), (8, 1, 256)])
+def test_kernel_matches_ref_on_card(cuda, H, hk, d, dtype, rtol, atol):
+    args = on(cuda, paged_inputs(H, hk, d, seed=H + hk + d), dtype)
+    check_paged_on_card(args, rtol, atol)
+
+
+@pytest.mark.cuda
+@PAGED_DTYPES
+@pytest.mark.parametrize("case", ["b1_full_ctx", "pos0"])
+def test_kernel_at_edge_positions_on_card(cuda, case, dtype, rtol, atol):
+    """One slot at the last position of a 32-page context (every tile
+    live, the most splits), and every slot at position 0 (one live page:
+    most splits empty)."""
+    if case == "b1_full_ctx":
+        args = paged_inputs(4, 2, 128, seed=21, B=1, page=64, Pmax=32)
+        args[4][0] = np.arange(32, 0, -1)  # pages 32..1, not the trash page
+        args[5][:] = 64 * 32 - 1
+        args[3][:] = 0.0  # every row live
+    else:
+        args = paged_inputs(4, 2, 128, seed=22, B=4, page=64, Pmax=8)
+        args[-1][:] = 0
+        live = np.arange(64 * 8) == 0
+        args[3][:] = np.where(live, 0.0, -1e9).astype(np.float32)
+    check_paged_on_card(on(cuda, args, dtype), rtol, atol)
+
+
+@pytest.mark.cuda
+@PAGED_DTYPES
+@pytest.mark.parametrize("case", ["one", "several", "more_than_live"])
+def test_kernel_split_counts_on_card(cuda, case, dtype, rtol, atol):
+    """The split counts the wrapper picks from the shapes give the same
+    attention: S 1 (blocks enough without splitting), several, and more
+    than every busy slot's live tiles (empty splits), at a page of three
+    tiles."""
+    B, hk, Pmax = {"one": (40, 8, 2), "several": (8, 2, 8),
+                   "more_than_live": (8, 2, 8)}[case]
+    args = paged_inputs(8, hk, 64, seed=B + hk, B=B, page=80, Pmax=Pmax)
+    if case == "more_than_live":  # every busy slot on its first page
+        args[5][:-1] = np.arange(B - 1) * 11
+        live = np.arange(80 * Pmax)[None, :] <= args[5][:, None]
+        args[3][:] = np.where(live, 0.0, -1e9)[:, None, None, :]
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    S = paged_splits(B, 8, hk, 80, Pmax, n_sm)
+    assert {"one": S == 1, "several": 1 < S < 3 * Pmax,
+            "more_than_live": S > 3}[case], S
+    check_paged_on_card(on(cuda, args, dtype), rtol, atol)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda):
     args = on(cuda, paged_inputs(4, 2, 64, seed=5))
-    with pytest.raises(ValueError, match="d_head"):
-        paged_attention_cuda(*on(cuda, paged_inputs(4, 2, 16, seed=5)))
+    for d in (12, 264):  # not a multiple of 8; past 256
+        with pytest.raises(ValueError, match="d_head"):
+            paged_attention_cuda(*on(cuda, paged_inputs(4, 2, d, seed=5)))
     with pytest.raises(ValueError, match="dtype"):
         paged_attention_cuda(*(a.double() if a.is_floating_point() else a
                                for a in args))

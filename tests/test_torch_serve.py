@@ -83,10 +83,14 @@ def test_engine_matches_jax(jax_tokens, mode, seed, stop):
 # RoPE, ALiBi, a window and the gated FFNs: the slot and paged engines
 # serve each as the JAX slot engine does (a window WITH RoPE or ALiBi is
 # the JAX engine's ring mode, which is not ported). RoPE at d_head 128, as
-# tests/test_paged.py:269 holds its kernel; the others at CFG_KW's d 32
+# tests/test_paged.py:269 holds its kernel; d_head 8 as
+# tests/test_paged.py:288 serves through its kernels; the others at
+# CFG_KW's d 32
 FEATURES = {
     "rope_d128": dict(vocab_size=31, d_model=256, n_heads=2, n_kv_heads=1,
                       n_layers=2, ctx_len=64, pos="rope"),
+    "d8": dict(vocab_size=31, d_model=32, n_heads=4, n_kv_heads=2,
+               n_layers=2, ctx_len=64),
     "alibi": dict(CFG_KW, pos="alibi"),
     "window7": dict(CFG_KW, window=7),
     "swiglu": dict(CFG_KW, ffn="swiglu"),
@@ -136,11 +140,12 @@ def test_feature_configs_match_jax_slot_engine(name, mode):
     assert port_feature_tokens(name, **mode) == jax_feature_tokens(name)
 
 
-@pytest.mark.parametrize("name", ["rope_d128", "alibi"])
+@pytest.mark.parametrize("name", ["rope_d128", "alibi", "d8"])
 def test_kernel_engine_matches_gather_engine(name):
     """tests/test_paged.py:269-305 for the port: the paged engine reads
     its pool through the kernel's path and through the table gather with
-    the same tokens, at RoPE d_head 128 and under ALiBi's per-head bias."""
+    the same tokens, at RoPE d_head 128, under ALiBi's per-head bias and
+    at d_head 8."""
     assert port_feature_tokens(name, paged=True, page=16,
                                paged_attn="kernel") == port_feature_tokens(
         name, paged=True, page=16, paged_attn="gather")
@@ -226,7 +231,8 @@ class TestErrors:
         with pytest.raises(ValueError, match="page % 8"):
             ServeEngine(PARAMS, CFG, paged=True, page=4,
                         paged_attn="kernel", device="cpu")
-        cfg = GPTConfig(vocab_size=8, d_model=32, n_heads=2, ctx_len=32)
+        # d_head 12: not a multiple of 8
+        cfg = GPTConfig(vocab_size=8, d_model=24, n_heads=2, ctx_len=32)
         with pytest.raises(ValueError, match="d_head"):
             ServeEngine(init_gpt_params(cfg), cfg, paged=True, page=8,
                         chunk=4, paged_attn="kernel", device="cpu")
