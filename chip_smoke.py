@@ -37,18 +37,29 @@ Phases, each reported on its own line; any failure exits non-zero:
 5. equality — the same engine in float32 (TF32 off), greedy, on 4 of the
              requests: the kernel engine's tokens must equal the gather
              engine's.
-6. qr      — the Householder panel kernel (``csrc/qr_panel.cu``): its build
-             time and ptxas lines; the kernel against its plain PyTorch
-             version at (b, m, k) = (32, 4096, 0), (32, 4096, 2048),
-             (64, 4096, 0), the panel width (128, 4096, 0) and a strip with
-             a zero column (exact skip), max error, tolerance and median
-             CUDA-event times of both; then ``householder_qr`` on a 4096^2
-             float32 matrix from ``np.random.default_rng(0)``: 128 strip
-             launches (n / 32), rel_resid ||A-QR||_F/||A||_F in float64
-             <= 1e-6, ||Q^T Q - I||_F, median times of three runs through
-             the kernel, through the same driver with the plain strip, and
-             of ``torch.linalg.qr`` (GFLOP/s as 2 N^3 / t); and once more
-             with the caller's TF32 switched on, still <= 1e-6.
+6. qr      — the Householder panel kernels (``csrc/qr_panel.cu``): build
+             time and ptxas lines, the registers, shared memory and spills
+             of the cluster kernel's three instantiations (any stack frame
+             or spill fails) and of the single-block kernel; each kernel
+             against its plain PyTorch version at (b, m, k) = (32, 4096,
+             0), (32, 4096, 2048), (32, 4096, 3968), (64, 4096, 0), the
+             panel width (128, 4096, 0) and a strip with a zero column
+             (exact skip): the kernel the shape rule picks and its cluster
+             size C (the launch counters must agree), max error,
+             tolerance, median CUDA-event times called from Python and
+             replayed from a CUDA graph over copies larger than the L2,
+             the plain version's, the bound, and ``torch.geqrf`` of the
+             same strip as a yardstick; then ``householder_qr`` on a
+             4096^2 float32 matrix from ``np.random.default_rng(0)``: 128
+             strip launches (n / 32), all through the cluster kernel,
+             rel_resid ||A-QR||_F/||A||_F in float64 <= 1e-6,
+             ||Q^T Q - I||_F, median times of three runs through the
+             kernel, through the same blocked QR with the plain strip, and of
+             ``torch.linalg.qr`` (GFLOP/s as 2 N^3 / t); once more with
+             the caller's TF32 switched on, still <= 1e-6; and a
+             ``torch.profiler`` breakdown of one QR (run last, with the
+             other profiles: device time, idle share, the panel kernels'
+             share, top kernels and ops).
 7. flash   — the flash-attention kernels (``csrc/flash_attention.cu``;
              bf16 on wgmma fed by a TMA ring): build time and ptxas lines,
              the registers, shared memory and spills of every
@@ -193,6 +204,19 @@ QR_RESID_MAX = 1e-6  # ||A - QR||_F / ||A||_F, the headline accuracy gate
 # float64 sweep at m 4096 differs from the float32 one by 2e-5 on St
 # (magnitude 65), 1.4e-7 on Vt and 1e-7 on Tt
 QR_RTOL_OF_MAX = 1e-5
+# phase 6 (and tools/bench_qr.py): name, (b, m, k), zero column; case i's
+# St comes from seed 100 + i
+QR_CASES = (
+    ("strip", (32, 4096, 0), None),
+    ("strip k 2048", (32, 4096, 2048), None),
+    ("strip k 3968", (32, 4096, 3968), None),
+    ("strip b 64", (64, 4096, 0), None),
+    ("panel b 128", (128, 4096, 0), None),
+    ("zero column", (32, 4096, 0), 5),
+)
+# phase 6's repeat check: launches of each cluster strip into outputs of
+# their own, every one bitwise equal to the first
+QR_REPEATS = 200
 # flash kernels vs their plain versions, as a share of max|want|: float32
 # sums over T and d in another order; bf16 outputs and the rounded P and dS
 # keep 8 bits of mantissa, and the kernel's online softmax rounds
@@ -531,10 +555,62 @@ def report_build(tag, built):
             phase(tag, ln.strip())
 
 
-def qr_phase():
-    """Phase 6: the panel kernel against its plain version, then the
-    4096^2 Householder QR through it. Returns the kernel's JSON record."""
+def qr_builds(lib):
+    """Phase 6's build check: registers, shared memory and spills of the
+    panel kernels; a stack frame or spill in the cluster kernel fails."""
+    import re
+
+    spills = {}
+    log = lib.with_suffix(".log").read_text()
+    for name, (regs, *frame) in sorted(ptxas_kernels(lib).items()):
+        m = re.search(r"qr_(cluster|panel)_kernelI((?:Li\d+E|Lb\dE)+)E",
+                      name)
+        if not m:
+            continue
+        args = re.findall(r"L[ib](\d+)E", m.group(2))
+        after = log[log.index(f"Function properties for {name}"):]
+        used = next(ln for ln in after.splitlines() if "Used" in ln)
+        smem = re.search(r"(\d+) bytes smem", used)
+        phase("qr", f"qr_{m.group(1)}_kernel<{', '.join(args)}>: {regs} "
+              f"registers, {smem.group(1) if smem else 0} bytes of static "
+              f"shared memory, stack frame {frame[0]}, spill stores "
+              f"{frame[1]}, loads {frame[2]}")
+        if m.group(1) == "cluster" and any(frame):
+            spills[name] = frame
+    if spills:
+        raise RuntimeError(f"qr cluster kernel spills registers: {spills}")
+
+
+def geqrf_ms(St, k):
+    """``torch.geqrf`` of the same (m - k, b) strip: a yardstick only (no
+    T factor, LAPACK's scaling); the port never calls it."""
+    A = St[:, k:].T.contiguous()
+    return median_ms(torch.geqrf, (A,), trials=7, reps=5)
+
+
+def qr_repeat_check(name, St, k, first):
+    """QR_REPEATS launches of the strip kernel on St into outputs of their
+    own, back to back: St_out, Vt and Tt of every one must equal ``first``
+    bit for bit. The kernel's sums run in a fixed order, so any difference
+    is a race between its threads or CTAs."""
     from linalg_tpu_torch.kernels.qr_panel import factor_strip_cuda
+
+    outs = [factor_strip_cuda(St, k) for _ in range(QR_REPEATS)]
+    torch.cuda.synchronize()
+    bad = [i for i, out in enumerate(outs)
+           if not all(torch.equal(g, f) for g, f in zip(out, first))]
+    phase("qr", f"  {QR_REPEATS} more launches into outputs of their own: "
+          f"{QR_REPEATS - len(bad)} bitwise equal to the first")
+    if bad:
+        raise RuntimeError(f"qr_panel {name}: launches {bad[:8]} differ "
+                           "from the first (a race in the kernel)")
+
+
+def qr_phase():
+    """Phase 6: the panel kernels against their plain version, then the
+    4096^2 Householder QR through them. Returns the kernel's JSON record."""
+    from linalg_tpu_torch.kernels.qr_panel import (cluster_shape,
+                                                   factor_strip_cuda)
     from linalg_tpu_torch.ops.qr import householder_qr
     from linalg_tpu_torch.ops.qr_panel import (
         factor_panel_ref,
@@ -543,22 +619,23 @@ def qr_phase():
     )
 
     record = None
-    cases = [  # name, (b, m, k), zero column
-        ("strip", (32, 4096, 0), None),
-        ("strip k 2048", (32, 4096, 2048), None),
-        ("strip b 64", (64, 4096, 0), None),
-        ("panel b 128", (128, 4096, 0), None),
-        ("zero column", (32, 4096, 0), 5),
-    ]
-    for i, (name, (b, m, k), zero) in enumerate(cases):
+    for i, (name, (b, m, k), zero) in enumerate(QR_CASES):
         St = np.random.default_rng(100 + i).standard_normal((b, m))
         if zero is not None:
             St[zero] = 0.0
         St = torch.tensor(St, dtype=torch.float32, device="cuda")
         ref = factor_strip_ref if b <= 64 else factor_panel_ref
+        C, lpt = cluster_shape(b, m, k)
+        counts = (factor_strip_cuda.cluster_launches,
+                  factor_strip_cuda.block_launches)
         got = factor_strip_cuda(St, k)
         want = ref(St, k)
         torch.cuda.synchronize()
+        moved = (factor_strip_cuda.cluster_launches - counts[0],
+                 factor_strip_cuda.block_launches - counts[1])
+        if moved != ((1, 0) if C else (0, 1)):
+            raise RuntimeError(f"qr_panel {name}: C {C} but the cluster/"
+                               f"block counters moved by {moved}")
         errs, tols = [], []
         for g, w, what in zip(got, want, ("St", "Vt", "Tt")):
             err = float((g - w).abs().max())
@@ -574,20 +651,35 @@ def qr_phase():
             if vz != 0.0 or tz != 0.0:
                 raise RuntimeError(f"qr_panel zero column: Vt row {vz}, "
                                    f"Tt diagonal {tz}; both must be 0")
-        slow = b > 32
+        if C:
+            qr_repeat_check(name, St, k, got)
+        slow = not C
         ms = median_ms(factor_strip_cuda, (St, k), trials=7 if slow else 15,
                        reps=3 if slow else 10)
+        # the device time without the host's launch cost: a CUDA graph over
+        # copies of St larger than the L2 (the single-block kernel is
+        # device-bound, so its eager time stands)
+        dev_ms = ms if slow else graph_ms(factor_strip_cuda, [
+            (c, k) for (c,) in cold_copies((St,), 64 << 20)])
         plain_ms = median_ms(ref, (St, k), trials=5, reps=2, warm=1)
-        phase("qr", f"{name} b,m,k={b},{m},{k}: max_abs_err St/Vt/Tt "
-              f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tolerance "
-              f"{QR_RTOL_OF_MAX} x max|want|: {tols[0]:.3e}/{tols[1]:.3e}/"
-              f"{tols[2]:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {strip_bound(b, m - k)[0]:.4f} ms "
-              f"({strip_bound(b, m - k)[1]})")
+        bms, by = strip_bound(b, m - k)
+        which = (f"cluster kernel, C {C}, {lpt} lane(s) a thread" if C
+                 else "single-block kernel")
+        phase("qr", f"{name} b,m,k={b},{m},{k}: {which};"
+              f" max_abs_err St/Vt/Tt {errs[0]:.3e}/{errs[1]:.3e}/"
+              f"{errs[2]:.3e} (tolerance {QR_RTOL_OF_MAX} x max|want|: "
+              f"{tols[0]:.3e}/{tols[1]:.3e}/{tols[2]:.3e})")
+        phase("qr", f"  kernel {ms:.4f} ms from Python, {dev_ms:.4f} ms of "
+              f"device time (CUDA graph, cold L2); plain {plain_ms:.4f} ms; "
+              f"bound {bms:.5f} ms ({by}), {bms / dev_ms:.2%} of it; "
+              f"torch.geqrf of the ({m - k}, {b}) strip {geqrf_ms(St, k):.4f}"
+              f" ms (yardstick: no T, LAPACK's scaling)")
         if name == "strip":  # the main path's shape
-            bms, by = strip_bound(b, m - k)
-            record = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                          bound_ms=bms, bound_by=by, library_ms=None)
+            record = dict(max_abs_err=max(errs), ms=ms, device_ms=dev_ms,
+                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                          library_ms=None, cluster_size=C)
+        del St, got, want
+        torch.cuda.empty_cache()
 
     N = QR_N
     A_host = np.random.default_rng(0).standard_normal((N, N)).astype(
@@ -613,14 +705,22 @@ def qr_phase():
     torch.cuda.synchronize()
 
     factor_strip_cuda.launches = 0
+    factor_strip_cuda.cluster_launches = 0
+    factor_strip_cuda.block_launches = 0
     Q, R = householder_qr(A)
     torch.cuda.synchronize()
     launches = factor_strip_cuda.launches
-    if launches != N // QR_INNER:
-        raise RuntimeError(f"householder_qr launched the strip kernel "
-                           f"{launches} times; expected {N // QR_INNER}")
+    by_kernel = [factor_strip_cuda.cluster_launches,
+                 factor_strip_cuda.block_launches]
+    if launches != N // QR_INNER or by_kernel != [N // QR_INNER, 0]:
+        raise RuntimeError(f"householder_qr launched the strip kernels "
+                           f"{launches} times (cluster, block: {by_kernel});"
+                           f" expected {N // QR_INNER}, all cluster")
     rel, orth = quality(Q, R)
+    sizes = sorted({cluster_shape(QR_INNER, N, k)[0]
+                    for k in range(0, N, QR_INNER)})
     phase("qr", f"householder_qr {N}x{N} f32: {launches} strip launches, "
+          f"all through the cluster kernel (C {sizes[0]} to {sizes[-1]}), "
           f"rel_resid {rel:.3e} (gate {QR_RESID_MAX}), ||Q^T Q - I||_F "
           f"{orth:.3e}")
     if not rel <= QR_RESID_MAX:
@@ -657,7 +757,36 @@ def qr_phase():
     if not rel_tf32 <= QR_RESID_MAX or not still_on:
         raise RuntimeError("householder_qr under the caller's TF32 missed "
                            "the gate or did not restore the setting")
-    return dict(launches=launches, **record)
+    return dict(launches=launches, launches_cluster_block=by_kernel,
+                **record)
+
+
+def profile_qr():
+    """A ``torch.profiler`` breakdown of one 4096^2 ``householder_qr`` (run
+    with the other profiles, last): device time, idle share, the panel
+    kernels' share, the top kernels and ops."""
+    from linalg_tpu_torch.ops.qr import householder_qr
+
+    A = torch.tensor(np.random.default_rng(0).standard_normal(
+        (QR_N, QR_N)), dtype=torch.float32, device="cuda")
+    householder_qr(A)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=PROFILED) as prof:
+        t0 = time.perf_counter()
+        householder_qr(A)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    report_profile("qr", f"householder_qr {QR_N}x{QR_N} f32", prof, wall)
+    panel = total = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms_ = getattr(e, "self_device_time_total", 0) / 1e3
+            total += ms_
+            if "qr_cluster_kernel" in e.key or "qr_panel_kernel" in e.key:
+                panel += ms_
+    phase("qr", f"panel kernels {panel:.3f} ms of {total:.3f} ms of device "
+          f"time ({panel / max(total, 1e-9):.1%}); the rest is the blocked QR's "
+          f"GEMMs, reductions, copies and element-wise ops")
 
 
 def flash_case(shape, dtype, seed):
@@ -2077,6 +2206,7 @@ def main() -> int:
 
     # -- 6. qr -----------------------------------------------------------
     report_build("qr", built["qr_panel"])
+    qr_builds(built["qr_panel"][0])
     qr_record = qr_phase()
 
     # -- 7. flash --------------------------------------------------------
@@ -2112,6 +2242,7 @@ def main() -> int:
     sp_launches = sp_phase(smi)
 
     # the profiler breakdowns last: the profiler stays attached to the card
+    profile_qr()
     profile_step("train", big_cfg, big_batch)
     profile_step("long", long_cfg, long_batch)
     for name, env in (("btd", {}), ("fused", {"LINALG_TPU_FUSED_LN": "1"})):

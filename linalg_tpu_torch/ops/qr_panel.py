@@ -16,9 +16,13 @@ panel column is one contiguous row, read with coalesced 16-byte loads.
 - ``factor_strip_ref`` / ``factor_panel_ref``: the plain PyTorch versions
   of the two TPU kernels (one sweep, b steps, element-wise float32 — no
   matrix product, as the TPU kernels stay off the MXU).
+- ``_cluster_sweep_ref``: the cluster kernel's split algebra (lane ranges,
+  folded dots summed in rank order), the CPU tests' plain reference for
+  it; no card path calls it.
 - ``factor_strip``: the dispatcher. A CPU tensor takes the plain version;
   a CUDA tensor launches ``kernels/csrc/qr_panel.cu`` (whose wrapper
-  ``factor_strip_cuda`` also takes K12's widths), which raises on what it
+  ``factor_strip_cuda`` picks its cluster kernel or its single-block
+  kernel by shape, and also takes K12's widths), which raises on what it
   does not take.
 - ``householder_qr_panel``: the driver ``householder_qr_pallas`` with all of
   its structure (two-level strips, ``wy_merge``, live-lane slicing at
@@ -113,6 +117,58 @@ def _sweep_ref(St: torch.Tensor, k: int):
             t_row = -2.0 * (z * Tt[:jl]).sum(dim=0)
         t_row[jl] = torch.where(has, 2.0, 0.0)
         Tt[jl] = t_row
+    return S, Vt, Tt
+
+
+def _cluster_sweep_ref(St: torch.Tensor, k: int, C: int):
+    """The cluster kernel's arithmetic, in PyTorch: the same function as
+    ``_sweep_ref``, with the lanes split among C CTAs as the kernel splits
+    them.
+
+    The live lanes [k & ~3, m) fall into C contiguous ranges of
+    ceil(lanes / C) (the kernel's CTAs hold a fixed 256 each).
+    Each step forms every range's partial dots S_r . x and Vt_i . x, with x
+    row j on lanes >= jg, and sums them in rank order; then
+    y_r = inv (S_r . x + alpha S_r[jg]) and z_i = inv (Vt_i . x +
+    alpha Vt_i[jg]) (S_j . x is nrm^2), and Tt row j from z as the kernel's
+    CTA 0 does. The plain reference for the split algebra on the CPU; no
+    card path calls it.
+    """
+    b, m = St.shape
+    dtype, dev = St.dtype, St.device
+    eps = eps_for(dtype)
+    lo = min(k & ~3, m)
+    per = max(1, -(-(m - lo) // C))
+    ranges = [(lo + r * per, min(lo + (r + 1) * per, m)) for r in range(C)]
+    S = St.clone()
+    Vt = torch.zeros_like(St)
+    Tt = torch.zeros((b, b), dtype=dtype, device=dev)
+    lane = torch.arange(m, device=dev)
+    zero = torch.zeros(b, dtype=dtype, device=dev)
+    for j in range(b):
+        jg = k + j
+        x = torch.where(lane >= jg, S[j], 0.0)
+        P, Q = zero.clone(), zero.clone()
+        for a, e in ranges:  # rank order
+            P = P + (S[:, a:e] * x[a:e]).sum(dim=1)
+            Q = Q + (Vt[:, a:e] * x[a:e]).sum(dim=1)
+        ps = S[:, jg] if jg < m else zero
+        pv = Vt[:, jg] if jg < m else zero
+        nrm2 = P[j]
+        nrm = torch.sqrt(nrm2)
+        has = nrm >= eps
+        x0 = ps[j]
+        alpha = torch.where(x0 >= 0, nrm, -nrm)
+        wn2 = nrm2 + 2.0 * alpha * x0 + alpha * alpha
+        inv = torch.rsqrt(torch.where(wn2 == 0, 1.0, wn2))
+        w = (x + torch.where(lane == jg, alpha, 0.0)) * inv
+        y = inv * (P + alpha * ps)
+        z = inv * (Q + alpha * pv)  # zero from row j on: Vt rows >= j are 0
+        S = torch.where(has, S - 2.0 * y[:, None] * w, S)
+        Vt[j] = torch.where(has, w, 0.0)
+        t_row = -2.0 * (z[:j, None] * Tt[:j]).sum(dim=0)
+        t_row[j] = 2.0
+        Tt[j] = torch.where(has, t_row, 0.0)
     return S, Vt, Tt
 
 

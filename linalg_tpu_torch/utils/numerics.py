@@ -102,10 +102,27 @@ def random_nonsingular_qr(n: int, seed=None) -> np.ndarray:
 def full_f32_matmul():
     """Run float32 matrix products in full float32 (no TF32, no bf16
     passes) whatever the caller's global setting, and restore that
-    setting afterwards. Usable as a decorator."""
-    prev = torch.get_float32_matmul_precision()
+    setting afterwards. Usable as a decorator.
+
+    PyTorch keeps the setting twice: a global value, and one per backend
+    (CUDA's and oneDNN's matmuls, and their generic default). Both are
+    restored: the global setter overwrites every backend, including one
+    the caller never set. Where the caller left the backends disagreeing
+    (one set through the legacy ``allow_tf32`` flag), the global getter
+    raises; then only the backends' values are restored, which leaves the
+    caller's state as it was."""
+    backends = (torch.backends, torch.backends.cuda.matmul,
+                torch.backends.mkldnn.matmul)
+    prev = [b.fp32_precision for b in backends]
+    try:
+        prev_global = torch.get_float32_matmul_precision()
+    except RuntimeError:  # the caller mixed the legacy and new settings
+        prev_global = None
     torch.set_float32_matmul_precision("highest")
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(prev)
+        if prev_global is not None:
+            torch.set_float32_matmul_precision(prev_global)
+        for b, p in zip(backends, prev):
+            b.fp32_precision = p

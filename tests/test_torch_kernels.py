@@ -32,7 +32,10 @@ from linalg_tpu_torch.nn.flash import (
 )
 from linalg_tpu_torch.nn.flash_long import flash_attention_long
 from linalg_tpu_torch.nn.flash_stream import flash_attention_stream
-from linalg_tpu_torch.kernels.qr_panel import factor_strip_cuda
+from linalg_tpu_torch.kernels.qr_panel import (
+    cluster_shape,
+    factor_strip_cuda,
+)
 from linalg_tpu_torch.ops.qr import householder_qr
 from linalg_tpu_torch.ops.qr_panel import (
     factor_panel_ref,
@@ -234,27 +237,73 @@ def test_qr_panel_wrapper_rejects_cpu_tensors():
         factor_strip_cuda(torch.zeros(8, 32), 0)
 
 
+# (b, m, k, zero row, (C, lanes a thread) of the cluster kernel, or (0, 0)
+# for the single-block kernel): C 1, several and 16 CTAs, k near m (fewer
+# live lanes than a CTA; pivots past m), two lanes a thread past 4096 live
+# lanes, b 64, and shapes the rule sends to the single-block kernel
+QR_CARD_CASES = {
+    "strip": (32, 1024, 0, None, (4, 1)),
+    "ragged_zero_col": (32, 1030, 7, 3, (5, 1)),
+    "largest_cluster": (32, 4096, 0, None, (16, 1)),
+    "one_cta": (32, 4096, 3900, 1, (1, 1)),
+    "k_near_m": (32, 1030, 1020, None, (1, 1)),
+    "two_lanes": (32, 6000, 5, 20, (12, 2)),
+    "two_lanes_largest": (32, 8192, 0, None, (16, 2)),
+    "b64": (64, 4096, 0, None, (16, 1)),
+    "b64_ragged": (64, 2050, 33, 60, (8, 1)),
+    "wide_m": (32, 20000, 0, None, (0, 0)),
+    "panel_b128": (128, 2048, 0, None, (0, 0)),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,m,k,zero", [(32, 1024, 0, None),
-                                        (32, 1030, 7, 3),
-                                        (128, 2048, 0, None)],
-                         ids=["strip", "ragged_zero_col", "panel_b128"])
-def test_qr_panel_matches_ref_on_card(cuda, b, m, k, zero):
+@pytest.mark.parametrize("case", sorted(QR_CARD_CASES))
+def test_qr_panel_matches_ref_on_card(cuda, case):
+    b, m, k, zero, shape = QR_CARD_CASES[case]
+    assert cluster_shape(b, m, k) == shape
+    cluster = shape[0] > 0
     St = np.random.default_rng(b + m + k).standard_normal((b, m))
     if zero is not None:
         St[zero] = 0.0
     St = torch.tensor(St, dtype=torch.float32, device=cuda)
     ref = factor_strip_ref if b <= 64 else factor_panel_ref
-    before = factor_strip_cuda.launches
+    counts = (factor_strip_cuda.launches, factor_strip_cuda.cluster_launches,
+              factor_strip_cuda.block_launches)
     got = factor_strip(St, k) if b <= 64 else factor_strip_cuda(St, k)
     torch.cuda.synchronize()
-    assert factor_strip_cuda.launches == before + 1
+    moved = (factor_strip_cuda.cluster_launches - counts[1],
+             factor_strip_cuda.block_launches - counts[2])
+    assert factor_strip_cuda.launches == counts[0] + 1
+    assert moved == ((1, 0) if cluster else (0, 1))
     for g, w in zip(got, ref(St, k)):
         tol = QR_RTOL_OF_MAX * max(1.0, float(w.abs().max()))
         torch.testing.assert_close(g, w, rtol=0, atol=tol)
-    if zero is not None:  # exact skip: no reflector, tau = 0
+    if zero is not None and k + zero < m:  # exact skip: no reflector, tau 0
         assert float(got[1][zero].abs().max()) == 0.0
         assert float(got[2][zero, zero]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["b64", "b64_ragged", "largest_cluster",
+                                  "two_lanes_largest"])
+def test_qr_cluster_repeats_bitwise_on_card(cuda, case):
+    # the cluster kernel sums in a fixed order, so 200 launches back to back
+    # into outputs of their own must agree bit for bit: a race between its
+    # threads or CTAs (a Tt row formed from a stale z) would show as one
+    # launch that differs
+    b, m, k, zero, _ = QR_CARD_CASES[case]
+    St = np.random.default_rng(b + m + k).standard_normal((b, m))
+    if zero is not None:
+        St[zero] = 0.0
+    St = torch.tensor(St, dtype=torch.float32, device=cuda)
+    outs = [factor_strip_cuda(St, k) for _ in range(200)]
+    torch.cuda.synchronize()
+    for g, w in zip(outs[0], factor_strip_ref(St, k)):
+        tol = QR_RTOL_OF_MAX * max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g, w, rtol=0, atol=tol)
+    differ = [i for i, out in enumerate(outs)
+              if not all(torch.equal(g, f) for g, f in zip(out, outs[0]))]
+    assert differ == []
 
 
 @pytest.mark.cuda
@@ -274,6 +323,7 @@ def test_householder_qr_through_kernel_under_callers_tf32(cuda):
     A = torch.tensor(np.random.default_rng(0).standard_normal((n, n)),
                      dtype=torch.float32, device=cuda)
     before = factor_strip_cuda.launches
+    cluster_before = factor_strip_cuda.cluster_launches
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         Q, R = householder_qr(A)
@@ -282,6 +332,8 @@ def test_householder_qr_through_kernel_under_callers_tf32(cuda):
         torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.synchronize()
     assert factor_strip_cuda.launches == before + n // 32
+    # every strip of the QR goes through the cluster kernel
+    assert factor_strip_cuda.cluster_launches == cluster_before + n // 32
     assert still_on  # the caller's setting is restored
     A64 = A.double()
     rel = torch.linalg.norm(Q.double() @ R.double() - A64) / torch.linalg.norm(

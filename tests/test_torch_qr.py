@@ -23,6 +23,7 @@ from linalg_tpu.ops.qr import (
     least_squares_qr as j_lsq_mgs,
     qr as j_qr,
 )
+from linalg_tpu_torch.kernels import qr_panel as kqp
 from linalg_tpu_torch.kernels.qr_panel import factor_strip_cuda
 from linalg_tpu_torch.ops import qr_panel as tqp
 from linalg_tpu_torch.ops.qr import (
@@ -93,6 +94,108 @@ def test_sweep_ref_compact_wy_identity():
     Qp = np.eye(m) - V @ T @ V.T
     assert np.linalg.norm(Qp.T @ Qp - np.eye(m)) < 1e-5
     assert np.linalg.norm(Qp @ St.double().numpy().T - A) < 1e-4
+
+
+# the cluster kernel's split algebra (ops/qr_panel.py::_cluster_sweep_ref):
+# C lane ranges, strips (b, m, k), and a zero column (row 3 of St)
+CLUSTER_CASES = [(32, 1024, 0, None), (32, 1030, 7, None),
+                 (64, 512, 100, None), (32, 1030, 7, 3)]
+# float32 sums over up to m lanes in another order: 1e-5 of max|want|
+# (the kernel-vs-plain tolerance of tests/test_torch_kernels.py); float64
+# 1e-12 of max|want|
+SPLIT_RTOL_OF_MAX = {np.float32: 1e-5, np.float64: 1e-12}
+
+
+def _strip(b, m, k, zero, dtype):
+    St = _rand((b, m), b + m + k, dtype)
+    if zero is not None:
+        St[zero] = 0.0
+    return St
+
+
+@pytest.fixture(scope="module")
+def jax_strips():
+    """JAX factor_strip (interpret mode) of each CLUSTER_CASES strip in
+    float32 and float64, computed once per module on first use."""
+    cache = {}
+
+    def get(case, dtype):
+        if (case, dtype) not in cache:
+            b, m, k, zero = case
+            with pltpu.force_tpu_interpret_mode():
+                out = jqp.factor_strip(jnp.asarray(_strip(*case, dtype)), k,
+                                       b)
+            cache[case, dtype] = [np.asarray(o) for o in out]
+        return cache[case, dtype]
+
+    return get
+
+
+def _close_of_max(got, want, rtol):
+    want = _np(want)
+    np.testing.assert_allclose(_np(got), want, rtol=0,
+                               atol=rtol * max(1.0, np.abs(want).max()))
+
+
+@pytest.mark.parametrize("case", CLUSTER_CASES,
+                         ids=["b32_m1024", "b32_m1030_k7", "b64_m512_k100",
+                              "zero_column"])
+@pytest.mark.parametrize("C", [1, 2, 5, 16])
+def test_cluster_split_algebra(jax_strips, case, C):
+    """The cluster kernel's arithmetic (C lane ranges, folded dots summed
+    in rank order, Tt as CTA 0 builds it) against the plain sweep and
+    against JAX's factor_strip in interpret mode, float32 and float64."""
+    b, m, k, zero = case
+    for dtype in (np.float32, np.float64):
+        St = torch.from_numpy(_strip(*case, dtype))
+        got = tqp._cluster_sweep_ref(St, k, C)
+        rtol = SPLIT_RTOL_OF_MAX[dtype]
+        if dtype == np.float32:
+            for g, w in zip(got, tqp.factor_strip_ref(St, k)):
+                _close_of_max(g, w, rtol)
+        for g, w in zip(got, jax_strips(case, dtype)):
+            _close_of_max(g, w, rtol)
+        if zero is not None:  # exact skip: no reflector, tau = 0
+            assert float(got[1][zero].abs().max()) == 0.0
+            assert float(got[2][zero, zero]) == 0.0
+            assert torch.equal(got[0][zero], St[zero])
+
+
+def test_cluster_shape_rule():
+    """The shape rule between the two kernels: the cluster kernel up to 64
+    rows and 16 CTAs of 256 live lanes (b <= 32: then 16 of 512, two lanes
+    a thread), C shrinking with the live lanes down to 1; everything else
+    the single-block kernel."""
+    shape = kqp.cluster_shape
+    assert shape(32, 4096, 0) == (16, 1)
+    assert shape(32, 4096, 2048) == (8, 1)
+    assert shape(32, 4096, 4064) == (1, 1)
+    assert shape(32, 4096, 4095) == (1, 1)
+    assert shape(32, 1030, 7) == (5, 1)  # lanes from 4: 1026 of them
+    assert shape(32, 4097, 0) == (9, 2)
+    assert shape(32, 8192, 0) == (16, 2)
+    assert shape(32, 8193, 0) == (0, 0)
+    assert shape(32, 8193, 4) == (16, 2)
+    assert shape(64, 4096, 1) == (16, 1)
+    assert shape(64, 4097, 0) == (0, 0)
+    assert shape(128, 2048, 0) == (0, 0)
+    assert shape(8, 40, 100) == (1, 1)  # no live lane: every step skips
+    # every strip of the 4096^2 QR takes the cluster kernel
+    assert all(shape(32, 4096, k)[0] for k in range(0, 4096, 32))
+
+
+def test_cluster_ctas():
+    """CTAs for the live lanes m - (k & ~3), the count the shape rule and
+    tools/bench_qr.py both take."""
+    assert kqp.cluster_ctas(4096, 0, 1) == 16
+    assert kqp.cluster_ctas(4096, 0, 2) == 8
+    assert kqp.cluster_ctas(4096, 3, 1) == 16  # lanes from 0
+    assert kqp.cluster_ctas(4096, 3841, 1) == 1  # lanes from 3840: 256
+    assert kqp.cluster_ctas(4096, 3836, 1) == 2  # lanes from 3836: 260
+    assert kqp.cluster_ctas(40, 100, 1) == 1  # no live lane
+    for b, m, k in [(32, 4096, 2048), (64, 2050, 33), (32, 6000, 5)]:
+        C, lpt = kqp.cluster_shape(b, m, k)
+        assert C == kqp.cluster_ctas(m, k, lpt)
 
 
 @pytest.mark.parametrize("k", [0, 4])
@@ -178,6 +281,39 @@ def test_driver_runs_in_full_precision_and_restores_setting():
         torch.set_float32_matmul_precision(prev)
     assert seen and set(seen) == {"highest"}
     assert after == "high"
+
+
+def _precisions():
+    return tuple(b.fp32_precision for b in (
+        torch.backends, torch.backends.cuda.matmul,
+        torch.backends.mkldnn.matmul))
+
+
+def test_qr_after_the_callers_legacy_tf32_switch():
+    """A caller who switches TF32 on and off through the legacy
+    ``allow_tf32`` flag around a QR (as chip_smoke.py's phase 6 does) finds
+    every precision setting as it left it, and can run the next QR.
+    Restoring the global setting would also set oneDNN's to TF32; with
+    CUDA's back at IEEE the two disagree, and PyTorch's global getter,
+    which the next QR reads, raises."""
+    A = torch.from_numpy(_rand((32, 32), 2))
+    prev, prev_flag = _precisions(), torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        before = _precisions()
+        tqp.householder_qr_panel(A, block=16, inner=8)
+        assert _precisions() == before
+        torch.backends.cuda.matmul.allow_tf32 = False
+        Q, R = tqp.householder_qr_panel(A, block=16, inner=8)
+        assert torch.get_float32_matmul_precision() == "highest"
+        assert np.linalg.norm(Q.double().numpy() @ R.double().numpy() - _np(
+            A)) / np.linalg.norm(_np(A)) < 1e-5
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = prev_flag
+        for b, p in zip((torch.backends, torch.backends.cuda.matmul,
+                         torch.backends.mkldnn.matmul), prev):
+            b.fp32_precision = p
 
 
 @pytest.mark.parametrize("K", [100, 384, 1000, 5000])
