@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one CUDA card: paged serving, the
 Householder QR, char-GPT training, long-context training, short-context
-training through the gated kernels, and sequence-parallel training
-through the ring kernels.
+training through the gated kernels, sequence-parallel training through
+the ring kernels, and sampling.
 
     python3 chip_smoke.py
 
@@ -164,6 +164,28 @@ Phases, each reported on its own line; any failure exits non-zero:
              through the kernels against the plain ring (``--ring xla``)
              at 2 layers in f32 and bf16; a profiled long_window sp step
              last.
+16. sample — the sampling path at the published config
+             (``bench.py::bench_sampler``: vocab 65, d512, 4 heads, 4
+             layers, ctx 256, ``init_gpt_params(seed=0)``), f32 then bf16:
+             ``train.trainer.sample`` of 2048 tokens from [1, 2, 3] with
+             context rollover and ``gpt_generate`` of 8 ragged prompts
+             (3-120 ids from ``np.random.default_rng(1)``) x 128 new
+             tokens, each with its tok/s; in f32 and greedy, the first 300
+             sampled tokens equal an independent ``gpt_decode_step`` loop
+             that re-prefills by the same rule, each ``gpt_generate`` row
+             equals its prompt alone, beam 1 equals greedy decoding and
+             beam 4's best score (64 new tokens) equals its log-probability
+             re-scored by one ``gpt_apply`` (1e-4 of it); the host C
+             library builds, BPE trained through it on the corpus
+             round-trips the text and its merges on the first 20,000
+             characters equal the Python loop's; the CLI trains a BPE model
+             (``--tokenizer bpe --vocab_size 512``, 20 steps) and its
+             ``--repl --top_k 1`` prints text for two prompts; ``gpt_loss``
+             and its backward at vocab 50,257, batch 64, f32 through the
+             chunked CE against the full logits (|dloss| <= 1e-5 |loss|,
+             ||dg||/||g|| <= 1e-4 per leaf), with each path's time and
+             peak memory. No kernel of its own: the JAX package's sampling
+             path is XLA-level code.
 
 Phase 2 builds every kernel, one ``nvcc`` per source, all started
 together. The line before the last is a JSON object describing the
@@ -247,6 +269,15 @@ LONG_WINDOW = ["--d_model", "512", "--heads", "4", "--kv_heads", "2",
 EVAL_BATCHES = 20   # trainer._eval_device batches per eval
 SP_EVAL_BATCHES = 10  # the sp trainer's eval batches (JAX's make_sp_eval)
 SP = 4  # phase 15's ring: 4 ranks sharing the card
+# phase 16: the sampler's published config (bench.py::bench_sampler)
+SAMPLE_CFG = dict(vocab_size=65, d_model=512, n_heads=4, n_layers=4,
+                  ctx_len=256)
+SAMPLE_TOKENS = 2048  # sampled from [1, 2, 3], as bench.py:341-345
+GEN_NEW, GEN_REPS = 128, 8  # gpt_generate of 8 ragged prompts, bench.py:352
+BEAM, BEAM_NEW = 4, 64
+SAMPLE_TRAIN = ["--d_model", "512", "--heads", "4", "--layers", "4",
+                "--ctx_len", "256", "--steps", "20", "--eval_every", "20"]
+WIDE_V, WIDE_B = 50257, 64  # GPT-2's vocabulary, not a multiple of 4096
 # phase 3 (and tools/bench_paged.py): name, (B, H, hk, d, page, Pmax),
 # dtype, mask per head, every slot at the end of its context; case i's
 # inputs come from seed i
@@ -619,6 +650,7 @@ def qr_phase():
     )
 
     record = None
+    block_before = factor_strip_cuda.block_launches
     for i, (name, (b, m, k), zero) in enumerate(QR_CASES):
         St = np.random.default_rng(100 + i).standard_normal((b, m))
         if zero is not None:
@@ -681,6 +713,9 @@ def qr_phase():
         del St, got, want
         torch.cuda.empty_cache()
 
+    # K12, the single-block kernel (factor_panel's b 128): launched only
+    # here, by the panel case's check and timing
+    k12_phase6 = factor_strip_cuda.block_launches - block_before
     N = QR_N
     A_host = np.random.default_rng(0).standard_normal((N, N)).astype(
         np.float32)
@@ -758,6 +793,8 @@ def qr_phase():
         raise RuntimeError("householder_qr under the caller's TF32 missed "
                            "the gate or did not restore the setting")
     return dict(launches=launches, launches_cluster_block=by_kernel,
+                launches_k12={"qr_path": by_kernel[1],
+                              "phase6_checks": k12_phase6},
                 **record)
 
 
@@ -2132,6 +2169,252 @@ def sp_phase(smi):
     return totals
 
 
+def timed(fn):
+    """(result, seconds) of ``fn()`` on the host's clock, the card drained
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def greedy_by_steps(params, cfg, ctx, steps, chunk=256):
+    """An independent greedy stream through ``gpt_decode_step``: the
+    argmax of each step's logits, one token at a time, prefilling the last
+    ``keep`` ids unpadded whenever fewer than n cache rows are left at the
+    start of an n-token stretch (``sample``'s rule)."""
+    from linalg_tpu_torch.models.gpt import gpt_decode_step, gpt_prefill
+
+    n = max(1, min(chunk, cfg.ctx_len // 2))
+    keep = cfg.ctx_len - n
+    ids, out = list(ctx), []
+    logits = cache = None
+    while len(out) < steps:
+        if cache is None or cfg.ctx_len - int(cache["length"]) < n:
+            logits, cache = gpt_prefill(params, torch.tensor(
+                [ids[-keep:]], device="cuda"), cfg)
+        for _ in range(n):
+            tok = logits.argmax(-1)
+            ids.append(int(tok[0]))
+            out.append(ids[-1])
+            logits, cache = gpt_decode_step(params, cache, tok, cfg)
+    return out[:steps]
+
+
+def rescored_logprob(params, cfg, prompt, toks):
+    """The log-probability of ``toks`` after ``prompt`` from one
+    teacher-forced ``gpt_apply`` (float64 sums of its log-softmax)."""
+    from linalg_tpu_torch.models.gpt import gpt_apply
+
+    full = torch.tensor([list(prompt) + list(toks)], device="cuda")
+    with torch.no_grad():
+        logp = torch.log_softmax(gpt_apply(params, full, cfg), -1)[0]
+    rows = torch.arange(len(prompt) - 1, len(prompt) - 1 + len(toks),
+                        device="cuda")
+    return float(logp[rows, torch.tensor(list(toks), device="cuda")]
+                 .double().sum())
+
+
+def no_sync_chunk(params, cfg, prompt):
+    """One 128-token decode chunk (the sampler's loop: filter, draw, step)
+    under ``torch.cuda.set_sync_debug_mode("error")``: any host round trip
+    inside it, an ``.item()`` or a blocking copy, raises."""
+    from linalg_tpu_torch.models.gpt import (_decode_chunk_core,
+                                             _dt_decode_ops, gpt_prefill)
+    from linalg_tpu_torch.nn.cache import fkv_write
+
+    logits, cache = gpt_prefill(params, torch.tensor([prompt],
+                                                     device="cuda"), cfg)
+    ops = _dt_decode_ops(params, cfg)
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks = _decode_chunk_core(cfg, ops, logits, cache["k"], cache["v"],
+                                  len(prompt), 0, generator, 128, 1.0, 0,
+                                  0.0, fkv_write)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    phase("sample", f"a 128-token decode chunk ran with the sync debug mode "
+          f"at 'error': no host round trip inside it ({tuple(toks.shape)} "
+          f"tokens)")
+
+
+def sample_phase(smi):
+    """Phase 16: the sampling path at the published config
+    (``bench.py:329``): ``sample`` and ``gpt_generate`` in f32 and bf16,
+    greedy checks in f32, beam search, BPE through the C loops and the
+    CLI, and the wide-vocabulary loss. Runs no kernel of its own."""
+    from linalg_tpu_torch.models import gpt as tgpt
+    from linalg_tpu_torch.models.beam import gpt_generate_beam
+    from linalg_tpu_torch.models.gpt import (GPTConfig, gpt_decode_chunk,
+                                             gpt_generate, gpt_prefill,
+                                             init_gpt_params)
+    from linalg_tpu_torch.native import native_available, native_error
+    from linalg_tpu_torch.nn.tokenizers import BPETokenizer
+    from linalg_tpu_torch.train.data import load_text
+    from linalg_tpu_torch.train.trainer import sample
+
+    ident = {i: i for i in range(SAMPLE_CFG["vocab_size"])}  # ids out
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 65, size=(int(L),))
+               for L in rng.integers(3, 120, size=(8,))]
+    for dtype in ("float32", "bfloat16"):
+        cfg = GPTConfig(dtype=dtype, **SAMPLE_CFG)
+        params = init_gpt_params(cfg, seed=0, device="cuda")
+        list(sample(params, cfg, [1, 2, 3], ident, steps=256, seed=0))
+        out, dt = timed(lambda: list(sample(params, cfg, [1, 2, 3], ident,
+                                            steps=SAMPLE_TOKENS, seed=1)))
+        if len(out) != SAMPLE_TOKENS:
+            raise RuntimeError(f"sample gave {len(out)} tokens")
+        phase("sample", f"{dtype} sample: {SAMPLE_TOKENS} tokens from "
+              f"[1, 2, 3] (rollover every 128) in {dt:.3f} s, "
+              f"{SAMPLE_TOKENS / dt:.1f} tok/s; {smi}")
+        gpt_generate(params, cfg, prompts, GEN_NEW, seed=0)
+        walls = [timed(lambda i=i: gpt_generate(
+            params, cfg, prompts, GEN_NEW, seed=i).cpu())[1]
+            for i in range(GEN_REPS)]
+        wall = float(np.median(walls))
+        phase("sample", f"{dtype} gpt_generate: B {len(prompts)} ragged "
+              f"prompts of {sorted(len(p) for p in prompts)} ids, {GEN_NEW} "
+              f"new each: median {wall:.3f} s of {GEN_REPS}, "
+              f"{len(prompts) * GEN_NEW / wall:.1f} tok/s; {smi}")
+        if dtype != "float32":
+            continue
+        greedy = list(sample(params, cfg, [1, 2, 3], ident, steps=300,
+                             top_k=1, seed=2))
+        steps = greedy_by_steps(params, cfg, [1, 2, 3], 300)
+        same = greedy == steps
+        first = next((i for i, (a, b) in enumerate(zip(greedy, steps))
+                      if a != b), None)
+        phase("sample", f"f32 greedy sample, 300 tokens (rollovers after "
+              f"128 and 256): equal to a gpt_decode_step loop: {same} "
+              f"(first difference at {first})")
+        if not same:
+            raise RuntimeError("greedy sample differs from the step loop")
+        batch = gpt_generate(params, cfg, prompts, GEN_NEW, top_k=1).cpu()
+        alone = [bool(torch.equal(gpt_generate(
+            params, cfg, [p], GEN_NEW, top_k=1).cpu()[0], batch[b]))
+            for b, p in enumerate(prompts)]
+        phase("sample", f"f32 greedy gpt_generate: each row equal to its "
+              f"prompt alone (B 1): {alone}")
+        if not all(alone):
+            raise RuntimeError("a gpt_generate row differs from its prompt "
+                               "alone")
+        prompt = [int(t) for t in prompts[0]]
+        logits, cache = gpt_prefill(params, torch.tensor(
+            [prompt], device="cuda"), cfg)
+        g = gpt_decode_chunk(params, cache, logits, torch.Generator(
+            device="cuda").manual_seed(0), cfg, BEAM_NEW, 1.0, 1)[0]
+        b1, _ = gpt_generate_beam(params, cfg, prompt, BEAM_NEW, beam=1)
+        same1 = b1.tolist() == g[0].tolist()
+        (toks, score), dt = timed(lambda: gpt_generate_beam(
+            params, cfg, prompt, BEAM_NEW, beam=BEAM))
+        want = rescored_logprob(params, cfg, prompt, toks)
+        rel = abs(score - want) / max(1.0, abs(want))
+        phase("sample", f"f32 beam: beam 1 equal to greedy decoding: "
+              f"{same1}; beam {BEAM}, {BEAM_NEW} new after {len(prompt)} "
+              f"ids in {dt:.3f} s: score {score:.6f}, re-scored by one "
+              f"gpt_apply {want:.6f} (|diff| / max(1, |score|) {rel:.3e}, "
+              f"bound 1e-4)")
+        if not same1 or not rel <= 1e-4:
+            raise RuntimeError("beam search: beam 1 or the best score")
+        no_sync_chunk(params, cfg, prompt)
+        del params
+        torch.cuda.empty_cache()
+
+    # -- BPE through the C loops, and through the CLI ----------------------
+    if not native_available():
+        raise RuntimeError(f"the C library did not build: {native_error()}")
+    text = load_text(None)
+    tok, dt = timed(lambda: BPETokenizer.train(text, 512))
+    head = text[:20000]
+    c_merges = BPETokenizer.train(head, 512).merges
+    py_merges = BPETokenizer._train_py(head.encode("utf-8"), 512)
+    ids, dt_enc = timed(lambda: tok.encode(text))
+    back = tok.decode(ids) == text
+    phase("sample", f"BPE: C library built; 512-token vocabulary from "
+          f"{len(text)} chars in {dt:.3f} s, encoded to {len(ids)} ids in "
+          f"{dt_enc:.3f} s, decoded back equal: {back}; C merges == Python "
+          f"merges on the first 20,000 chars: {c_merges == py_merges}")
+    if not back or c_merges != py_merges:
+        raise RuntimeError("BPE: round trip or C vs Python merges")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        # one process trains, saves, then reloads the checkpoint for the
+        # REPL (the CLI runs --train before --repl)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "linalg_tpu_torch.apps.gpt", "--train",
+             "--tokenizer", "bpe", "--vocab_size", "512", *SAMPLE_TRAIN,
+             "--repl", "--top_k", "1", "--gen_tokens", "64", "--ckpt_dir",
+             f"{tmp}/ck", "--device", "cuda"],
+            input="First Citizen:\nBefore we proceed any further\n",
+            cwd=root, check=True, capture_output=True, text=True,
+            timeout=600)
+        wall = time.perf_counter() - t0
+    repl_out = res.stdout.partition("REPL — ")[2]
+    texts = [p.rstrip("\n") for p in repl_out.split("> ")[1:3]]
+    phase("sample", f"CLI: --train --tokenizer bpe --vocab_size 512 (20 "
+          f"steps, checkpoint saved) then --repl --top_k 1 --gen_tokens 64 "
+          f"on two prompts, one process, {wall:.1f} s: {texts!r}")
+    if len(texts) != 2 or not all(t.strip() for t in texts):
+        raise RuntimeError(f"the REPL printed no text: {res.stdout!r}")
+
+    # -- the wide-vocabulary loss: chunked against the full logits ---------
+    cfg = GPTConfig(**dict(SAMPLE_CFG, vocab_size=WIDE_V))
+    params = init_gpt_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(2)
+    x, y = (torch.tensor(rng.integers(0, WIDE_V, (WIDE_B, cfg.ctx_len)),
+                         device="cuda") for _ in range(2))
+    runs = {}
+    # "full": gpt_loss's small-vocabulary path, logsumexp over the whole
+    # (B*T, V) logits
+    for name, threshold in (("chunked", tgpt.CE_CHUNK_THRESHOLD),
+                            ("full", WIDE_V + 1)):
+        with patched((tgpt, {"CE_CHUNK_THRESHOLD": threshold})):
+            loss_and_grads(params, x, y, cfg)
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            (loss, grads), _ = timed(lambda: loss_and_grads(params, x, y,
+                                                            cfg))
+            # the step's own: what earlier phases left resident is not its
+            peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
+            ms = float(np.median([timed(lambda: loss_and_grads(
+                params, x, y, cfg))[1] for _ in range(3)])) * 1e3
+        runs[name] = (loss, grads)
+        phase("sample", f"wide vocabulary {name}: V {WIDE_V}, B {WIDE_B} x "
+              f"T {cfg.ctx_len}, f32: loss {loss:.6f}, forward + backward "
+              f"median {ms:.2f} ms of 3, peak memory {peak:.2f} GB above "
+              f"the {resident / 1e9:.2f} GB resident before it; {smi}")
+        del grads
+    (lc, gc), (lf, gf) = runs["chunked"], runs["full"]
+    dl = abs(lc - lf) / abs(lf)
+    names = ["/".join(k) for k in leaf_names(params)]
+    dg = {n: float((a - b).norm() / b.norm()) for n, a, b in
+          zip(names, gc, gf)}
+    worst = max(dg, key=dg.get)
+    phase("sample", f"wide vocabulary chunked vs full: |dloss|/|loss| "
+          f"{dl:.3e} (bound 1e-5), max ||dg||/||g|| {dg[worst]:.3e} at "
+          f"{worst} (bound 1e-4) over {len(dg)} leaves")
+    if not dl <= 1e-5 or not dg[worst] <= 1e-4:
+        raise RuntimeError("wide vocabulary: chunked and full losses differ")
+    del runs, params
+    torch.cuda.empty_cache()
+
+
+def leaf_names(params, prefix=()):
+    """The key paths of ``params``, in ``tree_leaves`` order."""
+    out = []
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out += leaf_names(v, prefix + (k,))
+        else:
+            out.append(prefix + (k,))
+    return out
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2241,6 +2524,9 @@ def main() -> int:
     # -- 15. sp ------------------------------------------------------------
     sp_launches = sp_phase(smi)
 
+    # -- 16. sample --------------------------------------------------------
+    sample_phase(smi)
+
     # the profiler breakdowns last: the profiler stays attached to the card
     profile_qr()
     profile_step("train", big_cfg, big_batch)
@@ -2269,7 +2555,7 @@ def main() -> int:
         "launches": launches, **record}, {
         "name": "qr_panel", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/qr_panel.cu",
-        "replaces": "linalg_tpu/ops/pallas/qr_panel.py:143",
+        "replaces": "linalg_tpu/ops/pallas/qr_panel.py:143, :173",
         **qr_record}, {
         "name": "flash_attention", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/flash_attention.cu",

@@ -17,7 +17,11 @@ kernels on the card (``nn.flash``, ``nn.flash_long``), and long-context
 training (RoPE, ALiBi, gated FFNs, a sliding window and grouped K/V read
 in place by the same kernels, ``nn.flash_stream``), and
 sequence-parallel training (``parallel``: ring attention over a mesh whose
-ranks share the device, through the ring kernels K10/K11 on the card).
+ranks share the device, through the ring kernels K10/K11 on the card), and
+sampling (KV-cached decode, ``gpt_generate``, beam search in
+``models.beam``, ``train.trainer.sample``, the REPL), byte-level BPE with
+its host C loops (``native``) and the wide-vocabulary chunked loss
+(``nn.losses``).
 The toolkit's public functions are re-exported here, as ``linalg_tpu``
 does. See ROADMAP.md for what comes next.
 """

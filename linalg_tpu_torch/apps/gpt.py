@@ -1,13 +1,14 @@
 """char-GPT CLI of the port: ``python -m linalg_tpu_torch.apps.gpt
---train`` and/or ``--serve --ckpt_dir D --prompts F``.
+--train``, ``--serve --ckpt_dir D --prompts F`` and/or ``--repl --ckpt_dir
+D`` (prompts on stdin; ``--beam B`` for beam search).
 
-The ``--train`` and ``--serve`` subsets of ``linalg_tpu.apps.gpt`` with the
-same flags, defaults and outputs (``--out`` JSON lines), plus ``--device``.
+The ``--train``, ``--serve`` and ``--repl`` parts of ``linalg_tpu.apps.gpt``
+with the same flags, defaults and outputs (``--out`` JSON lines), plus
+``--device``; ``--tokenizer bpe --vocab_size N`` trains byte-level BPE.
 Checkpoints load and save in the JAX package's format. Flags of features
 that are not ported yet are accepted and refused with
-``NotImplementedError`` naming their ROADMAP.md item; the REPL and the
-serving options that are not ported (prefixes, LoRA, speculative
-decoding, quantization) come in later PRs (ROADMAP.md queue 1).
+``NotImplementedError`` naming their ROADMAP.md item (speculative
+decoding, quantization, prefixes and LoRA come with queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ import numpy as np
 # Flags of the JAX CLI whose features are not ported: (default, ROADMAP.md
 # item). Any other value raises NotImplementedError naming the item.
 _NOT_PORTED_FLAGS = {
-    "repl": (False, "queue 1, item 2: sampling and the REPL"),
-    "tokenizer": ("char", "queue 1, item 2: tokenizers"),
+    "speculative": (0, "queue 1, item 5: speculative decoding"),
+    "draft_ckpt": ("", "queue 1, item 5: speculative decoding"),
+    "quant": ("none", "queue 1, item 5: quantization"),
     "experts": (0, "queue 1, item 6: MoE"),
     "lora_rank": (0, "queue 1, item 5: LoRA"),
     "tp": (1, "queue 1, item 7: parallelism"),
@@ -78,11 +80,27 @@ def build_parser() -> argparse.ArgumentParser:
                     help="split each batch into N sequential microbatches; "
                          "one optimizer update on the averaged grads")
     ap.add_argument("--repl", action="store_true",
-                    help="sampling REPL (not ported yet)")
+                    help="sampling REPL: read prompts from stdin, stream "
+                         "each completion (KV-cached decode)")
     ap.add_argument("--tokenizer", type=str, default="char",
                     choices=("char", "bpe"),
-                    help="tokenizer for a fresh model (bpe is not ported "
+                    help="tokenizer for a fresh model: char or byte-level "
+                         "BPE")
+    ap.add_argument("--vocab_size", type=int, default=512,
+                    help="BPE vocabulary size (with --tokenizer bpe; the "
+                         "char vocabulary is the corpus's character set)")
+    ap.add_argument("--beam", type=int, default=0, metavar="B",
+                    help="REPL: beam-search decoding with B beams instead "
+                         "of sampling (ignores temperature/top_k/top_p; "
+                         "needs prompt+gen_tokens <= ctx_len)")
+    ap.add_argument("--speculative", type=int, default=0, metavar="K",
+                    help="speculative decoding (not ported yet)")
+    ap.add_argument("--draft_ckpt", type=str, default="",
+                    help="draft model of speculative decoding (not ported "
                          "yet)")
+    ap.add_argument("--quant", type=str, default="none",
+                    choices=("none", "int8", "int8kv"),
+                    help="int8 decode (not ported yet)")
     ap.add_argument("--experts", type=int, default=0,
                     help="mixture-of-experts FFN (not ported yet)")
     ap.add_argument("--lora_rank", type=int, default=0,
@@ -145,6 +163,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device: cuda (the default; raises on a "
                          "machine without a card) or cpu")
     return ap
+
+
+def _decode_text(tok, itos, toks) -> str:
+    """Token ids -> text through whichever tokenizer the checkpoint
+    uses."""
+    if hasattr(tok, "token_bytes"):  # byte-level BPE
+        return b"".join(tok.token_bytes(int(t)) for t in toks).decode(
+            "utf-8", "replace")
+    return "".join(itos[int(t)] for t in toks)
 
 
 def serve_cli(args) -> None:
@@ -212,7 +239,7 @@ def serve_cli(args) -> None:
     try:
         for i, ln in enumerate(lines):
             c = done.get(i)
-            text = "".join(itos[int(t)] for t in c.tokens) if c else ""
+            text = _decode_text(tok, itos, c.tokens) if c else ""
             reason = c.finish_reason if c else "empty"
             if out_f is not None:
                 out_f.write(json.dumps({
@@ -240,6 +267,50 @@ def serve_cli(args) -> None:
               f"{np.percentile(qws, 95):.3f}s]")
 
 
+def repl(args) -> None:
+    """Read prompts from stdin until EOF; print each completion: beam
+    search with ``--beam B`` (when prompt + gen_tokens fit ctx_len), else
+    ``train.trainer.sample`` streaming its text pieces."""
+    from ..models.beam import gpt_generate_beam
+    from ..train.checkpoint import load_ckpt, load_tokenizer
+    from ..train.trainer import sample
+    from ..utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    params, cfg, _, itos = load_ckpt(args.ckpt_dir, device=device)
+    tok = load_tokenizer(args.ckpt_dir)  # char or BPE, from the sidecar
+    print("\nREPL — type a prompt, Ctrl+C to exit.\n")
+    while True:
+        try:
+            s = input("> ")
+        except (KeyboardInterrupt, EOFError):
+            print("\nbye")
+            break
+        if not s.strip():
+            continue
+        ctx = np.asarray(tok.encode(s), dtype=np.int32)
+        if ctx.size == 0:
+            print("(no known characters in prompt)")
+            continue
+        beam_ok = args.beam > 0 and ctx.size + args.gen_tokens <= cfg.ctx_len
+        if args.beam > 0 and not beam_ok:
+            print("(beam search needs prompt+gen_tokens <= ctx_len and a "
+                  "dense GPT; using plain decode)")
+        if beam_ok:
+            toks, score = gpt_generate_beam(params, cfg, ctx,
+                                            args.gen_tokens, beam=args.beam)
+            print(_decode_text(tok, itos, toks))
+            print(f"[beam={args.beam}: log-prob {score:.2f}, "
+                  f"{score / max(len(toks), 1):.3f}/token]")
+            continue
+        for piece in sample(params, cfg, ctx, tok, steps=args.gen_tokens,
+                            temperature=args.temperature, top_k=args.top_k,
+                            top_p=args.top_p, seed=args.seed,
+                            chunk=min(max(args.gen_tokens, 1), 256)):
+            print(piece, end="", flush=True)
+        print()
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     for flag, (default, item) in _NOT_PORTED_FLAGS.items():
@@ -252,9 +323,10 @@ def main(argv=None) -> None:
         train(args)
     if args.serve:
         serve_cli(args)
-    if not args.train and not args.serve:
-        print("Nothing to do. Pass --train and/or --serve (the REPL is not "
-              "ported yet).")
+    if args.repl:
+        repl(args)
+    if not args.train and not args.repl and not args.serve:
+        print("Nothing to do. Pass --train, --repl, and/or --serve.")
 
 
 if __name__ == "__main__":

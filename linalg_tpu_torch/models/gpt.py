@@ -1,5 +1,6 @@
 """Decoder-only char-GPT in PyTorch — the counterpart of
-``linalg_tpu/models/gpt.py`` for the serving and training slices.
+``linalg_tpu/models/gpt.py`` for the serving, training and sampling
+slices.
 
 Same model: pre-LN decoder blocks (masked self-attention + ReLU/GELU or
 gated SwiGLU/GeGLU FFN, residuals), sinusoidal or learned positions added
@@ -36,7 +37,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import SUPPORTED_D as FLASH_D
-from ..nn.cache import fkv_write
+from ..nn.cache import fkv_init, fkv_write
 from ..nn.flash import FLASH_MAX_T, flash_attention
 from ..nn.flash_btd import attention_btd, btd_supported
 from ..nn.flash_long import flash_attention_long
@@ -45,11 +46,14 @@ from ..nn.fused_layer import fused_supported, ln_ffn, ln_qkv
 from ..nn.functional import (causal_mask, geglu, gelu, layer_norm, relu,
                              rope_rotate, rope_tables, sdpa,
                              sinusoidal_encoding, swiglu)
+from ..nn.losses import chunked_softmax_ce
 from ..nn.positional import alibi_slopes
 
 __all__ = ["GPTConfig", "init_gpt_params", "params_from_numpy", "gpt_apply",
-           "gpt_loss", "gpt_prefill", "gpt_decode_chunk", "filter_logits",
-           "sample_token", "CE_CHUNK_THRESHOLD"]
+           "gpt_loss", "init_decode_cache", "gpt_prefill",
+           "gpt_prefill_batched", "gpt_generate", "gpt_decode_step",
+           "gpt_decode_chunk", "filter_logits", "sample_token",
+           "CE_CHUNK_THRESHOLD"]
 
 Params = Dict[str, Any]
 
@@ -470,19 +474,23 @@ def gpt_apply(params: Params, x_ids, cfg: GPTConfig,
     return _head(params, _gpt_trunk(params, x_ids, cfg, attn_fn), dt)
 
 
-# Vocabularies at least this wide take the JAX package's chunked-CE path,
-# which is not ported yet.
+# Vocabularies at least this wide take the chunked CE: the full (B*T, V)
+# logits, which autograd would also save, stop fitting comfortably once
+# BPE vocabularies reach the tens of thousands.
 CE_CHUNK_THRESHOLD = 8192
 
 
 def gpt_loss(params: Params, x_ids, y_ids, cfg: GPTConfig,
              attn_fn: Optional[Callable] = None):
     """Mean softmax cross-entropy over all positions: float32 logits and
-    logsumexp, differentiated by autograd (JAX autodiff there too)."""
+    logsumexp, differentiated by autograd (JAX autodiff there too). Wide
+    vocabularies (>= ``CE_CHUNK_THRESHOLD``) stream the tied head through
+    ``nn.losses.chunked_softmax_ce`` (its hand-derived backward), so the
+    (B*T, V) logits are never formed."""
     if cfg.vocab_size >= CE_CHUNK_THRESHOLD:
-        raise NotImplementedError(
-            "vocab_size >= 8192 takes nn.losses.chunked_softmax_ce, not "
-            "ported yet (ROADMAP.md queue 1, item 2)")
+        h = _gpt_trunk(params, x_ids, cfg, attn_fn)
+        return chunked_softmax_ce(h, params["tok_W"], params["head_b"],
+                                  y_ids)
     logits = gpt_apply(params, x_ids, cfg, attn_fn)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, y_ids[..., None].long())[..., 0]
@@ -518,6 +526,116 @@ def gpt_prefill(params: Params, x_ids, cfg: GPTConfig, length=None):
     K = F.pad(torch.stack(ks), (0, 0, 0, pad))
     V = F.pad(torch.stack(vs), (0, 0, 0, pad))
     return logits, {"k": K, "v": V, "length": n}
+
+
+def init_decode_cache(cfg: GPTConfig, batch: int = 1, device=None):
+    """A zeroed decode cache: k/v (L, batch, kv_heads, ctx_len, d_head) in
+    the compute dtype, and ``length``."""
+    return fkv_init(cfg.n_layers, batch, cfg.kv_heads, cfg.ctx_len,
+                    cfg.d_head, dtype=cfg.compute_dtype, device=device)
+
+
+@torch.no_grad()
+def gpt_prefill_batched(params: Params, x_ids, start, cfg: GPTConfig):
+    """Batched prefill of LEFT-padded prompts with per-row starts.
+
+    ``x_ids`` (B, W) holds each prompt right-aligned (content in
+    [start[b], W)), so every row ends at column W and the batch shares one
+    decode position. Row b's token at column t sits at logical position
+    t - start[b] (clipped at 0 for the masked pad columns) for every
+    positional encoding; attention is causal, limited to columns >=
+    start[b] and to the window band (column-relative: the rows share the
+    shift), and ALiBi's bias is relative, so the shift cancels. The cache
+    carries ``start`` so decode keeps masking the pad slots."""
+    dev = params["tok_W"].device
+    x_ids = torch.as_tensor(x_ids, device=dev).long()
+    B, W = x_ids.shape
+    dt = cfg.compute_dtype
+    start = torch.as_tensor(start, dtype=torch.int32, device=dev).reshape(B)
+    cols = torch.arange(W, device=dev)
+    pos_idx = torch.clamp(cols[None, :] - start[:, None], min=0)  # (B, W)
+    rope = None
+    h = params["tok_W"][x_ids]
+    if cfg.pos == "rope":
+        c, s_ = rope_tables(cfg.d_head, pos_idx)  # (B, W, d/2)
+        rope = (c[:, None].to(dt), s_[:, None].to(dt))
+    elif cfg.pos != "alibi":
+        pe = (params["pos_W"] if cfg.pos == "learned" else
+              sinusoidal_encoding(cfg.ctx_len, cfg.d_model, device=dev))
+        h = h + pe[pos_idx]
+    h = h.to(dt)
+    live = ((cols[None, :, None] >= cols[None, None, :])
+            & (cols[None, None, :] >= start[:, None, None]))
+    if cfg.window is not None:
+        live &= (cols[None, :, None] - cols[None, None, :]) < cfg.window
+    mask = torch.where(live, 0.0, -1e9).to(dt)[:, None]  # (B, 1, W, W)
+    if cfg.pos == "alibi":
+        sl = alibi_slopes(cfg.n_heads, device=dev)
+        bias = sl[:, None, None] * (cols[None, None, :]
+                                    - cols[None, :, None]).float()
+        mask = mask + bias.to(dt)[None]  # (B, H, W, W)
+    ks, vs = [], []
+    for lp in _layer_params(params, dt):
+        h, (k, v) = _layer(h, lp, mask, cfg.n_heads, cfg.kv_heads, cfg.ffn,
+                           rope=rope)
+        ks.append(k)
+        vs.append(v)
+    logits = _head(params, h[:, -1], dt)
+    pad = cfg.ctx_len - W
+    K = F.pad(torch.stack(ks), (0, 0, 0, pad))
+    V = F.pad(torch.stack(vs), (0, 0, 0, pad))
+    return logits, {"k": K, "v": V, "length": torch.tensor(
+        W, dtype=torch.int32, device=dev), "start": start}
+
+
+def gpt_generate(params: Params, cfg: GPTConfig, prompts, n_tokens: int,
+                 temperature: float = 1.0, top_k: int = 0,
+                 top_p: float = 0.0, seed: int = 0,
+                 generator: Optional[torch.Generator] = None):
+    """Batched generation: ragged prompts in, (B, n_tokens) sampled ids
+    out (a tensor on the parameters' device), one batched decode step per
+    token for the whole batch.
+
+    Each prompt keeps its last ctx_len - n_tokens ids; they are left-padded
+    to that one window (aligned ends) and decoded together. Sampling draws
+    from ``generator``, by default a generator on the parameters' device
+    seeded with ``seed``."""
+    if n_tokens >= cfg.ctx_len:
+        raise ValueError("n_tokens must be < ctx_len (cache capacity)")
+    W = cfg.ctx_len - n_tokens
+    prompts = [np.asarray(p, dtype=np.int64).ravel()[-W:] for p in prompts]
+    B = len(prompts)
+    buf = np.zeros((B, W), dtype=np.int64)
+    start = np.empty((B,), dtype=np.int32)
+    for b, p in enumerate(prompts):
+        if len(p) == 0:
+            raise ValueError(f"prompt {b} is empty")
+        start[b] = W - len(p)
+        buf[b, start[b]:] = p
+    dev = params["tok_W"].device
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+    logits, cache = gpt_prefill_batched(params, torch.from_numpy(buf),
+                                        torch.from_numpy(start), cfg)
+    toks, _, _ = gpt_decode_chunk(params, cache, logits, generator, cfg,
+                                  n_tokens, temperature, top_k, top_p)
+    return toks
+
+
+@torch.no_grad()
+def gpt_decode_step(params: Params, cache, token, cfg: GPTConfig):
+    """One incremental decode step: token (B,) -> (float32 logits (B, V),
+    cache'). The token sits at cache slot ``cache["length"]`` and attends
+    to the live slots (>= ``cache["start"]`` of a left-padded batch, and
+    within the window); the cache's k/v buffers are written in place."""
+    dev = params["tok_W"].device
+    ops = _dt_decode_ops(params, cfg)
+    pos = int(cache["length"])
+    step = _make_decode_step(cfg, ops, cache.get("start", 0), fkv_write)
+    K, V, logits = step(cache["k"], cache["v"], pos,
+                        torch.as_tensor(token, device=dev).long().reshape(-1))
+    return logits, dict(cache, k=K, v=V, length=torch.tensor(
+        pos + 1, dtype=torch.int32, device=dev))
 
 
 def filter_logits(logits, temperature=1.0, top_k=0, top_p=0.0):
@@ -619,6 +737,15 @@ def _dt_decode_ops(params: Params, cfg: GPTConfig) -> Dict[str, Any]:
     }
 
 
+def _positions(x, dev):
+    """Positions as an int32 (B|1,) tensor on ``dev``. A Python position
+    is filled in on the device: a copy from the host would wait for the
+    device's queue to drain (a host sync every decoded token)."""
+    if isinstance(x, (int, np.integer)):
+        return torch.full((1,), int(x), dtype=torch.int32, device=dev)
+    return torch.as_tensor(x, dtype=torch.int32, device=dev).reshape(-1)
+
+
 def _make_decode_step(cfg: GPTConfig, ops, start, write_fn):
     """One-token decode step factory.
 
@@ -635,12 +762,12 @@ def _make_decode_step(cfg: GPTConfig, ops, start, write_fn):
     wants_pos = getattr(attn, "wants_pos", False)
     dev = ops["lws"][0]["W3"].device
     t_ids = torch.arange(cfg.ctx_len, device=dev)
-    start1 = torch.as_tensor(start, dtype=torch.int32, device=dev).reshape(-1)
+    start1 = _positions(start, dev)
     slopes = (alibi_slopes(cfg.n_heads, device=dev) if cfg.pos == "alibi"
               else None)
 
     def decode_step(kbuf, vbuf, pos, token):
-        pos1 = torch.as_tensor(pos, dtype=torch.int32, device=dev).reshape(-1)
+        pos1 = _positions(pos, dev)
         rel = pos1 - start1
         rope = None
         if cfg.pos == "rope":  # tables at the relative position
@@ -706,12 +833,15 @@ def gpt_decode_chunk(params, cache, logits, generator, cfg: GPTConfig,
                      n_tokens: int, temperature=1.0, top_k: int = 0,
                      top_p=0.0):
     """Sample ``n_tokens`` autoregressively from a prefilled cache (one
-    shared position ``cache["length"]``). The cache's k/v buffers are
-    updated in place; returns (tokens (B, n), logits, cache)."""
+    shared position ``cache["length"]``; a left-padded batch's per-row
+    ``cache["start"]``). The cache's k/v buffers are updated in place;
+    returns (tokens (B, n), logits, cache). The loop reads nothing back
+    to the host."""
     ops = _dt_decode_ops(params, cfg)
     pos0 = int(cache["length"])
     toks, logits, K, V, pos = _decode_chunk_core(
-        cfg, ops, logits, cache["k"], cache["v"], pos0, 0, generator,
-        n_tokens, temperature, top_k, top_p, fkv_write)
+        cfg, ops, logits, cache["k"], cache["v"], pos0,
+        cache.get("start", 0), generator, n_tokens, temperature, top_k,
+        top_p, fkv_write)
     return toks, logits, dict(cache, k=K, v=V, length=torch.as_tensor(
         pos, dtype=torch.int32, device=logits.device))

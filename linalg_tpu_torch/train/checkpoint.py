@@ -4,7 +4,9 @@
 The archive keys are the reference's (``tok_W``, ``head_W``, ``head_b``,
 ``pos_W``, ``l{i}_<layer key>``) and the sidecar ``chars_gpt_meta.json``
 carries the tokenizer and the architecture, in the JAX package's format:
-each package loads the other's checkpoints unchanged.
+each package loads the other's checkpoints unchanged. A char tokenizer
+rides the sidecar as ``stoi``/``itos``; byte-level BPE as ``"tokenizer":
+"bpe"`` and its ``merges`` (with empty ``stoi``/``itos``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Dict, Tuple
 import numpy as np
 
 from ..models.gpt import GPTConfig, Params, params_from_numpy
-from ..nn.tokenizers import CharTokenizer
+from ..nn.tokenizers import BPETokenizer, CharTokenizer
 
 __all__ = ["save_ckpt", "load_ckpt", "load_tokenizer", "CKPT_NAME",
            "META_NAME"]
@@ -30,10 +32,12 @@ _GATE_KEYS = ("Wg", "bg")  # swiglu/geglu's gate branch
 
 
 def save_ckpt(ckpt_dir, params: Params, cfg: GPTConfig,
-              stoi: Dict[str, int], itos: Dict[int, str]) -> pathlib.Path:
+              stoi: Dict[str, int], itos: Dict[int, str],
+              tokenizer=None) -> pathlib.Path:
     """Write ``params`` (float32 on any device) and the meta sidecar to
     ``ckpt_dir``; returns the archive's path. Uncompressed npz, as the JAX
-    package writes it."""
+    package writes it. A ``BPETokenizer`` adds its merge table to the
+    sidecar."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
 
@@ -69,6 +73,9 @@ def save_ckpt(ckpt_dir, params: Params, cfg: GPTConfig,
         meta["window"] = cfg.window
     if cfg.ffn != "relu":
         meta["ffn"] = cfg.ffn
+    if isinstance(tokenizer, BPETokenizer):
+        meta["tokenizer"] = "bpe"
+        meta["merges"] = [list(m) for m in tokenizer.merges]
     (ckpt_dir / META_NAME).write_text(json.dumps(meta))
     return path
 
@@ -121,12 +128,12 @@ def _cfg_from_meta(meta: dict) -> GPTConfig:
     )
 
 
-def load_tokenizer(ckpt_dir) -> CharTokenizer:
-    """The char tokenizer a checkpoint was trained with (from stoi/itos)."""
+def load_tokenizer(ckpt_dir):
+    """The tokenizer a checkpoint was trained with: BPE from the merge
+    table of a ``"tokenizer": "bpe"`` sidecar, else the char tokenizer
+    from stoi/itos (reference-produced archives included)."""
     meta = json.loads((pathlib.Path(ckpt_dir) / META_NAME).read_text())
     if meta.get("tokenizer") == "bpe":
-        raise NotImplementedError(
-            "BPE checkpoints are not ported yet (ROADMAP.md queue 1, "
-            "item 2: tokenizers)")
+        return BPETokenizer.load({"merges": meta["merges"]})
     itos = {int(k): v for k, v in meta["itos"].items()}
     return CharTokenizer.from_pretrained(meta["stoi"], itos)

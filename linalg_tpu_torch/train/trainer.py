@@ -14,15 +14,19 @@ every-20-steps loss print is the loop's only host sync besides evals.
 
 ``--sp N [--dp M]`` trains sequence-parallel (``train_sharded``): the
 mesh's ranks share one device and attention runs the ring kernels.
+``--tokenizer bpe --vocab_size N`` trains byte-level BPE on the corpus
+first (its merges ride the checkpoint). ``sample`` streams text from a
+model through the KV-cached decode.
 
 Not ported yet, and refused with the ROADMAP.md item that brings each:
-BPE (queue 1, item 2), LoRA (item 5), MoE (item 6), the other sharded
-trainers (--tp, --pp, --fsdp, --dp without --sp: item 7), and sampling
-(item 2).
+LoRA, quantized decode and ring-mode streaming (queue 1, item 5), MoE
+(item 6), the other sharded trainers (--tp, --pp, --fsdp, --dp without
+--sp: item 7).
 """
 
 from __future__ import annotations
 
+import codecs
 import json
 import time
 from typing import Iterator, Tuple
@@ -30,8 +34,9 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
-from ..models.gpt import GPTConfig, gpt_loss, init_gpt_params
-from ..nn.tokenizers import CharTokenizer
+from ..models.gpt import (GPTConfig, gpt_decode_chunk, gpt_loss,
+                          gpt_prefill, init_gpt_params)
+from ..nn.tokenizers import BPETokenizer, CharTokenizer
 from ..utils.device import resolve_device
 from .checkpoint import load_ckpt, load_tokenizer, save_ckpt
 from .data import load_text
@@ -39,7 +44,7 @@ from .optim import (adamw_init, adamw_update, gpt_lr_scales, gpt_wd_mask,
                     tree_leaves, tree_map, warmup_cosine)
 
 __all__ = ["train", "train_sharded", "make_train_step",
-           "make_device_train_step", "eval_avg"]
+           "make_device_train_step", "eval_avg", "sample"]
 
 
 def _value_and_grad(params, x, y, cfg, attn_fn=None):
@@ -153,13 +158,21 @@ def _eval_device(params, val_ids, generator, cfg: GPTConfig, batch: int,
     return total / batches
 
 
-def _make_tokenizer(args, text: str) -> CharTokenizer:
-    """Fresh-model tokenizer: the char vocabulary of the corpus."""
-    if (getattr(args, "tokenizer", "char") or "char") != "char":
-        raise NotImplementedError(
-            "--tokenizer bpe is not ported yet (ROADMAP.md queue 1, item 2: "
-            "tokenizers)")
+def _make_tokenizer(args, text: str):
+    """Fresh-model tokenizer from the flags: the corpus's characters, or
+    byte-level BPE trained on it (``--tokenizer bpe --vocab_size N``)."""
+    if (getattr(args, "tokenizer", "char") or "char") == "bpe":
+        return BPETokenizer.train(
+            text, int(getattr(args, "vocab_size", 512) or 512))
     return CharTokenizer(text)
+
+
+def _tok_maps(tok) -> Tuple[dict, dict]:
+    """(stoi, itos) for the sidecar: the char maps, or empty dicts for BPE
+    (whose state is its merge table)."""
+    if hasattr(tok, "stoi"):
+        return tok.stoi, tok.itos
+    return {}, {}
 
 
 def _resume_or_init(args, device):
@@ -180,6 +193,7 @@ def _resume_or_init(args, device):
     except (OSError, ValueError, KeyError):
         print("Error loading checkpoint, starting from scratch")
     tok = _make_tokenizer(args, text)
+    stoi, itos = _tok_maps(tok)
     cfg = GPTConfig(
         vocab_size=tok.vocab_size, d_model=args.d_model, n_heads=args.heads,
         n_layers=args.layers, ctx_len=args.ctx_len,
@@ -189,7 +203,7 @@ def _resume_or_init(args, device):
         window=getattr(args, "window", None),
         ffn=getattr(args, "ffn", "relu") or "relu")
     params = init_gpt_params(cfg, seed=123, device=device)
-    return text, params, cfg, tok, tok.stoi, tok.itos
+    return text, params, cfg, tok, stoi, itos
 
 
 class _MetricsLog:
@@ -210,7 +224,7 @@ class _MetricsLog:
 
 
 def _train_loop(args, cfg, params, opt_state, generator, step_fn, eval_fn,
-                train_ids, val_ids, stoi, itos, desc: str = ""):
+                train_ids, val_ids, tok, stoi, itos, desc: str = ""):
     """The training loop: ``step_fn(params, opt_state, train_ids,
     generator)`` per step, ``eval_fn(params, val_ids, generator)`` every
     ``args.eval_every`` steps, the best checkpoint saved on improvement.
@@ -247,7 +261,8 @@ def _train_loop(args, cfg, params, opt_state, generator, step_fn, eval_fn,
                 saved = None
                 if val_loss < best:
                     best = val_loss
-                    path = save_ckpt(args.ckpt_dir, params, cfg, stoi, itos)
+                    path = save_ckpt(args.ckpt_dir, params, cfg, stoi, itos,
+                                     tokenizer=tok)
                     print(f"  saved best -> {path}  (val {best:.4f})")
                     saved = str(path)
                 mlog.write(event="eval", step=step, val_loss=val_loss,
@@ -277,7 +292,8 @@ def _lr_kwargs(args):
 
 
 def _corpus(tok, text, device):
-    """The 90/10 split of the encoded corpus, on the device once."""
+    """The 90/10 split of the corpus, encoded once on the host (char or
+    BPE) and moved to the device once."""
     ids = tok.encode(text)
     split = int(0.9 * len(ids))
     return (torch.as_tensor(ids[:split], dtype=torch.long, device=device),
@@ -323,8 +339,8 @@ def train_sharded(args, dp: int, tp: int, device):
           f"{'kernels (K10/K11)' if pallas else 'plain'}")
     generator = torch.Generator(device=device).manual_seed(args.seed)
     params = _train_loop(args, cfg, params, adamw_init(params), generator,
-                         step_fn, eval_fn, train_ids, val_ids, stoi, itos,
-                         desc=f"mesh dp={dp} sp={sp}, ")
+                         step_fn, eval_fn, train_ids, val_ids, tok, stoi,
+                         itos, desc=f"mesh dp={dp} sp={sp}, ")
     for p in tree_leaves(params):
         p.requires_grad_(False)
     return params, cfg, stoi, itos
@@ -364,7 +380,82 @@ def train(args) -> Tuple[dict, GPTConfig, dict, dict]:
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
     params = _train_loop(args, cfg, params, opt_state, generator, step_fn,
-                         eval_fn, train_ids, val_ids, stoi, itos)
+                         eval_fn, train_ids, val_ids, tok, stoi, itos)
     for p in tree_leaves(params):
         p.requires_grad_(False)
     return params, cfg, stoi, itos
+
+
+def _emitter(itos):
+    """Token id -> text piece: a BPE tokenizer's bytes through an
+    incremental UTF-8 decoder (a character split across tokens comes out
+    whole), a char tokenizer's ``itos``, or a plain id -> char dict."""
+    if hasattr(itos, "token_bytes"):
+        utf8 = codecs.getincrementaldecoder("utf-8")("replace")
+        return lambda t: utf8.decode(itos.token_bytes(t))
+    if hasattr(itos, "itos"):
+        return itos.itos.__getitem__
+    return itos.__getitem__
+
+
+def sample(params, cfg: GPTConfig, ctx_ids, itos, steps: int = 200,
+           temperature: float = 1.0, top_k: int = 0, seed: int = 0,
+           chunk: int = 256, top_p: float = 0.0, quant: str = "none"):
+    """Streaming generator of text pieces: KV-cached incremental decode,
+    the JAX package's ``sample`` (dense path).
+
+    ``itos`` is the char id -> char dict, a char tokenizer, or a BPE
+    tokenizer (bytes through an incremental UTF-8 decoder). The prompt is
+    prefilled once (right-padded to the fixed window ``keep``), then each
+    ``gpt_decode_chunk`` samples n = max(1, min(chunk, ctx_len // 2))
+    tokens on the device and one copy brings them to the host. When fewer
+    than n cache rows are left, the last ``keep`` = ctx_len - n ids are
+    prefilled again (context rollover). Draws come from one generator on
+    the parameters' device seeded with ``seed``.
+
+    Refused, naming their ROADMAP.md items: MoE configs (item 6),
+    quantized decode and the ring-cache stream of windowed RoPE/ALiBi
+    models (item 5)."""
+    if getattr(cfg, "n_experts", 0):
+        raise NotImplementedError(
+            "sampling an MoE model is not ported yet (ROADMAP.md queue 1, "
+            "item 6: MoE)")
+    if quant in ("int8", "int8kv"):
+        raise NotImplementedError(
+            f"quant={quant!r} decode is not ported yet (ROADMAP.md queue 1, "
+            "item 5: quantization)")
+    if quant not in ("", "none"):
+        raise ValueError(f"unknown quant mode: {quant!r}")
+    if cfg.window is not None and cfg.pos in ("rope", "alibi"):
+        raise NotImplementedError(
+            "a windowed RoPE/ALiBi model samples through the ring-cache "
+            "stream, not ported yet (ROADMAP.md queue 1, item 5: ring mode)")
+    emit = _emitter(itos)
+    dev = params["tok_W"].device
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    ids = [int(i) for i in np.asarray(ctx_ids).ravel()]
+    n = max(1, min(chunk, cfg.ctx_len // 2))
+    keep = cfg.ctx_len - n  # the window that always leaves n rows free
+
+    def prefill(ids):
+        ids = ids[-keep:]
+        buf = np.zeros((1, keep), dtype=np.int64)
+        buf[0, :len(ids)] = ids
+        logits, cache = gpt_prefill(params, torch.as_tensor(buf, device=dev),
+                                    cfg, len(ids))
+        return logits, cache, len(ids)
+
+    logits, cache, length = prefill(ids)
+    remaining = steps
+    while remaining > 0:
+        if cfg.ctx_len - length < n:  # context full: slide the window
+            logits, cache, length = prefill(ids)
+        toks, logits, cache = gpt_decode_chunk(
+            params, cache, logits, generator, cfg, n, temperature, top_k,
+            top_p)
+        length += n
+        emit_n = min(n, remaining)
+        for t in toks[0, :emit_n].cpu().tolist():  # one copy per chunk
+            ids.append(t)
+            yield emit(t)
+        remaining -= emit_n

@@ -237,11 +237,26 @@ class TestLoss:
         print(f"bf16 drift from f32: port {port_d:.4e}, jax {jax_d:.4e}")
         assert 0.0 < port_d <= 1.25 * jax_d
 
-    def test_wide_vocab_refused(self):
-        _, _, tc, tp = both(vocab_size=8192)
+    def test_wide_vocab_matches_jax(self):
+        """``gpt_loss`` at vocab_size 8192, the chunked CE in both packages
+        (``nn.losses.chunked_softmax_ce``), and every gradient, float32;
+        the float64 comparison is in tests/test_torch_losses.py."""
+        jc, jp, tc, tp = both(vocab_size=8192)
         x, y = batch(1, V=8192)
-        with pytest.raises(NotImplementedError, match="item 2"):
-            tgpt.gpt_loss(tp, torch.from_numpy(x), torch.from_numpy(y), tc)
+        jl, jg = jax.value_and_grad(jgpt.gpt_loss)(jp, jnp.asarray(x),
+                                                   jnp.asarray(y), jc)
+        leaves = toptim.tree_leaves(tp)
+        for p in leaves:
+            p.requires_grad_(True)
+        tl = tgpt.gpt_loss(tp, torch.from_numpy(x), torch.from_numpy(y), tc)
+        grads = iter(torch.autograd.grad(tl, leaves))
+        got = flat(toptim.tree_map(lambda _: next(grads), tp))
+        np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-4)
+        want = flat(jg)
+        assert want.keys() == got.keys()
+        for key in want:
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-4,
+                                       atol=1e-6, err_msg=key)
 
 
 def rand_tree(jp, seed, scale=1.0):
@@ -454,8 +469,8 @@ class TestCLI:
         (["--train", "--fsdp", "2"], "item 7"),
         (["--train", "--lora_rank", "4"], "item 5"),
         (["--train", "--experts", "4"], "item 6"),
-        (["--train", "--tokenizer", "bpe"], "item 2"),
-        (["--repl"], "item 2"),
+        (["--repl", "--speculative", "4"], "item 5"),
+        (["--repl", "--quant", "int8"], "item 5"),
     ])
     def test_unported_flags_raise(self, argv, item):
         with pytest.raises(NotImplementedError, match=item):
