@@ -39,27 +39,33 @@ Phases, each reported on its own line; any failure exits non-zero:
              engine's.
 6. qr      — the Householder panel kernels (``csrc/qr_panel.cu``): build
              time and ptxas lines, the registers, shared memory and spills
-             of the cluster kernel's three instantiations (any stack frame
-             or spill fails) and of the single-block kernel; each kernel
-             against its plain PyTorch version at (b, m, k) = (32, 4096,
-             0), (32, 4096, 2048), (32, 4096, 3968), (64, 4096, 0), the
-             panel width (128, 4096, 0) and a strip with a zero column
-             (exact skip): the kernel the shape rule picks and its cluster
-             size C (the launch counters must agree), max error,
-             tolerance, median CUDA-event times called from Python and
-             replayed from a CUDA graph over copies larger than the L2,
-             the plain version's, the bound, and ``torch.geqrf`` of the
-             same strip as a yardstick; then ``householder_qr`` on a
-             4096^2 float32 matrix from ``np.random.default_rng(0)``: 128
-             strip launches (n / 32), all through the cluster kernel,
-             rel_resid ||A-QR||_F/||A||_F in float64 <= 1e-6,
-             ||Q^T Q - I||_F, median times of three runs through the
-             kernel, through the same blocked QR with the plain strip, and of
-             ``torch.linalg.qr`` (GFLOP/s as 2 N^3 / t); once more with
-             the caller's TF32 switched on, still <= 1e-6; and a
-             ``torch.profiler`` breakdown of one QR (run last, with the
-             other profiles: device time, idle share, the panel kernels'
-             share, top kernels and ops).
+             of the cluster kernel's three instantiations and the grid
+             kernel's two (any stack frame or spill fails); each kernel
+             against its plain PyTorch version at ``QR_CASES``: (b, m, k)
+             = (32, 4096, 0), (32, 4096, 2048), (32, 4096, 3968), (64,
+             4096, 0) and a strip with a zero column (exact skip) on the
+             cluster kernel; the panel widths (128, 4096, 0) and (256,
+             4096, 0), the tall strips (32, 16384, 0) and (32, 16384,
+             4064), (64, 8192, 0) and a tall strip with a zero column on
+             the grid kernel. Each case names
+             the kernel the shape rule gives it (C, or G and lanes a CTA;
+             the launch counters must agree), max error, tolerance, 200
+             more launches bitwise equal to the first, median CUDA-event
+             times called from Python and replayed from a CUDA graph over
+             copies larger than the L2, the plain version's, the bound, and
+             ``torch.geqrf`` of the same strip as a yardstick; then
+             ``householder_qr`` on a 4096^2 float32 matrix from
+             ``np.random.default_rng(0)``: 128 strip launches (n / 32), all
+             through the cluster kernel, rel_resid ||A-QR||_F/||A||_F in
+             float64 <= 1e-6, ||Q^T Q - I||_F, median times of three runs
+             through the kernel, through the same blocked QR with the
+             plain strip, and of ``torch.linalg.qr`` (GFLOP/s as 2 N^3 /
+             t); once more with the caller's TF32 switched on, still <=
+             1e-6; then the same (but the plain strip) at 16384 x 4096,
+             all 128 strips through the grid kernel; and a
+             ``torch.profiler`` breakdown of one QR of each shape (run
+             last, with the other profiles: device time, idle share, the
+             panel kernels' share, top kernels and ops).
 7. flash   — the flash-attention kernels (``csrc/flash_attention.cu``;
              bf16 on wgmma fed by a TMA ring): build time and ptxas lines,
              the registers, shared memory and spills of every
@@ -226,15 +232,21 @@ QR_RESID_MAX = 1e-6  # ||A - QR||_F / ||A||_F, the headline accuracy gate
 # float64 sweep at m 4096 differs from the float32 one by 2e-5 on St
 # (magnitude 65), 1.4e-7 on Vt and 1e-7 on Tt
 QR_RTOL_OF_MAX = 1e-5
-# phase 6 (and tools/bench_qr.py): name, (b, m, k), zero column; case i's
-# St comes from seed 100 + i
+QR_TALL = (16384, 4096)  # the tall QR: every strip on the grid kernel
+# phase 6 (and tools/bench_qr.py): name, (b, m, k), zero column, the
+# kernel the shape rule gives it; case i's St comes from seed 100 + i
 QR_CASES = (
-    ("strip", (32, 4096, 0), None),
-    ("strip k 2048", (32, 4096, 2048), None),
-    ("strip k 3968", (32, 4096, 3968), None),
-    ("strip b 64", (64, 4096, 0), None),
-    ("panel b 128", (128, 4096, 0), None),
-    ("zero column", (32, 4096, 0), 5),
+    ("strip", (32, 4096, 0), None, "cluster"),
+    ("strip k 2048", (32, 4096, 2048), None, "cluster"),
+    ("strip k 3968", (32, 4096, 3968), None, "cluster"),
+    ("strip b 64", (64, 4096, 0), None, "cluster"),
+    ("panel b 128", (128, 4096, 0), None, "grid"),
+    ("zero column", (32, 4096, 0), 5, "cluster"),
+    ("tall strip", (32, 16384, 0), None, "grid"),
+    ("tall strip k 4064", (32, 16384, 4064), None, "grid"),
+    ("strip b 64 m 8192", (64, 8192, 0), None, "grid"),
+    ("panel b 256", (256, 4096, 0), None, "grid"),
+    ("tall zero column", (32, 16384, 0), 5, "grid"),
 )
 # phase 6's repeat check: launches of each cluster strip into outputs of
 # their own, every one bitwise equal to the first
@@ -415,7 +427,11 @@ def graph_ms(fn, arg_sets, rounds=5, trials=10):
     CUDA-event time of one replay of a CUDA graph that calls ``fn`` once
     per argument set, ``rounds`` times over, divided by the calls. The
     graph takes the host's launch overhead out; argument sets of more
-    bytes together than the 50 MB L2 holds keep each call's reads cold."""
+    bytes together than the 50 MB L2 holds keep each call's reads cold.
+    Warm-up and capture share one side stream. Afterwards
+    ``graph_ms.captured`` holds the calls recorded into the graph (made
+    from Python, launched only by its replays) and ``graph_ms.replayed``
+    the calls its replays launched."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up off the default stream
@@ -423,11 +439,12 @@ def graph_ms(fn, arg_sets, rounds=5, trials=10):
             fn(*a)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(rounds):
             for a in arg_sets:
                 fn(*a)
     calls = rounds * len(arg_sets)
+    graph_ms.captured, graph_ms.replayed = calls, (1 + trials) * calls
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -588,13 +605,13 @@ def report_build(tag, built):
 
 def qr_builds(lib):
     """Phase 6's build check: registers, shared memory and spills of the
-    panel kernels; a stack frame or spill in the cluster kernel fails."""
+    panel kernels; a stack frame or spill in either fails."""
     import re
 
     spills = {}
     log = lib.with_suffix(".log").read_text()
     for name, (regs, *frame) in sorted(ptxas_kernels(lib).items()):
-        m = re.search(r"qr_(cluster|panel)_kernelI((?:Li\d+E|Lb\dE)+)E",
+        m = re.search(r"qr_(cluster|grid)_kernelI((?:Li\d+E|Lb\dE)+)E",
                       name)
         if not m:
             continue
@@ -606,10 +623,10 @@ def qr_builds(lib):
               f"registers, {smem.group(1) if smem else 0} bytes of static "
               f"shared memory, stack frame {frame[0]}, spill stores "
               f"{frame[1]}, loads {frame[2]}")
-        if m.group(1) == "cluster" and any(frame):
+        if any(frame):
             spills[name] = frame
     if spills:
-        raise RuntimeError(f"qr cluster kernel spills registers: {spills}")
+        raise RuntimeError(f"qr panel kernels spill registers: {spills}")
 
 
 def geqrf_ms(St, k):
@@ -637,37 +654,44 @@ def qr_repeat_check(name, St, k, first):
                            "from the first (a race in the kernel)")
 
 
-def qr_phase():
-    """Phase 6: the panel kernels against their plain version, then the
-    4096^2 Householder QR through them. Returns the kernel's JSON record."""
+def qr_strip_cases():
+    """Phase 6's strips: each kernel against its plain version at
+    ``QR_CASES``, the kernel the shape rule names (the launch counters must
+    agree), QR_REPEATS more launches bitwise equal to the first, device
+    times beside the plain version, the bound and ``torch.geqrf``. Returns
+    the JSON records of the two kernels (at "strip" and "tall strip") and
+    the launches at K12's widths (b > 64): the wrapper's panel counter,
+    less the calls recorded into CUDA graphs, plus the calls the graphs'
+    replays launched."""
     from linalg_tpu_torch.kernels.qr_panel import (cluster_shape,
-                                                   factor_strip_cuda)
-    from linalg_tpu_torch.ops.qr import householder_qr
-    from linalg_tpu_torch.ops.qr_panel import (
-        factor_panel_ref,
-        factor_strip_ref,
-        householder_qr_panel,
-    )
+                                                   factor_strip_cuda,
+                                                   grid_shape)
+    from linalg_tpu_torch.ops.qr_panel import (factor_panel_ref,
+                                               factor_strip_ref)
 
-    record = None
-    block_before = factor_strip_cuda.block_launches
-    for i, (name, (b, m, k), zero) in enumerate(QR_CASES):
+    records, k12 = {}, 0
+    for i, (name, (b, m, k), zero, kernel) in enumerate(QR_CASES):
         St = np.random.default_rng(100 + i).standard_normal((b, m))
         if zero is not None:
             St[zero] = 0.0
         St = torch.tensor(St, dtype=torch.float32, device="cuda")
         ref = factor_strip_ref if b <= 64 else factor_panel_ref
         C, lpt = cluster_shape(b, m, k)
+        G, L, on_chip = grid_shape(b, m, k)
+        if (kernel == "cluster") != bool(C):
+            raise RuntimeError(f"qr_panel {name}: the shape rule gives "
+                               f"C {C}, not the {kernel} kernel")
         counts = (factor_strip_cuda.cluster_launches,
-                  factor_strip_cuda.block_launches)
+                  factor_strip_cuda.grid_launches,
+                  factor_strip_cuda.panel_launches)
         got = factor_strip_cuda(St, k)
         want = ref(St, k)
         torch.cuda.synchronize()
         moved = (factor_strip_cuda.cluster_launches - counts[0],
-                 factor_strip_cuda.block_launches - counts[1])
+                 factor_strip_cuda.grid_launches - counts[1])
         if moved != ((1, 0) if C else (0, 1)):
-            raise RuntimeError(f"qr_panel {name}: C {C} but the cluster/"
-                               f"block counters moved by {moved}")
+            raise RuntimeError(f"qr_panel {name}: the {kernel} kernel, but "
+                               f"the cluster/grid counters moved by {moved}")
         errs, tols = [], []
         for g, w, what in zip(got, want, ("St", "Vt", "Tt")):
             err = float((g - w).abs().max())
@@ -681,47 +705,61 @@ def qr_phase():
             vz = float(got[1][zero].abs().max())
             tz = float(got[2][zero, zero])
             if vz != 0.0 or tz != 0.0:
-                raise RuntimeError(f"qr_panel zero column: Vt row {vz}, "
+                raise RuntimeError(f"qr_panel {name}: Vt row {vz}, "
                                    f"Tt diagonal {tz}; both must be 0")
-        if C:
-            qr_repeat_check(name, St, k, got)
-        slow = not C
-        ms = median_ms(factor_strip_cuda, (St, k), trials=7 if slow else 15,
-                       reps=3 if slow else 10)
-        # the device time without the host's launch cost: a CUDA graph over
-        # copies of St larger than the L2 (the single-block kernel is
-        # device-bound, so its eager time stands)
-        dev_ms = ms if slow else graph_ms(factor_strip_cuda, [
-            (c, k) for (c,) in cold_copies((St,), 64 << 20)])
-        plain_ms = median_ms(ref, (St, k), trials=5, reps=2, warm=1)
-        bms, by = strip_bound(b, m - k)
-        which = (f"cluster kernel, C {C}, {lpt} lane(s) a thread" if C
-                 else "single-block kernel")
+        which = (f"cluster kernel, C {C}, {lpt} lane(s) a thread" if C else
+                 f"grid kernel, G {G}, {L} lanes a CTA, S and Vt "
+                 f"{'on chip' if on_chip else 'in device memory'}")
         phase("qr", f"{name} b,m,k={b},{m},{k}: {which};"
               f" max_abs_err St/Vt/Tt {errs[0]:.3e}/{errs[1]:.3e}/"
               f"{errs[2]:.3e} (tolerance {QR_RTOL_OF_MAX} x max|want|: "
               f"{tols[0]:.3e}/{tols[1]:.3e}/{tols[2]:.3e})")
+        qr_repeat_check(name, St, k, got)
+        ms = median_ms(factor_strip_cuda, (St, k))
+        # the device time without the host's launch cost: a CUDA graph over
+        # copies of St larger than the L2
+        dev_ms = graph_ms(factor_strip_cuda, [
+            (c, k) for (c,) in cold_copies((St,), 64 << 20)])
+        if b > 64:  # K12's widths: launched only by these checks
+            k12 += (factor_strip_cuda.panel_launches - counts[2]
+                    - graph_ms.captured + graph_ms.replayed)
+        plain_ms = median_ms(ref, (St, k), trials=5, reps=2, warm=1)
+        bms, by = strip_bound(b, m - k)
         phase("qr", f"  kernel {ms:.4f} ms from Python, {dev_ms:.4f} ms of "
               f"device time (CUDA graph, cold L2); plain {plain_ms:.4f} ms; "
               f"bound {bms:.5f} ms ({by}), {bms / dev_ms:.2%} of it; "
               f"torch.geqrf of the ({m - k}, {b}) strip {geqrf_ms(St, k):.4f}"
               f" ms (yardstick: no T, LAPACK's scaling)")
-        if name == "strip":  # the main path's shape
-            record = dict(max_abs_err=max(errs), ms=ms, device_ms=dev_ms,
-                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                          library_ms=None, cluster_size=C)
+        if name in ("strip", "tall strip"):  # the QR paths' shapes
+            records[kernel] = dict(
+                max_abs_err=max(errs), ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None, **({"cluster_size": C} if C else
+                                    {"grid_ctas": G, "lanes_per_cta": L}))
         del St, got, want
         torch.cuda.empty_cache()
+    return records, k12
 
-    # K12, the single-block kernel (factor_panel's b 128): launched only
-    # here, by the panel case's check and timing
-    k12_phase6 = factor_strip_cuda.block_launches - block_before
-    N = QR_N
-    A_host = np.random.default_rng(0).standard_normal((N, N)).astype(
-        np.float32)
-    A = torch.tensor(A_host, device="cuda")
+
+def qr_matrix(M, N, kernel, plain):
+    """``householder_qr`` of an (M, N) float32 matrix from
+    ``np.random.default_rng(0)``: N / 32 strip launches, all through
+    ``kernel`` ("cluster" or "grid"), rel_resid ||A-QR||_F/||A||_F in
+    float64 <= QR_RESID_MAX, ||Q^T Q - I||_F, median times of three
+    interleaved runs beside ``torch.linalg.qr`` (and, with ``plain``, the
+    same blocked QR with the plain strip sweep), once more with the
+    caller's TF32 on. Returns the QR's [cluster, grid] launches and its
+    launches at K12's widths (b > 64), by the wrapper's counters."""
+    from linalg_tpu_torch.kernels.qr_panel import factor_strip_cuda
+    from linalg_tpu_torch.ops.qr import householder_qr
+    from linalg_tpu_torch.ops.qr_panel import (factor_strip_ref,
+                                               householder_qr_panel)
+
+    A = torch.tensor(np.random.default_rng(0).standard_normal((M, N)).astype(
+        np.float32), device="cuda")
     A64 = A.double()
     eye = torch.eye(N, dtype=torch.float64, device="cuda")
+    tag = f"householder_qr {M}x{N} f32"
 
     def quality(Q, R):
         rel = float(torch.linalg.norm(Q.double() @ R.double() - A64)
@@ -735,32 +773,33 @@ def qr_phase():
 
     runs = {"kernel": householder_qr, "plain strip": plain_driver,
             "torch.linalg.qr": torch.linalg.qr}
+    if not plain:
+        del runs["plain strip"]
     for fn in runs.values():  # first-use costs out of the timing
         fn(A)
     torch.cuda.synchronize()
 
     factor_strip_cuda.launches = 0
     factor_strip_cuda.cluster_launches = 0
-    factor_strip_cuda.block_launches = 0
+    factor_strip_cuda.grid_launches = 0
+    factor_strip_cuda.panel_launches = 0
     Q, R = householder_qr(A)
     torch.cuda.synchronize()
     launches = factor_strip_cuda.launches
     by_kernel = [factor_strip_cuda.cluster_launches,
-                 factor_strip_cuda.block_launches]
-    if launches != N // QR_INNER or by_kernel != [N // QR_INNER, 0]:
-        raise RuntimeError(f"householder_qr launched the strip kernels "
-                           f"{launches} times (cluster, block: {by_kernel});"
-                           f" expected {N // QR_INNER}, all cluster")
+                 factor_strip_cuda.grid_launches]
+    panel = factor_strip_cuda.panel_launches
+    want = [N // QR_INNER, 0] if kernel == "cluster" else [0, N // QR_INNER]
+    if launches != N // QR_INNER or by_kernel != want:
+        raise RuntimeError(f"{tag} launched the strip kernels {launches} "
+                           f"times (cluster, grid: {by_kernel}); expected "
+                           f"{N // QR_INNER}, all {kernel}")
     rel, orth = quality(Q, R)
-    sizes = sorted({cluster_shape(QR_INNER, N, k)[0]
-                    for k in range(0, N, QR_INNER)})
-    phase("qr", f"householder_qr {N}x{N} f32: {launches} strip launches, "
-          f"all through the cluster kernel (C {sizes[0]} to {sizes[-1]}), "
-          f"rel_resid {rel:.3e} (gate {QR_RESID_MAX}), ||Q^T Q - I||_F "
-          f"{orth:.3e}")
+    phase("qr", f"{tag}: {launches} strip launches, all through the "
+          f"{kernel} kernel, rel_resid {rel:.3e} (gate {QR_RESID_MAX}), "
+          f"||Q^T Q - I||_F {orth:.3e}")
     if not rel <= QR_RESID_MAX:
-        raise RuntimeError(f"householder_qr rel_resid {rel:.3e} > "
-                           f"{QR_RESID_MAX}")
+        raise RuntimeError(f"{tag} rel_resid {rel:.3e} > {QR_RESID_MAX}")
 
     times = {name: [] for name in runs}
     for _ in range(3):  # interleaved, so drift hits every candidate
@@ -772,12 +811,13 @@ def qr_phase():
             b.record()
             torch.cuda.synchronize()
             times[name].append(a.elapsed_time(b))
+    flops = 2.0 * M * N * N - 2.0 * N ** 3 / 3  # R alone, as bench.py's 2 N^3
     for name, fn in runs.items():
         t = float(np.median(times[name]))
         r_, o_ = quality(*fn(A))
-        phase("qr", f"{name}: median {t:.3f} ms of {times[name]}, "
-              f"{2.0 * N ** 3 / (t * 1e-3) / 1e9:.1f} GFLOP/s, rel_resid "
-              f"{r_:.3e}, ||Q^T Q - I||_F {o_:.3e}")
+        phase("qr", f"{tag} {name}: median {t:.3f} ms of {times[name]}, "
+              f"{(2.0 * N ** 3 if M == N else flops) / (t * 1e-3) / 1e9:.1f}"
+              f" GFLOP/s, rel_resid {r_:.3e}, ||Q^T Q - I||_F {o_:.3e}")
 
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
@@ -786,44 +826,69 @@ def qr_phase():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     rel_tf32, orth_tf32 = quality(Q, R)
-    phase("qr", f"householder_qr with the caller's TF32 on: rel_resid "
+    phase("qr", f"{tag} with the caller's TF32 on: rel_resid "
           f"{rel_tf32:.3e}, ||Q^T Q - I||_F {orth_tf32:.3e}; the caller's "
           f"setting afterwards: allow_tf32={still_on}")
     if not rel_tf32 <= QR_RESID_MAX or not still_on:
-        raise RuntimeError("householder_qr under the caller's TF32 missed "
-                           "the gate or did not restore the setting")
-    return dict(launches=launches, launches_cluster_block=by_kernel,
-                launches_k12={"qr_path": by_kernel[1],
-                              "phase6_checks": k12_phase6},
-                **record)
+        raise RuntimeError(f"{tag} under the caller's TF32 missed the gate "
+                           "or did not restore the setting")
+    del A, A64, Q, R
+    torch.cuda.empty_cache()
+    return by_kernel, panel
+
+
+def qr_phase():
+    """Phase 6: the panel kernels against their plain version, then the
+    4096^2 Householder QR (every strip on the cluster kernel) and the
+    16384 x 4096 one (every strip on the grid kernel). Returns the JSON
+    records of the cluster and the grid kernel."""
+    records, k12 = qr_strip_cases()
+    by_path, panel = {}, 0
+    for (M, N), kernel, plain in (((QR_N, QR_N), "cluster", True),
+                                  (QR_TALL, "grid", False)):
+        by_path[f"householder_qr {M}x{N}"], p = qr_matrix(M, N, kernel,
+                                                          plain)
+        panel += p
+    cluster = dict(launches=sum(c for c, _ in by_path.values()),
+                   launches_cluster_grid_by_path=by_path, **records["cluster"])
+    grid = dict(launches=sum(g for _, g in by_path.values()),
+                launches_cluster_grid_by_path=by_path,
+                launches_k12={"qr_paths": panel, "phase6_checks": k12},
+                **records["grid"])
+    return cluster, grid
 
 
 def profile_qr():
-    """A ``torch.profiler`` breakdown of one 4096^2 ``householder_qr`` (run
-    with the other profiles, last): device time, idle share, the panel
-    kernels' share, the top kernels and ops."""
+    """A ``torch.profiler`` breakdown of one ``householder_qr`` at 4096^2
+    and at 16384 x 4096 (run with the other profiles, last): device time,
+    idle share, the panel kernels' share, the top kernels and ops."""
     from linalg_tpu_torch.ops.qr import householder_qr
 
-    A = torch.tensor(np.random.default_rng(0).standard_normal(
-        (QR_N, QR_N)), dtype=torch.float32, device="cuda")
-    householder_qr(A)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=PROFILED) as prof:
-        t0 = time.perf_counter()
+    for shape in ((QR_N, QR_N), QR_TALL):
+        A = torch.tensor(np.random.default_rng(0).standard_normal(
+            shape), dtype=torch.float32, device="cuda")
         householder_qr(A)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    report_profile("qr", f"householder_qr {QR_N}x{QR_N} f32", prof, wall)
-    panel = total = 0.0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms_ = getattr(e, "self_device_time_total", 0) / 1e3
-            total += ms_
-            if "qr_cluster_kernel" in e.key or "qr_panel_kernel" in e.key:
-                panel += ms_
-    phase("qr", f"panel kernels {panel:.3f} ms of {total:.3f} ms of device "
-          f"time ({panel / max(total, 1e-9):.1%}); the rest is the blocked QR's "
-          f"GEMMs, reductions, copies and element-wise ops")
+        with torch.profiler.profile(activities=PROFILED) as prof:
+            t0 = time.perf_counter()
+            householder_qr(A)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        report_profile("qr", f"householder_qr {shape[0]}x{shape[1]} f32",
+                       prof, wall)
+        panel = total = 0.0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                ms_ = getattr(e, "self_device_time_total", 0) / 1e3
+                total += ms_
+                if "qr_cluster_kernel" in e.key or "qr_grid_kernel" in e.key:
+                    panel += ms_
+        phase("qr", f"panel kernels {panel:.3f} ms of {total:.3f} ms of "
+              f"device time ({panel / max(total, 1e-9):.1%}); the rest is "
+              f"the blocked QR's GEMMs, reductions, copies and element-wise "
+              f"ops")
+        del A
+        torch.cuda.empty_cache()
 
 
 def flash_case(shape, dtype, seed):
@@ -2042,6 +2107,11 @@ def ring_copies():
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CUDA]) as prof:
+        # a kernel of its own first: the trace can miss a session's first
+        # kernel (one run recorded the ring's dq and dk/dv but not its
+        # forward, which the backward reads)
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         ring_run(x, SP, window=512)
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2490,7 +2560,7 @@ def main() -> int:
     # -- 6. qr -----------------------------------------------------------
     report_build("qr", built["qr_panel"])
     qr_builds(built["qr_panel"][0])
-    qr_record = qr_phase()
+    qr_record, qr_grid_record = qr_phase()
 
     # -- 7. flash --------------------------------------------------------
     report_build("flash", built["flash_attention"])
@@ -2555,8 +2625,12 @@ def main() -> int:
         "launches": launches, **record}, {
         "name": "qr_panel", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/qr_panel.cu",
-        "replaces": "linalg_tpu/ops/pallas/qr_panel.py:143, :173",
+        "replaces": "linalg_tpu/ops/pallas/qr_panel.py:143",
         **qr_record}, {
+        "name": "qr_panel_grid", "route": "cuda",
+        "source": "linalg_tpu_torch/kernels/csrc/qr_panel.cu",
+        "replaces": "linalg_tpu/ops/pallas/qr_panel.py:143, :173",
+        **qr_grid_record}, {
         "name": "flash_attention", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "linalg_tpu/nn/flash.py:169, "

@@ -16,14 +16,14 @@ panel column is one contiguous row, read with coalesced 16-byte loads.
 - ``factor_strip_ref`` / ``factor_panel_ref``: the plain PyTorch versions
   of the two TPU kernels (one sweep, b steps, element-wise float32 — no
   matrix product, as the TPU kernels stay off the MXU).
-- ``_cluster_sweep_ref``: the cluster kernel's split algebra (lane ranges,
-  folded dots summed in rank order), the CPU tests' plain reference for
-  it; no card path calls it.
-- ``factor_strip``: the dispatcher. A CPU tensor takes the plain version;
-  a CUDA tensor launches ``kernels/csrc/qr_panel.cu`` (whose wrapper
-  ``factor_strip_cuda`` picks its cluster kernel or its single-block
-  kernel by shape, and also takes K12's widths), which raises on what it
-  does not take.
+- ``_cluster_sweep_ref`` / ``_grid_sweep_ref``: the two kernels' split
+  algebra (contiguous lane ranges, folded dots summed in rank order), the
+  CPU tests' plain references for it; no card path calls them.
+- ``factor_strip`` / ``factor_panel``: the dispatchers of K1 (b <= 64) and
+  K12 (any b <= 256). A CPU tensor takes the plain version; a CUDA tensor
+  launches ``kernels/csrc/qr_panel.cu`` (whose wrapper
+  ``factor_strip_cuda`` picks its cluster kernel or its grid kernel by
+  shape), which raises on what it does not take.
 - ``householder_qr_panel``: the driver ``householder_qr_pallas`` with all of
   its structure (two-level strips, ``wy_merge``, live-lane slicing at
   ``LQ``, pair/``agg`` far-field aggregation, reverse Q accumulation with
@@ -39,13 +39,14 @@ from typing import Callable
 
 import torch
 
-from ..kernels.qr_panel import factor_strip_cuda
+from ..kernels.qr_panel import factor_strip_cuda, grid_lanes
 from ..utils.numerics import eps_for, full_f32_matmul
 
 __all__ = [
     "factor_strip_ref",
     "factor_panel_ref",
     "factor_strip",
+    "factor_panel",
     "householder_qr_panel",
 ]
 
@@ -120,26 +121,22 @@ def _sweep_ref(St: torch.Tensor, k: int):
     return S, Vt, Tt
 
 
-def _cluster_sweep_ref(St: torch.Tensor, k: int, C: int):
-    """The cluster kernel's arithmetic, in PyTorch: the same function as
-    ``_sweep_ref``, with the lanes split among C CTAs as the kernel splits
-    them.
+def _split_sweep_ref(St: torch.Tensor, k: int, per: int):
+    """The kernels' arithmetic, in PyTorch: the same function as
+    ``_sweep_ref``, with the live lanes [k & ~3, m) split into contiguous
+    ranges of ``per`` lanes, one a CTA, as the kernels split them.
 
-    The live lanes [k & ~3, m) fall into C contiguous ranges of
-    ceil(lanes / C) (the kernel's CTAs hold a fixed 256 each).
     Each step forms every range's partial dots S_r . x and Vt_i . x, with x
     row j on lanes >= jg, and sums them in rank order; then
     y_r = inv (S_r . x + alpha S_r[jg]) and z_i = inv (Vt_i . x +
-    alpha Vt_i[jg]) (S_j . x is nrm^2), and Tt row j from z as the kernel's
-    CTA 0 does. The plain reference for the split algebra on the CPU; no
-    card path calls it.
+    alpha Vt_i[jg]) (S_j . x is nrm^2), and Tt row j from z, as every
+    kernel CTA forms them from the same sums.
     """
     b, m = St.shape
     dtype, dev = St.dtype, St.device
     eps = eps_for(dtype)
     lo = min(k & ~3, m)
-    per = max(1, -(-(m - lo) // C))
-    ranges = [(lo + r * per, min(lo + (r + 1) * per, m)) for r in range(C)]
+    ranges = [(a, min(a + per, m)) for a in range(lo, m, per)]
     S = St.clone()
     Vt = torch.zeros_like(St)
     Tt = torch.zeros((b, b), dtype=dtype, device=dev)
@@ -172,6 +169,25 @@ def _cluster_sweep_ref(St: torch.Tensor, k: int, C: int):
     return S, Vt, Tt
 
 
+def _cluster_sweep_ref(St: torch.Tensor, k: int, C: int):
+    """The cluster kernel's split algebra: the live lanes in C ranges of
+    ceil(live / C) (the kernel's CTAs hold a fixed 256 each). The plain
+    reference on the CPU; no card path calls it."""
+    live = St.shape[1] - min(k & ~3, St.shape[1])
+    return _split_sweep_ref(St, k, max(1, -(-live // C)))
+
+
+def _grid_sweep_ref(St: torch.Tensor, k: int, G: int):
+    """The grid kernel's split algebra, launched with G CTAs: the live
+    lanes in ranges of ``grid_lanes(live, G)`` (ceil(live / G) rounded up
+    to a multiple of 32), the last range shorter. (The kernel adds a
+    slot's G partials by a shuffle tree in each warp, the warp sums in
+    order; this sums them in rank order.) The plain reference on the CPU;
+    no card path calls it."""
+    live = St.shape[1] - min(k & ~3, St.shape[1])
+    return _split_sweep_ref(St, k, grid_lanes(live, G))
+
+
 def factor_strip_ref(St: torch.Tensor, k: int):
     """Plain version of K1 (``factor_strip``): a strip of b <= 64 rows."""
     if St.shape[0] > STRIP_MAX_B:
@@ -195,6 +211,17 @@ def factor_strip(St: torch.Tensor, k: int):
     if St.shape[0] > STRIP_MAX_B:
         raise ValueError(f"a strip has at most {STRIP_MAX_B} rows, got "
                          f"{St.shape[0]}")
+    return factor_strip_cuda(St.contiguous(), k)
+
+
+def factor_panel(St: torch.Tensor, k: int):
+    """Factor a transposed panel St (b, m) of any width b <= 256, pivots
+    from lane k: the counterpart of JAX's ``factor_panel`` (K12).
+
+    A CPU tensor takes ``factor_panel_ref``; a CUDA tensor launches the
+    kernel (float32) or raises."""
+    if St.device.type == "cpu":
+        return factor_panel_ref(St, k)
     return factor_strip_cuda(St.contiguous(), k)
 
 

@@ -32,12 +32,14 @@ from linalg_tpu_torch.nn.flash import (
 )
 from linalg_tpu_torch.nn.flash_long import flash_attention_long
 from linalg_tpu_torch.nn.flash_stream import flash_attention_stream
+from linalg_tpu_torch.kernels import qr_panel as kqp
 from linalg_tpu_torch.kernels.qr_panel import (
     cluster_shape,
     factor_strip_cuda,
 )
 from linalg_tpu_torch.ops.qr import householder_qr
 from linalg_tpu_torch.ops.qr_panel import (
+    factor_panel,
     factor_panel_ref,
     factor_strip,
     factor_strip_ref,
@@ -238,9 +240,13 @@ def test_qr_panel_wrapper_rejects_cpu_tensors():
 
 
 # (b, m, k, zero row, (C, lanes a thread) of the cluster kernel, or (0, 0)
-# for the single-block kernel): C 1, several and 16 CTAs, k near m (fewer
-# live lanes than a CTA; pivots past m), two lanes a thread past 4096 live
-# lanes, b 64, and shapes the rule sends to the single-block kernel
+# for the grid kernel): C 1, several and 16 CTAs, k near m (fewer live
+# lanes than a CTA; pivots past m), two lanes a thread past 4096 live
+# lanes, b 64; and the shapes the rule sends to the grid kernel: K12's b
+# 128 and 256, the tall strips of a 16384 x 4096 QR (first and last), b
+# 64 past a cluster, a ragged b 100 with a zero column, pivots past m at
+# b 128, S and Vt in device memory (b 256 at m 16384), and more lanes than
+# MAX_GRID CTAs of 64 hold
 QR_CARD_CASES = {
     "strip": (32, 1024, 0, None, (4, 1)),
     "ragged_zero_col": (32, 1030, 7, 3, (5, 1)),
@@ -253,6 +259,14 @@ QR_CARD_CASES = {
     "b64_ragged": (64, 2050, 33, 60, (8, 1)),
     "wide_m": (32, 20000, 0, None, (0, 0)),
     "panel_b128": (128, 2048, 0, None, (0, 0)),
+    "panel_b128_m4096": (128, 4096, 0, None, (0, 0)),
+    "panel_b256": (256, 4096, 0, None, (0, 0)),
+    "tall": (32, 16384, 0, None, (0, 0)),
+    "tall_k4064": (32, 16384, 4064, None, (0, 0)),
+    "b64_m8192": (64, 8192, 0, None, (0, 0)),
+    "b100_ragged_zero_col": (100, 1030, 7, 3, (0, 0)),
+    "b128_k_past_m": (128, 4096, 4000, 10, (0, 0)),
+    "off_chip_b256": (256, 16384, 0, None, (0, 0)),
 }
 
 
@@ -268,13 +282,16 @@ def test_qr_panel_matches_ref_on_card(cuda, case):
     St = torch.tensor(St, dtype=torch.float32, device=cuda)
     ref = factor_strip_ref if b <= 64 else factor_panel_ref
     counts = (factor_strip_cuda.launches, factor_strip_cuda.cluster_launches,
-              factor_strip_cuda.block_launches)
-    got = factor_strip(St, k) if b <= 64 else factor_strip_cuda(St, k)
+              factor_strip_cuda.grid_launches,
+              factor_strip_cuda.panel_launches)
+    got = factor_strip(St, k) if b <= 64 else factor_panel(St, k)
     torch.cuda.synchronize()
     moved = (factor_strip_cuda.cluster_launches - counts[1],
-             factor_strip_cuda.block_launches - counts[2])
+             factor_strip_cuda.grid_launches - counts[2])
     assert factor_strip_cuda.launches == counts[0] + 1
     assert moved == ((1, 0) if cluster else (0, 1))
+    # K12's widths count as panel launches as well
+    assert factor_strip_cuda.panel_launches == counts[3] + (b > 64)
     for g, w in zip(got, ref(St, k)):
         tol = QR_RTOL_OF_MAX * max(1.0, float(w.abs().max()))
         torch.testing.assert_close(g, w, rtol=0, atol=tol)
@@ -285,12 +302,13 @@ def test_qr_panel_matches_ref_on_card(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["b64", "b64_ragged", "largest_cluster",
-                                  "two_lanes_largest"])
+                                  "two_lanes_largest", "tall", "panel_b256",
+                                  "b100_ragged_zero_col", "off_chip_b256"])
 def test_qr_cluster_repeats_bitwise_on_card(cuda, case):
-    # the cluster kernel sums in a fixed order, so 200 launches back to back
-    # into outputs of their own must agree bit for bit: a race between its
-    # threads or CTAs (a Tt row formed from a stale z) would show as one
-    # launch that differs
+    # both kernels sum in a fixed order, so 200 launches back to back into
+    # outputs of their own must agree bit for bit: a race between their
+    # threads or CTAs (a Tt row formed from a stale z, an exchange word
+    # read before its step) would show as one launch that differs
     b, m, k, zero, _ = QR_CARD_CASES[case]
     St = np.random.default_rng(b + m + k).standard_normal((b, m))
     if zero is not None:
@@ -298,12 +316,68 @@ def test_qr_cluster_repeats_bitwise_on_card(cuda, case):
     St = torch.tensor(St, dtype=torch.float32, device=cuda)
     outs = [factor_strip_cuda(St, k) for _ in range(200)]
     torch.cuda.synchronize()
-    for g, w in zip(outs[0], factor_strip_ref(St, k)):
+    ref = factor_strip_ref if b <= 64 else factor_panel_ref
+    for g, w in zip(outs[0], ref(St, k)):
         tol = QR_RTOL_OF_MAX * max(1.0, float(w.abs().max()))
         torch.testing.assert_close(g, w, rtol=0, atol=tol)
     differ = [i for i, out in enumerate(outs)
               if not all(torch.equal(g, f) for g, f in zip(out, outs[0]))]
     assert differ == []
+
+
+def _grid_strip(case, cuda):
+    b, m, k, zero, _ = QR_CARD_CASES[case]
+    St = np.random.default_rng(b + m + k).standard_normal((b, m))
+    if zero is not None:
+        St[zero] = 0.0
+    return torch.tensor(St, dtype=torch.float32, device=cuda), k
+
+
+@pytest.mark.cuda
+def test_qr_grid_buffer_shared_across_shapes_on_card(cuda):
+    # one exchange buffer serves every grid launch of a stream, whatever
+    # its (b, G): launches of four shapes in turn, 50 rounds, each bitwise
+    # equal to its shape's first, which agrees with the plain version
+    cases = ["tall", "panel_b256", "b100_ragged_zero_col", "off_chip_b256"]
+    strips = [_grid_strip(c, cuda) for c in cases]
+    first = [factor_strip_cuda(St, k) for St, k in strips]
+    later = [[factor_strip_cuda(St, k) for St, k in strips]
+             for _ in range(50)]
+    torch.cuda.synchronize()
+    for (St, k), out in zip(strips, first):
+        ref = factor_strip_ref if St.shape[0] <= 64 else factor_panel_ref
+        for g, w in zip(out, ref(St, k)):
+            tol = QR_RTOL_OF_MAX * max(1.0, float(w.abs().max()))
+            torch.testing.assert_close(g, w, rtol=0, atol=tol)
+    differ = [(r, c) for r, outs in enumerate(later)
+              for c, out in enumerate(outs)
+              if not all(torch.equal(g, f) for g, f in zip(out, first[c]))]
+    assert differ == []
+
+
+@pytest.mark.cuda
+def test_qr_grid_epoch_wraps_on_card(cuda):
+    # each grid launch advances the epoch in the buffer's first word; where
+    # it wraps, the last CTA clears the buffer, so words left with an epoch
+    # 0 tag (planted here, NaN in value) cannot pass for the next launch's
+    St, k = _grid_strip("tall", cuda)
+    want = factor_strip_cuda(St, k)
+    work = kqp._work[(St.device.index,
+                      torch.cuda.current_stream(cuda).cuda_stream)]
+    torch.cuda.synchronize()
+    epoch = int(work[0]) & 0xFFFFFFFF
+    assert int(work[0]) >> 32 == 0  # the finish count is back to 0
+    factor_strip_cuda(St, k)
+    torch.cuda.synchronize()
+    assert int(work[0]) == (epoch + 1) % kqp.EPOCHS
+    nan_step0 = (1 << 32) | 0x7FC00000  # tag of step 0 at epoch 0, NaN
+    work[0] = kqp.EPOCHS - 1
+    work[kqp.WORK_HEAD:] = nan_step0
+    outs = [factor_strip_cuda(St, k) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert int(work[0]) == 1
+    for out in outs:
+        assert all(torch.equal(g, f) for g, f in zip(out, want))
 
 
 @pytest.mark.cuda
@@ -339,6 +413,27 @@ def test_householder_qr_through_kernel_under_callers_tf32(cuda):
     rel = torch.linalg.norm(Q.double() @ R.double() - A64) / torch.linalg.norm(
         A64)
     assert float(rel) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_householder_qr_tall_through_grid_kernel(cuda):
+    # 16384 live lanes and more: every strip goes through the grid kernel
+    m, n = 16384, 512
+    A = torch.tensor(np.random.default_rng(1).standard_normal((m, n)),
+                     dtype=torch.float32, device=cuda)
+    before = factor_strip_cuda.grid_launches
+    launches = factor_strip_cuda.launches
+    Q, R = householder_qr(A)
+    torch.cuda.synchronize()
+    assert factor_strip_cuda.launches == launches + n // 32
+    assert factor_strip_cuda.grid_launches == before + n // 32
+    A64 = A.double()
+    rel = torch.linalg.norm(Q.double() @ R.double() - A64) / torch.linalg.norm(
+        A64)
+    assert float(rel) <= 1e-6
+    orth = torch.linalg.norm(Q.double().T @ Q.double() - torch.eye(
+        n, dtype=torch.float64, device=cuda))
+    assert float(orth) <= 1e-4
 
 
 # flash kernels vs their plain versions: float32 sums over T and d in

@@ -10,6 +10,9 @@ bound between two float32 drivers), float64 QR and least squares within
 1e-10, and test_qr.py's orthogonality bounds.
 """
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -165,8 +168,9 @@ def test_cluster_shape_rule():
     """The shape rule between the two kernels: the cluster kernel up to 64
     rows and 16 CTAs of 256 live lanes (b <= 32: then 16 of 512, two lanes
     a thread), C shrinking with the live lanes down to 1; everything else
-    the single-block kernel."""
-    shape = kqp.cluster_shape
+    the grid kernel, at most 128 CTAs of at least 64 live lanes (a multiple
+    of 32), S and Vt on chip while 2 b (L + 1) floats fit."""
+    shape, grid = kqp.cluster_shape, kqp.grid_shape
     assert shape(32, 4096, 0) == (16, 1)
     assert shape(32, 4096, 2048) == (8, 1)
     assert shape(32, 4096, 4064) == (1, 1)
@@ -175,13 +179,121 @@ def test_cluster_shape_rule():
     assert shape(32, 4097, 0) == (9, 2)
     assert shape(32, 8192, 0) == (16, 2)
     assert shape(32, 8193, 0) == (0, 0)
+    assert grid(32, 8193, 0) == (86, 96, True)
     assert shape(32, 8193, 4) == (16, 2)
     assert shape(64, 4096, 1) == (16, 1)
     assert shape(64, 4097, 0) == (0, 0)
+    assert grid(64, 4097, 0) == (65, 64, True)
     assert shape(128, 2048, 0) == (0, 0)
+    assert grid(128, 2048, 0) == (32, 64, True)
     assert shape(8, 40, 100) == (1, 1)  # no live lane: every step skips
     # every strip of the 4096^2 QR takes the cluster kernel
     assert all(shape(32, 4096, k)[0] for k in range(0, 4096, 32))
+    # every strip of the 16384 x 4096 QR takes the grid kernel
+    assert all(shape(32, 16384, k) == (0, 0) for k in range(0, 4096, 32))
+    assert grid(32, 16384, 0) == (128, 128, True)
+    assert grid(32, 16384, 4064) == (97, 128, True)  # 12,320 live lanes
+    assert grid(64, 8192, 0) == (128, 64, True)
+    assert grid(256, 4096, 0) == (64, 64, True)
+    assert grid(100, 1030, 7) == (17, 64, True)
+    assert grid(100, 300, 7) == (5, 64, True)
+    assert grid(8, 40, 100) == (1, 64, True)  # no live lane
+    # past ~216 KB of S and Vt a CTA, they stay in device memory
+    assert grid(256, 16384, 0) == (128, 128, False)
+    assert grid(128, 32768, 0) == (128, 256, False)
+    assert grid(64, 32768, 0) == (128, 256, True)
+
+
+@pytest.mark.parametrize("cap", [1, 7, 64, 128])
+@pytest.mark.parametrize("bmk", [(32, 4096, 0), (32, 16384, 4064),
+                                 (256, 4096, 0), (8, 40, 100)])
+def test_grid_shape_under_a_cap(bmk, cap):
+    """grid_shape with at most ``cap`` CTAs (tools/bench_qr.py times fewer
+    than the wrapper's): CTAs of at least 64 lanes, a multiple of 32, that
+    cover the live lanes, each non-empty; the cap of MAX_GRID is the
+    wrapper's rule."""
+    b, m, k = bmk
+    live = max(m - (k & ~3), 0)
+    G, L, on_chip = kqp.grid_shape(b, m, k, cap)
+    assert 1 <= G <= cap and L >= kqp.GRID_MIN_LANES and L % 32 == 0
+    assert G * L >= live and (G == 1 or (G - 1) * L < live)
+    assert on_chip == kqp.grid_on_chip(b, L)
+    if cap == kqp.MAX_GRID:
+        assert (G, L, on_chip) == kqp.grid_shape(b, m, k)
+
+
+@pytest.mark.parametrize("name", ["MAX_B", "MAX_M", "MAX_CLUSTER",
+                                  "MAX_GRID", "GRID_SMEM", "WORK_HEAD",
+                                  "WORK_WORDS", "EPOCHS"])
+def test_wrapper_constants_match_the_kernel_source(name):
+    """The wrapper's copies of csrc/qr_panel.cu's limits: the exchange
+    buffer it allocates must hold every word the kernel may clear."""
+    src = (pathlib.Path(kqp.__file__).parent / "csrc"
+           / "qr_panel.cu").read_text()
+    consts = {}  # the file-scope constants, in order
+    for n, expr in re.findall(r"^constexpr \w+ (\w+) = ([^;]+);", src,
+                              re.MULTILINE):
+        consts[n] = eval(re.sub(r"\b(\w+)u\b", r"\1", expr), {},
+                         dict(consts))
+    assert consts[name] == getattr(kqp, name)
+
+
+@pytest.mark.parametrize("live", [1, 64, 1026, 8193, 12320, 16384, 32768])
+@pytest.mark.parametrize("G", [1, 3, 33, 128])
+def test_grid_lanes_cover_the_live_lanes(live, G):
+    """Ranges of grid_lanes(live, G) lanes, a multiple of 32: at most G of
+    them cover the live lanes, each non-empty."""
+    L = kqp.grid_lanes(live, G)
+    n = -(-live // L)
+    assert L % 32 == 0 and 1 <= n <= G and n * L >= live > (n - 1) * L
+
+
+# the grid kernel's split algebra (ops/qr_panel.py::_grid_sweep_ref) at G
+# CTAs: uneven lane ranges (1026 live lanes from lane 4), a strip and a
+# K12 panel, and a zero column (row 3 of St)
+GRID_CASES = [(32, 1030, 7, None), (100, 1030, 7, None), (100, 1030, 7, 3)]
+
+
+@pytest.fixture(scope="module")
+def jax_panels():
+    """JAX factor_strip (b <= 64) or factor_panel of each GRID_CASES strip
+    in interpret mode, float32 and float64, computed once per module."""
+    cache = {}
+
+    def get(case, dtype):
+        if (case, dtype) not in cache:
+            b, m, k, zero = case
+            fn = jqp.factor_strip if b <= 64 else jqp.factor_panel
+            with pltpu.force_tpu_interpret_mode():
+                out = fn(jnp.asarray(_strip(*case, dtype)), k, b)
+            cache[case, dtype] = [np.asarray(o) for o in out]
+        return cache[case, dtype]
+
+    return get
+
+
+@pytest.mark.parametrize("case", GRID_CASES,
+                         ids=["b32_m1030_k7", "b100_m1030_k7", "zero_column"])
+@pytest.mark.parametrize("G", [1, 3, 7, 33])
+def test_grid_split_algebra(jax_panels, case, G):
+    """The grid kernel's arithmetic (G lane ranges of a multiple of 32
+    lanes, partials summed in rank order, Tt from z) against the plain
+    sweep and against JAX's factor_strip / factor_panel in interpret mode,
+    float32 and float64."""
+    b, m, k, zero = case
+    for dtype in (np.float32, np.float64):
+        St = torch.from_numpy(_strip(*case, dtype))
+        got = tqp._grid_sweep_ref(St, k, G)
+        rtol = SPLIT_RTOL_OF_MAX[dtype]
+        if dtype == np.float32:
+            for g, w in zip(got, tqp.factor_panel_ref(St, k)):
+                _close_of_max(g, w, rtol)
+        for g, w in zip(got, jax_panels(case, dtype)):
+            _close_of_max(g, w, rtol)
+        if zero is not None:  # exact skip: no reflector, tau = 0
+            assert float(got[1][zero].abs().max()) == 0.0
+            assert float(got[2][zero, zero]) == 0.0
+            assert torch.equal(got[0][zero], St[zero])
 
 
 def test_cluster_ctas():
@@ -212,6 +324,24 @@ def test_strip_takes_at_most_64_rows():
         tqp.factor_strip(torch.zeros(65, 80), 0)
 
 
+@pytest.mark.parametrize("b, m", [(8, 40), (64, 200), (128, 300)])
+def test_factor_panel_matches_jax(b, m):
+    """The port's factor_panel (K12's dispatcher) against JAX's
+    factor_panel in interpret mode, pivots from lane 5, a zero column: on
+    the CPU it is the plain sweep, launching nothing."""
+    St = _rand((b, m), b + m)
+    St[2] = 0.0
+    with pltpu.force_tpu_interpret_mode():
+        want = jqp.factor_panel(jnp.asarray(St), 5, b)
+    before = factor_strip_cuda.launches
+    got = tqp.factor_panel(torch.from_numpy(St), 5)
+    assert factor_strip_cuda.launches == before
+    for g, w in zip(got, want):
+        _close_of_max(g, w, SWEEP_ATOL)
+    assert float(got[1][2].abs().max()) == 0.0
+    assert float(got[2][2, 2]) == 0.0
+
+
 # ---------------------------------------------------------------------------
 # the blocked driver householder_qr_panel
 # ---------------------------------------------------------------------------
@@ -239,6 +369,19 @@ def test_driver_matches_jax(jax_driver_64, pair):
     _close(Q, out[pair][0], DRIVER_ATOL)
     _close(R, out[pair][1], DRIVER_ATOL)
     assert np.abs(np.tril(R.numpy(), -1)).max() == 0.0
+
+
+def test_driver_through_grid_split_matches_jax():
+    """householder_qr_panel with the grid kernel's split algebra as its
+    strip sweep (7 CTAs) against JAX's householder_qr_pallas in interpret
+    mode, on a tall 1030 x 256 matrix."""
+    A = _rand((1030, 256), 5)
+    with pltpu.force_tpu_interpret_mode():
+        Qj, Rj = jqp.householder_qr_pallas(jnp.asarray(A))
+    Q, R = tqp.householder_qr_panel(
+        torch.from_numpy(A), strip=lambda St, k: tqp._grid_sweep_ref(St, k, 7))
+    _close(Q, Qj, DRIVER_ATOL)
+    _close(R, Rj, DRIVER_ATOL)
 
 
 @pytest.mark.parametrize("kw", [dict(pair=True), dict(pair=False),

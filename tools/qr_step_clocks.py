@@ -1,4 +1,4 @@
-"""Where a step of the QR cluster kernel spends its time, on the card.
+"""Where a step of the QR panel kernels spends its time, on the card.
 
     python3 tools/qr_step_clocks.py
 
@@ -7,22 +7,28 @@ the gitignored ``kernels/_build/``, from the unchanged source with the
 instrumentation it keeps behind compile-time switches:
 
 - ``-DQR_STEP_CLOCKS``: thread 0 of CTA 0 and of the last CTA read
-  ``clock64()`` at the boundaries of each step's phases (the kernel's
+  ``clock64()`` at the boundaries of each step's phases (the kernels'
   ``QR_TICK``) and sum the cycles per phase; ``qr_step_clocks`` copies the
-  sums out after the launch. Each step's phases: selecting row j and
-  posting the pivot lane's columns, the partial dots with the warp's first
-  fold, the other folds, the block barrier, the block sum with the pushes
-  into every CTA, CTA 0's Tt row with the wait for the pushes, the sums in
-  rank order, the second block barrier, the reflector's scalars, the
-  register update.
-- ``-DQR_STEP_BARRIER``: one extra cluster barrier a step, so its time
-  against the unchanged kernel's is the cost of a cluster barrier.
+  sums out after the launch. The cluster kernel's phases: selecting row j
+  and posting the pivot lane's columns, the partial dots with the warp's
+  first fold, the other folds, the block barrier, the block sum with the
+  pushes into every CTA, CTA 0's Tt row with the wait for the pushes, the
+  sums in rank order, the second block barrier, the reflector's scalars,
+  the register update. The grid kernel's: the partial dots with their
+  sum over the slot's threads and the CTA's exchange words, the previous
+  step's Tt columns, the reduce (polling and summing the G partials of
+  this CTA's slots), the gather of every slot's total with the block
+  barrier, the scalars and the update.
+- ``-DQR_STEP_BARRIER``: one extra cluster barrier a step in the cluster
+  kernel, so its time against the unchanged kernel's is the cost of a
+  cluster barrier.
 
 Prints cycles a step per phase at (b, m, k) = (32, 4096, 0) (C 16),
-(32, 4096, 3968) (C 1) and (64, 4096, 0) (C 16), the SM clock, the device
-time (a CUDA graph over copies of St larger than the L2) of the kernel as
-built by the package and of the ``barrier`` variant, and the card's name
-and power limit.
+(32, 4096, 3968) (C 1) and (64, 4096, 0) (C 16) on the cluster kernel and
+(32, 16384, 0) (G 128) and (128, 4096, 0) (G 64) on the grid kernel, the
+SM clock, the device time (a CUDA graph over copies of St larger than the
+L2) of each as built by the package and, for the cluster kernel, of the
+``barrier`` variant, and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -41,10 +47,14 @@ import chip_smoke as smoke  # noqa: E402
 from linalg_tpu_torch.kernels import build as kbuild  # noqa: E402
 from linalg_tpu_torch.kernels import qr_panel as kqp  # noqa: E402
 
-CASES = [(32, 4096, 0), (32, 4096, 3968), (64, 4096, 0)]
-PHASES = ["row j, pivot post", "partials + first fold", "other folds",
-          "block barrier", "block sum + push", "Tt row + wait",
-          "sums in rank order", "block barrier", "scalars", "update"]
+CASES = [(32, 4096, 0), (32, 4096, 3968), (64, 4096, 0), (32, 16384, 0),
+         (128, 4096, 0)]
+PHASES = {"cluster": ["row j, pivot post", "partials + first fold",
+                      "other folds", "block barrier", "block sum + push",
+                      "Tt row + wait", "sums in rank order", "block barrier",
+                      "scalars", "update"],
+          "grid": ["partial dots + words", "Tt columns", "reduce",
+                   "gather + barrier", "scalars + update"]}
 
 
 def build_variant(define):
@@ -61,9 +71,14 @@ def build_variant(define):
 
 
 def launcher(lib, b, m, k):
-    """The cluster kernel of library ``lib`` at the wrapper's shape."""
+    """The kernel of library ``lib`` that the wrapper's shape rule picks:
+    (function, kernel name, CTAs)."""
     C, lpt = kqp.cluster_shape(b, m, k)
-    return (lambda St, k: kqp._launch(St, k, C, lpt, lib)), C
+    if C:
+        return (lambda St, k: kqp._launch(St, k, C, lpt, lib)), "cluster", C
+    G, L, on_chip = kqp.grid_shape(b, m, k)
+    return ((lambda St, k: kqp._launch_grid(St, k, G, L, on_chip, lib)),
+            "grid", G)
 
 
 def main() -> int:
@@ -79,24 +94,30 @@ def main() -> int:
     for b, m, k in CASES:
         St = torch.tensor(np.random.default_rng(1).standard_normal((b, m)),
                           dtype=torch.float32, device="cuda")
-        run, C = launcher(clocks, b, m, k)
+        run, kernel, n = launcher(clocks, b, m, k)
         for _ in range(3):
             run(St, k)
         torch.cuda.synchronize()
         buf = (ctypes.c_longlong * 32)()
         if read_clocks(buf):
             raise RuntimeError("reading the clocks failed")
-        last = 16 if C > 1 else 0  # the last CTA's row (CTA 0's at C 1)
-        print(f"(b, m, k) = ({b}, {m}, {k}), C {C}: cycles a step, CTA 0 / "
-              f"CTA {C - 1}")
-        for i, name in enumerate(PHASES, start=1):
+        last = 16 if n > 1 else 0  # the last CTA's row (CTA 0's alone)
+        names = PHASES[kernel]
+        print(f"(b, m, k) = ({b}, {m}, {k}), {kernel} kernel, {n} CTAs: "
+              f"cycles a step, CTA 0 / CTA {n - 1}")
+        for i, name in enumerate(names, start=1):
             print(f"  {name:24s} {buf[i] / b:8.1f} "
                   f"{buf[last + i] / b:8.1f}")
-        print(f"  {'all':24s} {sum(buf[1:11]) / b:8.1f} "
-              f"{sum(buf[last + 1:last + 11]) / b:8.1f}")
+        end = len(names) + 1
+        print(f"  {'all':24s} {sum(buf[1:end]) / b:8.1f} "
+              f"{sum(buf[last + 1:last + end]) / b:8.1f}")
         sets = [(c, k) for (c,) in smoke.cold_copies((St,), 64 << 20)]
         kqp.factor_strip_cuda(St, k)
         base = smoke.graph_ms(kqp.factor_strip_cuda, sets)
+        if kernel == "grid":
+            print(f"  device ms: kernel {base:.4f} ({base / b * 1e3:.3f} us "
+                  "a step)")
+            continue
         extra = smoke.graph_ms(launcher(barrier, b, m, k)[0], sets)
         print(f"  device ms: kernel {base:.4f}, with one more cluster "
               f"barrier a step {extra:.4f} ({(extra - base) / b * 1e3:.3f} "
