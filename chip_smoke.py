@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paths on one CUDA card: paged serving, the
-Householder QR, char-GPT training, long-context training, short-context
-training through the gated kernels, sequence-parallel training through
-the ring kernels, and sampling.
+"""Drive the PyTorch port's paths on one CUDA card: paged serving (with
+shared prefixes, chunked prefill, the page cache and speculative
+decoding), the Householder QR, char-GPT training, long-context training,
+short-context training through the gated kernels, sequence-parallel
+training through the ring kernels, and sampling.
 
     python3 chip_smoke.py
 
@@ -19,12 +20,14 @@ Phases, each reported on its own line; any failure exits non-zero:
              ragged positions and an idle slot on the trash page) in
              float32 and bfloat16, d 64 with 8 query heads per KV head and
              a per-head mask, d 256, and one slot at the last position of
-             its context (``PAGED_CASES``, each in both dtypes; bfloat16
+             its context, and the serving shape with the same 4 page ids
+             at the head of every slot's table (a registered prefix's
+             shared pages; ``PAGED_CASES``, each in both dtypes; bfloat16
              held to 2% of max|want|); the split count S, max error,
              median CUDA-event times of both called from Python and
              replayed from a CUDA graph over input copies larger than the
              L2 (the device time without the host's launch overhead), and
-             the bound.
+             the bound (a pool row that several slots see counts once).
 4. engine  — ServeEngine(paged, page 256, 8 slots, chunk 32, prefill
              window 2048) over GPTConfig(d512, 4 heads, 2 KV heads, 8
              layers, ctx 4096, bf16), random weights from seed 0, 16
@@ -37,6 +40,27 @@ Phases, each reported on its own line; any failure exits non-zero:
 5. equality — the same engine in float32 (TF32 off), greedy, on 4 of the
              requests: the kernel engine's tokens must equal the gather
              engine's.
+17. prefix — (runs after phase 5, on its model) the serving features in
+             bf16, 16 requests each, every request finishing with its
+             full budget and every kernel-mode run launching the paged
+             kernels once per layer and step: (a) a registered
+             1,024-token prefix (its 4 pages at the head of every slot's
+             table) with suffixes of 64-512 tokens, kernel and gather;
+             (b) the same full prompts under ``auto_prefix``; (c) chunked
+             prefill, window 512, prompts of 1,024-3,072 tokens; (d) the
+             page cache over two waves of 8 prompts sharing a 1,536-token
+             head (the second wave must hit); (e) speculative decoding, K
+             4, in slot mode and paged with the gather (tokens a slot and
+             round). Each run's wall time, useful tok/s, prefills, chunks
+             and launches beside phase 4's engine on the same full
+             prompts. Then in float32, greedy, TF32 off, 4 requests each:
+             the prefix engine equals the full-prompt engine, the kernel
+             engine with shared pages the gather engine, warm page-cache
+             admissions cold ones, chunked prefill one-shot prefill, and
+             the speculative engines the plain ones; at a first
+             difference the plain stream's top-2 logit gap there must be
+             under 1e-5 of its largest |logit| (a tie f32 cannot order),
+             and such flips are counted.
 6. qr      — the Householder panel kernels (``csrc/qr_panel.cu``): build
              time and ptxas lines, the registers, shared memory and spills
              of the cluster kernel's three instantiations and the grid
@@ -190,8 +214,11 @@ Phases, each reported on its own line; any failure exits non-zero:
              and its backward at vocab 50,257, batch 64, f32 through the
              chunked CE against the full logits (|dloss| <= 1e-5 |loss|,
              ||dg||/||g|| <= 1e-4 per leaf), with each path's time and
-             peak memory. No kernel of its own: the JAX package's sampling
-             path is XLA-level code.
+             peak memory; ``gpt_generate_speculative`` (K 4, greedy) of
+             128 tokens from [1, 2, 3] in f32 and bf16 with its rounds and
+             tok/s, in f32 equal to ``sample``'s greedy first chunk (or a
+             tie, as in phase 17). No kernel of its own: the JAX package's
+             sampling path is XLA-level code.
 
 Phase 2 builds every kernel, one ``nvcc`` per source, all started
 together. The line before the last is a JSON object describing the
@@ -286,25 +313,35 @@ SAMPLE_CFG = dict(vocab_size=65, d_model=512, n_heads=4, n_layers=4,
                   ctx_len=256)
 SAMPLE_TOKENS = 2048  # sampled from [1, 2, 3], as bench.py:341-345
 GEN_NEW, GEN_REPS = 128, 8  # gpt_generate of 8 ragged prompts, bench.py:352
+SPEC_NEW = 128  # gpt_generate_speculative: sample's first chunk, no rollover
 BEAM, BEAM_NEW = 4, 64
 SAMPLE_TRAIN = ["--d_model", "512", "--heads", "4", "--layers", "4",
                 "--ctx_len", "256", "--steps", "20", "--eval_every", "20"]
 WIDE_V, WIDE_B = 50257, 64  # GPT-2's vocabulary, not a multiple of 4096
 # phase 3 (and tools/bench_paged.py): name, (B, H, hk, d, page, Pmax),
-# dtype, mask per head, every slot at the end of its context; case i's
-# inputs come from seed i
+# dtype, mask per head, layout (``kernel_case``); case i's inputs come from
+# seed i
 PAGED_CASES = (
-    ("serve f32", (8, 4, 2, 128, 256, 16), torch.float32, False, False),
-    ("serve bf16", (8, 4, 2, 128, 256, 16), torch.bfloat16, False, False),
-    ("d64 f32", (8, 8, 1, 64, 256, 16), torch.float32, True, False),
-    ("d64 bf16", (8, 8, 1, 64, 256, 16), torch.bfloat16, True, False),
-    ("d256 bf16", (8, 4, 2, 256, 256, 16), torch.bfloat16, False, False),
+    ("serve f32", (8, 4, 2, 128, 256, 16), torch.float32, False, "ragged"),
+    ("serve bf16", (8, 4, 2, 128, 256, 16), torch.bfloat16, False,
+     "ragged"),
+    ("d64 f32", (8, 8, 1, 64, 256, 16), torch.float32, True, "ragged"),
+    ("d64 bf16", (8, 8, 1, 64, 256, 16), torch.bfloat16, True, "ragged"),
+    ("d256 bf16", (8, 4, 2, 256, 256, 16), torch.bfloat16, False, "ragged"),
     ("B1 full ctx bf16", (1, 4, 2, 128, 256, 16), torch.bfloat16, False,
-     True),
-    ("d256 f32", (8, 4, 2, 256, 256, 16), torch.float32, False, False),
+     "full"),
+    ("d256 f32", (8, 4, 2, 256, 256, 16), torch.float32, False, "ragged"),
     ("B1 full ctx f32", (1, 4, 2, 128, 256, 16), torch.float32, False,
-     True),
+     "full"),
+    ("shared prefix f32", (8, 4, 2, 128, 256, 16), torch.float32, False,
+     "shared"),
+    ("shared prefix bf16", (8, 4, 2, 128, 256, 16), torch.bfloat16, False,
+     "shared"),
 )
+# the pages a registered 1,024-token prefix fills at page 256: "shared"
+# cases put them at the head of every slot's table, as the prefix phase's
+# engine does
+SHARED_PAGES = 4
 # paged kernels vs their plain version: float32 sums in another order; a
 # bf16 output keeps 8 bits of mantissa (an ulp of max|want| is ~0.4% of
 # it) and p is rounded before p*v, so bf16 is held to 2% of max|want|,
@@ -326,16 +363,33 @@ def bound_ms(flops, nbytes, dtype):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def live_pool_rows(table, pos, page):
+    """Distinct (pool page, row) pairs the slots' positions make live: slot
+    b sees logical rows 0..min(pos_b, ctx - 1) through its table, and a
+    pool row that several slots see (a shared prefix page, the idle slots'
+    trash page) counts once."""
+    table, pos = table.cpu().numpy(), pos.cpu().numpy()
+    seen = np.zeros((int(table.max()) + 1, page), bool)
+    ctx = page * table.shape[1]
+    for row, p in zip(table, np.minimum(np.maximum(pos, 0), ctx - 1)):
+        n_full = p // page
+        seen[row[:n_full]] = True
+        seen[row[n_full], :p % page + 1] = True
+    return int(seen.sum())
+
+
 def paged_bound(q, pk, pv, mask, table, pos):
-    """Bound of one paged decode-attention call: each slot reads its
-    min(pos + 1, ctx) live K/V rows once (an idle slot's clamped position
-    reads them all), q, the mask, the table and the positions once, and
-    writes its output; 4 d operations per head and live key."""
+    """Bound of one paged decode-attention call: each live K/V pool row
+    read once (``live_pool_rows``: a page that several slots share is read
+    once), q, the mask, the table and the positions once, and the output
+    written; 4 d operations per head and live key of each slot (an idle
+    slot's clamped position sees ctx keys)."""
     B, H, _, d = q.shape
-    hk = pk.shape[1]
-    ctx = pk.shape[2] * table.shape[1]
+    hk, page = pk.shape[1], pk.shape[2]
+    ctx = page * table.shape[1]
     live = int(torch.clamp(pos.long() + 1, max=ctx).sum())
-    nbytes = (q.element_size() * (2 * q.numel() + 2 * hk * d * live
+    rows = live_pool_rows(table, pos, page)
+    nbytes = (q.element_size() * (2 * q.numel() + 2 * hk * d * rows
                                   + mask.numel())
               + 4 * (table.numel() + pos.numel()))
     return bound_ms(4 * H * d * live, nbytes, q.dtype)
@@ -372,11 +426,13 @@ def phase(name, msg):
 
 
 def kernel_case(B, H, hk, d, page, Pmax, dtype, seed, per_head_mask=False,
-                full=False):
-    """Random inputs on the card in the engine's layout: distinct pages per
-    slot, ragged positions, the last slot idle (all-trash table row, a
-    position past ctx); with ``full`` every slot at the last position of
-    its context instead."""
+                layout="ragged"):
+    """Random inputs on the card in the engine's layout. ``layout``
+    "ragged": distinct pages per slot, ragged positions, the last slot
+    idle (all-trash table row, a position past ctx); "full": every slot at
+    the last position of its context; "shared": every slot's table starts
+    with the same ``SHARED_PAGES`` page ids (a registered prefix), then
+    private pages, ragged positions past the shared run."""
     rng = np.random.default_rng(seed)
     ctx = page * Pmax
     n_pages = 1 + B * Pmax
@@ -390,8 +446,11 @@ def kernel_case(B, H, hk, d, page, Pmax, dtype, seed, per_head_mask=False,
     pv = t(rng.normal(size=(n_pages, hk, page, d)))
     table = rng.permutation(np.arange(1, n_pages)).reshape(B, Pmax)
     pos = rng.integers(0, ctx, size=B)
-    if full:
+    if layout == "full":
         pos[:] = ctx - 1
+    elif layout == "shared":
+        table[:, :SHARED_PAGES] = table[0, :SHARED_PAGES]
+        pos = rng.integers(SHARED_PAGES * page, ctx, size=B)
     else:
         table[-1] = 0
         pos[-1] = ctx + 37
@@ -505,16 +564,17 @@ def paged_builds(lib):
 
 def paged_phase():
     """Phase 3: the paged kernels against their plain version at every
-    ``PAGED_CASES`` case; returns the serving bf16 case's record."""
+    ``PAGED_CASES`` case; returns the records of the serving bf16 case and
+    of its shared-prefix twin."""
     from linalg_tpu_torch.kernels.paged_attention import (
         paged_attention_cuda, paged_splits)
     from linalg_tpu_torch.serve.paged import paged_attention_ref
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    record = None
-    for i, (name, shp, dt, per_head, full) in enumerate(PAGED_CASES):
+    records = {}
+    for i, (name, shp, dt, per_head, layout) in enumerate(PAGED_CASES):
         args = kernel_case(*shp, dt, seed=i, per_head_mask=per_head,
-                           full=full)
+                           layout=layout)
         B_, H_, hk_, _, page_, Pmax_ = shp
         splits = paged_splits(B_, H_, hk_, page_, Pmax_, n_sm)
         got = paged_attention_cuda(*args)
@@ -539,47 +599,303 @@ def paged_phase():
         bms, by = paged_bound(*args)
         phase("kernel", f"  bound {bms:.4f} ms ({by}), {bms / ms:.1%} of "
               f"it, {bms / dev_ms:.1%} from the graph")
-        if name == "serve bf16":  # the engine's shape and dtype
-            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          device_ms=dev_ms, plain_device_ms=plain_dev_ms,
-                          bound_ms=bms, bound_by=by, library_ms=None)
+        records[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             device_ms=dev_ms, plain_device_ms=plain_dev_ms,
+                             bound_ms=bms, bound_by=by, library_ms=None)
         del args, got, want
         torch.cuda.empty_cache()
-    return record
+    # the engine's shape and dtype, with private and with shared pages
+    return records["serve bf16"], records["shared prefix bf16"]
 
 
-def make_requests(Request, n, greedy=False):
+def make_requests(n):
+    """Phase 4's requests: (prompt, budget, False): prompts of 512-2048
+    ids, budgets 64-256, from ``np.random.default_rng(0)``."""
     rng = np.random.default_rng(0)
     reqs = []
     for _ in range(16):
         plen = int(rng.integers(512, 2049))
         budget = int(rng.integers(64, 257))
         prompt = rng.integers(0, SERVE_CFG["vocab_size"], size=plen).tolist()
-        reqs.append(Request(prompt, budget, top_k=1 if greedy else None))
+        reqs.append((prompt, budget, False))
     return reqs[:n]
 
 
-def run_engine(ServeEngine, params, cfg, reqs, mode, seed=0):
-    eng = ServeEngine(params, cfg, paged_attn=mode, seed=seed,
-                      device="cuda", **ENGINE_KW)
+# the prefix phase (phase 17): a registered 1,024-token prefix (4 pages),
+# the page cache's 1,536-token shared head (6 pages), chunked prefill's
+# window, speculative decoding's K
+PREFIX_LEN, PC_HEAD, CHUNKED_WINDOW, SPEC_K = 1024, 1536, 512, 4
+# f32 greedy equality: at a first difference, the plain engine's top-2
+# logit gap must be under this share of its largest |logit|, a tie f32
+# cannot order (the compared paths sum in other orders: GEMMs of other M)
+TIE_OF_MAX = 1e-5
+
+
+def prefix_requests(n, seed=1):
+    """The prefix phase's requests: (prefix, [(suffix, budget)]): a
+    1,024-token prefix, suffixes of 64-512 tokens, budgets 64-256, all
+    from ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    V = SERVE_CFG["vocab_size"]
+    prefix = rng.integers(0, V, PREFIX_LEN).tolist()
+    reqs = [(rng.integers(0, V, int(rng.integers(64, 513))).tolist(),
+             int(rng.integers(64, 257))) for _ in range(16)]
+    return prefix, reqs[:n]
+
+
+def long_requests(n, seed=2):
+    """Chunked prefill's requests: prompts of 1,024-3,072 tokens, budgets
+    64-256."""
+    rng = np.random.default_rng(seed)
+    V = SERVE_CFG["vocab_size"]
+    reqs = [(rng.integers(0, V, int(rng.integers(1024, 3073))).tolist(),
+             int(rng.integers(64, 257))) for _ in range(16)]
+    return reqs[:n]
+
+
+def head_requests(n, seed=3):
+    """Two waves of ``n`` requests (the page cache's): prompts of a shared
+    1,536-token head and a tail of 64-512 tokens, budgets 64-256."""
+    rng = np.random.default_rng(seed)
+    V = SERVE_CFG["vocab_size"]
+    head = rng.integers(0, V, PC_HEAD).tolist()
+    return [[(head + rng.integers(0, V, int(rng.integers(64, 513))).tolist(),
+              int(rng.integers(64, 257))) for _ in range(n)]
+            for _ in range(2)]
+
+
+def serve_waves(ServeEngine, params, cfg, waves, prefix=None, greedy=False,
+                per_wave=None, **kw):
+    """One engine (``ENGINE_KW`` updated by ``kw``) serving ``waves`` (lists
+    of (prompt, budget, uses the prefix)) one after the other, ``prefix``
+    registered first. Every request must finish with its full budget and
+    every page not pinned by the prefix or held by the page cache must be
+    back in the pool. Returns ([tokens per request], wall seconds, tokens,
+    the engine); wall covers the waves, not the registration. ``per_wave``
+    (a list) gets each wave's (wall, tokens, stats)."""
+    from linalg_tpu_torch.serve import Request
+
+    eng = ServeEngine(params, cfg, device="cuda", **dict(ENGINE_KW, **kw))
+    pid = eng.register_prefix(prefix) if prefix is not None else None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ids = [eng.submit(r) for r in reqs]
-    done = {c.request_id: c for c in eng.run()}
+    outs = []
+    for wave in waves:
+        t1 = time.perf_counter()
+        ids = [eng.submit(Request(p, n, top_k=1 if greedy else None,
+                                  prefix_id=pid if use else None))
+               for p, n, use in wave]
+        done = {c.request_id: c for c in eng.run()}
+        if per_wave is not None:
+            torch.cuda.synchronize()
+            per_wave.append((time.perf_counter() - t1,
+                             sum(len(c.tokens) for c in done.values()),
+                             dict(eng.stats)))
+        for i, (_, n, _) in zip(ids, wave):
+            c = done[i]
+            if c.finish_reason != "length" or len(c.tokens) != n:
+                raise RuntimeError(f"request {i} ended {c.finish_reason} "
+                                   f"with {len(c.tokens)} of {n} tokens")
+            if not all(0 <= t < cfg.vocab_size for t in c.tokens):
+                raise RuntimeError("token out of the vocabulary")
+            outs.append(c.tokens)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    outs = [done[i] for i in ids]
-    for r, c in zip(reqs, outs):
-        if c.finish_reason != "length" or len(c.tokens) != r.max_new_tokens:
-            raise RuntimeError(f"{mode}: request {c.request_id} ended "
-                               f"{c.finish_reason} with {len(c.tokens)} of "
-                               f"{r.max_new_tokens} tokens")
-        if not all(0 <= t < cfg.vocab_size for t in c.tokens):
-            raise RuntimeError(f"{mode}: token out of the vocabulary")
-    if eng._allocator.n_free != eng._allocator.n_pages - 1:
-        raise RuntimeError(f"{mode}: pages not returned to the pool")
-    n_tok = sum(len(c.tokens) for c in outs)
-    return outs, wall, n_tok, eng.stats
+    if eng._allocator is not None:
+        held = eng._shared_held + len(eng._pcache)
+        if eng._allocator.n_free != eng._allocator.n_pages - 1 - held:
+            raise RuntimeError("pages not returned to the pool")
+    return outs, wall, sum(len(t) for t in outs), eng
+
+
+def serve_line(tag, wall, n_tok, eng, launches=None):
+    """A run's report: wall, useful tok/s, prefills, chunks and launches
+    (and a speculative engine's tokens a round)."""
+    st = eng.stats
+    extra = ""
+    if eng._spec:
+        extra = (f", {st['spec_rounds']} rounds, "
+                 f"{st['emitted_tokens'] / st['spec_slot_rounds']:.3f} "
+                 f"tokens a slot and round (ceiling {eng._spec + 1})")
+    if eng._page_cache:
+        extra += (f", page cache {st['page_cache_hits']} hits, "
+                  f"{st['page_cache_evicted']} evicted")
+    phase("prefix", f"{tag}: {wall:.3f} s, {n_tok} tokens, "
+          f"{n_tok / wall:.1f} tok/s useful, {st['prefills']} prefills, "
+          f"{st['chunks']} chunks"
+          + ("" if launches is None else f", {launches} kernel launches")
+          + extra)
+
+
+def kernel_run(ServeEngine, params, cfg, waves, **kw):
+    """``serve_waves`` in kernel mode, holding the engine to one paged
+    kernel call a layer and decode step. Returns (outs, wall, tokens,
+    engine, launches)."""
+    from linalg_tpu_torch.kernels.paged_attention import paged_attention_cuda
+
+    before = paged_attention_cuda.launches
+    outs, wall, n_tok, eng = serve_waves(ServeEngine, params, cfg, waves,
+                                         paged_attn="kernel", **kw)
+    launches = paged_attention_cuda.launches - before
+    expected = eng.stats["chunks"] * eng.chunk * cfg.n_layers
+    if launches == 0 or launches != expected:
+        raise RuntimeError(f"kernel engine launched the kernel {launches} "
+                           f"times; expected {expected}")
+    return outs, wall, n_tok, eng, launches
+
+
+def greedy_equal(tag, params, cfg, prompts, got, want, where="prefix"):
+    """Exact equality of greedy streams, or a tie: at a request's first
+    difference, the plain stream's (``want``) top-2 logit gap there, from
+    one prefill of the prompt and its tokens before that position, must
+    be under ``TIE_OF_MAX`` of the largest |logit|. Returns the flips."""
+    from linalg_tpu_torch.models.gpt import gpt_prefill
+
+    flips = 0
+    for r, (prompt, g, w) in enumerate(zip(prompts, got, want)):
+        if g == w:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+        logits, _ = gpt_prefill(params, torch.tensor(
+            [list(prompt) + list(w[:i])], device="cuda"), cfg)
+        top2 = logits[0].topk(2).values
+        gap, big = float(top2[0] - top2[1]), float(logits.abs().max())
+        phase(where, f"{tag}: request {r} first differs at token {i}: "
+              f"the plain stream's top-2 gap {gap:.3e} is "
+              f"{gap / big:.3e} of max|logit| {big:.3e} (a tie under "
+              f"{TIE_OF_MAX})")
+        if not gap < TIE_OF_MAX * big:
+            raise RuntimeError(f"{tag}: tokens differ at a gap f32 orders")
+        flips += 1
+    phase(where, f"{tag}: {len(got)} requests, "
+          f"{sum(len(t) for t in got)} tokens, equal but {flips} tie "
+          f"flips")
+    return flips
+
+
+def prefix_equalities(ServeEngine, params, cfg32):
+    """Phase 17's f32 greedy equalities, 4 requests each (TF32 off)."""
+    prefix, preqs = prefix_requests(4)
+    full = [(prefix + p, n, False) for p, n in preqs]
+    with_pid = [(p, n, True) for p, n in preqs]
+    fulls = [prefix + p for p, _ in preqs]
+    plain = kernel_run(ServeEngine, params, cfg32, [full], greedy=True)[0]
+    kern = kernel_run(ServeEngine, params, cfg32, [with_pid], prefix=prefix,
+                      greedy=True)[0]
+    gath = serve_waves(ServeEngine, params, cfg32, [with_pid], prefix=prefix,
+                       greedy=True, paged_attn="gather")[0]
+    flips = greedy_equal("f32 prefix engine == full-prompt engine", params,
+                         cfg32, fulls, kern, plain)
+    flips += greedy_equal("f32 kernel engine, shared pages == gather "
+                          "engine", params, cfg32, fulls, kern, gath)
+    wave = head_requests(4)[0]
+    wave = [(p, n, False) for p, n in wave]
+    outs, _, _, eng, _ = kernel_run(ServeEngine, params, cfg32, [wave, wave],
+                                 greedy=True, page_cache=True)
+    if eng.stats["page_cache_hits"] == 0:
+        raise RuntimeError("warm admissions found no cached page")
+    flips += greedy_equal(f"f32 page cache warm == cold "
+                          f"({eng.stats['page_cache_hits']} hits)", params,
+                          cfg32, [p for p, _, _ in wave], outs[4:], outs[:4])
+    long = [(p, n, False) for p, n in long_requests(4)]
+    chunked = kernel_run(ServeEngine, params, cfg32, [long], greedy=True,
+                         prefill_window=CHUNKED_WINDOW)[0]
+    one = kernel_run(ServeEngine, params, cfg32, [long], greedy=True,
+                     prefill_window=3072)[0]
+    flips += greedy_equal("f32 chunked prefill == one-shot prefill", params,
+                          cfg32, [p for p, _, _ in long], chunked, one)
+    reqs = make_requests(4)
+    prompts = [p for p, _, _ in reqs]
+    for mode, kw in (("slot", dict(paged=False)),
+                     ("paged gather", dict(paged_attn="gather"))):
+        spec = serve_waves(ServeEngine, params, cfg32, [reqs], greedy=True,
+                           speculative=SPEC_K, **kw)[0]
+        base = serve_waves(ServeEngine, params, cfg32, [reqs], greedy=True,
+                           **dict(kw, paged_attn="gather"))[0]
+        flips += greedy_equal(f"f32 speculative K {SPEC_K} == plain, "
+                              f"{mode}", params, cfg32, prompts, spec, base)
+    return flips
+
+
+def prefix_phase(ServeEngine, params, cfg, cfg32, phase4):
+    """Phase 17: chunked prefill, shared prefixes, the page cache and
+    speculative decoding at the serving widths, bf16; then the f32
+    equalities. ``phase4``: (wall, tokens) of phase 4's kernel engine on
+    its 16 requests. Returns the kernel launches of the bf16 runs."""
+    from linalg_tpu_torch.kernels.paged_attention import paged_attention_cuda
+
+    prefix, preqs = prefix_requests(16)
+    full = [[(prefix + p, n, False) for p, n in preqs]]
+    with_pid = [[(p, n, True) for p, n in preqs]]
+    longs = [[(p, n, False) for p, n in long_requests(16)]]
+    heads = [[(p, n, False) for p, n in w] for w in head_requests(8)]
+    reqs = [make_requests(16)]
+    paged_attention_cuda.launches = 0
+    # (a) the registered prefix: its 4 pages head every slot's table
+    _, wall, n_tok, eng, launches = kernel_run(
+        ServeEngine, params, cfg, with_pid, prefix=prefix)
+    if eng._shared_held != PREFIX_LEN // ENGINE_KW["page"]:
+        raise RuntimeError("the prefix's pages are not shared")
+    serve_line("(a) registered prefix, kernel", wall, n_tok, eng, launches)
+    _, wall, n_tok, eng = serve_waves(ServeEngine, params, cfg, with_pid,
+                                      prefix=prefix, paged_attn="gather")
+    serve_line("(a) registered prefix, gather", wall, n_tok, eng)
+    _, wall, n_tok, eng, launches = kernel_run(ServeEngine, params, cfg,
+                                               full)
+    serve_line("    phase 4's engine, the same full prompts", wall, n_tok,
+               eng, launches)
+    # (b) auto_prefix: the full prompts, matched at submit
+    auto = [[(prefix + p, n, False) for p, n in preqs]]
+    _, wall, n_tok, eng, launches = kernel_run(
+        ServeEngine, params, cfg, auto, prefix=prefix, auto_prefix=True)
+    if [c.prompt_len for c in sorted(eng.completions, key=lambda c:
+                                     c.request_id)] != [len(p) for p, _ in
+                                                        preqs]:
+        raise RuntimeError("auto_prefix did not match the prefix")
+    serve_line("(b) auto_prefix, kernel", wall, n_tok, eng, launches)
+    # (c) chunked prefill: a 512-token window over 1,024-3,072 prompts
+    _, wall, n_tok, eng, launches = kernel_run(
+        ServeEngine, params, cfg, longs, prefill_window=CHUNKED_WINDOW)
+    serve_line(f"(c) chunked prefill, window {CHUNKED_WINDOW}, kernel",
+               wall, n_tok, eng, launches)
+    _, wall, n_tok, eng, launches = kernel_run(ServeEngine, params, cfg,
+                                               longs)
+    serve_line("    phase 4's engine (window 2048), the same prompts", wall,
+               n_tok, eng, launches)
+    # (d) the page cache: a second wave over the first's retired pages
+    waves = []
+    _, wall, n_tok, eng, launches = kernel_run(
+        ServeEngine, params, cfg, heads, page_cache=True, per_wave=waves)
+    hits = [w[2]["page_cache_hits"] for w in waves]
+    if hits[1] - hits[0] <= 0:
+        raise RuntimeError("page cache: the second wave hit no page")
+    serve_line(f"(d) page cache, kernel: wave 1 {waves[0][0]:.3f} s, "
+               f"{waves[0][1]} tokens, {hits[0]} hits; wave 2 "
+               f"{waves[1][0]:.3f} s, {waves[1][1]} tokens, "
+               f"{hits[1] - hits[0]} hits; both", wall, n_tok, eng,
+               launches)
+    waves = []
+    _, wall, n_tok, eng, launches = kernel_run(ServeEngine, params, cfg,
+                                               heads, per_wave=waves)
+    serve_line(f"    phase 4's engine: wave 1 {waves[0][0]:.3f} s, wave 2 "
+               f"{waves[1][0]:.3f} s; both", wall, n_tok, eng, launches)
+    # (e) speculative decoding, K 4: slot mode and the paged gather
+    for mode, kw in (("slot", dict(paged=False)),
+                     ("paged gather", dict(paged_attn="gather"))):
+        _, wall, n_tok, eng = serve_waves(ServeEngine, params, cfg, reqs,
+                                          speculative=SPEC_K, **kw)
+        serve_line(f"(e) speculative K {SPEC_K}, {mode}", wall, n_tok, eng)
+    _, wall, n_tok, eng = serve_waves(ServeEngine, params, cfg, reqs,
+                                      paged=False)
+    serve_line("    plain slot engine, the same requests", wall, n_tok, eng)
+    phase("prefix", f"    phase 4's engine (kernel), the same requests: "
+          f"{phase4[0]:.3f} s, {phase4[1] / phase4[0]:.1f} tok/s useful")
+    launches = paged_attention_cuda.launches
+    phase("prefix", f"bf16 runs: {launches} paged kernel calls, one a "
+          f"layer and decode step of every kernel-mode run")
+    flips = prefix_equalities(ServeEngine, params, cfg32)
+    phase("prefix", f"f32 equalities hold, {flips} tie flips in all")
+    return launches
 
 
 def build_all(kbuild):
@@ -1319,8 +1635,8 @@ def profile_engine(ServeEngine, params, cfg, reqs):
     """A ``torch.profiler`` breakdown of one kernel-mode engine run over
     ``reqs`` (run last, as ``profile_step``)."""
     with torch.profiler.profile(activities=PROFILED) as prof:
-        _, wall, n_tok, _ = run_engine(ServeEngine, params, cfg, reqs,
-                                       "kernel")
+        _, wall, n_tok, _ = serve_waves(ServeEngine, params, cfg, [reqs],
+                                        paged_attn="kernel")
     report_profile("engine", f"kernel-mode run ({len(reqs)} requests, "
                    f"{n_tok} tokens)", prof, wall * 1e3)
 
@@ -2321,6 +2637,7 @@ def sample_phase(smi):
     from linalg_tpu_torch.models.gpt import (GPTConfig, gpt_decode_chunk,
                                              gpt_generate, gpt_prefill,
                                              init_gpt_params)
+    from linalg_tpu_torch.models.speculative import gpt_generate_speculative
     from linalg_tpu_torch.native import native_available, native_error
     from linalg_tpu_torch.nn.tokenizers import BPETokenizer
     from linalg_tpu_torch.train.data import load_text
@@ -2350,10 +2667,22 @@ def sample_phase(smi):
               f"prompts of {sorted(len(p) for p in prompts)} ids, {GEN_NEW} "
               f"new each: median {wall:.3f} s of {GEN_REPS}, "
               f"{len(prompts) * GEN_NEW / wall:.1f} tok/s; {smi}")
+        gpt_generate_speculative(params, cfg, [1, 2, 3], 16,
+                                 n_draft=SPEC_K, top_k=1)
+        (spec, rounds), dt = timed(lambda: gpt_generate_speculative(
+            params, cfg, [1, 2, 3], SPEC_NEW, n_draft=SPEC_K, top_k=1))
+        phase("sample", f"{dtype} gpt_generate_speculative, K {SPEC_K}, "
+              f"greedy: {SPEC_NEW} tokens from [1, 2, 3] in {rounds} "
+              f"rounds ({SPEC_NEW / rounds:.2f} a round), {dt:.3f} s, "
+              f"{SPEC_NEW / dt:.1f} tok/s; {smi}")
         if dtype != "float32":
             continue
         greedy = list(sample(params, cfg, [1, 2, 3], ident, steps=300,
                              top_k=1, seed=2))
+        # sample's first chunk (128 tokens) decodes without a rollover
+        greedy_equal(f"f32 gpt_generate_speculative == sample's greedy, "
+                     f"{SPEC_NEW} tokens", params, cfg, [[1, 2, 3]],
+                     [spec.tolist()], [greedy[:SPEC_NEW]], where="sample")
         steps = greedy_by_steps(params, cfg, [1, 2, 3], 300)
         same = greedy == steps
         first = next((i for i, (a, b) in enumerate(zip(greedy, steps))
@@ -2494,7 +2823,7 @@ def main() -> int:
     from linalg_tpu_torch.kernels import build as kbuild
     from linalg_tpu_torch.kernels.paged_attention import paged_attention_cuda
     from linalg_tpu_torch.models.gpt import GPTConfig, init_gpt_params
-    from linalg_tpu_torch.serve import Request, ServeEngine
+    from linalg_tpu_torch.serve import ServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2514,30 +2843,27 @@ def main() -> int:
     paged_builds(lib)
 
     # -- 3. kernel vs plain version -------------------------------------
-    record = paged_phase()
+    record, shared_record = paged_phase()
 
     # -- 4. engine ------------------------------------------------------
     cfg = GPTConfig(dtype="bfloat16", **SERVE_CFG)
     params = init_gpt_params(cfg, seed=0, device="cuda")
-    reqs = make_requests(Request, 16)
-    warm = [Request(list(range(1, 60)) * 9, 32)]
+    reqs = make_requests(16)
+    warm = [[(list(range(1, 60)) * 9, 32, False)]]
     for mode in ("kernel", "gather"):  # first-use costs out of the timing
-        run_engine(ServeEngine, params, cfg, warm, mode)
+        serve_waves(ServeEngine, params, cfg, warm, paged_attn=mode)
     paged_attention_cuda.launches = 0
-    _, wall_k, n_tok, stats = run_engine(ServeEngine, params, cfg, reqs,
-                                         "kernel")
-    launches = paged_attention_cuda.launches
-    expected = stats["chunks"] * ENGINE_KW["chunk"] * cfg.n_layers
-    if launches == 0 or launches != expected:
-        raise RuntimeError(f"kernel engine launched the kernel {launches} "
-                           f"times; expected {expected}")
-    _, wall_g, n_tok_g, _ = run_engine(ServeEngine, params, cfg, reqs,
-                                       "gather")
+    _, wall_k, n_tok, eng, launches = kernel_run(ServeEngine, params, cfg,
+                                                 [reqs])
+    chunks = eng.stats["chunks"]
+    _, wall_g, n_tok_g, _ = serve_waves(ServeEngine, params, cfg, [reqs],
+                                        paged_attn="gather")
     if paged_attention_cuda.launches != launches:
         raise RuntimeError("the gather engine launched the kernel")
-    _, wall_g2, _, _ = run_engine(ServeEngine, params, cfg, reqs, "gather")
-    _, wall_k2, _, _ = run_engine(ServeEngine, params, cfg, reqs, "kernel")
-    phase("engine", f"16 requests, {n_tok} tokens, {stats['chunks']} chunks,"
+    _, wall_g2, _, _ = serve_waves(ServeEngine, params, cfg, [reqs],
+                                   paged_attn="gather")
+    wall_k2 = kernel_run(ServeEngine, params, cfg, [reqs])[1]
+    phase("engine", f"16 requests, {n_tok} tokens, {chunks} chunks,"
           f" {launches} kernel launches")
     phase("engine", f"kernel: {wall_k:.3f} s, {n_tok / wall_k:.1f} tok/s; "
           f"again {wall_k2:.3f} s, {n_tok / wall_k2:.1f} tok/s")
@@ -2546,16 +2872,21 @@ def main() -> int:
 
     # -- 5. f32 greedy equality -----------------------------------------
     cfg32 = GPTConfig(dtype="float32", **SERVE_CFG)
-    reqs4 = make_requests(Request, 4, greedy=True)
-    out_k = run_engine(ServeEngine, params, cfg32, reqs4, "kernel")[0]
-    out_g = run_engine(ServeEngine, params, cfg32, reqs4, "gather")[0]
-    same = [a.tokens == b.tokens for a, b in zip(out_k, out_g)]
+    reqs4 = make_requests(4)
+    out_k = kernel_run(ServeEngine, params, cfg32, [reqs4], greedy=True)[0]
+    out_g = serve_waves(ServeEngine, params, cfg32, [reqs4], greedy=True,
+                        paged_attn="gather")[0]
+    same = [a == b for a, b in zip(out_k, out_g)]
     phase("equality", f"f32 greedy, 4 requests, "
-          f"{sum(len(c.tokens) for c in out_k)} tokens: kernel == gather "
+          f"{sum(len(t) for t in out_k)} tokens: kernel == gather "
           f"per request {same}")
     if not all(same):
         raise RuntimeError("f32 greedy tokens differ between the kernel and "
                            "gather engines")
+
+    # -- 17. prefix: shared pages, chunked prefill, speculation ----------
+    prefix_launches = prefix_phase(ServeEngine, params, cfg, cfg32,
+                                   (wall_k, n_tok))
 
     # -- 6. qr -----------------------------------------------------------
     report_build("qr", built["qr_panel"])
@@ -2621,8 +2952,10 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/paged_attention.cu",
-        "replaces": "linalg_tpu/serve/paged.py:433",
-        "launches": launches, **record}, {
+        "replaces": "linalg_tpu/serve/paged.py:433, :267",
+        "launches": launches + prefix_launches,
+        "launches_phase4_prefix": [launches, prefix_launches], **record,
+        "shared_prefix": shared_record}, {
         "name": "qr_panel", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/qr_panel.cu",
         "replaces": "linalg_tpu/ops/pallas/qr_panel.py:143",

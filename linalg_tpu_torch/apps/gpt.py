@@ -5,10 +5,12 @@ D`` (prompts on stdin; ``--beam B`` for beam search).
 The ``--train``, ``--serve`` and ``--repl`` parts of ``linalg_tpu.apps.gpt``
 with the same flags, defaults and outputs (``--out`` JSON lines), plus
 ``--device``; ``--tokenizer bpe --vocab_size N`` trains byte-level BPE.
-Checkpoints load and save in the JAX package's format. Flags of features
-that are not ported yet are accepted and refused with
-``NotImplementedError`` naming their ROADMAP.md item (speculative
-decoding, quantization, prefixes and LoRA come with queue 1, item 5).
+Checkpoints load and save in the JAX package's format. ``--serve`` takes
+``--prefix_file``, ``--auto_prefix``, ``--page_cache`` and ``--speculative
+K``; ``--repl`` takes ``--speculative K`` and ``--draft_ckpt``. Flags of
+features that are not ported yet are accepted and refused with
+``NotImplementedError`` naming their ROADMAP.md item (quantization and
+LoRA come with queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -24,8 +26,6 @@ import numpy as np
 # Flags of the JAX CLI whose features are not ported: (default, ROADMAP.md
 # item). Any other value raises NotImplementedError naming the item.
 _NOT_PORTED_FLAGS = {
-    "speculative": (0, "queue 1, item 5: speculative decoding"),
-    "draft_ckpt": ("", "queue 1, item 5: speculative decoding"),
     "quant": ("none", "queue 1, item 5: quantization"),
     "experts": (0, "queue 1, item 6: MoE"),
     "lora_rank": (0, "queue 1, item 5: LoRA"),
@@ -94,10 +94,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "of sampling (ignores temperature/top_k/top_p; "
                          "needs prompt+gen_tokens <= ctx_len)")
     ap.add_argument("--speculative", type=int, default=0, metavar="K",
-                    help="speculative decoding (not ported yet)")
+                    help="draft K tokens a round by prompt-lookup "
+                         "speculative decoding (the plain sampler's law). "
+                         "REPL: single-stream, plain decode when the block "
+                         "does not fit ctx_len; --serve: per-slot draft + "
+                         "verify inside continuous batching")
     ap.add_argument("--draft_ckpt", type=str, default="",
-                    help="draft model of speculative decoding (not ported "
-                         "yet)")
+                    help="REPL: checkpoint of a smaller DRAFT model of the "
+                         "same vocabulary for --speculative K (it drafts "
+                         "greedily, the target verifies); empty = prompt "
+                         "lookup")
     ap.add_argument("--quant", type=str, default="none",
                     choices=("none", "int8", "int8kv"),
                     help="int8 decode (not ported yet)")
@@ -141,9 +147,28 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--out", type=str, default="",
                     help="write completions as JSON lines to this file "
                          "instead of stdout")
+    ap.add_argument("--page_cache", action="store_true",
+                    help="serve mode (with --paged): automatic prefix "
+                         "caching — retired requests leave their full "
+                         "prompt pages in the pool under content-"
+                         "addressed keys; admissions reuse the longest "
+                         "cached block run (refcounted, LRU-evicted under "
+                         "page pressure)")
+    ap.add_argument("--auto_prefix", action="store_true",
+                    help="serve mode: submit full prompts and let the "
+                         "engine reuse the longest registered prefix "
+                         "(ServeEngine(auto_prefix=True)); with "
+                         "--prefix_file, prompts are submitted as "
+                         "prefix+line with no explicit prefix_id")
+    ap.add_argument("--prefix_file", type=str, default="",
+                    help="serve mode: file whose text is a shared prompt "
+                         "PREFIX prepended to every prompt; its KV is "
+                         "prefilled once and reused per request "
+                         "(ServeEngine.register_prefix)")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV cache (page pool + per-slot tables; "
-                         "admission control by memory)")
+                         "admission control by memory, prefix pages "
+                         "shared across slots)")
     ap.add_argument("--page", type=int, default=64,
                     help="paged mode: rows per KV page (must divide ctx_len)")
     ap.add_argument("--n_pages", type=int, default=0,
@@ -178,9 +203,11 @@ def serve_cli(args) -> None:
     """Serve a batch of prompts through the continuous-batching engine.
 
     Prompts keep their LAST admissible tokens (the reference's context
-    truncation). A prompt longer than the engine's prefill window is
-    refused until chunked prefill is ported, rather than cut differently
-    from the JAX CLI."""
+    truncation); within the ctx budget any length admits (chunked
+    prefill). ``--prefix_file`` registers a shared prefix (prefilled
+    once), tail-truncated to leave a prompt token and the decode budget;
+    with ``--auto_prefix`` the prompts go in whole and the engine finds
+    the prefix itself."""
     from ..serve.engine import Request, ServeEngine
     from ..train.checkpoint import load_ckpt, load_tokenizer
     from ..utils.device import resolve_device
@@ -199,28 +226,45 @@ def serve_cli(args) -> None:
         print("serve: no prompts")
         return
 
+    spec = args.speculative
+    if spec and args.paged and args.paged_attn == "kernel":
+        print("(--speculative serving supports the full-precision dense "
+              "slot/paged(gather) engine; serving without speculation)")
+        spec = 0
     eng = ServeEngine(params, cfg, n_slots=args.n_slots, chunk=args.chunk,
                       top_k=args.top_k, seed=args.seed, paged=args.paged,
                       page=args.page, n_pages=(args.n_pages or None),
-                      paged_attn=args.paged_attn, schedule=args.schedule,
-                      device=device)
-    # the engine reserves ceil(gen/chunk)*chunk cache rows per request: cap
-    # gen so one prompt token always fits, then keep each prompt's tail
-    gen_max = (cfg.ctx_len - 1) // args.chunk * args.chunk
-    gen = min(args.gen_tokens, max(gen_max, 1))
-    reserved = -(-gen // args.chunk) * args.chunk
+                      paged_attn=args.paged_attn, speculative=spec,
+                      schedule=args.schedule, auto_prefix=args.auto_prefix,
+                      page_cache=args.page_cache, device=device)
+    # the engine reserves ceil(gen/chunk)*chunk cache rows per request
+    # (speculative: gen + 2(K + 1)): cap gen so one prompt token always
+    # fits, then keep each prompt's tail
+    if spec:
+        gen = min(args.gen_tokens, max(cfg.ctx_len - 1 - 2 * (spec + 1), 1))
+        reserved = gen + 2 * (spec + 1)
+    else:
+        gen_max = (cfg.ctx_len - 1) // args.chunk * args.chunk
+        gen = min(args.gen_tokens, max(gen_max, 1))
+        reserved = -(-gen // args.chunk) * args.chunk
     if gen < args.gen_tokens:
         print(f"(gen_tokens capped to {gen}: the decode budget "
               f"reservation must fit ctx_len {cfg.ctx_len})")
-    plen_max = cfg.ctx_len - reserved
+    pid, pref_ids = None, []
+    if args.prefix_file:
+        with open(args.prefix_file, encoding="utf-8") as f:
+            pref_ids = list(tok.encode(f.read().rstrip("\n")))
+        pref_cap = min(cfg.ctx_len - args.chunk - 1,
+                       cfg.ctx_len - reserved - 1)
+        if len(pref_ids) > pref_cap:
+            print(f"(prefix truncated to its last {pref_cap} tokens)")
+            pref_ids = pref_ids[-pref_cap:]
+        if pref_ids:
+            pid = eng.register_prefix(pref_ids)
+    plen_max = cfg.ctx_len - reserved - len(pref_ids)
     prompts = []
-    for i, ln in enumerate(lines):
+    for ln in lines:
         ids = list(tok.encode(ln))[-plen_max:]
-        if len(ids) > eng.prefill_window:
-            raise SystemExit(
-                f"serve: prompt {i} has {len(ids)} tokens; this port admits "
-                f"at most prefill_window={eng.prefill_window} until chunked "
-                f"prefill is ported (ROADMAP.md queue 1, item 3)")
         prompts.append(ids or None)  # nothing encodable: empty completion
 
     t0 = time.perf_counter()
@@ -228,9 +272,14 @@ def serve_cli(args) -> None:
     for i, ids in enumerate(prompts):
         if ids is None:
             continue
+        use_pid = pid
+        if args.auto_prefix and pid is not None:
+            # the submit-time matcher: the full prompt, no prefix_id
+            ids, use_pid = pref_ids + ids, None
         rid = eng.submit(Request(
             prompt=ids, max_new_tokens=gen, temperature=args.temperature,
-            top_p=args.top_p, top_k=args.top_k if args.top_k > 0 else None))
+            top_p=args.top_p, top_k=args.top_k if args.top_k > 0 else None,
+            prefix_id=use_pid))
         rid_to_line[rid] = i
     done = {rid_to_line[c.request_id]: c for c in eng.run()}
     wall = time.perf_counter() - t0
@@ -258,6 +307,14 @@ def serve_cli(args) -> None:
           f"= {n_tok / max(wall, 1e-9):.0f} tok/s useful; "
           f"slots={args.n_slots} chunk={args.chunk} "
           f"prefills={eng.stats['prefills']} device={device}]")
+    if spec:
+        rounds = max(eng.stats.get("spec_rounds", 0), 1)
+        print(f"[speculative K={spec}: {rounds} verify rounds, "
+              f"{eng.stats['emitted_tokens'] / rounds:.2f} tok/round "
+              f"(ceiling {spec + 1})]")
+    if args.page_cache:
+        print(f"[page cache: {eng.stats['page_cache_hits']} page hits, "
+              f"{eng.stats['page_cache_evicted']} evicted]")
     if done:
         lat = np.array([c.latency_s for c in done.values()])
         qws = np.array([c.queue_s for c in done.values()])
@@ -269,9 +326,13 @@ def serve_cli(args) -> None:
 
 def repl(args) -> None:
     """Read prompts from stdin until EOF; print each completion: beam
-    search with ``--beam B`` (when prompt + gen_tokens fit ctx_len), else
-    ``train.trainer.sample`` streaming its text pieces."""
+    search with ``--beam B`` (when prompt + gen_tokens fit ctx_len),
+    speculative decoding with ``--speculative K`` (prompt lookup, or the
+    ``--draft_ckpt`` model; when prompt + gen_tokens + K + 1 fit ctx_len),
+    else ``train.trainer.sample`` streaming its text pieces."""
     from ..models.beam import gpt_generate_beam
+    from ..models.speculative import (gpt_generate_speculative,
+                                      gpt_generate_speculative_draft)
     from ..train.checkpoint import load_ckpt, load_tokenizer
     from ..train.trainer import sample
     from ..utils.device import resolve_device
@@ -279,6 +340,17 @@ def repl(args) -> None:
     device = resolve_device(args.device)
     params, cfg, _, itos = load_ckpt(args.ckpt_dir, device=device)
     tok = load_tokenizer(args.ckpt_dir)  # char or BPE, from the sidecar
+    draft = None
+    if args.draft_ckpt:
+        dparams, dcfg, _, _ = load_ckpt(args.draft_ckpt, device=device)
+        if dcfg.vocab_size != cfg.vocab_size:
+            print(f"(--draft_ckpt vocab {dcfg.vocab_size} != target "
+                  f"{cfg.vocab_size}; ignoring the draft model)")
+        elif dcfg.ctx_len < cfg.ctx_len:
+            print(f"(--draft_ckpt ctx_len {dcfg.ctx_len} < target "
+                  f"{cfg.ctx_len}; ignoring the draft model)")
+        else:
+            draft = (dparams, dcfg)
     print("\nREPL — type a prompt, Ctrl+C to exit.\n")
     while True:
         try:
@@ -302,6 +374,25 @@ def repl(args) -> None:
             print(_decode_text(tok, itos, toks))
             print(f"[beam={args.beam}: log-prob {score:.2f}, "
                   f"{score / max(len(toks), 1):.3f}/token]")
+            continue
+        K = args.speculative
+        spec_ok = K > 0 and ctx.size + args.gen_tokens + K + 1 <= cfg.ctx_len
+        if K > 0 and not spec_ok:
+            print("(speculative decode needs prompt+gen_tokens+K+1 <= "
+                  "ctx_len and a dense GPT; using plain decode)")
+        if spec_ok:
+            kw = dict(n_draft=K, temperature=args.temperature,
+                      top_k=args.top_k, top_p=args.top_p, seed=args.seed)
+            if draft is not None:
+                toks, rounds = gpt_generate_speculative_draft(
+                    params, cfg, draft[0], draft[1], ctx, args.gen_tokens,
+                    **kw)
+            else:
+                toks, rounds = gpt_generate_speculative(
+                    params, cfg, ctx, args.gen_tokens, **kw)
+            print(_decode_text(tok, itos, toks))
+            print(f"[speculative: {len(toks)} tokens in {rounds} rounds, "
+                  f"{len(toks) / max(rounds, 1):.2f} tok/round]")
             continue
         for piece in sample(params, cfg, ctx, tok, steps=args.gen_tokens,
                             temperature=args.temperature, top_k=args.top_k,

@@ -44,18 +44,23 @@ def fkv_write(k_buf, v_buf, length, k_new, v_new):
 
 
 def fkv_write_slots(k_buf, v_buf, pos, k_new, v_new):
-    """Per-slot write of one token: k_new/v_new (B, h, 1, d) land at row
-    ``pos[b]`` of slot b, in place. Positions wrap once if negative and
-    clamp to [0, max_T - 1], as the JAX row scatter does."""
+    """Per-slot write: k_new/v_new (B, h, t, d) land contiguously at rows
+    [s_b, s_b + t) of slot b, in place. The start follows the JAX vmapped
+    ``dynamic_update_slice``: a negative ``pos[b]`` wraps once (+ max_T),
+    then the start clamps to [0, max_T - t] (for t = 1 the JAX row
+    scatter's rule: wrap, then clamp to [0, max_T - 1])."""
     B, h, max_T, d = k_buf.shape
-    if k_new.shape[2] != 1:
-        raise NotImplementedError(
-            "multi-row slot writes come with chunked prefill (ROADMAP.md "
-            "queue 1, item 3)")
-    p = torch.where(pos < 0, pos + max_T, pos).clamp(0, max_T - 1).long()
+    t = k_new.shape[2]
+    s = torch.where(pos < 0, pos + max_T, pos).clamp(0, max_T - t).long()
     b = torch.arange(B, device=k_buf.device)
-    k_buf[b, :, p] = k_new[:, :, 0]
-    v_buf[b, :, p] = v_new[:, :, 0]
+    if t == 1:
+        k_buf[b, :, s] = k_new[:, :, 0]
+        v_buf[b, :, s] = v_new[:, :, 0]
+        return k_buf, v_buf
+    rows = s[:, None] + torch.arange(t, device=k_buf.device)  # (B, t)
+    # advanced indices around a slice: the result is (B, t, h, d)
+    k_buf[b[:, None], :, rows] = k_new.transpose(1, 2)
+    v_buf[b[:, None], :, rows] = v_new.transpose(1, 2)
     return k_buf, v_buf
 
 

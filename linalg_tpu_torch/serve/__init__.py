@@ -1,7 +1,11 @@
-"""Continuous-batching serving for the GPT: slot engine and paged KV pool."""
+"""Continuous-batching serving for the GPT: the slot engine and the paged
+KV pool, with chunked prefill, shared prefixes, the page cache and
+speculative decoding."""
 
 from .engine import Completion, Request, ServeEngine, serve
 from .paged import PageAllocator, decode_chunk_paged, init_paged_cache
+from .spec import decode_chunk_spec, spec_cache_fields
 
 __all__ = ["Request", "Completion", "ServeEngine", "serve",
-           "PageAllocator", "decode_chunk_paged", "init_paged_cache"]
+           "PageAllocator", "decode_chunk_paged", "init_paged_cache",
+           "decode_chunk_spec", "spec_cache_fields"]

@@ -12,6 +12,19 @@
   the trash page) and their tokens are discarded.
 - Admission = one prefill of the prompt right-padded to
   ``prefill_window``, copied into the slot's rows (or the slot's pages).
+  Longer prompts admit by CHUNKED PREFILL: the first window prefills, the
+  rest block-extends a window at a time (``_extend_prefix``, the
+  speculative verifier's block forward), so any prompt within the ctx
+  budget admits.
+- Prefix reuse: ``register_prefix`` prefills a shared prefix once and
+  ``Request(prefix_id=...)`` block-extends it by the request's suffix;
+  ``auto_prefix=True`` matches full prompts against the registered
+  prefixes; ``page_cache=True`` (paged) keeps retired requests' full
+  prompt pages under content-addressed chain keys and reuses the longest
+  cached run. In paged mode shared pages stand in several slots' tables,
+  and the paged kernels read them in place.
+- ``speculative=K`` turns each chunk into per-slot draft + verify rounds
+  (``serve.spec``) in slot mode or paged mode with the table gather.
 - Sampling parameters are per-slot tensors (temperature, top_p, top_k),
   rebuilt from host vectors when an admission changes them. The host
   vectors are mutated in place, so the device copies are COPIES
@@ -19,31 +32,34 @@
   under a queued chunk.
 
 Host and device meet once per chunk: the chunk's (n_slots, chunk) tokens
-come to the host, where budgets and stop tokens are checked.
+(with a speculative chunk's valid counts, in the same copy) come to the
+host, where budgets and stop tokens are checked. The JAX engine drains
+these copies lazily; the port copies each chunk at once.
 
 Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md's
-item): prompts longer than ``prefill_window`` (chunked prefill),
-registered prefixes, ``auto_prefix``, ``page_cache``, LoRA, speculative
-decoding, int8 weights (``quant``), int8 KV pages (``kv8``), mesh serving,
-and ring mode: a window combined with RoPE or ALiBi, which the JAX engine
-serves from an O(window) KV ring. Every other RoPE, ALiBi, window and
-SwiGLU/GeGLU config is served in slot and paged mode, as the JAX engine
-serves it.
+item 5): LoRA (``max_loras``, ``lora_id``), int8 weights (``quant``),
+int8 KV pages (``kv8``), mesh serving, and ring mode: a window combined
+with RoPE or ALiBi, which the JAX engine serves from an O(window) KV
+ring. Every other RoPE, ALiBi, window and SwiGLU/GeGLU config is served
+in slot and paged mode, as the JAX engine serves it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import itertools
 import time
-from collections import deque
-from typing import Deque, Dict, List, Optional, Sequence
+from collections import OrderedDict, deque
+from typing import Deque, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..models.gpt import (GPTConfig, _decode_chunk_core, _dt_decode_ops,
                           gpt_prefill)
+from ..models.speculative import _block_forward
 from ..nn.cache import fkv_write_slots
 from ..utils.device import resolve_device
 from .paged import SUPPORTED_KERNEL_D
@@ -51,8 +67,6 @@ from .paged import SUPPORTED_KERNEL_D
 __all__ = ["Request", "Completion", "ServeEngine", "serve",
            "decode_chunk_slots", "pick_paged_kernel"]
 
-_ROADMAP_SERVE = "ROADMAP.md queue 1, item 3 (engine: chunked prefill, " \
-                 "prefixes)"
 _ROADMAP_LATER = "ROADMAP.md queue 1, item 5 (serving features)"
 
 
@@ -60,8 +74,10 @@ _ROADMAP_LATER = "ROADMAP.md queue 1, item 5 (serving features)"
 class Request:
     """One generation request. ``stop_token`` < 0 disables early stop;
     ``top_k`` None inherits the engine-wide default (0 = disabled).
-    ``prefix_id`` and ``lora_id`` are the JAX engine's fields; this port
-    accepts only their defaults."""
+    ``prefix_id`` (from ``ServeEngine.register_prefix``): the effective
+    prompt is prefix + prompt, and admission reuses the prefix's cached
+    KV and prefills only ``prompt``. ``lora_id`` is the JAX engine's
+    field; this port accepts only its default."""
 
     prompt: Sequence[int]
     max_new_tokens: int
@@ -120,6 +136,18 @@ def decode_chunk_slots(ops, cache, logits, generator, temp, top_p, top_k,
     return toks, logits, dict(cache, k=K, v=V, pos=pos)
 
 
+class _Prefix(NamedTuple):
+    """A registered prefix: its prefilled (L, 1, hk, ctx, d) K/V, length,
+    pinned pool pages (paged mode), adapter id and tokens."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    plen: int
+    shared: List[int]
+    lora_id: int
+    tokens: List[int]
+
+
 def _admit_slot(cache, logits, slot_k, slot_v, plen, slot_logits, b):
     """Copy one prefilled sequence (L, 1, hk, ctx, d) into slot ``b`` (the
     whole row: the previous occupant's rows die here) and set its position
@@ -131,6 +159,43 @@ def _admit_slot(cache, logits, slot_k, slot_v, plen, slot_logits, b):
     return cache, logits
 
 
+def _set_slot_spec(cache, b, hist_row, pending):
+    """Speculative admission extras for slot ``b``: its token history (the
+    drafting source), its pending unprocessed token and a zeroed emitted
+    count (``serve.spec``)."""
+    cache["hist"][b] = hist_row
+    cache["pending"][b] = pending
+    cache["emitted"][b] = 0
+    return cache
+
+
+@torch.no_grad()
+def _extend_prefix(ops, cfg: GPTConfig, pk, pv, plen: int, suffix_ids):
+    """Extend a cached prefix KV by a suffix in one block forward.
+
+    ``pk``/``pv`` are (L, 1, hk, ctx, d) buffers with rows [0, plen) live;
+    ``suffix_ids`` (1, S) the suffix's ids. The block forward of the
+    speculative verifier (``models.speculative._block_forward``) writes
+    the suffix's K/V at rows [plen, plen + S), each suffix row attending
+    over the prefix and the earlier suffix rows at their absolute
+    positions. A block write past the buffer's end would clamp its start
+    and overwrite prefix rows, so the buffers are padded by S rows for the
+    extend and sliced back (rows past ctx are dropped; the submit-time
+    budget keeps real rows inside). The JAX engine pads the suffix to the
+    window for one compiled shape; eager PyTorch takes the suffix's own
+    length. ``pk``/``pv`` are not modified. Returns the next-token logits
+    after the suffix (1, V) and the extended (L, 1, hk, ctx, d) buffers."""
+    S = suffix_ids.shape[1]
+    ctx = pk.shape[-2]
+    pad = (0, 0, 0, S)
+    kb, vb = F.pad(pk, pad), F.pad(pv, pad)
+    dev = pk.device
+    rows = torch.full((1,), plen, dtype=torch.int32, device=dev)
+    logits = _block_forward(cfg, ops, kb, vb, rows, torch.zeros_like(rows),
+                            suffix_ids)
+    return logits[:, -1], kb[..., :ctx, :], vb[..., :ctx, :]
+
+
 def _params_to(params, device):
     if isinstance(params, dict):
         return {k: _params_to(v, device) for k, v in params.items()}
@@ -138,15 +203,17 @@ def _params_to(params, device):
 
 
 def pick_paged_kernel(paged_attn: str, device_type: str, page: int,
-                      ctx_len: int, d_head: int) -> bool:
+                      ctx_len: int, d_head: int,
+                      speculative: int = 0) -> bool:
     """Whether a paged engine reads its pool through the kernel: always for
     ``"kernel"``; for ``"auto"`` the JAX engine's rule
-    (``linalg_tpu/serve/engine.py:517-523``: its accelerator, page % 8 ==
+    (``linalg_tpu/serve/engine.py:517-523``: its accelerator, no
+    speculative decoding (whose chunk reads the table gather), page % 8 ==
     0, ctx_len >= 2048, d_head % 128 == 0), with the CUDA card as the
     accelerator and d_head within the kernel's widths."""
     return paged_attn == "kernel" or (
-        paged_attn == "auto" and device_type == "cuda" and page % 8 == 0
-        and ctx_len >= 2048 and d_head % 128 == 0
+        paged_attn == "auto" and not speculative and device_type == "cuda"
+        and page % 8 == 0 and ctx_len >= 2048 and d_head % 128 == 0
         and d_head in SUPPORTED_KERNEL_D)
 
 
@@ -169,6 +236,19 @@ class ServeEngine:
     JAX engine's TPU rule, kept until the port measures its own
     crossover).
 
+    Prefix reuse, from explicit to automatic: ``register_prefix(tokens)``
+    and ``Request(prefix_id=...)``; ``auto_prefix=True`` (``submit()``
+    matches full prompts against the registered prefixes: the longest
+    proper prefix); ``page_cache=True`` (paged): retired requests leave
+    their full prompt pages in the pool under content-addressed chain
+    keys, admissions reuse the longest cached run, refcounted while in
+    use, refs-0 entries evicted LRU under page pressure.
+
+    ``speculative=K`` drafts K tokens a slot and round by prompt lookup
+    and verifies them in one block forward (``serve.spec``), in slot mode
+    or paged mode with ``paged_attn`` "gather" (or "auto", which then
+    never picks the kernel).
+
     ``schedule`` picks admission under page pressure: ``"fifo"`` admits in
     arrival order (a large request blocks the ones behind it, and nothing
     starves); ``"best-fit"`` admits the first queued request whose pages
@@ -188,18 +268,26 @@ class ServeEngine:
                  auto_prefix: bool = False, page_cache: bool = False,
                  device=None):
         del lora_rank  # meaningful only with max_loras
-        for name, on, item in (
-                ("quant", quant not in ("", "none"), _ROADMAP_LATER),
-                ("mesh", mesh is not None, _ROADMAP_LATER),
-                ("max_loras", bool(max_loras), _ROADMAP_LATER),
-                ("speculative", bool(speculative), _ROADMAP_LATER),
-                ("kv8", bool(kv8), _ROADMAP_LATER),
-                ("auto_prefix", bool(auto_prefix), _ROADMAP_SERVE),
-                ("page_cache", bool(page_cache), _ROADMAP_SERVE)):
+        ring = cfg.window is not None and cfg.pos in ("rope", "alibi")
+        quant_on = quant not in ("", "none")
+        if speculative and (ring or mesh is not None or quant_on or kv8
+                            or (paged and paged_attn == "kernel")):
+            # the JAX engine's refusal (linalg_tpu/serve/engine.py:570-590)
+            raise ValueError(
+                "speculative serving supports the full-precision dense "
+                "slot or paged(gather) engine (no ring/mesh/quant/kv8/"
+                "paged kernel: quant would recompute the pending prompt "
+                "token through int8 ops that admission prefilled in f32, "
+                "and the speculative chunk reads pages by the gather)")
+        if page_cache and not paged:
+            raise ValueError("page_cache requires paged=True (the cache "
+                             "lives in the page pool)")
+        for name, on in (("quant", quant_on), ("mesh", mesh is not None),
+                         ("max_loras", bool(max_loras)), ("kv8", bool(kv8))):
             if on:
                 raise NotImplementedError(
-                    f"{name} serving is not ported yet ({item})")
-        if cfg.window is not None and cfg.pos in ("rope", "alibi"):
+                    f"{name} serving is not ported yet ({_ROADMAP_LATER})")
+        if ring:
             # the JAX engine's ring mode (linalg_tpu/serve/engine.py:427):
             # an O(window) KV ring with unbounded positions
             raise NotImplementedError(
@@ -224,7 +312,9 @@ class ServeEngine:
         if schedule not in ("fifo", "best-fit"):
             raise ValueError("schedule must be 'fifo' or 'best-fit'")
         self.schedule = schedule
+        self._auto_prefix = bool(auto_prefix)
         self._paged = bool(paged)
+        self._page_cache = bool(page_cache)
         self._allocator = None
         self._slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
         dt = cfg.compute_dtype
@@ -237,6 +327,12 @@ class ServeEngine:
                                            device=self.device)
             self._page = page
             self._allocator = PageAllocator(n_pages)
+            self._shared_held = 0  # pages pinned by registered prefixes
+            # page cache: chain key -> [page id, refs], in LRU order (a
+            # hit moves its key to the end); per slot, the admission's hit
+            # keys and its (key, page) insert candidates for retirement
+            self._pcache: "OrderedDict[bytes, list]" = OrderedDict()
+            self._slot_pc: List = [None] * n_slots
             if paged_attn not in ("auto", "kernel", "gather"):
                 raise ValueError("paged_attn must be auto|kernel|gather")
             if paged_attn == "kernel" and page % 8:
@@ -248,7 +344,8 @@ class ServeEngine:
                     f"the paged-attention kernel takes d_head a multiple "
                     f"of 8 from 8 to 256; got {cfg.d_head}")
             self._paged_kernel = pick_paged_kernel(
-                paged_attn, self.device.type, page, cfg.ctx_len, cfg.d_head)
+                paged_attn, self.device.type, page, cfg.ctx_len, cfg.d_head,
+                speculative)
         else:
             shape = (cfg.n_layers, n_slots, cfg.kv_heads, cfg.ctx_len,
                      cfg.d_head)
@@ -258,6 +355,15 @@ class ServeEngine:
                 "pos": torch.zeros((n_slots,), dtype=torch.int32,
                                    device=self.device),
             }
+        # speculative decoding: each chunk runs rounds of (1 + K)-row
+        # draft + verify blocks (serve.spec); slots advance independently
+        self._spec = int(speculative)
+        if self._spec:
+            from .spec import spec_cache_fields
+
+            self._cache.update(spec_cache_fields(cfg, n_slots, self.device))
+            self._spec_rounds = max(1, chunk // (self._spec + 1))
+            self._budget = np.zeros((n_slots,), np.int32)
         # weights cast to the compute dtype once per engine, not per chunk
         self._ops = _dt_decode_ops(self.params, cfg)
         self._logits = torch.full((n_slots, cfg.vocab_size), -1e9,
@@ -271,6 +377,8 @@ class ServeEngine:
         self._count = [0] * n_slots       # tokens decoded per slot
         self._scanned = [0] * n_slots     # tokens already checked for stop
         self._queue: Deque[Request] = deque()
+        self._prefixes: Dict[int, _Prefix] = {}
+        self._prefix_ids = itertools.count()
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self._ids = itertools.count()
@@ -278,46 +386,147 @@ class ServeEngine:
         self._admit_ts: Dict[int, float] = {}
         self.completions: List[Completion] = []
         self.stats = {"chunks": 0, "decode_tokens": 0, "emitted_tokens": 0,
-                      "prefills": 0, "syncs": 0}
+                      "prefills": 0, "syncs": 0, "page_cache_hits": 0,
+                      "page_cache_evicted": 0}
 
     # -- submission ---------------------------------------------------------
 
     def register_prefix(self, tokens: Sequence[int], lora_id: int = 0) -> int:
-        raise NotImplementedError(
-            f"registered prefixes are not ported yet ({_ROADMAP_SERVE})")
+        """Prefill a shared prompt prefix once and cache its KV.
+
+        Requests submitted with ``prefix_id=<returned id>`` behave as if
+        their prompt were ``tokens + prompt``, but admission copies the
+        cached prefix KV into the slot and block-extends it with the
+        suffix only. In paged mode the prefix's full pages are scattered
+        into the pool once and pinned for the engine's lifetime: every
+        admission points its table at them and owns privately only the
+        partial boundary page onward."""
+        if lora_id:
+            raise NotImplementedError(
+                f"lora_id is not ported yet ({_ROADMAP_LATER})")
+        plen = len(tokens)
+        limit = self.cfg.ctx_len - self.chunk - 1
+        if not (0 < plen <= limit):
+            raise ValueError(
+                f"prefix length must be in (0, ctx_len - chunk - 1] = "
+                f"(0, {limit}]; got {plen}")
+        ids = torch.tensor([list(tokens)], dtype=torch.long,
+                           device=self.device)
+        _, cache = gpt_prefill(self.params, ids, self.cfg)
+        shared: List[int] = []
+        if self._paged:
+            nfull = plen // self._page
+            if nfull > self._allocator.n_free:
+                raise ValueError(
+                    f"prefix needs {nfull} pages, "
+                    f"{self._allocator.n_free} free")
+            shared = self._allocator.alloc(nfull)
+            self._shared_held += nfull
+            if nfull:
+                from .paged import _scatter_pages
+
+                full = np.zeros((self.cfg.ctx_len // self._page,), np.int32)
+                full[:nfull] = shared
+                self._cache = _scatter_pages(
+                    self._cache, cache["k"], cache["v"],
+                    torch.tensor(full, device=self.device))
+        pid = next(self._prefix_ids)
+        self._prefixes[pid] = _Prefix(cache["k"], cache["v"], plen, shared,
+                                      lora_id, list(tokens))
+        return pid
+
+    def _match_prefix(self, prompt, lora_id: int):
+        """The longest registered prefix (same adapter) that is a PROPER
+        prefix of ``prompt``, as (prefix_id, length), or None: admission
+        needs at least one suffix token (in speculative mode the suffix
+        supplies the pending token)."""
+        best = None
+        plen = len(prompt)
+        for pid, entry in self._prefixes.items():
+            toks = entry.tokens
+            n = len(toks)
+            if (entry.lora_id != lora_id or not 0 < n < plen
+                    or (best is not None and n <= best[1])):
+                continue
+            if list(prompt[:n]) == list(toks):
+                best = (pid, n)
+        return best
+
+    # -- the page cache (content-addressed pooled prompt pages) -------------
+
+    def _pc_chain(self, tokens, lora_id: int) -> List[bytes]:
+        """Chain keys of the FULL ``page``-sized blocks of ``tokens``: key
+        i is a running sha1 over the adapter id and blocks 0..i, so a hit
+        means the whole token prefix up to that block matches, and the
+        pooled rows are the ones a cold prefill would write."""
+        h = hashlib.sha1(str(int(lora_id)).encode())
+        arr = np.asarray(tokens, np.int32)
+        keys = []
+        for i in range(len(arr) // self._page):
+            h.update(arr[i * self._page:(i + 1) * self._page].tobytes())
+            keys.append(h.digest())
+        return keys
+
+    def _pc_evict(self, need: int) -> None:
+        """Release up to ``need`` pages of refs-0 cache entries, the least
+        recently hit first."""
+        freed = 0
+        for key in list(self._pcache):
+            if freed >= need:
+                break
+            page, refs = self._pcache[key]
+            if refs:
+                continue
+            del self._pcache[key]
+            self._allocator.release([page])
+            self.stats["page_cache_evicted"] += 1
+            freed += 1
 
     def register_lora(self, adapters, lcfg) -> int:
         raise NotImplementedError(
             f"LoRA serving is not ported yet ({_ROADMAP_LATER})")
 
     def submit(self, req: Request) -> int:
-        """Queue a request; returns its assigned request_id."""
+        """Queue a request; returns its assigned request_id. Any prompt
+        within the ctx budget admits: longer than ``prefill_window`` it is
+        prefilled a window at a time (chunked prefill)."""
         plen = len(req.prompt)
         if plen == 0:
             raise ValueError("empty prompt")
-        if req.prefix_id is not None:
-            raise NotImplementedError(
-                f"prefix_id is not ported yet ({_ROADMAP_SERVE})")
         if req.lora_id:
             raise NotImplementedError(
                 f"lora_id is not ported yet ({_ROADMAP_LATER})")
-        if plen > self.prefill_window:
-            raise ValueError(
-                f"prompt length {plen} exceeds prefill_window "
-                f"{self.prefill_window}: chunked prefill is not ported yet "
-                f"({_ROADMAP_SERVE})")
+        if self._auto_prefix and req.prefix_id is None:
+            hit = self._match_prefix(req.prompt, req.lora_id)
+            if hit is not None:
+                pid, n = hit
+                req = dataclasses.replace(
+                    req, prefix_id=pid, prompt=list(req.prompt[n:]))
+                plen = len(req.prompt)
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        pref_len = 0
+        if req.prefix_id is not None:
+            if req.prefix_id not in self._prefixes:
+                raise ValueError(f"unknown prefix_id {req.prefix_id}")
+            pref_len = self._prefixes[req.prefix_id].plen
         reserved = self._reserved(req)
-        if plen + reserved > self.cfg.ctx_len:
+        if pref_len + plen + reserved > self.cfg.ctx_len:
+            how = ("max_new_tokens + 2(n_draft+1) speculative slack"
+                   if self._spec else
+                   f"max_new_tokens rounded up to the {self.chunk}-token "
+                   f"chunk")
             raise ValueError(
-                f"prefix (0) + prompt ({plen}) + reserved decode budget "
-                f"({reserved} = max_new_tokens rounded up to the "
-                f"{self.chunk}-token chunk) exceeds ctx_len "
+                f"prefix ({pref_len}) + prompt ({plen}) + reserved decode "
+                f"budget ({reserved} = {how}) exceeds ctx_len "
                 f"{self.cfg.ctx_len}")
         if self._paged:
-            need = -(-(plen + reserved) // self._page)
-            cap = self._allocator.n_pages - 1
+            need = -(-(pref_len + plen + reserved) // self._page)
+            if req.prefix_id is not None:
+                need -= len(self._prefixes[req.prefix_id].shared)
+            # pages an idle engine can hand out: all but the trash page
+            # and the prefix-pinned shared pages
+            cap = self._allocator.n_pages - 1 - self._shared_held
             if need > cap:
                 raise ValueError(
                     f"request needs {need} private pages but the pool can "
@@ -339,39 +548,129 @@ class ServeEngine:
         return len(self._queue)
 
     def _reserved(self, req: Request) -> int:
-        """Decode-budget cache rows an admission reserves: the budget
-        rounded up to the chunk size."""
+        """Decode-budget cache rows an admission reserves: speculative
+        rounds advance up to S = K + 1 rows past the budget gate and the
+        block write needs S rows of headroom (2S slack); plain chunks round
+        the budget up to the chunk size."""
+        if self._spec:
+            return req.max_new_tokens + 2 * (self._spec + 1)
         return -(-req.max_new_tokens // self.chunk) * self.chunk
 
+    def _page_cache_hits(self, req: Request):
+        """(hits [(key, entry)], chain keys) of a page-cache admission:
+        the longest run of cached full blocks of the prefill's tokens
+        (speculative mode leaves the pending token out), capped so that a
+        plain admission keeps at least one token to prefill."""
+        pf_len = len(req.prompt) - 1 if self._spec else len(req.prompt)
+        keys = self._pc_chain(req.prompt[:pf_len], req.lora_id)
+        cap = (pf_len if self._spec else pf_len - 1) // self._page
+        hits = []
+        for key in keys[:cap]:
+            ent = self._pcache.get(key)
+            if ent is None:
+                break
+            hits.append((key, ent))
+        return hits, keys
+
+    def _reserve_pages(self, slot: int, req: Request, shared: List[int],
+                       hits):
+        """Paged admission control: reserve every page the request can
+        touch less the shared ones it reads in place, evicting refs-0
+        page-cache entries (this request's hits protected) when the pool
+        is short. Returns (private pages, table ids, scatter ids) or None
+        when the request must wait. Shared entries scatter into the trash
+        page: no admission rewrites a shared page."""
+        pref_len = (self._prefixes[req.prefix_id].plen
+                    if req.prefix_id is not None else 0)
+        need = -(-(pref_len + len(req.prompt) + self._reserved(req))
+                 // self._page)
+        npriv = need - len(shared)
+        if npriv > self._allocator.n_free and self._page_cache:
+            for _, ent in hits:
+                ent[1] += 1
+            self._pc_evict(npriv - self._allocator.n_free)
+            for _, ent in hits:
+                ent[1] -= 1
+        if npriv > self._allocator.n_free:
+            return None
+        pages = self._allocator.alloc(npriv)
+        self._slot_pages[slot] = pages  # retire frees only these
+        full = np.zeros((self.cfg.ctx_len // self._page,), np.int32)
+        full[:need] = shared + pages  # tail entries stay 0 (trash)
+        scatter = full.copy()
+        scatter[:len(shared)] = 0
+        return pages, full, scatter
+
+    def _prefill_kv(self, req: Request, prompt, hit_ids):
+        """The admission's dense KV: (k, v, next-token logits or None,
+        rows). From the registered prefix, the gathered page-cache hits
+        (``hit_ids``), or a prefill of the first window; then the rest of
+        ``prompt`` block-extends a window at a time."""
+        cfg, W, dev = self.cfg, self.prefill_window, self.device
+        if req.prefix_id is not None:
+            entry = self._prefixes[req.prefix_id]
+            pk, pv, pos = entry.k, entry.v, entry.plen
+            rest, logits = prompt, None
+        elif hit_ids is not None:
+            from .paged import _gather_prefix_pages
+
+            pk, pv = _gather_prefix_pages(
+                self._cache, torch.tensor(hit_ids, device=dev))
+            pos = int(np.count_nonzero(hit_ids)) * self._page
+            rest, logits = prompt[pos:], None
+        else:
+            first = min(len(prompt), W)
+            ids = np.zeros((1, W), np.int64)
+            ids[0, :first] = prompt[:first]
+            logits, cache = gpt_prefill(self.params,
+                                        torch.tensor(ids, device=dev), cfg,
+                                        length=first)
+            pk, pv = cache["k"], cache["v"]
+            pos, rest = first, prompt[first:]
+        for off in range(0, len(rest), W):
+            ids = torch.tensor(rest[off:off + W][None], dtype=torch.long,
+                               device=dev)
+            logits, pk, pv = _extend_prefix(self._ops, cfg, pk, pv, pos, ids)
+            pos += ids.shape[1]
+        return pk, pv, logits, pos
+
     def _admit(self, slot: int, req: Request) -> bool:
-        cfg, W = self.cfg, self.prefill_window
-        plen = len(req.prompt)
+        cfg = self.cfg
+        shared: List[int] = []
+        if req.prefix_id is not None:
+            shared = self._prefixes[req.prefix_id].shared
+        hits, keys = [], None
+        if self._page_cache and req.prefix_id is None:
+            hits, keys = self._page_cache_hits(req)
+            shared = [ent[0] for _, ent in hits]
         if self._paged:
-            # admission control by memory: reserve every page the request
-            # can touch; if the pool cannot cover it the request waits
-            need = -(-(plen + self._reserved(req)) // self._page)
-            if need > self._allocator.n_free:
+            got = self._reserve_pages(slot, req, shared, hits)
+            if got is None:
                 return False
-            pages = self._allocator.alloc(need)
-            self._slot_pages[slot] = pages  # retire frees these
-            full = np.zeros((cfg.ctx_len // self._page,), np.int32)
-            full[:need] = pages  # tail entries stay 0 (trash)
-            table_ids = torch.tensor(full, device=self.device)
-        ids = np.zeros((1, W), np.int64)
-        ids[0, :plen] = np.asarray(req.prompt, np.int64)
-        logits, cache = gpt_prefill(self.params,
-                                    torch.tensor(ids, device=self.device),
-                                    cfg, length=plen)
+            pages, table_ids, scatter_ids = got
+        prompt = np.asarray(req.prompt, np.int64)
+        if self._spec:
+            # the last prompt token stays unprocessed: the pending token of
+            # the first round (admission logits are never sampled from)
+            pending_tok, prompt = int(prompt[-1]), prompt[:-1]
+        hit_ids = None
+        if hits:  # the gather reads the hit pages only
+            hit_ids = table_ids.copy()
+            hit_ids[len(hits):] = 0
+        pk, pv, logits, total = self._prefill_kv(req, prompt, hit_ids)
+        if logits is None:  # speculative prefix + a one-token prompt
+            logits = torch.zeros((1, cfg.vocab_size), dtype=torch.float32,
+                                 device=self.device)
         if self._paged:
             from .paged import _admit_slot_paged
 
             self._cache, self._logits = _admit_slot_paged(
-                self._cache, self._logits, cache["k"], cache["v"], plen,
-                logits, slot, table_ids, table_ids, cfg)
+                self._cache, self._logits, pk, pv, total, logits, slot,
+                torch.tensor(scatter_ids, device=self.device),
+                torch.tensor(table_ids, device=self.device), cfg)
         else:
             self._cache, self._logits = _admit_slot(
-                self._cache, self._logits, cache["k"], cache["v"], plen,
-                logits, slot)
+                self._cache, self._logits, pk, pv, total, logits, slot)
         req_k = self.top_k if req.top_k is None else req.top_k
         if (self._temp[slot] != req.temperature
                 or self._top_p[slot] != req.top_p
@@ -384,17 +683,56 @@ class ServeEngine:
         self._admit_ts[req.request_id] = time.perf_counter()
         self._count[slot] = 0
         self._scanned[slot] = 0
+        if self._spec:
+            # history = prefix tokens + the full prompt (the pending token
+            # included): drafting copies continuations of earlier n-grams
+            full = list(req.prompt)
+            if req.prefix_id is not None:
+                full = self._prefixes[req.prefix_id].tokens + full
+            hist = torch.zeros((cfg.ctx_len,), dtype=torch.long)
+            hist[:len(full)] = torch.tensor(full, dtype=torch.long)
+            self._cache = _set_slot_spec(self._cache, slot,
+                                         hist.to(self.device), pending_tok)
+            self._budget[slot] = req.max_new_tokens
+            self._samp_dev = None  # the budget vector rides with sampling
+        if keys is not None:
+            # pin the hits for the slot's lifetime; the private pages that
+            # hold full prompt blocks are insert candidates at retirement
+            # (logical block j >= len(hits) lives in pages[j - len(hits)])
+            for key, ent in hits:
+                ent[1] += 1
+                self._pcache.move_to_end(key)
+            ins = [(keys[j], pages[j - len(hits)])
+                   for j in range(len(hits), len(keys))]
+            self._slot_pc[slot] = ([k for k, _ in hits], ins)
+            self.stats["page_cache_hits"] += len(hits)
         self.stats["prefills"] += 1
         return True
 
     def _free_pages(self, slot: int) -> None:
         """Paged retire: point the slot's table row at the trash page and
-        return its pages to the pool."""
+        return its private pages to the pool. With the page cache, first
+        unpin the admission's hits and move the slot's full prompt pages
+        into the cache (refs 0: reusable, reclaimable) instead of freeing
+        them; a key already cached (an identical request retired first)
+        frees its page as usual."""
         if self._paged and self._slot_pages[slot]:
             from .paged import _reset_table_row
 
             self._cache = _reset_table_row(self._cache, slot)
-            self._allocator.release(self._slot_pages[slot])
+            pages = self._slot_pages[slot]
+            if self._page_cache and self._slot_pc[slot] is not None:
+                hit_keys, ins = self._slot_pc[slot]
+                self._slot_pc[slot] = None
+                for k in hit_keys:
+                    self._pcache[k][1] -= 1
+                kept = set()
+                for key, page in ins:
+                    if key not in self._pcache:
+                        self._pcache[key] = [page, 0]
+                        kept.add(page)
+                pages = [p for p in pages if p not in kept]
+            self._allocator.release(pages)
             self._slot_pages[slot] = []
 
     def _slot_tokens(self, slot: int) -> np.ndarray:
@@ -415,7 +753,30 @@ class ServeEngine:
         self.stats["emitted_tokens"] += len(tokens)
         self._slot_req[slot] = None
         self._slot_toks[slot] = []
+        if self._spec:  # the device gate freezes the slot from now on
+            self._budget[slot] = 0
+            self._samp_dev = None
         self._free_pages(slot)
+
+    def _account(self, slot: int, rows: np.ndarray) -> None:
+        """Take one chunk's emitted tokens of ``slot``: extend its stream,
+        scan for the stop token, finish at the budget."""
+        req = self._slot_req[slot]
+        self._slot_toks[slot].append(rows)
+        self._count[slot] += len(rows)
+        budget = req.max_new_tokens
+        if req.stop_token >= 0:
+            seq = self._slot_tokens(slot)
+            new = seq[self._scanned[slot]:min(self._count[slot], budget)]
+            hits = np.nonzero(new == req.stop_token)[0]
+            if hits.size:
+                end = self._scanned[slot] + int(hits[0]) + 1
+                self._finish(slot, seq[:end].tolist(), "stop")
+                return
+            self._scanned[slot] = min(self._count[slot], budget)
+        if self._count[slot] >= budget:
+            self._finish(slot, self._slot_tokens(slot)[:budget].tolist(),
+                         "length")
 
     def step(self) -> bool:
         """Admit queued requests into free slots, then advance every active
@@ -450,6 +811,16 @@ class ServeEngine:
             self._samp_dev = (torch.tensor(self._temp, device=self.device),
                               torch.tensor(self._top_p, device=self.device),
                               torch.tensor(self._top_k, device=self.device))
+            if self._spec:
+                self._samp_dev += (torch.tensor(self._budget,
+                                                device=self.device),)
+        active = [s for s in range(self.n_slots)
+                  if self._slot_req[s] is not None]
+        self.stats["chunks"] += 1
+        self.stats["syncs"] += 1
+        if self._spec:
+            self._step_spec(active)
+            return True
         if self._paged:
             from .paged import decode_chunk_paged
 
@@ -462,29 +833,32 @@ class ServeEngine:
                 self._ops, self._cache, self._logits, self._gen,
                 *self._samp_dev, self.cfg, self.chunk)
         toks = toks.cpu().numpy()  # the one host sync per chunk
-        self.stats["syncs"] += 1
-        self.stats["chunks"] += 1
         self.stats["decode_tokens"] += self.n_slots * self.chunk
-        for slot in range(self.n_slots):
-            req = self._slot_req[slot]
-            if req is None:
-                continue
-            self._slot_toks[slot].append(toks[slot])
-            self._count[slot] += self.chunk
-            budget = req.max_new_tokens
-            if req.stop_token >= 0:
-                seq = self._slot_tokens(slot)
-                new = seq[self._scanned[slot]:min(self._count[slot], budget)]
-                hits = np.nonzero(new == req.stop_token)[0]
-                if hits.size:
-                    end = self._scanned[slot] + int(hits[0]) + 1
-                    self._finish(slot, seq[:end].tolist(), "stop")
-                    continue
-                self._scanned[slot] = min(self._count[slot], budget)
-            if self._count[slot] >= budget:
-                self._finish(slot, self._slot_tokens(slot)[:budget].tolist(),
-                             "length")
+        for slot in active:
+            self._account(slot, toks[slot])
         return True
+
+    def _step_spec(self, active: List[int]) -> None:
+        """One speculative chunk (``_spec_rounds`` draft + verify rounds)
+        for the ``active`` slots; its tokens and valid counts come to the
+        host in one copy, and each slot takes its valid rows."""
+        from .spec import decode_chunk_spec
+
+        toks, valid, self._cache = decode_chunk_spec(
+            self._ops, self._cache, self._gen, *self._samp_dev, self.cfg,
+            self._spec_rounds, self._spec)
+        B, R, S = toks.shape
+        host = torch.cat([toks.reshape(B, R * S).long(), valid.long()],
+                         1).cpu().numpy()
+        rows, v = host[:, :R * S].reshape(B, R, S), host[:, R * S:]
+        self.stats["decode_tokens"] += int(v.sum())
+        # rounds of the engine, and rounds a request was in a slot
+        self.stats["spec_rounds"] = self.stats.get("spec_rounds", 0) + R
+        self.stats["spec_slot_rounds"] = (
+            self.stats.get("spec_slot_rounds", 0) + R * len(active))
+        for slot in active:
+            self._account(slot, np.concatenate(
+                [rows[slot, r, :n] for r, n in enumerate(v[slot])]))
 
     def run(self) -> List[Completion]:
         """Drain the queue and all in-flight slots; returns completions in

@@ -11,7 +11,10 @@ per-slot page table:
 
 Page 0 is the TRASH page: idle slots keep decoding and their writes land
 there, because a retired slot's table row is reset to 0. Admission
-reserves pages from a host-side free list (``PageAllocator``).
+reserves pages from a host-side free list (``PageAllocator``). Pages of a
+registered prefix, or of the engine's page cache, stand in several slots'
+tables at once: every reader walks them in place, and no slot writes
+them (``_admit_slot_paged`` scatters their rows into the trash page).
 
 Decode attention reads the pool one of two ways:
 
@@ -126,8 +129,9 @@ def _admit_slot_paged(cache, logits, slot_k, slot_v, plen, slot_logits, b,
                       scatter_ids, table_ids, cfg: GPTConfig):
     """Scatter one prefilled sequence (L, 1, hk, ctx, d) into the pool and
     point slot ``b`` at it. ``scatter_ids`` says where each page's data is
-    written, ``table_ids`` where the slot reads it (identical without
-    prefix sharing)."""
+    written (the trash page for shared prefix pages, which are never
+    rewritten, and for unreserved tails), ``table_ids`` where the slot
+    reads it (the shared ids too). Without sharing the two are equal."""
     del cfg
     cache = _scatter_pages(cache, slot_k, slot_v, scatter_ids)
     return _point_slot(cache, logits, plen, slot_logits, b, table_ids)
@@ -137,6 +141,24 @@ def _reset_table_row(cache, b):
     """Retire slot ``b``: its logical rows all point at the trash page."""
     cache["table"][b] = 0
     return cache
+
+
+def _gather_prefix_pages(cache, page_ids):
+    """Inverse of ``_scatter_pages``: the pool pages at ``page_ids``
+    ((ctx/page,) int; tail entries 0 = the trash page) as dense
+    (L, 1, hk, ctx, d) K and V buffers, new tensors the block-extend
+    forward may write. Rows past the cached length come from the trash
+    page and are masked by the extend's positions, as a dense prefix
+    buffer's unwritten tail is. Full-precision pools only, as in the JAX
+    package (an int8 pool would dequantize here)."""
+    ids = page_ids.long()
+
+    def get(pool):  # (L, n_pages, hk, page, d) -> (L, 1, hk, ctx, d)
+        x = pool[:, ids].transpose(1, 2)  # (L, hk, P, page, d)
+        L, hk, P, pg, d = x.shape
+        return x.reshape(L, hk, P * pg, d)[:, None]
+
+    return get(cache["pool_k"]), get(cache["pool_v"])
 
 
 def _gather_pages(pool, table):

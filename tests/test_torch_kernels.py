@@ -220,6 +220,55 @@ def test_kernel_split_counts_on_card(cuda, case, dtype, rtol, atol):
     check_paged_on_card(on(cuda, args, dtype), rtol, atol)
 
 
+def shared_inputs(H, hk, d, seed, B=4, page=16, Pmax=6, n_shared=2):
+    """``paged_inputs`` with pages that slots share, as a registered
+    prefix or a page-cache hit leaves them: every slot's table starts with
+    the same ``n_shared`` page ids, then private pages; ragged positions
+    past the shared run, one slot still inside it, the last idle."""
+    q, pk, pv, mask, table, pos = paged_inputs(H, hk, d, seed, B, page,
+                                               Pmax)
+    rng = np.random.default_rng(seed + 100)
+    ctx = page * Pmax
+    shared = table[0, :n_shared].copy()
+    table[:-1, :n_shared] = shared
+    pos[:-1] = rng.integers(n_shared * page, ctx, size=B - 1)
+    pos[0] = page - 3  # inside the first shared page
+    live = np.arange(ctx)[None, :] <= pos[:, None]
+    mask = (np.where(live, 0.0, -1e9)[:, None, None, :]
+            + rng.normal(scale=0.1, size=(B, H, 1, ctx))
+            * live[:, None, None, :]).astype(np.float32)
+    return q, pk, pv, mask, table, pos
+
+
+@pytest.mark.parametrize("H,hk,d", [(4, 2, 128), (8, 1, 64), (4, 4, 32)])
+def test_shared_pages_equal_private_copies(H, hk, d):
+    """On the CPU: attention through tables that share pages equals
+    attention through private copies of those pages (the plain version,
+    which the card's kernel is held to)."""
+    q, pk, pv, mask, table, pos = shared_inputs(H, hk, d, seed=H + d)
+    n_pages = pk.shape[0]
+    pk2 = np.concatenate([pk, pk[table[1:-1, :2].ravel()]])
+    pv2 = np.concatenate([pv, pv[table[1:-1, :2].ravel()]])
+    table2 = table.copy()
+    table2[1:-1, :2] = n_pages + np.arange(2 * (len(table) - 2)).reshape(
+        -1, 2)
+    got = paged_attention(*on("cpu", (q, pk, pv, mask, table, pos)))
+    want = paged_attention(*on("cpu", (q, pk2, pv2, mask, table2, pos)))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@PAGED_DTYPES
+@pytest.mark.parametrize("H,hk,d", [(4, 2, 128), (8, 1, 64), (4, 4, 32)])
+def test_kernel_with_shared_pages_on_card(cuda, H, hk, d, dtype, rtol,
+                                          atol):
+    """The kernels walk pages that several slots' tables share (a
+    registered prefix, a page-cache hit) in place: the plain version's
+    attention."""
+    args = on(cuda, shared_inputs(H, hk, d, seed=H + d), dtype)
+    check_paged_on_card(args, rtol, atol)
+
+
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda):
     args = on(cuda, paged_inputs(4, 2, 64, seed=5))

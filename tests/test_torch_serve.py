@@ -201,23 +201,31 @@ def test_sampled_run_is_seeded_and_complete():
 
 class TestErrors:
     def test_unported_features_raise(self):
-        for kw in (dict(quant="int8"), dict(speculative=2),
-                   dict(max_loras=2), dict(paged=True, kv8=True),
-                   dict(auto_prefix=True),
-                   dict(paged=True, page_cache=True)):
+        """quant, LoRA and kv8 are not ported (item 5); the features this
+        port serves refuse the combinations the JAX engine refuses, with
+        its ValueErrors."""
+        for kw in (dict(quant="int8"), dict(max_loras=2),
+                   dict(paged=True, kv8=True)):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 ServeEngine(PARAMS, CFG, device="cpu", **kw)
+        with pytest.raises(ValueError, match="speculative"):
+            ServeEngine(PARAMS, CFG, paged=True, page=16, speculative=2,
+                        paged_attn="kernel", device="cpu")
+        with pytest.raises(ValueError, match="page_cache requires paged"):
+            ServeEngine(PARAMS, CFG, page_cache=True, device="cpu")
         eng = ServeEngine(PARAMS, CFG, device="cpu", **ENGINE_KW)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.register_prefix([1, 2, 3])
+            eng.register_prefix([1, 2, 3], lora_id=1)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.submit(Request([1, 2], 4, prefix_id=0))
+            eng.submit(Request([1, 2], 4, lora_id=1))
 
     def test_submit_validation(self):
         eng = ServeEngine(PARAMS, CFG, prefill_window=8, device="cpu",
                           **ENGINE_KW)
-        with pytest.raises(ValueError, match="prefill_window"):
-            eng.submit(Request(list(range(9)), 4))  # chunked prefill: later
+        # past prefill_window a prompt admits by chunked prefill; past the
+        # ctx budget (57 + 8 reserved > 64) it is refused
+        with pytest.raises(ValueError, match="ctx_len"):
+            eng.submit(Request(list(range(57)), 8))
         with pytest.raises(ValueError, match="empty"):
             eng.submit(Request([], 4))
         with pytest.raises(ValueError, match="ctx_len"):

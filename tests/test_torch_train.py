@@ -469,7 +469,7 @@ class TestCLI:
         (["--train", "--fsdp", "2"], "item 7"),
         (["--train", "--lora_rank", "4"], "item 5"),
         (["--train", "--experts", "4"], "item 6"),
-        (["--repl", "--speculative", "4"], "item 5"),
+        (["--serve", "--quant", "int8kv"], "item 5"),
         (["--repl", "--quant", "int8"], "item 5"),
     ])
     def test_unported_flags_raise(self, argv, item):

@@ -67,9 +67,10 @@ def run_root(root: str, sweep: bool, profile: bool) -> None:
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     splits_of = getattr(kp, "paged_splits", None)  # older checkouts: none
     profiled = []
-    for i, (case, shp, dt, per_head, full) in enumerate(smoke.PAGED_CASES):
+    for i, (case, shp, dt, per_head, layout) in enumerate(
+            smoke.PAGED_CASES):
         args = smoke.kernel_case(*shp, dt, seed=i, per_head_mask=per_head,
-                                 full=full)
+                                 layout=layout)
         try:
             got = kp.paged_attention_cuda(*args)
         except ValueError as e:  # a shape an older kernel does not take
