@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one CUDA card: paged serving (with
-shared prefixes, chunked prefill, the page cache and speculative
-decoding), the Householder QR, char-GPT training, long-context training,
-short-context training through the gated kernels, sequence-parallel
-training through the ring kernels, and sampling.
+shared prefixes, chunked prefill, the page cache, speculative decoding,
+int8 weights, int8 KV pages and LoRA adapters), the Householder QR,
+char-GPT training, long-context training (with ring-mode sampling and
+serving and a LoRA finetune), short-context training through the gated
+kernels, sequence-parallel training through the ring kernels, and
+sampling.
 
     python3 chip_smoke.py
 
@@ -40,6 +42,23 @@ Phases, each reported on its own line; any failure exits non-zero:
 5. equality — the same engine in float32 (TF32 off), greedy, on 4 of the
              requests: the kernel engine's tokens must equal the gather
              engine's.
+19. quant  — (runs after phase 17, on phase 4's model) int8 weights:
+             16 requests through ``quant="int8"`` with the paged kernels
+             (K5/K6 once a layer and decode step) and with the gather,
+             and through kv8 pools (gather): wall, useful tok/s beside
+             phase 4's engine, weight and pool bytes against bf16; in f32,
+             greedy, on 4 requests, int8 kernel == int8 gather ==
+             single-stream ``gpt_decode_chunk_q`` and kv8 == the dense
+             int8-KV twin (a first difference only where the reference's
+             top-2 gap is under 2^-7 of max|logit|: one bf16 operand or
+             int8 KV step); ``sample`` with int8 and int8kv at phase 16's
+             config.
+20. lora   — (after phase 19, on phase 4's model) 3 adapters (ranks 8,
+             8, 4 in rank-8 stacks) and 16 requests over lora_id 0-3 in
+             one engine, with the paged kernels (once a layer and step)
+             and with the gather; quant x LoRA (kernel) and speculative
+             K 4 x LoRA (slot) once each; in f32, greedy, each adapter's
+             request equals an engine serving its merged weights.
 17. prefix — (runs after phase 5, on its model) the serving features in
              bf16, 16 requests each, every request finishing with its
              full budget and every kernel-mode run launching the paged
@@ -137,6 +156,16 @@ Phases, each reported on its own line; any failure exits non-zero:
              TF32 off); one step at ctx 8192 (d512, 4 heads, 2 layers,
              batch 1, bf16) through ``_pick_attn``'s stream; a
              ``torch.profiler`` breakdown of one long_window step.
+18. window — (runs after phase 10, on its trained weights) ``sample``
+             through the ring: 2,048 tokens after a 3,584-token prompt,
+             past ctx 4096 with one prefill; a ring-mode ``ServeEngine`` (8
+             slots, chunk 32) serving 16 requests, 4 of 3,584 + 1,024
+             tokens, every budget met, slot KV bytes against ctx-4096
+             slots; a LoRA finetune (rank 8, attn, 20 steps, B 8) through
+             ``train``, K4's forward and backward launches counted, then
+             the merged model through the ring; in f32, greedy, the ring
+             engine == single-stream ``gpt_stream_chunk`` on 4 requests
+             and the stream past ctx_len == a windowed full forward.
 11. btd    — K7 (``nn.flash_btd.attention_btd``: the flash kernels on head
              views of (B, T, H*d) tensors): forward (O, L) and backward
              (dq, dk, dv from a random dO) against the plain versions at
@@ -665,9 +694,10 @@ def head_requests(n, seed=3):
 
 
 def serve_waves(ServeEngine, params, cfg, waves, prefix=None, greedy=False,
-                per_wave=None, **kw):
+                per_wave=None, adapters=(), **kw):
     """One engine (``ENGINE_KW`` updated by ``kw``) serving ``waves`` (lists
-    of (prompt, budget, uses the prefix)) one after the other, ``prefix``
+    of (prompt, budget, uses the prefix[, lora_id])) one after the other,
+    ``adapters`` ((adapter dict, LoRAConfig) pairs) and then ``prefix``
     registered first. Every request must finish with its full budget and
     every page not pinned by the prefix or held by the page cache must be
     back in the pool. Returns ([tokens per request], wall seconds, tokens,
@@ -676,22 +706,25 @@ def serve_waves(ServeEngine, params, cfg, waves, prefix=None, greedy=False,
     from linalg_tpu_torch.serve import Request
 
     eng = ServeEngine(params, cfg, device="cuda", **dict(ENGINE_KW, **kw))
+    for ad in adapters:
+        eng.register_lora(*ad)
     pid = eng.register_prefix(prefix) if prefix is not None else None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs = []
     for wave in waves:
         t1 = time.perf_counter()
-        ids = [eng.submit(Request(p, n, top_k=1 if greedy else None,
-                                  prefix_id=pid if use else None))
-               for p, n, use in wave]
+        ids = [eng.submit(Request(r[0], r[1], top_k=1 if greedy else None,
+                                  prefix_id=pid if r[2] else None,
+                                  lora_id=r[3] if len(r) > 3 else 0))
+               for r in wave]
         done = {c.request_id: c for c in eng.run()}
         if per_wave is not None:
             torch.cuda.synchronize()
             per_wave.append((time.perf_counter() - t1,
                              sum(len(c.tokens) for c in done.values()),
                              dict(eng.stats)))
-        for i, (_, n, _) in zip(ids, wave):
+        for i, (_, n, *_) in zip(ids, wave):
             c = done[i]
             if c.finish_reason != "length" or len(c.tokens) != n:
                 raise RuntimeError(f"request {i} ended {c.finish_reason} "
@@ -1745,7 +1778,7 @@ def long_step_flops(cfg, batch):
 def long_phase(smi):
     """Phase 10: long-context training through the stream kernels. Returns
     the flash launch counts of the long_window run, its config and batch
-    size."""
+    size, and its trained (params, stoi, itos)."""
     from linalg_tpu_torch.apps.gpt import build_parser
     from linalg_tpu_torch.kernels import flash_attention as kfa
     from linalg_tpu_torch.models.gpt import (GPTConfig, _pick_attn_cfg,
@@ -1824,6 +1857,7 @@ def long_phase(smi):
         if not same:
             raise RuntimeError("the long_window checkpoint does not reload "
                                "equal")
+    trained = (params, stoi, itos)  # phase 18 samples and serves it
     del params
     torch.cuda.empty_cache()
 
@@ -1862,7 +1896,7 @@ def long_phase(smi):
     launches = [a + b for a, b in zip(launches, n8)]
     del p
     torch.cuda.empty_cache()
-    return launches, cfg, args.batch_size
+    return launches, cfg, args.batch_size, trained
 
 
 def btd_phase():
@@ -2803,6 +2837,451 @@ def sample_phase(smi):
     torch.cuda.empty_cache()
 
 
+# phase 18: the ring stream and engine on long_window's trained weights
+RING_PROMPT, RING_SAMPLE, RING_LONG_BUDGET = 3584, 2048, 1024
+LORA_RANK, LORA_STEPS, LORA_BATCH = 8, 20, 8
+# phase 20: three adapters of rank 8, 8 and 4 (rank-padded in the stacks)
+LORA_RANKS = (8, 8, 4)
+# phase 19's f32 equalities: the int8 decode rounds every matvec operand to
+# bf16 (a step of 2^-8) and kv8 rounds every K/V row to int8 (a step of
+# 1/127 of its max), so f32 sums that differ in their last bit (GEMMs of
+# another M, a padded prefill) can round one operand the other way: at a
+# first difference the reference's top-2 gap must be under 2^-7 of its
+# largest |logit|, the size of one such step
+QUANT_TIE_OF_MAX = 2.0 ** -7
+QUANT_SAMPLE = 1024  # sample's tokens with int8 and int8kv (phase 19)
+
+
+def ring_requests(V, seed=4):
+    """Phase 18's 16 requests over a vocabulary of ``V``: 4 of 3,584-id
+    prompts and budgets of 1,024 (past ctx 4096), then 12 of 512-3,584 ids
+    and budgets of 64-256, from ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    reqs = [(rng.integers(0, V, RING_PROMPT).tolist(), RING_LONG_BUDGET,
+             False) for _ in range(4)]
+    reqs += [(rng.integers(0, V, int(rng.integers(512, RING_PROMPT + 1)))
+              .tolist(), int(rng.integers(64, 257)), False)
+             for _ in range(12)]
+    return reqs
+
+
+def windowed_logits(params, cfg, ids):
+    """Float32 logits of every row of ``ids`` from one windowed full
+    forward through the plain attention (no kernel launch)."""
+    from linalg_tpu_torch.models.gpt import gpt_apply
+    from linalg_tpu_torch.nn.flash import flash_attention_ref
+
+    def plain(q, k, v, mask):
+        return flash_attention_ref(q, k, v, True, cfg.window)
+
+    plain.gqa_native = True
+    with torch.no_grad():
+        return gpt_apply(params, torch.tensor([list(ids)], device="cuda"),
+                         cfg, attn_fn=plain)[0]
+
+
+def tie_or_equal(tag, where, got, want, gaps, tie=TIE_OF_MAX):
+    """``got`` equals the greedy stream ``want``, or first differs where
+    ``want``'s top-2 logit gap (``gaps[i]``: (gap, max|logit|)) is under
+    ``tie`` of its largest |logit|. Returns 1 on a tie flip."""
+    if got == want:
+        return 0
+    i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    gap, big = gaps[i] if i < len(gaps) else (math.inf, 1.0)
+    phase(where, f"{tag}: first differs at token {i}: the reference's "
+          f"top-2 gap {gap:.3e} is {gap / big:.3e} of max|logit| (a tie "
+          f"under {tie:.3e})")
+    if len(got) != len(want) or not gap < tie * big:
+        raise RuntimeError(f"{tag}: tokens differ at a gap f32 orders")
+    return 1
+
+
+def top2_gap(logits):
+    top2 = logits.float().topk(2, dim=-1).values
+    return float(top2[0, 0] - top2[0, 1]), float(logits.abs().max())
+
+
+def ring_stream_greedy(params, cfg, prompt, n):
+    """Single-stream greedy ring decode of ``n`` tokens after ``prompt``
+    (``gpt_stream_prefill``, then ``gpt_stream_chunk`` a token at a time,
+    each step's top-2 gap kept). Returns (tokens, gaps, final logits)."""
+    from linalg_tpu_torch.models.stream import (gpt_stream_chunk,
+                                                gpt_stream_prefill)
+
+    logits, ring = gpt_stream_prefill(params, torch.tensor(
+        [prompt], device="cuda"), cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    toks, gaps = [], []
+    for _ in range(n):
+        gaps.append(top2_gap(logits))
+        t, logits, ring = gpt_stream_chunk(params, ring, logits, gen, cfg, 1,
+                                           1.0, 1, 0.0)
+        toks.append(int(t[0, 0]))
+    return toks, gaps, logits
+
+
+def window_phase(smi, cfg, params, stoi, itos):
+    """Phase 18: long_window's trained weights through the ring: ``sample``
+    past ctx_len, the ring engine, a LoRA finetune through K4, and the f32
+    equalities. Returns the flash launches of the finetune
+    ([fwd, dq, dkdv, delta])."""
+    from linalg_tpu_torch.apps.gpt import build_parser
+    from linalg_tpu_torch.kernels import flash_attention as kfa
+    from linalg_tpu_torch.serve import ServeEngine
+    from linalg_tpu_torch.train import trainer as ttrainer
+    from linalg_tpu_torch.train.checkpoint import save_ckpt
+
+    ident = {i: i for i in range(cfg.vocab_size)}  # ids out
+    prompt = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, RING_PROMPT).tolist()
+    prefills = []
+    real_prefill = ttrainer.gpt_prefill
+
+    def counted(*a, **k):
+        prefills.append(1)
+        return real_prefill(*a, **k)
+
+    def ring_sample(p, steps):
+        prefills.clear()
+        with patched((ttrainer, {"gpt_prefill": counted})):
+            out, sec = timed(lambda: list(ttrainer.sample(
+                p, cfg, prompt, ident, steps=steps, seed=0)))
+        if len(out) != steps or len(prefills) != 1 or not all(
+                0 <= t < cfg.vocab_size for t in out):
+            raise RuntimeError(f"ring sample: {len(out)} tokens, "
+                               f"{len(prefills)} prefills")
+        return sec
+
+    ring_sample(params, 64)  # first-use costs out of the timing
+    sec = ring_sample(params, RING_SAMPLE)
+    phase("window", f"sample through the ring, bf16: {RING_SAMPLE} tokens "
+          f"after a {RING_PROMPT}-token prompt (positions to "
+          f"{RING_PROMPT + RING_SAMPLE} past ctx {cfg.ctx_len}), one "
+          f"prefill, no rollover: {sec:.3f} s, {RING_SAMPLE / sec:.1f} "
+          f"tok/s; {smi}")
+
+    # the ring engine: 8 slots, chunk 32, 16 requests, 4 running past ctx
+    reqs = ring_requests(cfg.vocab_size)
+    ring_kw = dict(paged=False)
+    serve_waves(ServeEngine, params, cfg, [reqs[4:5]], **ring_kw)  # warm
+    outs, wall, n_tok, eng = serve_waves(ServeEngine, params, cfg, [reqs],
+                                         **ring_kw)
+    if not eng._ring:
+        raise RuntimeError("the windowed RoPE engine did not take ring mode")
+    ring_bytes = sum(eng._cache[k].numel() * eng._cache[k].element_size()
+                     for k in ("k", "v"))
+    slot_bytes = ring_bytes // cfg.window * cfg.ctx_len
+    past = sum(len(p) + n > cfg.ctx_len for p, n, _ in reqs)
+    phase("window", f"ring engine, bf16, 8 slots, chunk 32: 16 requests "
+          f"({past} past ctx {cfg.ctx_len}, budgets to {RING_LONG_BUDGET}), "
+          f"{n_tok} tokens, every budget met, {eng.stats['prefills']} "
+          f"prefills, {eng.stats['chunks']} chunks: {wall:.3f} s, "
+          f"{n_tok / wall:.1f} tok/s useful; slot KV {ring_bytes / 2**20:.1f}"
+          f" MiB against {slot_bytes / 2**20:.1f} MiB for ctx-"
+          f"{cfg.ctx_len} slots ({slot_bytes / ring_bytes:.1f}x fewer)")
+    del eng, outs
+    torch.cuda.empty_cache()
+
+    # a LoRA finetune of the same model: K4 forward and backward
+    counters = (kfa.flash_fwd_cuda, kfa.flash_dq_cuda, kfa.flash_dkdv_cuda,
+                kfa.flash_delta_cuda)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_ckpt(f"{tmp}/ck", params, cfg, stoi, itos)
+        log = f"{tmp}/metrics.jsonl"
+        args = build_parser().parse_args(
+            ["--train", "--lora_rank", str(LORA_RANK), "--lora_targets",
+             "attn", "--steps", str(LORA_STEPS), "--eval_every",
+             str(LORA_STEPS), "--batch_size", str(LORA_BATCH), "--ckpt_dir",
+             f"{tmp}/ck", "--log_file", log, "--device", "cuda"])
+        for c in counters:
+            c.launches = 0
+        merged, _, _, _ = ttrainer.train(args)
+        torch.cuda.synchronize()
+        launches = [c.launches for c in counters]
+        rows = [json.loads(ln) for ln in open(log, encoding="utf-8")]
+        saved = os.path.exists(f"{tmp}/ck/lora/lora_adapters.npz")
+    want = [cfg.n_layers * (LORA_STEPS + EVAL_BATCHES)] + [
+        cfg.n_layers * LORA_STEPS] * 3
+    losses = [r.get("loss", r.get("val_loss")) for r in rows
+              if r["event"] in ("train", "eval")]
+    t = {r["step"]: r["elapsed_s"] for r in rows if r["event"] == "train"}
+    ms = (t[LORA_STEPS] - t[1]) / (LORA_STEPS - 1) * 1e3
+    phase("window", f"LoRA finetune (rank {LORA_RANK}, attn, {LORA_STEPS} "
+          f"steps, B {LORA_BATCH}, T {cfg.ctx_len}, window {cfg.window}): "
+          f"K4 launches fwd/dq/dkdv/delta {launches}, expected {want}; "
+          f"losses {losses}; {ms:.2f} ms/step (steps 2-{LORA_STEPS}); "
+          f"adapters saved: {saved}")
+    if launches != want or not all(math.isfinite(x) for x in losses) or (
+            not saved):
+        raise RuntimeError("the LoRA finetune did not run through K4")
+    sec = ring_sample(merged, 512)
+    phase("window", f"the merged model through the ring: 512 tokens after "
+          f"{RING_PROMPT}, one prefill: {sec:.3f} s")
+    del merged
+    torch.cuda.empty_cache()
+
+    # f32 greedy: the ring engine against single streams; the stream past
+    # ctx_len against a windowed full forward
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    r4 = [(reqs[0][0], 520, False), (reqs[1][0], 520, False),
+          (reqs[4][0], 100, False), (reqs[5][0], 100, False)]
+    got = serve_waves(ServeEngine, params, cfg32, [r4], greedy=True,
+                      **ring_kw)[0]
+    flips = 0
+    for i, (p, n, _) in enumerate(r4):
+        toks, gaps, last = ring_stream_greedy(params, cfg32, p, n)
+        flips += tie_or_equal(f"f32 ring engine == single stream, request "
+                              f"{i}", "window", got[i], toks, gaps)
+        if len(p) + n > cfg.ctx_len:
+            full = windowed_logits(params, cfg32, p + toks)
+            rows_ = full[len(p) - 1:]
+            am = rows_.argmax(-1).tolist()
+            top2 = rows_.topk(2, dim=-1).values
+            for j, (a, b) in enumerate(zip(am, toks)):
+                gap = float(top2[j, 0] - top2[j, 1])
+                if a != b and not gap < TIE_OF_MAX * float(
+                        rows_[j].abs().max()):
+                    raise RuntimeError("the stream's token differs from the "
+                                       "windowed forward's argmax")
+            err = float((last[0] - full[-1]).abs().max())
+            big = float(full[-1].abs().max())
+            phase("window", f"f32 stream past ctx: request {i} to position "
+                  f"{len(p) + n}: every token the windowed full forward's "
+                  f"argmax (or a tie); last logits max|diff| {err:.3e} "
+                  f"({err / big:.3e} of max|logit|, limit 1e-4)")
+            if not err <= 1e-4 * big:
+                raise RuntimeError("the stream's logits past ctx_len differ "
+                                   "from the windowed forward's")
+    phase("window", f"f32 equalities hold, {flips} tie flips")
+    return launches
+
+
+def weight_bytes(tree):
+    return sum(x.numel() * x.element_size() for x in tree_tensors(tree))
+
+
+def tree_tensors(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def greedy_steps(step_fn, logits, n):
+    """``n`` greedy tokens from ``step_fn(logits) -> logits'`` (one
+    decode step of the greedy token), each step's top-2 gap kept."""
+    toks, gaps = [], []
+    for _ in range(n):
+        gaps.append(top2_gap(logits))
+        tok = logits.argmax(-1)
+        toks.append(int(tok[0]))
+        logits = step_fn(logits)
+    return toks, gaps
+
+
+def quant_references(params, cfg32, reqs):
+    """Single-stream f32 greedy references of ``reqs``: the int8 decode
+    (``gpt_decode_chunk_q``, mode "deq") and the dense int8-KV twin (the
+    full-precision ops reading a ``quantize_kv_cache`` cache through
+    ``_kv8_attn``/``_kv8_write``). Returns ([(toks, gaps)] int8, kv8)."""
+    from linalg_tpu_torch.models.gpt import (_decode_chunk_core,
+                                             _dt_decode_ops, gpt_prefill)
+    from linalg_tpu_torch.models.quant import (_kv8_attn, _kv8_write,
+                                               _layer_views,
+                                               gpt_decode_chunk_q,
+                                               quantize_gpt_params,
+                                               quantize_kv_cache)
+    from linalg_tpu_torch.nn.cache import fkv_write
+
+    qp = quantize_gpt_params(params, cfg32)
+    ops8 = dict(_dt_decode_ops(params, cfg32), attn=_kv8_attn(torch.float32))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    int8, kv8 = [], []
+    for p, n, _ in reqs:
+        ids = torch.tensor([p], device="cuda")
+        logits, cache = gpt_prefill(params, ids, cfg32)
+        box = [cache]
+
+        def q_step(lg):
+            _, lg, box[0] = gpt_decode_chunk_q(qp, box[0], lg, gen, cfg32, 1,
+                                               1.0, 1, 0.0)
+            return lg
+
+        int8.append(greedy_steps(q_step, logits, n))
+        logits, cache = gpt_prefill(params, ids, cfg32)
+        qc = quantize_kv_cache(cache)
+        kv = [_layer_views(qc["k"]), _layer_views(qc["v"]), len(p)]
+
+        def kv8_step(lg):
+            _, lg, _, _, kv[2] = _decode_chunk_core(
+                cfg32, ops8, lg, kv[0], kv[1], kv[2], 0, gen, 1, 1.0, 1,
+                0.0, _kv8_write(fkv_write))
+            return lg
+
+        kv8.append(greedy_steps(kv8_step, logits, n))
+    return int8, kv8
+
+
+def quant_phase(ServeEngine, params, cfg, cfg32, phase4, smi):
+    """Phase 19: int8 weights under K5/K6 and through the gather, int8 KV
+    pages, f32 equalities, and ``sample`` with int8 / int8kv. Returns the
+    paged kernel calls of the bf16 int8 kernel run."""
+    from linalg_tpu_torch.kernels.paged_attention import paged_attention_cuda
+    from linalg_tpu_torch.models.gpt import GPTConfig, init_gpt_params
+    from linalg_tpu_torch.train.trainer import sample
+
+    reqs = make_requests(16)
+    serve_waves(ServeEngine, params, cfg, [reqs[:1]], quant="int8",
+                paged_attn="kernel")  # first-use costs out of the timing
+    paged_attention_cuda.launches = 0
+    _, wall_k, n_tok, eng_k, launches = kernel_run(
+        ServeEngine, params, cfg, [reqs], quant="int8")
+    _, wall_g, _, eng_g = serve_waves(ServeEngine, params, cfg, [reqs],
+                                      quant="int8", paged_attn="gather")
+    _, wall_8, _, eng_8 = serve_waves(ServeEngine, params, cfg, [reqs],
+                                      kv8=True, paged_attn="gather")
+    if paged_attention_cuda.launches != launches:
+        raise RuntimeError("a gather engine launched the paged kernel")
+    q = eng_k._decode_params
+    qbytes = weight_bytes({k: v for k, v in q.items() if k != "head_b"}
+                          ) - sum(weight_bytes(q["layers"][k]) for k in (
+                              "ln1_g", "ln1_b", "ln2_g", "ln2_b", "b1", "b2"))
+    dense = sum(x.numel() for x in (q["layers"]["W3_q"], q["layers"]["Wo_q"],
+                                    q["layers"]["W1_q"], q["layers"]["W2_q"],
+                                    q["tok_W_q"])) * 2
+    pool8 = weight_bytes({k: eng_8._cache[k] for k in ("pool_k", "pool_v")})
+    pool16 = weight_bytes({k: eng_k._cache[k] for k in ("pool_k", "pool_v")})
+    phase("quant", f"int8 weights: {qbytes / 2**20:.2f} MiB (int8 + f32 "
+          f"scales) against {dense / 2**20:.2f} MiB in bf16 "
+          f"({dense / qbytes:.2f}x); kv8 pool {pool8 / 2**20:.1f} MiB against "
+          f"{pool16 / 2**20:.1f} MiB bf16 ({pool16 / pool8:.2f}x)")
+    phase("quant", f"16 requests, {n_tok} tokens: int8 kernel {wall_k:.3f} "
+          f"s ({n_tok / wall_k:.1f} tok/s, {launches} paged calls, one a "
+          f"layer and step), int8 gather {wall_g:.3f} s "
+          f"({n_tok / wall_g:.1f}), kv8 gather {wall_8:.3f} s "
+          f"({n_tok / wall_8:.1f}); phase 4's engine {phase4[0]:.3f} s "
+          f"({phase4[1] / phase4[0]:.1f}); {smi}")
+    del eng_k, eng_g, eng_8
+    torch.cuda.empty_cache()
+
+    r4 = make_requests(4)
+    k_out = kernel_run(ServeEngine, params, cfg32, [r4], greedy=True,
+                       quant="int8")[0]
+    g_out = serve_waves(ServeEngine, params, cfg32, [r4], greedy=True,
+                        quant="int8", paged_attn="gather")[0]
+    e8_out = serve_waves(ServeEngine, params, cfg32, [r4], greedy=True,
+                         kv8=True, paged_attn="gather")[0]
+    ref8, refkv = quant_references(params, cfg32, r4)
+    flips = 0
+    for i in range(len(r4)):
+        toks, gaps = ref8[i]
+        flips += tie_or_equal(f"f32 int8 kernel == gather, request {i}",
+                              "quant", k_out[i], g_out[i], gaps,
+                              QUANT_TIE_OF_MAX)
+        flips += tie_or_equal(f"f32 int8 kernel == gpt_decode_chunk_q, "
+                              f"request {i}", "quant", k_out[i], toks, gaps,
+                              QUANT_TIE_OF_MAX)
+        flips += tie_or_equal(f"f32 kv8 engine == dense int8-KV twin, "
+                              f"request {i}", "quant", e8_out[i], *refkv[i],
+                              QUANT_TIE_OF_MAX)
+    phase("quant", f"f32 greedy, 4 requests, "
+          f"{sum(len(t) for t in k_out)} tokens: int8 kernel == int8 "
+          f"gather == single-stream gpt_decode_chunk_q, kv8 == the dense "
+          f"int8-KV twin; {flips} tie flips")
+
+    # sample with int8 and int8kv at phase 16's config
+    scfg = GPTConfig(**SAMPLE_CFG)
+    sp = init_gpt_params(scfg, seed=0, device="cuda")
+    ident = {i: i for i in range(scfg.vocab_size)}
+    for quant in ("int8", "int8kv"):
+        list(sample(sp, scfg, [1, 2, 3], ident, steps=64, quant=quant))
+        out, sec = timed(lambda: list(sample(
+            sp, scfg, [1, 2, 3], ident, steps=QUANT_SAMPLE, quant=quant)))
+        if len(out) != QUANT_SAMPLE or not all(
+                0 <= t < scfg.vocab_size for t in out):
+            raise RuntimeError(f"sample quant={quant} returned bad tokens")
+        phase("quant", f"sample quant={quant} (f32, phase 16's config): "
+              f"{QUANT_SAMPLE} tokens in {sec:.3f} s, "
+              f"{QUANT_SAMPLE / sec:.1f} tok/s (phase 16's plain sampler: "
+              f"its f32 line)")
+    return launches
+
+
+def make_adapters(params, seed=6):
+    """Phase 20's adapters: ``LORA_RANKS``, A as ``init_lora_params``
+    draws it, B ~ N(0, 0.02) from ``np.random.default_rng(seed)`` (a
+    trained adapter's nonzero delta)."""
+    from linalg_tpu_torch.models.lora import LoRAConfig, init_lora_params
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, r in enumerate(LORA_RANKS):
+        lcfg = LoRAConfig(rank=r)
+        ad = init_lora_params(params, lcfg, seed=i)
+        for k, v in ad["layers"].items():
+            if k.endswith("_B"):
+                ad["layers"][k] = torch.tensor(
+                    rng.normal(0, 0.02, tuple(v.shape)), dtype=torch.float32,
+                    device=v.device)
+        out.append((ad, lcfg))
+    return out
+
+
+def lora_phase(ServeEngine, params, cfg, cfg32, phase4, smi):
+    """Phase 20: 16 requests over adapters 0-3 batched in one engine under
+    K5/K6 and through the gather; f32 equality with engines serving each
+    adapter's merged weights; quant x LoRA and speculative x LoRA. Returns
+    the paged kernel calls of the bf16 kernel runs."""
+    from linalg_tpu_torch.kernels.paged_attention import paged_attention_cuda
+    from linalg_tpu_torch.models.lora import lora_merge
+
+    ads = make_adapters(params)
+    lkw = dict(adapters=ads, max_loras=len(ads), lora_rank=max(LORA_RANKS))
+    reqs = [(p, n, False, i % 4) for i, (p, n, _) in
+            enumerate(make_requests(16))]
+    serve_waves(ServeEngine, params, cfg, [reqs[:1]], paged_attn="kernel",
+                **lkw)
+    paged_attention_cuda.launches = 0
+    _, wall_k, n_tok, eng, launches = kernel_run(ServeEngine, params, cfg,
+                                                 [reqs], **lkw)
+    _, wall_g, _, _ = serve_waves(ServeEngine, params, cfg, [reqs],
+                                  paged_attn="gather", **lkw)
+    _, wall_q, _, _, launches_q = kernel_run(ServeEngine, params, cfg,
+                                             [reqs], quant="int8", **lkw)
+    _, wall_s, _, eng_s = serve_waves(ServeEngine, params, cfg, [reqs],
+                                      paged=False, speculative=SPEC_K, **lkw)
+    stacks = weight_bytes(eng._lora_stacks)
+    phase("lora", f"16 requests over lora_id 0-3 (ranks {LORA_RANKS} in "
+          f"rank-{max(LORA_RANKS)} stacks, {stacks / 2**20:.2f} MiB), "
+          f"{n_tok} tokens: kernel {wall_k:.3f} s ({n_tok / wall_k:.1f} "
+          f"tok/s, {launches} paged calls, one a layer and step), gather "
+          f"{wall_g:.3f} s ({n_tok / wall_g:.1f}); quant x LoRA, kernel "
+          f"{wall_q:.3f} s ({launches_q} calls); speculative K {SPEC_K} x "
+          f"LoRA, slot {wall_s:.3f} s "
+          f"({eng_s.stats['emitted_tokens'] / eng_s.stats['spec_slot_rounds']:.3f}"
+          f" tokens a slot and round); phase 4's engine {phase4[0]:.3f} s; "
+          f"{smi}")
+    launches += launches_q
+    if paged_attention_cuda.launches != launches:
+        raise RuntimeError("a gather or slot engine launched the kernel")
+    del eng, eng_s
+    torch.cuda.empty_cache()
+
+    r4 = [(p, n, False, i) for i, (p, n, _) in enumerate(make_requests(4))]
+    mixed = kernel_run(ServeEngine, params, cfg32, [r4], greedy=True,
+                       **lkw)[0]
+    flips = 0
+    for i, (p, n, _, lid) in enumerate(r4):
+        merged = params if lid == 0 else lora_merge(params, *ads[lid - 1])
+        alone = kernel_run(ServeEngine, merged, cfg32, [[(p, n, False)]],
+                           greedy=True)[0]
+        flips += greedy_equal(f"f32 adapter {lid} in the mixed engine == "
+                              f"its merged weights", merged, cfg32, [p],
+                              [mixed[i]], alone, where="lora")
+    phase("lora", f"f32 equalities hold, {flips} tie flips")
+    return launches
+
+
 def leaf_names(params, prefix=()):
     """The key paths of ``params``, in ``tree_leaves`` order."""
     out = []
@@ -2888,6 +3367,14 @@ def main() -> int:
     prefix_launches = prefix_phase(ServeEngine, params, cfg, cfg32,
                                    (wall_k, n_tok))
 
+    # -- 19. quant: int8 weights under K5/K6, int8 KV pages --------------
+    quant_launches = quant_phase(ServeEngine, params, cfg, cfg32,
+                                 (wall_k, n_tok), smi)
+
+    # -- 20. lora: mixed adapters under K5/K6 ------------------------------
+    lora_launches = lora_phase(ServeEngine, params, cfg, cfg32,
+                               (wall_k, n_tok), smi)
+
     # -- 6. qr -----------------------------------------------------------
     report_build("qr", built["qr_panel"])
     qr_builds(built["qr_panel"][0])
@@ -2905,7 +3392,11 @@ def main() -> int:
     stream_record = stream_phase()
 
     # -- 10. long ----------------------------------------------------------
-    long_launches, long_cfg, long_batch = long_phase(smi)
+    long_launches, long_cfg, long_batch, long_trained = long_phase(smi)
+
+    # -- 18. window: the ring stream, the ring engine, a LoRA finetune -----
+    window_launches = window_phase(smi, long_cfg, *long_trained)
+    del long_trained
 
     # -- 11. btd -----------------------------------------------------------
     btd_record = btd_phase()
@@ -2947,14 +3438,18 @@ def main() -> int:
     # kernels
     profile_engine(ServeEngine, params, cfg, reqs)
 
-    flash_launches = [a + b + c for a, b, c in zip(
-        train_launches, long_launches, short_launches["btd"])]
+    flash_launches = [a + b + c + d for a, b, c, d in zip(
+        train_launches, long_launches, short_launches["btd"],
+        window_launches)]
     print(json.dumps({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/paged_attention.cu",
         "replaces": "linalg_tpu/serve/paged.py:433, :267",
-        "launches": launches + prefix_launches,
-        "launches_phase4_prefix": [launches, prefix_launches], **record,
+        "launches": launches + prefix_launches + quant_launches
+        + lora_launches,
+        "launches_phase4_prefix_quant_lora": [
+            launches, prefix_launches, quant_launches, lora_launches],
+        **record,
         "shared_prefix": shared_record}, {
         "name": "qr_panel", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/qr_panel.cu",
@@ -2972,9 +3467,9 @@ def main() -> int:
                     "linalg_tpu/nn/flash_btd.py:178",
         "launches": sum(flash_launches),
         "launches_fwd_dq_dkdv_delta": flash_launches,
-        "launches_train_big_long_window_btd": [
+        "launches_train_big_long_window_btd_lora": [
             sum(train_launches), sum(long_launches),
-            sum(short_launches["btd"])],
+            sum(short_launches["btd"]), sum(window_launches)],
         **flash_record, "stream": stream_record, "btd": btd_record}, {
         "name": "fused_layer", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/fused_layer.cu",

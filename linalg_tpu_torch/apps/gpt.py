@@ -6,11 +6,16 @@ The ``--train``, ``--serve`` and ``--repl`` parts of ``linalg_tpu.apps.gpt``
 with the same flags, defaults and outputs (``--out`` JSON lines), plus
 ``--device``; ``--tokenizer bpe --vocab_size N`` trains byte-level BPE.
 Checkpoints load and save in the JAX package's format. ``--serve`` takes
-``--prefix_file``, ``--auto_prefix``, ``--page_cache`` and ``--speculative
-K``; ``--repl`` takes ``--speculative K`` and ``--draft_ckpt``. Flags of
-features that are not ported yet are accepted and refused with
-``NotImplementedError`` naming their ROADMAP.md item (quantization and
-LoRA come with queue 1, item 5).
+``--prefix_file``, ``--auto_prefix``, ``--page_cache``, ``--speculative
+K``, ``--quant int8`` and ``--paged --kv8``; ``--repl`` takes
+``--speculative K``, ``--draft_ckpt`` and ``--quant int8|int8kv``.
+``--train --lora_rank R`` (with ``--lora_alpha``, ``--lora_targets``,
+``--lora_dir``) finetunes adapters on a trained checkpoint; ``--serve``
+and ``--repl`` merge the adapters found in ``--lora_dir`` (default
+<ckpt_dir>/lora) at load. A windowed RoPE/ALiBi model samples and serves
+through the ring cache. Flags of features that are not ported yet are
+accepted and refused with ``NotImplementedError`` naming their ROADMAP.md
+item (MoE: item 6; the other parallel axes: item 7).
 """
 
 from __future__ import annotations
@@ -26,12 +31,13 @@ import numpy as np
 # Flags of the JAX CLI whose features are not ported: (default, ROADMAP.md
 # item). Any other value raises NotImplementedError naming the item.
 _NOT_PORTED_FLAGS = {
-    "quant": ("none", "queue 1, item 5: quantization"),
     "experts": (0, "queue 1, item 6: MoE"),
-    "lora_rank": (0, "queue 1, item 5: LoRA"),
+    "router_top_k": (1, "queue 1, item 6: MoE"),
+    "dispatch": ("einsum", "queue 1, item 6: MoE"),
     "tp": (1, "queue 1, item 7: parallelism"),
     "pp": (1, "queue 1, item 7: parallelism"),
     "fsdp": (1, "queue 1, item 7: parallelism"),
+    "microbatches": (0, "queue 1, item 7: parallelism"),
 }
 
 
@@ -106,11 +112,31 @@ def build_parser() -> argparse.ArgumentParser:
                          "lookup")
     ap.add_argument("--quant", type=str, default="none",
                     choices=("none", "int8", "int8kv"),
-                    help="int8 decode (not ported yet)")
+                    help="decode with int8 weight-only matvecs (int8), "
+                         "REPL: plus an int8 KV cache (int8kv); the prefill "
+                         "stays full precision. --serve takes int8")
     ap.add_argument("--experts", type=int, default=0,
                     help="mixture-of-experts FFN (not ported yet)")
+    ap.add_argument("--router_top_k", type=int, default=1, choices=(1, 2),
+                    help="MoE experts per token (not ported yet)")
+    ap.add_argument("--dispatch", type=str, default="einsum",
+                    choices=("einsum", "gather"),
+                    help="MoE token dispatch (not ported yet)")
     ap.add_argument("--lora_rank", type=int, default=0,
-                    help="LoRA finetuning (not ported yet)")
+                    help="train mode: LoRA-finetune rank-N adapters on a "
+                         "frozen base checkpoint (0 = full training); "
+                         "repl/serve merge adapters from --lora_dir")
+    ap.add_argument("--lora_alpha", type=float, default=16.0,
+                    help="LoRA delta scale = alpha/rank (PEFT convention)")
+    ap.add_argument("--lora_targets", type=str, default="attn",
+                    choices=("attn", "all"),
+                    help="which weights get adapters: attention "
+                         "projections, or + FFN matmuls")
+    ap.add_argument("--lora_dir", type=str, default="",
+                    help="adapter checkpoint dir (default <ckpt_dir>/lora); "
+                         "repl/serve merge adapters from here when present")
+    ap.add_argument("--microbatches", type=int, default=0,
+                    help="pipeline microbatch count (not ported yet)")
     ap.add_argument("--dp", type=int, default=1,
                     help="data-parallel mesh axis (with --sp; alone it is "
                          "not ported yet)")
@@ -178,6 +204,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=("fifo", "best-fit"),
                     help="admission under page pressure: strict arrival "
                          "order or first-fit past a blocked request")
+    ap.add_argument("--kv8", action="store_true",
+                    help="serve: store the paged KV pool int8 with per-row "
+                         "scales (requires --paged; read by the gather)")
     ap.add_argument("--paged_attn", type=str, default="auto",
                     choices=("auto", "kernel", "gather"),
                     help="paged mode attention read: the CUDA paged-"
@@ -199,6 +228,28 @@ def _decode_text(tok, itos, toks) -> str:
     return "".join(itos[int(t)] for t in toks)
 
 
+def _maybe_lora(params, args, device):
+    """Merge the LoRA adapters of ``--lora_dir`` (default <ckpt_dir>/lora)
+    into the loaded base params when that directory holds an adapter
+    checkpoint: every inference path then runs the adapted model (a
+    merged windowed model serves in ring mode)."""
+    import pathlib
+
+    from ..models.lora import load_lora, lora_merge
+
+    lora_dir = getattr(args, "lora_dir", "") or str(
+        pathlib.Path(args.ckpt_dir) / "lora")
+    try:
+        adapters, lcfg = load_lora(lora_dir, device=device)
+    except Exception:
+        if getattr(args, "lora_dir", ""):
+            print(f"(no LoRA adapters at {lora_dir}; using the base model)")
+        return params
+    print(f"merged LoRA adapters from {lora_dir} "
+          f"(rank {lcfg.rank}, targets {lcfg.targets})")
+    return lora_merge(params, adapters, lcfg)
+
+
 def serve_cli(args) -> None:
     """Serve a batch of prompts through the continuous-batching engine.
 
@@ -214,6 +265,7 @@ def serve_cli(args) -> None:
 
     device = resolve_device(args.device)
     params, cfg, _, itos = load_ckpt(args.ckpt_dir, device=device)
+    params = _maybe_lora(params, args, device)
     tok = load_tokenizer(args.ckpt_dir)
 
     if args.prompts == "-":
@@ -226,15 +278,26 @@ def serve_cli(args) -> None:
         print("serve: no prompts")
         return
 
+    paged = args.paged
+    ring = cfg.window is not None and cfg.pos in ("rope", "alibi")
+    if paged and ring:
+        print("(--paged supports the dense GPT outside ring/tp mode; "
+              "serving with the slot cache)")
+        paged = False
+    kv8 = paged and args.kv8
     spec = args.speculative
-    if spec and args.paged and args.paged_attn == "kernel":
+    # (--lora_dir adapters are merged into params at load: they do not
+    # constrain speculation)
+    if spec and (args.quant != "none" or ring or kv8
+                 or (paged and args.paged_attn == "kernel")):
         print("(--speculative serving supports the full-precision dense "
               "slot/paged(gather) engine; serving without speculation)")
         spec = 0
     eng = ServeEngine(params, cfg, n_slots=args.n_slots, chunk=args.chunk,
-                      top_k=args.top_k, seed=args.seed, paged=args.paged,
-                      page=args.page, n_pages=(args.n_pages or None),
-                      paged_attn=args.paged_attn, speculative=spec,
+                      top_k=args.top_k, seed=args.seed, quant=args.quant,
+                      paged=paged, page=args.page,
+                      n_pages=(args.n_pages or None),
+                      paged_attn=args.paged_attn, speculative=spec, kv8=kv8,
                       schedule=args.schedule, auto_prefix=args.auto_prefix,
                       page_cache=args.page_cache, device=device)
     # the engine reserves ceil(gen/chunk)*chunk cache rows per request
@@ -339,6 +402,7 @@ def repl(args) -> None:
 
     device = resolve_device(args.device)
     params, cfg, _, itos = load_ckpt(args.ckpt_dir, device=device)
+    params = _maybe_lora(params, args, device)
     tok = load_tokenizer(args.ckpt_dir)  # char or BPE, from the sidecar
     draft = None
     if args.draft_ckpt:
@@ -397,7 +461,8 @@ def repl(args) -> None:
         for piece in sample(params, cfg, ctx, tok, steps=args.gen_tokens,
                             temperature=args.temperature, top_k=args.top_k,
                             top_p=args.top_p, seed=args.seed,
-                            chunk=min(max(args.gen_tokens, 1), 256)):
+                            chunk=min(max(args.gen_tokens, 1), 256),
+                            quant=args.quant):
             print(piece, end="", flush=True)
         print()
 

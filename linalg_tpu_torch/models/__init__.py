@@ -1,5 +1,7 @@
 """Models of the port: the functional char-GPT (``gpt``), beam search
-(``beam``) and speculative decoding (``speculative``)."""
+(``beam``), speculative decoding (``speculative``), the ring-cache stream
+of windowed models (``stream``), int8 decode (``quant``) and LoRA
+(``lora``)."""
 
 from .beam import gpt_generate_beam
 from .gpt import (GPTConfig, gpt_apply, gpt_decode_chunk, gpt_decode_step,

@@ -692,7 +692,9 @@ def sample_token(generator, logits, temperature=1.0, top_k=0, top_p=0.0):
 def _dt_decode_ops(params: Params, cfg: GPTConfig) -> Dict[str, Any]:
     """Decode ops over weights cast ONCE to the compute dtype, with Q/K/V
     fused into one (D, D + 2*kv_heads*d_head) matrix per layer, and a
-    gated FFN's up and gate branches into one (D, 2F) matrix."""
+    gated FFN's up and gate branches into one (D, 2F) matrix. ``lws`` is
+    the per-layer list the decode loops walk; ``device`` the weights'
+    device (``models.quant._q_decode_ops`` returns the same keys)."""
     dt = cfg.compute_dtype
     lws = [{"lp": lp, "W3": torch.cat([lp["Wq"], lp["Wk"], lp["Wv"]], -1)}
            for lp in _layer_params(params, dt)]
@@ -722,6 +724,7 @@ def _dt_decode_ops(params: Params, cfg: GPTConfig) -> Dict[str, Any]:
                     @ lw["lp"]["W2"] + lw["lp"]["b2"])
     return {
         "lws": lws,
+        "device": tokW.device,
         "embed": lambda token: tokW[token][:, None, :],
         # clamp: an idle serving slot's position grows past the table
         "pe": (None if pe is None else lambda rel: pe[
@@ -760,7 +763,7 @@ def _make_decode_step(cfg: GPTConfig, ops, start, write_fn):
     KD = cfg.kv_heads * cfg.d_head
     attn = ops.get("attn") or _gqa_decode_attn
     wants_pos = getattr(attn, "wants_pos", False)
-    dev = ops["lws"][0]["W3"].device
+    dev = ops["device"]
     t_ids = torch.arange(cfg.ctx_len, device=dev)
     start1 = _positions(start, dev)
     slopes = (alibi_slopes(cfg.n_heads, device=dev) if cfg.pos == "alibi"

@@ -36,12 +36,21 @@ Host and device meet once per chunk: the chunk's (n_slots, chunk) tokens
 host, where budgets and stop tokens are checked. The JAX engine drains
 these copies lazily; the port copies each chunk at once.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md's
-item 5): LoRA (``max_loras``, ``lora_id``), int8 weights (``quant``),
-int8 KV pages (``kv8``), mesh serving, and ring mode: a window combined
-with RoPE or ALiBi, which the JAX engine serves from an O(window) KV
-ring. Every other RoPE, ALiBi, window and SwiGLU/GeGLU config is served
-in slot and paged mode, as the JAX engine serves it.
+Weights, KV layout and adapters meet at one seam, ``select_decode_ops``:
+int8 weight-only decode (``quant="int8"``, admission prefill in the
+compute dtype), the per-slot LoRA side-path (``max_loras``,
+``register_lora``, ``Request.lora_id``) or the plain cast weights; the
+slot, paged and speculative chunks all take their ops from it. Paged
+engines may store the pool int8 (``kv8=True``, read by the gather).
+
+Ring mode: a window with RoPE or ALiBi (full precision, no mesh) keeps
+each slot's KV as an O(window) ring with unbounded positions
+(``models.stream``): only prefix + prompt must fit ``ctx_len``, and a
+request generates past it with no second prefill. It composes with
+chunked prefill, registered prefixes and ``auto_prefix``; paged KV, LoRA
+and speculative decoding raise the JAX engine's ``ValueError``s. Mesh
+(tensor-parallel) serving is not ported (``NotImplementedError`` naming
+ROADMAP.md queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -67,7 +76,7 @@ from .paged import SUPPORTED_KERNEL_D
 __all__ = ["Request", "Completion", "ServeEngine", "serve",
            "decode_chunk_slots", "pick_paged_kernel"]
 
-_ROADMAP_LATER = "ROADMAP.md queue 1, item 5 (serving features)"
+_ROADMAP_MESH = "ROADMAP.md queue 1, item 7 (parallelism)"
 
 
 @dataclasses.dataclass
@@ -76,8 +85,10 @@ class Request:
     ``top_k`` None inherits the engine-wide default (0 = disabled).
     ``prefix_id`` (from ``ServeEngine.register_prefix``): the effective
     prompt is prefix + prompt, and admission reuses the prefix's cached
-    KV and prefills only ``prompt``. ``lora_id`` is the JAX engine's
-    field; this port accepts only its default."""
+    KV and prefills only ``prompt``. ``lora_id`` (from
+    ``ServeEngine.register_lora``): the request decodes through that
+    adapter (0 = the base model); slots wearing different adapters batch
+    in one decode chunk."""
 
     prompt: Sequence[int]
     max_new_tokens: int
@@ -121,8 +132,8 @@ def decode_chunk_slots(ops, cache, logits, generator, temp, top_p, top_k,
                        cfg: GPTConfig, n_tokens: int):
     """Sample ``n_tokens`` for every slot of a slot cache
     {k, v: (L, B, hk, ctx, d), pos: (B,) int32}, with per-slot positions
-    and per-slot (B,) sampling tensors. ``ops`` are the decode ops
-    ``models.gpt._dt_decode_ops(params, cfg)``. Writes clamp to ctx-1, so
+    and per-slot (B,) sampling tensors. ``ops`` are the engine's decode
+    ops (``select_decode_ops``). Writes clamp to ctx-1, so
     idle slots never overflow their rows. Updates ``cache`` in place;
     returns (tokens (B, n), logits, cache)."""
 
@@ -134,6 +145,53 @@ def decode_chunk_slots(ops, cache, logits, generator, temp, top_p, top_k,
         cfg, ops, logits, cache["k"], cache["v"], cache["pos"], 0, generator,
         n_tokens, temp[:, None], top_k, top_p[:, None], write_slots)
     return toks, logits, dict(cache, k=K, v=V, pos=pos)
+
+
+def select_decode_ops(params, cfg: GPTConfig, cache, dense_ops=None):
+    """The weight-representation dispatch shared by the slot, paged and
+    speculative chunks (the JAX engine's ``select_decode_ops``): int8
+    weight-only ops when ``params`` holds ``tok_W_q`` (``quant="int8"``),
+    else the cast dense ops (``dense_ops`` when the caller already built
+    them), wrapped in the per-slot LoRA side-path when ``params`` carries
+    ``_lora`` stacks (the adapter ids are ``cache["lora_ids"]``). The ops
+    never touch the KV layout; the layout never touches the weights."""
+    from ..models.lora import lora_decode_ops
+    from ..models.quant import _q_decode_ops
+
+    lora = params.get("_lora")
+    base = {k: v for k, v in params.items() if k != "_lora"}
+    if "tok_W_q" in base:
+        ops = _q_decode_ops(base, cfg)
+    else:
+        ops = dense_ops if dense_ops is not None else _dt_decode_ops(base,
+                                                                     cfg)
+    if lora is not None:
+        ops = lora_decode_ops(ops, lora, cache["lora_ids"], cfg)
+    return ops
+
+
+def _admit_slot_ring(cache, logits, slot_k, slot_v, plen, slot_logits, b,
+                     cfg: GPTConfig):
+    """Ring-mode admission: compress a ctx-sized prefill (or prefix
+    extension) (L, 1, hk, ctx, d) to its last ``window`` rows
+    (``models.stream.stream_fill``) and copy them into ring slot ``b``
+    with their absolute positions."""
+    from ..models.stream import init_stream_cache, stream_fill
+
+    ring1 = stream_fill(init_stream_cache(cfg, 1, device=slot_k.device),
+                        {"k": slot_k, "v": slot_v}, plen, cfg)
+    cache["k"][:, b] = ring1["k"][:, 0]
+    cache["v"][:, b] = ring1["v"][:, 0]
+    cache["rpos"][b] = ring1["rpos"]
+    cache["pos"][b] = plen
+    logits[b] = slot_logits[0]
+    return cache, logits
+
+
+def _set_slot_lora(cache, b, lora_id):
+    """Point slot ``b`` at adapter ``lora_id`` (0 = the base model)."""
+    cache["lora_ids"][b] = lora_id
+    return cache
 
 
 class _Prefix(NamedTuple):
@@ -247,7 +305,16 @@ class ServeEngine:
     ``speculative=K`` drafts K tokens a slot and round by prompt lookup
     and verifies them in one block forward (``serve.spec``), in slot mode
     or paged mode with ``paged_attn`` "gather" (or "auto", which then
-    never picks the kernel).
+    never picks the kernel), with or without multi-LoRA.
+
+    ``quant="int8"`` decodes through int8 weights (the admission prefill
+    stays in the compute dtype); ``kv8=True`` (paged, gather read) keeps
+    the pool int8 with a per-row scale; ``max_loras=N`` with
+    ``register_lora`` and ``Request(lora_id=...)`` serves N adapters at
+    once, each slot through its own (prefixes and page-cache chains are
+    per adapter). A window with RoPE or ALiBi serves in ring mode. The
+    compositions and refusals are PARITY.md's slot, paged and ring
+    columns.
 
     ``schedule`` picks admission under page pressure: ``"fifo"`` admits in
     arrival order (a large request blocks the ones behind it, and nothing
@@ -267,35 +334,14 @@ class ServeEngine:
                  kv8: bool = False, schedule: str = "fifo",
                  auto_prefix: bool = False, page_cache: bool = False,
                  device=None):
-        del lora_rank  # meaningful only with max_loras
-        ring = cfg.window is not None and cfg.pos in ("rope", "alibi")
-        quant_on = quant not in ("", "none")
-        if speculative and (ring or mesh is not None or quant_on or kv8
-                            or (paged and paged_attn == "kernel")):
-            # the JAX engine's refusal (linalg_tpu/serve/engine.py:570-590)
-            raise ValueError(
-                "speculative serving supports the full-precision dense "
-                "slot or paged(gather) engine (no ring/mesh/quant/kv8/"
-                "paged kernel: quant would recompute the pending prompt "
-                "token through int8 ops that admission prefilled in f32, "
-                "and the speculative chunk reads pages by the gather)")
-        if page_cache and not paged:
-            raise ValueError("page_cache requires paged=True (the cache "
-                             "lives in the page pool)")
-        for name, on in (("quant", quant_on), ("mesh", mesh is not None),
-                         ("max_loras", bool(max_loras)), ("kv8", bool(kv8))):
-            if on:
-                raise NotImplementedError(
-                    f"{name} serving is not ported yet ({_ROADMAP_LATER})")
-        if ring:
-            # the JAX engine's ring mode (linalg_tpu/serve/engine.py:427):
-            # an O(window) KV ring with unbounded positions
+        if mesh is not None:
             raise NotImplementedError(
-                f"serving a window with pos={cfg.pos!r} takes the JAX "
-                f"engine's ring mode, which is not ported yet "
-                f"({_ROADMAP_LATER})")
+                f"mesh serving is not ported yet ({_ROADMAP_MESH})")
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
+        if quant not in ("", "none", "int8"):
+            raise ValueError(f"unknown quant mode: {quant!r}")
+        quant_on = quant == "int8"
         self.device = resolve_device(device)
         self.params = _params_to(params, self.device)
         self.cfg = cfg
@@ -309,25 +355,41 @@ class ServeEngine:
                 f"prefill_window must be in (0, ctx_len - chunk]; got "
                 f"{self.prefill_window} (ctx_len={cfg.ctx_len}, "
                 f"chunk={chunk})")
+        # ring mode: a windowed model with a relative positional encoding
+        # keeps each slot's KV as an O(window) ring with unbounded
+        # positions (the JAX engine's rule: full precision, no mesh)
+        self._ring = (cfg.window is not None and cfg.pos in ("rope", "alibi")
+                      and not quant_on)
+        self._paged = bool(paged)
+        self._allocator = None
+        self._slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
+        if kv8 and not self._paged:
+            raise ValueError("kv8 (int8 KV pages) requires paged=True")
         if schedule not in ("fifo", "best-fit"):
             raise ValueError("schedule must be 'fifo' or 'best-fit'")
         self.schedule = schedule
         self._auto_prefix = bool(auto_prefix)
-        self._paged = bool(paged)
         self._page_cache = bool(page_cache)
-        self._allocator = None
-        self._slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
         dt = cfg.compute_dtype
         if self._paged:
+            if self._ring:
+                raise ValueError("paged KV supports the dense GPT without "
+                                 "--window/mesh")
             from .paged import PageAllocator, init_paged_cache
 
             if n_pages is None:  # dense-equivalent capacity + trash page
                 n_pages = 1 + n_slots * (cfg.ctx_len // page)
             self._cache = init_paged_cache(cfg, n_slots, n_pages, page,
-                                           device=self.device)
+                                           kv8=kv8, device=self.device)
             self._page = page
             self._allocator = PageAllocator(n_pages)
             self._shared_held = 0  # pages pinned by registered prefixes
+            if self._page_cache and kv8:
+                raise ValueError(
+                    "page_cache requires kv8=False: reused pages would be "
+                    "DEQUANTIZED into the extend forward, so warm "
+                    "admissions would drift off the cold path's exact "
+                    "tokens")
             # page cache: chain key -> [page id, refs], in LRU order (a
             # hit moves its key to the end); per slot, the admission's hit
             # keys and its (key, page) insert candidates for retirement
@@ -338,34 +400,79 @@ class ServeEngine:
             if paged_attn == "kernel" and page % 8:
                 raise ValueError("the paged-attention kernel needs "
                                  "page % 8 == 0")
+            if paged_attn == "kernel" and kv8:
+                raise ValueError("the paged kernels read plain pools; kv8 "
+                                 "serves via paged_attn='gather'")
             if (paged_attn == "kernel"
                     and cfg.d_head not in SUPPORTED_KERNEL_D):
                 raise ValueError(
                     f"the paged-attention kernel takes d_head a multiple "
                     f"of 8 from 8 to 256; got {cfg.d_head}")
-            self._paged_kernel = pick_paged_kernel(
+            self._paged_kernel = not kv8 and pick_paged_kernel(
                 paged_attn, self.device.type, page, cfg.ctx_len, cfg.d_head,
                 speculative)
         else:
-            shape = (cfg.n_layers, n_slots, cfg.kv_heads, cfg.ctx_len,
-                     cfg.d_head)
+            if self._page_cache:
+                raise ValueError("page_cache requires paged=True (the cache "
+                                 "lives in the page pool)")
+            rows = cfg.window if self._ring else cfg.ctx_len
+            shape = (cfg.n_layers, n_slots, cfg.kv_heads, rows, cfg.d_head)
             self._cache = {
                 "k": torch.zeros(shape, dtype=dt, device=self.device),
                 "v": torch.zeros(shape, dtype=dt, device=self.device),
                 "pos": torch.zeros((n_slots,), dtype=torch.int32,
                                    device=self.device),
             }
+        if self._ring:
+            self._cache["rpos"] = torch.full((n_slots, cfg.window), -1,
+                                             dtype=torch.int32,
+                                             device=self.device)
+        # weights cast to the compute dtype once per engine: the admission
+        # extensions' ops, and the decode ops unless the weights are int8
+        # (the int8 decode keeps prefill in the compute dtype)
+        self._dense_ops = _dt_decode_ops(self.params, cfg)
+        self._decode_params = self.params
+        if quant_on:
+            from ..models.quant import quantize_gpt_params
+
+            self._decode_params = quantize_gpt_params(self.params, cfg)
+        # multi-LoRA: fixed-shape adapter stacks and a per-slot adapter id;
+        # requests wearing different adapters batch in one decode chunk
+        self._max_loras = int(max_loras)
+        self._n_loras = 0  # adapters registered so far
+        if self._max_loras:
+            if self._ring:
+                raise ValueError("multi-LoRA serving supports the dense "
+                                 "slot/paged engine (no ring/mesh)")
+            from ..models.lora import init_lora_stacks
+
+            self._lora_stacks = init_lora_stacks(
+                self.params, self._max_loras, lora_rank, dtype=dt)
+            self._cache["lora_ids"] = torch.zeros(
+                (n_slots,), dtype=torch.long, device=self.device)
+            self._decode_params = dict(self._decode_params,
+                                       _lora=self._lora_stacks)
         # speculative decoding: each chunk runs rounds of (1 + K)-row
         # draft + verify blocks (serve.spec); slots advance independently
         self._spec = int(speculative)
         if self._spec:
+            if (self._ring or quant_on or kv8
+                    or (self._paged and self._paged_kernel)):
+                # the JAX engine's refusal
+                # (linalg_tpu/serve/engine.py:570-590)
+                raise ValueError(
+                    "speculative serving supports the full-precision "
+                    "dense slot or paged(gather) engine, with or without "
+                    "multi-LoRA (no ring/mesh/quant/kv8: quant would "
+                    "recompute the pending prompt token through int8 ops "
+                    "that admission prefilled in f32)")
             from .spec import spec_cache_fields
 
             self._cache.update(spec_cache_fields(cfg, n_slots, self.device))
             self._spec_rounds = max(1, chunk // (self._spec + 1))
             self._budget = np.zeros((n_slots,), np.int32)
-        # weights cast to the compute dtype once per engine, not per chunk
-        self._ops = _dt_decode_ops(self.params, cfg)
+        self._ops = select_decode_ops(self._decode_params, cfg, self._cache,
+                                      self._dense_ops)
         self._logits = torch.full((n_slots, cfg.vocab_size), -1e9,
                                   dtype=torch.float32, device=self.device)
         self._temp = np.ones((n_slots,), np.float32)
@@ -400,10 +507,10 @@ class ServeEngine:
         suffix only. In paged mode the prefix's full pages are scattered
         into the pool once and pinned for the engine's lifetime: every
         admission points its table at them and owns privately only the
-        partial boundary page onward."""
-        if lora_id:
-            raise NotImplementedError(
-                f"lora_id is not ported yet ({_ROADMAP_LATER})")
+        partial boundary page onward. ``lora_id`` prefills the prefix
+        through that adapter's merged weights; only requests wearing the
+        same adapter may then use it."""
+        self._check_lora_id(lora_id)
         plen = len(tokens)
         limit = self.cfg.ctx_len - self.chunk - 1
         if not (0 < plen <= limit):
@@ -412,7 +519,7 @@ class ServeEngine:
                 f"(0, {limit}]; got {plen}")
         ids = torch.tensor([list(tokens)], dtype=torch.long,
                            device=self.device)
-        _, cache = gpt_prefill(self.params, ids, self.cfg)
+        _, cache = gpt_prefill(self._prefill_params(lora_id), ids, self.cfg)
         shared: List[int] = []
         if self._paged:
             nfull = plen // self._page
@@ -482,9 +589,40 @@ class ServeEngine:
             self.stats["page_cache_evicted"] += 1
             freed += 1
 
+    def _check_lora_id(self, lora_id: int) -> None:
+        if lora_id and (not self._max_loras or lora_id > self._n_loras):
+            raise ValueError(f"unknown lora_id {lora_id} "
+                             f"({self._n_loras} registered)")
+
+    def _prefill_params(self, lora_id: int):
+        """The dense weights an admission of adapter ``lora_id`` prefills
+        and extends with: the base, or the base merged with the adapter's
+        stack row for this admission only (``lora_merge_stacks``)."""
+        if not lora_id:
+            return self.params
+        from ..models.lora import lora_merge_stacks
+
+        return lora_merge_stacks(self.params, self._lora_stacks, lora_id)
+
     def register_lora(self, adapters, lcfg) -> int:
-        raise NotImplementedError(
-            f"LoRA serving is not ported yet ({_ROADMAP_LATER})")
+        """Register a LoRA adapter (``models.lora`` dict and config) for
+        per-request serving; returns its ``lora_id``. Requests wearing
+        different adapters still batch in one decode chunk (the per-slot
+        low-rank side-path). Registration writes one row of the stacks
+        allocated at construction (``max_loras``): N adapters cost N stack
+        rows, never N model copies."""
+        from ..models.lora import stack_lora
+
+        if not self._max_loras:
+            raise ValueError(
+                "construct the engine with max_loras=N to serve adapters")
+        if self._n_loras >= self._max_loras:
+            raise ValueError(
+                f"all {self._max_loras} adapter slots are registered")
+        idx = self._n_loras + 1
+        stack_lora(self._lora_stacks, adapters, lcfg, idx)
+        self._n_loras = idx
+        return idx
 
     def submit(self, req: Request) -> int:
         """Queue a request; returns its assigned request_id. Any prompt
@@ -493,9 +631,6 @@ class ServeEngine:
         plen = len(req.prompt)
         if plen == 0:
             raise ValueError("empty prompt")
-        if req.lora_id:
-            raise NotImplementedError(
-                f"lora_id is not ported yet ({_ROADMAP_LATER})")
         if self._auto_prefix and req.prefix_id is None:
             hit = self._match_prefix(req.prompt, req.lora_id)
             if hit is not None:
@@ -510,6 +645,36 @@ class ServeEngine:
             if req.prefix_id not in self._prefixes:
                 raise ValueError(f"unknown prefix_id {req.prefix_id}")
             pref_len = self._prefixes[req.prefix_id].plen
+        self._check_lora_id(req.lora_id)
+        if req.prefix_id is not None:
+            # a cached prefix KV bakes in the projections it was prefilled
+            # with: usable only by the same adapter
+            pref_lora = self._prefixes[req.prefix_id].lora_id
+            if pref_lora != req.lora_id:
+                raise ValueError(
+                    f"prefix {req.prefix_id} was prefilled with adapter "
+                    f"{pref_lora}; request wears {req.lora_id} — register "
+                    f"a per-adapter prefix (register_prefix(..., "
+                    f"lora_id={req.lora_id}))")
+        if self._ring:
+            # ring slots have unbounded positions: only the prompt must
+            # fit the bounded prefill
+            if pref_len + plen > self.cfg.ctx_len:
+                raise ValueError(
+                    f"prefix ({pref_len}) + prompt ({plen}) exceeds "
+                    f"ctx_len {self.cfg.ctx_len} (the prefill is bounded "
+                    f"even in ring mode)")
+        else:
+            self._check_budget(req, pref_len, plen)
+        req = dataclasses.replace(req, request_id=next(self._ids))
+        self._submit_ts[req.request_id] = time.perf_counter()
+        self._queue.append(req)
+        return req.request_id
+
+    def _check_budget(self, req: Request, pref_len: int, plen: int):
+        """The bounded engines' submit check: prefix + prompt + the
+        reserved decode budget fit ``ctx_len``, and in paged mode the
+        private pages fit a pool an idle engine can free."""
         reserved = self._reserved(req)
         if pref_len + plen + reserved > self.cfg.ctx_len:
             how = ("max_new_tokens + 2(n_draft+1) speculative slack"
@@ -532,10 +697,6 @@ class ServeEngine:
                     f"request needs {need} private pages but the pool can "
                     f"free at most {cap} (raise n_pages or lower "
                     f"max_new_tokens)")
-        req = dataclasses.replace(req, request_id=next(self._ids))
-        self._submit_ts[req.request_id] = time.perf_counter()
-        self._queue.append(req)
-        return req.request_id
 
     # -- engine loop --------------------------------------------------------
 
@@ -605,8 +766,12 @@ class ServeEngine:
         """The admission's dense KV: (k, v, next-token logits or None,
         rows). From the registered prefix, the gathered page-cache hits
         (``hit_ids``), or a prefill of the first window; then the rest of
-        ``prompt`` block-extends a window at a time."""
+        ``prompt`` block-extends a window at a time. All of it in the
+        compute dtype, through the request's adapter merged into the
+        weights when it wears one (int8 engines prefill in full
+        precision too)."""
         cfg, W, dev = self.cfg, self.prefill_window, self.device
+        params = self._prefill_params(req.lora_id)
         if req.prefix_id is not None:
             entry = self._prefixes[req.prefix_id]
             pk, pv, pos = entry.k, entry.v, entry.plen
@@ -622,15 +787,18 @@ class ServeEngine:
             first = min(len(prompt), W)
             ids = np.zeros((1, W), np.int64)
             ids[0, :first] = prompt[:first]
-            logits, cache = gpt_prefill(self.params,
-                                        torch.tensor(ids, device=dev), cfg,
-                                        length=first)
+            logits, cache = gpt_prefill(params, torch.tensor(ids, device=dev),
+                                        cfg, length=first)
             pk, pv = cache["k"], cache["v"]
             pos, rest = first, prompt[first:]
+        ops = None
         for off in range(0, len(rest), W):
+            if ops is None:
+                ops = (_dt_decode_ops(params, cfg) if req.lora_id
+                       else self._dense_ops)
             ids = torch.tensor(rest[off:off + W][None], dtype=torch.long,
                                device=dev)
-            logits, pk, pv = _extend_prefix(self._ops, cfg, pk, pv, pos, ids)
+            logits, pk, pv = _extend_prefix(ops, cfg, pk, pv, pos, ids)
             pos += ids.shape[1]
         return pk, pv, logits, pos
 
@@ -668,9 +836,15 @@ class ServeEngine:
                 self._cache, self._logits, pk, pv, total, logits, slot,
                 torch.tensor(scatter_ids, device=self.device),
                 torch.tensor(table_ids, device=self.device), cfg)
+        elif self._ring:
+            self._cache, self._logits = _admit_slot_ring(
+                self._cache, self._logits, pk, pv, total, logits, slot, cfg)
         else:
             self._cache, self._logits = _admit_slot(
                 self._cache, self._logits, pk, pv, total, logits, slot)
+        if self._max_loras:
+            # a reused slot drops its previous occupant's adapter
+            self._cache = _set_slot_lora(self._cache, slot, req.lora_id)
         req_k = self.top_k if req.top_k is None else req.top_k
         if (self._temp[slot] != req.temperature
                 or self._top_p[slot] != req.top_p
@@ -828,6 +1002,12 @@ class ServeEngine:
                 self._ops, self._cache, self._logits, self._gen,
                 *self._samp_dev, self.cfg, self.chunk,
                 use_kernel=self._paged_kernel)
+        elif self._ring:
+            from ..models.stream import stream_chunk_slots
+
+            toks, self._logits, self._cache = stream_chunk_slots(
+                self._ops, self._cache, self._logits, self._gen,
+                *self._samp_dev, self.cfg, self.chunk)
         else:
             toks, self._logits, self._cache = decode_chunk_slots(
                 self._ops, self._cache, self._logits, self._gen,

@@ -32,6 +32,11 @@ Decode attention reads the pool one of two ways:
   run the grouped decode attention over it — the JAX ``use_kernel=False``
   path, kept as an engine mode the user picks (``paged_attn="gather"``).
 
+``kv8`` pools hold int8 rows with a per-row f32 scale ({"q", "s"}
+dicts): each row is quantized once, when it is written, and the gather
+dequantizes it; the kernels read plain pools only, as in the JAX
+package.
+
 The pools, table and positions are updated IN PLACE.
 """
 
@@ -45,6 +50,7 @@ import torch
 from ..kernels.paged_attention import SUPPORTED_D as SUPPORTED_KERNEL_D
 from ..kernels.paged_attention import TILE_ROWS, paged_attention_cuda
 from ..models.gpt import GPTConfig, _decode_chunk_core, _gqa_decode_attn
+from ..models.quant import _kv8_dequant, _kv_row_quantize, _layer_views
 
 __all__ = ["init_paged_cache", "PageAllocator", "decode_chunk_paged",
            "paged_attention", "paged_attention_ref",
@@ -56,9 +62,15 @@ NEG_INIT = float(torch.finfo(torch.float32).min) / 2
 
 
 def init_paged_cache(cfg: GPTConfig, n_slots: int, n_pages: int, page: int,
-                     device=None):
+                     kv8: bool = False, device=None):
     """Zeroed paged cache. ``ctx_len`` must divide by ``page``; page 0 is
-    the trash page."""
+    the trash page.
+
+    ``kv8=True`` stores the pools int8 with a per-row f32 scale (each row
+    quantized once, at write time, against its own max-abs: the
+    ``models.quant`` int8-KV scheme), so the same memory holds about twice
+    the pages of bf16. The pools are then {"q": int8 (..., page, d), "s":
+    f32 (..., page, 1)} dicts, read by the table gather only."""
     if cfg.ctx_len % page:
         raise ValueError(f"page size {page} must divide ctx_len "
                          f"{cfg.ctx_len}")
@@ -66,9 +78,17 @@ def init_paged_cache(cfg: GPTConfig, n_slots: int, n_pages: int, page: int,
         raise ValueError("need at least 2 pages (page 0 is the trash page)")
     shape = (cfg.n_layers, n_pages, cfg.kv_heads, page, cfg.d_head)
     dt = cfg.compute_dtype
+
+    def pool():
+        if kv8:
+            return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "s": torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                     device=device)}
+        return torch.zeros(shape, dtype=dt, device=device)
+
     return {
-        "pool_k": torch.zeros(shape, dtype=dt, device=device),
-        "pool_v": torch.zeros(shape, dtype=dt, device=device),
+        "pool_k": pool(),
+        "pool_v": pool(),
         "table": torch.zeros((n_slots, cfg.ctx_len // page),
                              dtype=torch.int32, device=device),
         "pos": torch.zeros((n_slots,), dtype=torch.int32, device=device),
@@ -90,6 +110,8 @@ class PageAllocator:
         """Take ``n`` pages or raise MemoryError (caller checks n_free)."""
         if n > len(self._free):
             raise MemoryError(f"need {n} pages, {len(self._free)} free")
+        if n <= 0:  # the JAX allocator's [-0:] slice would take them all
+            return []
         taken, self._free = self._free[-n:], self._free[:-n]
         return list(reversed(taken))
 
@@ -108,11 +130,18 @@ def _pages_of(x, page: int):
 
 def _scatter_pages(cache, slot_k, slot_v, page_ids):
     """Write a prefilled sequence's pages into the pool at ``page_ids``
-    ((ctx/page,) int); entries 0 dump their rows into the trash page."""
-    page = cache["pool_k"].shape[3]
+    ((ctx/page,) int); entries 0 dump their rows into the trash page. An
+    int8 pool quantizes each row here, by the rule decode writes use."""
     ids = page_ids.long()
-    cache["pool_k"][:, ids] = _pages_of(slot_k, page)
-    cache["pool_v"][:, ids] = _pages_of(slot_v, page)
+    for name, slot in (("pool_k", slot_k), ("pool_v", slot_v)):
+        pool = cache[name]
+        if isinstance(pool, dict):
+            q, s = _kv_row_quantize(slot)
+            page = pool["q"].shape[3]
+            pool["q"][:, ids] = _pages_of(q, page)
+            pool["s"][:, ids] = _pages_of(s, page)
+        else:
+            pool[:, ids] = _pages_of(slot, pool.shape[3])
     return cache
 
 
@@ -250,32 +279,46 @@ def decode_chunk_paged(ops, cache, logits, generator, temp, top_p, top_k,
                        use_kernel: bool = False):
     """Sample ``n_tokens`` for every slot of a paged cache.
 
-    ``ops`` are the decode ops ``models.gpt._dt_decode_ops(params, cfg)``
-    (built once per engine: the weights cast to the compute dtype);
+    ``ops`` are the engine's decode ops (``serve.engine.select_decode_ops``:
+    the weights cast to the compute dtype, int8 weights, and/or the
+    per-slot LoRA side-path: none of them touches the KV layout);
     ``temp``/``top_p``/``top_k`` are (B,) per-slot tensors. Each step
     writes the new token's K/V at (page, row) = (table[s, pos/page],
     pos % page), positions clamped to ctx-1 so idle slots write into the
     trash page, then reads the pool — through ``paged_attention`` with
-    ``use_kernel``, else through the table gather. Updates ``cache`` in
-    place; returns (tokens (B, n), logits, cache)."""
+    ``use_kernel``, else through the table gather. An int8 (kv8) pool
+    quantizes each written row and dequantizes in the gather; the kernels
+    read plain pools only. Updates ``cache`` in place; returns (tokens
+    (B, n), logits, cache)."""
     table = cache["table"]
     B = table.shape[0]
-    page = cache["pool_k"].shape[3]
+    kv8 = isinstance(cache["pool_k"], dict)
+    page = (cache["pool_k"]["q"] if kv8 else cache["pool_k"]).shape[3]
     ctx = cfg.ctx_len
+    dt = cfg.compute_dtype
     bidx = torch.arange(B, device=table.device)
     heads = torch.arange(cfg.kv_heads, device=table.device)[None, :]
 
+    if use_kernel and kv8:
+        raise ValueError("the paged kernels read plain pools; kv8 uses the "
+                         "gather path")
     if use_kernel:
         def paged_attn(q, pk_l, pv_l, mask, pos):
             return paged_attention(q, pk_l, pv_l, mask, table, pos)
 
         paged_attn.wants_pos = True  # the page walk stops at the position
     else:
-        def paged_attn(q, pk_l, pv_l, mask):
-            return _gqa_decode_attn(q, _gather_pages(pk_l, table),
-                                    _gather_pages(pv_l, table), mask)
+        def gathered(pool):
+            if isinstance(pool, dict):  # int8 rows * per-row scale
+                return _kv8_dequant({"q": _gather_pages(pool["q"], table),
+                                     "s": _gather_pages(pool["s"], table)},
+                                    dt)
+            return _gather_pages(pool, table)
 
-    def write_paged(pk_l, pv_l, pos, k, v):
+        def paged_attn(q, pk_l, pv_l, mask):
+            return _gqa_decode_attn(q, gathered(pk_l), gathered(pv_l), mask)
+
+    def write_rows(pk_l, pv_l, pos, k, v):
         # one flat row scatter per pool: row (page, head, row) of the
         # (n_pages*hk*page, d) view. Duplicate targets only arise between
         # idle slots colliding on the trash page, where any value will do.
@@ -288,8 +331,18 @@ def decode_chunk_paged(ops, cache, logits, generator, temp, top_p, top_k,
         pv_l.view(n_pg * hk * pg, d)[ridx] = v[:, :, 0, :].reshape(-1, d)
         return pk_l, pv_l
 
-    toks, logits, pk, pv, pos = _decode_chunk_core(
-        cfg, dict(ops, attn=paged_attn), logits, cache["pool_k"],
-        cache["pool_v"], cache["pos"], 0, generator, n_tokens,
-        temp[:, None], top_k, top_p[:, None], write_paged)
-    return toks, logits, dict(cache, pool_k=pk, pool_v=pv, pos=pos)
+    def write_paged(pk_l, pv_l, pos, k, v):
+        if not kv8:
+            return write_rows(pk_l, pv_l, pos, k, v)
+        kq, ks = _kv_row_quantize(k)
+        vq, vs = _kv_row_quantize(v)
+        write_rows(pk_l["q"], pv_l["q"], pos, kq, vq)
+        write_rows(pk_l["s"], pv_l["s"], pos, ks, vs)
+        return pk_l, pv_l
+
+    toks, logits, _, _, pos = _decode_chunk_core(
+        cfg, dict(ops, attn=paged_attn), logits,
+        _layer_views(cache["pool_k"]), _layer_views(cache["pool_v"]),
+        cache["pos"], 0, generator, n_tokens, temp[:, None], top_k,
+        top_p[:, None], write_paged)
+    return toks, logits, dict(cache, pos=pos)

@@ -15,19 +15,24 @@ every-20-steps loss print is the loop's only host sync besides evals.
 ``--sp N [--dp M]`` trains sequence-parallel (``train_sharded``): the
 mesh's ranks share one device and attention runs the ring kernels.
 ``--tokenizer bpe --vocab_size N`` trains byte-level BPE on the corpus
-first (its merges ride the checkpoint). ``sample`` streams text from a
-model through the KV-cached decode.
+first (its merges ride the checkpoint). ``--lora_rank R`` finetunes
+rank-R adapters on a trained base checkpoint (``train_lora``): the
+gradients are the adapters' only, through ``models.lora.lora_merge``,
+and the model's backwards stay its hand-derived ones. ``sample`` streams
+text from a model through the KV-cached decode: int8 weights (and int8
+KV) with ``quant``, and a windowed RoPE/ALiBi model through the
+O(window) ring of ``models.stream``, with no rollover.
 
 Not ported yet, and refused with the ROADMAP.md item that brings each:
-LoRA, quantized decode and ring-mode streaming (queue 1, item 5), MoE
-(item 6), the other sharded trainers (--tp, --pp, --fsdp, --dp without
---sp: item 7).
+MoE (item 6), the other sharded trainers (--tp, --pp, --fsdp, --dp
+without --sp: item 7).
 """
 
 from __future__ import annotations
 
 import codecs
 import json
+import math
 import time
 from typing import Iterator, Tuple
 
@@ -47,13 +52,20 @@ __all__ = ["train", "train_sharded", "make_train_step",
            "make_device_train_step", "eval_avg", "sample"]
 
 
-def _value_and_grad(params, x, y, cfg, attn_fn=None):
+def _value_and_grad(params, x, y, cfg, attn_fn=None, lora=None):
     """(loss, grads shaped like params) of ``gpt_loss`` (attention
-    ``attn_fn``, default the model's pick)."""
+    ``attn_fn``, default the model's pick). With ``lora`` = (frozen base
+    params, LoRAConfig), ``params`` are the adapters and the loss runs on
+    ``lora_merge(base, adapters)``: the gradients flow into A/B only."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    loss = gpt_loss(params, x, y, cfg, attn_fn=attn_fn)
+    model = params
+    if lora is not None:
+        from ..models.lora import lora_merge
+
+        model = lora_merge(lora[0], params, lora[1])
+    loss = gpt_loss(model, x, y, cfg, attn_fn=attn_fn)
     grads = iter(torch.autograd.grad(loss, leaves))
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
@@ -89,7 +101,7 @@ def make_device_train_step(cfg: GPTConfig, batch_size: int, *,
                            max_steps: int, weight_decay: float,
                            lr_embed_scale: float = 1.0,
                            lr_head_scale: float = 1.0, grad_accum: int = 1,
-                           clip_norm: float = 0.0, attn_fn=None):
+                           clip_norm: float = 0.0, attn_fn=None, lora=None):
     """Build ``train_step(params, opt_state, data_ids, generator) ->
     (params, opt_state, generator, loss)``: batch windows are sampled on
     the device holding ``data_ids`` from ``generator``.
@@ -98,7 +110,12 @@ def make_device_train_step(cfg: GPTConfig, batch_size: int, *,
     microbatches and applies ONE update on the averaged gradients — the
     full-batch step at 1/grad_accum the activation memory. The schedule is
     driven by the optimizer's own step count. ``attn_fn`` replaces the
-    model's attention pick (the sequence-parallel ring)."""
+    model's attention pick (the sequence-parallel ring).
+
+    ``lora`` = (frozen base params, LoRAConfig) makes it a LoRA finetune
+    step: ``params`` are the adapter dict, the loss runs on the merged
+    weights, and the base stays constant. The name-keyed wd and lr masks
+    see adapter names (``Wq_A``, ...): no decay, unit lr scale."""
     B, T = batch_size, cfg.ctx_len
     if grad_accum < 1 or B % grad_accum:
         raise ValueError(
@@ -108,12 +125,13 @@ def make_device_train_step(cfg: GPTConfig, batch_size: int, *,
     def train_step(params, opt_state, data_ids, generator):
         x, y = _windows(data_ids, B, T, generator)
         if grad_accum == 1:
-            loss, grads = _value_and_grad(params, x, y, cfg, attn_fn)
+            loss, grads = _value_and_grad(params, x, y, cfg, attn_fn, lora)
         else:
             loss, grads = 0.0, None
             for i in range(grad_accum):
                 sl = slice(i * micro, (i + 1) * micro)
-                l, g = _value_and_grad(params, x[sl], y[sl], cfg, attn_fn)
+                l, g = _value_and_grad(params, x[sl], y[sl], cfg, attn_fn,
+                                       lora)
                 loss = loss + l
                 grads = g if grads is None else tree_map(torch.add, grads, g)
             loss = loss / grad_accum
@@ -224,11 +242,13 @@ class _MetricsLog:
 
 
 def _train_loop(args, cfg, params, opt_state, generator, step_fn, eval_fn,
-                train_ids, val_ids, tok, stoi, itos, desc: str = ""):
+                train_ids, val_ids, tok, stoi, itos, desc: str = "",
+                save_fn=None):
     """The training loop: ``step_fn(params, opt_state, train_ids,
     generator)`` per step, ``eval_fn(params, val_ids, generator)`` every
-    ``args.eval_every`` steps, the best checkpoint saved on improvement.
-    Printing every 20 steps is the host sync."""
+    ``args.eval_every`` steps, the best checkpoint saved on improvement
+    (``save_fn(params) -> path`` instead of ``save_ckpt`` when given: LoRA
+    saves the adapters only). Printing every 20 steps is the host sync."""
     from ..utils.profiling import StepTimer, trace
 
     best = 1e9
@@ -261,8 +281,9 @@ def _train_loop(args, cfg, params, opt_state, generator, step_fn, eval_fn,
                 saved = None
                 if val_loss < best:
                     best = val_loss
-                    path = save_ckpt(args.ckpt_dir, params, cfg, stoi, itos,
-                                     tokenizer=tok)
+                    path = (save_fn(params) if save_fn is not None else
+                            save_ckpt(args.ckpt_dir, params, cfg, stoi, itos,
+                                      tokenizer=tok))
                     print(f"  saved best -> {path}  (val {best:.4f})")
                     saved = str(path)
                 mlog.write(event="eval", step=step, val_loss=val_loss,
@@ -346,22 +367,83 @@ def train_sharded(args, dp: int, tp: int, device):
     return params, cfg, stoi, itos
 
 
+def train_lora(args) -> Tuple[dict, GPTConfig, dict, dict]:
+    """LoRA finetune: freeze the trained base checkpoint in
+    ``args.ckpt_dir``, train rank-``args.lora_rank`` adapters on the
+    corpus and save adapter-only checkpoints to ``--lora_dir`` (default
+    <ckpt_dir>/lora), resuming from adapters found there. Returns the
+    MERGED params (the JAX package's ``train_lora``)."""
+    import pathlib
+
+    from ..models.lora import (LoRAConfig, init_lora_params, load_lora,
+                               lora_merge, save_lora)
+
+    device = resolve_device(getattr(args, "device", None))
+    text = load_text(getattr(args, "data", None))
+    try:
+        params, cfg, stoi, itos = load_ckpt(args.ckpt_dir, device=device)
+        tok = load_tokenizer(args.ckpt_dir)
+    except Exception as e:
+        raise ValueError(
+            "LoRA finetuning adapts a TRAINED base model: --ckpt_dir must "
+            "hold a loadable checkpoint (train one first, without "
+            "--lora_rank)") from e
+    lora_dir = getattr(args, "lora_dir", "") or str(
+        pathlib.Path(args.ckpt_dir) / "lora")
+    lcfg = LoRAConfig(rank=int(args.lora_rank),
+                      alpha=float(getattr(args, "lora_alpha", 16.0)),
+                      targets=getattr(args, "lora_targets", "attn"))
+    try:
+        adapters, lcfg = load_lora(lora_dir, device=device)
+        print(f"resumed LoRA adapters from {lora_dir} "
+              f"(rank {lcfg.rank}, targets {lcfg.targets})")
+    except Exception:
+        adapters = init_lora_params(params, lcfg, seed=args.seed,
+                                    device=device)
+        n_ad = sum(x.numel() for x in tree_leaves(adapters))
+        n_base = sum(x.numel() for x in tree_leaves(params))
+        print(f"fresh LoRA adapters: rank {lcfg.rank}, targets "
+              f"{lcfg.targets}, {n_ad:,} trainable params "
+              f"({100 * n_ad / n_base:.1f}% of the base model)")
+    train_ids, val_ids = _corpus(tok, text, device)
+    step_fn = make_device_train_step(
+        cfg, args.batch_size, lora=(params, lcfg),
+        grad_accum=int(getattr(args, "grad_accum", 1) or 1),
+        clip_norm=float(getattr(args, "clip_norm", 0.0) or 0.0),
+        **_lr_kwargs(args))
+
+    def eval_fn(a, v, g):
+        return _eval_device(lora_merge(params, a, lcfg), v, g, cfg,
+                            args.batch_size, 20)
+
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    adapters = _train_loop(args, cfg, adapters, adamw_init(adapters),
+                           generator, step_fn, eval_fn, train_ids, val_ids,
+                           tok, stoi, itos, desc="lora: ",
+                           save_fn=lambda a: save_lora(lora_dir, a, lcfg))
+    for p in tree_leaves(adapters):
+        p.requires_grad_(False)
+    return lora_merge(params, adapters, lcfg), cfg, stoi, itos
+
+
 def train(args) -> Tuple[dict, GPTConfig, dict, dict]:
     """Run the training loop on ``args.device`` (default: the card; the
     CPU only when asked for); returns (params, cfg, stoi, itos). ``--sp``
-    (with ``--dp``) trains sequence-parallel (``train_sharded``)."""
+    (with ``--dp``) trains sequence-parallel (``train_sharded``),
+    ``--lora_rank`` finetunes adapters (``train_lora``)."""
     axes = {a: int(getattr(args, a, 1) or 1)
             for a in ("dp", "tp", "sp", "pp", "fsdp")}
+    if int(getattr(args, "lora_rank", 0) or 0) > 0:
+        if math.prod(axes.values()) > 1:
+            raise ValueError("LoRA finetuning runs single-device; drop the "
+                             "--dp/--tp/--sp/--pp/--fsdp flags")
+        return train_lora(args)
     for axis, size in axes.items():
         if size > 1 and (axis in ("pp", "fsdp") or axes["sp"] == 1):
             raise NotImplementedError(
                 f"--{axis} (multi-device training) is not ported yet "
                 "(ROADMAP.md queue 1, item 7: parallelism; --sp with --dp "
                 "is)")
-    if int(getattr(args, "lora_rank", 0) or 0) > 0:
-        raise NotImplementedError(
-            "--lora_rank (LoRA finetuning) is not ported yet (ROADMAP.md "
-            "queue 1, item 5)")
     device = resolve_device(getattr(args, "device", None))
     if axes["sp"] > 1:
         return train_sharded(args, axes["dp"], axes["tp"], device)
@@ -402,34 +484,46 @@ def sample(params, cfg: GPTConfig, ctx_ids, itos, steps: int = 200,
            temperature: float = 1.0, top_k: int = 0, seed: int = 0,
            chunk: int = 256, top_p: float = 0.0, quant: str = "none"):
     """Streaming generator of text pieces: KV-cached incremental decode,
-    the JAX package's ``sample`` (dense path).
+    the JAX package's ``sample``.
 
     ``itos`` is the char id -> char dict, a char tokenizer, or a BPE
     tokenizer (bytes through an incremental UTF-8 decoder). The prompt is
     prefilled once (right-padded to the fixed window ``keep``), then each
-    ``gpt_decode_chunk`` samples n = max(1, min(chunk, ctx_len // 2))
-    tokens on the device and one copy brings them to the host. When fewer
-    than n cache rows are left, the last ``keep`` = ctx_len - n ids are
-    prefilled again (context rollover). Draws come from one generator on
-    the parameters' device seeded with ``seed``.
+    chunk samples n = max(1, min(chunk, ctx_len // 2)) tokens on the
+    device and one copy brings them to the host. Draws come from one
+    generator on the parameters' device seeded with ``seed``.
 
-    Refused, naming their ROADMAP.md items: MoE configs (item 6),
-    quantized decode and the ring-cache stream of windowed RoPE/ALiBi
-    models (item 5)."""
+    - A windowed RoPE/ALiBi model in full precision streams through the
+      O(window) ring (``models.stream``): positions run past ctx_len with
+      no rollover and no second prefill.
+    - Otherwise, when fewer than n cache rows are left, the last ``keep``
+      = ctx_len - n ids are prefilled again (context rollover).
+    - ``quant="int8"`` decodes through int8 weights
+      (``models.quant.gpt_decode_chunk_q``, mode "deq"), ``"int8kv"`` with
+      the KV cache int8 too; the prefill stays full precision.
+
+    MoE configs are refused (ROADMAP.md queue 1, item 6)."""
     if getattr(cfg, "n_experts", 0):
         raise NotImplementedError(
             "sampling an MoE model is not ported yet (ROADMAP.md queue 1, "
             "item 6: MoE)")
     if quant in ("int8", "int8kv"):
-        raise NotImplementedError(
-            f"quant={quant!r} decode is not ported yet (ROADMAP.md queue 1, "
-            "item 5: quantization)")
-    if quant not in ("", "none"):
+        from ..models.quant import (gpt_decode_chunk_q, quantize_gpt_params,
+                                    quantize_kv_cache)
+
+        qparams = quantize_gpt_params(params, cfg)
+        kv8 = quant == "int8kv"
+
+        def decode_chunk(p, *a):
+            return gpt_decode_chunk_q(qparams, *a, kv8=kv8)
+
+        def prefill_fn(p, ids, c, length):
+            logits, cache = gpt_prefill(p, ids, c, length)
+            return logits, (quantize_kv_cache(cache) if kv8 else cache)
+    elif quant in ("", "none"):
+        decode_chunk, prefill_fn = gpt_decode_chunk, gpt_prefill
+    else:
         raise ValueError(f"unknown quant mode: {quant!r}")
-    if cfg.window is not None and cfg.pos in ("rope", "alibi"):
-        raise NotImplementedError(
-            "a windowed RoPE/ALiBi model samples through the ring-cache "
-            "stream, not ported yet (ROADMAP.md queue 1, item 5: ring mode)")
     emit = _emitter(itos)
     dev = params["tok_W"].device
     generator = torch.Generator(device=dev).manual_seed(seed)
@@ -441,19 +535,32 @@ def sample(params, cfg: GPTConfig, ctx_ids, itos, steps: int = 200,
         ids = ids[-keep:]
         buf = np.zeros((1, keep), dtype=np.int64)
         buf[0, :len(ids)] = ids
-        logits, cache = gpt_prefill(params, torch.as_tensor(buf, device=dev),
-                                    cfg, len(ids))
+        logits, cache = prefill_fn(params, torch.as_tensor(buf, device=dev),
+                                   cfg, len(ids))
         return logits, cache, len(ids)
 
     logits, cache, length = prefill(ids)
+    stream = (cfg.window is not None and cfg.pos in ("rope", "alibi")
+              and quant in ("", "none"))
+    if stream:
+        from ..models.stream import (gpt_stream_chunk, init_stream_cache,
+                                     stream_fill)
+
+        ring = stream_fill(init_stream_cache(cfg, device=dev), cache, length,
+                           cfg)
     remaining = steps
     while remaining > 0:
-        if cfg.ctx_len - length < n:  # context full: slide the window
-            logits, cache, length = prefill(ids)
-        toks, logits, cache = gpt_decode_chunk(
-            params, cache, logits, generator, cfg, n, temperature, top_k,
-            top_p)
-        length += n
+        if stream:
+            toks, logits, ring = gpt_stream_chunk(
+                params, ring, logits, generator, cfg, n, temperature, top_k,
+                top_p)
+        else:
+            if cfg.ctx_len - length < n:  # context full: slide the window
+                logits, cache, length = prefill(ids)
+            toks, logits, cache = decode_chunk(
+                params, cache, logits, generator, cfg, n, temperature,
+                top_k, top_p)
+            length += n
         emit_n = min(n, remaining)
         for t in toks[0, :emit_n].cpu().tolist():  # one copy per chunk
             ids.append(t)

@@ -193,9 +193,9 @@ class TestParams:
     def test_config_validation(self):
         """The JAX package's validation; rope, alibi, the gated FFNs and a
         window construct (and equal the JAX configs field for field), and
-        the serving engine takes each of them. It refuses only what the
-        JAX engine serves in ring mode, a window with RoPE or ALiBi,
-        naming ROADMAP.md queue 1 item 5."""
+        the serving engine takes each of them: a window with RoPE or
+        ALiBi in ring mode (an O(window) ring a slot), whose paged form
+        raises the JAX engine's ValueError."""
         from linalg_tpu_torch.serve.engine import ServeEngine
 
         with pytest.raises(ValueError, match="n_kv_heads"):
@@ -214,8 +214,11 @@ class TestParams:
                                ctx_len=64, **kw))
             params = tgpt.init_gpt_params(cfg)
             if "window" in kw and "pos" in kw:
-                with pytest.raises(NotImplementedError, match="item 5"):
-                    ServeEngine(params, cfg, chunk=8, device="cpu")
+                eng = ServeEngine(params, cfg, chunk=8, device="cpu")
+                assert eng._ring and eng._cache["k"].shape[3] == 4
+                with pytest.raises(ValueError, match="paged KV supports"):
+                    ServeEngine(params, cfg, chunk=8, paged=True, page=8,
+                                device="cpu")
             else:
                 for paged in (False, True):
                     ServeEngine(params, cfg, chunk=8, paged=paged, page=8,

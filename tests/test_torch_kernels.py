@@ -1156,3 +1156,56 @@ def test_ring_autograd_on_card(cuda):
         outs.append((o.detach(), q.grad, k.grad, v.grad))
     for g, w in zip(*outs):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def _engine_tokens(params, cfg, device, reqs, adapters=(), **kw):
+    from linalg_tpu_torch.serve import Request, ServeEngine
+
+    eng = ServeEngine(params, cfg, n_slots=3, chunk=4, top_k=1,
+                      prefill_window=16, paged=True, page=16, device=device,
+                      **kw)
+    for ad in adapters:
+        eng.register_lora(*ad)
+    ids = [eng.submit(Request(p, n, lora_id=lid)) for p, n, lid in reqs]
+    done = {c.request_id: c for c in eng.run()}
+    return [done[i].tokens for i in ids], eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ops", ["int8", "lora"])
+def test_paged_kernel_under_int8_and_lora_ops(cuda, ops):
+    """K5/K6 with int8 decode ops or the per-slot LoRA side-path around
+    them: one paged kernel call a layer and decode step, and float32
+    greedy tokens equal to the gather engine's (the plain read)."""
+    from linalg_tpu_torch.models.gpt import GPTConfig, init_gpt_params
+    from linalg_tpu_torch.models.lora import LoRAConfig, init_lora_params
+
+    cfg = GPTConfig(vocab_size=31, d_model=128, n_heads=4, n_kv_heads=2,
+                    n_layers=2, ctx_len=128)
+    params = init_gpt_params(cfg, seed=7, device=cuda)
+    rng = np.random.default_rng(9)
+    reqs = [(rng.integers(0, 31, int(n)).tolist(), int(b), i % 2)
+            for i, (n, b) in enumerate(((3, 20), (30, 9), (12, 16),
+                                        (5, 6), (20, 14)))]
+    kw, adapters = {}, ()
+    if ops == "int8":
+        kw = dict(quant="int8")
+        reqs = [(p, n, 0) for p, n, _ in reqs]
+    else:
+        ad = init_lora_params(params, LoRAConfig(rank=4), seed=1)
+        for k, v in ad["layers"].items():
+            if k.endswith("_B"):
+                ad["layers"][k] = torch.tensor(
+                    rng.normal(0, 0.05, tuple(v.shape)), dtype=torch.float32,
+                    device=cuda)
+        adapters = ((ad, LoRAConfig(rank=4)),)
+        kw = dict(max_loras=1, lora_rank=4)
+    outs = {}
+    for read in ("kernel", "gather"):
+        before = paged_attention_cuda.launches
+        outs[read], eng = _engine_tokens(params, cfg, cuda, reqs, adapters,
+                                         paged_attn=read, **kw)
+        n = paged_attention_cuda.launches - before
+        assert n == (eng.stats["chunks"] * eng.chunk * cfg.n_layers
+                     if read == "kernel" else 0)
+    assert outs["kernel"] == outs["gather"]

@@ -296,15 +296,27 @@ def test_sample_greedy_equals_jax(monkeypatch):
 
 
 def test_sample_refusals():
+    """The JAX sampler's refusal of an unknown quant mode; the windowed
+    RoPE/ALiBi stream and the int8 modes (once refused) now sample."""
+    itos = {i: chr(65 + i % 26) for i in range(BASE["vocab_size"])}
     kw = dict(BASE, window=8)
     for pos in ("rope", "alibi"):
         tc = tgpt.GPTConfig(pos=pos, **kw)
-        with pytest.raises(NotImplementedError, match="item 5"):
-            next(ttrainer.sample(tgpt.init_gpt_params(tc), tc, [1], {}))
+        out = "".join(ttrainer.sample(tgpt.init_gpt_params(tc), tc, [1],
+                                      itos, steps=60, chunk=16))
+        assert len(out) == 60
     tc = tgpt.GPTConfig(**BASE)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        next(ttrainer.sample(tgpt.init_gpt_params(tc), tc, [1], {},
-                             quant="int8"))
+    for quant in ("int8", "int8kv"):
+        assert len("".join(ttrainer.sample(tgpt.init_gpt_params(tc), tc,
+                                           [1], itos, steps=5,
+                                           quant=quant))) == 5
+    with pytest.raises(ValueError, match="unknown quant mode"):
+        next(ttrainer.sample(tgpt.init_gpt_params(tc), tc, [1], itos,
+                             quant="int4"))
+    with pytest.raises(ValueError, match="unknown quant mode"):
+        next(jtrainer.sample(jgpt.init_gpt_params(jgpt.GPTConfig(**BASE)),
+                             jgpt.GPTConfig(**BASE), [1], itos,
+                             quant="int4"))
 
 
 def tv(counts, p):

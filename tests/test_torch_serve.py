@@ -82,7 +82,7 @@ def test_engine_matches_jax(jax_tokens, mode, seed, stop):
 
 # RoPE, ALiBi, a window and the gated FFNs: the slot and paged engines
 # serve each as the JAX slot engine does (a window WITH RoPE or ALiBi is
-# the JAX engine's ring mode, which is not ported). RoPE at d_head 128, as
+# the ring mode, tests/test_torch_stream_cache.py). RoPE at d_head 128, as
 # tests/test_paged.py:269 holds its kernel; d_head 8 as
 # tests/test_paged.py:288 serves through its kernels; the others at
 # CFG_KW's d 32
@@ -152,11 +152,22 @@ def test_kernel_engine_matches_gather_engine(name):
 
 
 def test_ring_configs_raise_naming_the_roadmap():
+    """A window with RoPE or ALiBi (once refused, naming the ROADMAP)
+    takes ring mode: O(window) slot rows, any position; the paged engine
+    refuses it with the JAX engine's ValueError, in both packages."""
     for pos in ("rope", "alibi"):
-        cfg = GPTConfig(**dict(CFG_KW, pos=pos, window=7))
-        with pytest.raises(NotImplementedError, match="ring mode.*item 5"):
-            ServeEngine(init_gpt_params(cfg), cfg, device="cpu",
-                        **ENGINE_KW)
+        kw = dict(CFG_KW, pos=pos, window=7)
+        cfg = GPTConfig(**kw)
+        eng = ServeEngine(init_gpt_params(cfg), cfg, device="cpu",
+                          **ENGINE_KW)
+        assert eng._ring and eng._cache["k"].shape[3] == 7
+        assert eng._cache["rpos"].shape == (ENGINE_KW["n_slots"], 7)
+        for make, c in ((lambda c, **k: ServeEngine(
+                init_gpt_params(c), c, device="cpu", **k), cfg),
+                        (lambda c, **k: JEngine(jinit(c), c, **k),
+                         JCfg(**kw))):
+            with pytest.raises(ValueError, match="paged KV supports"):
+                make(c, paged=True, page=16, **ENGINE_KW)
 
 
 def test_jax_paged_engine_matches_port():
@@ -201,22 +212,24 @@ def test_sampled_run_is_seeded_and_complete():
 
 class TestErrors:
     def test_unported_features_raise(self):
-        """quant, LoRA and kv8 are not ported (item 5); the features this
-        port serves refuse the combinations the JAX engine refuses, with
-        its ValueErrors."""
+        """Mesh serving is not ported (item 7); the features this port
+        serves refuse the combinations the JAX engine refuses, with its
+        ValueErrors (quant, LoRA and kv8, once refused as unported, now
+        serve: tests/test_torch_quant.py, tests/test_torch_lora.py)."""
+        with pytest.raises(NotImplementedError, match="item 7"):
+            ServeEngine(PARAMS, CFG, mesh=object(), device="cpu")
         for kw in (dict(quant="int8"), dict(max_loras=2),
-                   dict(paged=True, kv8=True)):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                ServeEngine(PARAMS, CFG, device="cpu", **kw)
+                   dict(paged=True, kv8=True, paged_attn="gather")):
+            ServeEngine(PARAMS, CFG, device="cpu", **kw)
         with pytest.raises(ValueError, match="speculative"):
             ServeEngine(PARAMS, CFG, paged=True, page=16, speculative=2,
                         paged_attn="kernel", device="cpu")
         with pytest.raises(ValueError, match="page_cache requires paged"):
             ServeEngine(PARAMS, CFG, page_cache=True, device="cpu")
         eng = ServeEngine(PARAMS, CFG, device="cpu", **ENGINE_KW)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="unknown lora_id"):
             eng.register_prefix([1, 2, 3], lora_id=1)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="unknown lora_id"):
             eng.submit(Request([1, 2], 4, lora_id=1))
 
     def test_submit_validation(self):

@@ -467,10 +467,10 @@ class TestCLI:
         (["--train", "--pp", "2"], "item 7"),
         (["--train", "--sp", "2", "--pp", "2"], "item 7"),
         (["--train", "--fsdp", "2"], "item 7"),
-        (["--train", "--lora_rank", "4"], "item 5"),
         (["--train", "--experts", "4"], "item 6"),
-        (["--serve", "--quant", "int8kv"], "item 5"),
-        (["--repl", "--quant", "int8"], "item 5"),
+        (["--train", "--microbatches", "4"], "item 7"),
+        (["--train", "--router_top_k", "2"], "item 6"),
+        (["--train", "--dispatch", "gather"], "item 6"),
     ])
     def test_unported_flags_raise(self, argv, item):
         with pytest.raises(NotImplementedError, match=item):
@@ -511,8 +511,16 @@ class TestCLI:
         args = tapp.build_parser().parse_args(["--tp", "2"])
         with pytest.raises(NotImplementedError, match="item 7"):
             ttrainer.train(args)
-        args = tapp.build_parser().parse_args(["--lora_rank", "2"])
-        with pytest.raises(NotImplementedError, match="item 5"):
+        # LoRA (once refused as unported) adapts a trained checkpoint on
+        # one device: the JAX trainer's two ValueErrors
+        args = tapp.build_parser().parse_args(["--lora_rank", "2", "--tp",
+                                               "2"])
+        with pytest.raises(ValueError, match="single-device"):
+            ttrainer.train(args)
+        args = tapp.build_parser().parse_args(
+            ["--lora_rank", "2", "--ckpt_dir", "/nonexistent/ck",
+             "--device", "cpu"])
+        with pytest.raises(ValueError, match="TRAINED base"):
             ttrainer.train(args)
 
 
