@@ -4,8 +4,9 @@ shared prefixes, chunked prefill, the page cache, speculative decoding,
 int8 weights, int8 KV pages and LoRA adapters), the Householder QR,
 char-GPT training, long-context training (with ring-mode sampling and
 serving and a LoRA finetune), short-context training through the gated
-kernels, sequence-parallel training through the ring kernels, and
-sampling.
+kernels, sequence-parallel training through the ring kernels, sampling,
+the routed mixture-of-experts GPT (trained through K8 and K2, sampled,
+served) and the L2 encoder-decoder stack.
 
     python3 chip_smoke.py
 
@@ -248,6 +249,33 @@ Phases, each reported on its own line; any failure exits non-zero:
              tok/s, in f32 equal to ``sample``'s greedy first chunk (or a
              tie, as in phase 17). No kernel of its own: the JAX package's
              sampling path is XLA-level code.
+
+21. moe    — (after phase 16) the routed MoE GPT at bench_moe's config
+             (``bench.py:300-315``: d512, 4 heads, 4 layers, ctx 256,
+             vocab 65, 8 experts, top-1, einsum dispatch, batch 64)
+             through ``train --experts 8``: f32 and bf16, 40 steps each
+             with LINALG_TPU_FUSED_LN=1 (K8 ``ln_qkv`` under the attention
+             half; the routed FFN takes no K9), bf16 again with the gate
+             off (A/B), 20 bf16 steps of top-2 and of ``--dispatch
+             gather``: launch counts, finite and falling losses, ms/step
+             over steps 21-40, tok/s, the checkpoint reloaded equal; 10
+             bf16 steps at ctx 1024, batch 8, rope, through K2 (launches
+             counted); ``sample`` of 512 tokens (f32) and ``gpt_generate``
+             8 x 64 with tok/s; the slot ``ServeEngine`` (8 slots, chunk
+             16) over 16 requests (prompts 32-192 ids, budgets 16-48 from
+             ``np.random.default_rng(0)``) in bf16 and f32, every budget
+             met; in f32, greedy, each request's tokens equal to its
+             window-padded ``moe_prefill`` + ``moe_decode_chunk`` stream
+             (or a tie, as in phase 17); ``--serve`` and ``--repl`` of the
+             checkpoint with --paged --speculative 4 --quant int8 --beam 2
+             --prefix_file print the JAX CLI's fallbacks and finish.
+22. l2     — ``apps.reverse_demo.train_reverse_demo`` (the seq2seq
+             reversal task) on the card in f32, 20 epochs: step 1's loss
+             within 1e-5 (relative) of the same run on the CPU, the losses
+             and the greedy token and sequence accuracy; a ``Transformer``
+             (2 + 2 layers, d 64) forward and backward on the card
+             against the CPU to 1e-5 of max|.|, parameter gradients
+             included.
 
 Phase 2 builds every kernel, one ``nvcc`` per source, all started
 together. The line before the last is a JSON object describing the
@@ -3282,6 +3310,349 @@ def lora_phase(ServeEngine, params, cfg, cfg32, phase4, smi):
     return launches
 
 
+# phase 21: bench_moe's published MoE config (bench.py:300-315): d 512, 4
+# heads, 4 layers, ctx 256, vocab 65, 8 experts, top-1, einsum dispatch,
+# batch 64; its T 1024 run: ctx 1024, batch 8, rope
+MOE = ["--d_model", "512", "--heads", "4", "--layers", "4", "--ctx_len",
+       "256", "--experts", "8", "--batch_size", "64"]
+MOE_LONG = ["--d_model", "512", "--heads", "4", "--layers", "4",
+            "--ctx_len", "1024", "--experts", "8", "--batch_size", "8",
+            "--pos", "rope", "--dtype", "bfloat16", "--steps", "10",
+            "--eval_every", "10"]
+MOE_SAMPLE, MOE_GEN = 512, 64  # sample's tokens; gpt_generate's new tokens
+MOE_SLOTS, MOE_CHUNK = 8, 16  # the slot engine of phase 21
+
+
+def moe_requests(V, n=16, seed=0):
+    """Phase 21's requests: prompts of 32-192 ids, budgets 16-48, from
+    ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, V, int(rng.integers(32, 193))).tolist(),
+             int(rng.integers(16, 49)), False) for _ in range(n)]
+
+
+def moe_train(tag, argv, env, counters):
+    """One ``train`` run of the MoE CLI flags ``argv`` under the gate
+    switches ``env``: (params, cfg, stoi, itos, metric rows, launches of
+    ``counters``, ms/step over the steps after the first eval, peak GB).
+    Losses must be finite and the last (train or val) under step 1's."""
+    from linalg_tpu_torch.apps.gpt import build_parser
+    from linalg_tpu_torch.train.trainer import train
+
+    with tempfile.TemporaryDirectory() as tmp, switches(**env):
+        log = f"{tmp}/metrics.jsonl"
+        args = build_parser().parse_args(
+            ["--train", *argv, "--ckpt_dir", f"{tmp}/ck", "--log_file", log,
+             "--device", "cuda"])
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        params, cfg, stoi, itos = train(args)
+        torch.cuda.synchronize()
+        launches = [c.launches for c in counters]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rows = [json.loads(ln) for ln in open(log, encoding="utf-8")]
+        saved, cfg2, same = checkpoint_reloads(f"{tmp}/ck", rows, params,
+                                               cfg, stoi, itos)
+    t = {(r["event"], r["step"]): r["elapsed_s"] for r in rows
+         if "step" in r}
+    first = min(s for e, s in t if e == "eval")
+    ms = (t[("train", args.steps)] - t[("eval", first)]) / (
+        args.steps - first) * 1e3 if args.steps > first else math.nan
+    losses = [r.get("loss", r.get("val_loss")) for r in rows
+              if r["event"] in ("train", "eval")]
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"moe {tag}: a loss is not finite")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"moe {tag}: the loss did not fall")
+    # the sidecar does not keep ``dispatch`` (as in JAX): a gather model
+    # reloads with the default einsum
+    if cfg2 != dataclasses.replace(cfg, dispatch="einsum") or (
+            cfg.dispatch == "einsum" and not same):
+        raise RuntimeError(f"moe {tag}: the checkpoint does not reload "
+                           "equal")
+    return (params, cfg, stoi, itos, rows, launches, ms, peak_gb, losses,
+            saved)
+
+
+def moe_single_stream(params, cfg, prompt, n, window):
+    """Greedy tokens of one request through the window-padded
+    ``moe_prefill`` and ``moe_decode_chunk`` a token at a time, with each
+    step's top-2 logit gap (the engine's f32 contract)."""
+    from linalg_tpu_torch.models.moe import moe_decode_chunk, moe_prefill
+
+    ids = torch.zeros((1, window), dtype=torch.long, device="cuda")
+    ids[0, :len(prompt)] = torch.tensor(prompt, device="cuda")
+    logits, cache = moe_prefill(params, ids, cfg, len(prompt))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    toks, gaps = [], []
+    for _ in range(n):
+        gaps.append(top2_gap(logits))
+        t, logits, cache = moe_decode_chunk(params, cache, logits, gen, cfg,
+                                            1, 1.0, 1)
+        toks.append(int(t[0, 0]))
+    return toks, gaps
+
+
+def moe_cli(ckpt_dir):
+    """``--serve`` and ``--repl`` of the MoE checkpoint with --paged
+    --speculative 4 --quant int8 --beam 2 (--prefix_file for --serve): the
+    JAX CLI's fallbacks must be printed and both must finish. Returns the
+    lines printed."""
+    import io
+
+    from linalg_tpu_torch.apps.gpt import main as cli
+
+    notes = ["--quant supports the dense GPT only; serving full precision",
+             "--paged supports the dense GPT",
+             "--speculative serving supports",
+             "--prefix_file supports the dense GPT only",
+             "beam search needs prompt+gen_tokens <= ctx_len and a dense GPT",
+             "speculative decode needs prompt+gen_tokens+K+1 <= ctx_len and "
+             "a dense GPT",
+             "--quant supports the dense GPT only; using full precision"]
+    with tempfile.TemporaryDirectory() as tmp:
+        prompts = f"{tmp}/prompts.txt"
+        with open(prompts, "w", encoding="utf-8") as f:
+            f.write("FIRST CITIZEN:\nALL:\nROMEO:\n")
+        common = ["--ckpt_dir", ckpt_dir, "--device", "cuda", "--gen_tokens",
+                  "32", "--paged", "--speculative", "4", "--quant", "int8",
+                  "--beam", "2", "--top_k", "1"]
+        out = io.StringIO()
+        feed = iter(["FIRST CITIZEN:", "ROMEO:"])
+
+        def fake_input(_):
+            try:
+                return next(feed)
+            except StopIteration:
+                raise EOFError from None
+
+        with contextlib.redirect_stdout(out), mock.patch(
+                "builtins.input", fake_input):
+            cli(["--serve", "--prompts", prompts, "--prefix_file", prompts,
+                 *common])
+            cli(["--repl", *common])
+    said = out.getvalue()
+    missing = [n for n in notes if n not in said]
+    if missing or not said.rstrip().endswith("bye"):
+        raise RuntimeError(f"moe CLI: missing fallbacks {missing}")
+    return said.splitlines()
+
+
+def moe_phase(smi):
+    """Phase 21: bench_moe's MoE config trained through K8 (f32, bf16, bf16
+    with the gate off, top-2, gather), at T 1024 through K2, sampled,
+    served on the slot engine (bf16 and f32, the f32 engine against single
+    streams), and its checkpoint through the CLI's fallbacks. Returns the
+    launches: ({"fused": [qkv fwd, qkv bwd], "flash": [fwd, dq, dkdv,
+    delta]})."""
+    from linalg_tpu_torch.kernels import fused_layer as kf
+    from linalg_tpu_torch.kernels.flash_attention import (
+        flash_delta_cuda, flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
+    from linalg_tpu_torch.models.gpt import gpt_generate
+    from linalg_tpu_torch.serve import Request, ServeEngine
+    from linalg_tpu_torch.train.checkpoint import save_ckpt
+    from linalg_tpu_torch.train.trainer import sample
+
+    t_phase = time.perf_counter()
+    fused = (kf.ln_qkv_fwd_cuda, kf.ln_qkv_bwd_cuda, kf.ln_ffn_fwd_cuda,
+             kf.ln_ffn_bwd_cuda)
+    flash = (flash_fwd_cuda, flash_dq_cuda, flash_dkdv_cuda,
+             flash_delta_cuda)
+    on = {"LINALG_TPU_FUSED_LN": "1"}
+    runs = [("f32", ["--dtype", "float32", "--steps", "40", "--eval_every",
+                     "20"], on),
+            ("bf16", ["--dtype", "bfloat16", "--steps", "40",
+                      "--eval_every", "20"], on),
+            ("bf16 gate off", ["--dtype", "bfloat16", "--steps", "40",
+                               "--eval_every", "20"], {}),
+            ("bf16 top-2", ["--dtype", "bfloat16", "--steps", "20",
+                            "--eval_every", "20", "--router_top_k", "2"], on),
+            ("bf16 gather", ["--dtype", "bfloat16", "--steps", "20",
+                             "--eval_every", "20", "--dispatch", "gather"],
+             on)]
+    totals = {"fused": [0, 0], "flash": [0, 0, 0, 0]}
+    ms = {}
+    trained = None
+    for tag, argv, env in runs:
+        params, cfg, stoi, itos, rows, n, step_ms, peak, losses, saved = \
+            moe_train(tag, MOE + argv, env, fused + flash)
+        steps = rows[-1]["steps"]
+        n_eval = sum(r["event"] == "eval" for r in rows)
+        L = cfg.n_layers
+        want = [0] * 8
+        if env:
+            want[:2] = [L * (steps + n_eval * EVAL_BATCHES), L * steps]
+        ms[tag] = step_ms
+        rate = (f"{step_ms:.2f} ms/step over steps 21-40, "
+                f"{64 * cfg.ctx_len / (step_ms * 1e-3):.0f} tok/s"
+                if math.isfinite(step_ms) else
+                f"{rows[-1]['steps_per_sec']} steps/s over the whole run "
+                f"(first use included)")
+        phase("moe", f"{tag} (top-{cfg.router_top_k}, {cfg.dispatch}): "
+              f"launches ln_qkv fwd/bwd {n[:2]}, ln_ffn fwd/bwd {n[2:4]}, "
+              f"flash {n[4:]} (expected {want[:2]}, {want[2:4]}, "
+              f"{want[4:]}: the routed FFN takes no K9; T 256 no flash); "
+              f"losses {[round(v, 4) for v in losses]}; {rate}, peak "
+              f"{peak:.2f} GB; checkpoint saved at {saved}, reloaded equal")
+        if n != want:
+            raise RuntimeError(f"moe {tag}: launch counts differ")
+        totals["fused"] = [a + b for a, b in zip(totals["fused"], n[:2])]
+        if tag == "f32":
+            trained = (params, cfg, stoi, itos)
+        del params
+        torch.cuda.empty_cache()
+    phase("moe", f"bf16 A/B K8: gate on {ms['bf16']:.2f} vs off "
+          f"{ms['bf16 gate off']:.2f} ms/step "
+          f"({ms['bf16 gate off'] / ms['bf16']:.3f}x); f32 "
+          f"{ms['f32']:.2f} ms/step; {smi}")
+
+    # T 1024 through K2 (rope, ctx 1024, batch 8)
+    _, cfg_l, _, _, rows, n, _, peak, losses, _ = moe_train(
+        "T 1024", MOE_LONG, on, fused + flash)
+    L, steps = cfg_l.n_layers, rows[-1]["steps"]
+    n_eval = sum(r["event"] == "eval" for r in rows)
+    fwd = L * (steps + n_eval * EVAL_BATCHES)
+    # the gate is open here too: K8 before the rotation, K2 after it
+    want = [fwd, L * steps, 0, 0, fwd, L * steps, L * steps, L * steps]
+    phase("moe", f"T 1024 (ctx 1024, B 8, rope, bf16, {steps} steps): "
+          f"launches ln_qkv {n[:2]}, ln_ffn {n[2:4]}, flash "
+          f"fwd/dq/dkdv/delta {n[4:]} (expected {want[:2]}, {want[2:4]}, "
+          f"{want[4:]}); losses {[round(v, 4) for v in losses]}; "
+          f"{rows[-1]['steps_per_sec']} steps/s over the whole run (first "
+          f"use included); {peak:.2f} GB peak")
+    if n != want:
+        raise RuntimeError("moe T 1024: launch counts differ")
+    totals["flash"] = n[4:]
+    totals["fused"] = [a + b for a, b in zip(totals["fused"], n[:2])]
+
+    # sampling from the f32 model
+    params, cfg, stoi, itos = trained
+    ident = {i: i for i in range(cfg.vocab_size)}
+    list(sample(params, cfg, [1, 2, 3], ident, steps=64, seed=0))
+    out, dt = timed(lambda: list(sample(params, cfg, [1, 2, 3], ident,
+                                        steps=MOE_SAMPLE, seed=1)))
+    if len(out) != MOE_SAMPLE or not all(0 <= t < cfg.vocab_size
+                                         for t in out):
+        raise RuntimeError("moe sample: wrong tokens")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(int(n_),))
+               for n_ in rng.integers(3, 120, size=(8,))]
+    gpt_generate(params, cfg, prompts, MOE_GEN, seed=0)
+    gen, gdt = timed(lambda: gpt_generate(params, cfg, prompts, MOE_GEN,
+                                          seed=1).cpu())
+    if tuple(gen.shape) != (8, MOE_GEN):
+        raise RuntimeError("moe gpt_generate: wrong shape")
+    phase("moe", f"f32 sample: {MOE_SAMPLE} tokens in {dt:.3f} s, "
+          f"{MOE_SAMPLE / dt:.1f} tok/s (rollover every 128); gpt_generate "
+          f"8 x {MOE_GEN}: {gdt:.3f} s, {8 * MOE_GEN / gdt:.1f} tok/s; {smi}")
+
+    # serving on the slot engine, bf16 and f32
+    reqs = moe_requests(cfg.vocab_size)
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        kw = dict(n_slots=MOE_SLOTS, chunk=MOE_CHUNK, device="cuda")
+        eng = ServeEngine(params, c, **kw)
+        eng.submit(Request(reqs[0][0], 8))
+        eng.run()  # first-use costs out of the timing
+        eng = ServeEngine(params, c, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = [eng.submit(Request(p, n_)) for p, n_, _ in reqs]
+        done = {x.request_id: x for x in eng.run()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for i, (_, n_, _) in zip(ids, reqs):
+            if len(done[i].tokens) != n_ or done[i].finish_reason != "length":
+                raise RuntimeError("moe engine: a budget was not met")
+        n_tok = sum(len(x.tokens) for x in done.values())
+        phase("moe", f"{dtype} slot engine ({MOE_SLOTS} slots, chunk "
+              f"{MOE_CHUNK}, prefill window {eng.prefill_window}): 16 "
+              f"requests, {n_tok} tokens in {wall:.3f} s, "
+              f"{n_tok / wall:.1f} tok/s useful, {eng.stats['prefills']} "
+              f"prefills, {eng.stats['chunks']} chunks; every budget met")
+
+    # the f32 engine against single streams (greedy)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    eng = ServeEngine(params, c32, n_slots=MOE_SLOTS, chunk=MOE_CHUNK,
+                      top_k=1, device="cuda")
+    ids = [eng.submit(Request(p, n_)) for p, n_, _ in reqs]
+    done = {x.request_id: x.tokens for x in eng.run()}
+    flips = 0
+    for i, (p, n_, _) in zip(ids, reqs):
+        want_t, gaps = moe_single_stream(params, c32, p, n_,
+                                         eng.prefill_window)
+        flips += tie_or_equal(f"f32 engine request {i} == its single "
+                              "stream", "moe", done[i], want_t, gaps)
+    phase("moe", f"f32 greedy: 16 engine requests == window-padded single "
+          f"streams (moe_prefill + moe_decode_chunk), {flips} tie flips")
+
+    # the checkpoint through the CLI's fallbacks
+    with tempfile.TemporaryDirectory() as tmp:
+        save_ckpt(f"{tmp}/ck", params, cfg, stoi, itos)
+        (said, cdt) = timed(lambda: moe_cli(f"{tmp}/ck"))
+    notes = [ln for ln in said if ln.startswith("(")]
+    phase("moe", f"CLI --serve / --repl with --paged --speculative 4 --quant "
+          f"int8 --beam 2 --prefix_file: {len(notes)} fallback notes, "
+          f"{cdt:.1f} s: {sorted(set(notes))}")
+    phase("moe", f"phase 21 in {time.perf_counter() - t_phase:.1f} s")
+    del trained, params
+    torch.cuda.empty_cache()
+    return totals
+
+
+def l2_phase():
+    """Phase 22: the L2 stack on the card: ``train_reverse_demo`` in f32 for
+    20 epochs against the same run on the CPU (step 1's loss), its greedy
+    decoding; a ``Transformer``'s forward and backward (d 64) against the
+    CPU's."""
+    from linalg_tpu_torch.apps.reverse_demo import (greedy_decode,
+                                                    train_reverse_demo)
+    from linalg_tpu_torch.models.seq2seq import make_reverse_batch
+    from linalg_tpu_torch.models.transformer import Transformer
+    from linalg_tpu_torch.nn.functional import causal_mask
+
+    t_phase = time.perf_counter()
+    got, want = [], []
+    (params, cfg, acc), dt = timed(lambda: train_reverse_demo(
+        epochs=20, device="cuda", losses=got))
+    train_reverse_demo(epochs=20, device="cpu", losses=want)
+    rel = abs(got[0] - want[0]) / abs(want[0])
+    src, _, tgt = make_reverse_batch(64, 10, 12,
+                                     rng=np.random.default_rng(7))
+    pred = greedy_decode(params, cfg, src)
+    phase("l2", f"train_reverse_demo f32, 20 epochs on the card in "
+          f"{dt:.2f} s: losses {got[0]:.6f} -> {got[-1]:.6f} (CPU "
+          f"{want[0]:.6f} -> {want[-1]:.6f}); step 1 |diff| / loss "
+          f"{rel:.3e} (bound 1e-5); greedy token accuracy {acc:.3f} of 4 "
+          f"sequences, on 64 more {float((pred == tgt).mean()):.3f}, "
+          f"sequences exact {float((pred == tgt).all(1).mean()):.3f}")
+    if not rel <= 1e-5 or not all(math.isfinite(v) for v in got):
+        raise RuntimeError("l2: the card's step-1 loss is off the CPU's")
+
+    cpu = Transformer(2, 2, 64, 4, 256, seed=0)
+    gpu = Transformer(2, 2, 64, 4, 256, seed=0).to("cuda")
+    rng = np.random.default_rng(3)
+    src, tgt, dy = (torch.tensor(rng.standard_normal((4, 10, 64)),
+                                 dtype=torch.float32) for _ in range(3))
+    mask = causal_mask(10)
+    a = cpu.forward(src, tgt, None, mask, None) + cpu.backward(dy)
+    b = gpu.forward(src.cuda(), tgt.cuda(), None, mask.cuda(), None) + \
+        gpu.backward(dy.cuda())
+    ga = [g for _, m in cpu.named_modules() if hasattr(m, "grads")
+          for g in m.grads.values()]
+    gb = [g for _, m in gpu.named_modules() if hasattr(m, "grads")
+          for g in m.grads.values()]
+    worst = max(float((x - y.cpu()).abs().max()) / float(x.abs().max())
+                for x, y in zip(list(a) + ga, list(b) + gb))
+    phase("l2", f"Transformer (2 + 2 layers, d 64, 4 heads) forward and "
+          f"backward, {len(ga)} parameter gradients: card vs CPU max "
+          f"|diff| / max|.| {worst:.3e} (bound 1e-5); phase 22 in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if not worst <= 1e-5:
+        raise RuntimeError("l2: the card's Transformer is off the CPU's")
+
+
 def leaf_names(params, prefix=()):
     """The key paths of ``params``, in ``tree_leaves`` order."""
     out = []
@@ -3419,6 +3790,12 @@ def main() -> int:
     # -- 16. sample --------------------------------------------------------
     sample_phase(smi)
 
+    # -- 21. moe: the routed MoE through K8 and K2 -------------------------
+    moe_launches = moe_phase(smi)
+
+    # -- 22. l2: the reversal demo and the Transformer classes -------------
+    l2_phase()
+
     # the profiler breakdowns last: the profiler stays attached to the card
     profile_qr()
     profile_step("train", big_cfg, big_batch)
@@ -3438,9 +3815,11 @@ def main() -> int:
     # kernels
     profile_engine(ServeEngine, params, cfg, reqs)
 
-    flash_launches = [a + b + c + d for a, b, c, d in zip(
+    flash_launches = [a + b + c + d + e for a, b, c, d, e in zip(
         train_launches, long_launches, short_launches["btd"],
-        window_launches)]
+        window_launches, moe_launches["flash"])]
+    fused_launches = [a + b for a, b in zip(
+        short_launches["fused"], moe_launches["fused"] + [0, 0])]
     print(json.dumps({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/paged_attention.cu",
@@ -3467,15 +3846,18 @@ def main() -> int:
                     "linalg_tpu/nn/flash_btd.py:178",
         "launches": sum(flash_launches),
         "launches_fwd_dq_dkdv_delta": flash_launches,
-        "launches_train_big_long_window_btd_lora": [
+        "launches_train_big_long_window_btd_lora_moe": [
             sum(train_launches), sum(long_launches),
-            sum(short_launches["btd"]), sum(window_launches)],
+            sum(short_launches["btd"]), sum(window_launches),
+            sum(moe_launches["flash"])],
         **flash_record, "stream": stream_record, "btd": btd_record}, {
         "name": "fused_layer", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/fused_layer.cu",
         "replaces": "linalg_tpu/nn/fused_layer.py:166, :312",
-        "launches": sum(short_launches["fused"]),
-        "launches_qkv_fwd_bwd_ffn_fwd_bwd": short_launches["fused"],
+        "launches": sum(fused_launches),
+        "launches_qkv_fwd_bwd_ffn_fwd_bwd": fused_launches,
+        "launches_short_moe": [sum(short_launches["fused"]),
+                               sum(moe_launches["fused"])],
         **fused_record}, {
         "name": "ring_attention_fwd", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/ring_attention.cu",

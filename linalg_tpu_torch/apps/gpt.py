@@ -13,9 +13,13 @@ K``, ``--quant int8`` and ``--paged --kv8``; ``--repl`` takes
 ``--lora_dir``) finetunes adapters on a trained checkpoint; ``--serve``
 and ``--repl`` merge the adapters found in ``--lora_dir`` (default
 <ckpt_dir>/lora) at load. A windowed RoPE/ALiBi model samples and serves
-through the ring cache. Flags of features that are not ported yet are
-accepted and refused with ``NotImplementedError`` naming their ROADMAP.md
-item (MoE: item 6; the other parallel axes: item 7).
+through the ring cache. ``--train --experts E`` (``--router_top_k``,
+``--dispatch``) trains the routed MoE GPT; ``--serve`` and ``--repl`` on
+its checkpoint print the JAX CLI's fallbacks for what the MoE does not
+take (int8, paged KV, speculation, registered prefixes, beam search,
+prompts past the prefill window). Flags of features that are not ported
+yet are accepted and refused with ``NotImplementedError`` naming their
+ROADMAP.md item (the other parallel axes: item 7).
 """
 
 from __future__ import annotations
@@ -31,9 +35,6 @@ import numpy as np
 # Flags of the JAX CLI whose features are not ported: (default, ROADMAP.md
 # item). Any other value raises NotImplementedError naming the item.
 _NOT_PORTED_FLAGS = {
-    "experts": (0, "queue 1, item 6: MoE"),
-    "router_top_k": (1, "queue 1, item 6: MoE"),
-    "dispatch": ("einsum", "queue 1, item 6: MoE"),
     "tp": (1, "queue 1, item 7: parallelism"),
     "pp": (1, "queue 1, item 7: parallelism"),
     "fsdp": (1, "queue 1, item 7: parallelism"),
@@ -116,12 +117,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "REPL: plus an int8 KV cache (int8kv); the prefill "
                          "stays full precision. --serve takes int8")
     ap.add_argument("--experts", type=int, default=0,
-                    help="mixture-of-experts FFN (not ported yet)")
+                    help="train mode: routed mixture-of-experts FFN with "
+                         "this many experts per layer (0 = the dense FFN)")
     ap.add_argument("--router_top_k", type=int, default=1, choices=(1, 2),
-                    help="MoE experts per token (not ported yet)")
+                    help="MoE experts per token: 1 = Switch, 2 = GShard "
+                         "top-2")
     ap.add_argument("--dispatch", type=str, default="einsum",
                     choices=("einsum", "gather"),
-                    help="MoE token dispatch (not ported yet)")
+                    help="MoE token dispatch: dense one-hot einsums or "
+                         "slot -> token index gathers (the same routing)")
     ap.add_argument("--lora_rank", type=int, default=0,
                     help="train mode: LoRA-finetune rank-N adapters on a "
                          "frozen base checkpoint (0 = full training); "
@@ -258,7 +262,11 @@ def serve_cli(args) -> None:
     prefill). ``--prefix_file`` registers a shared prefix (prefilled
     once), tail-truncated to leave a prompt token and the decode budget;
     with ``--auto_prefix`` the prompts go in whole and the engine finds
-    the prefix itself."""
+    the prefix itself. An MoE checkpoint serves full precision on the
+    slot cache without speculation, its prefix prepended to each prompt
+    and prompts capped at the prefill window (the JAX CLI's fallbacks,
+    printed)."""
+    from ..models.moe import MoEGPTConfig
     from ..serve.engine import Request, ServeEngine
     from ..train.checkpoint import load_ckpt, load_tokenizer
     from ..utils.device import resolve_device
@@ -267,6 +275,12 @@ def serve_cli(args) -> None:
     params, cfg, _, itos = load_ckpt(args.ckpt_dir, device=device)
     params = _maybe_lora(params, args, device)
     tok = load_tokenizer(args.ckpt_dir)
+    moe = isinstance(cfg, MoEGPTConfig)
+    quant = args.quant
+    if quant != "none" and moe:
+        print("(--quant supports the dense GPT only; serving full "
+              "precision)")
+        quant = "none"
 
     if args.prompts == "-":
         lines = [ln.rstrip("\n") for ln in sys.stdin]
@@ -280,7 +294,7 @@ def serve_cli(args) -> None:
 
     paged = args.paged
     ring = cfg.window is not None and cfg.pos in ("rope", "alibi")
-    if paged and ring:
+    if paged and (ring or moe):
         print("(--paged supports the dense GPT outside ring/tp mode; "
               "serving with the slot cache)")
         paged = False
@@ -288,13 +302,13 @@ def serve_cli(args) -> None:
     spec = args.speculative
     # (--lora_dir adapters are merged into params at load: they do not
     # constrain speculation)
-    if spec and (args.quant != "none" or ring or kv8
+    if spec and (quant != "none" or ring or moe or kv8
                  or (paged and args.paged_attn == "kernel")):
         print("(--speculative serving supports the full-precision dense "
               "slot/paged(gather) engine; serving without speculation)")
         spec = 0
     eng = ServeEngine(params, cfg, n_slots=args.n_slots, chunk=args.chunk,
-                      top_k=args.top_k, seed=args.seed, quant=args.quant,
+                      top_k=args.top_k, seed=args.seed, quant=quant,
                       paged=paged, page=args.page,
                       n_pages=(args.n_pages or None),
                       paged_attn=args.paged_attn, speculative=spec, kv8=kv8,
@@ -313,7 +327,7 @@ def serve_cli(args) -> None:
     if gen < args.gen_tokens:
         print(f"(gen_tokens capped to {gen}: the decode budget "
               f"reservation must fit ctx_len {cfg.ctx_len})")
-    pid, pref_ids = None, []
+    pid, pref_ids, pref_raw = None, [], []
     if args.prefix_file:
         with open(args.prefix_file, encoding="utf-8") as f:
             pref_ids = list(tok.encode(f.read().rstrip("\n")))
@@ -322,13 +336,21 @@ def serve_cli(args) -> None:
         if len(pref_ids) > pref_cap:
             print(f"(prefix truncated to its last {pref_cap} tokens)")
             pref_ids = pref_ids[-pref_cap:]
-        if pref_ids:
+        if moe:
+            print("(--prefix_file supports the dense GPT only; prefix "
+                  "prepended per-prompt instead)")
+            pref_raw, pref_ids = pref_ids, []
+        elif pref_ids:
             pid = eng.register_prefix(pref_ids)
     plen_max = cfg.ctx_len - reserved - len(pref_ids)
+    if moe:  # no chunked prefill: the window caps the prompt
+        plen_max = min(eng.prefill_window, plen_max)
     prompts = []
     for ln in lines:
-        ids = list(tok.encode(ln))[-plen_max:]
-        prompts.append(ids or None)  # nothing encodable: empty completion
+        ids = list(tok.encode(ln))
+        if ids and pref_raw:  # the MoE fallback: a per-prompt prepend
+            ids = pref_raw + ids
+        prompts.append(ids[-plen_max:] or None)  # empty: empty completion
 
     t0 = time.perf_counter()
     rid_to_line = {}
@@ -392,8 +414,11 @@ def repl(args) -> None:
     search with ``--beam B`` (when prompt + gen_tokens fit ctx_len),
     speculative decoding with ``--speculative K`` (prompt lookup, or the
     ``--draft_ckpt`` model; when prompt + gen_tokens + K + 1 fit ctx_len),
-    else ``train.trainer.sample`` streaming its text pieces."""
+    else ``train.trainer.sample`` streaming its text pieces. An MoE
+    checkpoint takes none of beam search, speculation and ``--quant``: it
+    samples in full precision, with the JAX CLI's notes printed."""
     from ..models.beam import gpt_generate_beam
+    from ..models.moe import MoEGPTConfig
     from ..models.speculative import (gpt_generate_speculative,
                                       gpt_generate_speculative_draft)
     from ..train.checkpoint import load_ckpt, load_tokenizer
@@ -415,6 +440,7 @@ def repl(args) -> None:
                   f"{cfg.ctx_len}; ignoring the draft model)")
         else:
             draft = (dparams, dcfg)
+    moe = isinstance(cfg, MoEGPTConfig)
     print("\nREPL — type a prompt, Ctrl+C to exit.\n")
     while True:
         try:
@@ -428,7 +454,8 @@ def repl(args) -> None:
         if ctx.size == 0:
             print("(no known characters in prompt)")
             continue
-        beam_ok = args.beam > 0 and ctx.size + args.gen_tokens <= cfg.ctx_len
+        beam_ok = (args.beam > 0 and not moe
+                   and ctx.size + args.gen_tokens <= cfg.ctx_len)
         if args.beam > 0 and not beam_ok:
             print("(beam search needs prompt+gen_tokens <= ctx_len and a "
                   "dense GPT; using plain decode)")
@@ -440,7 +467,8 @@ def repl(args) -> None:
                   f"{score / max(len(toks), 1):.3f}/token]")
             continue
         K = args.speculative
-        spec_ok = K > 0 and ctx.size + args.gen_tokens + K + 1 <= cfg.ctx_len
+        spec_ok = (K > 0 and not moe
+                   and ctx.size + args.gen_tokens + K + 1 <= cfg.ctx_len)
         if K > 0 and not spec_ok:
             print("(speculative decode needs prompt+gen_tokens+K+1 <= "
                   "ctx_len and a dense GPT; using plain decode)")
@@ -458,11 +486,16 @@ def repl(args) -> None:
             print(f"[speculative: {len(toks)} tokens in {rounds} rounds, "
                   f"{len(toks) / max(rounds, 1):.2f} tok/round]")
             continue
+        quant = args.quant
+        if quant != "none" and moe:
+            print("(--quant supports the dense GPT only; using full "
+                  "precision)")
+            quant = "none"
         for piece in sample(params, cfg, ctx, tok, steps=args.gen_tokens,
                             temperature=args.temperature, top_k=args.top_k,
                             top_p=args.top_p, seed=args.seed,
                             chunk=min(max(args.gen_tokens, 1), 256),
-                            quant=args.quant):
+                            quant=quant):
             print(piece, end="", flush=True)
         print()
 

@@ -597,9 +597,10 @@ def gpt_generate(params: Params, cfg: GPTConfig, prompts, n_tokens: int,
     token for the whole batch.
 
     Each prompt keeps its last ctx_len - n_tokens ids; they are left-padded
-    to that one window (aligned ends) and decoded together. Sampling draws
-    from ``generator``, by default a generator on the parameters' device
-    seeded with ``seed``."""
+    to that one window (aligned ends) and decoded together; an MoE config
+    prefills through ``moe_prefill_batched`` and decodes through
+    ``moe_decode_chunk``. Sampling draws from ``generator``, by default a
+    generator on the parameters' device seeded with ``seed``."""
     if n_tokens >= cfg.ctx_len:
         raise ValueError("n_tokens must be < ctx_len (cache capacity)")
     W = cfg.ctx_len - n_tokens
@@ -615,10 +616,17 @@ def gpt_generate(params: Params, cfg: GPTConfig, prompts, n_tokens: int,
     dev = params["tok_W"].device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
-    logits, cache = gpt_prefill_batched(params, torch.from_numpy(buf),
-                                        torch.from_numpy(start), cfg)
-    toks, _, _ = gpt_decode_chunk(params, cache, logits, generator, cfg,
-                                  n_tokens, temperature, top_k, top_p)
+    from .moe import MoEGPTConfig
+
+    if isinstance(cfg, MoEGPTConfig):  # left pads stay out of routing
+        from .moe import moe_decode_chunk as decode_chunk
+        from .moe import moe_prefill_batched as prefill_batched
+    else:
+        decode_chunk, prefill_batched = gpt_decode_chunk, gpt_prefill_batched
+    logits, cache = prefill_batched(params, torch.from_numpy(buf),
+                                    torch.from_numpy(start), cfg)
+    toks, _, _ = decode_chunk(params, cache, logits, generator, cfg,
+                              n_tokens, temperature, top_k, top_p)
     return toks
 
 

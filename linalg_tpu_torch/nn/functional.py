@@ -25,7 +25,7 @@ __all__ = ["relu", "relu_backward", "gelu", "gelu_backward", "silu",
            "silu_backward", "swiglu", "swiglu_backward", "geglu",
            "geglu_backward", "softmax_last", "causal_mask", "layer_norm",
            "rms_norm", "sdpa", "sinusoidal_encoding", "rope_tables",
-           "rope_rotate"]
+           "rope_rotate", "he_init"]
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 _GELU_C = 0.044715
@@ -353,3 +353,12 @@ def rope_rotate(x, cos, sin):
     xe, xo = x[..., 0::2], x[..., 1::2]
     return torch.stack([xe * cos - xo * sin, xe * sin + xo * cos],
                        dim=-1).reshape(x.shape)
+
+
+def he_init(fan_in: int, fan_out: int, rng, device=None) -> torch.Tensor:
+    """Kaiming/He init for ReLU layers, (fan_in, fan_out) float32: the
+    JAX package's host-side draw from the numpy Generator ``rng`` (float64
+    rounded once), so one seed gives the same weights in both."""
+    std = math.sqrt(2.0 / fan_in)
+    return torch.tensor(rng.normal(0.0, std, size=(fan_in, fan_out)),
+                        dtype=torch.float32, device=device)

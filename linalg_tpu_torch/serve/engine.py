@@ -43,6 +43,15 @@ compute dtype), the per-slot LoRA side-path (``max_loras``,
 slot, paged and speculative chunks all take their ops from it. Paged
 engines may store the pool int8 (``kv8=True``, read by the gather).
 
+The MoE GPT (``models.moe``) serves on the slot cache: admission prefills
+through ``moe_prefill`` and the chunks decode through ``_moe_decode_ops``,
+one routing group a slot, so an idle slot's tokens take no expert
+capacity from another. Its refusals are the JAX engine's ``ValueError``s:
+quant, mesh, paged KV, multi-LoRA, speculative decoding, registered
+prefixes, and a prompt past ``prefill_window`` (chunked prefill needs the
+dense block-extend forward). A windowed MoE serves in slot mode, not in
+ring mode.
+
 Ring mode: a window with RoPE or ALiBi (full precision, no mesh) keeps
 each slot's KV as an O(window) ring with unbounded positions
 (``models.stream``): only prefix + prompt must fit ``ctx_len``, and a
@@ -68,6 +77,7 @@ import torch.nn.functional as F
 
 from ..models.gpt import (GPTConfig, _decode_chunk_core, _dt_decode_ops,
                           gpt_prefill)
+from ..models.moe import MoEGPTConfig, _moe_decode_ops, moe_prefill
 from ..models.speculative import _block_forward
 from ..nn.cache import fkv_write_slots
 from ..utils.device import resolve_device
@@ -149,15 +159,19 @@ def decode_chunk_slots(ops, cache, logits, generator, temp, top_p, top_k,
 
 def select_decode_ops(params, cfg: GPTConfig, cache, dense_ops=None):
     """The weight-representation dispatch shared by the slot, paged and
-    speculative chunks (the JAX engine's ``select_decode_ops``): int8
-    weight-only ops when ``params`` holds ``tok_W_q`` (``quant="int8"``),
-    else the cast dense ops (``dense_ops`` when the caller already built
-    them), wrapped in the per-slot LoRA side-path when ``params`` carries
+    speculative chunks (the JAX engine's ``select_decode_ops``): the MoE
+    routing ops for an MoE config (``dense_ops`` when the caller already
+    built them), int8 weight-only ops when ``params`` holds ``tok_W_q``
+    (``quant="int8"``), else the cast dense ops (``dense_ops`` when given),
+    wrapped in the per-slot LoRA side-path when ``params`` carries
     ``_lora`` stacks (the adapter ids are ``cache["lora_ids"]``). The ops
     never touch the KV layout; the layout never touches the weights."""
     from ..models.lora import lora_decode_ops
     from ..models.quant import _q_decode_ops
 
+    if isinstance(cfg, MoEGPTConfig):
+        return (dense_ops if dense_ops is not None
+                else _moe_decode_ops(params, cfg))
     lora = params.get("_lora")
     base = {k: v for k, v in params.items() if k != "_lora"}
     if "tok_W_q" in base:
@@ -334,7 +348,11 @@ class ServeEngine:
                  kv8: bool = False, schedule: str = "fifo",
                  auto_prefix: bool = False, page_cache: bool = False,
                  device=None):
+        moe = isinstance(cfg, MoEGPTConfig)
         if mesh is not None:
+            if moe or quant not in ("", "none"):
+                raise ValueError(
+                    "mesh serving supports the full-precision dense GPT")
             raise NotImplementedError(
                 f"mesh serving is not ported yet ({_ROADMAP_MESH})")
         if chunk < 1:
@@ -342,6 +360,9 @@ class ServeEngine:
         if quant not in ("", "none", "int8"):
             raise ValueError(f"unknown quant mode: {quant!r}")
         quant_on = quant == "int8"
+        if quant_on and moe:
+            raise ValueError("quant decode supports the dense GPT only")
+        self._moe = moe
         self.device = resolve_device(device)
         self.params = _params_to(params, self.device)
         self.cfg = cfg
@@ -359,7 +380,7 @@ class ServeEngine:
         # keeps each slot's KV as an O(window) ring with unbounded
         # positions (the JAX engine's rule: full precision, no mesh)
         self._ring = (cfg.window is not None and cfg.pos in ("rope", "alibi")
-                      and not quant_on)
+                      and not moe and not quant_on)
         self._paged = bool(paged)
         self._allocator = None
         self._slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
@@ -372,7 +393,7 @@ class ServeEngine:
         self._page_cache = bool(page_cache)
         dt = cfg.compute_dtype
         if self._paged:
-            if self._ring:
+            if self._ring or moe:
                 raise ValueError("paged KV supports the dense GPT without "
                                  "--window/mesh")
             from .paged import PageAllocator, init_paged_cache
@@ -430,7 +451,8 @@ class ServeEngine:
         # weights cast to the compute dtype once per engine: the admission
         # extensions' ops, and the decode ops unless the weights are int8
         # (the int8 decode keeps prefill in the compute dtype)
-        self._dense_ops = _dt_decode_ops(self.params, cfg)
+        self._dense_ops = (_moe_decode_ops if moe else _dt_decode_ops)(
+            self.params, cfg)
         self._decode_params = self.params
         if quant_on:
             from ..models.quant import quantize_gpt_params
@@ -441,7 +463,7 @@ class ServeEngine:
         self._max_loras = int(max_loras)
         self._n_loras = 0  # adapters registered so far
         if self._max_loras:
-            if self._ring:
+            if self._ring or moe:
                 raise ValueError("multi-LoRA serving supports the dense "
                                  "slot/paged engine (no ring/mesh)")
             from ..models.lora import init_lora_stacks
@@ -456,7 +478,7 @@ class ServeEngine:
         # draft + verify blocks (serve.spec); slots advance independently
         self._spec = int(speculative)
         if self._spec:
-            if (self._ring or quant_on or kv8
+            if (self._ring or quant_on or kv8 or moe
                     or (self._paged and self._paged_kernel)):
                 # the JAX engine's refusal
                 # (linalg_tpu/serve/engine.py:570-590)
@@ -509,7 +531,10 @@ class ServeEngine:
         admission points its table at them and owns privately only the
         partial boundary page onward. ``lora_id`` prefills the prefix
         through that adapter's merged weights; only requests wearing the
-        same adapter may then use it."""
+        same adapter may then use it. Dense GPT only (the block-extend
+        forward has no expert routing)."""
+        if self._moe:
+            raise ValueError("prefix caching supports the dense GPT only")
         self._check_lora_id(lora_id)
         plen = len(tokens)
         limit = self.cfg.ctx_len - self.chunk - 1
@@ -627,7 +652,9 @@ class ServeEngine:
     def submit(self, req: Request) -> int:
         """Queue a request; returns its assigned request_id. Any prompt
         within the ctx budget admits: longer than ``prefill_window`` it is
-        prefilled a window at a time (chunked prefill)."""
+        prefilled a window at a time (chunked prefill). MoE engines keep
+        ``prefill_window`` as a cap: the block-extend forward has no
+        expert routing."""
         plen = len(req.prompt)
         if plen == 0:
             raise ValueError("empty prompt")
@@ -638,6 +665,11 @@ class ServeEngine:
                 req = dataclasses.replace(
                     req, prefix_id=pid, prompt=list(req.prompt[n:]))
                 plen = len(req.prompt)
+        if plen > self.prefill_window and self._moe:
+            raise ValueError(
+                f"prompt length {plen} exceeds prefill_window "
+                f"{self.prefill_window} (chunked prefill needs the dense "
+                "block-extend forward; MoE prompts are capped)")
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         pref_len = 0
@@ -787,8 +819,9 @@ class ServeEngine:
             first = min(len(prompt), W)
             ids = np.zeros((1, W), np.int64)
             ids[0, :first] = prompt[:first]
-            logits, cache = gpt_prefill(params, torch.tensor(ids, device=dev),
-                                        cfg, length=first)
+            prefill = moe_prefill if self._moe else gpt_prefill
+            logits, cache = prefill(params, torch.tensor(ids, device=dev),
+                                    cfg, length=first)
             pk, pv = cache["k"], cache["v"]
             pos, rest = first, prompt[first:]
         ops = None

@@ -6,7 +6,11 @@ The archive keys are the reference's (``tok_W``, ``head_W``, ``head_b``,
 carries the tokenizer and the architecture, in the JAX package's format:
 each package loads the other's checkpoints unchanged. A char tokenizer
 rides the sidecar as ``stoi``/``itos``; byte-level BPE as ``"tokenizer":
-"bpe"`` and its ``merges`` (with empty ``stoi``/``itos``).
+"bpe"`` and its ``merges`` (with empty ``stoi``/``itos``). An MoE
+checkpoint adds ``l{i}_Wr`` and the expert-stacked ``l{i}_W1`` ... to the
+archive and ``experts``, ``capacity_factor``, ``aux_weight`` and
+``router_top_k`` to the sidecar (``dispatch`` is not saved: a loaded MoE
+takes the default, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Dict, Tuple
 import numpy as np
 
 from ..models.gpt import GPTConfig, Params, params_from_numpy
+from ..models.moe import MoEGPTConfig
 from ..nn.tokenizers import BPETokenizer, CharTokenizer
 
 __all__ = ["save_ckpt", "load_ckpt", "load_tokenizer", "CKPT_NAME",
@@ -29,6 +34,8 @@ META_NAME = "chars_gpt_meta.json"
 _LAYER_KEYS = ("ln1_g", "ln1_b", "Wq", "Wk", "Wv", "Wo", "ln2_g", "ln2_b",
                "W1", "b1", "W2", "b2")
 _GATE_KEYS = ("Wg", "bg")  # swiglu/geglu's gate branch
+# the MoE layer in ``init_moe_params``'s order: the router, then experts
+_MOE_LAYER_KEYS = _LAYER_KEYS[:8] + ("Wr",) + _LAYER_KEYS[8:]
 
 
 def save_ckpt(ckpt_dir, params: Params, cfg: GPTConfig,
@@ -76,6 +83,11 @@ def save_ckpt(ckpt_dir, params: Params, cfg: GPTConfig,
     if isinstance(tokenizer, BPETokenizer):
         meta["tokenizer"] = "bpe"
         meta["merges"] = [list(m) for m in tokenizer.merges]
+    if isinstance(cfg, MoEGPTConfig):
+        meta["experts"] = cfg.n_experts
+        meta["capacity_factor"] = cfg.capacity_factor
+        meta["aux_weight"] = cfg.aux_weight
+        meta["router_top_k"] = cfg.router_top_k
     (ckpt_dir / META_NAME).write_text(json.dumps(meta))
     return path
 
@@ -90,6 +102,8 @@ def load_ckpt(ckpt_dir, device=None) -> Tuple[Params, GPTConfig,
     cfg = _cfg_from_meta(meta)
     stoi = meta["stoi"]
     itos = {int(k): v for k, v in meta["itos"].items()}
+    keys = (_MOE_LAYER_KEYS if isinstance(cfg, MoEGPTConfig)
+            else _LAYER_KEYS) + (_GATE_KEYS if cfg.gated_ffn else ())
     with np.load(ckpt_dir / CKPT_NAME) as z:
         # float32: reference-produced archives are float64
         host = {
@@ -98,8 +112,7 @@ def load_ckpt(ckpt_dir, device=None) -> Tuple[Params, GPTConfig,
             "layers": {
                 k: np.stack([z[f"l{i}_{k}"] for i in range(cfg.n_layers)]
                             ).astype(np.float32)
-                for k in _LAYER_KEYS + (_GATE_KEYS if cfg.gated_ffn
-                                        else ())},
+                for k in keys},
         }
         if cfg.pos == "learned":
             host["pos_W"] = np.asarray(z["pos_W"], np.float32)
@@ -107,13 +120,9 @@ def load_ckpt(ckpt_dir, device=None) -> Tuple[Params, GPTConfig,
 
 
 def _cfg_from_meta(meta: dict) -> GPTConfig:
-    """The dense config of a meta sidecar, tolerating reference-format
-    metas (no pos/d_ff/dtype/vocab_size keys)."""
-    if meta.get("experts", 0):
-        raise NotImplementedError(
-            "MoE checkpoints are not ported yet (ROADMAP.md queue 1, "
-            "item 6: MoE)")
-    return GPTConfig(
+    """The (dense or MoE) config of a meta sidecar, tolerating
+    reference-format metas (no pos/d_ff/dtype/vocab_size keys)."""
+    common = dict(
         vocab_size=meta.get("vocab_size") or len(meta["stoi"]),
         d_model=meta["d_model"],
         n_heads=meta["heads"],
@@ -126,6 +135,13 @@ def _cfg_from_meta(meta: dict) -> GPTConfig:
         window=meta.get("window"),
         ffn=meta.get("ffn", "relu"),
     )
+    if meta.get("experts", 0):
+        return MoEGPTConfig(
+            n_experts=meta["experts"],
+            capacity_factor=meta.get("capacity_factor", 1.25),
+            aux_weight=meta.get("aux_weight", 0.01),
+            router_top_k=meta.get("router_top_k", 1), **common)
+    return GPTConfig(**common)
 
 
 def load_tokenizer(ckpt_dir):

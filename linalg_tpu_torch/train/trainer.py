@@ -22,10 +22,13 @@ and the model's backwards stay its hand-derived ones. ``sample`` streams
 text from a model through the KV-cached decode: int8 weights (and int8
 KV) with ``quant``, and a windowed RoPE/ALiBi model through the
 O(window) ring of ``models.stream``, with no rollover.
+``--experts E`` (with ``--router_top_k`` and ``--dispatch``) trains the
+routed mixture-of-experts GPT of ``models.moe`` (its loss adds the
+load-balance term); its checkpoints, sampling and serving follow.
 
 Not ported yet, and refused with the ROADMAP.md item that brings each:
-MoE (item 6), the other sharded trainers (--tp, --pp, --fsdp, --dp
-without --sp: item 7).
+the other sharded trainers (--tp, including expert parallelism with
+--experts, --pp, --fsdp, --dp without --sp: item 7).
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ import torch
 
 from ..models.gpt import (GPTConfig, gpt_decode_chunk, gpt_loss,
                           gpt_prefill, init_gpt_params)
+from ..models.moe import (MoEGPTConfig, init_moe_params, moe_decode_chunk,
+                          moe_gpt_loss, moe_prefill)
 from ..nn.tokenizers import BPETokenizer, CharTokenizer
 from ..utils.device import resolve_device
 from .checkpoint import load_ckpt, load_tokenizer, save_ckpt
@@ -52,8 +57,14 @@ __all__ = ["train", "train_sharded", "make_train_step",
            "make_device_train_step", "eval_avg", "sample"]
 
 
+def _loss_fn_for(cfg: GPTConfig):
+    """The loss of the config's model: the routed MoE's or the dense
+    GPT's."""
+    return moe_gpt_loss if isinstance(cfg, MoEGPTConfig) else gpt_loss
+
+
 def _value_and_grad(params, x, y, cfg, attn_fn=None, lora=None):
-    """(loss, grads shaped like params) of ``gpt_loss`` (attention
+    """(loss, grads shaped like params) of the model's loss (attention
     ``attn_fn``, default the model's pick). With ``lora`` = (frozen base
     params, LoRAConfig), ``params`` are the adapters and the loss runs on
     ``lora_merge(base, adapters)``: the gradients flow into A/B only."""
@@ -65,7 +76,7 @@ def _value_and_grad(params, x, y, cfg, attn_fn=None, lora=None):
         from ..models.lora import lora_merge
 
         model = lora_merge(lora[0], params, lora[1])
-    loss = gpt_loss(model, x, y, cfg, attn_fn=attn_fn)
+    loss = _loss_fn_for(cfg)(model, x, y, cfg, attn_fn=attn_fn)
     grads = iter(torch.autograd.grad(loss, leaves))
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
@@ -150,7 +161,7 @@ def make_device_train_step(cfg: GPTConfig, batch_size: int, *,
 
 @torch.no_grad()
 def _eval_loss(params, x, y, cfg: GPTConfig):
-    return gpt_loss(params, x, y, cfg)
+    return _loss_fn_for(cfg)(params, x, y, cfg)
 
 
 def eval_avg(params, cfg: GPTConfig, it: Iterator, batches: int = 10
@@ -168,11 +179,12 @@ def _eval_device(params, val_ids, generator, cfg: GPTConfig, batch: int,
                  batches: int, attn_fn=None):
     """Mean val loss over ``batches`` random device windows; one scalar
     tensor, no host sync."""
+    loss_fn = _loss_fn_for(cfg)
     total = 0.0
     for _ in range(batches):
-        total = total + gpt_loss(params, *_windows(val_ids, batch,
-                                                   cfg.ctx_len, generator),
-                                 cfg, attn_fn=attn_fn)
+        total = total + loss_fn(params, *_windows(val_ids, batch,
+                                                  cfg.ctx_len, generator),
+                                cfg, attn_fn=attn_fn)
     return total / batches
 
 
@@ -195,13 +207,12 @@ def _tok_maps(tok) -> Tuple[dict, dict]:
 
 def _resume_or_init(args, device):
     """The reference's resume-or-init: load ``args.ckpt_dir``; on any
-    failure to load, build a fresh dense GPT from the flags (weights from
-    seed 123, as the JAX package draws them).
+    failure to load, build a fresh model from the flags (weights from
+    seed 123, as the JAX package draws them): the routed MoE GPT with
+    ``--experts`` > 0 (``--router_top_k``, ``--dispatch``), else the dense
+    GPT.
 
     Returns (text, params, cfg, tok, stoi, itos)."""
-    if int(getattr(args, "experts", 0) or 0) > 0:
-        raise NotImplementedError(
-            "--experts (MoE) is not ported yet (ROADMAP.md queue 1, item 6)")
     text = load_text(getattr(args, "data", None))
     try:
         params, cfg, stoi, itos = load_ckpt(args.ckpt_dir, device=device)
@@ -212,7 +223,7 @@ def _resume_or_init(args, device):
         print("Error loading checkpoint, starting from scratch")
     tok = _make_tokenizer(args, text)
     stoi, itos = _tok_maps(tok)
-    cfg = GPTConfig(
+    common = dict(
         vocab_size=tok.vocab_size, d_model=args.d_model, n_heads=args.heads,
         n_layers=args.layers, ctx_len=args.ctx_len,
         pos=getattr(args, "pos", "sinusoidal") or "sinusoidal",
@@ -220,7 +231,17 @@ def _resume_or_init(args, device):
         n_kv_heads=getattr(args, "kv_heads", None),
         window=getattr(args, "window", None),
         ffn=getattr(args, "ffn", "relu") or "relu")
-    params = init_gpt_params(cfg, seed=123, device=device)
+    n_experts = int(getattr(args, "experts", 0) or 0)
+    if n_experts > 0:
+        cfg = MoEGPTConfig(
+            n_experts=n_experts,
+            router_top_k=int(getattr(args, "router_top_k", 1) or 1),
+            dispatch=getattr(args, "dispatch", "einsum") or "einsum",
+            **common)
+        params = init_moe_params(cfg, seed=123, device=device)
+    else:
+        cfg = GPTConfig(**common)
+        params = init_gpt_params(cfg, seed=123, device=device)
     return text, params, cfg, tok, stoi, itos
 
 
@@ -501,13 +522,15 @@ def sample(params, cfg: GPTConfig, ctx_ids, itos, steps: int = 200,
     - ``quant="int8"`` decodes through int8 weights
       (``models.quant.gpt_decode_chunk_q``, mode "deq"), ``"int8kv"`` with
       the KV cache int8 too; the prefill stays full precision.
-
-    MoE configs are refused (ROADMAP.md queue 1, item 6)."""
-    if getattr(cfg, "n_experts", 0):
-        raise NotImplementedError(
-            "sampling an MoE model is not ported yet (ROADMAP.md queue 1, "
-            "item 6: MoE)")
-    if quant in ("int8", "int8kv"):
+    - An MoE model prefills through ``moe_prefill`` and decodes through
+      ``moe_decode_chunk`` (a windowed one re-prefills: no ring); ``quant``
+      raises, as in the JAX package."""
+    moe = isinstance(cfg, MoEGPTConfig)
+    if moe:
+        if quant not in ("", "none"):
+            raise ValueError("quant decode supports the dense GPT only")
+        decode_chunk, prefill_fn = moe_decode_chunk, moe_prefill
+    elif quant in ("int8", "int8kv"):
         from ..models.quant import (gpt_decode_chunk_q, quantize_gpt_params,
                                     quantize_kv_cache)
 
@@ -541,7 +564,7 @@ def sample(params, cfg: GPTConfig, ctx_ids, itos, steps: int = 200,
 
     logits, cache, length = prefill(ids)
     stream = (cfg.window is not None and cfg.pos in ("rope", "alibi")
-              and quant in ("", "none"))
+              and not moe and quant in ("", "none"))
     if stream:
         from ..models.stream import (gpt_stream_chunk, init_stream_cache,
                                      stream_fill)

@@ -472,9 +472,26 @@ class TestCLI:
         (["--train", "--router_top_k", "2"], "item 6"),
         (["--train", "--dispatch", "gather"], "item 6"),
     ])
-    def test_unported_flags_raise(self, argv, item):
-        with pytest.raises(NotImplementedError, match=item):
-            tapp.main(argv)
+    def test_unported_flags_raise(self, argv, item, tmp_path):
+        """The parallel axes still raise naming item 7; the MoE flags
+        (once refused as item 6) now train an MoE model (with --experts 4
+        added where the case leaves it out) whose checkpoint carries
+        them."""
+        if item == "item 7":
+            with pytest.raises(NotImplementedError, match=item):
+                tapp.main(argv)
+            return
+        if "--experts" not in argv:
+            argv = argv + ["--experts", "4"]
+        ck = tmp_path / "ck"
+        tapp.main(argv + ["--steps", "1", "--eval_every", "1", "--d_model",
+                          "16", "--layers", "1", "--heads", "2", "--ctx_len",
+                          "16", "--batch_size", "2", "--device", "cpu",
+                          "--ckpt_dir", str(ck)])
+        _, cfg, _, _ = tckpt.load_ckpt(ck)
+        args = tapp.build_parser().parse_args(argv)
+        assert (cfg.n_experts, cfg.router_top_k) == (args.experts,
+                                                     args.router_top_k)
 
     @pytest.mark.parametrize("flag", [
         "--pos rope", "--ffn swiglu", "--window 8",
