@@ -6,7 +6,9 @@ char-GPT training, long-context training (with ring-mode sampling and
 serving and a LoRA finetune), short-context training through the gated
 kernels, sequence-parallel training through the ring kernels, sampling,
 the routed mixture-of-experts GPT (trained through K8 and K2, sampled,
-served) and the L2 encoder-decoder stack.
+served), the L2 encoder-decoder stack, the sharded trainers (dp x tp,
+FSDP, the 1F1B pipeline, expert parallelism; every rank on the card,
+K2 and K8/K9 inside each) and the small apps.
 
     python3 chip_smoke.py
 
@@ -276,6 +278,30 @@ Phases, each reported on its own line; any failure exits non-zero:
              (2 + 2 layers, d 64) forward and backward on the card
              against the CPU to 1e-5 of max|.|, parameter gradients
              included.
+23. parallel — the sharded trainers through ``train`` with every rank
+             on the card (``PAR_RUNS``): train_big's widths (d 1024, 8
+             heads, 8 layers, ctx 1024, bf16, B 24) under --dp 2 --tp 4
+             (8 ranks), --tp 4 with LINALG_TPU_FUSED_LN=1 (K8 and K9 per
+             rank, 5 steps), --fsdp 4 and --pp 4 (1F1B, 8 microbatches),
+             and the MoE's T 1024 run (d 512, 8 experts, top-1, rope, B
+             8) under --experts 8 --tp 4 --dp 2 with the gate on (K8, K2);
+             10 steps each, steps 3-10 timed, each beside a single-card run
+             of its config and seed: K2 and K8/K9 launches as worked out
+             from ranks, layers, steps and evals (``par_want``), the
+             collectives counted by kind, the step-1 loss within 1e-2 of
+             the single card's, finite losses, ms/step against the single
+             card's; the dp x tp checkpoint (gathered) reloaded equal on
+             one card; each FSDP rank's parameter and moment bytes 1/4 of
+             the single card's but for the replicated small leaves;
+             1F1B's peak memory beside GPipe's at M 8; --dp 2 --tp 4 in
+             f32 with TF32 off at 2 layers, step 1 within 1e-5
+             (relative).
+24. apps   — ``apps.logic_gates`` trains XOR and OR on the card (its
+             asserts pass), ``Vector``'s self-test, ``load_glove`` of a
+             1,000 x 50 file written here, and ``top_k_neighbors`` over a
+             seeded 400,000 x 300 float32 matrix (GloVe 6B 300d's size):
+             its top-10 equal to numpy's float64 top-10, the GEMV's time
+             beside its bound at 3.35 TB/s.
 
 Phase 2 builds every kernel, one ``nvcc`` per source, all started
 together. The line before the last is a JSON object describing the
@@ -1690,6 +1716,55 @@ def report_profile(tag, run, prof, wall):
             phase(tag, f"  {ms_:9.3f} ms "
                   f"{100 * ms_ / max(total, 1e-9):5.1f}%  x{n_:<5d} "
                   f"{key[:80]}")
+
+
+def profile_parallel():
+    """``torch.profiler`` breakdowns of one dp 2 x tp 4 step at train_big's
+    widths and one dp 2 x ep 4 step of the MoE's T 1024 run (K8 on), 8
+    ranks on the card, after three warm steps (run last, as
+    ``profile_step``)."""
+    from linalg_tpu_torch.models.gpt import GPTConfig, init_gpt_params
+    from linalg_tpu_torch.models.moe import MoEGPTConfig, init_moe_params
+    from linalg_tpu_torch.parallel import (gpt_param_specs,
+                                           make_ep_device_train_step,
+                                           make_mesh,
+                                           make_sharded_device_train_step,
+                                           moe_param_specs, shard_tree)
+    from linalg_tpu_torch.train.optim import adamw_init
+
+    kw = dict(base_lr=3e-4, min_lr=3e-5, warmup=200, max_steps=10000,
+              weight_decay=0.01)
+    data = torch.tensor(np.random.default_rng(0).integers(0, 65, 400_000),
+                        device="cuda")
+    big = GPTConfig(vocab_size=65, d_model=1024, n_heads=8, n_layers=8,
+                    ctx_len=1024, dtype="bfloat16")
+    moe = MoEGPTConfig(vocab_size=65, d_model=512, n_heads=4, n_layers=4,
+                       ctx_len=1024, pos="rope", dtype="bfloat16",
+                       n_experts=8)
+    for tag, cfg, B, names, make, specs, init, env in (
+            ("parallel a", big, 24, ("dp", "tp"),
+             make_sharded_device_train_step, gpt_param_specs(None, big),
+             init_gpt_params, {}),
+            ("parallel e", moe, 8, ("dp", "ep"), make_ep_device_train_step,
+             moe_param_specs(moe), init_moe_params,
+             {"LINALG_TPU_FUSED_LN": "1"})):
+        mesh = make_mesh((2, 4), names, ["cuda"] * 8)
+        with switches(**env):
+            rp = shard_tree(init(cfg, seed=0, device="cuda"), specs, mesh)
+            ro = [adamw_init(p) for p in rp]
+            step = make(cfg, mesh, B, **kw)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            for _ in range(3):
+                rp, ro, gen, _ = step(rp, ro, data, gen)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=PROFILED) as prof:
+                t0 = time.perf_counter()
+                rp, ro, gen, _ = step(rp, ro, data, gen)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        report_profile(tag, "step (8 ranks on the card)", prof, wall)
+        del rp, ro
+        torch.cuda.empty_cache()
 
 
 def profile_engine(ServeEngine, params, cfg, reqs):
@@ -3664,6 +3739,334 @@ def leaf_names(params, prefix=()):
     return out
 
 
+# phase 23: the sharded trainers at train_big's widths (10 steps each,
+# steps 3-10 timed; (b) 5 steps) and the MoE's T 1024 run under dp x ep
+PAR_STEPS = ["--steps", "10", "--eval_every", "10"]
+PAR_EVAL_BATCHES = 10  # the sharded trainers' eval batches (JAX's)
+PAR_RUNS = [  # tag, flags, gate on, model (train_big or moe), ranks
+    ("a dp2 x tp4", ["--dp", "2", "--tp", "4"], False, "big", 8),
+    ("b tp4 fused", ["--tp", "4"], True, "big", 4),
+    ("c fsdp4", ["--fsdp", "4"], False, "big", 4),
+    ("d pp4 (1F1B, M 8)", ["--pp", "4"], False, "big", 4),
+    ("e moe dp2 x ep4", ["--experts", "8", "--tp", "4", "--dp", "2"], True,
+     "moe", 8),
+]
+# the kinds of collective each run must count (and no other)
+PAR_KINDS = {"a": {"all_reduce"}, "b": {"all_reduce"},
+             "c": {"all_gather", "reduce_scatter", "all_reduce"},
+             "d": {"ppermute", "all_reduce"}, "e": {"all_reduce"}}
+PAR_LOSS_ATOL = 1e-2  # step-1 loss, bf16: the --sp check's bound
+PAR_F32_RTOL = 1e-5   # step-1 loss, f32 with TF32 off, 2 layers
+
+
+def par_argv(model, steps=None):
+    """The single-card CLI flags of a phase-23 model: train_big's widths
+    (``TRAIN_BIG``) or the MoE's T 1024 run (``MOE_LONG``), at
+    ``PAR_STEPS`` (or ``steps``)."""
+    base = list(TRAIN_BIG if model == "big" else MOE_LONG)
+    for flag in ("--steps", "--eval_every"):
+        i = base.index(flag)
+        del base[i:i + 2]
+    n = steps or PAR_STEPS[1]
+    return base + ["--steps", str(n), "--eval_every", str(n)]
+
+
+def par_train(argv, env, counters):
+    """One ``train`` run of ``argv`` under the gate switches ``env`` with
+    every step timed (the card drained after each): (whole params, cfg,
+    stoi, itos, metric rows, launches of ``counters``, collectives by
+    kind, step end times, peak GB, the ranks' final (params, opt states)
+    or None for one card, checkpoint (saved, cfg, equal))."""
+    from linalg_tpu_torch.apps.gpt import build_parser
+    from linalg_tpu_torch.parallel import collectives
+    from linalg_tpu_torch.train import trainer
+
+    stamps, ranks = [], []
+    real_loop = trainer._train_loop
+
+    def loop(args, cfg, params, opt_state, generator, step_fn, *rest, **kw):
+        def timed_step(*a):
+            out = step_fn(*a)
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            return out
+        out = real_loop(args, cfg, params, opt_state, generator, timed_step,
+                        *rest, **kw)
+        if isinstance(out, list):
+            ranks.append((out, opt_state))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp, switches(**env), patched(
+            (trainer, {"_train_loop": loop})):
+        log = f"{tmp}/metrics.jsonl"
+        args = build_parser().parse_args(
+            ["--train", *argv, "--ckpt_dir", f"{tmp}/ck", "--log_file", log,
+             "--device", "cuda"])
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        collectives.clear()
+        params, cfg, stoi, itos = trainer.train(args)
+        torch.cuda.synchronize()
+        launches = [c.launches for c in counters]
+        kinds = dict(collectives)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rows = [json.loads(ln) for ln in open(log, encoding="utf-8")]
+        ckpt = checkpoint_reloads(f"{tmp}/ck", rows, params, cfg, stoi, itos)
+    losses = [r.get("loss", r.get("val_loss")) for r in rows
+              if r["event"] in ("train", "eval")]
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"parallel {argv}: a loss is not finite")
+    return (params, cfg, rows, launches, kinds, stamps, peak_gb,
+            ranks[0] if ranks else None, ckpt)
+
+
+def step_ms(stamps, first=2):
+    """Mean ms of the steps after the first ``first`` (steps 3-10)."""
+    return (stamps[-1] - stamps[first - 1]) / (len(stamps) - first) * 1e3
+
+
+def par_want(tag, cfg, ranks, steps, n_eval, fused):
+    """K2 (fwd, dq, dkdv, delta) and K8/K9 (qkv fwd, bwd, ffn fwd, bwd)
+    launches of a phase-23 run, worked out beforehand. dp x tp, FSDP and
+    dp x ep: every rank runs each layer once a forward (steps + evals x
+    ``PAR_EVAL_BATCHES``) and once a backward. 1F1B (pp S, M
+    microbatches): a step runs each stage M times in the forward slots
+    (S - 1 stages: the last stage's forward is its backward slot's
+    recompute) and M times recomputed in the backward slots, L/S layers a
+    run; GPipe's eval runs each stage M times."""
+    L = cfg.n_layers
+    if tag.startswith("d"):
+        S, M = 4, 8
+        fwd = steps * (2 * S - 1) * M * L // S + n_eval * \
+            PAR_EVAL_BATCHES * S * M * L // S
+        bwd = steps * S * M * L // S
+    else:
+        fwd = ranks * L * (steps + n_eval * PAR_EVAL_BATCHES)
+        bwd = ranks * L * steps
+    flash = [fwd, bwd, bwd, bwd]
+    fused_n = [0, 0, 0, 0]
+    if fused:
+        fused_n = [fwd, bwd] + ([0, 0] if tag.startswith("e") else [fwd, bwd])
+    return flash, fused_n
+
+
+def rank_bytes(tree):
+    from linalg_tpu_torch.train.optim import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def parallel_phase(smi):
+    """Phase 23: the sharded trainers through ``train`` with every rank on
+    the card (PAR_RUNS), each against a single-card run of its config and
+    seed: launches of K2 and K8/K9 as worked out, collectives by kind,
+    step-1 loss, ms/step; FSDP's rank bytes; the dp x tp checkpoint
+    reloaded; 1F1B's peak memory beside GPipe's at M 8; dp x tp in f32 at
+    2 layers. Returns {"flash": [fwd, dq, dkdv, delta], "fused": [qkv
+    fwd, qkv bwd, ffn fwd, ffn bwd]} over the sharded runs."""
+    from linalg_tpu_torch.kernels import fused_layer as kf
+    from linalg_tpu_torch.kernels.flash_attention import (
+        flash_delta_cuda, flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
+    from linalg_tpu_torch.parallel import (make_mesh, make_pp_1f1b_grads,
+                                           make_pp_loss, pp_param_specs,
+                                           shard_tree)
+    from linalg_tpu_torch.parallel import sharding as tsh
+
+    t_phase = time.perf_counter()
+    flash = (flash_fwd_cuda, flash_dq_cuda, flash_dkdv_cuda, flash_delta_cuda)
+    fused = (kf.ln_qkv_fwd_cuda, kf.ln_qkv_bwd_cuda, kf.ln_ffn_fwd_cuda,
+             kf.ln_ffn_bwd_cuda)
+    on = {"LINALG_TPU_FUSED_LN": "1"}
+    totals = {"flash": [0] * 4, "fused": [0] * 4}
+    singles = {}
+    for model, gate, steps in (("big", False, None), ("big", True, 5),
+                               ("moe", True, None)):
+        out = par_train(par_argv(model, steps), on if gate else {},
+                        flash + fused)
+        singles[(model, gate)] = (out[2][0]["loss"], step_ms(out[5]),
+                                  out[6])
+        del out
+        torch.cuda.empty_cache()
+    for tag, flags, gate, model, n_ranks in PAR_RUNS:
+        steps = 5 if tag.startswith("b") else None
+        argv = par_argv(model, steps) + flags
+        (params, cfg, rows, n, kinds, stamps, peak, ranks,
+         ckpt) = par_train(argv, on if gate else {}, flash + fused)
+        n_steps = rows[-1]["steps"]
+        n_eval = sum(r["event"] == "eval" for r in rows)
+        want_f, want_k = par_want(tag, cfg, n_ranks, n_steps, n_eval, gate)
+        loss1, ms1, peak1 = singles[(model, gate)]
+        d1 = abs(rows[0]["loss"] - loss1)
+        ms = step_ms(stamps)
+        phase("parallel", f"{tag} ({n_ranks} ranks, {cfg.n_layers} layers, "
+              f"B {24 if model == 'big' else 8}, T {cfg.ctx_len}, bf16"
+              f"{', LINALG_TPU_FUSED_LN=1' if gate else ''}, {n_steps} "
+              f"steps): K2 fwd/dq/dkdv/delta {n[:4]} (expected {want_f}); "
+              f"K8 fwd/bwd {n[4:6]}, K9 {n[6:]} (expected {want_k}); "
+              f"collectives {dict(sorted(kinds.items()))}")
+        phase("parallel", f"  step-1 loss {rows[0]['loss']:.6f}, single "
+              f"card {loss1:.6f} (|diff| {d1:.3e}, bound {PAR_LOSS_ATOL}); "
+              f"steps 3-{n_steps}: {ms:.2f} ms/step, single card "
+              f"{ms1:.2f} ({ms / ms1:.2f}x); peak {peak:.2f} GB (single "
+              f"{peak1:.2f}); {smi}")
+        if n[:4] != want_f or n[4:] != want_k:
+            raise RuntimeError(f"parallel {tag}: launch counts differ")
+        if set(kinds) != PAR_KINDS[tag[0]] or not all(kinds.values()):
+            raise RuntimeError(f"parallel {tag}: collectives {kinds}")
+        if not d1 <= PAR_LOSS_ATOL:
+            raise RuntimeError(f"parallel {tag}: step-1 loss off the "
+                               "single card's")
+        totals["flash"] = [a + b for a, b in zip(totals["flash"], n[:4])]
+        totals["fused"] = [a + b for a, b in zip(totals["fused"], n[4:])]
+        if tag.startswith("a"):
+            saved, _, same = ckpt
+            phase("parallel", f"  checkpoint (saved at {saved}, gathered) "
+                  f"reloaded on one card equal: {same}")
+            if not same:
+                raise RuntimeError("parallel: the dp x tp checkpoint does "
+                                   "not reload equal")
+        if tag.startswith("c"):
+            from linalg_tpu_torch.parallel import fsdp_param_specs
+            from linalg_tpu_torch.train.optim import tree_zip
+
+            rp, ro = ranks
+            whole = rank_bytes(params) * 3  # params, m, v
+            got = [rank_bytes(p) + rank_bytes(o.m) + rank_bytes(o.v)
+                   for p, o in zip(rp, ro)]
+            specs = fsdp_param_specs(params, 4)
+            repl = sum(w.numel() * 4 for w, s in tree_zip(params, specs)
+                       if not s) * 3
+            want_b = (whole - repl) // 4 + repl
+            phase("parallel", f"  fsdp bytes (params + m + v) per rank "
+                  f"{got}, one card {whole}: {got[0] / whole:.4f} of it "
+                  f"(1/4 of the sharded leaves {whole - repl} + the "
+                  f"replicated {repl} = {want_b})")
+            if any(g != want_b for g in got):
+                raise RuntimeError("parallel: fsdp rank bytes are not 1/4")
+        if tag.startswith("d"):
+            # 1F1B's and GPipe's peak memory for one step's gradients at M 8
+            mesh = make_mesh((1, 4), ("dp", "pp"), ["cuda"] * 4)
+            specs = pp_param_specs("dp")
+            rp = shard_tree(params, specs, mesh)
+            x = torch.randint(0, cfg.vocab_size, (24, cfg.ctx_len),
+                              device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(0))
+            peaks = {}
+            for name, fn in (
+                    ("1F1B", make_pp_1f1b_grads(cfg, mesh, 8, dp_axis="dp")),
+                    ("GPipe", tsh._loss_and_grads(make_pp_loss(
+                        cfg, mesh, 8, dp_axis="dp"), specs, mesh))):
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fn(rp, x, x)
+                torch.cuda.synchronize()
+                peaks[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            phase("parallel", f"  peak memory above the parameters, one "
+                  f"step's gradients at M 8: 1F1B {peaks['1F1B']:.2f} GB, "
+                  f"GPipe {peaks['GPipe']:.2f} GB")
+            del rp
+        del params, ranks
+        torch.cuda.empty_cache()
+
+    # (a) again in f32 with TF32 off at 2 layers: step 1 against one card
+    f32 = par_argv("big", 1)
+    f32[f32.index("--dtype") + 1] = "float32"
+    f32[f32.index("--layers") + 1] = "2"
+    one = par_train(f32, {}, ())[2][0]["loss"]
+    sharded = par_train(f32 + ["--dp", "2", "--tp", "4"], {}, ())[2][0][
+        "loss"]
+    rel = abs(sharded - one) / abs(one)
+    phase("parallel", f"a dp2 x tp4 f32 (TF32 off), 2 layers: step-1 loss "
+          f"{sharded:.8f}, single card {one:.8f} (rel {rel:.3e}, bound "
+          f"{PAR_F32_RTOL})")
+    if not rel <= PAR_F32_RTOL:
+        raise RuntimeError("parallel: the f32 dp x tp step-1 loss is off")
+    torch.cuda.empty_cache()
+    phase("parallel", f"phase 23 in {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+# phase 24: GloVe 6B 300d's size (400,000 words x 300), seeded
+GLOVE_V, GLOVE_D, GLOVE_K = 400_000, 300, 10
+
+
+def apps_phase():
+    """Phase 24: the small apps on the card: both learned gates (their
+    asserts), ``Vector``'s self-test, ``load_glove`` of a file written
+    here, and ``top_k_neighbors`` over a seeded 400,000 x 300 float32
+    matrix (480 MB on the card) against numpy's float64 top-10, its time
+    beside the GEMV's bound."""
+    import io
+    import unittest
+
+    from linalg_tpu_torch.apps import glovecompare, logic_gates
+    from linalg_tpu_torch.apps.vectors import VectorTests
+
+    t_phase = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        (models, dt) = timed(lambda: logic_gates.main(["--device", "cuda"]))
+    n_ok = said.getvalue().count("all truth-table and fold asserts passed")
+    phase("apps", f"logic_gates XOR and OR trained on the card in {dt:.2f} s "
+          f"(400 full-batch SGD epochs each): {n_ok} of 2 passed their "
+          f"asserts; predictions {[m.predict(logic_gates._INPUTS).tolist() for m in models]}")
+    if n_ok != 2 or any(m.params["W1"].device.type != "cuda"
+                        for m in models):
+        raise RuntimeError("apps: the gates failed")
+    res = unittest.TextTestRunner(stream=io.StringIO(), verbosity=0).run(
+        unittest.defaultTestLoader.loadTestsFromTestCase(VectorTests))
+    phase("apps", f"vectors self-test: {res.testsRun} tests, "
+          f"{len(res.failures) + len(res.errors)} failures")
+    if not res.wasSuccessful():
+        raise RuntimeError("apps: Vector's self-test failed")
+
+    rng = np.random.default_rng(0)
+    small = rng.standard_normal((1000, 50)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/glove.txt"
+        with open(path, "w", encoding="utf-8") as f:
+            for i, row in enumerate(small):
+                f.write(f"w{i} " + " ".join(repr(float(v)) for v in row)
+                        + "\n")
+        stoi, itos, M_small = glovecompare.load_glove(path)
+    if not (np.array_equal(M_small, small) and itos[999] == "w999"):
+        raise RuntimeError("apps: load_glove parsed another matrix")
+    phase("apps", "load_glove: 1,000 x 50 written and parsed back equal")
+
+    M = rng.standard_normal((GLOVE_V, GLOVE_D), dtype=np.float32)
+    words = [f"w{i}" for i in range(GLOVE_V)]
+    stoi = {w: i for i, w in enumerate(words)}
+    query = "w12345"
+    got, dt = timed(lambda: glovecompare.top_k_neighbors(
+        M, stoi, words, query, GLOVE_K, device="cuda"))
+    M64 = M.astype(np.float64)
+    unit64 = M64 / (np.linalg.norm(M64, axis=1, keepdims=True) + 1e-12)
+    sims = unit64 @ unit64[stoi[query]]
+    sims[stoi[query]] = -np.inf
+    want = [words[i] for i in np.argsort(-sims)[:GLOVE_K]]
+    same = [w for w, _ in got] == want
+    # the GEMV alone, on the uploaded unit matrix
+    M_unit = torch.as_tensor(
+        M / (np.linalg.norm(M, axis=1, keepdims=True) + 1e-12),
+        device="cuda")
+    v_unit = M_unit[stoi[query]].clone()
+    ms = median_ms(glovecompare._cosine_all, (M_unit, v_unit))
+    nbytes = (GLOVE_V * GLOVE_D + GLOVE_D + GLOVE_V) * 4
+    bms = nbytes / H100_BYTES_PER_S * 1e3
+    phase("apps", f"top_k_neighbors over {GLOVE_V:,} x {GLOVE_D} f32 "
+          f"({GLOVE_V * GLOVE_D * 4 / 1e6:.0f} MB on the card): top-{GLOVE_K} "
+          f"== numpy float64's {same}; the call (normalize, upload, GEMV, "
+          f"top-k on the host) {dt * 1e3:.1f} ms; the GEMV {ms:.4f} ms, "
+          f"bound {bms:.4f} ms at 3.35 TB/s (bytes), {bms / ms:.1%} of it")
+    if not same:
+        raise RuntimeError("apps: top_k_neighbors differs from numpy's")
+    del M_unit, v_unit
+    torch.cuda.empty_cache()
+    phase("apps", f"phase 24 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3796,6 +4199,12 @@ def main() -> int:
     # -- 22. l2: the reversal demo and the Transformer classes -------------
     l2_phase()
 
+    # -- 23. parallel: the sharded trainers, every rank on the card --------
+    par_launches = parallel_phase(smi)
+
+    # -- 24. apps: the gates, Vector, GloVe neighbours ----------------------
+    apps_phase()
+
     # the profiler breakdowns last: the profiler stays attached to the card
     profile_qr()
     profile_step("train", big_cfg, big_batch)
@@ -3810,16 +4219,18 @@ def main() -> int:
 
     profile_step("sp", long_cfg, long_batch, _sp_ring(
         make_mesh((1, SP), ("dp", "sp"), ["cuda"] * SP), True, long_cfg))
+    profile_parallel()
     ring_copies()
     # last: a profiler session after this one's ~200k launches recorded no
     # kernels
     profile_engine(ServeEngine, params, cfg, reqs)
 
-    flash_launches = [a + b + c + d + e for a, b, c, d, e in zip(
+    flash_launches = [a + b + c + d + e + f for a, b, c, d, e, f in zip(
         train_launches, long_launches, short_launches["btd"],
-        window_launches, moe_launches["flash"])]
-    fused_launches = [a + b for a, b in zip(
-        short_launches["fused"], moe_launches["fused"] + [0, 0])]
+        window_launches, moe_launches["flash"], par_launches["flash"])]
+    fused_launches = [a + b + c for a, b, c in zip(
+        short_launches["fused"], moe_launches["fused"] + [0, 0],
+        par_launches["fused"])]
     print(json.dumps({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/paged_attention.cu",
@@ -3850,6 +4261,7 @@ def main() -> int:
             sum(train_launches), sum(long_launches),
             sum(short_launches["btd"]), sum(window_launches),
             sum(moe_launches["flash"])],
+        "launches_parallel": par_launches["flash"],
         **flash_record, "stream": stream_record, "btd": btd_record}, {
         "name": "fused_layer", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/fused_layer.cu",
@@ -3858,6 +4270,7 @@ def main() -> int:
         "launches_qkv_fwd_bwd_ffn_fwd_bwd": fused_launches,
         "launches_short_moe": [sum(short_launches["fused"]),
                                sum(moe_launches["fused"])],
+        "launches_parallel": par_launches["fused"],
         **fused_record}, {
         "name": "ring_attention_fwd", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/ring_attention.cu",

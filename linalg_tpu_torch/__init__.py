@@ -16,12 +16,14 @@ trainer), whose causal attention runs through CUDA flash-attention
 kernels on the card (``nn.flash``, ``nn.flash_long``), and long-context
 training (RoPE, ALiBi, gated FFNs, a sliding window and grouped K/V read
 in place by the same kernels, ``nn.flash_stream``), and
-sequence-parallel training (``parallel``: ring attention over a mesh whose
-ranks share the device, through the ring kernels K10/K11 on the card), and
-sampling (KV-cached decode, ``gpt_generate``, beam search in
+sharded training over a mesh whose ranks share the device (``parallel``:
+sequence parallelism through the ring kernels K10/K11, dp x tp, FSDP,
+the GPipe and 1F1B pipelines and expert parallelism, their collectives
+explicit in ``parallel.mesh``), and sampling (KV-cached decode, ``gpt_generate``, beam search in
 ``models.beam``, ``train.trainer.sample``, the REPL), byte-level BPE with
 its host C loops (``native``) and the wide-vocabulary chunked loss
-(``nn.losses``).
+(``nn.losses``), the routed MoE GPT, the L2 stack and the small apps
+(``apps``).
 The toolkit's public functions are re-exported here, as ``linalg_tpu``
 does. See ROADMAP.md for what comes next.
 """

@@ -17,9 +17,11 @@ through the ring cache. ``--train --experts E`` (``--router_top_k``,
 ``--dispatch``) trains the routed MoE GPT; ``--serve`` and ``--repl`` on
 its checkpoint print the JAX CLI's fallbacks for what the MoE does not
 take (int8, paged KV, speculation, registered prefixes, beam search,
-prompts past the prefill window). Flags of features that are not ported
-yet are accepted and refused with ``NotImplementedError`` naming their
-ROADMAP.md item (the other parallel axes: item 7).
+prompts past the prefill window). ``--train`` with ``--dp``, ``--tp``
+(experts with ``--experts``), ``--sp``, ``--pp`` (``--microbatches``) or
+``--fsdp`` trains over a mesh whose ranks share the device. Tensor-parallel
+serving (``--serve --tp``) is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP.md item (item 7).
 """
 
 from __future__ import annotations
@@ -32,14 +34,8 @@ import time
 import numpy as np
 
 
-# Flags of the JAX CLI whose features are not ported: (default, ROADMAP.md
-# item). Any other value raises NotImplementedError naming the item.
-_NOT_PORTED_FLAGS = {
-    "tp": (1, "queue 1, item 7: parallelism"),
-    "pp": (1, "queue 1, item 7: parallelism"),
-    "fsdp": (1, "queue 1, item 7: parallelism"),
-    "microbatches": (0, "queue 1, item 7: parallelism"),
-}
+# serving over a tp mesh (the JAX CLI's ``--serve --tp N``)
+_MESH_SERVING = "ROADMAP.md queue 1, item 7: mesh serving"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -140,10 +136,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="adapter checkpoint dir (default <ckpt_dir>/lora); "
                          "repl/serve merge adapters from here when present")
     ap.add_argument("--microbatches", type=int, default=0,
-                    help="pipeline microbatch count (not ported yet)")
+                    help="pipeline microbatch count (0 = auto: 2*pp when "
+                         "the batch divides, else pp)")
     ap.add_argument("--dp", type=int, default=1,
-                    help="data-parallel mesh axis (with --sp; alone it is "
-                         "not ported yet)")
+                    help="data-parallel mesh axis (the ranks share the "
+                         "device)")
     ap.add_argument("--sp", type=int, default=1,
                     help="sequence-parallel mesh axis (ring attention over "
                          "the sequence; the ranks share the device)")
@@ -153,9 +150,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "(pallas) or the plain ring (xla); auto = the "
                          "kernels on a CUDA device, the plain ring on the "
                          "CPU")
-    for axis in ("tp", "pp", "fsdp"):
-        ap.add_argument(f"--{axis}", type=int, default=1,
-                        help="multi-device mesh axis (not ported yet)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel mesh axis (heads/FFN sharding; "
+                         "with --experts it shards experts instead)")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline-parallel mesh axis (layer stack sharded "
+                         "over stages, 1F1B microbatch schedule)")
+    ap.add_argument("--fsdp", type=int, default=1,
+                    help="fully-sharded data parallelism (ZeRO-3): batch "
+                         "split like --dp, parameter and optimizer storage "
+                         "sharded 1/N per rank, weights gathered per layer")
     ap.add_argument("--serve", action="store_true",
                     help="batch-serve mode: run every prompt in --prompts "
                          "through the continuous-batching engine "
@@ -502,10 +506,10 @@ def repl(args) -> None:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    for flag, (default, item) in _NOT_PORTED_FLAGS.items():
-        if getattr(args, flag) != default:
-            raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP.md {item})")
+    if args.serve and args.tp > 1:
+        raise NotImplementedError(
+            f"--serve --tp (tensor-parallel serving) is not ported yet "
+            f"({_MESH_SERVING})")
     if args.train:
         from ..train.trainer import train
 

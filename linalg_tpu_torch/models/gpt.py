@@ -218,6 +218,56 @@ def _ffn_dense(lp, x, ffn: str = "relu"):
     return h @ lp["W2"] + lp["b2"]
 
 
+def _ln_qkv(h_in, lp):
+    """K8 (``ln_qkv``) on the layer's LayerNorm and projections. K8 takes
+    (D, D) projections; narrower ones (a tensor-parallel rank's D/tp
+    columns) are zero-padded to D columns and the outputs cut back, which
+    leaves every product and gradient of the real columns as it was."""
+    D = h_in.shape[-1]
+    ws = [lp["Wq"], lp["Wk"], lp["Wv"]]
+    widths = [w.shape[-1] for w in ws]
+    if all(wd == D for wd in widths):
+        return ln_qkv(h_in, lp["ln1_g"], lp["ln1_b"], *ws)
+    outs = ln_qkv(h_in, lp["ln1_g"], lp["ln1_b"],
+                  *(F.pad(w, (0, D - wd)) for w, wd in zip(ws, widths)))
+    return tuple(o[..., :wd] for o, wd in zip(outs, widths))
+
+
+def _attn_half(h_in, lp, mask, n_heads: int, n_kv: int, attn_fn: Callable,
+               rope=None, fused: bool = False):
+    """The attention branch of a pre-LN block: (LN(h) -> QKV -> attention
+    -> Wo output (B, T, D), (k, v) at the grouped head count). ``fused``
+    takes K8 for LN + QKV. Under tensor parallelism a rank passes its own
+    head counts and column blocks, and the output is its partial sum."""
+    if fused:
+        qf, kf, vf = _ln_qkv(h_in, lp)
+        q, k, v = _heads(qf, n_heads), _heads(kf, n_kv), _heads(vf, n_kv)
+    else:
+        xn = layer_norm(h_in, lp["ln1_g"], lp["ln1_b"])
+        q = _heads(xn @ lp["Wq"], n_heads)
+        k = _heads(xn @ lp["Wk"], n_kv)
+        v = _heads(xn @ lp["Wv"], n_kv)
+    if rope is not None:
+        q = rope_rotate(q, *rope)
+        k = rope_rotate(k, *rope)
+    if getattr(attn_fn, "gqa_native", False):
+        # the stream kernels read each grouped K/V head for its query heads
+        a = _unheads(attn_fn(q, k, v, mask)) @ lp["Wo"]
+    else:
+        a = _unheads(attn_fn(q, _gqa_expand(k, n_heads),
+                             _gqa_expand(v, n_heads), mask)) @ lp["Wo"]
+    return a, (k, v)
+
+
+def _ffn_half(h1, lp, ffn: str = "relu", fused: bool = False):
+    """The FFN branch of a pre-LN block: K9 (``ln_ffn``) when ``fused``,
+    else LayerNorm then ``_ffn_dense``."""
+    if fused:
+        return ln_ffn(h1, lp["ln2_g"], lp["ln2_b"], lp["W1"], lp["b1"],
+                      lp["W2"], lp["b2"])
+    return _ffn_dense(lp, layer_norm(h1, lp["ln2_g"], lp["ln2_b"]), ffn)
+
+
 def _layer(h_in, lp, mask, n_heads: int, n_kv: Optional[int] = None,
            ffn: str = "relu", attn_fn: Callable = sdpa, rope=None,
            fused: bool = False, attn_btd: Optional[Callable] = None):
@@ -239,31 +289,9 @@ def _layer(h_in, lp, mask, n_heads: int, n_kv: Optional[int] = None,
         h1 = h_in + a
         f = _ffn_dense(lp, layer_norm(h1, lp["ln2_g"], lp["ln2_b"]), ffn)
         return h1 + f, (None, None)
-    if fused:
-        qf, kf, vf = ln_qkv(h_in, lp["ln1_g"], lp["ln1_b"], lp["Wq"],
-                            lp["Wk"], lp["Wv"])
-        q, k, v = _heads(qf, n_heads), _heads(kf, n_kv), _heads(vf, n_kv)
-    else:
-        xn = layer_norm(h_in, lp["ln1_g"], lp["ln1_b"])
-        q = _heads(xn @ lp["Wq"], n_heads)
-        k = _heads(xn @ lp["Wk"], n_kv)
-        v = _heads(xn @ lp["Wv"], n_kv)
-    if rope is not None:
-        q = rope_rotate(q, *rope)
-        k = rope_rotate(k, *rope)
-    if getattr(attn_fn, "gqa_native", False):
-        # the stream kernels read each grouped K/V head for its query heads
-        a = _unheads(attn_fn(q, k, v, mask)) @ lp["Wo"]
-    else:
-        a = _unheads(attn_fn(q, _gqa_expand(k, n_heads),
-                             _gqa_expand(v, n_heads), mask)) @ lp["Wo"]
+    a, kv = _attn_half(h_in, lp, mask, n_heads, n_kv, attn_fn, rope, fused)
     h1 = h_in + a
-    if fused:
-        f = ln_ffn(h1, lp["ln2_g"], lp["ln2_b"], lp["W1"], lp["b1"],
-                   lp["W2"], lp["b2"])
-    else:
-        f = _ffn_dense(lp, layer_norm(h1, lp["ln2_g"], lp["ln2_b"]), ffn)
-    return h1 + f, (k, v)
+    return h1 + _ffn_half(h1, lp, ffn, fused), kv
 
 
 def _embed(params: Params, x_ids, cfg: GPTConfig, T: int, dt):
@@ -274,8 +302,7 @@ def _embed(params: Params, x_ids, cfg: GPTConfig, T: int, dt):
     dev = params["tok_W"].device
     emb = params["tok_W"][x_ids]
     if cfg.pos == "rope":
-        cos, sin = rope_tables(cfg.d_head, torch.arange(T, device=dev))
-        return emb.to(dt), (cos.to(dt), sin.to(dt))
+        return emb.to(dt), _rope(cfg, T, dt, dev)
     if cfg.pos == "alibi":
         return emb.to(dt), None
     if cfg.pos == "learned":
@@ -283,6 +310,15 @@ def _embed(params: Params, x_ids, cfg: GPTConfig, T: int, dt):
     else:
         pe = sinusoidal_encoding(cfg.ctx_len, cfg.d_model, device=dev)[:T]
     return (emb + pe[None]).to(dt), None
+
+
+def _rope(cfg: GPTConfig, T: int, dt, device=None):
+    """The (cos, sin) RoPE tables of positions 0..T-1 in ``dt``, or None
+    when the config does not rotate."""
+    if cfg.pos != "rope":
+        return None
+    cos, sin = rope_tables(cfg.d_head, torch.arange(T, device=device))
+    return cos.to(dt), sin.to(dt)
 
 
 def _trunk_mask(cfg: GPTConfig, T: int, dt, device=None):
@@ -487,11 +523,17 @@ def gpt_loss(params: Params, x_ids, y_ids, cfg: GPTConfig,
     vocabularies (>= ``CE_CHUNK_THRESHOLD``) stream the tied head through
     ``nn.losses.chunked_softmax_ce`` (its hand-derived backward), so the
     (B*T, V) logits are never formed."""
+    return _hidden_loss(params, _gpt_trunk(params, x_ids, cfg, attn_fn),
+                        y_ids, cfg)
+
+
+def _hidden_loss(params: Params, h, y_ids, cfg: GPTConfig):
+    """``gpt_loss`` from the trunk's final hidden h (B, T, D): the mean CE
+    of the tied head, chunked at wide vocabularies."""
     if cfg.vocab_size >= CE_CHUNK_THRESHOLD:
-        h = _gpt_trunk(params, x_ids, cfg, attn_fn)
         return chunked_softmax_ce(h, params["tok_W"], params["head_b"],
                                   y_ids)
-    logits = gpt_apply(params, x_ids, cfg, attn_fn)
+    logits = _head(params, h, cfg.compute_dtype)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, y_ids[..., None].long())[..., 0]
     return torch.mean(logz - gold)

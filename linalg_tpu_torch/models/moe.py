@@ -37,13 +37,12 @@ import torch
 import torch.nn.functional as F
 
 from ..nn.cache import fkv_write
-from ..nn.functional import (geglu, gelu, layer_norm, relu, rope_rotate,
-                             rope_tables, sdpa, sinusoidal_encoding, swiglu)
-from ..nn.fused_layer import ln_qkv
+from ..nn.functional import (geglu, gelu, layer_norm, relu, rope_tables,
+                             sdpa, sinusoidal_encoding, swiglu)
 from ..nn.positional import alibi_slopes
-from .gpt import (GPTConfig, _decode_chunk_core, _embed, _gqa_expand, _head,
-                  _heads, _layer_params, _make_decode_step, _pick_attn_cfg,
-                  _pick_fused, _trunk_mask, _unheads)
+from .gpt import (GPTConfig, _attn_half, _decode_chunk_core, _embed, _head,
+                  _layer_params, _make_decode_step, _pick_attn_cfg,
+                  _pick_fused, _trunk_mask)
 
 __all__ = ["MoEGPTConfig", "init_moe_params", "moe_ffn", "moe_gpt_apply",
            "moe_gpt_loss", "moe_prefill", "moe_prefill_batched",
@@ -151,7 +150,8 @@ def _route(x, Wr, top_k: int):
 
 def moe_ffn(x, Wr, W1, b1, W2, b2, capacity: int, top_k: int = 1,
             mode: str = "einsum", valid=None, Wg=None, bg=None,
-            ffn: str = "relu") -> Tuple[torch.Tensor, torch.Tensor]:
+            ffn: str = "relu", expert_offset: int = 0,
+            stats: bool = False) -> Tuple[torch.Tensor, Any]:
     """Top-k routed expert FFN, each row of x one routing group.
 
     x (B, T, D); Wr (D, E); W1 (E, D, F); b1 (E, F); W2 (E, F, D); b2
@@ -165,9 +165,20 @@ def moe_ffn(x, Wr, W1, b1, W2, b2, capacity: int, top_k: int = 1,
     ``mode`` "einsum": dense 0/1 dispatch and combine tensors (B, T, E, C),
     slot bookkeeping in ``_ROUTER_DTYPE`` whatever the compute dtype (bf16
     counts saturate at 256). "gather": an int slot -> token table and row
-    gathers. The two compute the same function."""
+    gathers. The two compute the same function.
+
+    Expert parallelism (einsum mode): W1 ... hold the experts
+    ``expert_offset`` to ``expert_offset + W1.shape[0]`` of the router's E;
+    routing runs over all E, and ``out`` is those experts' share of the
+    combine (the shares sum to the whole). ``stats=True`` returns the
+    load-balance statistics (f, P) (E,) in place of the aux loss
+    ``E * sum(f * P)``, for a caller that averages them over a split
+    batch first."""
     B, T, D = x.shape
     E = Wr.shape[-1]
+    El = E if W1 is None else W1.shape[0]
+    if El != E and mode != "einsum":
+        raise ValueError("an expert slice needs the einsum dispatch")
     C = capacity
     dev = x.device
     probs, idxs, gates = _route(x, Wr, top_k)
@@ -227,6 +238,9 @@ def moe_ffn(x, Wr, W1, b1, W2, b2, capacity: int, top_k: int = 1,
             dispatch = dispatch + d
             combine = combine + d * gates[..., lvl, None, None]
             offset = offset + oh.sum(1)
+        if El != E:  # this rank's experts
+            sl = slice(expert_offset, expert_offset + El)
+            dispatch, combine = dispatch[:, :, sl], combine[:, :, sl]
         xin = torch.einsum("btec,btd->becd", dispatch, x)  # (B, E, C, D)
         out_e = _expert_mlp(xin, W1, b1, W2, b2, Wg, bg, ffn)
         out = torch.einsum("btec,becd->btd", combine, out_e)
@@ -239,6 +253,8 @@ def moe_ffn(x, Wr, W1, b1, W2, b2, capacity: int, top_k: int = 1,
         n_valid = torch.clamp_min(validf.sum(), 1.0)
         f = onehot1.sum(dim=(0, 1)) / n_valid
         P_mean = (probs * validf[..., None]).sum(dim=(0, 1)) / n_valid
+    if stats:
+        return out, (f, P_mean)
     return out, E * torch.sum(f * P_mean)
 
 
@@ -250,29 +266,13 @@ def _moe_layer(h_in, lp, mask, n_heads: int, attn_fn: Callable, rope,
     the grouped head count (the prefill cache). ``fused`` takes K8
     (``ln_qkv``) for LayerNorm + QKV; the FFN stays routed."""
     n_kv = n_heads if n_kv is None else n_kv
-    if fused:
-        qf, kf, vf = ln_qkv(h_in, lp["ln1_g"], lp["ln1_b"], lp["Wq"],
-                            lp["Wk"], lp["Wv"])
-        q, k, v = _heads(qf, n_heads), _heads(kf, n_kv), _heads(vf, n_kv)
-    else:
-        xn = layer_norm(h_in, lp["ln1_g"], lp["ln1_b"])
-        q = _heads(xn @ lp["Wq"], n_heads)
-        k = _heads(xn @ lp["Wk"], n_kv)
-        v = _heads(xn @ lp["Wv"], n_kv)
-    if rope is not None:
-        q = rope_rotate(q, *rope)
-        k = rope_rotate(k, *rope)
-    if getattr(attn_fn, "gqa_native", False):
-        a = _unheads(attn_fn(q, k, v, mask)) @ lp["Wo"]
-    else:
-        a = _unheads(attn_fn(q, _gqa_expand(k, n_heads),
-                             _gqa_expand(v, n_heads), mask)) @ lp["Wo"]
+    a, kv = _attn_half(h_in, lp, mask, n_heads, n_kv, attn_fn, rope, fused)
     h1 = h_in + a
     x2 = layer_norm(h1, lp["ln2_g"], lp["ln2_b"])
     f, aux = moe_ffn(x2, lp["Wr"], lp["W1"], lp["b1"], lp["W2"], lp["b2"],
                      capacity, top_k, mode, valid, Wg=lp.get("Wg"),
                      bg=lp.get("bg"), ffn=ffn)
-    return h1 + f, (k, v), aux
+    return h1 + f, kv, aux
 
 
 def _capacity(cfg: MoEGPTConfig, group_tokens: int) -> int:

@@ -1,32 +1,430 @@
-"""Sequence-parallel GPT training — the sp subset of
+"""Sharded GPT training: data-parallel batch x tensor-parallel heads/FFN,
+and sequence parallelism — the counterpart of
 ``linalg_tpu/parallel/sharding.py``.
 
-Context parallelism: the batch is split over (dp, sp) and every
-activation carries its T axis split over ``sp``; the LayerNorms, the FFN
-and the embeddings are pointwise over T, and attention runs the ring
-(``parallel.ring``, or the ring kernels K10/K11 through
-``parallel.ring_pallas`` with ``pallas=True``). Parameters are replicated.
-In the JAX package GSPMD shards the pointwise ops over the devices; here
-the mesh's ranks share one device, so the pointwise ops run on the whole
-batch there and only attention is split into ranks. The dp x tp steps
-(``make_sharded_*``) are ROADMAP.md queue 1, item 7.
+Layout (megatron-style), as ``gpt_param_specs`` states it:
 
-Steps take the trainer's contract: windows drawn on the parameters'
-device from a ``torch.Generator``, so an sp run draws the batches of the
-single-device run with the same seed.
+- Wq/Wk/Wv (L, D, h*dh), W1/b1 and the gate's Wg/bg: split by column over
+  ``tp``, so each tp rank owns n_heads/tp heads end to end through
+  attention, and F/tp of the FFN.
+- Wo (L, h*dh, D) and W2 (L, F, D): split by row; each rank's product is a
+  partial sum, and an all-reduce over ``tp`` reassembles the residual
+  stream (twice a layer).
+- Embeddings, LayerNorms, b2: replicated; every rank holds its own copy.
+- The batch (B, T): split over ``dp``.
+
+Where the JAX package lets GSPMD place the collectives, each rank here
+runs its own block of the model on its own tensors, and
+``parallel.mesh``'s collectives move data between ranks. The residual
+stream is replicated over ``tp``: each tp rank carries its copy, the head
+and loss run once per dp rank (on its tp rank 0), and ``b2`` is added on
+tp rank 0 only (its FFN output is summed over ``tp``). The global loss is
+the mean over ``dp`` of each dp rank's mean: its gradient with respect to
+a leaf is the sum of the gradients of that leaf's copies (the mean over
+``dp``, and for a replicated leaf the sum over ``tp``), which
+``_reduce_grads`` forms with one all-reduce a leaf. Clipping takes the
+norm of the whole gradient: each shard once, each replicated leaf once.
+
+Attention runs each rank's (B/dp, H/tp, T, d) block through the
+single-card pick (``make_sharded_attn``): the flash kernel K2 at T >= 512
+on the card. With ``LINALG_TPU_FUSED_LN=1`` each rank takes K8 (its
+column blocks zero-padded to the D columns K8 takes) and K9 (its F/tp
+columns) as ``_pick_fused`` allows.
+
+Sequence parallelism (``make_sp_*``): the batch is split over (dp, sp)
+and attention runs the ring (``parallel.ring``, or K10/K11 through
+``parallel.ring_pallas`` with ``pallas=True``); parameters are
+replicated, and the ranks share one device, so the pointwise ops run on
+the whole batch there and only attention is split into ranks.
+
+Steps take the trainer's contract: the global batch's windows are drawn on
+the parameters' device from a ``torch.Generator`` and then split over the
+ranks, so a sharded run draws the batches of the single-device run with
+the same seed. Sharded steps take and return per-rank lists of parameter
+trees and ``AdamWState``s (``mesh.shard_tree`` makes them).
 """
 
 from __future__ import annotations
 
-from ..models.gpt import GPTConfig
+import numpy as np
+import torch
+
+from ..models.gpt import (_REMAT_SDPA, GPTConfig, _attn_half, _embed,
+                          _ffn_half, _hidden_loss, _layer_params, _pick_attn,
+                          _pick_fused, _trunk_mask, gpt_loss,
+                          init_gpt_params)
+from ..nn.functional import causal_mask
+from ..nn.fused_layer import fused_supported
 from ..nn.positional import alibi_slopes
-from ..train.optim import adamw_update, gpt_wd_mask
-from ..train.trainer import (_eval_device, _value_and_grad,
+from ..train.optim import (adamw_init, adamw_update, gpt_lr_scales,
+                           gpt_wd_mask, tree_leaves, tree_map, tree_zip,
+                           warmup_cosine)
+from ..train.trainer import (_eval_device, _value_and_grad, _windows,
                              make_device_train_step)
+from .mesh import (all_reduce, make_mesh, pick_dp_tp, shard_tree, spec_axes,
+                   unshard_tree)
 from .ring import make_ring_attention
 from .ring_pallas import make_ring_attention_pallas
 
-__all__ = ["make_sp_train_step", "make_sp_device_train_step", "make_sp_eval"]
+__all__ = ["gpt_param_specs", "make_sharded_attn", "make_sharded_train_step",
+           "make_sharded_device_train_step", "make_sharded_eval",
+           "make_sp_train_step", "make_sp_device_train_step", "make_sp_eval",
+           "dryrun_multichip"]
+
+
+def gpt_param_specs(params=None, cfg=None) -> dict:
+    """The dp x tp split rule per leaf (see the module docstring): a spec
+    tree of the GPT parameter layout, each spec a tuple with the entries
+    of the JAX package's ``PartitionSpec``. Pass ``cfg`` (or a params
+    dict) so a gated FFN's Wg/bg and learned positions' pos_W get theirs."""
+    col, row = (None, None, "tp"), (None, "tp", None)
+    layer_specs = {
+        "ln1_g": (), "ln1_b": (), "Wq": col, "Wk": col, "Wv": col,
+        "Wo": row, "ln2_g": (), "ln2_b": (), "W1": col, "b1": (None, "tp"),
+        "W2": row, "b2": (),
+    }
+    if (params is not None and "Wg" in params.get("layers", {})) or (
+            cfg is not None and getattr(cfg, "gated_ffn", False)):
+        layer_specs["Wg"] = col
+        layer_specs["bg"] = (None, "tp")
+    specs = {"tok_W": (), "head_b": (), "layers": layer_specs}
+    if (params is not None and "pos_W" in params) or (
+            cfg is not None and getattr(cfg, "pos", None) == "learned"):
+        specs["pos_W"] = ()
+    return specs
+
+
+def make_sharded_attn(mesh, T: int, d_head: int, batch_axis: str = "dp",
+                      head_axis: str | None = "tp", cfg: GPTConfig = None):
+    """Attention for the sharded steps: each rank runs its (B/dp, h/tp, T,
+    d) block through the single-card pick, with no collective (heads are
+    tp-local by the parameter layout, and attention is pointwise over
+    batch and head).
+
+    Returns ``fa(q, k, v, mask)`` over global (B, H, T, d) tensors (the
+    blocks split out, run, and put back together), whose ``local(coord)``
+    is rank ``coord``'s ``attn_fn(q, k, v, mask)`` on its block. The
+    ``mask`` argument is ignored: the attention forms its own.
+
+    - ``cfg.pos == "alibi"``: the rematted sdpa with the per-head distance
+      bias of the rank's OWN head slice (slopes h_idx * h_loc onward; all
+      of them with ``head_axis=None``), under the window band when
+      ``cfg.window`` is set.
+    - ``cfg.window``: the rematted sdpa over the banded mask.
+    - else ``_pick_attn`` on the rank's device (K2 at 512 <= T <= 1024 on
+      the card) under the causal mask.
+    """
+    if cfg is not None and cfg.pos == "alibi":
+        sl_all = alibi_slopes(cfg.n_heads)
+
+        def local(coord):
+            idx = 0 if head_axis is None else coord[head_axis]
+
+            def attn(q, k, v, mask=None):
+                dev, h_loc = q.device, q.shape[1]
+                sl = sl_all.to(dev)[idx * h_loc:(idx + 1) * h_loc]
+                i = torch.arange(T, device=dev)
+                dist = (i[None, :] - i[:, None]).float()  # j - i
+                base = causal_mask(T, dtype=torch.float32, device=dev)
+                if cfg.window is not None:  # the band under ALiBi
+                    far = (i[:, None] - i[None, :]) >= cfg.window
+                    base = torch.where(far[None, None], -1e9, base)
+                m = (base + (sl[:, None, None] * dist)[None]).to(q.dtype)
+                return _REMAT_SDPA(q, k, v, m)
+            return attn
+    elif cfg is not None and cfg.window is not None:
+        def local(coord):
+            def attn(q, k, v, mask=None):
+                return _REMAT_SDPA(q, k, v, _trunk_mask(cfg, T, q.dtype,
+                                                        q.device))
+            return attn
+    else:
+        def local(coord):
+            def attn(q, k, v, mask=None):
+                fn = _pick_attn(T, d_head, q.device.type)
+                return fn(q, k, v, causal_mask(T, dtype=q.dtype,
+                                               device=q.device))
+            return attn
+
+    nb = mesh.shape[batch_axis] if batch_axis else 1
+    nh = mesh.shape[head_axis] if head_axis else 1
+
+    def fa(q, k, v, mask=None):
+        B, H = q.shape[:2]
+        bs, hs = B // nb, H // nh
+        rows = []
+        for bi in range(nb):
+            cols = []
+            for hi in range(nh):
+                coord = {batch_axis: bi, head_axis: hi}
+                r = next(r for r, c in enumerate(mesh.coords)
+                         if all(c.get(a, 0) == i for a, i in coord.items()
+                                if a is not None))
+                dev = mesh.rank_devices[r]
+                blk = [t[bi * bs:(bi + 1) * bs, hi * hs:(hi + 1) * hs]
+                       .to(dev) for t in (q, k, v)]
+                cols.append(local(mesh.coords[r])(*blk).to(q.device))
+            rows.append(torch.cat(cols, dim=1))
+        return torch.cat(rows, dim=0)
+
+    fa.local = local
+    return fa
+
+
+# -- the machinery the sharded trainers share --------------------------------
+
+
+def _split_batch(x, mesh, axis):
+    """Per-rank blocks of the global batch x (B, ...): split over ``axis``
+    (replicated over the other axes), or whole on every rank when
+    ``axis`` is None; each on its rank's device."""
+    if axis is None:
+        return [x.to(d) for d in mesh.rank_devices]
+    n = mesh.shape[axis]
+    if x.shape[0] % n:
+        raise ValueError(f"batch {x.shape[0]} must divide by the {axis!r} "
+                         f"axis ({n})")
+    parts = x.chunk(n)
+    return [parts[c[axis]].to(d)
+            for c, d in zip(mesh.coords, mesh.rank_devices)]
+
+
+def _mean_loss(losses, mesh, n_groups: int):
+    """The global loss on every rank from per-rank partial losses (None for
+    ranks that hold none): their sum over the mesh over ``n_groups``.
+    Returns rank 0's copy."""
+    like = next(v for v in losses if v is not None)
+    vals = [torch.zeros((), dtype=like.dtype, device=d) if v is None
+            else v.reshape(()) for v, d in zip(losses, mesh.rank_devices)]
+    return all_reduce(vals, mesh, mesh.axis_names)[0] / n_groups
+
+
+def _rank_grads(rank_params, loss):
+    """autograd.grad of ``loss`` with respect to every rank's leaves:
+    per-rank gradient trees (zeros for a leaf the loss does not reach)."""
+    leaves = [p for tree in rank_params for p in tree_leaves(tree)]
+    it = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+
+    def grad(p):
+        g = next(it)
+        return torch.zeros_like(p) if g is None else g
+
+    return [tree_map(grad, tree) for tree in rank_params]
+
+
+def _requires_grad(rank_params):
+    for tree in rank_params:
+        for p in tree_leaves(tree):
+            p.requires_grad_(True)
+
+
+def _reduce_grads(rank_grads, specs, mesh):
+    """Sum each leaf's gradient over the mesh axes it is replicated on
+    (one all-reduce a leaf): every copy then holds the whole gradient of
+    its shard, bit for bit the same on every rank."""
+    spec_list = [s for (s,) in tree_zip(specs)]
+    per_rank = [[g for (g,) in tree_zip(t)] for t in rank_grads]
+    out = [[None] * len(spec_list) for _ in rank_grads]
+    for j, spec in enumerate(spec_list):
+        axes = tuple(a for a in mesh.axis_names if a not in spec_axes(spec))
+        vals = [g[j] for g in per_rank]
+        if axes:
+            vals = all_reduce(vals, mesh, axes)
+        for r, v in enumerate(vals):
+            out[r][j] = v
+    res = []
+    for r, tree in enumerate(rank_grads):
+        it = iter(out[r])
+        res.append(tree_map(lambda _: next(it), tree))
+    return res
+
+
+def _global_norm(rank_grads, specs, mesh):
+    """Per-rank copies of the L2 norm of the whole gradient: each rank sums
+    the squares of the shards it owns (a replicated leaf is owned by the
+    rank at index 0 of the axes it is replicated on), and an all-reduce
+    over the mesh adds them."""
+    parts = []
+    for c, tree in zip(mesh.coords, rank_grads):
+        sq = None
+        for g, spec in tree_zip(tree, specs):
+            split = spec_axes(spec)
+            if all(c[a] == 0 for a in mesh.axis_names if a not in split):
+                t = torch.sum(torch.square(g.float()))
+                sq = t if sq is None else sq + t
+        parts.append(sq if sq is not None else torch.zeros(
+            (), device=next(iter(tree_leaves(tree))).device))
+    return [torch.sqrt(s) for s in all_reduce(parts, mesh, mesh.axis_names)]
+
+
+def _update(rank_params, rank_grads, rank_opt, specs, mesh, lr,
+            weight_decay, lr_embed_scale=1.0, lr_head_scale=1.0,
+            clip_norm=0.0):
+    """AdamW on every rank's shards, in place (the clip on the global
+    norm)."""
+    norms = (_global_norm(rank_grads, specs, mesh) if clip_norm > 0.0
+             else [None] * mesh.size)
+    for p, g, o, n in zip(rank_params, rank_grads, rank_opt, norms):
+        adamw_update(p, g, o, lr, gpt_wd_mask(p, weight_decay),
+                     lr_scales=gpt_lr_scales(p, embed=lr_embed_scale,
+                                             head=lr_head_scale),
+                     clip_norm=clip_norm, grad_norm=n)
+    return rank_params, rank_opt
+
+
+def _loss_and_grads(loss_fn, specs, mesh):
+    """(rank_params, x, y) -> (global loss, reduced per-rank grads) of a
+    differentiable sharded ``loss_fn(rank_params, x, y)``."""
+    def fn(rank_params, x, y):
+        _requires_grad(rank_params)
+        loss = loss_fn(rank_params, x, y)
+        grads = _reduce_grads(_rank_grads(rank_params, loss), specs, mesh)
+        return loss.detach(), grads
+    return fn
+
+
+def _const_step(loss_and_grads, specs, mesh, lr, weight_decay):
+    """``step(rank_params, rank_opt, x, y) -> (rank_params, rank_opt,
+    loss)`` at a constant lr."""
+    def step(rank_params, rank_opt, x, y):
+        loss, grads = loss_and_grads(rank_params, x, y)
+        _update(rank_params, grads, rank_opt, specs, mesh, lr, weight_decay)
+        return rank_params, rank_opt, loss
+    return step
+
+
+def _device_step(loss_and_grads, specs, mesh, batch_size, T, *, base_lr,
+                 min_lr, warmup, max_steps, weight_decay,
+                 lr_embed_scale=1.0, lr_head_scale=1.0, clip_norm=0.0):
+    """The trainer's step contract, ``step(rank_params, rank_opt, data_ids,
+    generator) -> (rank_params, rank_opt, generator, loss)``: the global
+    batch's windows drawn on ``data_ids``' device, warmup-cosine lr from
+    the optimizer's step count, per-leaf lr scales, clipping."""
+    def step(rank_params, rank_opt, data_ids, generator):
+        x, y = _windows(data_ids, batch_size, T, generator)
+        loss, grads = loss_and_grads(rank_params, x, y)
+        lr = warmup_cosine(rank_opt[0].t + 1, base=base_lr, min_lr=min_lr,
+                           warmup=warmup, max_steps=max_steps)
+        _update(rank_params, grads, rank_opt, specs, mesh, lr, weight_decay,
+                lr_embed_scale, lr_head_scale, clip_norm)
+        return rank_params, rank_opt, generator, loss
+    return step
+
+
+def _device_eval(loss_fn, batch, batches, T):
+    """``evaluate(rank_params, val_ids, generator)``: the mean of
+    ``loss_fn`` over ``batches`` windows, one device scalar."""
+    @torch.no_grad()
+    def evaluate(rank_params, val_ids, generator):
+        total = 0.0
+        for _ in range(batches):
+            total = total + loss_fn(rank_params,
+                                    *_windows(val_ids, batch, T, generator))
+        return total / batches
+    return evaluate
+
+
+# -- the dp x tp model -------------------------------------------------------
+
+
+def _b2_once(lp, coord, axis):
+    """The layer's weights with b2 zeroed off the axis's rank 0: the FFN
+    output is summed over the axis, so b2 enters once (K9 adds it in the
+    kernel)."""
+    if coord.get(axis, 0) == 0:
+        return lp
+    return {**lp, "b2": torch.zeros_like(lp["b2"])}
+
+
+def _tp_fused(cfg: GPTConfig, B: int, T: int, tp: int, device_type: str):
+    """``_pick_fused`` for a tp rank's block: its N = B*T rows, and its F/tp
+    FFN columns within what K9 takes."""
+    return (cfg.kv_heads == cfg.n_heads
+            and _pick_fused(B, T, cfg, device_type)
+            and fused_supported(B * T, cfg.d_model, cfg.dff // tp))
+
+
+def _tp_loss(cfg: GPTConfig, mesh, attn_fn, dp_axis="dp", tp_axis="tp"):
+    """``loss(rank_params, x, y)``: the dp x tp forward of global (B, T)
+    batches, the global mean CE (differentiable)."""
+    tp = mesh.shape.get(tp_axis, 1)
+    dp = mesh.shape.get(dp_axis, 1) if dp_axis else 1
+    if cfg.n_heads % tp or cfg.kv_heads % tp:
+        raise ValueError("n_heads (and kv_heads) must divide by tp")
+    H, KV = cfg.n_heads // tp, cfg.kv_heads // tp
+    locals_ = [attn_fn.local(c) for c in mesh.coords]
+
+    def loss(rank_params, x, y):
+        xs, ys = _split_batch(x, mesh, dp_axis), _split_batch(y, mesh, dp_axis)
+        B, T = xs[0].shape
+        dt = cfg.compute_dtype
+        fused = _tp_fused(cfg, B, T, tp, xs[0].device.type)
+        emb = [_embed(p, xx, cfg, T, dt) for p, xx in zip(rank_params, xs)]
+        hs = [e[0] for e in emb]
+        layers = [_layer_params(p, dt) for p in rank_params]
+        for li in range(cfg.n_layers):
+            parts = [_attn_half(h, lay[li], None, H, KV, at, e[1], fused)[0]
+                     for h, lay, at, e in zip(hs, layers, locals_, emb)]
+            a = all_reduce(parts, mesh, tp_axis)
+            h1s = [h + ai for h, ai in zip(hs, a)]
+            parts = [_ffn_half(h1, _b2_once(lay[li], c, tp_axis), cfg.ffn,
+                               fused)
+                     for h1, lay, c in zip(h1s, layers, mesh.coords)]
+            f = all_reduce(parts, mesh, tp_axis)
+            hs = [h1 + fi for h1, fi in zip(h1s, f)]
+        losses = [_hidden_loss(p, h, yy, cfg) if c.get(tp_axis, 0) == 0
+                  else None
+                  for p, h, yy, c in zip(rank_params, hs, ys, mesh.coords)]
+        return _mean_loss(losses, mesh, dp)
+
+    return loss
+
+
+def make_sharded_train_step(cfg: GPTConfig, mesh, *, lr: float = 3e-4,
+                            weight_decay: float = 0.01, attn_fn=None):
+    """``step(rank_params, rank_opt, x, y) -> (rank_params, rank_opt,
+    loss)`` over a (dp, tp) mesh at a constant lr: the dp x tp forward,
+    gradients reduced over the ranks, AdamW on each rank's shards in
+    place. ``rank_params``: ``shard_tree(params, gpt_param_specs(None,
+    cfg), mesh)``."""
+    if attn_fn is None:
+        attn_fn = make_sharded_attn(mesh, cfg.ctx_len, cfg.d_head, cfg=cfg)
+    specs = gpt_param_specs(None, cfg)
+    return _const_step(_loss_and_grads(_tp_loss(cfg, mesh, attn_fn), specs,
+                                       mesh), specs, mesh, lr, weight_decay)
+
+
+def make_sharded_device_train_step(cfg: GPTConfig, mesh, batch_size: int, *,
+                                   base_lr: float, min_lr: float,
+                                   warmup: int, max_steps: int,
+                                   weight_decay: float,
+                                   lr_embed_scale: float = 1.0,
+                                   lr_head_scale: float = 1.0,
+                                   clip_norm: float = 0.0):
+    """The trainer's dp x tp step: ``step(rank_params, rank_opt, data_ids,
+    generator) -> (rank_params, rank_opt, generator, loss)``, windows drawn
+    on the corpus's device and split over dp."""
+    if batch_size % mesh.shape.get("dp", 1):
+        raise ValueError("batch_size must divide by dp")
+    attn_fn = make_sharded_attn(mesh, cfg.ctx_len, cfg.d_head, cfg=cfg)
+    specs = gpt_param_specs(None, cfg)
+    return _device_step(
+        _loss_and_grads(_tp_loss(cfg, mesh, attn_fn), specs, mesh), specs,
+        mesh, batch_size, cfg.ctx_len, base_lr=base_lr, min_lr=min_lr,
+        warmup=warmup, max_steps=max_steps, weight_decay=weight_decay,
+        lr_embed_scale=lr_embed_scale, lr_head_scale=lr_head_scale,
+        clip_norm=clip_norm)
+
+
+def make_sharded_eval(cfg: GPTConfig, mesh, batch: int, batches: int):
+    """``evaluate(rank_params, val_ids, generator)``: the mean dp x tp loss
+    over ``batches`` windows, one device scalar."""
+    attn_fn = make_sharded_attn(mesh, cfg.ctx_len, cfg.d_head, cfg=cfg)
+    return _device_eval(_tp_loss(cfg, mesh, attn_fn), batch, batches,
+                        cfg.ctx_len)
+
+
+# -- sequence parallelism ----------------------------------------------------
 
 
 def _sp_ring(mesh, pallas: bool, cfg: GPTConfig | None = None):
@@ -90,3 +488,124 @@ def make_sp_eval(cfg: GPTConfig, mesh, batch: int, batches: int,
                             attn_fn)
 
     return evaluate
+
+
+def dryrun_multichip(n_devices: int, devices=None) -> None:
+    """Build an n-rank mesh over ``devices`` (default: every CUDA card; a
+    list may repeat one device), run ONE dp x tp train step on tiny
+    shapes, and check the pipeline (GPipe loss, 1F1B loss and grads, one
+    1F1B optimizer step), the dp x ep MoE step and one FSDP step against
+    the unsharded model; raise on a mismatch. The JAX package's dryrun
+    also checks the rings (the port's are ``tests/test_torch_ring.py``'s)
+    and tp serving, which is not ported (ROADMAP.md queue 1, item 7)."""
+    from ..models.moe import MoEGPTConfig, init_moe_params, moe_gpt_loss
+    from .expert import moe_param_specs, make_ep_train_step
+    from .fsdp import fsdp_param_specs, make_fsdp_device_train_step
+    from .pipeline import (make_pp_1f1b_grads, make_pp_device_train_step,
+                           make_pp_train_step, pp_param_specs)
+
+    if devices is None:
+        devices = make_mesh().rank_devices
+    devices = list(devices)[:n_devices]
+    if len(devices) < n_devices:
+        raise ValueError(f"need {n_devices} devices, have {len(devices)}")
+    dev = torch.device(devices[0])
+    rng = np.random.default_rng(0)
+
+    def ids(*shape):
+        return torch.as_tensor(rng.integers(0, 37, size=shape), device=dev)
+
+    n_heads = 4
+    dp, tp = pick_dp_tp(n_devices, n_heads)
+    mesh = make_mesh((dp, tp), ("dp", "tp"), devices)
+    cfg = GPTConfig(vocab_size=37, d_model=32, n_heads=n_heads, n_layers=2,
+                    d_ff=64, ctx_len=16)
+    params = init_gpt_params(cfg, seed=0, device=dev)
+    specs = gpt_param_specs(None, cfg)
+    rp = shard_tree(params, specs, mesh)
+    B = 2 * dp
+    x, y = ids(B, 16), ids(B, 16)
+    _, _, loss = make_sharded_train_step(cfg, mesh)(
+        rp, [adamw_init(p) for p in rp], x, y)
+    with torch.no_grad():
+        ref = float(gpt_loss(params, x, y, cfg))
+    tp_ok = abs(float(loss) - ref) < 1e-4
+
+    pp = min(n_devices, 4)
+    pp_dp = n_devices // pp
+    pp_mesh = make_mesh((pp_dp, pp), ("dp", "pp"), devices)
+    pp_cfg = GPTConfig(vocab_size=37, d_model=32, n_heads=4,
+                       n_layers=2 * pp, d_ff=64, ctx_len=16)
+    pp_params = init_gpt_params(pp_cfg, seed=0, device=dev)
+    Bpp = 4 * pp_dp
+    xpp, ypp = ids(Bpp, 16), ids(Bpp, 16)
+    for p in tree_leaves(pp_params):
+        p.requires_grad_(True)
+    ref_pp = gpt_loss(pp_params, xpp, ypp, pp_cfg)
+    ref_grads = torch.autograd.grad(ref_pp, tree_leaves(pp_params))
+    pp_params = tree_map(lambda p: p.detach(), pp_params)
+    pspecs = pp_param_specs("dp")
+    rpp = shard_tree(pp_params, pspecs, pp_mesh)
+    _, _, pp_loss = make_pp_train_step(pp_cfg, pp_mesh, n_microbatches=2,
+                                       dp_axis="dp")(
+        rpp, [adamw_init(p) for p in rpp], xpp, ypp)
+    ref_pp = float(ref_pp.detach())
+    pp_ok = abs(float(pp_loss) - ref_pp) < 1e-4
+    rpp = shard_tree(pp_params, pspecs, pp_mesh)
+    f1_loss, f1_grads = make_pp_1f1b_grads(pp_cfg, pp_mesh, n_microbatches=2,
+                                           dp_axis="dp")(rpp, xpp, ypp)
+    pp_ok = pp_ok and abs(float(f1_loss) - ref_pp) < 1e-4
+    whole = unshard_tree(f1_grads, pspecs, pp_mesh)
+    for a, b in zip(tree_leaves(whole), ref_grads):
+        pp_ok = pp_ok and float((a - b).abs().max()) < 1e-4
+    step2 = make_pp_device_train_step(
+        pp_cfg, pp_mesh, Bpp, n_microbatches=2, base_lr=1e-3, min_lr=1e-4,
+        warmup=10, max_steps=100, weight_decay=0.0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rpp, _, _, pp_train_loss = step2(rpp, [adamw_init(p) for p in rpp],
+                                     ids(512), gen)
+    moved = float((rpp[0]["tok_W"] - pp_params["tok_W"]).abs().max())
+    pp_ok = pp_ok and bool(torch.isfinite(pp_train_loss)) and moved > 0
+
+    ep = min(n_devices, 4)
+    ep_dp = n_devices // ep
+    ep_mesh = make_mesh((ep_dp, ep), ("dp", "ep"), devices)
+    ep_cfg = MoEGPTConfig(vocab_size=37, d_model=32, n_heads=4, n_layers=2,
+                          d_ff=64, ctx_len=16, n_experts=ep)
+    ep_params = init_moe_params(ep_cfg, seed=0, device=dev)
+    Bep = 2 * ep_dp
+    xep, yep = ids(Bep, 16), ids(Bep, 16)
+    with torch.no_grad():
+        ref_ep = float(moe_gpt_loss(ep_params, xep, yep, ep_cfg))
+    rep = shard_tree(ep_params, moe_param_specs(ep_cfg), ep_mesh)
+    _, _, ep_loss = make_ep_train_step(ep_cfg, ep_mesh, dp_axis="dp")(
+        rep, [adamw_init(p) for p in rep], xep, yep)
+    ep_ok = abs(float(ep_loss) - ref_ep) < 1e-4
+
+    fs_mesh = make_mesh((n_devices,), ("fsdp",), devices)
+    fs_cfg = GPTConfig(vocab_size=37, d_model=64, n_heads=4, n_layers=2,
+                       d_ff=256, ctx_len=16)
+    fs_params = init_gpt_params(fs_cfg, seed=0, device=dev)
+    fs_specs = fsdp_param_specs(fs_params, n_devices)
+    rfs = shard_tree(fs_params, fs_specs, fs_mesh)
+    fs_step = make_fsdp_device_train_step(
+        fs_cfg, fs_mesh, fs_params, 2 * n_devices, base_lr=1e-3,
+        min_lr=1e-4, warmup=10, max_steps=100, weight_decay=0.0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rfs, _, _, fs_loss = fs_step(rfs, [adamw_init(p) for p in rfs],
+                                 ids(512), gen)
+    w1 = rfs[0]["layers"]["W1"]
+    fs_ok = (bool(torch.isfinite(fs_loss))
+             and w1.numel() * n_devices == fs_params["layers"]["W1"].numel()
+             and float((unshard_tree(rfs, fs_specs, fs_mesh)["tok_W"]
+                        - fs_params["tok_W"]).abs().max()) > 0)
+
+    print(f"dryrun_multichip ok: mesh dp={dp} tp={tp}, one train step, "
+          f"loss={float(loss):.4f} {'ok' if tp_ok else 'MISMATCH'}; "
+          f"pipeline dp={pp_dp} pp={pp} {'ok' if pp_ok else 'MISMATCH'}; "
+          f"moe dp={ep_dp} ep={ep} {'ok' if ep_ok else 'MISMATCH'}; "
+          f"fsdp={n_devices} {'ok' if fs_ok else 'MISMATCH'}")
+    assert tp_ok, "dp x tp loss mismatch vs unsharded"
+    assert pp_ok, "pipeline-parallel loss/grads mismatch vs unsharded"
+    assert ep_ok, "expert-parallel loss mismatch vs unsharded"
+    assert fs_ok, "fsdp step failed (loss/sharded-storage/update)"

@@ -57,13 +57,16 @@ def _map_named(fn: Callable[[str], Any], tree):
             for k, v in tree.items()}
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm=None):
     """Scale the gradients so their global L2 norm is <= ``max_norm``.
 
     Returns (clipped, global_norm); the norm and the scale are float32
-    whatever the gradients' dtype, and neither leaves the device."""
-    sq = sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads))
-    norm = torch.sqrt(sq)
+    whatever the gradients' dtype, and neither leaves the device. A
+    sharded caller passes ``norm``, the norm of the whole gradient its
+    shards belong to."""
+    if norm is None:
+        norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in tree_leaves(grads)))
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-12), max=1.0)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), norm
 
@@ -83,15 +86,16 @@ def adamw_init(params) -> AdamWState:
 @torch.no_grad()
 def adamw_update(params, grads, state: AdamWState, lr: float, wd_tree,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 lr_scales=None, clip_norm: float = 0.0
+                 lr_scales=None, clip_norm: float = 0.0, grad_norm=None
                  ) -> Tuple[Any, AdamWState]:
     """One AdamW step, in place. ``wd_tree`` holds per-leaf weight-decay
     coefficients, ``lr_scales`` optional per-leaf lr multipliers (both
     nested dicts of floats shaped like ``params``); ``clip_norm`` > 0 clips
-    the gradients to that global norm first. Returns (params, state), the
-    same objects, updated."""
+    the gradients to that global norm first (``grad_norm``: the global
+    norm when ``grads`` are one rank's shards of it). Returns (params,
+    state), the same objects, updated."""
     if clip_norm > 0.0:
-        grads, _ = clip_by_global_norm(grads, clip_norm)
+        grads, _ = clip_by_global_norm(grads, clip_norm, grad_norm)
     t = state.t + 1
     # the JAX package forms the bias corrections in float32
     c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(t))

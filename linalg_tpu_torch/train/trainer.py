@@ -12,8 +12,10 @@ in place. The corpus lives on the device and each step draws its windows
 there from a ``torch.Generator``, so no batch crosses from the host; the
 every-20-steps loss print is the loop's only host sync besides evals.
 
-``--sp N [--dp M]`` trains sequence-parallel (``train_sharded``): the
-mesh's ranks share one device and attention runs the ring kernels.
+``--dp``, ``--tp``, ``--sp``, ``--pp`` and ``--fsdp`` train over a mesh
+(``train_sharded``) whose ranks share one device: dp x tp (megatron), dp
+x ep for an MoE, sequence-parallel through the ring kernels, the 1F1B
+pipeline, or FSDP.
 ``--tokenizer bpe --vocab_size N`` trains byte-level BPE on the corpus
 first (its merges ride the checkpoint). ``--lora_rank R`` finetunes
 rank-R adapters on a trained base checkpoint (``train_lora``): the
@@ -25,10 +27,6 @@ O(window) ring of ``models.stream``, with no rollover.
 ``--experts E`` (with ``--router_top_k`` and ``--dispatch``) trains the
 routed mixture-of-experts GPT of ``models.moe`` (its loss adds the
 load-balance term); its checkpoints, sampling and serving follow.
-
-Not ported yet, and refused with the ROADMAP.md item that brings each:
-the other sharded trainers (--tp, including expert parallelism with
---experts, --pp, --fsdp, --dp without --sp: item 7).
 """
 
 from __future__ import annotations
@@ -343,46 +341,153 @@ def _corpus(tok, text, device):
 
 
 def train_sharded(args, dp: int, tp: int, device):
-    """Sequence-parallel training over a (dp, sp) mesh whose ranks share
-    ``device``: the JAX package's ``train_sharded`` sp branch, with its
-    refusals. Same loop as ``train``; attention runs the ring kernels
-    (``--ring pallas``, the default on CUDA) or the plain ring (``--ring
-    xla``, the default on the CPU); eval averages 10 batches, as JAX's sp
-    eval does."""
-    from ..parallel.mesh import make_mesh
-    from ..parallel.sharding import make_sp_device_train_step, make_sp_eval
+    """Multi-rank training over a dp x {tp|sp|pp|ep} or fsdp mesh whose
+    ranks all share ``device``: the JAX package's ``train_sharded``, with
+    its branches, refusals and messages.
 
+    Axis selection: ``--tp`` splits heads/FFN (megatron), or EXPERTS when
+    the model is an MoE (``--experts``); ``--sp`` splits the sequence (the
+    ring: kernels with ``--ring pallas``, the default on CUDA, or the
+    plain ring); ``--pp`` splits the layer stack (1F1B, ``--microbatches``
+    or 2*pp when the batch divides, else pp); ``--fsdp`` splits parameter
+    and optimizer storage over the data axis (ZeRO-3). Same loop as
+    ``train``; eval averages 10 batches, as JAX's sharded evals do. The
+    best checkpoint is gathered to whole arrays and saved as ``train``
+    saves it; the whole parameters are returned."""
+    from ..parallel.mesh import make_mesh, shard_tree, unshard_tree
+
+    text, params, cfg, tok, stoi, itos = _resume_or_init(args, device)
+    if args.batch_size % dp:
+        raise AssertionError("batch_size must divide by dp")
     sp = int(getattr(args, "sp", 1) or 1)
-    if tp > 1:
-        raise AssertionError("--sp composes with --dp only (not --tp)")
-    if int(getattr(args, "experts", 0) or 0) > 0:
-        raise AssertionError("--sp with --experts is not supported")
+    pp = int(getattr(args, "pp", 1) or 1)
+    fsdp = int(getattr(args, "fsdp", 1) or 1)
+    is_moe = isinstance(cfg, MoEGPTConfig)
+    is_sp, is_pp, is_fsdp = sp > 1, pp > 1, fsdp > 1
+    microbatches = 0
+
+    def refuse(ok, msg):
+        if not ok:
+            raise AssertionError(msg)
+
+    if is_fsdp:
+        from ..parallel.fsdp import fsdp_param_specs
+
+        refuse(dp == 1 and tp == 1 and not (is_sp or is_pp),
+               "--fsdp is itself the data axis; it does not compose with "
+               "--dp/--tp/--sp/--pp")
+        refuse(not is_moe, "--fsdp with --experts is not supported")
+        refuse(args.batch_size % fsdp == 0, "batch_size must divide by fsdp")
+        shape, names = (fsdp,), ("fsdp",)
+        specs = fsdp_param_specs(params, fsdp)
+    elif is_pp:
+        from ..parallel.pipeline import pp_param_specs
+
+        refuse(tp == 1 and not is_sp, "--pp composes with --dp only")
+        refuse(cfg.pos != "learned",
+               "--pos learned is not supported with --pp (the pipeline "
+               "stages hardcode sinusoidal/rope position handling)")
+        refuse(not is_moe, "--pp with --experts is not supported")
+        refuse(cfg.n_layers % pp == 0, "layers must divide by pp")
+        microbatches = int(getattr(args, "microbatches", 0) or 0)
+        if microbatches <= 0:  # auto: 2*pp keeps the 1F1B bubble small
+            microbatches = (2 * pp if args.batch_size % (dp * 2 * pp) == 0
+                            else pp)
+        refuse(args.batch_size % (dp * microbatches) == 0,
+               "batch_size must divide by dp * microbatches")
+        shape, names = (dp, pp), ("dp", "pp")
+        specs = pp_param_specs("dp")
+    elif is_sp:
+        refuse(tp == 1, "--sp composes with --dp only (not --tp)")
+        refuse(not is_moe, "--sp with --experts is not supported")
+        refuse(cfg.ctx_len % sp == 0, "ctx_len must divide by sp")
+        shape, names, specs = (dp, sp), ("dp", "sp"), None
+    elif is_moe:
+        from ..parallel.expert import moe_param_specs
+
+        refuse(cfg.n_experts % tp == 0, "n_experts must divide by tp (=ep)")
+        shape, names = (dp, tp), ("dp", "ep")
+        specs = moe_param_specs(cfg)
+    else:
+        from ..parallel.sharding import gpt_param_specs
+
+        refuse(cfg.n_heads % tp == 0, "n_heads must divide by tp")
+        shape, names = (dp, tp), ("dp", "tp")
+        specs = gpt_param_specs(None, cfg)
     if int(getattr(args, "grad_accum", 1) or 1) > 1:
         raise ValueError("--grad_accum composes with the single-chip "
                          "trainer only; use --dp to split the batch "
                          "across devices instead")
-    text, params, cfg, tok, stoi, itos = _resume_or_init(args, device)
-    if args.batch_size % dp:
-        raise AssertionError("batch_size must divide by dp")
-    if cfg.ctx_len % sp:
-        raise AssertionError("ctx_len must divide by sp")
-    mesh = make_mesh((dp, sp), ("dp", "sp"), [device] * (dp * sp))
-    ring = getattr(args, "ring", "auto") or "auto"
-    if ring not in ("auto", "pallas", "xla"):
-        raise ValueError(f"--ring must be auto, pallas or xla, got {ring!r}")
-    pallas = device.type == "cuda" if ring == "auto" else ring == "pallas"
+    n = math.prod(shape)
+    mesh = make_mesh(shape, names, [device] * n)
     train_ids, val_ids = _corpus(tok, text, device)
-    step_fn = make_sp_device_train_step(
-        cfg, mesh, args.batch_size, pallas=pallas,
-        clip_norm=float(getattr(args, "clip_norm", 0.0) or 0.0),
-        **_lr_kwargs(args))
-    eval_fn = make_sp_eval(cfg, mesh, args.batch_size, 10, pallas=pallas)
-    print(f"mesh dp={dp} sp={sp}: {dp * sp} ranks share {device}; ring "
-          f"{'kernels (K10/K11)' if pallas else 'plain'}")
+    lr_kwargs = dict(_lr_kwargs(args),
+                     clip_norm=float(getattr(args, "clip_norm", 0.0) or 0.0))
+    B = args.batch_size
+    if is_fsdp:
+        from ..parallel.fsdp import (make_fsdp_device_train_step,
+                                     make_fsdp_eval)
+
+        step_fn = make_fsdp_device_train_step(cfg, mesh, params, B,
+                                              **lr_kwargs)
+        eval_fn = make_fsdp_eval(cfg, mesh, params, B, 10)
+        desc = f"mesh fsdp={fsdp}, "
+    elif is_pp:
+        from ..parallel.pipeline import make_pp_device_train_step, make_pp_eval
+
+        step_fn = make_pp_device_train_step(
+            cfg, mesh, B, n_microbatches=microbatches, **lr_kwargs)
+        eval_fn = make_pp_eval(cfg, mesh, B, 10, n_microbatches=microbatches)
+        desc = f"mesh dp={dp} pp={pp}, "
+    elif is_sp:
+        from ..parallel.sharding import (make_sp_device_train_step,
+                                         make_sp_eval)
+
+        ring = getattr(args, "ring", "auto") or "auto"
+        if ring not in ("auto", "pallas", "xla"):
+            raise ValueError(f"--ring must be auto, pallas or xla, got "
+                             f"{ring!r}")
+        pallas = device.type == "cuda" if ring == "auto" else ring == "pallas"
+        step_fn = make_sp_device_train_step(cfg, mesh, B, pallas=pallas,
+                                            **lr_kwargs)
+        eval_fn = make_sp_eval(cfg, mesh, B, 10, pallas=pallas)
+        desc = f"mesh dp={dp} sp={sp}, "
+    elif is_moe:
+        from ..parallel.expert import make_ep_device_train_step, make_ep_eval
+
+        step_fn = make_ep_device_train_step(cfg, mesh, B, **lr_kwargs)
+        eval_fn = make_ep_eval(cfg, mesh, B, 10)
+        desc = f"mesh dp={dp} {'ep' if tp > 1 else 'tp'}={tp}, "
+    else:
+        from ..parallel.sharding import (make_sharded_device_train_step,
+                                         make_sharded_eval)
+
+        step_fn = make_sharded_device_train_step(cfg, mesh, B, **lr_kwargs)
+        eval_fn = make_sharded_eval(cfg, mesh, B, 10)
+        desc = f"mesh dp={dp} tp={tp}, "
+    what = (f"ring {'kernels (K10/K11)' if pallas else 'plain'}" if is_sp
+            else f"{microbatches} microbatches (1F1B)" if is_pp
+            else "parameters and moments sharded" if is_fsdp else
+            "experts sharded" if is_moe and tp > 1 else "heads/FFN sharded")
+    print(f"{desc[:-2]}: {n} ranks share {device}; {what}")
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    params = _train_loop(args, cfg, params, adamw_init(params), generator,
-                         step_fn, eval_fn, train_ids, val_ids, tok, stoi,
-                         itos, desc=f"mesh dp={dp} sp={sp}, ")
+    if specs is None:  # sp: parameters replicated, the ring shares them
+        params = _train_loop(args, cfg, params, adamw_init(params),
+                             generator, step_fn, eval_fn, train_ids, val_ids,
+                             tok, stoi, itos, desc=desc)
+    else:
+        rank_params = shard_tree(params, specs, mesh)
+        del params
+
+        def save_fn(rp):
+            return save_ckpt(args.ckpt_dir, unshard_tree(rp, specs, mesh),
+                             cfg, stoi, itos, tokenizer=tok)
+
+        rank_params = _train_loop(
+            args, cfg, rank_params, [adamw_init(p) for p in rank_params],
+            generator, step_fn, eval_fn, train_ids, val_ids, tok, stoi, itos,
+            desc=desc, save_fn=save_fn)
+        params = unshard_tree(rank_params, specs, mesh)
     for p in tree_leaves(params):
         p.requires_grad_(False)
     return params, cfg, stoi, itos
@@ -449,8 +554,8 @@ def train_lora(args) -> Tuple[dict, GPTConfig, dict, dict]:
 
 def train(args) -> Tuple[dict, GPTConfig, dict, dict]:
     """Run the training loop on ``args.device`` (default: the card; the
-    CPU only when asked for); returns (params, cfg, stoi, itos). ``--sp``
-    (with ``--dp``) trains sequence-parallel (``train_sharded``),
+    CPU only when asked for); returns (params, cfg, stoi, itos). A mesh
+    (dp * tp * sp * pp * fsdp > 1) trains sharded (``train_sharded``),
     ``--lora_rank`` finetunes adapters (``train_lora``)."""
     axes = {a: int(getattr(args, a, 1) or 1)
             for a in ("dp", "tp", "sp", "pp", "fsdp")}
@@ -459,14 +564,8 @@ def train(args) -> Tuple[dict, GPTConfig, dict, dict]:
             raise ValueError("LoRA finetuning runs single-device; drop the "
                              "--dp/--tp/--sp/--pp/--fsdp flags")
         return train_lora(args)
-    for axis, size in axes.items():
-        if size > 1 and (axis in ("pp", "fsdp") or axes["sp"] == 1):
-            raise NotImplementedError(
-                f"--{axis} (multi-device training) is not ported yet "
-                "(ROADMAP.md queue 1, item 7: parallelism; --sp with --dp "
-                "is)")
     device = resolve_device(getattr(args, "device", None))
-    if axes["sp"] > 1:
+    if math.prod(axes.values()) > 1:
         return train_sharded(args, axes["dp"], axes["tp"], device)
     text, params, cfg, tok, stoi, itos = _resume_or_init(args, device)
     train_ids, val_ids = _corpus(tok, text, device)

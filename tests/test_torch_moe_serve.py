@@ -207,9 +207,23 @@ class TestCLI:
 
     @pytest.mark.parametrize("flag", ["--tp", "--pp", "--fsdp",
                                       "--microbatches"])
-    def test_parallel_flags_still_name_item_7(self, flag):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tapp.main(["--train", "--experts", "4", flag, "2"])
+    def test_parallel_flags_still_name_item_7(self, flag, tmp_path):
+        """The parallel flags with --experts, once refused naming item 7,
+        which ported them: --tp shards the experts (dp x ep) and
+        --microbatches (without --pp) is ignored, each training one CPU
+        step; --pp and --fsdp raise the JAX trainer's refusals."""
+        argv = ["--train", "--experts", "4", flag, "2", "--steps", "1",
+                "--eval_every", "1", "--d_model", "16", "--layers", "2",
+                "--heads", "2", "--ctx_len", "16", "--batch_size", "2",
+                "--device", "cpu", "--ckpt_dir", str(tmp_path / "ck")]
+        if flag in ("--pp", "--fsdp"):
+            with pytest.raises(AssertionError, match=f"{flag} with "
+                               "--experts is not supported"):
+                tapp.main(argv)
+            return
+        tapp.main(argv)
+        params, cfg, _, _ = tckpt.load_ckpt(tmp_path / "ck")
+        assert cfg.n_experts == 4 and params["layers"]["W1"].shape[1] == 4
 
 
 def test_moe_weights_decay_like_jax():

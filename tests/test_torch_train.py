@@ -473,13 +473,32 @@ class TestCLI:
         (["--train", "--dispatch", "gather"], "item 6"),
     ])
     def test_unported_flags_raise(self, argv, item, tmp_path):
-        """The parallel axes still raise naming item 7; the MoE flags
-        (once refused as item 6) now train an MoE model (with --experts 4
-        added where the case leaves it out) whose checkpoint carries
-        them."""
+        """The flags once refused, labelled by the ROADMAP item that
+        ported them. Item 7's parallel axes (and --microbatches) each
+        train one CPU step over ranks sharing the CPU, the checkpoint
+        whole; --sp 2 --pp 2, which the JAX trainer refuses, raises its
+        AssertionError in both packages. Item 6's MoE flags train an MoE
+        model (with --experts 4 added where the case leaves it out) whose
+        checkpoint carries them."""
+        small = ["--steps", "1", "--eval_every", "1", "--d_model", "16",
+                 "--layers", "2", "--heads", "2", "--ctx_len", "16",
+                 "--batch_size", "2", "--device", "cpu", "--ckpt_dir",
+                 str(tmp_path / "ck")]
         if item == "item 7":
-            with pytest.raises(NotImplementedError, match=item):
-                tapp.main(argv)
+            if "--sp" in argv:
+                match = "--pp composes with --dp only"
+                with pytest.raises(AssertionError, match=match):
+                    tapp.main(argv + small)
+                from linalg_tpu.apps import gpt as japp
+
+                jargs = japp.build_parser().parse_args(
+                    argv + small[:-4] + ["--ckpt_dir", str(tmp_path / "j")])
+                with pytest.raises(AssertionError, match=match):
+                    jtrainer.train(jargs)
+                return
+            tapp.main(argv + small)
+            params, cfg, _, _ = tckpt.load_ckpt(tmp_path / "ck")
+            assert params["layers"]["Wq"].shape == (2, 16, 16)
             return
         if "--experts" not in argv:
             argv = argv + ["--experts", "4"]
@@ -525,8 +544,14 @@ class TestCLI:
             np.testing.assert_array_equal(val, want[key], err_msg=key)
 
     def test_trainer_refuses_sharding_and_lora(self):
-        args = tapp.build_parser().parse_args(["--tp", "2"])
-        with pytest.raises(NotImplementedError, match="item 7"):
+        """The JAX trainer's refusals of a mesh: --tp with --sp (the
+        sharded trainer's assert, after the model is built); then LoRA's
+        two ValueErrors."""
+        args = tapp.build_parser().parse_args(
+            ["--tp", "2", "--sp", "2", "--device", "cpu", "--ckpt_dir",
+             "/nonexistent/ck"])
+        with pytest.raises(AssertionError, match="--sp composes with --dp "
+                           "only"):
             ttrainer.train(args)
         # LoRA (once refused as unported) adapts a trained checkpoint on
         # one device: the JAX trainer's two ValueErrors
