@@ -8,7 +8,8 @@ kernels, sequence-parallel training through the ring kernels, sampling,
 the routed mixture-of-experts GPT (trained through K8 and K2, sampled,
 served), the L2 encoder-decoder stack, the sharded trainers (dp x tp,
 FSDP, the 1F1B pipeline, expert parallelism; every rank on the card,
-K2 and K8/K9 inside each) and the small apps.
+K2 and K8/K9 inside each), the small apps, tensor-parallel serving with
+DCP checkpoints, and the ring kernels over one tensor per rank.
 
     python3 chip_smoke.py
 
@@ -302,6 +303,29 @@ Phases, each reported on its own line; any failure exits non-zero:
              seeded 400,000 x 300 float32 matrix (GloVe 6B 300d's size):
              its top-10 equal to numpy's float64 top-10, the GEMV's time
              beside its bound at 3.35 TB/s.
+25. mesh   — tensor-parallel serving: phase 4's model (d512, 4 heads, 2
+             KV heads, 8 layers, ctx 4096) on the slot cache, 8 slots,
+             chunk 32, phase 4's 16 requests, unsharded and under tp 2
+             and tp 4 (two ranks share each KV head), every rank on the
+             card: bf16 wall and useful tok/s, all-reduces counted by
+             ``parallel.mesh.collectives`` (two a layer and token, two a
+             layer and prefill); f32 greedy tokens of 4 requests equal to
+             the unsharded slot engine's (a first difference only on a
+             top-2 tie under 1e-5 of max|logit|); ``apps/gpt.py --serve
+             --tp 2`` from a checkpoint; a DCP round trip
+             (``save_ckpt_orbax``/``load_ckpt_orbax``) of train_big's
+             parameters, bit-equal on the card, with bytes and seconds;
+             ``init_distributed()`` False and ``global_mesh_shape`` for
+             the card count.
+26. ring tables — the K10/K11 wrappers on each rank's rows as a
+             tensor of its own (heads Tl rows apart in the per-rank
+             pointer tables) against the same calls on views of the
+             rank-stacked tensors (heads T rows apart, every one-card
+             ring's layout) at phase 14's sp shapes (long_window bf16 and
+             f32, train_big): bit-equal outputs and gradients, one launch
+             per direction each way, CUDA-event times of both; with two
+             cards or more, the ring over two cards against one card
+             (else a line says it was not run).
 
 Phase 2 builds every kernel, one ``nvcc`` per source, all started
 together. The line before the last is a JSON object describing the
@@ -317,6 +341,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
 import os
@@ -324,6 +349,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -504,8 +530,25 @@ def attn_bound(B, H, hk, T, d, dtype, causal=True, window=None):
     return bound_ms(flops, nbytes, dtype)
 
 
+_CLOCK = {"last": time.perf_counter(), "tags": {}}
+
+
 def phase(name, msg):
+    """Print a phase's line; the host seconds since the previous line are
+    charged to the phase (``phase_seconds``)."""
+    now = time.perf_counter()
+    tags = _CLOCK["tags"]
+    tags[name] = tags.get(name, 0.0) + now - _CLOCK["last"]
+    _CLOCK["last"] = now
     print(f"[{name}] {msg}", flush=True)
+
+
+def phase_seconds():
+    """One line: each phase's host seconds, in the order they first
+    printed, and their sum."""
+    tags = _CLOCK["tags"]
+    return ", ".join(f"{k} {v:.1f}" for k, v in tags.items()) + (
+        f"; total {sum(tags.values()):.1f} s")
 
 
 def kernel_case(B, H, hk, d, page, Pmax, dtype, seed, per_head_mask=False,
@@ -2365,17 +2408,17 @@ def short_phase(smi):
     return totals, cfgs
 
 
-def ring_run(x, n, plain=False, **kw):
-    """(o, L, dq, dk, dv) of the ring over n ranks sharing the card:
-    ``ring_attention_pallas_local`` and its backward, through K10/K11 or
-    (``plain``) their plain versions; the backward from the forward's own
-    o and L and the cotangent x[3]."""
+def ring_run(x, n, plain=False, devices=None, **kw):
+    """(o, L, dq, dk, dv) of the ring over n ranks sharing the card (or on
+    ``devices``): ``ring_attention_pallas_local`` and its backward, through
+    K10/K11 or (``plain``) their plain versions; the backward from the
+    forward's own o and L and the cotangent x[3]."""
     from linalg_tpu_torch.parallel import make_mesh
     from linalg_tpu_torch.parallel.ring_pallas import (
         ring_attention_pallas_bwd_local, ring_attention_pallas_local)
 
     q, k, v, do = x
-    mesh = make_mesh((n,), ("sp",), ["cuda"] * n)
+    mesh = make_mesh((n,), ("sp",), devices or ["cuda"] * n)
     o, L = ring_attention_pallas_local(q, k, v, mesh=mesh, with_lse=True,
                                        plain=plain, **kw)
     delta = torch.sum(do.float() * o.float(), dim=-1)
@@ -2582,6 +2625,103 @@ def ring_copies():
         raise RuntimeError("the ring's forward+backward must be 3 kernel "
                            f"launches and no copy; got {ring}, "
                            f"{[e['name'] for e in copies]}")
+
+
+RING_TABLE_CASES = (  # phase 14's sp shapes: name, B, h, T, d, n, dtype,
+    # window
+    ("long_window", 8, 4, 4096, 128, SP, torch.bfloat16, 512),
+    ("long_window f32", 8, 4, 4096, 128, SP, torch.float32, 512),
+    ("train_big", 24, 8, 1024, 128, SP, torch.bfloat16, None))
+
+
+def ring_tables_phase():
+    """Phase 26: K10/K11 through their per-rank chunk tables. The kernel
+    wrappers called on each rank's rows as a tensor of its own (separate
+    allocations on the card, heads Tl rows apart) against the same calls
+    on the ranks' views of the rank-stacked tensors (heads T rows apart,
+    the layout of every one-card ring), at phase 14's sp shapes: outputs
+    and gradients bit-equal, one launch per direction each way, CUDA-event
+    times of both. With two cards or more, the ring with its ranks over
+    two cards against the one-card result."""
+    from linalg_tpu_torch.kernels import ring_attention as kr
+    from linalg_tpu_torch.parallel.ring_pallas import _heads, _ranks
+
+    counters = (kr.ring_fwd_cuda, kr.ring_bwd_cuda)
+    records = {}
+    for i, (name, B, h, T, d, n, dtype, window) in enumerate(
+            RING_TABLE_CASES):
+        rng = np.random.default_rng(2600 + i)
+        x = [torch.tensor(rng.standard_normal((B, h, T, d)), dtype=dtype,
+                          device="cuda") for _ in range(4)]
+        kw = dict(H=h, causal=True, window=window, slopes=None,
+                  scale=1.0 / math.sqrt(d))
+        qf, kf, vf, dof = (_heads(t, d) for t in x)
+        # the forward's L and delta = rowsum(dO * O)
+        o_ref, L_ref = ring_run(x, n, window=window)[:2]
+        L = L_ref.reshape(B * h, T).contiguous()
+        dl = torch.sum(dof.float() * _heads(o_ref, d).float(),
+                       dim=-1).contiguous()
+        del o_ref, L_ref
+        devs = [torch.device("cuda")] * n
+        outs = {}
+        for layout, cut in (("stacked", lambda t: _ranks(t, n)),
+                            ("tables", lambda t: _ranks(t, n, devs))):
+            ins = [cut(t) for t in (qf, kf, vf, dof, L, dl)]
+            fo = [cut(torch.empty_like(qf)), cut(torch.empty_like(L))]
+            bo = [cut(torch.empty_like(qf)) for _ in range(3)]
+            for c in counters:
+                c.launches = 0
+            kr.ring_fwd_cuda(*ins[:3], *fo, **kw)
+            kr.ring_bwd_cuda(*ins, *bo, **kw)
+            torch.cuda.synchronize()
+            launches = [c.launches for c in counters]
+            if launches != [1, 1]:
+                raise RuntimeError(f"ring tables {name} {layout}: launches "
+                                   f"{launches}, expected [1, 1]")
+            ms = (median_ms(lambda: kr.ring_fwd_cuda(*ins[:3], *fo, **kw),
+                            (), trials=7, reps=3),
+                  median_ms(lambda: kr.ring_bwd_cuda(*ins, *bo, **kw), (),
+                            trials=7, reps=3))
+            outs[layout] = ([torch.cat(t, dim=1) for t in fo + bo], ms)
+            del ins, fo, bo
+        same = [torch.equal(a, b) for a, b in zip(outs["stacked"][0],
+                                                  outs["tables"][0])]
+        ms = {k: v[1] for k, v in outs.items()}
+        dt = str(dtype).split(".")[1]
+        phase("ring tables", f"{name} B,h,T,d,n={B},{h},{T},{d},{n} {dt}"
+              f"{f' window {window}' if window else ''}: one tensor per "
+              f"rank == views of the stacked tensors bit for bit (o, L, dq, "
+              f"dk, dv) {same}; launches [1, 1] each way; K10 stacked "
+              f"{ms['stacked'][0]:.4f} ms, tables {ms['tables'][0]:.4f} ms; "
+              f"K11 stacked {ms['stacked'][1]:.4f} ms, tables "
+              f"{ms['tables'][1]:.4f} ms")
+        if not all(same):
+            raise RuntimeError(f"ring tables {name}: the per-rank tensors "
+                               "differ from the stacked views")
+        records[name] = dict(stacked_ms=list(ms["stacked"]),
+                             tables_ms=list(ms["tables"]))
+        if i == 0 and torch.cuda.device_count() >= 2:
+            one = ring_run(x, n, window=window)
+            two_cards = ["cuda:0"] * (n // 2) + ["cuda:1"] * (n - n // 2)
+            for c in counters:
+                c.launches = 0
+            two = ring_run(x, n, window=window, devices=two_cards)
+            torch.cuda.synchronize()
+            launches = [c.launches for c in counters]
+            same2 = [torch.equal(a, b) for a, b in zip(one, two)]
+            phase("ring tables", f"{name} over cuda:0 and cuda:1 ({n // 2} "
+                  f"ranks each): launches {launches} (one a card and "
+                  f"direction), == one card bit for bit {same2}")
+            if launches != [2, 2] or not all(same2):
+                raise RuntimeError("ring tables: the two-card ring differs")
+            del one, two
+        elif i == 0:
+            phase("ring tables", f"{torch.cuda.device_count()} card: the "
+                  "ring across cards (peer reads of another card's chunks) "
+                  "was not run")
+        del x, outs
+        torch.cuda.empty_cache()
+    return records
 
 
 def sp_phase(smi):
@@ -3993,6 +4133,133 @@ def parallel_phase(smi):
 GLOVE_V, GLOVE_D, GLOVE_K = 400_000, 300, 10
 
 
+def mesh_phase(ServeEngine, params, cfg, cfg32):
+    """Phase 25: tensor-parallel serving, multi-process initialisation and
+    DCP checkpoints on the card. Phase 4's model and 16 requests on the
+    slot cache, unsharded and under tp 2 and tp 4 (the kv_heads % tp != 0
+    case), every rank on the card: bf16 wall and useful tok/s, all-reduces
+    by ``mesh.collectives`` (two a layer and token, and a layer and
+    prefill); f32 greedy tokens of 4 requests equal to the unsharded slot
+    engine's (a first difference only on a tie, ``greedy_equal``); ``--serve
+    --tp 2`` from a checkpoint; a DCP round trip of train_big's parameters
+    bit-equal on the card with its bytes and seconds; ``init_distributed()``
+    False and ``global_mesh_shape`` for the card count."""
+    from linalg_tpu_torch.apps import gpt as tapp
+    from linalg_tpu_torch.models.gpt import GPTConfig, init_gpt_params
+    from linalg_tpu_torch.parallel import (collectives, global_mesh_shape,
+                                           init_distributed, is_distributed,
+                                           make_mesh)
+    from linalg_tpu_torch.train.checkpoint import (_flat, load_ckpt_orbax,
+                                                   save_ckpt, save_ckpt_orbax)
+
+    t_phase = time.perf_counter()
+    reqs = make_requests(16)
+    warm = [[(list(range(1, 60)) * 9, 32, False)]]
+    L = cfg.n_layers
+    runs = {}
+    for tp in (None, 2, 4):
+        kw = dict(paged=False, mesh=None if tp is None else make_mesh(
+            (1, tp), ("dp", "tp"), ["cuda"] * tp))
+        serve_waves(ServeEngine, params, cfg, warm, **kw)
+        collectives.clear()
+        _, wall, n_tok, eng = serve_waves(ServeEngine, params, cfg, [reqs],
+                                          **kw)
+        runs[tp] = (wall, n_tok)
+        st = eng.stats
+        want = 2 * L * (st["chunks"] * eng.chunk + st["prefills"]) if tp \
+            else 0
+        got = collectives["all_reduce"]
+        phase("mesh", f"{'unsharded' if tp is None else f'tp {tp}'} slot "
+              f"engine bf16, 16 requests: {wall:.3f} s, {n_tok} tokens, "
+              f"{n_tok / wall:.1f} tok/s useful"
+              + ("" if tp is None else
+                 f" ({runs[None][0] / wall:.3f}x the unsharded engine's "
+                 f"rate); all-reduces {got} (2 x {L} layers x ("
+                 f"{st['chunks']} chunks x {eng.chunk} steps + "
+                 f"{st['prefills']} prefills) = {want})"))
+        if got != want:
+            raise RuntimeError(f"mesh tp {tp}: {got} all-reduces, expected "
+                               f"{want}")
+    reqs4 = make_requests(4)
+    prompts4 = [p for p, _, _ in reqs4]
+    slot = serve_waves(ServeEngine, params, cfg32, [reqs4], greedy=True,
+                       paged=False)[0]
+    for tp in (2, 4):
+        mesh = make_mesh((1, tp), ("dp", "tp"), ["cuda"] * tp)
+        got = serve_waves(ServeEngine, params, cfg32, [reqs4], greedy=True,
+                          paged=False, mesh=mesh)[0]
+        greedy_equal(f"tp {tp} f32 greedy == the unsharded slot engine",
+                     params, cfg32, prompts4, got, slot, where="mesh")
+
+    chars = "".join(chr(c) for c in range(48, 48 + cfg.vocab_size))
+    stoi = {c: i for i, c in enumerate(chars)}
+    with tempfile.TemporaryDirectory() as tmp:
+        save_ckpt(tmp, params, cfg, stoi, dict(enumerate(chars)))
+        with open(f"{tmp}/prompts.txt", "w", encoding="utf-8") as f:
+            f.write(chars[:40] + "\n" + chars[20:] * 3 + "\n")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            tapp.main(["--serve", "--ckpt_dir", tmp, "--prompts",
+                       f"{tmp}/prompts.txt", "--out", f"{tmp}/out.jsonl",
+                       "--gen_tokens", "64", "--n_slots", "8", "--chunk",
+                       "32", "--tp", "2", "--device", "cuda"])
+        rows = [json.loads(ln) for ln in open(f"{tmp}/out.jsonl",
+                                              encoding="utf-8")]
+        phase("mesh", f"apps/gpt.py --serve --tp 2 from a checkpoint: "
+              f"{len(rows)} completions of "
+              f"{[len(r['text']) for r in rows]} characters in "
+              f"{time.perf_counter() - t0:.2f} s")
+        if len(rows) != 2 or any(len(r["text"]) != 64 for r in rows):
+            raise RuntimeError("mesh: the --serve --tp 2 CLI did not serve")
+
+    big = dict(zip(TRAIN_BIG[::2], TRAIN_BIG[1::2]))
+    big_cfg = GPTConfig(vocab_size=cfg.vocab_size,
+                        d_model=int(big["--d_model"]),
+                        n_heads=int(big["--heads"]),
+                        n_layers=int(big["--layers"]),
+                        ctx_len=int(big["--ctx_len"]), dtype=big["--dtype"])
+    big_params = init_gpt_params(big_cfg, seed=0, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():  # no process group: one process
+            warnings.simplefilter("ignore", UserWarning)
+            path = save_ckpt_orbax(tmp, big_params, big_cfg, stoi,
+                                   dict(enumerate(chars)))
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back, cfg_back, _, _ = load_ckpt_orbax(tmp)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in path.rglob("*")
+                     if f.is_file())
+        want, got = _flat(big_params), _flat(back)
+        same = (cfg_back == big_cfg and want.keys() == got.keys()
+                and all(got[k].is_cuda and torch.equal(got[k], want[k])
+                        for k in want))
+        n_param = sum(t.numel() for t in want.values())
+        phase("mesh", f"DCP round trip of train_big's {n_param} parameters "
+              f"(float32 masters): {nbytes} bytes, saved in {t_save:.3f} s, "
+              f"loaded onto the card in {t_load:.3f} s (warm page cache); "
+              f"bit-equal {same}")
+        if not same:
+            raise RuntimeError("mesh: the DCP round trip differs")
+    del big_params, back
+
+    n_cards = torch.cuda.device_count()
+    tp = max(c for c in range(1, n_cards + 1)
+             if n_cards % c == 0 and cfg.n_heads % c == 0)
+    shape = global_mesh_shape(cfg.n_heads)
+    dist0 = init_distributed()
+    phase("mesh", f"init_distributed() with no launcher: {dist0}, "
+          f"is_distributed() {is_distributed()}; global_mesh_shape("
+          f"{cfg.n_heads}) {shape} for {n_cards} card(s), expected "
+          f"{(n_cards // tp, tp)}; phase {time.perf_counter() - t_phase:.1f}"
+          f" s")
+    if dist0 or is_distributed() or shape != (n_cards // tp, tp):
+        raise RuntimeError("mesh: init_distributed or global_mesh_shape")
+
+
 def apps_phase():
     """Phase 24: the small apps on the card: both learned gates (their
     asserts), ``Vector``'s self-test, ``load_glove`` of a file written
@@ -4205,6 +4472,12 @@ def main() -> int:
     # -- 24. apps: the gates, Vector, GloVe neighbours ----------------------
     apps_phase()
 
+    # -- 25. mesh: tp serving, init_distributed, DCP ------------------------
+    mesh_phase(ServeEngine, params, cfg, cfg32)
+
+    # -- 26. ring tables: K10/K11 over one tensor per rank ------------------
+    tables = ring_tables_phase()
+
     # the profiler breakdowns last: the profiler stays attached to the card
     profile_qr()
     profile_step("train", big_cfg, big_batch)
@@ -4231,6 +4504,7 @@ def main() -> int:
     fused_launches = [a + b + c for a, b, c in zip(
         short_launches["fused"], moe_launches["fused"] + [0, 0],
         par_launches["fused"])]
+    phase("time", phase_seconds())
     print(json.dumps({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/paged_attention.cu",
@@ -4275,11 +4549,17 @@ def main() -> int:
         "name": "ring_attention_fwd", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/ring_attention.cu",
         "replaces": "linalg_tpu/parallel/ring_pallas.py:209",
-        "launches": sp_launches["fwd"], **k10_record}, {
+        "launches": sp_launches["fwd"], **k10_record,
+        "tables": {k: {"stacked_ms": v["stacked_ms"][0],
+                       "tables_ms": v["tables_ms"][0]}
+                   for k, v in tables.items()}}, {
         "name": "ring_attention_bwd", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/ring_attention.cu",
         "replaces": "linalg_tpu/parallel/ring_pallas.py:439",
-        "launches": sp_launches["bwd"], **k11_record}]}), flush=True)
+        "launches": sp_launches["bwd"], **k11_record,
+        "tables": {k: {"stacked_ms": v["stacked_ms"][1],
+                       "tables_ms": v["tables_ms"][1]}
+                   for k, v in tables.items()}}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -19,9 +19,12 @@ its checkpoint print the JAX CLI's fallbacks for what the MoE does not
 take (int8, paged KV, speculation, registered prefixes, beam search,
 prompts past the prefill window). ``--train`` with ``--dp``, ``--tp``
 (experts with ``--experts``), ``--sp``, ``--pp`` (``--microbatches``) or
-``--fsdp`` trains over a mesh whose ranks share the device. Tensor-parallel
-serving (``--serve --tp``) is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP.md item (item 7).
+``--fsdp`` trains over a mesh whose ranks share the device. ``--serve
+--tp N`` serves tensor-parallel (``ServeEngine(mesh=...)``) over a (1, N)
+(dp, tp) mesh whose N ranks all sit on ``--device`` (the card by
+default), as the sharded trainers place theirs; the JAX CLI takes N
+devices of its host instead. Under ``--tp`` it prints the JAX CLI's
+fallbacks for ``--paged`` and ``--speculative`` and serves without them.
 """
 
 from __future__ import annotations
@@ -32,10 +35,6 @@ import sys
 import time
 
 import numpy as np
-
-
-# serving over a tp mesh (the JAX CLI's ``--serve --tp N``)
-_MESH_SERVING = "ROADMAP.md queue 1, item 7: mesh serving"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -296,9 +295,17 @@ def serve_cli(args) -> None:
         print("serve: no prompts")
         return
 
+    mesh = None
+    if args.tp > 1:
+        # tensor-parallel serving, every rank on the one device (the JAX
+        # CLI's mesh over the host's first tp devices,
+        # linalg_tpu/apps/gpt.py:290-304)
+        from ..parallel import make_mesh
+
+        mesh = make_mesh((1, args.tp), ("dp", "tp"), [device] * args.tp)
     paged = args.paged
     ring = cfg.window is not None and cfg.pos in ("rope", "alibi")
-    if paged and (ring or moe):
+    if paged and (mesh is not None or ring or moe):
         print("(--paged supports the dense GPT outside ring/tp mode; "
               "serving with the slot cache)")
         paged = False
@@ -306,7 +313,7 @@ def serve_cli(args) -> None:
     spec = args.speculative
     # (--lora_dir adapters are merged into params at load: they do not
     # constrain speculation)
-    if spec and (quant != "none" or ring or moe or kv8
+    if spec and (quant != "none" or ring or moe or kv8 or mesh is not None
                  or (paged and args.paged_attn == "kernel")):
         print("(--speculative serving supports the full-precision dense "
               "slot/paged(gather) engine; serving without speculation)")
@@ -317,7 +324,7 @@ def serve_cli(args) -> None:
                       n_pages=(args.n_pages or None),
                       paged_attn=args.paged_attn, speculative=spec, kv8=kv8,
                       schedule=args.schedule, auto_prefix=args.auto_prefix,
-                      page_cache=args.page_cache, device=device)
+                      page_cache=args.page_cache, mesh=mesh, device=device)
     # the engine reserves ceil(gen/chunk)*chunk cache rows per request
     # (speculative: gen + 2(K + 1)): cap gen so one prompt token always
     # fits, then keep each prompt's tail
@@ -506,10 +513,6 @@ def repl(args) -> None:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.serve and args.tp > 1:
-        raise NotImplementedError(
-            f"--serve --tp (tensor-parallel serving) is not ported yet "
-            f"({_MESH_SERVING})")
     if args.train:
         from ..train.trainer import train
 

@@ -12,11 +12,12 @@
 // [r Tl, (r + 1) Tl) of a sequence of T = n Tl, and over n steps each K/V
 // chunk passes every rank once. On the TPU one kernel per device loops over
 // the n steps, keeps its running state in VMEM and moves the chunks with
-// remote DMAs. Here the ranks share one card and every head tensor is
-// rank-stacked, (BH, T, D), so chunk src is rows [src Tl, (src + 1) Tl) of
-// k and v: a block reads it in place and no chunk is ever copied. Each
-// block loops over the ring's steps itself, in the ring's order, so the
-// sums are taken in the order the TPU takes them:
+// remote DMAs. Here a block reads chunk src where it lies, through a
+// table of per-rank base pointers (Tab): views of rank-stacked (BH, T, D)
+// tensors on one card, one (BH, Tl, D) tensor per rank, or a peer card's
+// memory, which stands in for the remote DMA. No chunk is ever copied.
+// Each block loops over the ring's steps itself, in the ring's order, so
+// the sums are taken in the order the TPU takes them:
 //
 //   forward (K10)  fwd: one block per (row tile, bh, rank r) folds chunk
 //                  src = (r - s) mod n at step s = 0..n-1 into its online
@@ -34,7 +35,9 @@
 // Every output row is owned by one block: no atomics, and two runs give the
 // same bits. delta = rowsum(dO * O) is one f32 pass the caller makes, as the
 // TPU wrapper does (ring_pallas.py:561). `r0` and the grid's z extent pick a
-// range of ranks (chunks for dk/dv); one card runs them all.
+// range of ranks (chunks for dk/dv): one launch a card covers the ranks
+// whose outputs lie there, and the caller orders it after every source
+// card's writes (events).
 //
 // Masks use global positions, row = r Tl + i and col = src Tl + j: causal
 // (col <= row), the sliding-window band (col > row - window) and the ALiBi
@@ -80,7 +83,8 @@
 // 118-242 registers leaving few warps an SM to hide that.
 //
 // Layouts (all contiguous, elements): q, k, v, dO, o, dq, dk, dv: (BH, T,
-// D) in the io dtype; L, delta: (BH, T) f32. D is the padded head width
+// D) rank-stacked or (BH, Tl, D) a rank, in the io dtype; L, delta: (BH, T)
+// or (BH, Tl) f32. D is the padded head width
 // (32, 64, 128, 256): zero columns add nothing to q.k and give zero output
 // columns, and `scale` is 1 / sqrt(true d).
 
@@ -103,6 +107,41 @@ struct Ring {
   float scale;
   const float* slopes;  // (H,) ALiBi slopes, or null
 };
+
+// The per-rank chunk tables: rank x's rows of each tensor start at
+// in[kind][x] (out[kind][x]), and head bh's rows at hs * bh rows further.
+// Rank-stacked tensors give base + x Tl rows and hs = T; one tensor per
+// rank gives its own base and hs = Tl. A pointer may be a peer card's.
+// The table is a __grid_constant__ kernel parameter: indexed at run time
+// in place, never copied to local memory.
+constexpr int MAX_RANKS = 32;
+enum { IQ, IK, IV, IDO, IL, IDL, N_IN };
+enum { O0, O1, O2, N_OUT };  // o, L (forward); dq, dk, dv (backward)
+struct Tab {
+  const void* in[N_IN][MAX_RANKS];
+  void* out[N_OUT][MAX_RANKS];
+  long long hs;
+};
+
+// Head bh of rank x's chunk of table entry `kind` (rows of W elements of
+// type T); in_row: its row `row`. A block takes its own rank's heads once,
+// restrict-qualified (read or written through no other pointer), and
+// looks up the chunks of the others as its walk reaches them.
+template <typename T, int W>
+__device__ __forceinline__ const T* in_head(const Tab& tb, int kind, int x,
+                                            int bh) {
+  return static_cast<const T*>(tb.in[kind][x]) + (size_t)bh * tb.hs * W;
+}
+template <typename T, int W>
+__device__ __forceinline__ T* out_head(const Tab& tb, int kind, int x,
+                                       int bh) {
+  return static_cast<T*>(tb.out[kind][x]) + (size_t)bh * tb.hs * W;
+}
+template <typename T, int W>
+__device__ __forceinline__ const T* in_row(const Tab& tb, int kind, int x,
+                                           int bh, int row) {
+  return in_head<T, W>(tb, kind, x, bh) + (size_t)row * W;
+}
 
 __device__ __forceinline__ float slope_of(const Ring& a, int bh) {
   return a.slopes ? a.slopes[bh % a.H] : 0.f;
@@ -248,9 +287,7 @@ __device__ __forceinline__ void stage_rows(float* dst,
 // recompute the scores, so the accumulator stays at 64 registers.
 template <int D, int DC>
 __global__ void __launch_bounds__(MT, 1)
-    fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o,
-             float* __restrict__ L, const Ring a) {
+    fwd_bf16(const __grid_constant__ Tab tb, const Ring a) {
   constexpr int RS = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
@@ -260,30 +297,36 @@ __global__ void __launch_bounds__(MT, 1)
   const int c0 = (blockIdx.z % (D / DC)) * DC;
   const int i0 = blockIdx.x * BM;
   const int rows = min(BM, a.Tl - i0);
-  const int row0 = r * a.Tl + i0;                // global row of the tile
-  const size_t head = (size_t)bh * a.n * a.Tl;  // row index of (bh, 0)
+  const int row0 = r * a.Tl + i0;  // global row of the tile
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wr = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
   const float slope = slope_of(a, bh);
+  const bf16* __restrict__ qh = in_head<bf16, D>(tb, IQ, r, bh);
+  bf16* __restrict__ oh = out_head<bf16, D>(tb, O0, r, bh);
+  float* __restrict__ Lo = out_head<float, 1>(tb, O1, r, bh);
 
-  stage_bf16<D, BM>(Qs, q + (head + row0) * D, rows);
+  stage_bf16<D, BM>(Qs, qh + (size_t)i0 * D, rows);
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float acc[DC / 8][4] = {};
   KeyWalk w{a, r, row0, row0 + rows - 1, BN};
   bool have = w.start();
   if (have) {
-    const size_t at = (head + (size_t)w.src * a.Tl + w.t * BN) * D;
-    stage_bf16<D, BN>(Ks, k + at, a.Tl - w.t * BN);
-    stage_bf16<D, BN>(Vs, v + at, a.Tl - w.t * BN);
+    stage_bf16<D, BN>(Ks, in_row<bf16, D>(tb, IK, w.src, bh, w.t * BN),
+                      a.Tl - w.t * BN);
+    stage_bf16<D, BN>(Vs, in_row<bf16, D>(tb, IV, w.src, bh, w.t * BN),
+                      a.Tl - w.t * BN);
   }
   cp_async_commit();
   for (int buf = 0; have; buf ^= 1) {
     KeyWalk nx = w;
     const bool more = nx.next();
     if (more) {  // the next tile's copy flies while this one computes
-      const size_t at = (head + (size_t)nx.src * a.Tl + nx.t * BN) * D;
-      stage_bf16<D, BN>(Ks + (buf ^ 1) * BN * RS, k + at, a.Tl - nx.t * BN);
-      stage_bf16<D, BN>(Vs + (buf ^ 1) * BN * RS, v + at, a.Tl - nx.t * BN);
+      stage_bf16<D, BN>(Ks + (buf ^ 1) * BN * RS,
+                        in_row<bf16, D>(tb, IK, nx.src, bh, nx.t * BN),
+                        a.Tl - nx.t * BN);
+      stage_bf16<D, BN>(Vs + (buf ^ 1) * BN * RS,
+                        in_row<bf16, D>(tb, IV, nx.src, bh, nx.t * BN),
+                        a.Tl - nx.t * BN);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -361,14 +404,15 @@ __global__ void __launch_bounds__(MT, 1)
   for (int h = 0; h < 2; ++h) {
     const int li = wr + g + 8 * h;
     if (li >= rows) continue;
-    const size_t row = head + row0 + li;
+    bf16* orow = oh + (size_t)(i0 + li) * D;
     const float denom = l[h] == 0.f ? 1.f : l[h];
     const float inv = 1.f / denom;
 #pragma unroll
     for (int dn = 0; dn < DC / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(o + row * D + c0 + dn * 8 + 2 * t) =
+      *reinterpret_cast<uint32_t*>(orow + c0 + dn * 8 + 2 * t) =
           pack(acc[dn][2 * h] * inv, acc[dn][2 * h + 1] * inv);
-    if (t == 0 && c0 == 0) L[row] = m[h] + logf(denom);
+    if (t == 0 && c0 == 0)
+      Lo[i0 + li] = m[h] + logf(denom);
   }
 }
 
@@ -376,10 +420,7 @@ __global__ void __launch_bounds__(MT, 1)
 // slices); dq's columns [c0, c0 + DC).
 template <int D, int DC>
 __global__ void __launch_bounds__(MT, 1)
-    dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const bf16* __restrict__ dO,
-            const float* __restrict__ L, const float* __restrict__ delta,
-            bf16* __restrict__ dq, const Ring a) {
+    dq_bf16(const __grid_constant__ Tab tb, const Ring a) {
   constexpr int RS = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
@@ -391,36 +432,44 @@ __global__ void __launch_bounds__(MT, 1)
   const int i0 = blockIdx.x * BM;
   const int rows = min(BM, a.Tl - i0);
   const int row0 = r * a.Tl + i0;
-  const size_t head = (size_t)bh * a.n * a.Tl;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wr = (threadIdx.x >> 5) * 16;
   const float slope = slope_of(a, bh);
+  const bf16* __restrict__ qh = in_head<bf16, D>(tb, IQ, r, bh);
+  const bf16* __restrict__ dOh = in_head<bf16, D>(tb, IDO, r, bh);
+  const float* __restrict__ Lh = in_head<float, 1>(tb, IL, r, bh);
+  const float* __restrict__ dlh = in_head<float, 1>(tb, IDL, r, bh);
+  bf16* __restrict__ dqh = out_head<bf16, D>(tb, O0, r, bh);
 
-  stage_bf16<D, BM>(Qs, q + (head + row0) * D, rows);
-  stage_bf16<D, BM>(dOs, dO + (head + row0) * D, rows);
+  stage_bf16<D, BM>(Qs, qh + (size_t)i0 * D, rows);
+  stage_bf16<D, BM>(dOs, dOh + (size_t)i0 * D, rows);
   float Lr[2], dr[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int li = wr + g + 8 * h;
-    Lr[h] = li < rows ? L[head + row0 + li] : 0.f;
-    dr[h] = li < rows ? delta[head + row0 + li] : 0.f;
+    Lr[h] = li < rows ? Lh[i0 + li] : 0.f;
+    dr[h] = li < rows ? dlh[i0 + li] : 0.f;
   }
   float acc[DC / 8][4] = {};
   KeyWalk w{a, r, row0, row0 + rows - 1, BN};
   bool have = w.start();
   if (have) {
-    const size_t at = (head + (size_t)w.src * a.Tl + w.t * BN) * D;
-    stage_bf16<D, BN>(Ks, k + at, a.Tl - w.t * BN);
-    stage_bf16<D, BN>(Vs, v + at, a.Tl - w.t * BN);
+    stage_bf16<D, BN>(Ks, in_row<bf16, D>(tb, IK, w.src, bh, w.t * BN),
+                      a.Tl - w.t * BN);
+    stage_bf16<D, BN>(Vs, in_row<bf16, D>(tb, IV, w.src, bh, w.t * BN),
+                      a.Tl - w.t * BN);
   }
   cp_async_commit();
   for (int buf = 0; have; buf ^= 1) {
     KeyWalk nx = w;
     const bool more = nx.next();
     if (more) {
-      const size_t at = (head + (size_t)nx.src * a.Tl + nx.t * BN) * D;
-      stage_bf16<D, BN>(Ks + (buf ^ 1) * BN * RS, k + at, a.Tl - nx.t * BN);
-      stage_bf16<D, BN>(Vs + (buf ^ 1) * BN * RS, v + at, a.Tl - nx.t * BN);
+      stage_bf16<D, BN>(Ks + (buf ^ 1) * BN * RS,
+                        in_row<bf16, D>(tb, IK, nx.src, bh, nx.t * BN),
+                        a.Tl - nx.t * BN);
+      stage_bf16<D, BN>(Vs + (buf ^ 1) * BN * RS,
+                        in_row<bf16, D>(tb, IV, nx.src, bh, nx.t * BN),
+                        a.Tl - nx.t * BN);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -478,10 +527,10 @@ __global__ void __launch_bounds__(MT, 1)
   for (int h = 0; h < 2; ++h) {
     const int li = wr + g + 8 * h;
     if (li >= rows) continue;
-    const size_t row = head + row0 + li;
+    bf16* dqrow = dqh + (size_t)(i0 + li) * D;
 #pragma unroll
     for (int dn = 0; dn < DC / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(dq + row * D + c0 + dn * 8 + 2 * t) =
+      *reinterpret_cast<uint32_t*>(dqrow + c0 + dn * 8 + 2 * t) =
           pack(a.scale * acc[dn][2 * h], a.scale * acc[dn][2 * h + 1]);
   }
 }
@@ -492,10 +541,7 @@ __global__ void __launch_bounds__(MT, 1)
 // columns [c0, c0 + DC) of dk and dv, recomputing the scores per slice.
 template <int D, int BQ, int DC>
 __global__ void __launch_bounds__(MT, 1)
-    dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dO,
-              const float* __restrict__ L, const float* __restrict__ delta,
-              bf16* __restrict__ dk, bf16* __restrict__ dv, const Ring a) {
+    dkdv_bf16(const __grid_constant__ Tab tb, const Ring a) {
   constexpr int RS = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
@@ -510,23 +556,25 @@ __global__ void __launch_bounds__(MT, 1)
   const int j0 = blockIdx.x * BM;  // first local key of the tile
   const int cols = min(BM, a.Tl - j0);
   const int col0 = c * a.Tl + j0;  // its global position
-  const size_t head = (size_t)bh * a.n * a.Tl;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wr = (threadIdx.x >> 5) * 16;  // the warp's keys in the tile
   const float slope = slope_of(a, bh);
+  const bf16* __restrict__ kh = in_head<bf16, D>(tb, IK, c, bh);
+  const bf16* __restrict__ vh = in_head<bf16, D>(tb, IV, c, bh);
+  bf16* __restrict__ dkh = out_head<bf16, D>(tb, O1, c, bh);
+  bf16* __restrict__ dvh = out_head<bf16, D>(tb, O2, c, bh);
 
-  stage_bf16<D, BM>(Ks, k + (head + col0) * D, cols);
-  stage_bf16<D, BM>(Vs, v + (head + col0) * D, cols);
+  stage_bf16<D, BM>(Ks, kh + (size_t)j0 * D, cols);
+  stage_bf16<D, BM>(Vs, vh + (size_t)j0 * D, cols);
   float accv[DC / 8][4] = {}, acck[DC / 8][4] = {};
   QueryWalk w{a, c, col0, col0 + cols - 1, BQ};
   bool have = w.start();
   if (have) {
-    const size_t at = head + (size_t)w.r * a.Tl + w.t * BQ;
-    const int valid = a.Tl - w.t * BQ;
-    stage_bf16<D, BQ>(Qs, q + at * D, valid);
-    stage_bf16<D, BQ>(dOs, dO + at * D, valid);
-    stage_rows<BQ>(Ls, L + at, valid);
-    stage_rows<BQ>(Ds, delta + at, valid);
+    const int at = w.t * BQ, valid = a.Tl - at;
+    stage_bf16<D, BQ>(Qs, in_row<bf16, D>(tb, IQ, w.r, bh, at), valid);
+    stage_bf16<D, BQ>(dOs, in_row<bf16, D>(tb, IDO, w.r, bh, at), valid);
+    stage_rows<BQ>(Ls, in_row<float, 1>(tb, IL, w.r, bh, at), valid);
+    stage_rows<BQ>(Ds, in_row<float, 1>(tb, IDL, w.r, bh, at), valid);
   }
   cp_async_commit();
   for (int buf = 0; have; buf ^= 1) {
@@ -534,12 +582,15 @@ __global__ void __launch_bounds__(MT, 1)
     const bool more = nx.next();
     if (more) {
       const int nb = buf ^ 1;
-      const size_t at = head + (size_t)nx.r * a.Tl + nx.t * BQ;
-      const int valid = a.Tl - nx.t * BQ;
-      stage_bf16<D, BQ>(Qs + nb * BQ * RS, q + at * D, valid);
-      stage_bf16<D, BQ>(dOs + nb * BQ * RS, dO + at * D, valid);
-      stage_rows<BQ>(Ls + nb * BQ, L + at, valid);
-      stage_rows<BQ>(Ds + nb * BQ, delta + at, valid);
+      const int at = nx.t * BQ, valid = a.Tl - at;
+      stage_bf16<D, BQ>(Qs + nb * BQ * RS,
+                        in_row<bf16, D>(tb, IQ, nx.r, bh, at), valid);
+      stage_bf16<D, BQ>(dOs + nb * BQ * RS,
+                        in_row<bf16, D>(tb, IDO, nx.r, bh, at), valid);
+      stage_rows<BQ>(Ls + nb * BQ, in_row<float, 1>(tb, IL, nx.r, bh, at),
+                     valid);
+      stage_rows<BQ>(Ds + nb * BQ, in_row<float, 1>(tb, IDL, nx.r, bh, at),
+                     valid);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -608,13 +659,14 @@ __global__ void __launch_bounds__(MT, 1)
   for (int h = 0; h < 2; ++h) {  // written whether or not a rank saw it
     const int kj = wr + g + 8 * h;
     if (kj >= cols) continue;
-    const size_t row = (head + col0 + kj) * D + c0;
+    bf16* dkrow = dkh + (size_t)(j0 + kj) * D + c0;
+    bf16* dvrow = dvh + (size_t)(j0 + kj) * D + c0;
 #pragma unroll
     for (int dn = 0; dn < DC / 8; ++dn) {
       const int col = dn * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(dv + row + col) =
+      *reinterpret_cast<uint32_t*>(dvrow + col) =
           pack(accv[dn][2 * h], accv[dn][2 * h + 1]);
-      *reinterpret_cast<uint32_t*>(dk + row + col) =
+      *reinterpret_cast<uint32_t*>(dkrow + col) =
           pack(a.scale * acck[dn][2 * h], a.scale * acck[dn][2 * h + 1]);
     }
   }
@@ -680,9 +732,7 @@ __device__ __forceinline__ void tile_mul(float (&acc)[BR / 16][D / 16],
 // K10. Grid (row tiles of Tl, BH, ranks); BR rows and keys per tile.
 template <int D, int BR>
 __global__ void __launch_bounds__(NT, 1)
-    fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, float* __restrict__ o,
-            float* __restrict__ L, const Ring a) {
+    fwd_f32(const __grid_constant__ Tab tb, const Ring a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int R = BR / 16, C = D / 16, S = D + 1, PS = BR + 1;
   float* Qs = smem;
@@ -693,11 +743,13 @@ __global__ void __launch_bounds__(NT, 1)
   const int i0 = blockIdx.x * BR;
   const int rows = min(BR, a.Tl - i0);
   const int row0 = r * a.Tl + i0;
-  const size_t head = (size_t)bh * a.n * a.Tl;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const float slope = slope_of(a, bh);
+  const float* __restrict__ qh = in_head<float, D>(tb, IQ, r, bh);
+  float* __restrict__ oh = out_head<float, D>(tb, O0, r, bh);
+  float* __restrict__ Lo = out_head<float, 1>(tb, O1, r, bh);
 
-  stage_f32<D, BR>(Qs, q + (head + row0) * D, rows);
+  stage_f32<D, BR>(Qs, qh + (size_t)i0 * D, rows);
   float m[R], l[R], acc[R][C];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -709,18 +761,22 @@ __global__ void __launch_bounds__(NT, 1)
   KeyWalk w{a, r, row0, row0 + rows - 1, BR};
   bool have = w.start();
   if (have) {
-    const size_t at = (head + (size_t)w.src * a.Tl + w.t * BR) * D;
-    stage_f32<D, BR>(Ks, k + at, a.Tl - w.t * BR);
-    stage_f32<D, BR>(Vs, v + at, a.Tl - w.t * BR);
+    stage_f32<D, BR>(Ks, in_row<float, D>(tb, IK, w.src, bh, w.t * BR),
+                     a.Tl - w.t * BR);
+    stage_f32<D, BR>(Vs, in_row<float, D>(tb, IV, w.src, bh, w.t * BR),
+                     a.Tl - w.t * BR);
   }
   cp_async_commit();
   for (int buf = 0; have; buf ^= 1) {
     KeyWalk nx = w;
     const bool more = nx.next();
     if (more) {
-      const size_t at = (head + (size_t)nx.src * a.Tl + nx.t * BR) * D;
-      stage_f32<D, BR>(Ks + (buf ^ 1) * BR * S, k + at, a.Tl - nx.t * BR);
-      stage_f32<D, BR>(Vs + (buf ^ 1) * BR * S, v + at, a.Tl - nx.t * BR);
+      stage_f32<D, BR>(Ks + (buf ^ 1) * BR * S,
+                       in_row<float, D>(tb, IK, nx.src, bh, nx.t * BR),
+                       a.Tl - nx.t * BR);
+      stage_f32<D, BR>(Vs + (buf ^ 1) * BR * S,
+                       in_row<float, D>(tb, IV, nx.src, bh, nx.t * BR),
+                       a.Tl - nx.t * BR);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -769,22 +825,20 @@ __global__ void __launch_bounds__(NT, 1)
   for (int i = 0; i < R; ++i) {
     const int li = ty + 16 * i;
     if (li >= rows) continue;
-    const size_t row = head + row0 + li;
+    float* orow = oh + (size_t)(i0 + li) * D;
     const float denom = l[i] == 0.f ? 1.f : l[i];
     const float inv = 1.f / denom;
 #pragma unroll
-    for (int c = 0; c < C; ++c) o[row * D + tx + 16 * c] = acc[i][c] * inv;
-    if (tx == 0) L[row] = m[i] + logf(denom);
+    for (int c = 0; c < C; ++c) orow[tx + 16 * c] = acc[i][c] * inv;
+    if (tx == 0)
+      Lo[i0 + li] = m[i] + logf(denom);
   }
 }
 
 // K11's dq pass, f32.
 template <int D, int BR>
 __global__ void __launch_bounds__(NT, 1)
-    dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const float* __restrict__ dO,
-           const float* __restrict__ L, const float* __restrict__ delta,
-           float* __restrict__ dq, const Ring a) {
+    dq_f32(const __grid_constant__ Tab tb, const Ring a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int R = BR / 16, C = D / 16, S = D + 1, PS = BR + 1;
   float* Qs = smem;
@@ -796,36 +850,44 @@ __global__ void __launch_bounds__(NT, 1)
   const int i0 = blockIdx.x * BR;
   const int rows = min(BR, a.Tl - i0);
   const int row0 = r * a.Tl + i0;
-  const size_t head = (size_t)bh * a.n * a.Tl;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const float slope = slope_of(a, bh);
+  const float* __restrict__ qh = in_head<float, D>(tb, IQ, r, bh);
+  const float* __restrict__ dOh = in_head<float, D>(tb, IDO, r, bh);
+  const float* __restrict__ Lh = in_head<float, 1>(tb, IL, r, bh);
+  const float* __restrict__ dlh = in_head<float, 1>(tb, IDL, r, bh);
+  float* __restrict__ dqh = out_head<float, D>(tb, O0, r, bh);
 
-  stage_f32<D, BR>(Qs, q + (head + row0) * D, rows);
-  stage_f32<D, BR>(dOs, dO + (head + row0) * D, rows);
+  stage_f32<D, BR>(Qs, qh + (size_t)i0 * D, rows);
+  stage_f32<D, BR>(dOs, dOh + (size_t)i0 * D, rows);
   float Lr[R], dr[R], acc[R][C];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int li = ty + 16 * i;
-    Lr[i] = li < rows ? L[head + row0 + li] : 0.f;
-    dr[i] = li < rows ? delta[head + row0 + li] : 0.f;
+    Lr[i] = li < rows ? Lh[i0 + li] : 0.f;
+    dr[i] = li < rows ? dlh[i0 + li] : 0.f;
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
   }
   KeyWalk w{a, r, row0, row0 + rows - 1, BR};
   bool have = w.start();
   if (have) {
-    const size_t at = (head + (size_t)w.src * a.Tl + w.t * BR) * D;
-    stage_f32<D, BR>(Ks, k + at, a.Tl - w.t * BR);
-    stage_f32<D, BR>(Vs, v + at, a.Tl - w.t * BR);
+    stage_f32<D, BR>(Ks, in_row<float, D>(tb, IK, w.src, bh, w.t * BR),
+                     a.Tl - w.t * BR);
+    stage_f32<D, BR>(Vs, in_row<float, D>(tb, IV, w.src, bh, w.t * BR),
+                     a.Tl - w.t * BR);
   }
   cp_async_commit();
   for (int buf = 0; have; buf ^= 1) {
     KeyWalk nx = w;
     const bool more = nx.next();
     if (more) {
-      const size_t at = (head + (size_t)nx.src * a.Tl + nx.t * BR) * D;
-      stage_f32<D, BR>(Ks + (buf ^ 1) * BR * S, k + at, a.Tl - nx.t * BR);
-      stage_f32<D, BR>(Vs + (buf ^ 1) * BR * S, v + at, a.Tl - nx.t * BR);
+      stage_f32<D, BR>(Ks + (buf ^ 1) * BR * S,
+                       in_row<float, D>(tb, IK, nx.src, bh, nx.t * BR),
+                       a.Tl - nx.t * BR);
+      stage_f32<D, BR>(Vs + (buf ^ 1) * BR * S,
+                       in_row<float, D>(tb, IV, nx.src, bh, nx.t * BR),
+                       a.Tl - nx.t * BR);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -859,10 +921,9 @@ __global__ void __launch_bounds__(NT, 1)
   for (int i = 0; i < R; ++i) {
     const int li = ty + 16 * i;
     if (li >= rows) continue;
-    const size_t row = head + row0 + li;
+    float* dqrow = dqh + (size_t)(i0 + li) * D;
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-      dq[row * D + tx + 16 * c] = a.scale * acc[i][c];
+    for (int c = 0; c < C; ++c) dqrow[tx + 16 * c] = a.scale * acc[i][c];
   }
 }
 
@@ -871,10 +932,7 @@ __global__ void __launch_bounds__(NT, 1)
 // ty + 16 i, column tx + 16 c).
 template <int D, int BR>
 __global__ void __launch_bounds__(NT, 1)
-    dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ dO,
-             const float* __restrict__ L, const float* __restrict__ delta,
-             float* __restrict__ dk, float* __restrict__ dv, const Ring a) {
+    dkdv_f32(const __grid_constant__ Tab tb, const Ring a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int R = BR / 16, C = D / 16, S = D + 1, PS = BR + 1;
   float* Ks = smem;
@@ -887,12 +945,15 @@ __global__ void __launch_bounds__(NT, 1)
   const int j0 = blockIdx.x * BR;
   const int cols = min(BR, a.Tl - j0);
   const int col0 = c * a.Tl + j0;
-  const size_t head = (size_t)bh * a.n * a.Tl;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const float slope = slope_of(a, bh);
+  const float* __restrict__ kh = in_head<float, D>(tb, IK, c, bh);
+  const float* __restrict__ vh = in_head<float, D>(tb, IV, c, bh);
+  float* __restrict__ dkh = out_head<float, D>(tb, O1, c, bh);
+  float* __restrict__ dvh = out_head<float, D>(tb, O2, c, bh);
 
-  stage_f32<D, BR>(Ks, k + (head + col0) * D, cols);
-  stage_f32<D, BR>(Vs, v + (head + col0) * D, cols);
+  stage_f32<D, BR>(Ks, kh + (size_t)j0 * D, cols);
+  stage_f32<D, BR>(Vs, vh + (size_t)j0 * D, cols);
   float accv[R][C], acck[R][C];
 #pragma unroll
   for (int i = 0; i < R; ++i)
@@ -901,28 +962,35 @@ __global__ void __launch_bounds__(NT, 1)
   QueryWalk w{a, c, col0, col0 + cols - 1, BR};
   bool have = w.start();
   if (have) {
-    const size_t at = (head + (size_t)w.r * a.Tl + w.t * BR) * D;
-    stage_f32<D, BR>(Qs, q + at, a.Tl - w.t * BR);
-    stage_f32<D, BR>(dOs, dO + at, a.Tl - w.t * BR);
+    stage_f32<D, BR>(Qs, in_row<float, D>(tb, IQ, w.r, bh, w.t * BR),
+                     a.Tl - w.t * BR);
+    stage_f32<D, BR>(dOs, in_row<float, D>(tb, IDO, w.r, bh, w.t * BR),
+                     a.Tl - w.t * BR);
   }
   cp_async_commit();
   for (int buf = 0; have; buf ^= 1) {
     QueryWalk nx = w;
     const bool more = nx.next();
     if (more) {
-      const size_t at = (head + (size_t)nx.r * a.Tl + nx.t * BR) * D;
-      stage_f32<D, BR>(Qs + (buf ^ 1) * BR * S, q + at, a.Tl - nx.t * BR);
-      stage_f32<D, BR>(dOs + (buf ^ 1) * BR * S, dO + at, a.Tl - nx.t * BR);
+      stage_f32<D, BR>(Qs + (buf ^ 1) * BR * S,
+                       in_row<float, D>(tb, IQ, nx.r, bh, nx.t * BR),
+                       a.Tl - nx.t * BR);
+      stage_f32<D, BR>(dOs + (buf ^ 1) * BR * S,
+                       in_row<float, D>(tb, IDO, nx.r, bh, nx.t * BR),
+                       a.Tl - nx.t * BR);
     }
     cp_async_commit();
     const int i0 = w.t * BR, row0 = w.r * a.Tl + i0;
     const int rows = min(BR, a.Tl - i0);
+    // rank w.r's L and delta: read-only for the whole launch (__ldg)
+    const float* Lw = in_row<float, 1>(tb, IL, w.r, bh, i0);
+    const float* dw = in_row<float, 1>(tb, IDL, w.r, bh, i0);
     float Lq[R], dq_[R];
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       const int lj = tx + 16 * j;
-      Lq[j] = lj < rows ? L[head + row0 + lj] : 0.f;
-      dq_[j] = lj < rows ? delta[head + row0 + lj] : 0.f;
+      Lq[j] = lj < rows ? __ldg(Lw + lj) : 0.f;
+      dq_[j] = lj < rows ? __ldg(dw + lj) : 0.f;
     }
     cp_async_wait<1>();
     __syncthreads();
@@ -956,11 +1024,12 @@ __global__ void __launch_bounds__(NT, 1)
   for (int i = 0; i < R; ++i) {  // written whether or not a rank saw it
     const int ki = ty + 16 * i;
     if (ki >= cols) continue;
-    const size_t row = (head + col0 + ki) * D;
+    float* dkrow = dkh + (size_t)(j0 + ki) * D;
+    float* dvrow = dvh + (size_t)(j0 + ki) * D;
 #pragma unroll
     for (int cc = 0; cc < C; ++cc) {
-      dv[row + tx + 16 * cc] = accv[i][cc];
-      dk[row + tx + 16 * cc] = a.scale * acck[i][cc];
+      dvrow[tx + 16 * cc] = accv[i][cc];
+      dkrow[tx + 16 * cc] = a.scale * acck[i][cc];
     }
   }
 }
@@ -982,15 +1051,6 @@ int launch(void (*kern)(P...), dim3 grid, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
-// The tensors of one call: the forward's (q, k, v) -> (o, L), or the
-// backward's (q, k, v, dO, L, delta) -> (dq, dk, dv).
-struct Ptrs {
-  const void *q, *k, *v, *dO;
-  const float *L, *delta;
-  void *out0, *out1, *out2;  // o (L_out); dq, dk, dv
-  float* L_out;
-};
-
 // Tile sizes per width, chosen so that no kernel spills: bf16 queries per
 // tile of dk/dv BQ (16 from d 128,
 // where its two f32 accumulators take 128 registers); the column slice DC
@@ -1011,64 +1071,65 @@ constexpr size_t f32_smem(int D, int tiles, int scores, int BR) {
 }
 
 template <int D>
-int run_bf16(int which, const Ring& a, int nr, const Ptrs& p,
+int run_bf16(int which, const Ring& a, int nr, const Tab& tb,
              cudaStream_t st) {
   using C = Tiles<D>;
-  auto in = [](const void* x) { return static_cast<const bf16*>(x); };
-  auto out = [](void* x) { return static_cast<bf16*>(x); };
   const dim3 grid((a.Tl + BM - 1) / BM, a.BH, nr * (D / C::DC));
   if (which == 0)
     return launch(fwd_bf16<D, C::DC>, grid, MT, bf16_smem(D, 1, 2, BN), st,
-                  in(p.q), in(p.k), in(p.v), out(p.out0), p.L_out, a);
+                  tb, a);
   int err = launch(dq_bf16<D, C::DC>, grid, MT, bf16_smem(D, 2, 2, BN), st,
-                   in(p.q), in(p.k), in(p.v), in(p.dO), p.L, p.delta,
-                   out(p.out0), a);
+                   tb, a);
   if (err) return err;
   return launch(dkdv_bf16<D, C::BQ, C::DC>, grid, MT,
-                bf16_smem(D, 2, 2, C::BQ) + 4 * C::BQ * 4, st, in(p.q),
-                in(p.k), in(p.v), in(p.dO), p.L, p.delta, out(p.out1),
-                out(p.out2), a);
+                bf16_smem(D, 2, 2, C::BQ) + 4 * C::BQ * 4, st, tb, a);
 }
 
 template <int D>
-int run_f32(int which, const Ring& a, int nr, const Ptrs& p,
+int run_f32(int which, const Ring& a, int nr, const Tab& tb,
             cudaStream_t st) {
   constexpr int BR = Tiles<D>::BR;
-  auto in = [](const void* x) { return static_cast<const float*>(x); };
-  auto out = [](void* x) { return static_cast<float*>(x); };
   const dim3 grid((a.Tl + BR - 1) / BR, a.BH, nr);
   if (which == 0)
-    return launch(fwd_f32<D, BR>, grid, NT, f32_smem(D, 5, 1, BR), st,
-                  in(p.q), in(p.k), in(p.v), out(p.out0), p.L_out, a);
-  int err = launch(dq_f32<D, BR>, grid, NT, f32_smem(D, 6, 1, BR), st,
-                   in(p.q), in(p.k), in(p.v), in(p.dO), p.L, p.delta,
-                   out(p.out0), a);
+    return launch(fwd_f32<D, BR>, grid, NT, f32_smem(D, 5, 1, BR), st, tb,
+                  a);
+  int err = launch(dq_f32<D, BR>, grid, NT, f32_smem(D, 6, 1, BR), st, tb,
+                   a);
   if (err) return err;
-  return launch(dkdv_f32<D, BR>, grid, NT, f32_smem(D, 6, 2, BR), st,
-                in(p.q), in(p.k), in(p.v), in(p.dO), p.L, p.delta,
-                out(p.out1), out(p.out2), a);
+  return launch(dkdv_f32<D, BR>, grid, NT, f32_smem(D, 6, 2, BR), st, tb,
+                a);
 }
 
 template <int D>
-int run(int dtype, int which, const Ring& a, int nr, const Ptrs& p,
+int run(int dtype, int which, const Ring& a, int nr, const Tab& tb,
         cudaStream_t st) {
-  if (dtype == 0) return run_f32<D>(which, a, nr, p, st);
-  if (dtype == 1) return run_bf16<D>(which, a, nr, p, st);
+  if (dtype == 0) return run_f32<D>(which, a, nr, tb, st);
+  if (dtype == 1) return run_bf16<D>(which, a, nr, tb, st);
   return -1;
 }
 
+// Fill a kernel's table from the caller's flat one: N_IN rows of MAX_RANKS
+// input pointers, then N_OUT rows of output pointers, rank-major in each.
 int dispatch(int dtype, int d, int which, const Ring& a, int nr,
-             const Ptrs& p, void* stream) {
-  if (a.n < 1 || a.Tl < 1 || (long long)a.n * a.Tl > 0x7fffffff ||
-      a.BH < 1 || a.BH > 65535 || a.H < 1 || a.BH % a.H || a.r0 < 0 ||
-      nr < 1 || nr > 32767 || a.r0 + nr > a.n || a.window < 0)
+             const void* const* flat, long long hs, void* stream) {
+  if (a.n < 1 || a.n > MAX_RANKS || a.Tl < 1 ||
+      (long long)a.n * a.Tl > 0x7fffffff || a.BH < 1 || a.BH > 65535 ||
+      a.H < 1 || a.BH % a.H || a.r0 < 0 || nr < 1 || a.r0 + nr > a.n ||
+      a.window < 0 || hs < a.Tl || (long long)a.BH * hs > 0x7fffffff)
     return -1;
+  Tab tb;
+  for (int x = 0; x < MAX_RANKS; ++x) {
+    for (int i = 0; i < N_IN; ++i) tb.in[i][x] = flat[i * MAX_RANKS + x];
+    for (int i = 0; i < N_OUT; ++i)
+      tb.out[i][x] = const_cast<void*>(flat[(N_IN + i) * MAX_RANKS + x]);
+  }
+  tb.hs = hs;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return run<32>(dtype, which, a, nr, p, s);
-    case 64: return run<64>(dtype, which, a, nr, p, s);
-    case 128: return run<128>(dtype, which, a, nr, p, s);
-    case 256: return run<256>(dtype, which, a, nr, p, s);
+    case 32: return run<32>(dtype, which, a, nr, tb, s);
+    case 64: return run<64>(dtype, which, a, nr, tb, s);
+    case 128: return run<128>(dtype, which, a, nr, tb, s);
+    case 256: return run<256>(dtype, which, a, nr, tb, s);
     default: return -1;
   }
 }
@@ -1077,36 +1138,60 @@ int dispatch(int dtype, int d, int which, const Ring& a, int nr,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO, o, dq, dk, dv). d is the
 // padded head width (32, 64, 128 or 256), BH = batch * heads, H the heads
-// (ALiBi slope of head bh % H; `slopes` null for none), n the ring's ranks,
-// Tl the rows per rank, ranks [r0, r0 + nr), window 0 for no band. Each
-// returns 0 on success, -1 for an unsupported dtype, d or shape, else the
-// cudaError_t of a launch.
+// (ALiBi slope of head bh % H; `slopes` null for none), n the ring's ranks
+// (at most ring_max_ranks()), Tl the rows per rank, ranks [r0, r0 + nr)
+// the launch's, window 0 for no band. `tab` is the flat per-rank table
+// (see dispatch): the forward's inputs q, k, v and outputs o, L; the
+// backward's inputs q, k, v, dO, L, delta and outputs dq, dk, dv. `hs`
+// is the rows between two heads of a rank's chunk (T when rank-stacked,
+// Tl for one tensor per rank). Each returns 0 on success, -1 for an
+// unsupported dtype, d or shape, else the cudaError_t of a launch.
 
-// The forward over the whole ring (K10): o (BH, T, d) and L (BH, T) f32.
-extern "C" int ring_fwd_launch(int dtype, int d, const void* q,
-                               const void* k, const void* v, void* o,
-                               void* L, const void* slopes, int BH, int H,
-                               int n, int Tl, int r0, int nr, int causal,
-                               int window, float scale, void* stream) {
-  Ring a{BH, H, n, Tl, r0, causal, window, scale,
-         static_cast<const float*>(slopes)};
-  Ptrs p{q, k, v, nullptr, nullptr, nullptr, o, nullptr, nullptr,
-         static_cast<float*>(L)};
-  return dispatch(dtype, d, 0, a, nr, p, stream);
-}
+extern "C" int ring_max_ranks() { return MAX_RANKS; }
 
-// The backward over the whole ring (K11): the dq pass, then the dk/dv
-// pass, from the forward's L and delta = rowsum(dO * O), both (BH, T) f32.
-extern "C" int ring_bwd_launch(int dtype, int d, const void* q,
-                               const void* k, const void* v, const void* dO,
-                               const void* L, const void* delta, void* dq,
-                               void* dk, void* dv, const void* slopes,
-                               int BH, int H, int n, int Tl, int r0, int nr,
+// The forward over ranks [r0, r0 + nr) of the ring (K10): o (BH, rows, d)
+// and L (BH, rows) f32 of each rank.
+extern "C" int ring_fwd_launch(int dtype, int d, const void* const* tab,
+                               long long hs, const void* slopes, int BH,
+                               int H, int n, int Tl, int r0, int nr,
                                int causal, int window, float scale,
                                void* stream) {
   Ring a{BH, H, n, Tl, r0, causal, window, scale,
          static_cast<const float*>(slopes)};
-  Ptrs p{q, k, v, dO, static_cast<const float*>(L),
-         static_cast<const float*>(delta), dq, dk, dv, nullptr};
-  return dispatch(dtype, d, 1, a, nr, p, stream);
+  return dispatch(dtype, d, 0, a, nr, tab, hs, stream);
+}
+
+// The backward over ranks (chunks) [r0, r0 + nr) (K11): the dq pass, then
+// the dk/dv pass, from the forward's L and delta = rowsum(dO * O), both
+// f32.
+extern "C" int ring_bwd_launch(int dtype, int d, const void* const* tab,
+                               long long hs, const void* slopes, int BH,
+                               int H, int n, int Tl, int r0, int nr,
+                               int causal, int window, float scale,
+                               void* stream) {
+  Ring a{BH, H, n, Tl, r0, causal, window, scale,
+         static_cast<const float*>(slopes)};
+  return dispatch(dtype, d, 1, a, nr, tab, hs, stream);
+}
+
+// Let card `dev` read card `peer`'s memory: 0 when it can (already
+// enabled counts), else the cudaError_t (cudaErrorPeerAccessUnsupported
+// when the pair cannot reach each other).
+extern "C" int ring_enable_peer(int dev, int peer) {
+  if (dev == peer) return 0;
+  int can = 0;
+  cudaError_t err = cudaDeviceCanAccessPeer(&can, dev, peer);
+  if (err != cudaSuccess) return (int)err;
+  if (!can) return (int)cudaErrorPeerAccessUnsupported;
+  int prev = 0;
+  err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(dev);
+  if (err == cudaSuccess) err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // clear it: already enabled is success
+    err = cudaSuccess;
+  }
+  cudaSetDevice(prev);
+  return (int)err;
 }

@@ -1,40 +1,49 @@
 """Ring attention: wrappers of the hand-written CUDA kernels of
 ``csrc/ring_attention.cu`` (K10 forward, K11 backward), which run the
-whole ring in one launch, and the plain PyTorch versions of one ring step
-with the rotation of the rank-stacked K/V slots.
+whole ring in one launch a card, and the plain PyTorch versions of one
+ring step with the rotation of the K/V slots.
 
 A ring of n ranks holds a sequence of T = n * Tl rows: rank r owns rows
 [r Tl, (r + 1) Tl). At step s rank r folds the K/V chunk of rank
-``src = (r - s) mod n``. Every buffer is rank-stacked on one device:
+``src = (r - s) mod n``. Every buffer is a list of the n ranks' rows:
+``q``, ``k``, ``v``, ``do``, ``o``, ``dq``, ``dk``, ``dv`` (BH, Tl, D) in
+the io dtype (float32 or bfloat16), ``L``, ``delta`` (BH, Tl) float32,
+each rank's on its own device (several ranks may share one). A rank's
+rows may be a view: where the ranks share a device,
+``parallel.ring_pallas`` passes views of rank-stacked (BH, T, D) tensors,
+whose heads lie T rows apart; a tensor of a rank's own has them Tl apart.
+One call's tensors share that head stride.
 
-- ``q``, ``k``, ``v``, ``do``, ``o``, ``dq``, ``dk``, ``dv``: (BH, T, D)
-  in the io dtype (float32 or bfloat16), rank r's rows at [r Tl, (r + 1)
-  Tl);
-- ``L``, ``delta``: (BH, T) float32.
-
-``ring_fwd_cuda`` returns (o, L) and ``ring_bwd_cuda`` (dq, dk, dv), each
-from ONE call over all n steps: each block loops over the steps in the
-ring's order and reads chunk src's rows of k and v where they lie, with
-its running state in registers, so no chunk is copied and no state goes
-to device memory between steps. The kernels take a range of ranks (of
-chunks for dk/dv); one card runs them all. D is the padded head
-width, one of ``SUPPORTED_D``; ``scale`` is 1/sqrt(true d_head).
-``slopes`` is a float32 (H,) tensor of ALiBi slopes (head h of batch b is
-row b H + h) or None.
+``ring_fwd_cuda`` writes (o, L) and ``ring_bwd_cuda`` (dq, dk, dv) into the
+lists it is given, each in ONE call over all n steps: each block loops
+over the steps in the ring's order and reads chunk src where it lies,
+through a table of the ranks' base pointers, with its running state in
+registers, so no chunk is copied and no state goes to device memory
+between steps. One launch a card covers the ranks whose rows lie there;
+on several cards the kernels read the peers' chunks in place (peer
+access, which must be possible: a pair that cannot reach each other
+raises). Every launch waits on an event that each source card recorded
+on its current stream before the first launch, and each source's stream
+waits on every launch after the last one: the cards run at once, and no
+chunk is rewritten or freed under a reader. One card runs the same
+events on its one stream. D is the padded head width, one of
+``SUPPORTED_D``; ``scale`` is 1/sqrt(true d_head). ``slopes`` is a
+float32 (H,) tensor of ALiBi slopes (head h of batch b is row b H + h) or
+None.
 
 On a CUDA tensor the wrappers launch the kernels or raise; they validate
 what the kernels do not take and substitute nothing. Each wrapper's
-``launches`` counts its calls (one per ring call; K11's dq and dk/dv
-kernels count as one).
+``launches`` counts its launches (one per ring call on one card; K11's
+dq and dk/dv kernels count as one).
 
 The plain versions compute the same function the TPU's way, one step at a
 time: ``ring_fwd_step_ref`` / ``ring_bwd_step_ref`` update per-rank state
-buffers from the chunk in a K/V slot (n, 2, BH, Tl, D) or an f32 bundle
-slot (n, 4, BH, Tl, D) = (k, v, dk, dv), which ``rotate`` moves one hop
-between steps (``parallel.ring_pallas`` drives them; ``chunk_live``
-decides as the kernels do). The CPU tests hold them against the JAX
-package's ring in interpret mode, and a card run holds the kernels
-against them.
+buffers from the chunks in a K/V slot (the n ranks' (2, BH, Tl, D)) or an
+f32 bundle slot (the n ranks' (4, BH, Tl, D) = (k, v, dk, dv)), which
+``rotate`` moves one hop between steps (``parallel.ring_pallas`` drives
+them; ``chunk_live`` decides as the kernels do). The CPU tests hold them
+against the JAX package's ring in interpret mode, and a card run holds the
+kernels against them.
 """
 
 from __future__ import annotations
@@ -52,7 +61,10 @@ __all__ = ["ring_fwd_cuda", "ring_bwd_cuda", "ring_fwd_step_ref",
 
 SUPPORTED_D = (32, 64, 128, 256)
 MAX_BH = 65535  # batch * heads rides the grid's y dimension
+MAX_RANKS = 32  # csrc/ring_attention.cu's table width
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_N_IN, _N_OUT = 6, 3  # q, k, v, dO, L, delta; o, L | dq, dk, dv
+_TABLE = ctypes.c_void_p * ((_N_IN + _N_OUT) * MAX_RANKS)
 
 
 def padded_d(d: int) -> int:
@@ -78,52 +90,97 @@ def chunk_live(src: int, r: int, Tl: int, causal: bool, window) -> bool:
 
 
 def rotate(cur, nxt):
-    """One hop of the ring on rank-stacked slots: rank r + 1 receives rank
-    r's chunk, rank 0 rank n - 1's. Two copies, no temporary."""
-    nxt[1:].copy_(cur[:-1])
-    nxt[0].copy_(cur[-1])
+    """One hop of the ring over the ranks' slots: rank r + 1 receives rank
+    r's chunk, rank 0 rank n - 1's; one copy a rank, to the receiver's
+    device."""
+    for r, x in enumerate(cur):
+        nxt[(r + 1) % len(cur)].copy_(x)
 
 
 @functools.cache
 def _lib():
     lib = ctypes.CDLL(str(build("ring_attention")))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # slopes, BH, H, n, Tl, r0, nr, causal, window, scale, stream
-    tail = [ptr] + [i32] * 8 + [f32, ptr]
-    lib.ring_fwd_launch.argtypes = [i32, i32] + [ptr] * 5 + tail
-    lib.ring_bwd_launch.argtypes = [i32, i32] + [ptr] * 9 + tail
-    lib.ring_fwd_launch.restype = i32
-    lib.ring_bwd_launch.restype = i32
+    # dtype, d, table, hs, slopes, BH, H, n, Tl, r0, nr, causal, window,
+    # scale, stream
+    args = ([i32, i32, ptr, ctypes.c_longlong, ptr] + [i32] * 8
+            + [f32, ptr])
+    for fn in (lib.ring_fwd_launch, lib.ring_bwd_launch):
+        fn.argtypes = args
+        fn.restype = i32
+    lib.ring_enable_peer.argtypes = [i32, i32]
+    lib.ring_enable_peer.restype = i32
+    lib.ring_max_ranks.restype = i32
+    if lib.ring_max_ranks() != MAX_RANKS:
+        raise RuntimeError("ring_attention.cu's MAX_RANKS differs from the "
+                           "wrapper's")
     return lib
 
 
-def _check(name, io, rows, n, H, slopes, window):
-    """Validate a call's tensors: ``io`` (BH, T, D) in one dtype, ``rows``
-    float32 (BH, T); return (BH, T, D, Tl)."""
-    q = io[0]
-    if q.dim() != 3:
-        raise ValueError(f"{name}: q must be (BH, T, D), got "
-                         f"{tuple(q.shape)}")
-    BH, T, D = q.shape
-    tensors = io + rows + ((slopes,) if slopes is not None else ())
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
-        raise ValueError(f"{name} needs every tensor on one CUDA device")
-    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in io):
-        raise ValueError(f"{name}: q, k, v (and do) must share float32 or "
-                         f"bfloat16, got {[t.dtype for t in io]}")
-    if any(t.shape != q.shape for t in io):
-        raise ValueError(f"{name}: q, k, v (and do) must all be "
-                         f"{tuple(q.shape)}, got "
-                         f"{[tuple(t.shape) for t in io]}")
-    if any(t.dtype != torch.float32 or t.shape != (BH, T) for t in rows):
-        raise ValueError(f"{name}: L and delta must be float32 ({BH}, {T})")
+@functools.cache
+def _enable_peer(dev: int, peer: int) -> None:
+    """Let card ``dev``'s kernels read card ``peer``'s memory, or raise:
+    a pair that cannot reach each other has no copy fallback."""
+    rc = _lib().ring_enable_peer(dev, peer)
+    if rc:
+        raise RuntimeError(f"ring attention: cuda:{dev} cannot read "
+                           f"cuda:{peer}'s memory (peer access, code {rc})")
+
+
+def _check(name, io, rows, H, slopes, window):
+    """Validate a call's per-rank lists: ``io`` kinds of (BH, Tl, D) in one
+    dtype, ``rows`` kinds of float32 (BH, Tl); rank x's all on one CUDA
+    device, each with the same head stride hs (rows from one head to the
+    next; any when BH is 1) and unit strides inside a head. Returns (n, BH,
+    Tl, D, hs, the ranks' device indices)."""
+    n = len(io[0])
+    if not 1 <= n <= MAX_RANKS:
+        raise ValueError(f"{name}: a ring of 1 to {MAX_RANKS} ranks, got {n}")
+    if any(len(kind) != n for kind in io + rows):
+        raise ValueError(f"{name}: every per-rank list needs {n} entries")
+    q0 = io[0][0]
+    if q0.dim() != 3:
+        raise ValueError(f"{name}: a rank's q must be (BH, Tl, D), got "
+                         f"{tuple(q0.shape)}")
+    devs = [t.get_device() for t in io[0]]  # -1 off CUDA
+    if min(devs) < 0:
+        raise ValueError(f"{name} needs every rank's tensors on a CUDA "
+                         "device")
+    dt, shape = q0.dtype, q0.shape
+    if dt not in _DTYPE_CODE:
+        raise ValueError(f"{name}: float32 or bfloat16, got {dt}")
+    BH, Tl, D = shape
     if D not in SUPPORTED_D:
         raise ValueError(f"{name}: head width {D} unsupported (the kernels "
                          f"are built for {SUPPORTED_D}; pad with padded_d)")
-    if n < 1 or T % n:
-        raise ValueError(f"{name}: T {T} must divide into n = {n} ranks")
-    if T >= 2 ** 31:
-        raise ValueError(f"{name}: T {T} past the kernels' int positions")
+    hs = q0.stride(0) // D if BH > 1 else Tl
+    io_st, row_st = (D, 1), (1,)
+    if BH > 1:
+        io_st, row_st = (hs * D,) + io_st, (hs,) + row_st
+    for kind in io:
+        for t, dv in zip(kind, devs):
+            st = t.stride()
+            if (t.get_device() != dv or t.dtype != dt or t.shape != shape
+                    or (st if BH > 1 else st[1:]) != io_st
+                    or t.data_ptr() % 16):
+                raise ValueError(
+                    f"{name}: every rank's q, k, v, do and outputs must be "
+                    f"{dt} {tuple(shape)} with strides {io_st} (the head's "
+                    "first when BH > 1), 16-byte aligned, on the rank's "
+                    f"device; got {t.dtype} {tuple(t.shape)} {st} on "
+                    f"{t.device}")
+    for kind in rows:
+        for t, dv in zip(kind, devs):
+            st = t.stride()
+            if (t.get_device() != dv or t.dtype != torch.float32
+                    or t.shape != (BH, Tl)
+                    or (st if BH > 1 else st[1:]) != row_st):
+                raise ValueError(f"{name}: L and delta must be float32 "
+                                 f"({BH}, {Tl}) with strides {row_st} on "
+                                 "the rank's device")
+    if hs < Tl or n * Tl >= 2 ** 31 or BH * hs >= 2 ** 31:
+        raise ValueError(f"{name}: T {n * Tl} (head stride {hs}) past the "
+                         "kernels' int positions")
     if not 0 < BH <= MAX_BH or H < 1 or BH % H:
         raise ValueError(f"{name}: BH {BH} must be in (0, {MAX_BH}] and a "
                          f"multiple of H {H}")
@@ -133,52 +190,91 @@ def _check(name, io, rows, n, H, slopes, window):
     if slopes is not None and (slopes.dtype != torch.float32
                                or slopes.shape != (H,)):
         raise ValueError(f"{name}: slopes must be float32 ({H},)")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} needs contiguous tensors")
-    if any(t.data_ptr() % 16 for t in io):
-        raise ValueError(f"{name} needs 16-byte aligned tensors")
-    return BH, T, D, T // n
+    return n, BH, Tl, D, hs, devs
 
 
-def _call(name, fn, q, ptrs, slopes, BH, H, n, Tl, causal, window, scale):
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        rc = fn(_DTYPE_CODE[q.dtype], q.shape[-1], *ptrs,
-                None if slopes is None else slopes.data_ptr(), BH, H, n, Tl,
-                0, n, int(bool(causal)), window or 0, float(scale), stream)
-    if rc:
-        raise RuntimeError(f"{name} launch failed (code {rc})")
+def _runs(devices):
+    """(device, r0, nr) for each run of consecutive ranks on one device."""
+    out = []
+    for x, dev in enumerate(devices):
+        if out and out[-1][0] == dev:
+            out[-1][2] += 1
+        else:
+            out.append([dev, x, 1])
+    return [tuple(r) for r in out]
 
 
-def ring_fwd_cuda(q, k, v, *, n: int, H: int, causal: bool, window,
-                  slopes, scale: float):
-    """K10 over the whole ring: q, k, v (BH, T, D) -> (o (BH, T, D) in q's
-    dtype, L (BH, T) float32)."""
-    BH, T, _, Tl = _check("ring_fwd_cuda", (q, k, v), (), n, H, slopes,
-                          window)
-    o = torch.empty_like(q)
-    L = torch.empty((BH, T), dtype=torch.float32, device=q.device)
-    _call("ring_fwd", _lib().ring_fwd_launch, q,
-          (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-           L.data_ptr()), slopes, BH, H, n, Tl, causal, window, scale)
-    ring_fwd_cuda.launches += 1
-    return o, L
+@functools.cache
+def _event(dev: int, i: int):
+    """Event ``i`` of card ``dev``, made once and recorded again by every
+    call: a wait takes the record that is newest when it is issued."""
+    with torch.cuda.device(dev):
+        return torch.cuda.Event()
 
 
-def ring_bwd_cuda(q, k, v, do, L, delta, *, n: int, H: int, causal: bool,
-                  window, slopes, scale: float):
-    """K11 over the whole ring: (dq, dk, dv), each (BH, T, D) in q's dtype,
-    from the forward's L and delta = rowsum(dO * O) (both float32 (BH,
-    T)); the dq pass, then the dk/dv pass."""
-    BH, _, _, Tl = _check("ring_bwd_cuda", (q, k, v, do), (L, delta), n, H,
-                          slopes, window)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    _call("ring_bwd", _lib().ring_bwd_launch, q,
-          (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-           L.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-           dv.data_ptr()), slopes, BH, H, n, Tl, causal, window, scale)
-    ring_bwd_cuda.launches += 1
-    return dq, dk, dv
+def _launch(name, entry, counter, ins, outs, rows, slopes, H, causal,
+            window, scale):
+    """Launch the library's ``entry`` once per run of ranks on one device
+    (the library is built on the first call that passes the checks).
+    ``ins`` and ``outs`` are the table's kinds in its order (each the n
+    ranks' tensors), ``rows`` the float32 (BH, Tl) kinds among them."""
+    io = [k for k in ins + outs if all(k is not r for r in rows)]
+    n, BH, Tl, D, hs, devs = _check(name, io, rows, H, slopes, window)
+    fn = getattr(_lib(), entry)
+    table = _TABLE()
+    for i, kind in enumerate(ins + [()] * (_N_IN - len(ins)) + outs):
+        table[i * MAX_RANKS:i * MAX_RANKS + len(kind)] = [
+            t.data_ptr() for t in kind]
+    sources = list(dict.fromkeys(devs))
+    ready = []
+    for src in sources:  # every chunk written before any card reads it
+        ev = _event(src, 0)
+        ev.record(torch.cuda.current_stream(src))
+        ready.append(ev)
+    done = []
+    for j, (dev, r0, nr) in enumerate(_runs(devs)):
+        for src in sources:
+            if src != dev:
+                _enable_peer(dev, src)
+        stream = torch.cuda.current_stream(dev)
+        for ev in ready:
+            stream.wait_event(ev)
+        sl = None if slopes is None else slopes.to(dev)
+        with torch.cuda.device(dev):
+            rc = fn(_DTYPE_CODE[io[0][0].dtype], D, table, hs,
+                    None if sl is None else sl.data_ptr(), BH, H, n, Tl, r0,
+                    nr, int(bool(causal)), window or 0, float(scale),
+                    stream.cuda_stream)
+        if rc:
+            raise RuntimeError(f"{name} launch failed (code {rc})")
+        counter.launches += 1
+        ev = _event(dev, 1 + j)
+        ev.record(stream)
+        done.append(ev)
+    for src in sources:  # no chunk rewritten or freed under a reader
+        stream = torch.cuda.current_stream(src)
+        for ev in done:
+            stream.wait_event(ev)
+
+
+def ring_fwd_cuda(q, k, v, o, L, *, H: int, causal: bool, window, slopes,
+                  scale: float):
+    """K10 over the whole ring: from the n ranks' q, k, v (BH, Tl, D) into
+    their o (BH, Tl, D) in q's dtype and L (BH, Tl) float32; one launch
+    per run of ranks on a device."""
+    _launch("ring_fwd_cuda", "ring_fwd_launch", ring_fwd_cuda,
+            [q, k, v], [o, L], [L], slopes, H, causal, window, scale)
+
+
+def ring_bwd_cuda(q, k, v, do, L, delta, dq, dk, dv, *, H: int,
+                  causal: bool, window, slopes, scale: float):
+    """K11 over the whole ring: into the n ranks' dq, dk, dv (BH, Tl, D) in
+    q's dtype, from the forward's L and delta = rowsum(dO * O) (both
+    float32 (BH, Tl)); the dq pass, then the dk/dv pass, one launch of
+    each per run of ranks on a device."""
+    _launch("ring_bwd_cuda", "ring_bwd_launch", ring_bwd_cuda,
+            [q, k, v, do, L, delta], [dq, dk, dv], [L, delta], slopes, H,
+            causal, window, scale)
 
 
 ring_fwd_cuda.launches = 0
@@ -193,7 +289,7 @@ def _scores(q_r, k, r, src, Tl, H, causal, window, slopes, scale):
     rows = (r * Tl + i)[:, None]
     cols = (src * Tl + i)[None, :]
     if slopes is not None:
-        sl = slopes.repeat(q_r.shape[0] // H)[:, None, None]
+        sl = slopes.to(q_r.device).repeat(q_r.shape[0] // H)[:, None, None]
         s = s + sl * (cols - rows).float()
     ban = torch.zeros((Tl, Tl), dtype=torch.bool, device=q_r.device)
     if causal:
@@ -208,40 +304,42 @@ def ring_fwd_step_ref(q, kv, m, l, acc, o, L, *, n: int, H: int, step: int,
                       ranks, causal: bool, window, slopes, scale: float,
                       last: bool):
     """One forward step the TPU's way, the plain version of K10: fold the
-    chunk in the K/V slot ``kv`` (n, 2, BH, Tl, D) into the float32 running
-    max ``m``, normalizer ``l`` (BH, T) and accumulator ``acc`` (BH, T, D),
-    the same online softmax (-inf for banned scores), rank by rank; at the
-    last step write o and L instead."""
-    Tl = q.shape[1] // n
+    chunks in the K/V slot ``kv`` (the n ranks' (2, BH, Tl, D)) into each
+    rank's float32 running max ``m``, normalizer ``l`` (BH, Tl) and
+    accumulator ``acc`` (BH, Tl, D), the same online softmax (-inf for
+    banned scores), rank by rank; at the last step write o and L instead.
+    Every argument is a list of the n ranks' rows, each rank's on its
+    device."""
+    Tl = q[0].shape[1]
     ninf = float("-inf")
     for r in range(ranks[0], ranks[0] + ranks[1]):
         src = (r - step) % n
         live = chunk_live(src, r, Tl, causal, window)
         if not live and not last:
             continue
-        rows = slice(r * Tl, (r + 1) * Tl)
         if step == 0:
-            m_r = torch.full_like(m[:, rows], ninf)
-            l_r = torch.zeros_like(l[:, rows])
-            acc_r = torch.zeros_like(acc[:, rows])
+            m_r = torch.full_like(m[r], ninf)
+            l_r = torch.zeros_like(l[r])
+            acc_r = torch.zeros_like(acc[r])
         else:
-            m_r, l_r, acc_r = m[:, rows], l[:, rows], acc[:, rows]
+            m_r, l_r, acc_r = m[r], l[r], acc[r]
         if live:
-            s = _scores(q[:, rows], kv[r, 0], r, src, Tl, H, causal, window,
-                        slopes, scale)
+            s = _scores(q[r], kv[r][0], r, src, Tl, H, causal, window, slopes,
+                        scale)
             mn = torch.maximum(m_r, s.amax(-1))
             none = mn == ninf  # nothing visible yet
             alpha = torch.where(none, 1.0, torch.exp(m_r - mn))
             p = torch.where(none[..., None], 0.0, torch.exp(s - mn[..., None]))
             l_r = l_r * alpha + p.sum(-1)
-            acc_r = acc_r * alpha[..., None] + p @ kv[r, 1].float()
+            acc_r = acc_r * alpha[..., None] + p @ kv[r][1].float()
             m_r = mn
         if last:
             denom = torch.where(l_r == 0, 1.0, l_r)
-            o[:, rows] = (acc_r / denom[..., None]).to(o.dtype)
-            L[:, rows] = m_r + torch.log(denom)
+            o[r].copy_((acc_r / denom[..., None]).to(o[r].dtype))
+            L[r].copy_(m_r + torch.log(denom))
         else:
-            m[:, rows], l[:, rows], acc[:, rows] = m_r, l_r, acc_r
+            for x, val in ((m, m_r), (l, l_r), (acc, acc_r)):
+                x[r].copy_(val)
 
 
 @torch.no_grad()
@@ -251,27 +349,26 @@ def ring_bwd_step_ref(q, do, L, delta, bundle, dq_acc, dq, *, n: int,
     """One backward step the TPU's way, the plain version of K11: P
     recomputed from L, dq accumulated in float32 ``dq_acc`` (written to
     ``dq`` at the last step), the bundle slot's dk/dv gaining each rank's
-    share of the chunk it holds."""
-    Tl = q.shape[1] // n
+    share of the chunk it holds. Per-rank lists as for
+    ``ring_fwd_step_ref`` (``bundle``: the n ranks' (4, BH, Tl, D))."""
+    Tl = q[0].shape[1]
     for r in range(ranks[0], ranks[0] + ranks[1]):
         src = (r - step) % n
         live = chunk_live(src, r, Tl, causal, window)
         if not live and not last:
             continue
-        rows = slice(r * Tl, (r + 1) * Tl)
-        acc_r = (torch.zeros_like(dq_acc[:, rows]) if step == 0
-                 else dq_acc[:, rows])
+        acc_r = torch.zeros_like(dq_acc[r]) if step == 0 else dq_acc[r]
         if live:
-            k, v = bundle[r, 0], bundle[r, 1]
-            q_r, do_r = q[:, rows].float(), do[:, rows].float()
+            k, v = bundle[r][0], bundle[r][1]
+            q_r, do_r = q[r].float(), do[r].float()
             s = _scores(q_r, k, r, src, Tl, H, causal, window, slopes, scale)
             p = torch.where(s == float("-inf"), 0.0,
-                            torch.exp(s - L[:, rows, None]))
-            ds = (do_r @ v.transpose(-1, -2) - delta[:, rows, None]) * p
+                            torch.exp(s - L[r][..., None]))
+            ds = (do_r @ v.transpose(-1, -2) - delta[r][..., None]) * p
             acc_r = acc_r + ds @ k
-            bundle[r, 2] += scale * (ds.transpose(-1, -2) @ q_r)
-            bundle[r, 3] += p.transpose(-1, -2) @ do_r
+            bundle[r][2] += scale * (ds.transpose(-1, -2) @ q_r)
+            bundle[r][3] += p.transpose(-1, -2) @ do_r
         if last:
-            dq[:, rows] = (scale * acc_r).to(dq.dtype)
+            dq[r].copy_((scale * acc_r).to(dq[r].dtype))
         else:
-            dq_acc[:, rows] = acc_r
+            dq_acc[r].copy_(acc_r)

@@ -194,10 +194,18 @@ def _gqa_decode_attn(q, k, v, mask):
     additive. Equal head counts go through ``sdpa`` (compute dtype, 1e-12
     denominator); grouped heads do their softmax in float32, as the JAX
     package does."""
+    if k.shape[1] == q.shape[1]:
+        return sdpa(q, k, v, mask)
+    return _grouped_decode_attn(q, k, v, mask)
+
+
+def _grouped_decode_attn(q, k, v, mask):
+    """``_gqa_decode_attn``'s grouped branch at any head counts (hk | H):
+    float32 softmax. A tensor-parallel rank of a grouped model takes it
+    even where its own head counts are equal, so its rows are the
+    unsharded model's."""
     B, H, Tq, d = q.shape
     hk, S = k.shape[1], k.shape[2]
-    if hk == H:
-        return sdpa(q, k, v, mask)
     g = H // hk
     qg = q.reshape(B, hk, g * Tq, d)
     sc = (qg @ k.transpose(-1, -2)) / math.sqrt(d)
@@ -547,7 +555,7 @@ def gpt_prefill(params: Params, x_ids, cfg: GPTConfig, length=None):
     with the true length in ``length``: causality keeps the pads inert and
     the logits are read at ``length - 1``. The cache holds k/v
     (L, B, kv_heads, ctx_len, d) padded to ctx_len, and ``length``."""
-    B, T = x_ids.shape
+    T = x_ids.shape[1]
     dt = cfg.compute_dtype
     h, rope = _embed(params, x_ids, cfg, T, dt)
     mask = _trunk_mask(cfg, T, dt, h.device)
@@ -557,17 +565,24 @@ def gpt_prefill(params: Params, x_ids, cfg: GPTConfig, length=None):
                            rope=rope)
         ks.append(k)
         vs.append(v)
-    if length is None:
-        last = h[:, -1]
-        n = torch.tensor(T, dtype=torch.int32, device=h.device)
-    else:
-        n = torch.as_tensor(length, dtype=torch.int32, device=h.device)
-        last = h[torch.arange(B, device=h.device), n.long() - 1]
-    logits = _head(params, last, dt)
+    logits, n = _prefill_head(params, h, length, dt)
     pad = cfg.ctx_len - T
     K = F.pad(torch.stack(ks), (0, 0, 0, pad))
     V = F.pad(torch.stack(vs), (0, 0, 0, pad))
     return logits, {"k": K, "v": V, "length": n}
+
+
+def _prefill_head(params: Params, h, length, dt):
+    """The prefill's next-token logits (B, V) from the final hidden (B, T,
+    D), read at ``length - 1`` (the last row when None), and the length
+    as an int32 tensor."""
+    B, T = h.shape[:2]
+    if length is None:
+        return (_head(params, h[:, -1], dt),
+                torch.tensor(T, dtype=torch.int32, device=h.device))
+    n = torch.as_tensor(length, dtype=torch.int32, device=h.device)
+    return _head(params, h[torch.arange(B, device=h.device), n.long() - 1],
+                 dt), n
 
 
 def init_decode_cache(cfg: GPTConfig, batch: int = 1, device=None):
@@ -759,10 +774,10 @@ def _dt_decode_ops(params: Params, cfg: GPTConfig) -> Dict[str, Any]:
         for lw in lws:
             lw["W1g"] = torch.cat([lw["lp"]["W1"], lw["lp"]["Wg"]], -1)
             lw["b1g"] = torch.cat([lw["lp"]["b1"], lw["lp"]["bg"]], -1)
-        Fd = cfg.dff
         gate_fn = swiglu if cfg.ffn == "swiglu" else geglu
 
         def ffn(lw, x2):
+            Fd = lw["lp"]["W1"].shape[-1]  # a tensor-parallel rank's F/tp
             ug = x2 @ lw["W1g"] + lw["b1g"]  # (B, 1, 2F)
             return (gate_fn(ug[..., :Fd], ug[..., Fd:]) @ lw["lp"]["W2"]
                     + lw["lp"]["b2"])
@@ -799,6 +814,55 @@ def _positions(x, dev):
     return torch.as_tensor(x, dtype=torch.int32, device=dev).reshape(-1)
 
 
+def _attn_out(ops, lw, h, rope, mask, kb, vb, pos, write_fn, attn,
+              heads):
+    """One layer's attention branch against KV buffers: LN, the fused QKV
+    projection, RoPE, ``write_fn(kb, vb, pos, k, v)`` (in place), ``attn(q,
+    k_l, v_l, mask)`` and Wo; returns the Wo output (B, S, D). ``heads`` =
+    (query heads, KV heads, d_head) of the weights in ``lw``: the model's,
+    or a tensor-parallel rank's (its Wo output is then a partial sum)."""
+    H, hk, dh = heads
+    qkv = ops["qkv"](lw, ops["ln1"](lw, h))
+    q = _heads(qkv[..., :H * dh], H)
+    k = _heads(qkv[..., H * dh:(H + hk) * dh], hk)
+    v = _heads(qkv[..., (H + hk) * dh:], hk)
+    if rope is not None:  # cached keys are stored rotated
+        q = rope_rotate(q, *rope)
+        k = rope_rotate(k, *rope)
+    k_l, v_l = write_fn(kb, vb, pos, k, v)
+    return ops["out"](lw, _unheads(attn(q, k_l, v_l, mask)))
+
+
+def _decode_inputs(cfg: GPTConfig, ops, start1, pos1, token, t_ids, slopes):
+    """A decode step's (h (B|1, 1, D) in the compute dtype, RoPE tables or
+    None, additive mask (B|1, 1|H, 1, ctx)) for ``token`` at the per-row
+    positions ``pos1``, rows ``start1`` on; ``slopes`` the ALiBi slopes or
+    None."""
+    dt = cfg.compute_dtype
+    rel = pos1 - start1
+    rope = None
+    if cfg.pos == "rope":  # tables at the relative position
+        c, s_ = rope_tables(cfg.d_head, rel[:, None])  # (B|1, 1, d/2)
+        rope = (c[:, None].to(dt), s_[:, None].to(dt))
+        h = ops["embed"](token).to(dt)
+    elif cfg.pos == "alibi":
+        h = ops["embed"](token).to(dt)
+    else:
+        h = (ops["embed"](token) + ops["pe"](rel)).to(dt)
+    live = ((t_ids[None, :] <= pos1[:, None])
+            & (t_ids[None, :] >= start1[:, None]))
+    if cfg.window is not None:
+        live &= t_ids[None, :] > pos1[:, None] - cfg.window
+    mask = torch.where(live, 0.0, -1e9).to(dt)[:, None, None, :]
+    if slopes is not None:
+        # key slot j vs the query at ``pos``: slope_h * (j - pos); j > pos
+        # is inert under the -1e9 of the live mask
+        bias = (slopes[None, :, None, None]
+                * (t_ids[None, :] - pos1[:, None]).float()[:, None, None, :])
+        mask = mask + bias.to(dt)
+    return h, rope, mask
+
+
 def _make_decode_step(cfg: GPTConfig, ops, start, write_fn):
     """One-token decode step factory.
 
@@ -807,12 +871,13 @@ def _make_decode_step(cfg: GPTConfig, ops, start, write_fn):
     against the KV buffers (L, ...), write each layer's new K/V with
     ``write_fn`` (in place) and return float32 next-token logits.
     ``ops["attn"]`` replaces the grouped decode attention; with a
-    ``wants_pos`` attribute it also receives the per-row positions."""
-    dt = cfg.compute_dtype
-    D = cfg.d_model
-    KD = cfg.kv_heads * cfg.d_head
+    ``wants_pos`` attribute it also receives the per-row positions.
+    ``ops["layers"](h, rope, mask, kbuf, vbuf, pos, write_fn)`` replaces
+    the layer loop (tensor-parallel serving: per-rank buffers)."""
+    heads = (cfg.n_heads, cfg.kv_heads, cfg.d_head)
     attn = ops.get("attn") or _gqa_decode_attn
     wants_pos = getattr(attn, "wants_pos", False)
+    layers = ops.get("layers")
     dev = ops["device"]
     t_ids = torch.arange(cfg.ctx_len, device=dev)
     start1 = _positions(start, dev)
@@ -821,40 +886,16 @@ def _make_decode_step(cfg: GPTConfig, ops, start, write_fn):
 
     def decode_step(kbuf, vbuf, pos, token):
         pos1 = _positions(pos, dev)
-        rel = pos1 - start1
-        rope = None
-        if cfg.pos == "rope":  # tables at the relative position
-            c, s_ = rope_tables(cfg.d_head, rel[:, None])  # (B|1, 1, d/2)
-            rope = (c[:, None].to(dt), s_[:, None].to(dt))
-            h = ops["embed"](token).to(dt)
-        elif cfg.pos == "alibi":
-            h = ops["embed"](token).to(dt)
-        else:
-            h = (ops["embed"](token) + ops["pe"](rel)).to(dt)
-        live = ((t_ids[None, :] <= pos1[:, None])
-                & (t_ids[None, :] >= start1[:, None]))
-        if cfg.window is not None:
-            live &= t_ids[None, :] > pos1[:, None] - cfg.window
-        mask = torch.where(live, 0.0, -1e9).to(dt)[:, None, None, :]
-        if slopes is not None:
-            # key slot j vs the query at ``pos``: slope_h * (j - pos); j >
-            # pos is inert under the -1e9 of the live mask
-            bias = (slopes[None, :, None, None]
-                    * (t_ids[None, :] - pos1[:, None]).float()[
-                        :, None, None, :])
-            mask = mask + bias.to(dt)
+        h, rope, mask = _decode_inputs(cfg, ops, start1, pos1, token, t_ids,
+                                       slopes)
+        if layers is not None:
+            h = layers(h, rope, mask, kbuf, vbuf, pos, write_fn)
+            return kbuf, vbuf, ops["head"](h[:, -1])
+        at = ((lambda q, k, v, m: attn(q, k, v, m, pos1)) if wants_pos
+              else attn)
         for i, lw in enumerate(ops["lws"]):
-            qkv = ops["qkv"](lw, ops["ln1"](lw, h))
-            q = _heads(qkv[..., :D], cfg.n_heads)
-            k = _heads(qkv[..., D:D + KD], cfg.kv_heads)
-            v = _heads(qkv[..., D + KD:], cfg.kv_heads)
-            if rope is not None:  # cached keys are stored rotated
-                q = rope_rotate(q, *rope)
-                k = rope_rotate(k, *rope)
-            k_l, v_l = write_fn(kbuf[i], vbuf[i], pos, k, v)
-            a_raw = (attn(q, k_l, v_l, mask, pos1) if wants_pos
-                     else attn(q, k_l, v_l, mask))
-            h1 = h + ops["out"](lw, _unheads(a_raw))
+            h1 = h + _attn_out(ops, lw, h, rope, mask, kbuf[i], vbuf[i], pos,
+                               write_fn, at, heads)
             h = h1 + ops["ffn"](lw, ops["ln2"](lw, h1))
         return kbuf, vbuf, ops["head"](h[:, -1])
 

@@ -31,10 +31,10 @@ import numpy as np
 import torch
 
 from ..nn.cache import fkv_init, fkv_write_slots
-from ..nn.functional import rope_rotate, rope_tables
+from ..nn.functional import rope_tables
 from ..nn.positional import alibi_slopes
-from .gpt import (GPTConfig, _categorical, _dt_decode_ops, _gqa_decode_attn,
-                  _heads, _unheads, filter_logits, gpt_prefill)
+from .gpt import (GPTConfig, _attn_out, _categorical, _dt_decode_ops,
+                  _gqa_decode_attn, filter_logits, gpt_prefill)
 
 __all__ = ["gpt_decode_block", "gpt_generate_speculative",
            "gpt_generate_speculative_draft", "spec_accept_or_resample"]
@@ -69,10 +69,12 @@ def _block_forward(cfg: GPTConfig, ops, kbuf, vbuf, pos, start, tokens,
     attention reads (default: the buffer itself). The mask spans the T
     rows ``read_fn`` returns, which the buffers set, not ``cfg.ctx_len``.
     Returns float32 logits (B, S, V); the buffers are updated in place.
-    With S = 1 this is ``gpt_decode_step``'s arithmetic."""
+    With S = 1 this is ``gpt_decode_step``'s arithmetic. ``ops["layers"]``
+    replaces the layer loop as in ``models.gpt._make_decode_step``
+    (tensor-parallel serving: ``kbuf``/``vbuf`` are then per-rank lists of
+    buffers)."""
     dt = cfg.compute_dtype
     D = cfg.d_model
-    KD = cfg.kv_heads * cfg.d_head
     B, S = tokens.shape
     dev = tokens.device
     read = read_fn if read_fn is not None else (lambda x: x)
@@ -90,7 +92,7 @@ def _block_forward(cfg: GPTConfig, ops, kbuf, vbuf, pos, start, tokens,
     else:
         h = (ops["embed"](flat) + ops["pe"](rel.reshape(-1))).reshape(
             B, S, D).to(dt)
-    T = read(kbuf[0]).shape[2]
+    T = (kbuf[0][0] if isinstance(kbuf, list) else read(kbuf[0])).shape[2]
     t_ids = torch.arange(T, device=dev)
     live = ((t_ids[None, None, :] <= absr[:, :, None])
             & (t_ids[None, None, :] >= start.long()[:, None, None]))
@@ -101,17 +103,17 @@ def _block_forward(cfg: GPTConfig, ops, kbuf, vbuf, pos, start, tokens,
         slopes = alibi_slopes(cfg.n_heads, device=dev)
         mask = mask + (slopes[None, :, None, None] * (
             t_ids[None, None, :] - absr[:, :, None]).float()[:, None]).to(dt)
+    if ops.get("layers") is not None:
+        return ops["head"](ops["layers"](h, rope, mask, kbuf, vbuf, pos,
+                                         write_fn))
+    heads = (cfg.n_heads, cfg.kv_heads, cfg.d_head)
+
+    def attn(q, k, v, m):
+        return _gqa_decode_attn(q, read(k), read(v), m)
+
     for i, lw in enumerate(ops["lws"]):
-        qkv = ops["qkv"](lw, ops["ln1"](lw, h))
-        q = _heads(qkv[..., :D], cfg.n_heads)
-        k = _heads(qkv[..., D:D + KD], cfg.kv_heads)
-        v = _heads(qkv[..., D + KD:], cfg.kv_heads)
-        if rope is not None:  # cached keys are stored rotated
-            q = rope_rotate(q, *rope)
-            k = rope_rotate(k, *rope)
-        k_l, v_l = write_fn(kbuf[i], vbuf[i], pos, k, v)
-        a = _gqa_decode_attn(q, read(k_l), read(v_l), mask)
-        h1 = h + ops["out"](lw, _unheads(a))
+        h1 = h + _attn_out(ops, lw, h, rope, mask, kbuf[i], vbuf[i], pos,
+                           write_fn, attn, heads)
         h = h1 + ops["ffn"](lw, ops["ln2"](lw, h1))
     return ops["head"](h)
 

@@ -2,9 +2,12 @@
 its collectives, the plain ring and the ring kernels (K10/K11), and the
 sharded trainers (dp x tp, sequence parallelism, FSDP, the GPipe and 1F1B
 pipelines, expert parallelism), all with the ranks of a mesh in one
-process. Multi-host initialisation (``distributed.py``) is ROADMAP.md
-queue 1, item 7."""
+process, tensor-parallel serving's shards and ops, and multi-process
+initialisation (``distributed.py``: a ``torch.distributed`` process
+group)."""
 
+from .distributed import (global_mesh_shape, host_local_batch_slice,
+                          init_distributed, is_distributed)
 from .expert import (make_ep_device_train_step, make_ep_eval,
                      make_ep_train_step, moe_param_specs)
 from .fsdp import (fsdp_param_specs, fsdp_shardings,
@@ -22,7 +25,8 @@ from .ring_pallas import (make_ring_attention_pallas,
 from .sharding import (dryrun_multichip, gpt_param_specs, make_sharded_attn,
                        make_sharded_device_train_step, make_sharded_eval,
                        make_sharded_train_step, make_sp_device_train_step,
-                       make_sp_eval, make_sp_train_step)
+                       make_sp_eval, make_sp_train_step, tp_kv_heads,
+                       tp_prefill, tp_serve_ops, tp_serve_params)
 
 __all__ = [
     "Mesh",
@@ -64,5 +68,13 @@ __all__ = [
     "fsdp_shardings",
     "make_fsdp_device_train_step",
     "make_fsdp_eval",
+    "tp_kv_heads",
+    "tp_serve_params",
+    "tp_serve_ops",
+    "tp_prefill",
     "dryrun_multichip",
+    "init_distributed",
+    "is_distributed",
+    "host_local_batch_slice",
+    "global_mesh_shape",
 ]

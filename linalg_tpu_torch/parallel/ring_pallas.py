@@ -4,27 +4,37 @@
 On the TPU one Pallas kernel per device runs all n ring steps and moves
 the K/V chunks with remote DMAs, issuing step s+1's transfer before it
 computes step s and holding it back with credits until the neighbour's
-slot is free. Here the ring's ranks are rank-stacked on one device
-(``mesh`` devices may repeat), and on CUDA tensors each direction is one
-call of the kernels (``kernels.ring_attention``): the forward is one K10
-launch, the backward K11's dq and dk/dv launches, once each, for every
-rank. Every block loops over the ring's steps in the ring's order and
-reads the chunk a step needs where it already lies, rows [src Tl,
-(src + 1) Tl) of the (B*h, T, D) head tensors: no chunk is copied and no
-running state leaves the registers between steps. A build or launch
-failure raises.
+slot is free. Here, on CUDA tensors, each direction is one call of the
+kernels (``kernels.ring_attention``): the forward K10, the backward K11's
+dq and dk/dv passes. Every block loops over the ring's steps in the
+ring's order and reads the chunk a step needs where it lies, through a
+table of per-rank chunk pointers: no chunk is copied and no running
+state leaves the registers between steps. A build or launch failure
+raises.
+
+The kernels and their plain versions take every buffer as the list of
+the n ranks' rows. Where every mesh device is the tensors' device
+(devices may repeat, as the trainers' meshes do), those are views of the
+(B*h, T, D) head tensors, rank r's rows at [r Tl, (r + 1) Tl), and each
+direction is one launch. Ranks on other devices (``make_mesh(devices=
+[...])`` over several cards) take their rows to their device as tensors
+of their own; each card launches once for the ranks it holds and reads
+the other cards' chunks in place (peer access, ordered by events), and
+the outputs come back to the input's device. A dp x sp mesh whose groups
+lie on different devices splits the batch over them.
 
 On CPU tensors, and with ``plain=True`` on the card, the kernels' plain
 versions run the TPU's protocol step by step: the forward keeps two K/V
-slots of (n, 2, BH, Tl, d) and rotates one hop per step
+slots (each rank's (2, BH, Tl, d)) and rotates one hop per step
 (``kernels.ring_attention.rotate``: rank r+1 receives rank r's chunk);
-the backward laps an f32 bundle (k, v, dk, dv) of (n, 4, BH, Tl, d),
-each step running the dq and dk/dv passes and then rotating the bundle,
-which after n rotations is home, in slot n % 2 (``ring_pallas.py:433``).
-Both ways fold chunk ``src = (r - s) mod n`` at step s, with
-``chunk_live`` skipping dead chunks, so they sum in the same order. Head
-widths from 8 up are zero-padded to the kernels' next width with the
-scale of the true width; no ``torch.cuda.synchronize()`` is on the path.
+the backward laps an f32 bundle (k, v, dk, dv), each rank's (4, BH, Tl,
+d), each step running the dq and dk/dv passes and then rotating the
+bundle, which after n rotations is home, in slot n % 2
+(``ring_pallas.py:433``). Both ways fold chunk ``src = (r - s) mod n`` at
+step s, with ``chunk_live`` skipping dead chunks, so they sum in the same
+order. Head widths from 8 up are zero-padded to the kernels' next width
+with the scale of the true width; no ``torch.cuda.synchronize()`` is on
+the path.
 """
 
 from __future__ import annotations
@@ -42,21 +52,28 @@ __all__ = ["make_ring_attention_pallas", "ring_attention_pallas_local",
            "ring_attention_pallas_bwd_local"]
 
 
-def _ring_size(mesh, axis: str, device) -> int:
-    """n, the ring's ranks; every mesh device must be ``device`` (the
-    ranks share it)."""
-    def same(dv):
-        dv = torch.device(dv)
-        return dv.type == device.type and (
-            dv.index is None or device.index is None
-            or dv.index == device.index)
+def _same(dv, device) -> bool:
+    dv = torch.device(dv)
+    return dv.type == device.type and (
+        dv.index is None or device.index is None or dv.index == device.index)
 
-    if not all(same(dv) for dv in mesh.devices.flat):
-        raise NotImplementedError(
-            f"ring ranks on devices other than the tensors' {device} (one "
-            "range of ranks per card, with a torch.distributed transport) "
-            "are not ported yet (ROADMAP.md queue 1, item 7)")
-    return mesh.shape[axis]
+
+def _ring_size(mesh, axis: str, device):
+    """(n, rings): n the ring's ranks along ``axis``. ``rings`` is None
+    when every mesh device is ``device``: the ranks share it, and their
+    rows are views of the inputs. Otherwise it lists the ranks' devices of
+    each ring: one list when every group along ``axis`` lies on the same
+    devices (the whole batch rides it), else one per group in row-major
+    order of the other axes, the batch split over them as the JAX ring
+    splits it over ``batch_axis``."""
+    n = mesh.shape[axis]
+    if all(_same(dv, device) for dv in mesh.rank_devices):
+        return n, None
+    groups = [[torch.device(mesh.rank_devices[x]) for x in g]
+              for g in mesh.groups(axis)]
+    if all(g == groups[0] for g in groups):
+        return n, groups[:1]
+    return n, groups
 
 
 def _heads(x, D):
@@ -67,13 +84,18 @@ def _heads(x, D):
     return x.reshape(B * h, T, D).contiguous()
 
 
-def _slot_chunks(x, n):
-    """(BH, T, D) -> the rank-stacked (n, BH, T / n, D) chunks."""
-    BH, T, D = x.shape
-    return x.view(BH, n, T // n, D).transpose(0, 1)
+def _ranks(x, n, devs=None):
+    """Contiguous (BH, T, ...) -> the n ranks' (BH, Tl, ...) rows: views of
+    ``x``, or with ``devs`` each rank's rows copied to its device as a
+    contiguous tensor of its own."""
+    rows = x.view(x.shape[0], n, x.shape[1] // n, *x.shape[2:]).unbind(1)
+    if devs is None:
+        return rows
+    return [t.to(dv, copy=True, memory_format=torch.contiguous_format)
+            for t, dv in zip(rows, devs)]
 
 
-def _validate(q, n, causal, window):
+def _validate(q, n, causal, window, rings=None):
     if window is not None and not causal:
         raise ValueError("window requires causal=True")
     if q.device.type not in ("cpu", "cuda"):
@@ -84,11 +106,91 @@ def _validate(q, n, causal, window):
         raise ValueError(f"T {T} must divide into the ring's {n} ranks")
     if d < 8:
         raise ValueError(f"ring attention takes d_head >= 8, got {d}")
+    if rings is not None:
+        if q.shape[0] % len(rings):
+            raise ValueError(f"batch {q.shape[0]} must divide over the "
+                             f"{len(rings)} rings on distinct devices")
+        types = {dv.type for g in rings for dv in g}
+        if types != {q.device.type}:
+            raise ValueError(f"ring ranks on {sorted(types)} for "
+                             f"{q.device.type} tensors")
 
 
 def _slopes_on(slopes, device):
     return (None if slopes is None else
             torch.tensor(slopes, dtype=torch.float32, device=device))
+
+
+def _on_rings(fn, ins, outs, n, rings):
+    """Run ``fn(in_ranks, out_ranks)`` on every ring: each (BH, T, ...)
+    tensor of ``ins`` and ``outs`` as its ranks' rows, views of it where
+    the ranks share its device (``rings`` None); else each ring takes its
+    block of the batch to its ranks' devices, and the outputs come back
+    into ``outs``."""
+    if rings is None:
+        fn([_ranks(x, n) for x in ins], [_ranks(x, n) for x in outs])
+        return
+    blocks = len(rings)
+    for b, devs in enumerate(rings):
+        bi = [x.chunk(blocks)[b] for x in ins]
+        bo = [x.chunk(blocks)[b] for x in outs]
+        got = [[torch.empty((x.shape[0], x.shape[1] // n) + x.shape[2:],
+                            dtype=x.dtype, device=dv) for dv in devs]
+               for x in bo]
+        fn([_ranks(x, n, devs) for x in bi], got)
+        for x, rows in zip(bo, got):
+            for view, t in zip(_ranks(x, n), rows):
+                view.copy_(t)
+
+
+def _fwd(qs, ks, vs, os, Ls, kw, kernel):
+    """K10, or its plain version through the TPU's two K/V slots, over the
+    n ranks' rows: into ``os`` and ``Ls``."""
+    if kernel:
+        ring_fwd_cuda(qs, ks, vs, os, Ls, **kw)
+        return
+    n = len(qs)
+    f32 = dict(dtype=torch.float32)
+    kv = [[torch.stack([k, v]) for k, v in zip(ks, vs)],
+          [torch.empty((2,) + q.shape, dtype=q.dtype, device=q.device)
+           for q in qs]]
+    m = [torch.empty(q.shape[:2], **f32, device=q.device) for q in qs]
+    l = [torch.empty_like(x) for x in m]
+    acc = [torch.empty(q.shape, **f32, device=q.device) for q in qs]
+    for s in range(n):
+        cur = kv[s % 2]
+        if s < n - 1:
+            rotate(cur, kv[(s + 1) % 2])
+        ring_fwd_step_ref(qs, cur, m, l, acc, os, Ls, n=n, step=s,
+                          ranks=(0, n), last=s == n - 1, **kw)
+
+
+def _bwd(qs, ks, vs, dos, Ls, dls, dqs, dks, dvs, kw, kernel):
+    """K11, or its plain version through the TPU's f32 bundle lap, over
+    the n ranks' rows: into ``dqs``, ``dks`` and ``dvs``."""
+    if kernel:
+        ring_bwd_cuda(qs, ks, vs, dos, Ls, dls, dqs, dks, dvs, **kw)
+        return
+    n = len(qs)
+
+    def zeros(k):
+        return torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+
+    bundle = [[torch.stack([k.float(), v.float(), zeros(k), zeros(k)])
+               for k, v in zip(ks, vs)],
+              [torch.empty((4,) + q.shape, dtype=torch.float32,
+                           device=q.device) for q in qs]]
+    dq_acc = [torch.empty(q.shape, dtype=torch.float32, device=q.device)
+              for q in qs]
+    for s in range(n):
+        cur, nxt = bundle[s % 2], bundle[(s + 1) % 2]
+        ring_bwd_step_ref(qs, dos, Ls, dls, cur, dq_acc, dqs, n=n, step=s,
+                          ranks=(0, n), last=s == n - 1, **kw)
+        if n > 1:  # every step, so the bundle finishes its lap at home
+            rotate(cur, nxt)
+    for x, dk, dv in zip(bundle[n % 2 if n > 1 else 0], dks, dvs):
+        dk.copy_(x[2])
+        dv.copy_(x[3])
 
 
 def ring_attention_pallas_local(q, k, v, *, mesh, axis: str = "sp",
@@ -100,34 +202,23 @@ def ring_attention_pallas_local(q, k, v, *, mesh, axis: str = "sp",
     float32 row logsumexp L (B, h, T). ``slopes`` (len h) adds the ALiBi
     bias, ``window`` (causal only) the band. ``plain`` runs the kernel's
     plain version on CUDA tensors too (the reference a card run holds the
-    kernel against)."""
-    n = _ring_size(mesh, axis, q.device)
-    _validate(q, n, causal, window)
+    kernel against). Ranks on devices other than q's (``make_mesh(
+    devices=[...])``) read their rows on their devices, and o and L come
+    back to q's device."""
+    n, rings = _ring_size(mesh, axis, q.device)
+    _validate(q, n, causal, window, rings)
     B, h, T, d = q.shape
     D = padded_d(d)
-    Tl = T // n
     dev = q.device
     qf = _heads(q, D)
     kf, vf = _heads(k.to(q.dtype), D), _heads(v.to(q.dtype), D)
-    kw = dict(n=n, H=h, causal=causal, window=window,
+    kw = dict(H=h, causal=causal, window=window,
               slopes=_slopes_on(slopes, dev), scale=1.0 / math.sqrt(d))
-    if dev.type == "cuda" and not plain:
-        o, L = ring_fwd_cuda(qf, kf, vf, **kw)
-    else:
-        kv = torch.empty((2, n, 2, B * h, Tl, D), dtype=q.dtype, device=dev)
-        kv[0, :, 0] = _slot_chunks(kf, n)
-        kv[0, :, 1] = _slot_chunks(vf, n)
-        m = torch.empty((B * h, T), dtype=torch.float32, device=dev)
-        l = torch.empty_like(m)
-        acc = torch.empty((B * h, T, D), dtype=torch.float32, device=dev)
-        o = torch.empty_like(qf)
-        L = torch.empty_like(m)
-        for s in range(n):
-            cur = kv[s % 2]
-            if s < n - 1:
-                rotate(cur, kv[(s + 1) % 2])
-            ring_fwd_step_ref(qf, cur, m, l, acc, o, L, step=s, ranks=(0, n),
-                              last=s == n - 1, **kw)
+    kernel = dev.type == "cuda" and not plain
+    o = torch.empty_like(qf)
+    L = torch.empty((B * h, T), dtype=torch.float32, device=dev)
+    _on_rings(lambda i, out: _fwd(*i, *out, kw, kernel), [qf, kf, vf],
+              [o, L], n, rings)
     o = o.view(B, h, T, D)[..., :d]
     if not with_lse:
         return o
@@ -140,45 +231,24 @@ def ring_attention_pallas_bwd_local(q, k, v, do, lse, delta, *, mesh,
                                     plain: bool = False):
     """K11 over every rank: the local (dq, dk, dv), each (B, h, T, d) in
     q's dtype, from the forward's ``lse`` and ``delta`` = rowsum(dO * O),
-    both float32 (B, h, T). ``plain`` as for the forward."""
-    n = _ring_size(mesh, axis, q.device)
-    _validate(q, n, causal, window)
+    both float32 (B, h, T). ``plain`` and the ranks' devices as for the
+    forward."""
+    n, rings = _ring_size(mesh, axis, q.device)
+    _validate(q, n, causal, window, rings)
     B, h, T, d = q.shape
     D = padded_d(d)
-    Tl = T // n
     dev = q.device
     qf, dof = _heads(q, D), _heads(do.to(q.dtype), D)
+    kf, vf = _heads(k.to(q.dtype), D), _heads(v.to(q.dtype), D)
     L = lse.reshape(B * h, T).float().contiguous()
     dl = delta.reshape(B * h, T).float().contiguous()
-    kw = dict(n=n, H=h, causal=causal, window=window,
+    kw = dict(H=h, causal=causal, window=window,
               slopes=_slopes_on(slopes, dev), scale=1.0 / math.sqrt(d))
-
-    def back(x):  # (B*h, T, D) -> (B, h, T, d)
-        return x.view(B, h, T, D)[..., :d]
-
-    if dev.type == "cuda" and not plain:
-        kf, vf = _heads(k.to(q.dtype), D), _heads(v.to(q.dtype), D)
-        return tuple(back(x) for x in ring_bwd_cuda(qf, kf, vf, dof, L, dl,
-                                                    **kw))
-    bundle = torch.empty((2, n, 4, B * h, Tl, D), dtype=torch.float32,
-                         device=dev)
-    bundle[0, :, 0] = _slot_chunks(_heads(k.float(), D), n)
-    bundle[0, :, 1] = _slot_chunks(_heads(v.float(), D), n)
-    bundle[0, :, 2:] = 0
-    dq_acc = torch.empty((B * h, T, D), dtype=torch.float32, device=dev)
-    dq = torch.empty_like(qf)
-    for s in range(n):
-        cur, nxt = bundle[s % 2], bundle[(s + 1) % 2]
-        ring_bwd_step_ref(qf, dof, L, dl, cur, dq_acc, dq, step=s,
-                          ranks=(0, n), last=s == n - 1, **kw)
-        if n > 1:  # every step, so the bundle finishes its lap at home
-            rotate(cur, nxt)
-    home = bundle[n % 2 if n > 1 else 0]
-
-    def gather(x):  # (n, BH, Tl, D) rank-stacked -> (B, h, T, d)
-        return back(x.transpose(0, 1).reshape(B * h, T, D)).to(q.dtype)
-
-    return back(dq), gather(home[:, 2]), gather(home[:, 3])
+    kernel = dev.type == "cuda" and not plain
+    grads = [torch.empty_like(qf) for _ in range(3)]
+    _on_rings(lambda i, out: _bwd(*i, *out, kw, kernel),
+              [qf, kf, vf, dof, L, dl], grads, n, rings)
+    return tuple(x.view(B, h, T, D)[..., :d] for x in grads)
 
 
 class _RingAttention(torch.autograd.Function):
@@ -212,8 +282,9 @@ def make_ring_attention_pallas(mesh, *, axis: str = "sp",
     """attn(q, k, v) on GLOBAL (B, h, T, d) tensors with T split over
     ``mesh``'s ``axis``, the contract of ``parallel.ring
     .make_ring_attention``; forward K10, backward K11. ``batch_axis`` is
-    accepted for the JAX signature (attention is pointwise over the batch,
-    and the ranks of a dp x sp mesh all run in the kernels' launch).
+    accepted for the JAX signature (attention is pointwise over the batch:
+    the ranks of a dp x sp mesh on one device run in one launch, and groups
+    on different devices take the batch's blocks in group order).
     ``slopes`` (len h) adds the ALiBi bias; ``window`` (causal only) the
     sliding-window band, whose far-past chunks skip their compute."""
     del batch_axis

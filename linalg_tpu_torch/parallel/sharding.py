@@ -37,6 +37,12 @@ and attention runs the ring (``parallel.ring``, or K10/K11 through
 replicated, and the ranks share one device, so the pointwise ops run on
 the whole batch there and only attention is split into ranks.
 
+Tensor-parallel serving (``tp_serve_params``, ``tp_serve_ops``,
+``tp_prefill``, behind ``ServeEngine(mesh=...)``) keeps the same layout
+for inference: each rank its megatron blocks and the KV heads its query
+heads read (``tp_kv_heads``), two all-reduces a layer, the head and the
+sampling on tp rank 0.
+
 Steps take the trainer's contract: the global batch's windows are drawn on
 the parameters' device from a ``torch.Generator`` and then split over the
 ranks, so a sharded run draws the batches of the single-device run with
@@ -48,12 +54,15 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..models.gpt import (_REMAT_SDPA, GPTConfig, _attn_half, _embed,
-                          _ffn_half, _hidden_loss, _layer_params, _pick_attn,
-                          _pick_fused, _trunk_mask, gpt_loss,
+from ..models.gpt import (_REMAT_SDPA, GPTConfig, _attn_half, _attn_out,
+                          _dt_decode_ops, _embed, _ffn_half,
+                          _grouped_decode_attn, _hidden_loss, _layer_params,
+                          _pick_attn, _pick_fused, _prefill_head,
+                          _trunk_mask, gpt_loss,
                           init_gpt_params)
-from ..nn.functional import causal_mask
+from ..nn.functional import causal_mask, sdpa
 from ..nn.fused_layer import fused_supported
 from ..nn.positional import alibi_slopes
 from ..train.optim import (adamw_init, adamw_update, gpt_lr_scales,
@@ -69,6 +78,7 @@ from .ring_pallas import make_ring_attention_pallas
 __all__ = ["gpt_param_specs", "make_sharded_attn", "make_sharded_train_step",
            "make_sharded_device_train_step", "make_sharded_eval",
            "make_sp_train_step", "make_sp_device_train_step", "make_sp_eval",
+           "tp_kv_heads", "tp_serve_params", "tp_serve_ops", "tp_prefill",
            "dryrun_multichip"]
 
 
@@ -490,14 +500,181 @@ def make_sp_eval(cfg: GPTConfig, mesh, batch: int, batches: int,
     return evaluate
 
 
+# -- tensor-parallel serving ---------------------------------------------------
+
+
+def _block(n: int, tp: int, r: int) -> range:
+    """Rank r's block of n rows or columns split over tp ranks: the
+    megatron block when tp divides n, else as even as integers allow
+    (a rank may get none)."""
+    return range(r * n // tp, (r + 1) * n // tp)
+
+
+def tp_kv_heads(cfg: GPTConfig, tp: int, r: int) -> list:
+    """The KV heads tp rank r holds, in its cache's order: those its query
+    heads (``_block(n_heads, tp, r)``) read, query head h reading KV head
+    h // (H / kv_heads). When tp divides kv_heads these are its
+    kv_heads/tp own heads; when several ranks' heads read one KV head (tp
+    4 over 2 KV heads), that head's columns and cache rows are replicated
+    over them. Where a rank's query heads would group unevenly onto its
+    KV heads, it keeps one KV head per query head, so its attention
+    groups evenly."""
+    g = cfg.n_heads // cfg.kv_heads
+    reads = [h // g for h in _block(cfg.n_heads, tp, r)]
+    heads = sorted(set(reads))
+    if heads and len(reads) % len(heads) == 0:
+        per = len(reads) // len(heads)
+        if reads == [heads[j // per] for j in range(len(reads))]:
+            return heads
+    return reads
+
+
+def tp_serve_params(params, cfg: GPTConfig, mesh) -> list:
+    """The per-rank weights of tensor-parallel serving over a 1-D ``tp``
+    mesh, in ``gpt_param_specs``' megatron layout: Wq and the FFN's W1/b1
+    (and a gate's Wg/bg) by columns, Wo and W2 by the matching rows, the
+    rest replicated; Wk/Wv the columns of ``tp_kv_heads``; b2 on rank 0
+    only (the FFN output is summed over the ranks). Heads and FFN columns
+    split as evenly as the counts allow, so a rank of a model with fewer
+    heads than tp may hold none (its attention adds nothing). Each rank's
+    tensors are its own, on its device."""
+    tp, dh = mesh.size, cfg.d_head
+    lay = params["layers"]
+    out = []
+    for r, dev in enumerate(mesh.rank_devices):
+        def idx(cols, dev0=lay["Wq"].device):
+            return torch.tensor(list(cols), dtype=torch.long, device=dev0)
+
+        heads = _block(cfg.n_heads, tp, r)
+        q = idx(range(heads.start * dh, heads.stop * dh))
+        kv = idx(c for h in tp_kv_heads(cfg, tp, r)
+                 for c in range(h * dh, (h + 1) * dh))
+        f = idx(_block(cfg.dff, tp, r))
+        rank = {k: v for k, v in lay.items()}
+        rank.update(Wq=lay["Wq"].index_select(2, q),
+                    Wk=lay["Wk"].index_select(2, kv),
+                    Wv=lay["Wv"].index_select(2, kv),
+                    Wo=lay["Wo"].index_select(1, q),
+                    W1=lay["W1"].index_select(2, f),
+                    b1=lay["b1"].index_select(1, f),
+                    W2=lay["W2"].index_select(1, f))
+        if "Wg" in lay:
+            rank.update(Wg=lay["Wg"].index_select(2, f),
+                        bg=lay["bg"].index_select(1, f))
+        if r:
+            rank["b2"] = torch.zeros_like(lay["b2"])
+        tree = {k: v for k, v in params.items() if k != "layers"}
+        tree["layers"] = rank
+        out.append(tree_map(lambda t: t.detach().to(dev, copy=True)
+                            .contiguous(), tree))
+    return out
+
+
+def _rank_inputs(mesh, rope, mask, H: int):
+    """Per rank: the RoPE tables and the additive mask on its device, a
+    per-head (ALiBi) mask cut to its heads."""
+    out = []
+    for r, dev in enumerate(mesh.rank_devices):
+        hb = _block(H, mesh.size, r)
+        m = mask[:, hb.start:hb.stop] if mask.shape[1] > 1 else mask
+        out.append((None if rope is None else tuple(t.to(dev) for t in rope),
+                    m.to(dev)))
+    return out
+
+
+def tp_serve_ops(rank_params, cfg: GPTConfig, mesh) -> dict:
+    """The decode ops of tensor-parallel serving, for ``_decode_chunk_core``
+    and the block forward of admission extensions: embedding, positions
+    and head from tp rank 0's replicated weights on its device, and
+    ``"layers"``, the layer loop over per-rank KV buffers. Each rank runs
+    the attention of its heads (the model's choice of softmax: float32
+    for grouped heads) into its own cache rows and its FFN columns; one
+    ``all_reduce`` over ``tp`` follows Wo and one W2, twice a layer."""
+    tp = mesh.size
+    ops = [_dt_decode_ops(p, cfg) for p in rank_params]
+    heads = [(len(_block(cfg.n_heads, tp, r)), len(tp_kv_heads(cfg, tp, r)),
+              cfg.d_head) for r in range(tp)]
+    attn = sdpa if cfg.kv_heads == cfg.n_heads else _grouped_decode_attn
+
+    def attn_part(o, i, x, ri, kb, vb, p, write_fn, hd):
+        if not hd[0]:  # a rank without heads adds nothing
+            return torch.zeros_like(x)
+        return _attn_out(o, o["lws"][i], x, ri[0], ri[1], kb, vb, p,
+                         write_fn, attn, hd)
+
+    def layers(h, rope, mask, kbuf, vbuf, pos, write_fn):
+        hs = [h.to(d) for d in mesh.rank_devices]
+        ins = _rank_inputs(mesh, rope, mask, cfg.n_heads)
+        ps = [pos.to(d) if torch.is_tensor(pos) else pos
+              for d in mesh.rank_devices]
+        for i in range(cfg.n_layers):
+            a = all_reduce([attn_part(o, i, x, ri, kb[i], vb[i], p, write_fn,
+                                      hd)
+                            for o, x, ri, kb, vb, p, hd in zip(
+                                ops, hs, ins, kbuf, vbuf, ps, heads)],
+                           mesh, "tp")
+            h1 = [x + y for x, y in zip(hs, a)]
+            f = all_reduce([o["ffn"](o["lws"][i], o["ln2"](o["lws"][i], x))
+                            for o, x in zip(ops, h1)], mesh, "tp")
+            hs = [x + y for x, y in zip(h1, f)]
+        return hs[0]
+
+    return {k: ops[0][k] for k in ("device", "embed", "pe", "head")} | {
+        "layers": layers}
+
+
+@torch.no_grad()
+def tp_prefill(rank_params, ids, cfg: GPTConfig, mesh, length=None):
+    """``models.gpt.gpt_prefill`` over tensor-parallel ranks: (next-token
+    logits (B, V) on rank 0's device, cache {k, v: per-rank (L, B, kv
+    heads of the rank, ctx_len, d), length}). Each rank runs its heads
+    (``_attn_half``) and FFN columns (``_ffn_half``), with an
+    ``all_reduce`` over ``tp`` after each."""
+    tp = mesh.size
+    T = ids.shape[1]
+    dt = cfg.compute_dtype
+    h, rope = _embed(rank_params[0], ids, cfg, T, dt)
+    ins = _rank_inputs(mesh, rope, _trunk_mask(cfg, T, dt, h.device),
+                       cfg.n_heads)
+    hs = [h.to(d) for d in mesh.rank_devices]
+    layers = [_layer_params(p, dt) for p in rank_params]
+    heads = [(len(_block(cfg.n_heads, tp, r)), len(tp_kv_heads(cfg, tp, r)))
+             for r in range(tp)]
+    ks, vs = [[] for _ in range(tp)], [[] for _ in range(tp)]
+    for li in range(cfg.n_layers):
+        outs = []
+        for r, (x, lay, ri, (H, n_kv)) in enumerate(zip(hs, layers, ins,
+                                                         heads)):
+            if H:
+                a, (k, v) = _attn_half(x, lay[li], ri[1], H, n_kv, sdpa,
+                                       ri[0])
+            else:  # a rank without heads adds nothing and caches nothing
+                a = torch.zeros_like(x)
+                k = v = x.new_zeros((x.shape[0], 0, T, cfg.d_head))
+            outs.append(a)
+            ks[r].append(k)
+            vs[r].append(v)
+        a = all_reduce(outs, mesh, "tp")
+        h1 = [x + y for x, y in zip(hs, a)]
+        f = all_reduce([_ffn_half(x, lay[li], cfg.ffn)
+                        for x, lay in zip(h1, layers)], mesh, "tp")
+        hs = [x + y for x, y in zip(h1, f)]
+    logits, n = _prefill_head(rank_params[0], hs[0], length, dt)
+    pad = (0, 0, 0, cfg.ctx_len - T)
+    return logits, {"k": [F.pad(torch.stack(k), pad) for k in ks],
+                    "v": [F.pad(torch.stack(v), pad) for v in vs],
+                    "length": n}
+
+
 def dryrun_multichip(n_devices: int, devices=None) -> None:
     """Build an n-rank mesh over ``devices`` (default: every CUDA card; a
     list may repeat one device), run ONE dp x tp train step on tiny
     shapes, and check the pipeline (GPipe loss, 1F1B loss and grads, one
-    1F1B optimizer step), the dp x ep MoE step and one FSDP step against
-    the unsharded model; raise on a mismatch. The JAX package's dryrun
-    also checks the rings (the port's are ``tests/test_torch_ring.py``'s)
-    and tp serving, which is not ported (ROADMAP.md queue 1, item 7)."""
+    1F1B optimizer step), the dp x ep MoE step, tensor-parallel serving
+    (greedy tokens equal to the unsharded engine's) and one FSDP step
+    against the unsharded model; raise on a mismatch. The JAX package's
+    dryrun also checks the rings (the port's are
+    ``tests/test_torch_ring.py``'s)."""
     from ..models.moe import MoEGPTConfig, init_moe_params, moe_gpt_loss
     from .expert import moe_param_specs, make_ep_train_step
     from .fsdp import fsdp_param_specs, make_fsdp_device_train_step
@@ -582,6 +759,26 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
         rep, [adamw_init(p) for p in rep], xep, yep)
     ep_ok = abs(float(ep_loss) - ref_ep) < 1e-4
 
+    # tensor-parallel serving over a (1, tp) mesh: greedy tokens equal to
+    # the unsharded engine's, GQA grouping included
+    from ..serve.engine import Request, ServeEngine
+
+    sv_tp = min(n_devices, 4)
+    sv_mesh = make_mesh((1, sv_tp), ("dp", "tp"), devices[:sv_tp])
+    sv_cfg = GPTConfig(vocab_size=37, d_model=32, n_heads=4, n_layers=2,
+                       ctx_len=32, n_kv_heads=2, pos="rope")
+    sv_params = init_gpt_params(sv_cfg, seed=0, device=dev)
+
+    def served(mesh_arg):
+        eng = ServeEngine(sv_params, sv_cfg, n_slots=2, chunk=4, top_k=1,
+                          mesh=mesh_arg, device=dev)
+        rids = [eng.submit(Request(p, 6)) for p in ([1, 2, 3],
+                                                     [4, 5, 6, 7, 8])]
+        done = {c.request_id: c.tokens for c in eng.run()}
+        return [done[i] for i in rids]
+
+    sv_ok = served(sv_mesh) == served(None)
+
     fs_mesh = make_mesh((n_devices,), ("fsdp",), devices)
     fs_cfg = GPTConfig(vocab_size=37, d_model=64, n_heads=4, n_layers=2,
                        d_ff=256, ctx_len=16)
@@ -604,8 +801,10 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
           f"loss={float(loss):.4f} {'ok' if tp_ok else 'MISMATCH'}; "
           f"pipeline dp={pp_dp} pp={pp} {'ok' if pp_ok else 'MISMATCH'}; "
           f"moe dp={ep_dp} ep={ep} {'ok' if ep_ok else 'MISMATCH'}; "
+          f"tp-serving tp={sv_tp} {'ok' if sv_ok else 'MISMATCH'}; "
           f"fsdp={n_devices} {'ok' if fs_ok else 'MISMATCH'}")
     assert tp_ok, "dp x tp loss mismatch vs unsharded"
     assert pp_ok, "pipeline-parallel loss/grads mismatch vs unsharded"
     assert ep_ok, "expert-parallel loss mismatch vs unsharded"
+    assert sv_ok, "tp-serving tokens mismatch vs unsharded engine"
     assert fs_ok, "fsdp step failed (loss/sharded-storage/update)"

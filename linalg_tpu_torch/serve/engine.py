@@ -57,9 +57,20 @@ each slot's KV as an O(window) ring with unbounded positions
 (``models.stream``): only prefix + prompt must fit ``ctx_len``, and a
 request generates past it with no second prefill. It composes with
 chunked prefill, registered prefixes and ``auto_prefix``; paged KV, LoRA
-and speculative decoding raise the JAX engine's ``ValueError``s. Mesh
-(tensor-parallel) serving is not ported (``NotImplementedError`` naming
-ROADMAP.md queue 1, item 7).
+and speculative decoding raise the JAX engine's ``ValueError``s.
+
+Mesh serving (``mesh=`` with a ``'tp'`` axis): the full-precision dense
+GPT on the slot cache, token-identical to the unsharded engine. Each tp
+rank holds its megatron shard (``parallel.sharding.tp_serve_params``) and
+the KV heads its query heads read (``tp_kv_heads``: replicated over the
+ranks that share one when tp does not divide kv_heads) in a slot cache of
+its own on its mesh device. Prefill (``tp_prefill``), the admission
+extensions and every decode step run each rank's heads and FFN columns,
+with one ``all_reduce`` over ``tp`` after Wo and one after W2
+(``tp_serve_ops``); the head, sampling and the per-slot state run once, on
+tp rank 0's device. A windowed RoPE/ALiBi model stays on the slot cache,
+as in JAX; quant, MoE, paged KV, multi-LoRA and speculative decoding raise
+the JAX engine's ``ValueError``s.
 """
 
 from __future__ import annotations
@@ -85,9 +96,6 @@ from .paged import SUPPORTED_KERNEL_D
 
 __all__ = ["Request", "Completion", "ServeEngine", "serve",
            "decode_chunk_slots", "pick_paged_kernel"]
-
-_ROADMAP_MESH = "ROADMAP.md queue 1, item 7 (parallelism)"
-
 
 @dataclasses.dataclass
 class Request:
@@ -223,9 +231,12 @@ class _Prefix(NamedTuple):
 def _admit_slot(cache, logits, slot_k, slot_v, plen, slot_logits, b):
     """Copy one prefilled sequence (L, 1, hk, ctx, d) into slot ``b`` (the
     whole row: the previous occupant's rows die here) and set its position
-    and logits row."""
-    cache["k"][:, b] = slot_k[:, 0]
-    cache["v"][:, b] = slot_v[:, 0]
+    and logits row. Per-rank lists (mesh serving) copy each rank's rows."""
+    pairs = ((cache["k"], slot_k), (cache["v"], slot_v))
+    if isinstance(slot_k, list):
+        pairs = [p for bufs, xs in pairs for p in zip(bufs, xs)]
+    for buf, x in pairs:
+        buf[:, b] = x[:, 0]
     cache["pos"][b] = plen
     logits[b] = slot_logits[0]
     return cache, logits
@@ -255,17 +266,21 @@ def _extend_prefix(ops, cfg: GPTConfig, pk, pv, plen: int, suffix_ids):
     extend and sliced back (rows past ctx are dropped; the submit-time
     budget keeps real rows inside). The JAX engine pads the suffix to the
     window for one compiled shape; eager PyTorch takes the suffix's own
-    length. ``pk``/``pv`` are not modified. Returns the next-token logits
-    after the suffix (1, V) and the extended (L, 1, hk, ctx, d) buffers."""
+    length. ``pk``/``pv`` are not modified (mesh serving: per-rank lists of
+    them). Returns the next-token logits after the suffix (1, V) and the
+    extended (L, 1, hk, ctx, d) buffers."""
+    def each(f, x):
+        return [f(t) for t in x] if isinstance(x, list) else f(x)
+
     S = suffix_ids.shape[1]
-    ctx = pk.shape[-2]
-    pad = (0, 0, 0, S)
-    kb, vb = F.pad(pk, pad), F.pad(pv, pad)
-    dev = pk.device
-    rows = torch.full((1,), plen, dtype=torch.int32, device=dev)
+    ctx = (pk[0] if isinstance(pk, list) else pk).shape[-2]
+    kb, vb = (each(lambda t: F.pad(t, (0, 0, 0, S)), x) for x in (pk, pv))
+    rows = torch.full((1,), plen, dtype=torch.int32,
+                      device=suffix_ids.device)
     logits = _block_forward(cfg, ops, kb, vb, rows, torch.zeros_like(rows),
                             suffix_ids)
-    return logits[:, -1], kb[..., :ctx, :], vb[..., :ctx, :]
+    return (logits[:, -1],) + tuple(each(lambda t: t[..., :ctx, :], x)
+                                    for x in (kb, vb))
 
 
 def _params_to(params, device):
@@ -330,6 +345,14 @@ class ServeEngine:
     compositions and refusals are PARITY.md's slot, paged and ring
     columns.
 
+    ``mesh`` (a ``parallel.make_mesh`` mesh with a ``'tp'`` axis) serves
+    tensor-parallel over its first tp group, token-identical to the
+    unsharded engine: each rank's shard and KV heads on its mesh device,
+    two ``all_reduce``s a layer, sampling on tp rank 0's device (which
+    then is the engine's ``device``; ``params`` becomes the per-rank
+    shards). Slot cache only; registered prefixes, ``auto_prefix``,
+    chunked prefill and top-k sampling compose.
+
     ``schedule`` picks admission under page pressure: ``"fifo"`` admits in
     arrival order (a large request blocks the ones behind it, and nothing
     starves); ``"best-fit"`` admits the first queued request whose pages
@@ -350,11 +373,12 @@ class ServeEngine:
                  device=None):
         moe = isinstance(cfg, MoEGPTConfig)
         if mesh is not None:
+            # the JAX engine's checks (linalg_tpu/serve/engine.py:372-376)
             if moe or quant not in ("", "none"):
                 raise ValueError(
                     "mesh serving supports the full-precision dense GPT")
-            raise NotImplementedError(
-                f"mesh serving is not ported yet ({_ROADMAP_MESH})")
+            if "tp" not in getattr(mesh, "axis_names", ()):
+                raise ValueError("serving mesh needs a 'tp' axis")
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
         if quant not in ("", "none", "int8"):
@@ -363,8 +387,23 @@ class ServeEngine:
         if quant_on and moe:
             raise ValueError("quant decode supports the dense GPT only")
         self._moe = moe
-        self.device = resolve_device(device)
-        self.params = _params_to(params, self.device)
+        self._tp_mesh = None
+        if mesh is not None:
+            # serve on the first tp group (the other axes' ranks would
+            # hold replicas of it); rank 0's device holds the head, the
+            # sampling and the per-slot state
+            from ..parallel.mesh import make_mesh
+            from ..parallel.sharding import tp_serve_params
+
+            devs = [mesh.rank_devices[x] for x in mesh.groups("tp")[0]]
+            self._tp_mesh = make_mesh((len(devs),), ("tp",), devs)
+            self.device = devs[0]
+            params = tp_serve_params(params, cfg, self._tp_mesh)
+            self.params = params
+        else:
+            self.device = resolve_device(device)
+            self.params = _params_to(params, self.device)
+        self.mesh = mesh
         self.cfg = cfg
         self.n_slots = n_slots
         self.chunk = chunk
@@ -380,7 +419,7 @@ class ServeEngine:
         # keeps each slot's KV as an O(window) ring with unbounded
         # positions (the JAX engine's rule: full precision, no mesh)
         self._ring = (cfg.window is not None and cfg.pos in ("rope", "alibi")
-                      and not moe and not quant_on)
+                      and not moe and not quant_on and mesh is None)
         self._paged = bool(paged)
         self._allocator = None
         self._slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
@@ -393,7 +432,7 @@ class ServeEngine:
         self._page_cache = bool(page_cache)
         dt = cfg.compute_dtype
         if self._paged:
-            if self._ring or moe:
+            if self._ring or moe or mesh is not None:
                 raise ValueError("paged KV supports the dense GPT without "
                                  "--window/mesh")
             from .paged import PageAllocator, init_paged_cache
@@ -443,7 +482,7 @@ class ServeEngine:
                 "v": torch.zeros(shape, dtype=dt, device=self.device),
                 "pos": torch.zeros((n_slots,), dtype=torch.int32,
                                    device=self.device),
-            }
+            } if mesh is None else self._tp_cache(shape)
         if self._ring:
             self._cache["rpos"] = torch.full((n_slots, cfg.window), -1,
                                              dtype=torch.int32,
@@ -451,8 +490,13 @@ class ServeEngine:
         # weights cast to the compute dtype once per engine: the admission
         # extensions' ops, and the decode ops unless the weights are int8
         # (the int8 decode keeps prefill in the compute dtype)
-        self._dense_ops = (_moe_decode_ops if moe else _dt_decode_ops)(
-            self.params, cfg)
+        if mesh is not None:
+            from ..parallel.sharding import tp_serve_ops
+
+            self._dense_ops = tp_serve_ops(self.params, cfg, self._tp_mesh)
+        else:
+            self._dense_ops = (_moe_decode_ops if moe else _dt_decode_ops)(
+                self.params, cfg)
         self._decode_params = self.params
         if quant_on:
             from ..models.quant import quantize_gpt_params
@@ -463,7 +507,7 @@ class ServeEngine:
         self._max_loras = int(max_loras)
         self._n_loras = 0  # adapters registered so far
         if self._max_loras:
-            if self._ring or moe:
+            if self._ring or moe or mesh is not None:
                 raise ValueError("multi-LoRA serving supports the dense "
                                  "slot/paged engine (no ring/mesh)")
             from ..models.lora import init_lora_stacks
@@ -478,7 +522,7 @@ class ServeEngine:
         # draft + verify blocks (serve.spec); slots advance independently
         self._spec = int(speculative)
         if self._spec:
-            if (self._ring or quant_on or kv8 or moe
+            if (self._ring or mesh is not None or quant_on or kv8 or moe
                     or (self._paged and self._paged_kernel)):
                 # the JAX engine's refusal
                 # (linalg_tpu/serve/engine.py:570-590)
@@ -493,8 +537,9 @@ class ServeEngine:
             self._cache.update(spec_cache_fields(cfg, n_slots, self.device))
             self._spec_rounds = max(1, chunk // (self._spec + 1))
             self._budget = np.zeros((n_slots,), np.int32)
-        self._ops = select_decode_ops(self._decode_params, cfg, self._cache,
-                                      self._dense_ops)
+        self._ops = (self._dense_ops if mesh is not None else
+                     select_decode_ops(self._decode_params, cfg, self._cache,
+                                       self._dense_ops))
         self._logits = torch.full((n_slots, cfg.vocab_size), -1e9,
                                   dtype=torch.float32, device=self.device)
         self._temp = np.ones((n_slots,), np.float32)
@@ -544,7 +589,7 @@ class ServeEngine:
                 f"(0, {limit}]; got {plen}")
         ids = torch.tensor([list(tokens)], dtype=torch.long,
                            device=self.device)
-        _, cache = gpt_prefill(self._prefill_params(lora_id), ids, self.cfg)
+        _, cache = self._run_prefill(self._prefill_params(lora_id), ids)
         shared: List[int] = []
         if self._paged:
             nfull = plen // self._page
@@ -566,6 +611,34 @@ class ServeEngine:
         self._prefixes[pid] = _Prefix(cache["k"], cache["v"], plen, shared,
                                       lora_id, list(tokens))
         return pid
+
+    def _tp_cache(self, shape):
+        """Mesh serving's slot cache: per tp rank, (L, n_slots, its KV
+        heads, ctx, d) on its device; ``pos`` on rank 0's."""
+        from ..parallel.sharding import tp_kv_heads
+
+        mesh, cfg = self._tp_mesh, self.cfg
+        dt = cfg.compute_dtype
+
+        def bufs():
+            return [torch.zeros(shape[:2] + (len(tp_kv_heads(
+                cfg, mesh.size, r)),) + shape[3:], dtype=dt, device=dev)
+                    for r, dev in enumerate(mesh.rank_devices)]
+
+        return {"k": bufs(), "v": bufs(),
+                "pos": torch.zeros((shape[1],), dtype=torch.int32,
+                                   device=self.device)}
+
+    def _run_prefill(self, params, ids, length=None):
+        """The admission prefill: tensor-parallel over the mesh, MoE or
+        dense (``params``: the weights the admission reads)."""
+        if self._tp_mesh is not None:
+            from ..parallel.sharding import tp_prefill
+
+            return tp_prefill(self.params, ids, self.cfg, self._tp_mesh,
+                              length)
+        prefill = moe_prefill if self._moe else gpt_prefill
+        return prefill(params, ids, self.cfg, length=length)
 
     def _match_prefix(self, prompt, lora_id: int):
         """The longest registered prefix (same adapter) that is a PROPER
@@ -819,9 +892,8 @@ class ServeEngine:
             first = min(len(prompt), W)
             ids = np.zeros((1, W), np.int64)
             ids[0, :first] = prompt[:first]
-            prefill = moe_prefill if self._moe else gpt_prefill
-            logits, cache = prefill(params, torch.tensor(ids, device=dev),
-                                    cfg, length=first)
+            logits, cache = self._run_prefill(
+                params, torch.tensor(ids, device=dev), length=first)
             pk, pv = cache["k"], cache["v"]
             pos, rest = first, prompt[first:]
         ops = None

@@ -11,6 +11,13 @@ checkpoint adds ``l{i}_Wr`` and the expert-stacked ``l{i}_W1`` ... to the
 archive and ``experts``, ``capacity_factor``, ``aux_weight`` and
 ``router_top_k`` to the sidecar (``dispatch`` is not saved: a loaded MoE
 takes the default, as in the JAX package).
+
+``save_ckpt_orbax`` / ``load_ckpt_orbax`` keep the JAX package's names for
+its second backend, but the port's backend is
+``torch.distributed.checkpoint`` (DCP), not orbax: the parameter tree in
+DCP's format under ``<ckpt_dir>/dcp`` beside the same JSON sidecar. The
+two formats do not read each other (an orbax directory is not a DCP one,
+and neither package converts).
 """
 
 from __future__ import annotations
@@ -25,11 +32,12 @@ from ..models.gpt import GPTConfig, Params, params_from_numpy
 from ..models.moe import MoEGPTConfig
 from ..nn.tokenizers import BPETokenizer, CharTokenizer
 
-__all__ = ["save_ckpt", "load_ckpt", "load_tokenizer", "CKPT_NAME",
-           "META_NAME"]
+__all__ = ["save_ckpt", "load_ckpt", "load_tokenizer", "save_ckpt_orbax",
+           "load_ckpt_orbax", "CKPT_NAME", "META_NAME", "DCP_NAME"]
 
 CKPT_NAME = "chars_gpt_best.npz"
 META_NAME = "chars_gpt_meta.json"
+DCP_NAME = "dcp"  # save_ckpt_orbax's subdirectory
 
 _LAYER_KEYS = ("ln1_g", "ln1_b", "Wq", "Wk", "Wv", "Wo", "ln2_g", "ln2_b",
                "W1", "b1", "W2", "b2")
@@ -62,6 +70,14 @@ def save_ckpt(ckpt_dir, params: Params, cfg: GPTConfig,
             arrays[f"l{i}_{key}"] = w[i]
     path = ckpt_dir / CKPT_NAME
     np.savez(path, **arrays)
+    (ckpt_dir / META_NAME).write_text(json.dumps(
+        _build_meta(cfg, stoi, itos, tokenizer)))
+    return path
+
+
+def _build_meta(cfg: GPTConfig, stoi, itos, tokenizer=None) -> dict:
+    """The JSON meta sidecar shared by the npz and DCP backends (the JAX
+    package's ``_build_meta``)."""
     meta = {
         "stoi": stoi,
         "itos": {str(k): v for k, v in itos.items()},
@@ -88,8 +104,7 @@ def save_ckpt(ckpt_dir, params: Params, cfg: GPTConfig,
         meta["capacity_factor"] = cfg.capacity_factor
         meta["aux_weight"] = cfg.aux_weight
         meta["router_top_k"] = cfg.router_top_k
-    (ckpt_dir / META_NAME).write_text(json.dumps(meta))
-    return path
+    return meta
 
 
 def load_ckpt(ckpt_dir, device=None) -> Tuple[Params, GPTConfig,
@@ -153,3 +168,74 @@ def load_tokenizer(ckpt_dir):
         return BPETokenizer.load({"merges": meta["merges"]})
     itos = {int(k): v for k, v in meta["itos"].items()}
     return CharTokenizer.from_pretrained(meta["stoi"], itos)
+
+
+# -- the DCP backend (the JAX package's orbax names) -------------------------
+
+
+def _flat(tree, prefix=""):
+    """{"layers.Wq": tensor, ...}: the tree's leaves under dotted keys."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def save_ckpt_orbax(ckpt_dir, params: Params, cfg: GPTConfig,
+                    stoi: Dict[str, int], itos: Dict[int, str],
+                    tokenizer=None) -> pathlib.Path:
+    """Save through ``torch.distributed.checkpoint`` (DCP), not orbax:
+    ``dcp.save`` writes the parameter tree, in its own dtypes and from any
+    device, to ``<ckpt_dir>/dcp``, and the JSON sidecar is ``save_ckpt``'s
+    (the JAX package's ``_build_meta``). With a process group started
+    (``parallel.init_distributed``) the processes save collectively, each
+    its share; without one the process saves alone. Returns the DCP
+    directory."""
+    import torch.distributed.checkpoint as dcp
+
+    ckpt_dir = pathlib.Path(ckpt_dir).resolve()
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    path = ckpt_dir / DCP_NAME
+    dcp.save(_flat(params), checkpoint_id=str(path))
+    (ckpt_dir / META_NAME).write_text(json.dumps(
+        _build_meta(cfg, stoi, itos, tokenizer)))
+    return path
+
+
+def load_ckpt_orbax(ckpt_dir, device=None) -> Tuple[
+        Params, GPTConfig, Dict[str, int], Dict[int, str]]:
+    """Counterpart of ``save_ckpt_orbax``: (params, cfg, stoi, itos) with
+    the parameters on ``device`` (the card unless the caller asks for the
+    CPU; without a card and without that request this raises). DCP loads
+    in place, so the tree is allocated first, with the shapes and dtypes
+    of DCP's own metadata; with a process group the processes load
+    collectively. An orbax directory is not a DCP one: the JAX package's
+    orbax checkpoints do not load here."""
+    import torch
+    import torch.distributed.checkpoint as dcp
+
+    from ..utils.device import resolve_device
+
+    ckpt_dir = pathlib.Path(ckpt_dir).resolve()
+    meta = json.loads((ckpt_dir / META_NAME).read_text())
+    cfg = _cfg_from_meta(meta)
+    dev = resolve_device(device)
+    path = str(ckpt_dir / DCP_NAME)
+    md = dcp.FileSystemReader(path).read_metadata()
+    flat = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype,
+                           device=dev)
+            for k, m in md.state_dict_metadata.items()}
+    dcp.load(flat, checkpoint_id=path)
+    params: Params = {}
+    for key, t in flat.items():
+        *parents, leaf = key.split(".")
+        node = params
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = t
+    stoi = meta["stoi"]
+    itos = {int(k): v for k, v in meta["itos"].items()}
+    return params, cfg, stoi, itos

@@ -1022,16 +1022,16 @@ def ring_inputs(B, h, T, d, dtype, device, seed):
                          device=device) for _ in range(4)]
 
 
-def ring_both(x, n, plain, **kw):
-    """(o, L, dq, dk, dv) of the ring over n ranks on x's device, through
-    the kernels or (``plain``) their plain versions; the backward from the
-    forward's own o and L."""
+def ring_both(x, n, plain, devices=None, **kw):
+    """(o, L, dq, dk, dv) of the ring over n ranks on x's device (or on
+    ``devices``), through the kernels or (``plain``) their plain versions;
+    the backward from the forward's own o and L."""
     from linalg_tpu_torch.parallel import make_mesh
     from linalg_tpu_torch.parallel.ring_pallas import (
         ring_attention_pallas_bwd_local, ring_attention_pallas_local)
 
     q, k, v, do = x
-    mesh = make_mesh((n,), ("sp",), [q.device] * n)
+    mesh = make_mesh((n,), ("sp",), devices or [q.device] * n)
     o, L = ring_attention_pallas_local(q, k, v, mesh=mesh, with_lse=True,
                                        plain=plain, **kw)
     delta = torch.sum(do.float() * o.float(), dim=-1)
@@ -1045,13 +1045,13 @@ def test_ring_wrappers_reject_cpu_tensors():
                                                          ring_fwd_cuda)
 
     BH, n, Tl, D = 2, 2, 64, 32
-    q = torch.zeros(BH, n * Tl, D)
-    f = torch.zeros(BH, n * Tl)
-    kw = dict(n=n, H=1, causal=True, window=None, slopes=None, scale=0.125)
+    q = [torch.zeros(BH, Tl, D) for _ in range(n)]
+    f = [torch.zeros(BH, Tl) for _ in range(n)]
+    kw = dict(H=1, causal=True, window=None, slopes=None, scale=0.125)
     with pytest.raises(ValueError, match="CUDA"):
-        ring_fwd_cuda(q, q, q, **kw)
+        ring_fwd_cuda(q, q, q, q, f, **kw)
     with pytest.raises(ValueError, match="CUDA"):
-        ring_bwd_cuda(q, q, q, q, f, f, **kw)
+        ring_bwd_cuda(q, q, q, q, f, f, q, q, q, **kw)
 
 
 # (B, h, T, d, n, causal, window, alibi): ragged Tl (100, 125, 45, 250),
@@ -1128,6 +1128,72 @@ def test_ring_bf16_kernels_track_f32_as_the_plain_ring(cuda, case):
         off_kern = float((kern[i].float() - ref[i]).abs().max())
         assert off_kern <= 1.1 * off_plain, (
             f"{what}: kernels {off_kern:.3e} off f32, plain {off_plain:.3e}")
+
+
+def test_ring_rank_lists_reject_cpu_tensors_and_mixed_shapes():
+    from linalg_tpu_torch.kernels.ring_attention import ring_fwd_cuda
+
+    kw = dict(H=1, causal=True, window=None, slopes=None, scale=0.125)
+    q = [torch.zeros(2, 64, 32) for _ in range(2)]
+    f = [torch.zeros(2, 64) for _ in range(2)]
+    with pytest.raises(ValueError, match="CUDA"):
+        ring_fwd_cuda(q, q, q, q, f, **kw)
+    with pytest.raises(ValueError, match="2 entries"):
+        ring_fwd_cuda(q, q[:1], q, q, f, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", RING_CASES,
+                         ids=lambda c: "B{}h{}T{}d{}n{}{}{}{}".format(
+                             *c[:5], "c" if c[5] else "f",
+                             f"w{c[6]}" if c[6] else "",
+                             "alibi" if c[7] else ""))
+def test_ring_rank_tables_equal_stacked_on_card(cuda, case, dtype,
+                                                monkeypatch):
+    """K10/K11 through per-rank chunk tables, each rank's chunks a tensor
+    of its own on the card (head stride Tl), against the ranks' views of
+    the rank-stacked inputs (head stride T): the same bits, one launch per
+    direction either way."""
+    from linalg_tpu_torch.kernels import ring_attention as kr
+    from linalg_tpu_torch.nn.positional import alibi_slopes
+    from linalg_tpu_torch.parallel import ring_pallas
+
+    B, h, T, d, n, causal, window, alibi = case
+    x = ring_inputs(B, h, T, d, dtype, cuda, seed=T + n + 1)
+    kw = dict(causal=causal, window=window,
+              slopes=tuple(alibi_slopes(h).tolist()) if alibi else None)
+    stacked = ring_both(x, n, False, **kw)
+    monkeypatch.setattr(ring_pallas, "_ring_size", lambda mesh, axis, dev: (
+        n, [[dev] * n]))
+    before = (kr.ring_fwd_cuda.launches, kr.ring_bwd_cuda.launches)
+    tables = ring_both(x, n, False, **kw)
+    torch.cuda.synchronize()
+    assert (kr.ring_fwd_cuda.launches - before[0],
+            kr.ring_bwd_cuda.launches - before[1]) == (1, 1)
+    for what, a, b in zip(("o", "L", "dq", "dk", "dv"), tables, stacked):
+        assert torch.equal(a, b), what
+
+
+@pytest.mark.cuda
+def test_ring_across_two_cards_equals_one_card(cuda):
+    """The ring's ranks on two cards (each card's launch reading the
+    other's chunks in place) give the one-card bits; a launch a card and
+    direction."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from linalg_tpu_torch.kernels import ring_attention as kr
+
+    x = ring_inputs(2, 4, 1024, 128, torch.bfloat16, cuda, seed=21)
+    one = ring_both(x, 4, False, window=300)
+    before = (kr.ring_fwd_cuda.launches, kr.ring_bwd_cuda.launches)
+    two = ring_both(x, 4, False, window=300,
+                    devices=["cuda:0", "cuda:0", "cuda:1", "cuda:1"])
+    torch.cuda.synchronize()
+    assert (kr.ring_fwd_cuda.launches - before[0],
+            kr.ring_bwd_cuda.launches - before[1]) == (2, 2)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
 @pytest.mark.cuda

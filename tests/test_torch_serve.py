@@ -212,11 +212,13 @@ def test_sampled_run_is_seeded_and_complete():
 
 class TestErrors:
     def test_unported_features_raise(self):
-        """Mesh serving is not ported (item 7); the features this port
-        serves refuse the combinations the JAX engine refuses, with its
-        ValueErrors (quant, LoRA and kv8, once refused as unported, now
-        serve: tests/test_torch_quant.py, tests/test_torch_lora.py)."""
-        with pytest.raises(NotImplementedError, match="item 7"):
+        """The features this port serves refuse the combinations the JAX
+        engine refuses, with its ValueErrors (quant, LoRA, kv8 and mesh
+        serving, once refused as unported, now serve:
+        tests/test_torch_quant.py, tests/test_torch_lora.py,
+        tests/test_torch_serve_tp.py); a mesh without a 'tp' axis meets
+        the JAX engine's check."""
+        with pytest.raises(ValueError, match="'tp' axis"):
             ServeEngine(PARAMS, CFG, mesh=object(), device="cpu")
         for kw in (dict(quant="int8"), dict(max_loras=2),
                    dict(paged=True, kv8=True, paged_attn="gather")):

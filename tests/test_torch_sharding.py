@@ -460,11 +460,29 @@ def test_sharded_steps_import_no_cuda_and_default_to_the_card(monkeypatch):
         tmesh_mod.make_mesh((2, 2), ("dp", "tp"))
 
 
-def test_serve_tp_still_names_item_7(tmp_path):
+def test_serve_tp_serves_on_the_cpu(tmp_path):
+    """``--serve --tp 2`` serves through the tensor-parallel engine, both
+    ranks on the CPU, with the unsharded ``--serve``'s text."""
+    import json
+
     from linalg_tpu_torch.apps import gpt as tapp
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tapp.main(["--serve", "--tp", "2", "--ckpt_dir", str(tmp_path)])
+    cfg = tgpt.GPTConfig(**TINY)
+    chars = "abcdefghijklmnopqrs"
+    tckpt.save_ckpt(tmp_path, tgpt.init_gpt_params(cfg, seed=5), cfg,
+                    {c: i for i, c in enumerate(chars)},
+                    dict(enumerate(chars)))
+    (tmp_path / "p.txt").write_text("abcab\nsrq\n", encoding="utf-8")
+    out = {}
+    for tp in (1, 2):
+        tapp.main(["--serve", "--ckpt_dir", str(tmp_path), "--prompts",
+                   str(tmp_path / "p.txt"), "--out",
+                   str(tmp_path / f"o{tp}.jsonl"), "--gen_tokens", "6",
+                   "--n_slots", "2", "--chunk", "4", "--top_k", "1", "--tp",
+                   str(tp), "--device", "cpu"])
+        out[tp] = [json.loads(ln)["text"] for ln in
+                   (tmp_path / f"o{tp}.jsonl").read_text().splitlines()]
+    assert out[2] == out[1] and all(len(t) == 6 for t in out[2])
 
 
 def test_parallel_and_apps_import_no_jax():
