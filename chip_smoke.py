@@ -9,7 +9,8 @@ the routed mixture-of-experts GPT (trained through K8 and K2, sampled,
 served), the L2 encoder-decoder stack, the sharded trainers (dp x tp,
 FSDP, the 1F1B pipeline, expert parallelism; every rank on the card,
 K2 and K8/K9 inside each), the small apps, tensor-parallel serving with
-DCP checkpoints, and the ring kernels over one tensor per rank.
+DCP checkpoints, the ring kernels over one tensor per rank, and one mesh
+over two processes on the card.
 
     python3 chip_smoke.py
 
@@ -326,6 +327,20 @@ Phases, each reported on its own line; any failure exits non-zero:
              per direction each way, CUDA-event times of both; with two
              cards or more, the ring over two cards against one card
              (else a line says it was not run).
+27. processes — two interpreters (``chip_smoke.py --process-child``) on
+             the one card join one Gloo group (named, through a
+             ``file://`` rendezvous) and train one model over a mesh that
+             spans them: train_big under --dp 2 --tp 4 (4 ranks a
+             process, 5 steps, one eval, the gathered checkpoint written
+             by process 0 and reloaded equal), its step-1 loss within 1e-2
+             of phase 23's one-process dp 2 x tp 4, ms/step, the bytes
+             staged through the host a step and K2's launches (both
+             processes' sum, as worked out); then the published widths in
+             f32 with LINALG_TPU_FUSED_LN=1 under --dp 2 --tp 2 (3 steps),
+             every step's loss and the val loss within 1e-5 (relative) of
+             the same run in one process, K8/K9 launches as worked out.
+             NCCL (the default backend on cards) cannot join two
+             processes on one card; this phase does not run it.
 
 Phase 2 builds every kernel, one ``nvcc`` per source, all started
 together. The line before the last is a JSON object describing the
@@ -345,10 +360,12 @@ import io
 import json
 import math
 import os
+import pathlib
 import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 from unittest import mock
 
@@ -4004,7 +4021,8 @@ def parallel_phase(smi):
     step-1 loss, ms/step; FSDP's rank bytes; the dp x tp checkpoint
     reloaded; 1F1B's peak memory beside GPipe's at M 8; dp x tp in f32 at
     2 layers. Returns {"flash": [fwd, dq, dkdv, delta], "fused": [qkv
-    fwd, qkv bwd, ffn fwd, ffn bwd]} over the sharded runs."""
+    fwd, qkv bwd, ffn fwd, ffn bwd]} over the sharded runs and
+    "dp_tp_loss1", run a's step-1 loss."""
     from linalg_tpu_torch.kernels import fused_layer as kf
     from linalg_tpu_torch.kernels.flash_attention import (
         flash_delta_cuda, flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
@@ -4060,6 +4078,7 @@ def parallel_phase(smi):
         totals["flash"] = [a + b for a, b in zip(totals["flash"], n[:4])]
         totals["fused"] = [a + b for a, b in zip(totals["fused"], n[4:])]
         if tag.startswith("a"):
+            totals["dp_tp_loss1"] = rows[0]["loss"]
             saved, _, same = ckpt
             phase("parallel", f"  checkpoint (saved at {saved}, gathered) "
                   f"reloaded on one card equal: {same}")
@@ -4334,6 +4353,223 @@ def apps_phase():
     phase("apps", f"phase 24 in {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 27: two processes on the card, one Gloo group, one mesh
+PROC_BIG = ["--dp", "2", "--tp", "4"]
+PROC_BIG_STEPS = 5
+PROC_SMALL = (PUBLISHED[:PUBLISHED.index("--steps")]
+              + ["--steps", "3", "--eval_every", "3", "--dp", "2", "--tp",
+                 "2"])
+PROC_F32_RTOL = 1e-5  # every loss of the f32 run against one process's
+PROC_TIMEOUT_S = 600  # a pair of children, start to end
+PROC_GROUP_S = 300    # the Gloo group's timeout inside them
+
+
+def timed_train(argv, counters, ckpt_dir, log):
+    """One ``trainer.train`` run of the CLI flags ``argv`` on the card,
+    every step's loss read and its end time taken (the card drained), with
+    the bytes staged through the host so far: {"losses", "stamps",
+    "staged", "launches" of ``counters``, "collectives", "params", "cfg",
+    "stoi", "itos"}."""
+    from linalg_tpu_torch.apps.gpt import build_parser
+    from linalg_tpu_torch.parallel import collectives
+    from linalg_tpu_torch.train import trainer
+
+    out = {"losses": [], "stamps": [], "staged": []}
+    real_loop = trainer._train_loop
+
+    def loop(args, cfg, params, opt_state, generator, step_fn, *rest, **kw):
+        def timed_step(*a):
+            res = step_fn(*a)
+            out["losses"].append(float(res[3]))
+            torch.cuda.synchronize()
+            out["stamps"].append(time.perf_counter())
+            out["staged"].append(collectives["host_staged_bytes"])
+            return res
+        return real_loop(args, cfg, params, opt_state, generator, timed_step,
+                         *rest, **kw)
+
+    with patched((trainer, {"_train_loop": loop})):
+        args = build_parser().parse_args(
+            ["--train", *argv, "--ckpt_dir", str(ckpt_dir), "--log_file",
+             str(log), "--device", "cuda"])
+        for c in counters:
+            c.launches = 0
+        collectives.clear()
+        params, cfg, stoi, itos = trainer.train(args)
+        torch.cuda.synchronize()
+    out.update(launches=[c.launches for c in counters],
+               collectives=dict(collectives), params=params, cfg=cfg,
+               stoi=stoi, itos=itos)
+    return out
+
+
+def _proc_counters():
+    from linalg_tpu_torch.kernels import fused_layer as kf
+    from linalg_tpu_torch.kernels.flash_attention import (
+        flash_delta_cuda, flash_dkdv_cuda, flash_dq_cuda, flash_fwd_cuda)
+
+    return (flash_fwd_cuda, flash_dq_cuda, flash_dkdv_cuda, flash_delta_cuda,
+            kf.ln_qkv_fwd_cuda, kf.ln_qkv_bwd_cuda, kf.ln_ffn_fwd_cuda,
+            kf.ln_ffn_bwd_cuda)
+
+
+def process_child(argv) -> int:
+    """One of phase 27's two processes: ``URL RANK DIR FLAGS-JSON``. Joins
+    the Gloo group, trains ``FLAGS`` over the job's mesh and writes
+    ``DIR/proc{RANK}.json`` (process 0 also reloads its checkpoint)."""
+    from linalg_tpu_torch.parallel import init_distributed
+
+    url, rank, out_dir, flags = (argv[0], int(argv[1]),
+                                 pathlib.Path(argv[2]), json.loads(argv[3]))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not init_distributed(url, 2, rank, backend="gloo",
+                            timeout_s=PROC_GROUP_S):
+        raise RuntimeError("process child: no group of two")
+    log = out_dir / "metrics.jsonl"
+    run = timed_train(flags, _proc_counters(), out_dir / "ck", log)
+    res = {k: run[k] for k in ("losses", "stamps", "staged", "launches",
+                               "collectives")}
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["n_layers"] = run["cfg"].n_layers
+    if rank == 0:
+        res["rows"] = [json.loads(ln) for ln in open(log, encoding="utf-8")]
+        saved, _, same = checkpoint_reloads(
+            out_dir / "ck", res["rows"], run["params"], run["cfg"],
+            run["stoi"], run["itos"])
+        res["ckpt"] = [saved, same]
+    (out_dir / f"proc{rank}.json").write_text(json.dumps(res))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def run_pair(out_dir, flags, env):
+    """Phase 27's two children on ``flags`` under the extra ``env``, each on
+    the one card (LOCAL_RANK 0 and 1 of LOCAL_WORLD_SIZE 2, Gloo on the
+    loopback interface); both stopped at the end, whatever happens.
+    Returns their two result dicts; a child that fails fails the phase."""
+    out_dir.mkdir()
+    url = f"file://{out_dir}/rendezvous"
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("MASTER_", "WORLD_SIZE", "RANK",
+                                 "LOCAL_RANK", "LOCAL_WORLD_SIZE", "JAX_"))}
+    base.update(GLOO_SOCKET_IFNAME="lo", LOCAL_WORLD_SIZE="2", **env)
+    procs, logs = [], []
+    try:
+        for r in (0, 1):
+            logs.append(open(out_dir / f"child{r}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--process-child", url, str(r), str(out_dir),
+                 json.dumps(flags)], env=dict(base, LOCAL_RANK=str(r)),
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + PROC_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = (out_dir / f"child{r}.log").read_text()[-3000:]
+            raise RuntimeError(f"processes: child {r} exited with "
+                               f"{p.returncode}:\n{tail}")
+    return [json.loads((out_dir / f"proc{r}.json").read_text())
+            for r in (0, 1)]
+
+
+def processes_phase(smi, dp_tp_loss1):
+    """Phase 27 (see the module docstring). Returns {"flash": K2's
+    [fwd, dq, dkdv, delta], "fused": K8/K9's [qkv fwd, qkv bwd, ffn fwd,
+    ffn bwd]}, both processes' launches over both runs."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    totals = {"flash": [0] * 4, "fused": [0] * 4}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        # train_big, dp 2 x tp 4, four ranks in each process
+        flags = par_argv("big", PROC_BIG_STEPS) + PROC_BIG
+        runs = run_pair(tmp / "big", flags, {})
+        lead = runs[0]
+        n = [a + b for a, b in zip(runs[0]["launches"], runs[1]["launches"])]
+        n_eval = sum(r["event"] == "eval" for r in lead["rows"])
+        want_f, want_k = par_want(
+            "a", types.SimpleNamespace(n_layers=lead["n_layers"]), 8,
+            PROC_BIG_STEPS, n_eval, False)
+        ms = step_ms(lead["stamps"])
+        staged = [b - a for a, b in zip(lead["staged"], lead["staged"][1:])]
+        d1 = abs(lead["losses"][0] - dp_tp_loss1)
+        phase("processes", f"train_big dp 2 x tp 4 over 2 processes (Gloo, "
+              f"4 ranks each, one card; {PROC_BIG_STEPS} steps, {n_eval} "
+              f"eval): K2 fwd/dq/dkdv/delta {n[:4]} (expected {want_f}), "
+              f"each process {runs[0]['launches'][:4]} and "
+              f"{runs[1]['launches'][:4]}; collectives (process 0) "
+              f"{dict(sorted(lead['collectives'].items()))}")
+        phase("processes", f"  step-1 loss {lead['losses'][0]:.6f}, one "
+              f"process (phase 23 a) {dp_tp_loss1:.6f} (|diff| {d1:.3e}, "
+              f"bound {PAR_LOSS_ATOL}); both processes' losses "
+              f"{runs[0]['losses'] == runs[1]['losses']}; steps 3-"
+              f"{PROC_BIG_STEPS}: {ms:.2f} ms/step; bytes staged through "
+              f"the host a step (process 0, steps 2-{PROC_BIG_STEPS}) "
+              f"{staged}; peak {lead['peak_gb']:.2f} GB and "
+              f"{runs[1]['peak_gb']:.2f} GB; checkpoint saved at "
+              f"{lead['ckpt'][0]} (gathered, process 0) reloaded equal: "
+              f"{lead['ckpt'][1]}; {smi}")
+        if n[:4] != want_f or n[4:] != want_k:
+            raise RuntimeError("processes: train_big launch counts differ")
+        if not d1 <= PAR_LOSS_ATOL:
+            raise RuntimeError("processes: step-1 loss off the one-process "
+                               "run's")
+        if runs[0]["losses"] != runs[1]["losses"] or not all(
+                math.isfinite(v) for v in runs[0]["losses"]):
+            raise RuntimeError("processes: the two processes' losses differ "
+                               "or are not finite")
+        if not lead["ckpt"][1] or not all(staged):
+            raise RuntimeError("processes: checkpoint or host staging")
+        totals["flash"] = n[:4]
+
+        # the published widths in f32 with K8/K9, against one process
+        on = {"LINALG_TPU_FUSED_LN": "1"}
+        runs = run_pair(tmp / "small", PROC_SMALL, on)
+        counters = _proc_counters()
+        with switches(**on):
+            one = timed_train(PROC_SMALL, counters, tmp / "one_ck",
+                              tmp / "one.jsonl")
+        rows1 = [json.loads(ln) for ln in open(tmp / "one.jsonl",
+                                               encoding="utf-8")]
+        del one["params"]
+        torch.cuda.empty_cache()
+        n = [a + b for a, b in zip(runs[0]["launches"], runs[1]["launches"])]
+        val = [[r["val_loss"] for r in rows if r["event"] == "eval"]
+               for rows in (runs[0]["rows"], rows1)]
+        got, want = runs[0]["losses"] + val[0], one["losses"] + val[1]
+        rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        want_k = par_want("b", types.SimpleNamespace(
+            n_layers=runs[0]["n_layers"]), 4, 3, len(val[0]), True)[1]
+        phase("processes", f"published widths f32 (TF32 off), dp 2 x tp 2 "
+              f"over 2 processes, LINALG_TPU_FUSED_LN=1: K8 fwd/bwd "
+              f"{n[4:6]}, K9 {n[6:]} (expected {want_k}; one process "
+              f"{one['launches'][4:]}), "
+              f"K2 {n[:4]}; losses (3 steps, val) {got} vs one process "
+              f"{want} (max rel {rel:.3e}, bound {PROC_F32_RTOL})")
+        if n != one["launches"] or n[4:] != want_k:
+            raise RuntimeError("processes: K8/K9 launches differ from one "
+                               "process's")
+        if not (len(got) == len(want) == 4 and rel <= PROC_F32_RTOL):
+            raise RuntimeError("processes: f32 losses off the one-process "
+                               "run's")
+        totals["fused"] = n[4:]
+        totals["flash"] = [a + b for a, b in zip(totals["flash"], n[:4])]
+    phase("processes", f"phase 27 in {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -4380,15 +4616,10 @@ def main() -> int:
                                         paged_attn="gather")
     if paged_attention_cuda.launches != launches:
         raise RuntimeError("the gather engine launched the kernel")
-    _, wall_g2, _, _ = serve_waves(ServeEngine, params, cfg, [reqs],
-                                   paged_attn="gather")
-    wall_k2 = kernel_run(ServeEngine, params, cfg, [reqs])[1]
     phase("engine", f"16 requests, {n_tok} tokens, {chunks} chunks,"
           f" {launches} kernel launches")
-    phase("engine", f"kernel: {wall_k:.3f} s, {n_tok / wall_k:.1f} tok/s; "
-          f"again {wall_k2:.3f} s, {n_tok / wall_k2:.1f} tok/s")
-    phase("engine", f"gather: {wall_g:.3f} s, {n_tok_g / wall_g:.1f} tok/s; "
-          f"again {wall_g2:.3f} s, {n_tok_g / wall_g2:.1f} tok/s")
+    phase("engine", f"kernel: {wall_k:.3f} s, {n_tok / wall_k:.1f} tok/s")
+    phase("engine", f"gather: {wall_g:.3f} s, {n_tok_g / wall_g:.1f} tok/s")
 
     # -- 5. f32 greedy equality -----------------------------------------
     cfg32 = GPTConfig(dtype="float32", **SERVE_CFG)
@@ -4478,6 +4709,9 @@ def main() -> int:
     # -- 26. ring tables: K10/K11 over one tensor per rank ------------------
     tables = ring_tables_phase()
 
+    # -- 27. processes: one mesh over two processes on the card -------------
+    proc_launches = processes_phase(smi, par_launches["dp_tp_loss1"])
+
     # the profiler breakdowns last: the profiler stays attached to the card
     profile_qr()
     profile_step("train", big_cfg, big_batch)
@@ -4498,12 +4732,13 @@ def main() -> int:
     # kernels
     profile_engine(ServeEngine, params, cfg, reqs)
 
-    flash_launches = [a + b + c + d + e + f for a, b, c, d, e, f in zip(
+    flash_launches = [sum(n) for n in zip(
         train_launches, long_launches, short_launches["btd"],
-        window_launches, moe_launches["flash"], par_launches["flash"])]
-    fused_launches = [a + b + c for a, b, c in zip(
+        window_launches, moe_launches["flash"], par_launches["flash"],
+        proc_launches["flash"])]
+    fused_launches = [sum(n) for n in zip(
         short_launches["fused"], moe_launches["fused"] + [0, 0],
-        par_launches["fused"])]
+        par_launches["fused"], proc_launches["fused"])]
     phase("time", phase_seconds())
     print(json.dumps({"kernels": [{
         "name": "paged_attention", "route": "cuda",
@@ -4536,6 +4771,7 @@ def main() -> int:
             sum(short_launches["btd"]), sum(window_launches),
             sum(moe_launches["flash"])],
         "launches_parallel": par_launches["flash"],
+        "launches_processes": proc_launches["flash"],
         **flash_record, "stream": stream_record, "btd": btd_record}, {
         "name": "fused_layer", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/fused_layer.cu",
@@ -4545,6 +4781,7 @@ def main() -> int:
         "launches_short_moe": [sum(short_launches["fused"]),
                                sum(moe_launches["fused"])],
         "launches_parallel": par_launches["fused"],
+        "launches_processes": proc_launches["fused"],
         **fused_record}, {
         "name": "ring_attention_fwd", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/ring_attention.cu",
@@ -4567,4 +4804,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--process-child"]:
+        sys.exit(process_child(sys.argv[2:]))
     sys.exit(main())

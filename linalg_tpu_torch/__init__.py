@@ -16,7 +16,8 @@ trainer), whose causal attention runs through CUDA flash-attention
 kernels on the card (``nn.flash``, ``nn.flash_long``), and long-context
 training (RoPE, ALiBi, gated FFNs, a sliding window and grouped K/V read
 in place by the same kernels, ``nn.flash_stream``), and
-sharded training over a mesh whose ranks share the device (``parallel``:
+sharded training over a mesh dealt over the job's devices, across
+processes after ``parallel.init_distributed`` (``parallel``:
 sequence parallelism through the ring kernels K10/K11, dp x tp, FSDP,
 the GPipe and 1F1B pipelines and expert parallelism, their collectives
 explicit in ``parallel.mesh``), and sampling (KV-cached decode, ``gpt_generate``, beam search in

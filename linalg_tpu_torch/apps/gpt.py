@@ -19,12 +19,16 @@ its checkpoint print the JAX CLI's fallbacks for what the MoE does not
 take (int8, paged KV, speculation, registered prefixes, beam search,
 prompts past the prefill window). ``--train`` with ``--dp``, ``--tp``
 (experts with ``--experts``), ``--sp``, ``--pp`` (``--microbatches``) or
-``--fsdp`` trains over a mesh whose ranks share the device. ``--serve
---tp N`` serves tensor-parallel (``ServeEngine(mesh=...)``) over a (1, N)
-(dp, tp) mesh whose N ranks all sit on ``--device`` (the card by
-default), as the sharded trainers place theirs; the JAX CLI takes N
-devices of its host instead. Under ``--tp`` it prints the JAX CLI's
-fallbacks for ``--paged`` and ``--speculative`` and serves without them.
+``--fsdp`` trains over a mesh dealt over the job's devices: every card
+of the process (one CPU device with ``--device cpu``), or, once the
+caller has called ``parallel.init_distributed``, every process's, as the
+JAX CLI's mesh spans the hosts after ``jax.distributed.initialize``.
+``--serve --tp N`` serves tensor-parallel (``ServeEngine(mesh=...)``)
+over a (1, N) (dp, tp) mesh dealt over this process's cards (each an
+equal block of the N ranks; all N on a card that ``--device`` names, or
+on the CPU), as the JAX CLI takes N devices of its host. Under ``--tp``
+it prints the JAX CLI's fallbacks for ``--paged`` and ``--speculative``
+and serves without them.
 """
 
 from __future__ import annotations
@@ -297,12 +301,16 @@ def serve_cli(args) -> None:
 
     mesh = None
     if args.tp > 1:
-        # tensor-parallel serving, every rank on the one device (the JAX
-        # CLI's mesh over the host's first tp devices,
-        # linalg_tpu/apps/gpt.py:290-304)
+        # tensor-parallel serving over this process's cards, each an equal
+        # block of the tp ranks (the JAX CLI's mesh over the host's first
+        # tp devices, linalg_tpu/apps/gpt.py:290-304); a named card or the
+        # CPU takes them all
         from ..parallel import make_mesh
 
-        mesh = make_mesh((1, args.tp), ("dp", "tp"), [device] * args.tp)
+        mesh = (make_mesh((1, args.tp), ("dp", "tp"), device_type="cuda",
+                          local=True)
+                if device.type == "cuda" and device.index is None else
+                make_mesh((1, args.tp), ("dp", "tp"), [device] * args.tp))
     paged = args.paged
     ring = cfg.window is not None and cfg.pos in ("rope", "alibi")
     if paged and (mesh is not None or ring or moe):

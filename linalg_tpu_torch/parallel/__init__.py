@@ -1,10 +1,9 @@
 """Parallelism — the counterpart of ``linalg_tpu/parallel``: the mesh and
 its collectives, the plain ring and the ring kernels (K10/K11), and the
 sharded trainers (dp x tp, sequence parallelism, FSDP, the GPipe and 1F1B
-pipelines, expert parallelism), all with the ranks of a mesh in one
-process, tensor-parallel serving's shards and ops, and multi-process
-initialisation (``distributed.py``: a ``torch.distributed`` process
-group)."""
+pipelines, expert parallelism) over meshes that span the processes of a
+``torch.distributed`` group once ``init_distributed`` has started it
+(``distributed.py``), and tensor-parallel serving's shards and ops."""
 
 from .distributed import (global_mesh_shape, host_local_batch_slice,
                           init_distributed, is_distributed)

@@ -1,5 +1,6 @@
 """Multi-process initialisation — the counterpart of
-``linalg_tpu/parallel/distributed.py``, with its four names.
+``linalg_tpu/parallel/distributed.py``, with its four names, and the
+job's devices and process sub-groups that the meshes span.
 
 JAX glues one process per host together with ``jax.distributed.initialize``;
 the port starts a ``torch.distributed`` process group instead: NCCL on the
@@ -8,11 +9,14 @@ environment is JAX's (``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
 ``JAX_PROCESS_ID``) or ``torchrun``'s (``MASTER_ADDR`` / ``WORLD_SIZE`` /
 ``RANK``, where ``WORLD_SIZE > 1`` plays the part of JAX's pod markers).
 
-What a process group does not change: the port's meshes and collectives
-(``parallel.mesh``) are lists of ranks inside one process, so each
-process's mesh stays its own after ``init_distributed``; the group serves
-host-fed data (``host_local_batch_slice``), collective checkpoints
-(``train.checkpoint.save_ckpt_orbax``) and ``global_mesh_shape``'s count.
+As ``jax.devices()`` turns global after ``jax.distributed.initialize``,
+the meshes follow the group: ``parallel.mesh.make_mesh`` without a device
+list deals its ranks over ``job_devices()`` (every process's local cards
+in process order, or one CPU device a process), and a collective whose
+ranks lie in several processes crosses them through the sub-group of
+those processes (``subgroup``). Every process is assumed to hold as many
+devices as this one, as torchrun's one-process-per-card and
+one-process-per-host layouts do.
 """
 
 from __future__ import annotations
@@ -28,6 +32,11 @@ __all__ = [
     "is_distributed",
     "host_local_batch_slice",
     "global_mesh_shape",
+    "process_index",
+    "process_count",
+    "local_devices",
+    "job_devices",
+    "subgroup",
 ]
 
 
@@ -128,12 +137,73 @@ def host_local_batch_slice(global_batch: int) -> Tuple[int, int]:
     return rank * size, size
 
 
+def process_index() -> int:
+    """This process's rank in the group (0 without one)."""
+    return _world()[0]
+
+
+def process_count() -> int:
+    """The number of processes in the group (1 without one)."""
+    return _world()[1]
+
+
+def local_devices(device_type: str = "cuda") -> list:
+    """This process's devices: one CPU device for ``"cpu"``; else its share
+    of the visible cards, block ``LOCAL_RANK`` of ``LOCAL_WORLD_SIZE``
+    equal blocks (all of them without a launcher), or the one card
+    ``LOCAL_RANK`` shares with the host's other processes where there are
+    fewer cards than processes. Without a card, raise."""
+    if torch.device(device_type).type == "cpu":
+        return [torch.device("cpu")]
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass devices=[...] (e.g. "
+                           "['cpu'] * n) or device_type='cpu' to build a "
+                           "mesh without a card")
+    count = torch.cuda.device_count()
+    procs = _env_int("LOCAL_WORLD_SIZE") or 1
+    local = _env_int("LOCAL_RANK") or 0
+    if count < procs:
+        return [torch.device("cuda", local % count)]
+    per = count // procs
+    return [torch.device("cuda", i)
+            for i in range(local * per, (local + 1) * per)]
+
+
+def job_devices(device_type: str = "cuda") -> list:
+    """(process, device) of every device of the job, in process order:
+    this process's ``local_devices`` under its index, None for the
+    devices of the other processes (they are not addressable here)."""
+    mine = local_devices(device_type)
+    me, n = _world()
+    return [(p, d if p == me else None) for p in range(n) for d in mine]
+
+
+# sub-groups by the processes they join, in creation order
+_subgroups: dict = {}
+
+
+def subgroup(processes):
+    """The ``torch.distributed`` group of ``processes`` (sorted ranks),
+    made once and cached: the default group when they are all of them.
+    ``dist.new_group`` must run in every process in the same order, so
+    the meshes call this for each process set they span when they are
+    built, in every process, members or not."""
+    import torch.distributed as dist
+
+    key = tuple(sorted(processes))
+    if key == tuple(range(_world()[1])):
+        return dist.group.WORLD
+    if key not in _subgroups:
+        _subgroups[key] = dist.new_group(list(key))
+    return _subgroups[key]
+
+
 def global_mesh_shape(n_heads: int) -> Tuple[int, int]:
     """Default (dp, tp) over every device of the job: n_global = processes
     x local cards (a process without a card counts its one CPU device);
     tp = the largest divisor of n_global, n_heads AND the local count, so
     a tp group never straddles a host; dp takes the rest."""
-    n_local = torch.cuda.device_count() if torch.cuda.is_available() else 1
+    n_local = (len(local_devices()) if torch.cuda.is_available() else 1)
     n_global = _world()[1] * n_local
     tp = 1
     for cand in range(1, min(n_local, n_global) + 1):

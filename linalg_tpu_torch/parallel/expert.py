@@ -26,8 +26,8 @@ from ..models.gpt import _attn_half, _embed, _layer_params, _pick_fused
 from ..models.moe import MoEGPTConfig, _capacity, _head, moe_ffn
 from ..nn.functional import layer_norm
 from .mesh import all_reduce
-from .sharding import (_const_step, _device_eval, _device_step,
-                       _loss_and_grads, _mean_loss, _split_batch,
+from .sharding import (_const_step, _device_eval, _device_step, _each,
+                       _first, _loss_and_grads, _mean_loss, _split_batch,
                        make_sharded_attn)
 
 __all__ = ["moe_param_specs", "make_ep_train_step",
@@ -74,18 +74,23 @@ def _ep_loss(cfg: MoEGPTConfig, mesh, attn, dp_axis: Optional[str]):
 
     def loss(rank_params, x, y):
         xs, ys = _split_batch(x, mesh, dp_axis), _split_batch(y, mesh, dp_axis)
-        B, T = xs[0].shape
+        B, T = _first(xs).shape
         dt = cfg.compute_dtype
-        fused = _pick_fused(B, T, cfg, xs[0].device.type)
+        fused = _pick_fused(B, T, cfg, _first(xs).device.type)
         cap = _capacity(cfg, T)
-        emb = [_embed(p, xx, cfg, T, dt) for p, xx in zip(rank_params, xs)]
-        hs = [e[0] for e in emb]
-        layers = [_layer_params(p, dt) for p in rank_params]
-        auxes = [[] for _ in rank_params]
+        emb = _each(lambda p, xx: _embed(p, xx, cfg, T, dt), rank_params, xs)
+        hs = _each(lambda e: e[0], emb)
+        layers = _each(lambda p: _layer_params(p, dt), rank_params)
+        auxes = _each(lambda p: [], rank_params)
         for li in range(cfg.n_layers):
             h1s, parts, stats = [], [], []
             for h, lay, at, e, c in zip(hs, layers, locals_, emb,
                                         mesh.coords):
+                if h is None:
+                    h1s.append(None)
+                    parts.append(None)
+                    stats.append(None)
+                    continue
                 lp = lay[li]
                 a, _ = _attn_half(h, lp, None, cfg.n_heads, cfg.kv_heads, at,
                                   e[1], fused)
@@ -103,12 +108,13 @@ def _ep_loss(cfg: MoEGPTConfig, mesh, attn, dp_axis: Optional[str]):
             if dp_axis:
                 stats = all_reduce(stats, mesh, dp_axis, "mean")
             for r, s in enumerate(stats):
-                auxes[r].append(cfg.n_experts * torch.sum(
-                    s[:cfg.n_experts] * s[cfg.n_experts:]))
-            hs = [h1 + f for h1, f in zip(h1s, f_sum)]
+                if s is not None:
+                    auxes[r].append(cfg.n_experts * torch.sum(
+                        s[:cfg.n_experts] * s[cfg.n_experts:]))
+            hs = _each(torch.add, h1s, f_sum)
         losses = []
         for p, h, yy, c, aux in zip(rank_params, hs, ys, mesh.coords, auxes):
-            if c["ep"]:
+            if p is None or c["ep"]:
                 losses.append(None)
                 continue
             logits = _head(p, h, dt)

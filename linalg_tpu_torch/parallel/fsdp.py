@@ -29,8 +29,9 @@ import math
 from ..models.gpt import (GPTConfig, _embed, _hidden_loss, _layer,
                           _pick_fused)
 from .mesh import all_gather
-from .sharding import (_device_eval, _device_step, _loss_and_grads,
-                       _mean_loss, _split_batch, make_sharded_attn)
+from .sharding import (_device_eval, _device_step, _each, _first,
+                       _loss_and_grads, _mean_loss, _split_batch,
+                       make_sharded_attn)
 
 __all__ = ["fsdp_param_specs", "fsdp_shardings",
            "make_fsdp_device_train_step", "make_fsdp_eval"]
@@ -75,7 +76,7 @@ def _gathered(rank_leaves, spec, mesh, axis, dt):
     """Per-rank whole tensors of one leaf in the compute dtype ``dt``: the
     shards cast and all-gathered, or each rank's own copy of a replicated
     leaf."""
-    cast = [w.to(dt) for w in rank_leaves]
+    cast = _each(lambda w: w.to(dt), rank_leaves)
     if axis not in spec:
         return cast
     return all_gather(cast, mesh, axis, dim=spec.index(axis))
@@ -91,43 +92,47 @@ def _fsdp_loss(cfg: GPTConfig, mesh, specs, axis: str = "fsdp"):
 
     def loss(rank_params, x, y):
         xs, ys = _split_batch(x, mesh, axis), _split_batch(y, mesh, axis)
-        B, T = xs[0].shape
+        B, T = _first(xs).shape
         dt = cfg.compute_dtype
         fused = (cfg.kv_heads == cfg.n_heads
-                 and _pick_fused(B, T, cfg, xs[0].device.type))
+                 and _pick_fused(B, T, cfg, _first(xs).device.type))
         # the embedding/head leaves (float32 masters: the head casts), and
         # layer leaves split along the layer axis, are gathered once
-        top = [{} for _ in rank_params]
+        top = _each(lambda p: {}, rank_params)
         for k, spec in specs.items():
             if k == "layers":
                 continue
-            vals = _gathered([p[k] for p in rank_params], spec, mesh, axis,
-                             rank_params[0][k].dtype)
+            vals = _gathered(_each(lambda p: p[k], rank_params), spec, mesh,
+                             axis, _first(rank_params)[k].dtype)
             for t, v in zip(top, vals):
-                t[k] = v
-        whole = {k: _gathered([p["layers"][k] for p in rank_params], s,
-                              mesh, axis, dt)
+                if t is not None:
+                    t[k] = v
+        whole = {k: _gathered(_each(lambda p: p["layers"][k], rank_params),
+                              s, mesh, axis, dt)
                  for k, s in lspecs.items() if s and s[0] == axis}
-        emb = [_embed(t, xx, cfg, T, dt) for t, xx in zip(top, xs)]
-        hs = [e[0] for e in emb]
+        emb = _each(lambda t, xx: _embed(t, xx, cfg, T, dt), top, xs)
+        hs = _each(lambda e: e[0], emb)
         for li in range(cfg.n_layers):
-            lps = [{} for _ in rank_params]
+            lps = _each(lambda p: {}, rank_params)
             for k, s in lspecs.items():
                 if k in whole:
-                    vals = [w[li] for w in whole[k]]
+                    vals = _each(lambda w: w[li], whole[k])
                 elif s:  # a layer's slice, gathered where it is used
                     vals = all_gather(
-                        [p["layers"][k][li].to(dt) for p in rank_params],
+                        _each(lambda p: p["layers"][k][li].to(dt),
+                              rank_params),
                         mesh, axis, dim=s.index(axis) - 1)
                 else:
-                    vals = [p["layers"][k][li].to(dt) for p in rank_params]
+                    vals = _each(lambda p: p["layers"][k][li].to(dt),
+                                 rank_params)
                 for lp, v in zip(lps, vals):
-                    lp[k] = v
-            hs = [_layer(h, lp, None, cfg.n_heads, cfg.kv_heads, cfg.ffn,
-                         at, e[1], fused)[0]
-                  for h, lp, at, e in zip(hs, lps, locals_, emb)]
-        losses = [_hidden_loss(t, h, yy, cfg) for t, h, yy in
-                  zip(top, hs, ys)]
+                    if lp is not None:
+                        lp[k] = v
+            hs = _each(lambda h, lp, at, e: _layer(
+                h, lp, None, cfg.n_heads, cfg.kv_heads, cfg.ffn, at, e[1],
+                fused)[0], hs, lps, locals_, emb)
+        losses = _each(lambda t, h, yy: _hidden_loss(t, h, yy, cfg), top,
+                       hs, ys)
         return _mean_loss(losses, mesh, mesh.shape[axis])
 
     return loss

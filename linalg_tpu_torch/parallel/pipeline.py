@@ -38,8 +38,8 @@ import torch
 from ..models.gpt import (GPTConfig, _embed, _head, _layer, _pick_attn_cfg,
                           _rope, _trunk_mask)
 from .mesh import ppermute
-from .sharding import (_const_step, _device_eval, _device_step,
-                       _loss_and_grads, _mean_loss, _reduce_grads,
+from .sharding import (_const_step, _device_eval, _device_step, _each,
+                       _first, _loss_and_grads, _mean_loss, _reduce_grads,
                        _split_batch)
 
 __all__ = ["pp_param_specs", "make_pp_loss", "make_pp_train_step",
@@ -86,10 +86,10 @@ def _ce_sum(p, h, yb, dt):
 
 def _microbatches(x, mesh, dp_axis, M):
     xs = _split_batch(x, mesh, dp_axis)
-    if xs[0].shape[0] % M:
-        raise ValueError(f"each rank's batch {xs[0].shape[0]} must divide "
-                         f"into {M} microbatches")
-    return [t.chunk(M) for t in xs]
+    if _first(xs).shape[0] % M:
+        raise ValueError(f"each rank's batch {_first(xs).shape[0]} must "
+                         f"divide into {M} microbatches")
+    return _each(lambda t: t.chunk(M), xs)
 
 
 def make_pp_loss(cfg: GPTConfig, mesh, n_microbatches: int, *,
@@ -108,11 +108,11 @@ def make_pp_loss(cfg: GPTConfig, mesh, n_microbatches: int, *,
     def loss(rank_params, x, y):
         x_mb = _microbatches(x, mesh, dp_axis, M)
         y_mb = _microbatches(y, mesh, dp_axis, M)
-        mb, T = x_mb[0][0].shape
+        mb, T = _first(x_mb)[0].shape
         dt = cfg.compute_dtype
-        dev = x_mb[0][0].device
+        dev = _first(x_mb)[0].device
         attn_fn = _pick_attn_cfg(cfg, cfg.ctx_len, dev.type)
-        devs = set(mesh.rank_devices)
+        devs = {mesh.rank_devices[r] for r in mesh.local_ranks}
         masks = {d: _trunk_mask(cfg, T, dt, d) for d in devs}
         ropes = {d: _rope(cfg, T, dt, d) for d in devs}
         state = [None] * mesh.size
@@ -121,7 +121,7 @@ def make_pp_loss(cfg: GPTConfig, mesh, n_microbatches: int, *,
             out = [None] * mesh.size
             for r, p in enumerate(rank_params):
                 m = t - stage[r]
-                if not 0 <= m < M:
+                if p is None or not 0 <= m < M:
                     continue
                 d = mesh.rank_devices[r]
                 h = (_embed(p, x_mb[r][m], cfg, T, dt)[0] if stage[r] == 0
@@ -169,12 +169,12 @@ def make_pp_1f1b_grads(cfg: GPTConfig, mesh, n_microbatches: int, *,
     def fn(rank_params, x, y):
         x_mb = _microbatches(x, mesh, dp_axis, M)
         y_mb = _microbatches(y, mesh, dp_axis, M)
-        mb, T = x_mb[0][0].shape
+        mb, T = _first(x_mb)[0].shape
         n_tok = dp * M * mb * T
         dt = cfg.compute_dtype
-        dev = x_mb[0][0].device
+        dev = _first(x_mb)[0].device
         attn_fn = _pick_attn_cfg(cfg, cfg.ctx_len, dev.type)
-        devs = set(mesh.rank_devices)
+        devs = {mesh.rank_devices[r] for r in mesh.local_ranks}
         masks = {d: _trunk_mask(cfg, T, dt, d) for d in devs}
         ropes = {d: _rope(cfg, T, dt, d) for d in devs}
         # stage inputs, outputs and cotangents travel in float32, as the
@@ -182,12 +182,12 @@ def make_pp_1f1b_grads(cfg: GPTConfig, mesh, n_microbatches: int, *,
         buf = torch.promote_types(torch.float32, dt)
         # the ring of stashed stage inputs
         stash = [[None] * R for _ in rank_params]
-        names = [list(p["layers"]) for p in rank_params]
-        grads = [{"tok_W": torch.zeros_like(p["tok_W"]),
-                  "head_b": torch.zeros_like(p["head_b"]),
-                  "layers": {k: torch.zeros_like(w)
-                             for k, w in p["layers"].items()}}
-                 for p in rank_params]
+        names = _each(lambda p: list(p["layers"]), rank_params)
+        grads = _each(lambda p: {
+            "tok_W": torch.zeros_like(p["tok_W"]),
+            "head_b": torch.zeros_like(p["head_b"]),
+            "layers": {k: torch.zeros_like(w)
+                       for k, w in p["layers"].items()}}, rank_params)
         ce_sum = [None] * mesh.size
         state_f = [None] * mesh.size
         state_b = [None] * mesh.size
@@ -210,7 +210,7 @@ def make_pp_1f1b_grads(cfg: GPTConfig, mesh, n_microbatches: int, *,
             with torch.no_grad():
                 for r, p in enumerate(rank_params):
                     m = t - stage[r]
-                    if not 0 <= m < M:
+                    if p is None or not 0 <= m < M:
                         continue
                     h_in = (embed(p, x_mb[r][m]) if stage[r] == 0
                             else state_f[r])
@@ -223,7 +223,7 @@ def make_pp_1f1b_grads(cfg: GPTConfig, mesh, n_microbatches: int, *,
             bwd_out = [None] * mesh.size
             for r, p in enumerate(rank_params):
                 m = t - (2 * S - 2 - stage[r])
-                if not 0 <= m < M:
+                if p is None or not 0 <= m < M:
                     continue
                 h = stash[r][m % R].detach().requires_grad_(True)
                 stash[r][m % R] = None
@@ -261,7 +261,7 @@ def make_pp_1f1b_grads(cfg: GPTConfig, mesh, n_microbatches: int, *,
             state_b = ppermute(bwd_out, mesh, "pp", down)
 
         loss = _mean_loss(ce_sum, mesh, 1)
-        for p in rank_params:
+        for p in filter(None, rank_params):
             for w in [p["tok_W"], p["head_b"], *p["layers"].values()]:
                 w.requires_grad_(False)
         return loss, _reduce_grads(grads, specs, mesh)

@@ -9,6 +9,11 @@ chunk per step. The JAX package runs the per-device loop inside
 rank-stacked: chunk tensors carry a leading rank axis and one hop is
 ``torch.roll`` along it. Gradients come from torch autograd through these
 plain ops, as JAX's come from ``jax.grad`` through ``ppermute``.
+
+``ring_attention_ranks`` is the same loop with each rank's chunk a tensor
+of its own, as a mesh whose ranks lie in several processes holds them:
+the K/V chunks rotate by ``parallel.mesh.ppermute``, across processes
+through their group, and autograd runs the reverse rotation backward.
 """
 
 from __future__ import annotations
@@ -17,7 +22,8 @@ import math
 
 import torch
 
-__all__ = ["make_ring_attention", "ring_attention_local"]
+__all__ = ["make_ring_attention", "ring_attention_local",
+           "ring_attention_ranks"]
 
 _NEG = -1e30
 
@@ -26,6 +32,25 @@ def _chunks(x, n: int):
     """(B, h, T, d) -> the rank-stacked (n, B, h, T / n, d) chunks."""
     B, h, T, d = x.shape
     return x.reshape(B, h, n, T // n, d).permute(2, 0, 1, 3, 4)
+
+
+def _fold(q, k, v, rows, cols, m, l, acc, slopes, causal, window):
+    """One ring step's online-softmax update (m, l, acc) from the chunk
+    (k, v) whose key positions are ``cols``, for queries at ``rows``
+    (broadcastable position grids): scores in q's dtype, state float32."""
+    d = q.shape[-1]
+    sc = ((1.0 / math.sqrt(d)) * (q @ k.transpose(-1, -2))).float()
+    if slopes is not None:
+        sc = sc + slopes * (cols - rows).float()
+    if causal:
+        sc = torch.where(cols <= rows, sc, _NEG)
+    if window is not None:
+        sc = torch.where(cols > rows - window, sc, _NEG)
+    m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+    p = torch.exp(sc - m_new)
+    alpha = torch.exp(m - m_new)
+    return m_new, l * alpha + p.sum(-1, keepdim=True), \
+        acc * alpha + p @ v.float()
 
 
 def ring_attention_local(q, k, v, *, n: int, causal: bool = True,
@@ -42,13 +67,11 @@ def ring_attention_local(q, k, v, *, n: int, causal: bool = True,
         raise ValueError(f"T {T} must divide into the ring's {n} ranks")
     Tl = T // n
     dev = q.device
-    scale = 1.0 / math.sqrt(d)
     ranks = torch.arange(n, device=dev)
     pos = torch.arange(Tl, device=dev)
     rows = (ranks[:, None] * Tl + pos)[:, None, None, :, None]
-    if slopes is not None:
-        sl = torch.as_tensor(slopes, dtype=torch.float32,
-                             device=dev)[None, None, :, None, None]
+    sl = None if slopes is None else torch.as_tensor(
+        slopes, dtype=torch.float32, device=dev)[None, None, :, None, None]
 
     qc = _chunks(q, n)
     k_cur, v_cur = _chunks(k, n), _chunks(v, n)
@@ -58,19 +81,8 @@ def ring_attention_local(q, k, v, *, n: int, causal: bool = True,
     for s in range(n):
         src = (ranks - s) % n  # origin rank of the chunk each rank holds
         cols = (src[:, None] * Tl + pos)[:, None, None, None, :]
-        sc = (scale * (qc @ k_cur.transpose(-1, -2))).float()
-        if slopes is not None:
-            sc = sc + sl * (cols - rows).float()
-        if causal:
-            sc = torch.where(cols <= rows, sc, _NEG)
-        if window is not None:
-            sc = torch.where(cols > rows - window, sc, _NEG)
-        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
-        p = torch.exp(sc - m_new)
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + p @ v_cur.float()
-        m = m_new
+        m, l, acc = _fold(qc, k_cur, v_cur, rows, cols, m, l, acc, sl,
+                          causal, window)
         if s != n - 1:  # rank r + 1 receives rank r's chunk
             k_cur = torch.roll(k_cur, 1, dims=0)
             v_cur = torch.roll(v_cur, 1, dims=0)
@@ -96,3 +108,43 @@ def make_ring_attention(mesh, *, axis: str = "sp", causal: bool = True,
                                     slopes=slopes, window=window)
 
     return attn
+
+
+def ring_attention_ranks(qs, ks, vs, mesh, axis: str = "sp", *,
+                         causal: bool = True, slopes=None, window=None):
+    """The ring over per-rank chunks: ``qs``, ``ks``, ``vs`` per-rank lists
+    of (B, h, Tl, d) (None for the ranks of other processes), the rank at
+    index j of its ``axis`` group holding positions [j Tl, (j + 1) Tl).
+    Each step folds the K/V chunk a rank holds into its online softmax,
+    in ``ring_attention_local``'s order and arithmetic, then one
+    ``ppermute`` hands every chunk to the next rank. Returns the per-rank
+    (B, h, Tl, d) outputs in q's dtype."""
+    from .mesh import ppermute
+
+    n = mesh.shape[axis]
+    perm = [(i, (i + 1) % n) for i in range(n)]
+    st = {}  # rank: [m, l, acc]
+    for r in mesh.local_ranks:
+        B, h, Tl, d = qs[r].shape
+        st[r] = [qs[r].new_full((B, h, Tl, 1), _NEG, dtype=torch.float32),
+                 qs[r].new_zeros((B, h, Tl, 1), dtype=torch.float32),
+                 qs[r].new_zeros((B, h, Tl, d), dtype=torch.float32)]
+    kv = [None if k is None else torch.stack([k, v])
+          for k, v in zip(ks, vs)]
+    for s in range(n):
+        for r, state in st.items():
+            q, j = qs[r], mesh.coords[r][axis]
+            Tl, pos = q.shape[2], torch.arange(q.shape[2], device=q.device)
+            sl = None if slopes is None else torch.as_tensor(
+                slopes, dtype=torch.float32, device=q.device)[None, :, None,
+                                                              None]
+            state[:] = _fold(q, kv[r][0], kv[r][1],
+                             (j * Tl + pos)[None, None, :, None],
+                             (((j - s) % n) * Tl + pos)[None, None, None, :],
+                             *state, sl, causal, window)
+        if s != n - 1:
+            kv = ppermute(kv, mesh, axis, perm)
+    out = [None] * mesh.size
+    for r, (_, l, acc) in st.items():
+        out[r] = (acc / torch.where(l == 0, 1.0, l)).to(qs[r].dtype)
+    return out

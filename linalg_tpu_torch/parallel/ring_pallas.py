@@ -58,6 +58,19 @@ def _same(dv, device) -> bool:
         dv.index is None or device.index is None or dv.index == device.index)
 
 
+def _one_process(mesh):
+    """Refuse a mesh whose ranks lie in several processes: K10/K11 read
+    every rank's chunk where it lies, and a chunk in another process's
+    memory would need a CUDA IPC handle."""
+    if getattr(mesh, "spans_processes", False):
+        raise NotImplementedError(
+            "the ring kernels (K10/K11) read every rank's chunk in place, "
+            "which a rank in another process does not allow: the kernel "
+            "ring across processes (CUDA IPC) is left for later (ROADMAP.md, "
+            "'Left for later'); pass --ring xla for the plain ring across "
+            "processes")
+
+
 def _ring_size(mesh, axis: str, device):
     """(n, rings): n the ring's ranks along ``axis``. ``rings`` is None
     when every mesh device is ``device``: the ranks share it, and their
@@ -66,6 +79,7 @@ def _ring_size(mesh, axis: str, device):
     devices (the whole batch rides it), else one per group in row-major
     order of the other axes, the batch split over them as the JAX ring
     splits it over ``batch_axis``."""
+    _one_process(mesh)
     n = mesh.shape[axis]
     if all(_same(dv, device) for dv in mesh.rank_devices):
         return n, None
@@ -288,6 +302,7 @@ def make_ring_attention_pallas(mesh, *, axis: str = "sp",
     ``slopes`` (len h) adds the ALiBi bias; ``window`` (causal only) the
     sliding-window band, whose far-past chunks skip their compute."""
     del batch_axis
+    _one_process(mesh)
     if window is not None:
         if not causal:
             raise ValueError("window requires causal=True")

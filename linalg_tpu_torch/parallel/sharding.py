@@ -34,8 +34,13 @@ columns) as ``_pick_fused`` allows.
 Sequence parallelism (``make_sp_*``): the batch is split over (dp, sp)
 and attention runs the ring (``parallel.ring``, or K10/K11 through
 ``parallel.ring_pallas`` with ``pallas=True``); parameters are
-replicated, and the ranks share one device, so the pointwise ops run on
-the whole batch there and only attention is split into ranks.
+replicated, and the ranks share one process, so the pointwise ops run on
+the whole batch and only attention is split into ranks. Over a mesh
+whose ranks lie in several processes (``make_sp_ranks_*``) every rank
+runs its own (B/dp, T/sp) block through the whole trunk with its own copy
+of the parameters, attention through the plain ring over ``ppermute``
+(``ring.ring_attention_ranks``), and the gradients are all-reduced as
+replicated leaves' are; the kernel ring refuses such a mesh.
 
 Tensor-parallel serving (``tp_serve_params``, ``tp_serve_ops``,
 ``tp_prefill``, behind ``ServeEngine(mesh=...)``) keeps the same layout
@@ -56,13 +61,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..models import gpt as _gpt
 from ..models.gpt import (_REMAT_SDPA, GPTConfig, _attn_half, _attn_out,
-                          _dt_decode_ops, _embed, _ffn_half,
-                          _grouped_decode_attn, _hidden_loss, _layer_params,
-                          _pick_attn, _pick_fused, _prefill_head,
-                          _trunk_mask, gpt_loss,
+                          _dt_decode_ops, _embed, _ffn_half, _gqa_expand,
+                          _grouped_decode_attn, _heads, _hidden_loss,
+                          _layer_params, _pick_attn, _pick_fused,
+                          _prefill_head, _trunk_mask, _unheads, gpt_loss,
                           init_gpt_params)
-from ..nn.functional import causal_mask, sdpa
+from ..nn.functional import causal_mask, layer_norm, rope_rotate, sdpa
 from ..nn.fused_layer import fused_supported
 from ..nn.positional import alibi_slopes
 from ..train.optim import (adamw_init, adamw_update, gpt_lr_scales,
@@ -71,13 +77,15 @@ from ..train.optim import (adamw_init, adamw_update, gpt_lr_scales,
 from ..train.trainer import (_eval_device, _value_and_grad, _windows,
                              make_device_train_step)
 from .mesh import (all_reduce, make_mesh, pick_dp_tp, shard_tree, spec_axes,
-                   unshard_tree)
-from .ring import make_ring_attention
+                   taped, unshard_tree)
+from .ring import make_ring_attention, ring_attention_ranks
 from .ring_pallas import make_ring_attention_pallas
 
 __all__ = ["gpt_param_specs", "make_sharded_attn", "make_sharded_train_step",
            "make_sharded_device_train_step", "make_sharded_eval",
            "make_sp_train_step", "make_sp_device_train_step", "make_sp_eval",
+           "sp_param_specs", "make_sp_ranks_device_train_step",
+           "make_sp_ranks_eval",
            "tp_kv_heads", "tp_serve_params", "tp_serve_ops", "tp_prefill",
            "dryrun_multichip"]
 
@@ -182,49 +190,92 @@ def make_sharded_attn(mesh, T: int, d_head: int, batch_axis: str = "dp",
 
 
 # -- the machinery the sharded trainers share --------------------------------
+#
+# A per-rank list holds None for the ranks of other processes (see
+# ``parallel.mesh``): each process computes its own ranks only, and every
+# process draws the same global batch from the same generator and keeps
+# its ranks' rows, as JAX's global PRNG key gives every host the same
+# windows.
+
+
+def _each(fn, *lists):
+    """``fn`` over the ranks' entries of per-rank lists: None where the
+    first list's entry is None (a rank of another process)."""
+    return [None if args[0] is None else fn(*args) for args in zip(*lists)]
+
+
+def _first(values):
+    """This process's first rank's entry of a per-rank list."""
+    return next(v for v in values if v is not None)
 
 
 def _split_batch(x, mesh, axis):
     """Per-rank blocks of the global batch x (B, ...): split over ``axis``
     (replicated over the other axes), or whole on every rank when
-    ``axis`` is None; each on its rank's device."""
-    if axis is None:
-        return [x.to(d) for d in mesh.rank_devices]
-    n = mesh.shape[axis]
-    if x.shape[0] % n:
+    ``axis`` is None; each on its rank's device, None for the ranks of
+    other processes."""
+    if axis is not None and x.shape[0] % mesh.shape[axis]:
         raise ValueError(f"batch {x.shape[0]} must divide by the {axis!r} "
-                         f"axis ({n})")
-    parts = x.chunk(n)
-    return [parts[c[axis]].to(d)
-            for c, d in zip(mesh.coords, mesh.rank_devices)]
+                         f"axis ({mesh.shape[axis]})")
+    parts = x.chunk(mesh.shape[axis]) if axis is not None else None
+    return [(x if axis is None else parts[c[axis]]).to(d)
+            if mesh.is_local(r) else None
+            for r, (c, d) in enumerate(zip(mesh.coords, mesh.rank_devices))]
+
+
+class _NoGrad(torch.autograd.Function):
+    """The identity forward, a zero gradient backward: a copy of a value
+    that joins the backward without adding to it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.zeros_like(g)
 
 
 def _mean_loss(losses, mesh, n_groups: int):
     """The global loss on every rank from per-rank partial losses (None for
     ranks that hold none): their sum over the mesh over ``n_groups``.
-    Returns rank 0's copy."""
-    like = next(v for v in losses if v is not None)
-    vals = [torch.zeros((), dtype=like.dtype, device=d) if v is None
-            else v.reshape(()) for v, d in zip(losses, mesh.rank_devices)]
-    return all_reduce(vals, mesh, mesh.axis_names)[0] / n_groups
+    Returns rank 0's copy, as one process holds them all; in the other
+    processes of a mesh, this process's first rank's copy, the same
+    value, which carries no gradient: the backward differentiates the one
+    copy, as a single process does, and the other processes still run
+    every collective of it."""
+    like = next((v for v in losses if v is not None), None)
+    dt = like.dtype if like is not None else torch.float32
+    vals = [None if not mesh.is_local(r) else v.reshape(()) if v is not None
+            else torch.zeros((), dtype=dt, device=mesh.rank_devices[r])
+            for r, v in enumerate(losses)]
+    out = all_reduce(vals, mesh, mesh.axis_names)
+    if mesh.is_local(0):
+        return out[0] / n_groups
+    return _NoGrad.apply(_first(out)) / n_groups
 
 
-def _rank_grads(rank_params, loss):
-    """autograd.grad of ``loss`` with respect to every rank's leaves:
-    per-rank gradient trees (zeros for a leaf the loss does not reach)."""
-    leaves = [p for tree in rank_params for p in tree_leaves(tree)]
-    it = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+def _rank_grads(rank_params, loss, tape=None):
+    """autograd.grad of ``loss`` with respect to this process's ranks'
+    leaves: per-rank gradient trees (zeros for a leaf the loss does not
+    reach; None for the other processes' ranks). With a ``tape`` its root
+    is differentiated too, so every crossing collective's backward runs."""
+    leaves = [p for tree in rank_params if tree is not None
+              for p in tree_leaves(tree)]
+    extra = [tape.root] if tape is not None else []
+    it = iter(torch.autograd.grad(loss, leaves + extra, allow_unused=True))
 
     def grad(p):
         g = next(it)
         return torch.zeros_like(p) if g is None else g
 
-    return [tree_map(grad, tree) for tree in rank_params]
+    return [None if tree is None else tree_map(grad, tree)
+            for tree in rank_params]
 
 
 def _requires_grad(rank_params):
     for tree in rank_params:
-        for p in tree_leaves(tree):
+        for p in tree_leaves(tree) if tree is not None else ():
             p.requires_grad_(True)
 
 
@@ -233,11 +284,11 @@ def _reduce_grads(rank_grads, specs, mesh):
     (one all-reduce a leaf): every copy then holds the whole gradient of
     its shard, bit for bit the same on every rank."""
     spec_list = [s for (s,) in tree_zip(specs)]
-    per_rank = [[g for (g,) in tree_zip(t)] for t in rank_grads]
+    per_rank = _each(lambda t: [g for (g,) in tree_zip(t)], rank_grads)
     out = [[None] * len(spec_list) for _ in rank_grads]
     for j, spec in enumerate(spec_list):
         axes = tuple(a for a in mesh.axis_names if a not in spec_axes(spec))
-        vals = [g[j] for g in per_rank]
+        vals = _each(lambda g: g[j], per_rank)
         if axes:
             vals = all_reduce(vals, mesh, axes)
         for r, v in enumerate(vals):
@@ -245,7 +296,8 @@ def _reduce_grads(rank_grads, specs, mesh):
     res = []
     for r, tree in enumerate(rank_grads):
         it = iter(out[r])
-        res.append(tree_map(lambda _: next(it), tree))
+        res.append(None if tree is None else
+                   tree_map(lambda _: next(it), tree))
     return res
 
 
@@ -256,6 +308,9 @@ def _global_norm(rank_grads, specs, mesh):
     over the mesh adds them."""
     parts = []
     for c, tree in zip(mesh.coords, rank_grads):
+        if tree is None:
+            parts.append(None)
+            continue
         sq = None
         for g, spec in tree_zip(tree, specs):
             split = spec_axes(spec)
@@ -264,7 +319,7 @@ def _global_norm(rank_grads, specs, mesh):
                 sq = t if sq is None else sq + t
         parts.append(sq if sq is not None else torch.zeros(
             (), device=next(iter(tree_leaves(tree))).device))
-    return [torch.sqrt(s) for s in all_reduce(parts, mesh, mesh.axis_names)]
+    return _each(torch.sqrt, all_reduce(parts, mesh, mesh.axis_names))
 
 
 def _update(rank_params, rank_grads, rank_opt, specs, mesh, lr,
@@ -275,6 +330,8 @@ def _update(rank_params, rank_grads, rank_opt, specs, mesh, lr,
     norms = (_global_norm(rank_grads, specs, mesh) if clip_norm > 0.0
              else [None] * mesh.size)
     for p, g, o, n in zip(rank_params, rank_grads, rank_opt, norms):
+        if p is None:
+            continue
         adamw_update(p, g, o, lr, gpt_wd_mask(p, weight_decay),
                      lr_scales=gpt_lr_scales(p, embed=lr_embed_scale,
                                              head=lr_head_scale),
@@ -284,11 +341,14 @@ def _update(rank_params, rank_grads, rank_opt, specs, mesh, lr,
 
 def _loss_and_grads(loss_fn, specs, mesh):
     """(rank_params, x, y) -> (global loss, reduced per-rank grads) of a
-    differentiable sharded ``loss_fn(rank_params, x, y)``."""
+    differentiable sharded ``loss_fn(rank_params, x, y)``, its collectives
+    across processes on a tape (``mesh.taped``)."""
     def fn(rank_params, x, y):
         _requires_grad(rank_params)
-        loss = loss_fn(rank_params, x, y)
-        grads = _reduce_grads(_rank_grads(rank_params, loss), specs, mesh)
+        with taped() as tape:
+            loss = tape.tie(loss_fn(rank_params, x, y))
+        grads = _reduce_grads(_rank_grads(rank_params, loss, tape), specs,
+                              mesh)
         return loss.detach(), grads
     return fn
 
@@ -313,8 +373,8 @@ def _device_step(loss_and_grads, specs, mesh, batch_size, T, *, base_lr,
     def step(rank_params, rank_opt, data_ids, generator):
         x, y = _windows(data_ids, batch_size, T, generator)
         loss, grads = loss_and_grads(rank_params, x, y)
-        lr = warmup_cosine(rank_opt[0].t + 1, base=base_lr, min_lr=min_lr,
-                           warmup=warmup, max_steps=max_steps)
+        lr = warmup_cosine(_first(rank_opt).t + 1, base=base_lr,
+                           min_lr=min_lr, warmup=warmup, max_steps=max_steps)
         _update(rank_params, grads, rank_opt, specs, mesh, lr, weight_decay,
                 lr_embed_scale, lr_head_scale, clip_norm)
         return rank_params, rank_opt, generator, loss
@@ -366,25 +426,26 @@ def _tp_loss(cfg: GPTConfig, mesh, attn_fn, dp_axis="dp", tp_axis="tp"):
 
     def loss(rank_params, x, y):
         xs, ys = _split_batch(x, mesh, dp_axis), _split_batch(y, mesh, dp_axis)
-        B, T = xs[0].shape
+        B, T = _first(xs).shape
         dt = cfg.compute_dtype
-        fused = _tp_fused(cfg, B, T, tp, xs[0].device.type)
-        emb = [_embed(p, xx, cfg, T, dt) for p, xx in zip(rank_params, xs)]
-        hs = [e[0] for e in emb]
-        layers = [_layer_params(p, dt) for p in rank_params]
+        fused = _tp_fused(cfg, B, T, tp, _first(xs).device.type)
+        emb = _each(lambda p, xx: _embed(p, xx, cfg, T, dt), rank_params, xs)
+        hs = _each(lambda e: e[0], emb)
+        layers = _each(lambda p: _layer_params(p, dt), rank_params)
         for li in range(cfg.n_layers):
-            parts = [_attn_half(h, lay[li], None, H, KV, at, e[1], fused)[0]
-                     for h, lay, at, e in zip(hs, layers, locals_, emb)]
+            parts = _each(lambda h, lay, at, e: _attn_half(
+                h, lay[li], None, H, KV, at, e[1], fused)[0],
+                hs, layers, locals_, emb)
             a = all_reduce(parts, mesh, tp_axis)
-            h1s = [h + ai for h, ai in zip(hs, a)]
-            parts = [_ffn_half(h1, _b2_once(lay[li], c, tp_axis), cfg.ffn,
-                               fused)
-                     for h1, lay, c in zip(h1s, layers, mesh.coords)]
+            h1s = _each(torch.add, hs, a)
+            parts = _each(lambda h1, lay, c: _ffn_half(
+                h1, _b2_once(lay[li], c, tp_axis), cfg.ffn, fused),
+                h1s, layers, mesh.coords)
             f = all_reduce(parts, mesh, tp_axis)
-            hs = [h1 + fi for h1, fi in zip(h1s, f)]
-        losses = [_hidden_loss(p, h, yy, cfg) if c.get(tp_axis, 0) == 0
-                  else None
-                  for p, h, yy, c in zip(rank_params, hs, ys, mesh.coords)]
+            hs = _each(torch.add, h1s, f)
+        losses = _each(lambda p, h, yy, c: _hidden_loss(p, h, yy, cfg)
+                       if c.get(tp_axis, 0) == 0 else None,
+                       rank_params, hs, ys, mesh.coords)
         return _mean_loss(losses, mesh, dp)
 
     return loss
@@ -498,6 +559,108 @@ def make_sp_eval(cfg: GPTConfig, mesh, batch: int, batches: int,
                             attn_fn)
 
     return evaluate
+
+
+def sp_param_specs(cfg: GPTConfig) -> dict:
+    """``gpt_param_specs``' tree with every leaf replicated: sequence
+    parallelism splits no parameter."""
+    return {k: ({kk: () for kk in v} if isinstance(v, dict) else ())
+            for k, v in gpt_param_specs(None, cfg).items()}
+
+
+def _embed_rows(p, ids, cfg: GPTConfig, T: int, lo: int, dt):
+    """``_embed`` of the positions [lo, lo + Tl) of a length-T window whose
+    tokens there are ``ids`` (B, Tl): (h, rope tables of those rows)."""
+    rows = slice(lo, lo + ids.shape[1])
+    dev = p["tok_W"].device
+    emb = p["tok_W"][ids]
+    if cfg.pos == "rope":
+        cos, sin = _gpt._rope(cfg, T, dt, dev)
+        return emb.to(dt), (cos[rows], sin[rows])
+    if cfg.pos == "alibi":
+        return emb.to(dt), None
+    pe = (p["pos_W"][:T] if cfg.pos == "learned" else
+          _gpt.sinusoidal_encoding(cfg.ctx_len, cfg.d_model, device=dev)[:T])
+    return (emb + pe[rows][None]).to(dt), None
+
+
+def _sp_ranks_loss(cfg: GPTConfig, mesh):
+    """``loss(rank_params, x, y)`` of sequence parallelism with every rank's
+    block its own: rank (i, j) takes dp block i's rows at positions
+    [j T/sp, (j + 1) T/sp) through the trunk (LN, QKV, the plain ring over
+    the sp group, Wo, the FFN) and the head; the global mean CE."""
+    n, dp = mesh.shape["sp"], mesh.shape["dp"]
+    H, KV = cfg.n_heads, cfg.kv_heads
+    slopes = (tuple(float(s) for s in alibi_slopes(cfg.n_heads))
+              if cfg.pos == "alibi" else None)
+
+    def loss(rank_params, x, y):
+        T = x.shape[1]
+        if T % n:
+            raise ValueError(f"T {T} must divide into the ring's {n} ranks")
+        Tl, dt = T // n, cfg.compute_dtype
+        cut = lambda t, c: t[:, c["sp"] * Tl:(c["sp"] + 1) * Tl]
+        xs = _each(cut, _split_batch(x, mesh, "dp"), mesh.coords)
+        ys = _each(cut, _split_batch(y, mesh, "dp"), mesh.coords)
+        emb = _each(lambda p, xx, c: _embed_rows(p, xx, cfg, T,
+                                                 c["sp"] * Tl, dt),
+                    rank_params, xs, mesh.coords)
+        hs = _each(lambda e: e[0], emb)
+        layers = _each(lambda p: _layer_params(p, dt), rank_params)
+        for li in range(cfg.n_layers):
+            def qkv(h, lay, e):
+                lp = lay[li]
+                xn = layer_norm(h, lp["ln1_g"], lp["ln1_b"])
+                q = _heads(xn @ lp["Wq"], H)
+                k = _heads(xn @ lp["Wk"], KV)
+                v = _heads(xn @ lp["Wv"], KV)
+                if e[1] is not None:
+                    q, k = rope_rotate(q, *e[1]), rope_rotate(k, *e[1])
+                return q, _gqa_expand(k, H), _gqa_expand(v, H)
+
+            t = _each(qkv, hs, layers, emb)
+            o = ring_attention_ranks(*(_each(lambda u: u[i], t)
+                                       for i in range(3)), mesh, "sp",
+                                     causal=True, slopes=slopes,
+                                     window=cfg.window)
+            h1s = _each(lambda h, oo, lay: h + _unheads(oo) @ lay[li]["Wo"],
+                        hs, o, layers)
+            hs = _each(lambda h1, lay: h1 + _ffn_half(h1, lay[li], cfg.ffn),
+                       h1s, layers)
+        losses = _each(lambda p, h, yy: _hidden_loss(p, h, yy, cfg),
+                       rank_params, hs, ys)
+        return _mean_loss(losses, mesh, dp * n)
+
+    return loss
+
+
+def make_sp_ranks_device_train_step(cfg: GPTConfig, mesh, batch_size: int, *,
+                                    base_lr: float, min_lr: float,
+                                    warmup: int, max_steps: int,
+                                    weight_decay: float,
+                                    lr_embed_scale: float = 1.0,
+                                    lr_head_scale: float = 1.0,
+                                    clip_norm: float = 0.0):
+    """The trainer's sp step over a (dp, sp) mesh whose ranks lie in
+    several processes: ``step(rank_params, rank_opt, data_ids, generator)
+    -> (rank_params, rank_opt, generator, loss)``, ``rank_params`` =
+    ``shard_tree(params, sp_param_specs(cfg), mesh)``."""
+    if batch_size % mesh.shape["dp"]:
+        raise ValueError("batch_size must divide by dp")
+    specs = sp_param_specs(cfg)
+    return _device_step(
+        _loss_and_grads(_sp_ranks_loss(cfg, mesh), specs, mesh), specs, mesh,
+        batch_size, cfg.ctx_len, base_lr=base_lr, min_lr=min_lr,
+        warmup=warmup, max_steps=max_steps, weight_decay=weight_decay,
+        lr_embed_scale=lr_embed_scale, lr_head_scale=lr_head_scale,
+        clip_norm=clip_norm)
+
+
+def make_sp_ranks_eval(cfg: GPTConfig, mesh, batch: int, batches: int):
+    """``evaluate(rank_params, val_ids, generator)``: the mean per-rank sp
+    loss over ``batches`` windows, one device scalar."""
+    return _device_eval(_sp_ranks_loss(cfg, mesh), batch, batches,
+                        cfg.ctx_len)
 
 
 # -- tensor-parallel serving ---------------------------------------------------
@@ -667,9 +830,11 @@ def tp_prefill(rank_params, ids, cfg: GPTConfig, mesh, length=None):
 
 
 def dryrun_multichip(n_devices: int, devices=None) -> None:
-    """Build an n-rank mesh over ``devices`` (default: every CUDA card; a
-    list may repeat one device), run ONE dp x tp train step on tiny
-    shapes, and check the pipeline (GPipe loss, 1F1B loss and grads, one
+    """Build an n-rank mesh over ``devices`` (a list may repeat one
+    device; default: the job's cards, ``make_mesh``'s dealing, so after
+    ``init_distributed`` the dp x tp step's mesh spans every process and
+    the other checks run on this process's cards), run ONE dp x tp train
+    step on tiny shapes, and check the pipeline (GPipe loss, 1F1B loss and grads, one
     1F1B optimizer step), the dp x ep MoE step, tensor-parallel serving
     (greedy tokens equal to the unsharded engine's) and one FSDP step
     against the unsharded model; raise on a mismatch. The JAX package's
@@ -681,8 +846,9 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     from .pipeline import (make_pp_1f1b_grads, make_pp_device_train_step,
                            make_pp_train_step, pp_param_specs)
 
-    if devices is None:
-        devices = make_mesh().rank_devices
+    job = devices is None
+    if job:
+        devices = make_mesh((n_devices,), ("d",), local=True).rank_devices
     devices = list(devices)[:n_devices]
     if len(devices) < n_devices:
         raise ValueError(f"need {n_devices} devices, have {len(devices)}")
@@ -694,7 +860,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
 
     n_heads = 4
     dp, tp = pick_dp_tp(n_devices, n_heads)
-    mesh = make_mesh((dp, tp), ("dp", "tp"), devices)
+    mesh = (make_mesh((dp, tp), ("dp", "tp")) if job else
+            make_mesh((dp, tp), ("dp", "tp"), devices))
     cfg = GPTConfig(vocab_size=37, d_model=32, n_heads=n_heads, n_layers=2,
                     d_ff=64, ctx_len=16)
     params = init_gpt_params(cfg, seed=0, device=dev)
@@ -703,7 +870,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     B = 2 * dp
     x, y = ids(B, 16), ids(B, 16)
     _, _, loss = make_sharded_train_step(cfg, mesh)(
-        rp, [adamw_init(p) for p in rp], x, y)
+        rp, [None if p is None else adamw_init(p) for p in rp], x, y)
     with torch.no_grad():
         ref = float(gpt_loss(params, x, y, cfg))
     tp_ok = abs(float(loss) - ref) < 1e-4

@@ -395,7 +395,16 @@ class ServeEngine:
             from ..parallel.mesh import make_mesh
             from ..parallel.sharding import tp_serve_params
 
-            devs = [mesh.rank_devices[x] for x in mesh.groups("tp")[0]]
+            group = mesh.groups("tp")[0]
+            if not all(mesh.is_local(x) for x in group):
+                raise ValueError(
+                    "ServeEngine(mesh=...) serves a tp group of this "
+                    "process's ranks; this mesh's tp group spans processes "
+                    f"{sorted({mesh.rank_process[x] for x in group})} (the "
+                    "JAX engine reads sharded values back on the host, "
+                    "which a mesh across processes cannot give): build the "
+                    "serving mesh with make_mesh(..., local=True)")
+            devs = [mesh.rank_devices[x] for x in group]
             self._tp_mesh = make_mesh((len(devs),), ("tp",), devs)
             self.device = devs[0]
             params = tp_serve_params(params, cfg, self._tp_mesh)

@@ -52,8 +52,13 @@ def save_ckpt(ckpt_dir, params: Params, cfg: GPTConfig,
     """Write ``params`` (float32 on any device) and the meta sidecar to
     ``ckpt_dir``; returns the archive's path. Uncompressed npz, as the JAX
     package writes it. A ``BPETokenizer`` adds its merge table to the
-    sidecar."""
+    sidecar. In a process group only process 0 writes (every process
+    holds the same whole tree); the others return the path."""
+    from ..parallel.distributed import process_index
+
     ckpt_dir = pathlib.Path(ckpt_dir)
+    if process_index() != 0:
+        return ckpt_dir / CKPT_NAME
     ckpt_dir.mkdir(parents=True, exist_ok=True)
 
     def host(t):

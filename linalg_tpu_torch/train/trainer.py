@@ -267,15 +267,22 @@ def _train_loop(args, cfg, params, opt_state, generator, step_fn, eval_fn,
     generator)`` per step, ``eval_fn(params, val_ids, generator)`` every
     ``args.eval_every`` steps, the best checkpoint saved on improvement
     (``save_fn(params) -> path`` instead of ``save_ckpt`` when given: LoRA
-    saves the adapters only). Printing every 20 steps is the host sync."""
+    saves the adapters only). Printing every 20 steps is the host sync.
+    In a process group only process 0 prints and writes the metrics log;
+    every process calls ``save_fn`` (a sharded trainer's gathers its
+    shards collectively) and the checkpoint writers write from process 0
+    only."""
+    from ..parallel.distributed import process_index
     from ..utils.profiling import StepTimer, trace
 
+    lead = process_index() == 0
+    say = print if lead else (lambda *a, **k: None)
     best = 1e9
     t0 = time.time()
     tokens_per_step = args.batch_size * cfg.ctx_len
     timer = StepTimer(tokens_per_step, window=10)
     last_sync = 0
-    mlog = _MetricsLog(getattr(args, "log_file", None))
+    mlog = _MetricsLog(getattr(args, "log_file", None) if lead else None)
     with trace(getattr(args, "profile", None)):
         for step in range(1, args.steps + 1):
             params, opt_state, generator, loss = step_fn(
@@ -287,7 +294,7 @@ def _train_loop(args, cfg, params, opt_state, generator, step_fn, eval_fn,
                 rate = (f"  ({timer.steps_per_sec:.1f} steps/s, "
                         f"{timer.tokens_per_sec:.0f} tok/s)"
                         if step > 1 else "")
-                print(f"step {step:6d}  loss {loss_f:.4f}{rate}")
+                say(f"step {step:6d}  loss {loss_f:.4f}{rate}")
                 mlog.write(event="train", step=step, loss=loss_f,
                            steps_per_sec=(timer.steps_per_sec
                                           if step > 1 else None),
@@ -296,20 +303,20 @@ def _train_loop(args, cfg, params, opt_state, generator, step_fn, eval_fn,
                            elapsed_s=round(time.time() - t0, 3))
             if step % args.eval_every == 0:
                 val_loss = float(eval_fn(params, val_ids, generator))
-                print(f"[eval] step {step:6d}  val_loss {val_loss:.4f}")
+                say(f"[eval] step {step:6d}  val_loss {val_loss:.4f}")
                 saved = None
                 if val_loss < best:
                     best = val_loss
                     path = (save_fn(params) if save_fn is not None else
                             save_ckpt(args.ckpt_dir, params, cfg, stoi, itos,
                                       tokenizer=tok))
-                    print(f"  saved best -> {path}  (val {best:.4f})")
+                    say(f"  saved best -> {path}  (val {best:.4f})")
                     saved = str(path)
                 mlog.write(event="eval", step=step, val_loss=val_loss,
                            best=best, ckpt=saved,
                            elapsed_s=round(time.time() - t0, 3))
     dt = time.time() - t0
-    print(f"done in {dt:.1f}s  ({desc}{args.steps / dt:.2f} steps/s, "
+    say(f"done in {dt:.1f}s  ({desc}{args.steps / dt:.2f} steps/s, "
           f"{args.steps * tokens_per_step / dt:.0f} tok/s)")
     mlog.write(event="done", steps=args.steps, wall_s=round(dt, 3),
                steps_per_sec=round(args.steps / dt, 3),
@@ -340,10 +347,28 @@ def _corpus(tok, text, device):
             torch.as_tensor(ids[split:], dtype=torch.long, device=device))
 
 
+def _placement(mesh) -> str:
+    """Where a mesh's ranks lie, for the trainer's mesh line."""
+    devs = list(dict.fromkeys(str(mesh.rank_devices[r])
+                              for r in mesh.local_ranks))
+    if mesh.spans_processes:
+        return (f"{mesh.size} ranks over {len(mesh.processes)} processes "
+                f"({len(mesh.local_ranks)} here on {', '.join(devs)})")
+    if len(devs) == 1:
+        return f"{mesh.size} ranks share {devs[0]}"
+    return f"{mesh.size} ranks over {', '.join(devs)}"
+
+
 def train_sharded(args, dp: int, tp: int, device):
-    """Multi-rank training over a dp x {tp|sp|pp|ep} or fsdp mesh whose
-    ranks all share ``device``: the JAX package's ``train_sharded``, with
-    its branches, refusals and messages.
+    """Multi-rank training over a dp x {tp|sp|pp|ep} or fsdp mesh dealt
+    over the job's devices of ``device``'s type (``parallel.mesh
+    .make_mesh``): every card of this process, or after
+    ``init_distributed`` every card of every process, each an equal
+    contiguous block of the ranks (on one card they all share it; with
+    ``--device cpu`` one CPU device a process). The JAX package's
+    ``train_sharded``, with its branches, refusals and messages. Each
+    process computes its own ranks; every process draws the same batches
+    and gets the same loss.
 
     Axis selection: ``--tp`` splits heads/FFN (megatron), or EXPERTS when
     the model is an MoE (``--experts``); ``--sp`` splits the sequence (the
@@ -352,10 +377,16 @@ def train_sharded(args, dp: int, tp: int, device):
     or 2*pp when the batch divides, else pp); ``--fsdp`` splits parameter
     and optimizer storage over the data axis (ZeRO-3). Same loop as
     ``train``; eval averages 10 batches, as JAX's sharded evals do. The
-    best checkpoint is gathered to whole arrays and saved as ``train``
-    saves it; the whole parameters are returned."""
+    best checkpoint is gathered to whole arrays (across processes first)
+    and saved as ``train`` saves it, from process 0; the whole parameters
+    are returned in every process. A ``--sp`` mesh across processes takes
+    the plain ring (``--ring xla``) over per-rank blocks
+    (``make_sp_ranks_*``); the kernel ring refuses it."""
+    from ..parallel.distributed import local_devices, process_count
     from ..parallel.mesh import make_mesh, shard_tree, unshard_tree
 
+    if device.type == "cuda" and device.index is None:
+        device = local_devices("cuda")[0]  # this process's (LOCAL_RANK's)
     text, params, cfg, tok, stoi, itos = _resume_or_init(args, device)
     if args.batch_size % dp:
         raise AssertionError("batch_size must divide by dp")
@@ -419,7 +450,10 @@ def train_sharded(args, dp: int, tp: int, device):
                          "trainer only; use --dp to split the batch "
                          "across devices instead")
     n = math.prod(shape)
-    mesh = make_mesh(shape, names, [device] * n)
+    mesh = make_mesh(shape, names, device_type=device.type)
+    if len(mesh.processes) != process_count():
+        raise ValueError(f"the mesh's {n} ranks leave a process of the "
+                         f"job without a rank")
     train_ids, val_ids = _corpus(tok, text, device)
     lr_kwargs = dict(_lr_kwargs(args),
                      clip_norm=float(getattr(args, "clip_norm", 0.0) or 0.0))
@@ -448,9 +482,19 @@ def train_sharded(args, dp: int, tp: int, device):
             raise ValueError(f"--ring must be auto, pallas or xla, got "
                              f"{ring!r}")
         pallas = device.type == "cuda" if ring == "auto" else ring == "pallas"
-        step_fn = make_sp_device_train_step(cfg, mesh, B, pallas=pallas,
-                                            **lr_kwargs)
-        eval_fn = make_sp_eval(cfg, mesh, B, 10, pallas=pallas)
+        if mesh.spans_processes and not pallas:
+            from ..parallel.sharding import (make_sp_ranks_device_train_step,
+                                             make_sp_ranks_eval,
+                                             sp_param_specs)
+
+            specs = sp_param_specs(cfg)
+            step_fn = make_sp_ranks_device_train_step(cfg, mesh, B,
+                                                      **lr_kwargs)
+            eval_fn = make_sp_ranks_eval(cfg, mesh, B, 10)
+        else:  # the kernel ring refuses a mesh across processes here
+            step_fn = make_sp_device_train_step(cfg, mesh, B, pallas=pallas,
+                                                **lr_kwargs)
+            eval_fn = make_sp_eval(cfg, mesh, B, 10, pallas=pallas)
         desc = f"mesh dp={dp} sp={sp}, "
     elif is_moe:
         from ..parallel.expert import make_ep_device_train_step, make_ep_eval
@@ -469,7 +513,8 @@ def train_sharded(args, dp: int, tp: int, device):
             else f"{microbatches} microbatches (1F1B)" if is_pp
             else "parameters and moments sharded" if is_fsdp else
             "experts sharded" if is_moe and tp > 1 else "heads/FFN sharded")
-    print(f"{desc[:-2]}: {n} ranks share {device}; {what}")
+    if mesh.process == 0:
+        print(f"{desc[:-2]}: {_placement(mesh)}; {what}")
     generator = torch.Generator(device=device).manual_seed(args.seed)
     if specs is None:  # sp: parameters replicated, the ring shares them
         params = _train_loop(args, cfg, params, adamw_init(params),
@@ -484,7 +529,8 @@ def train_sharded(args, dp: int, tp: int, device):
                              cfg, stoi, itos, tokenizer=tok)
 
         rank_params = _train_loop(
-            args, cfg, rank_params, [adamw_init(p) for p in rank_params],
+            args, cfg, rank_params,
+            [None if p is None else adamw_init(p) for p in rank_params],
             generator, step_fn, eval_fn, train_ids, val_ids, tok, stoi, itos,
             desc=desc, save_fn=save_fn)
         params = unshard_tree(rank_params, specs, mesh)

@@ -11,17 +11,15 @@ and orbax backend, on the CPU.
   parallel test workers cannot clash): each sees the pair, its half of the
   batch and the job's mesh shape, and the two save and reload one DCP
   checkpoint collectively. Each child and its group have their own
-  timeouts (120 s and 60 s): a hang fails the test.
+  timeouts (``torch_parallel_common``'s 600 s and 300 s): a hang fails
+  the test. The children's Gloo is pinned to the loopback interface
+  (``run_children``), whatever address the host name resolves to.
 - DCP beside orbax: one parameter tree saved by each package, sidecars
   equal as JSON, each reloading what it saved (float32, bfloat16 and an
   MoE config's extra meta).
 """
 
-import concurrent.futures
 import json
-import os
-import pathlib
-import subprocess
 import sys
 
 import jax
@@ -37,9 +35,7 @@ from linalg_tpu_torch.models.gpt import GPTConfig, init_gpt_params
 from linalg_tpu_torch.models.moe import MoEGPTConfig, init_moe_params
 from linalg_tpu_torch.parallel import distributed as tdist
 from linalg_tpu_torch.train import checkpoint as tckpt
-
-REPO = pathlib.Path(__file__).resolve().parents[1]
-CHILD_TIMEOUT_S = 120
+from torch_parallel_common import GROUP_TIMEOUT_S, child_env, run_children
 
 
 def test_init_noop_single_process():
@@ -96,11 +92,12 @@ from linalg_tpu_torch.parallel import (global_mesh_shape,
 from linalg_tpu_torch.train.checkpoint import (_flat, load_ckpt_orbax,
                                                save_ckpt_orbax)
 
-url, rank, ckpt = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+url, rank, ckpt, group_s = (sys.argv[1], int(sys.argv[2]), sys.argv[3],
+                            float(sys.argv[4]))
 if rank == 0:  # explicit arguments
-    ok = init_distributed(url, 2, 0, backend="gloo", timeout_s=60)
+    ok = init_distributed(url, 2, 0, backend="gloo", timeout_s=group_s)
 else:  # JAX's launcher environment
-    ok = init_distributed(device="cpu", timeout_s=60)
+    ok = init_distributed(device="cpu", timeout_s=group_s)
 cfg = GPTConfig(vocab_size=11, d_model=16, n_heads=2, n_layers=2,
                 ctx_len=8)
 params = init_gpt_params(cfg, seed=4)
@@ -121,22 +118,11 @@ dist.destroy_process_group()
 
 def test_two_process_gloo_group(tmp_path):
     url = f"file://{tmp_path}/rendezvous"
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("JAX_", "MASTER_", "WORLD_SIZE", "RANK"))}
-    env["PYTHONPATH"] = str(REPO)
-    envs = [dict(env), dict(env, JAX_COORDINATOR_ADDRESS=url,
-                            JAX_NUM_PROCESSES="2", JAX_PROCESS_ID="1")]
-
-    def child(rank):
-        return subprocess.run(
-            [sys.executable, "-c", CHILD, url, str(rank),
-             str(tmp_path / "ckpt")], env=envs[rank], cwd=tmp_path,
-            capture_output=True, text=True, timeout=CHILD_TIMEOUT_S)
-
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        runs = list(pool.map(child, range(2)))
-    for r in runs:
-        assert r.returncode == 0, r.stderr[-3000:]
+    envs = [child_env(), child_env(JAX_COORDINATOR_ADDRESS=url,
+                                   JAX_NUM_PROCESSES="2", JAX_PROCESS_ID="1")]
+    runs = run_children(
+        [["-c", CHILD, url, str(rank), str(tmp_path / "ckpt"),
+          str(GROUP_TIMEOUT_S)] for rank in range(2)], envs, tmp_path)
     got = [json.loads(r.stdout.strip().splitlines()[-1]) for r in runs]
     for rank, g in enumerate(got):
         assert g == {"ok": True, "dist": True, "world": 2, "rank": rank,

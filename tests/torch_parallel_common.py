@@ -15,7 +15,12 @@ the JAX package's, pinned by test_torch_train.py and test_torch_moe.py)
 widened to float64 for both.
 """
 
+import concurrent.futures
 import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
 import types
 
 import jax
@@ -37,6 +42,53 @@ from linalg_tpu_torch.models import moe as tmoe
 from linalg_tpu_torch.parallel import expert as texpert
 from linalg_tpu_torch.parallel import make_mesh
 from linalg_tpu_torch.parallel import pipeline as tpipe
+
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+# a child's whole run, and the process group's timeout inside it: room for
+# the children of several test files started at once next to the other
+# test workers
+CHILD_TIMEOUT_S = 600
+GROUP_TIMEOUT_S = 300
+
+
+def child_env(**extra):
+    """The environment of a child interpreter: the caller's without any
+    launcher variable (JAX's or torchrun's), the repo on the path, Gloo
+    and its TCP transport pinned to the loopback interface (the host name
+    may resolve to an address the machine cannot reach), few threads."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "MASTER_", "WORLD_SIZE", "RANK",
+                                "LOCAL_RANK", "LOCAL_WORLD_SIZE"))}
+    env.update(PYTHONPATH=str(REPO), GLOO_SOCKET_IFNAME="lo",
+               TP_SOCKET_IFNAME="lo", OMP_NUM_THREADS="2")
+    env.update(extra)
+    return env
+
+
+def run_children(argvs, envs, cwd, timeout=CHILD_TIMEOUT_S):
+    """Run one interpreter per argument list (``[sys.executable, *argv]``)
+    at once, each with its environment; return their CompletedProcesses
+    once all have ended, or fail with each child's return code and the
+    last 3000 characters of its stderr."""
+    def child(i):
+        try:
+            return subprocess.run([sys.executable, *argvs[i]], env=envs[i],
+                                  cwd=cwd, capture_output=True, text=True,
+                                  timeout=timeout)
+        except subprocess.TimeoutExpired as e:
+            err = e.stderr.decode() if isinstance(e.stderr, bytes) else (
+                e.stderr or "")
+            return subprocess.CompletedProcess(e.cmd, f"timeout {timeout} s",
+                                               "", err)
+
+    with concurrent.futures.ThreadPoolExecutor(len(argvs)) as pool:
+        runs = list(pool.map(child, range(len(argvs))))
+    if any(r.returncode != 0 for r in runs):
+        raise AssertionError("\n".join(
+            f"child {i}: return code {r.returncode}\n{r.stderr[-3000:]}"
+            for i, r in enumerate(runs)))
+    return runs
 
 
 @dataclasses.dataclass(frozen=True)
