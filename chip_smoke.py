@@ -9,8 +9,9 @@ the routed mixture-of-experts GPT (trained through K8 and K2, sampled,
 served), the L2 encoder-decoder stack, the sharded trainers (dp x tp,
 FSDP, the 1F1B pipeline, expert parallelism; every rank on the card,
 K2 and K8/K9 inside each), the small apps, tensor-parallel serving with
-DCP checkpoints, the ring kernels over one tensor per rank, and one mesh
-over two processes on the card.
+DCP checkpoints, the ring kernels over one tensor per rank, one mesh
+over two processes on the card, and the ring kernels across two
+processes through CUDA IPC.
 
     python3 chip_smoke.py
 
@@ -43,7 +44,8 @@ Phases, each reported on its own line; any failure exits non-zero:
              "gather". Every request must finish with its full budget, and
              the kernel run must launch the kernel once per layer per step;
              a ``torch.profiler`` breakdown of one more kernel-mode run
-             (the very last step: device time, idle share, top kernels).
+             over 4 of the requests (the very last step: device time,
+             idle share, top kernels).
 5. equality — the same engine in float32 (TF32 off), greedy, on 4 of the
              requests: the kernel engine's tokens must equal the gather
              engine's.
@@ -341,6 +343,20 @@ Phases, each reported on its own line; any failure exits non-zero:
              the same run in one process, K8/K9 launches as worked out.
              NCCL (the default backend on cards) cannot join two
              processes on one card; this phase does not run it.
+28. ipc ring — two interpreters (``chip_smoke.py --ipc-child``) on the
+             one card join one Gloo group; the ring kernels across them,
+             two ranks in each, every process reading the other's chunks
+             through CUDA IPC (``kernels.ring_attention.RingArena``): (a)
+             K10/K11 at phase 14's sp shapes (``RING_TABLE_CASES``), each
+             process's o, L, dq, dk, dv bit-equal to the one-process call
+             on the same per-rank tensors, one launch a process and
+             direction, CUDA-event ms beside phase 26's one-process call
+             and the host µs a call spends in the handshake; (b)
+             ``--train`` at train_big's widths with 2 layers and --sp 4 (5
+             steps, one eval): K10/K11 launches a process as worked out,
+             no plain ring call, both processes' losses equal, the step-1
+             loss within 1e-2 of phase 15's one-process run, ms/step
+             beside it. Nothing falls back to the plain ring.
 
 Phase 2 builds every kernel, one ``nvcc`` per source, all started
 together. The line before the last is a JSON object describing the
@@ -2606,42 +2622,52 @@ def ring_phase(built):
     return records
 
 
-def ring_copies():
+def ring_copies(sessions=3):
     """A ``torch.profiler`` trace of one forward and backward of the ring
     (``ring_run``: the kernel ring's forward, delta, its backward) at
     long_window's shape, bf16: it must hold one K10 launch, K11's dq and
     dk/dv launches, and no device copy (no ``gpu_memcpy`` event): the
-    kernels read the chunks in place."""
+    kernels read the chunks in place. The device trace drops a record now
+    and then on the chip machine (runs have held the ring's dq and dk/dv
+    but not its forward, which the backward reads, or no ring kernel at
+    all), so a trace with fewer ring kernels is taken again, up to
+    ``sessions`` times; a copy or a fourth ring kernel in any trace fails
+    at once, and so does no complete trace."""
     rng = np.random.default_rng(1500)
     x = [torch.tensor(rng.standard_normal((8, 4, 4096, 128)),
                       dtype=torch.bfloat16, device="cuda") for _ in range(4)]
     for _ in range(2):
         ring_run(x, SP, window=512)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        # a kernel of its own first: the trace can miss a session's first
-        # kernel (one run recorded the ring's dq and dk/dv but not its
-        # forward, which the backward reads)
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
-        ring_run(x, SP, window=512)
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        prof.export_chrome_trace(f"{tmp}/trace.json")
-        events = json.load(open(f"{tmp}/trace.json"))["traceEvents"]
-    timed = [e for e in events if "dur" in e]
-    copies = [e for e in timed if e.get("cat") == "gpu_memcpy"]
-    ring = [e["name"] for e in timed if e.get("cat") == "kernel"
-            and any(f in e["name"] for f in ("fwd_bf16", "dq_bf16",
-                                               "dkdv_bf16"))]
-    phase("ring", f"profiled ring forward+backward (long_window, n {SP}, "
-          f"bf16): {len(ring)} ring kernel launches, {len(copies)} device "
-          f"copies ({sum(e['dur'] for e in copies) / 1e3:.4f} ms)")
-    if len(ring) != 3 or copies:
-        raise RuntimeError("the ring's forward+backward must be 3 kernel "
-                           f"launches and no copy; got {ring}, "
-                           f"{[e['name'] for e in copies]}")
+    for session in range(1, sessions + 1):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            # a kernel of its own first: the trace can miss a session's
+            # first kernel
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            ring_run(x, SP, window=512)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            prof.export_chrome_trace(f"{tmp}/trace.json")
+            events = json.load(open(f"{tmp}/trace.json"))["traceEvents"]
+        timed = [e for e in events if "dur" in e]
+        copies = [e for e in timed if e.get("cat") == "gpu_memcpy"]
+        ring = [e["name"] for e in timed if e.get("cat") == "kernel"
+                and any(f in e["name"] for f in ("fwd_bf16", "dq_bf16",
+                                                   "dkdv_bf16"))]
+        phase("ring", f"profiled ring forward+backward (long_window, n "
+              f"{SP}, bf16; trace {session} of at most {sessions}): "
+              f"{len(ring)} ring kernel launches, {len(copies)} device "
+              f"copies ({sum(e['dur'] for e in copies) / 1e3:.4f} ms)")
+        if copies or len(ring) > 3:
+            raise RuntimeError("the ring's forward+backward must be 3 "
+                               f"kernel launches and no copy; got {ring}, "
+                               f"{[e['name'] for e in copies]}")
+        if len(ring) == 3:
+            return
+    raise RuntimeError(f"no trace of {sessions} held the ring's 3 kernel "
+                       "launches")
 
 
 RING_TABLE_CASES = (  # phase 14's sp shapes: name, B, h, T, d, n, dtype,
@@ -2744,7 +2770,8 @@ def ring_tables_phase():
 def sp_phase(smi):
     """Phase 15: sequence-parallel training through train.trainer.train
     with --sp 4: long_window 40 steps and train_big's widths at 2 layers
-    20 steps. Returns {"fwd": K10 launches, "bwd": K11 launches}."""
+    20 steps. Returns {"fwd": K10 launches, "bwd": K11 launches, and per
+    run {"loss1": step-1 loss, "ms": ms/step}}."""
     from linalg_tpu_torch.apps.gpt import build_parser
     from linalg_tpu_torch.kernels import ring_attention as kr
     from linalg_tpu_torch.parallel import make_mesh, ring as plain_ring
@@ -2832,6 +2859,7 @@ def sp_phase(smi):
             phase("sp", f"{name}: checkpoint reloaded equal: {same}; step-1 "
                   f"loss sp {losses[0]:.6f}, single card {single['loss']:.6f}"
                   f" (|diff| {d1:.3e}, bound 1e-2 in bf16)")
+            totals[name] = dict(loss1=losses[0], ms=ms)  # phase 28's yardstick
             if not same or not d1 <= 1e-2:
                 raise RuntimeError(f"sp {name}: checkpoint or step-1 loss")
         torch.cuda.empty_cache()
@@ -4445,11 +4473,12 @@ def process_child(argv) -> int:
     return 0
 
 
-def run_pair(out_dir, flags, env):
-    """Phase 27's two children on ``flags`` under the extra ``env``, each on
-    the one card (LOCAL_RANK 0 and 1 of LOCAL_WORLD_SIZE 2, Gloo on the
-    loopback interface); both stopped at the end, whatever happens.
-    Returns their two result dicts; a child that fails fails the phase."""
+def run_pair(out_dir, flags, env, mode="--process-child"):
+    """Phase 27's (or with ``mode`` "--ipc-child" phase 28's) two children
+    on ``flags`` under the extra ``env``, each on the one card (LOCAL_RANK
+    0 and 1 of LOCAL_WORLD_SIZE 2, Gloo on the loopback interface); both
+    stopped at the end, whatever happens. Returns their two result dicts;
+    a child that fails fails the phase."""
     out_dir.mkdir()
     url = f"file://{out_dir}/rendezvous"
     base = {k: v for k, v in os.environ.items()
@@ -4461,8 +4490,8 @@ def run_pair(out_dir, flags, env):
         for r in (0, 1):
             logs.append(open(out_dir / f"child{r}.log", "w"))
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__),
-                 "--process-child", url, str(r), str(out_dir),
+                [sys.executable, os.path.abspath(__file__), mode, url,
+                 str(r), str(out_dir),
                  json.dumps(flags)], env=dict(base, LOCAL_RANK=str(r)),
                 stdout=logs[-1], stderr=subprocess.STDOUT))
         deadline = time.monotonic() + PROC_TIMEOUT_S
@@ -4568,6 +4597,222 @@ def processes_phase(smi, dp_tp_loss1):
         totals["flash"] = [a + b for a, b in zip(totals["flash"], n[:4])]
     phase("processes", f"phase 27 in {time.perf_counter() - t_phase:.1f} s")
     return totals
+
+
+IPC_STEPS = 5  # phase 28 (b): train_big's widths, 2 layers, --sp 4
+IPC_MEMBERS = [[0, 1], [2, 3]]  # phase 28's ring positions, per process
+
+
+def ipc_argv():
+    """Phase 28 (b)'s CLI flags: train_big at 2 layers, ``IPC_STEPS`` steps
+    and one eval, --sp 4 (phase 15's second run, shorter)."""
+    argv = par_argv("big", IPC_STEPS)
+    argv[argv.index("--layers") + 1] = "2"
+    return argv + ["--sp", str(SP)]
+
+
+def ipc_kernel_cases(rank):
+    """Phase 28 (a) in process ``rank``: K10/K11 at ``RING_TABLE_CASES``
+    over the ring positions ``IPC_MEMBERS`` (two ranks a process), the
+    other process's chunks read through the ring's ``RingArena``; this
+    process's rows held bit for bit against the one-process call on the
+    same per-rank tensors (phase 26's "tables" layout, every rank here),
+    launches counted, CUDA-event ms of a call and the host µs it spends in
+    the handshake. {case: {...}}."""
+    from linalg_tpu_torch.kernels import ring_attention as kr
+    from linalg_tpu_torch.parallel.distributed import subgroup
+    from linalg_tpu_torch.parallel.ring_pallas import _heads, _ranks
+
+    counters = (kr.ring_fwd_cuda, kr.ring_bwd_cuda)
+    mine = IPC_MEMBERS[rank]
+    arena = kr.ring_arena((0, 1), IPC_MEMBERS, rank, 0, subgroup([0, 1]))
+    out = {}
+    for i, (name, B, h, T, d, n, dtype, window) in enumerate(
+            RING_TABLE_CASES):
+        gen = torch.Generator(device="cuda").manual_seed(2800 + i)
+        x = [torch.randn((B, h, T, d), generator=gen, device="cuda",
+                         dtype=dtype) for _ in range(4)]
+        kw = dict(H=h, causal=True, window=window, slopes=None,
+                  scale=1.0 / math.sqrt(d))
+        devs = [torch.device("cuda")] * n
+        q, k, v, do = (_ranks(_heads(t, d), n, devs) for t in x)
+        del x
+        like = lambda ts: [torch.empty_like(t) for t in ts]
+        o1, L1 = like(q), [torch.empty(t.shape[:2], dtype=torch.float32,
+                                       device="cuda") for t in q]
+        kr.ring_fwd_cuda(q, k, v, o1, L1, **kw)
+        dl = [torch.sum(a.float() * b.float(), dim=-1).contiguous()
+              for a, b in zip(do, o1)]
+        g1 = [like(q) for _ in range(3)]
+        kr.ring_bwd_cuda(q, k, v, do, L1, dl, *g1, **kw)
+
+        def sel(ts):
+            return [t if x in mine else None for x, t in enumerate(ts)]
+
+        fin = [sel(t) for t in (q, k, v)]
+        bin_ = fin + [sel(do), sel(L1), sel(dl)]
+        fout, bout = [sel(like(o1)), sel(like(L1))], [sel(like(q))
+                                                      for _ in range(3)]
+        for c in counters:
+            c.launches = 0
+        kr.ring_fwd_cuda(*fin, *fout, arena=arena, **kw)
+        kr.ring_bwd_cuda(*bin_, *bout, arena=arena, **kw)
+        torch.cuda.synchronize()
+        launches = [c.launches for c in counters]
+        same = [all(torch.equal(a[x], b[x]) for x in mine)
+                for a, b in zip(fout + bout, [o1, L1] + g1)]
+        ms, hs_us = [], []
+        for fn, args in ((kr.ring_fwd_cuda, fin + fout),
+                         (kr.ring_bwd_cuda, bin_ + bout)):
+            s0, c0 = arena.handshake_s, arena.handshakes
+            ms.append(median_ms(lambda: fn(*args, arena=arena, **kw), (),
+                                trials=7, reps=3))
+            hs_us.append((arena.handshake_s - s0)
+                         / (arena.handshakes - c0) * 1e6)
+        out[name] = dict(same=same, launches=launches, ms=ms,
+                         handshake_us=hs_us, opened=arena.opened)
+        del q, k, v, do, o1, L1, dl, g1, fin, bin_, fout, bout
+        torch.cuda.empty_cache()
+    # the handshake alone (its all-reduce, no card work between): the
+    # group's latency on this host
+    times = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        arena.ops.handshake([0] * 8)
+        times.append(time.perf_counter() - t0)
+    out["bare_handshake_us"] = float(np.median(times)) * 1e6
+    return out
+
+
+def ipc_child(argv) -> int:
+    """One of phase 28's two processes: ``URL RANK DIR FLAGS-JSON``. Joins
+    the Gloo group, runs (a) ``ipc_kernel_cases``, then (b) trains
+    ``FLAGS`` (``--sp 4`` over the job's mesh: K10/K11 reading the other
+    process's chunks through CUDA IPC) with every plain ring call counted,
+    and writes ``DIR/proc{RANK}.json``."""
+    from linalg_tpu_torch.kernels import ring_attention as kr
+    from linalg_tpu_torch.parallel import init_distributed
+    from linalg_tpu_torch.parallel import ring as plain_ring
+    from linalg_tpu_torch.parallel import ring_pallas, sharding
+
+    url, rank, out_dir, flags = (argv[0], int(argv[1]),
+                                 pathlib.Path(argv[2]), json.loads(argv[3]))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not init_distributed(url, 2, rank, backend="gloo",
+                            timeout_s=PROC_GROUP_S):
+        raise RuntimeError("ipc child: no group of two")
+    t0 = time.perf_counter()
+    res = {"cases": ipc_kernel_cases(rank)}
+    kr.release_ring_arenas()
+    res["cases_s"] = time.perf_counter() - t0
+    plain = []
+
+    def counted(fn):
+        return lambda *a, **k: plain.append(1) or fn(*a, **k)
+
+    with patched((plain_ring, {"ring_attention_local": counted(
+            plain_ring.ring_attention_local)}),
+                 (sharding, {"ring_attention_ranks": counted(
+                     sharding.ring_attention_ranks)}),
+                 (ring_pallas, {"ring_fwd_step_ref": counted(
+                     ring_pallas.ring_fwd_step_ref), "ring_bwd_step_ref":
+                     counted(ring_pallas.ring_bwd_step_ref)})):
+        run = timed_train(flags, (kr.ring_fwd_cuda, kr.ring_bwd_cuda),
+                          out_dir / "ck", out_dir / "metrics.jsonl")
+    res.update({k: run[k] for k in ("losses", "stamps", "launches",
+                                    "collectives")})
+    res.update(plain=len(plain), n_layers=run["cfg"].n_layers,
+               train_s=time.perf_counter() - t0 - res["cases_s"],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if rank == 0:
+        res["rows"] = [json.loads(ln) for ln in open(
+            out_dir / "metrics.jsonl", encoding="utf-8")]
+    (out_dir / f"proc{rank}.json").write_text(json.dumps(res))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def ipc_ring_phase(smi, tables, sp_one):
+    """Phase 28 (see the module docstring): ``tables`` phase 26's records
+    (the one-process call's times), ``sp_one`` phase 15's one-process
+    train_big 2-layer run ({"loss1", "ms"}). Returns {"fwd", "bwd": both
+    processes' K10/K11 launches in the training run, "cases": (a)'s
+    records}."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = run_pair(pathlib.Path(tmp) / "ipc", ipc_argv(), {},
+                        mode="--ipc-child")
+    records = {"bare_handshake_us": [r["cases"]["bare_handshake_us"]
+                                     for r in runs]}
+    phase("ipc ring", f"a bare handshake (Gloo all-reduce of 8 int64, no "
+          f"card work): median {records['bare_handshake_us'][0]:.1f} / "
+          f"{records['bare_handshake_us'][1]:.1f} µs (processes 0 / 1)")
+    for name, B, h, T, d, n, dtype, window in RING_TABLE_CASES:
+        got = [r["cases"][name] for r in runs]
+        dt = str(dtype).split(".")[1]
+        one = tables[name]["tables_ms"]
+        phase("ipc ring", f"{name} B,h,T,d,n={B},{h},{T},{d},{n} {dt}"
+              f"{f' window {window}' if window else ''}, two ranks in each "
+              f"of 2 processes: == the one-process call (o, L, dq, dk, dv) "
+              f"{[g['same'] for g in got]}; launches a process "
+              f"{[g['launches'] for g in got]}; K10 "
+              f"{got[0]['ms'][0]:.4f} / {got[1]['ms'][0]:.4f} ms "
+              f"(processes 0 / 1), one process (phase 26) {one[0]:.4f} ms; "
+              f"K11 {got[0]['ms'][1]:.4f} / {got[1]['ms'][1]:.4f} ms, one "
+              f"process {one[1]:.4f} ms; handshake µs a call (fwd, bwd) "
+              f"{[round(u, 1) for u in got[0]['handshake_us']]} / "
+              f"{[round(u, 1) for u in got[1]['handshake_us']]}; peer "
+              f"handles opened {[g['opened'] for g in got]}")
+        if not all(all(g["same"]) for g in got) or any(
+                g["launches"] != [1, 1] for g in got):
+            raise RuntimeError(f"ipc ring {name}: the ring across processes "
+                               "differs from one process's, or launched "
+                               "other than once a direction")
+        records[name] = dict(ms=[[g["ms"][i] for g in got]
+                                 for i in range(2)],
+                             handshake_us=[[g["handshake_us"][i]
+                                            for g in got] for i in range(2)],
+                             one_process_ms=list(one))
+    lead = runs[0]
+    n_eval = sum(r["event"] == "eval" for r in lead["rows"])
+    L = lead["n_layers"]
+    want = [L * (IPC_STEPS + n_eval * SP_EVAL_BATCHES), L * IPC_STEPS]
+    ms = step_ms(lead["stamps"])
+    d1 = abs(lead["losses"][0] - sp_one["loss1"])
+    phase("ipc ring", f"train_big 2 layers --sp {SP} over 2 processes "
+          f"(Gloo, 2 ranks each, one card; {IPC_STEPS} steps, {n_eval} "
+          f"eval): K10/K11 launches a process {runs[0]['launches']} and "
+          f"{runs[1]['launches']} (expected {want}: {L} layers x "
+          f"({IPC_STEPS} steps + {n_eval} evals x {SP_EVAL_BATCHES} "
+          f"batches) forward, x {IPC_STEPS} backward); plain ring calls "
+          f"{runs[0]['plain']} and {runs[1]['plain']}; collectives "
+          f"(process 0) {dict(sorted(lead['collectives'].items()))}")
+    phase("ipc ring", f"  step-1 loss {lead['losses'][0]:.6f}, one process "
+          f"(phase 15) {sp_one['loss1']:.6f} (|diff| {d1:.3e}, bound "
+          f"{PAR_LOSS_ATOL}); both processes' losses "
+          f"{runs[0]['losses'] == runs[1]['losses']}; steps 3-{IPC_STEPS}: "
+          f"{ms:.2f} ms/step, one process (phase 15, steps 2-20) "
+          f"{sp_one['ms']:.2f} ms/step; peak {lead['peak_gb']:.2f} GB and "
+          f"{runs[1]['peak_gb']:.2f} GB; children's seconds (a) "
+          f"{lead['cases_s']:.1f}, (b) {lead['train_s']:.1f}; {smi}")
+    if any(r["launches"] != want for r in runs) or any(
+            r["plain"] for r in runs):
+        raise RuntimeError("ipc ring: launch counts differ, or a plain ring "
+                           "ran")
+    if not d1 <= PAR_LOSS_ATOL:
+        raise RuntimeError("ipc ring: step-1 loss off the one-process run's")
+    if runs[0]["losses"] != runs[1]["losses"] or not all(
+            math.isfinite(v) for v in runs[0]["losses"]):
+        raise RuntimeError("ipc ring: the two processes' losses differ or "
+                           "are not finite")
+    phase("ipc ring", f"phase 28 in {time.perf_counter() - t_phase:.1f} s")
+    return {"fwd": sum(r["launches"][0] for r in runs),
+            "bwd": sum(r["launches"][1] for r in runs), "cases": records,
+            "ms_step": ms}
 
 
 def main() -> int:
@@ -4712,7 +4957,11 @@ def main() -> int:
     # -- 27. processes: one mesh over two processes on the card -------------
     proc_launches = processes_phase(smi, par_launches["dp_tp_loss1"])
 
+    # -- 28. ipc ring: K10/K11 across two processes through CUDA IPC --------
+    ipc = ipc_ring_phase(smi, tables, sp_launches["train_big 2 layers"])
+
     # the profiler breakdowns last: the profiler stays attached to the card
+    ring_copies()
     profile_qr()
     profile_step("train", big_cfg, big_batch)
     profile_step("long", long_cfg, long_batch)
@@ -4727,10 +4976,10 @@ def main() -> int:
     profile_step("sp", long_cfg, long_batch, _sp_ring(
         make_mesh((1, SP), ("dp", "sp"), ["cuda"] * SP), True, long_cfg))
     profile_parallel()
-    ring_copies()
-    # last: a profiler session after this one's ~200k launches recorded no
-    # kernels
-    profile_engine(ServeEngine, params, cfg, reqs)
+    # last: a profiler session after this one's launches recorded no
+    # kernels. Four of phase 4's requests, for the script's time limit:
+    # all 16 made a trace of ~210k kernel launches
+    profile_engine(ServeEngine, params, cfg, reqs[:4])
 
     flash_launches = [sum(n) for n in zip(
         train_launches, long_launches, short_launches["btd"],
@@ -4786,17 +5035,31 @@ def main() -> int:
         "name": "ring_attention_fwd", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/ring_attention.cu",
         "replaces": "linalg_tpu/parallel/ring_pallas.py:209",
-        "launches": sp_launches["fwd"], **k10_record,
+        "launches": sp_launches["fwd"] + ipc["fwd"],
+        "launches_sp_processes": [sp_launches["fwd"], ipc["fwd"]],
+        **k10_record,
         "tables": {k: {"stacked_ms": v["stacked_ms"][0],
                        "tables_ms": v["tables_ms"][0]}
-                   for k, v in tables.items()}}, {
+                   for k, v in tables.items()},
+        "processes": {k: {"ms_process_0_1": v["ms"][0],
+                          "handshake_us_process_0_1": v["handshake_us"][0],
+                          "one_process_ms": v["one_process_ms"][0]}
+                      for k, v in ipc["cases"].items() if k in tables},
+        "bare_handshake_us": ipc["cases"]["bare_handshake_us"]}, {
         "name": "ring_attention_bwd", "route": "cuda",
         "source": "linalg_tpu_torch/kernels/csrc/ring_attention.cu",
         "replaces": "linalg_tpu/parallel/ring_pallas.py:439",
-        "launches": sp_launches["bwd"], **k11_record,
+        "launches": sp_launches["bwd"] + ipc["bwd"],
+        "launches_sp_processes": [sp_launches["bwd"], ipc["bwd"]],
+        **k11_record,
         "tables": {k: {"stacked_ms": v["stacked_ms"][1],
                        "tables_ms": v["tables_ms"][1]}
-                   for k, v in tables.items()}}]}), flush=True)
+                   for k, v in tables.items()},
+        "processes": {k: {"ms_process_0_1": v["ms"][1],
+                          "handshake_us_process_0_1": v["handshake_us"][1],
+                          "one_process_ms": v["one_process_ms"][1]}
+                      for k, v in ipc["cases"].items() if k in tables}}]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -4806,4 +5069,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--process-child"]:
         sys.exit(process_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ipc-child"]:
+        sys.exit(ipc_child(sys.argv[2:]))
     sys.exit(main())

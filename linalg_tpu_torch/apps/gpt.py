@@ -150,9 +150,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ring", type=str, default="auto",
                     choices=("auto", "pallas", "xla"),
                     help="sp attention ring: the ring kernels K10/K11 "
-                         "(pallas) or the plain ring (xla); auto = the "
-                         "kernels on a CUDA device, the plain ring on the "
-                         "CPU")
+                         "(pallas; across processes, after "
+                         "init_distributed, each reads the others' chunks "
+                         "through CUDA IPC; their plain versions on the "
+                         "CPU) or the plain ring (xla); auto = the kernels "
+                         "on a CUDA device, the plain ring on the CPU")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel mesh axis (heads/FFN sharding; "
                          "with --experts it shards experts instead)")

@@ -14,8 +14,10 @@
 // the n steps, keeps its running state in VMEM and moves the chunks with
 // remote DMAs. Here a block reads chunk src where it lies, through a
 // table of per-rank base pointers (Tab): views of rank-stacked (BH, T, D)
-// tensors on one card, one (BH, Tl, D) tensor per rank, or a peer card's
-// memory, which stands in for the remote DMA. No chunk is ever copied.
+// tensors on one card, one (BH, Tl, D) tensor per rank, a peer card's
+// memory, or another process's arena opened through CUDA IPC (the entry
+// points at the end of this file), which stand in for the remote DMA. No
+// chunk is copied between ranks.
 // Each block loops over the ring's steps itself, in the ring's order, so
 // the sums are taken in the order the TPU takes them:
 //
@@ -92,6 +94,7 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "mma_bf16.cuh"
 
@@ -111,7 +114,8 @@ struct Ring {
 // The per-rank chunk tables: rank x's rows of each tensor start at
 // in[kind][x] (out[kind][x]), and head bh's rows at hs * bh rows further.
 // Rank-stacked tensors give base + x Tl rows and hs = T; one tensor per
-// rank gives its own base and hs = Tl. A pointer may be a peer card's.
+// rank gives its own base and hs = Tl. A pointer may be a peer card's, or
+// a slot of another process's arena (hs = Tl).
 // The table is a __grid_constant__ kernel parameter: indexed at run time
 // in place, never copied to local memory.
 constexpr int MAX_RANKS = 32;
@@ -1194,4 +1198,83 @@ extern "C" int ring_enable_peer(int dev, int peer) {
   }
   cudaSetDevice(prev);
   return (int)err;
+}
+
+// -- chunks in other processes (CUDA IPC) ------------------------------------
+//
+// A rank held by another process has no pointer here. Its process places
+// its chunks in an arena of its own, allocated with cudaMalloc (never
+// from a caching allocator, whose blocks share one handle with their
+// neighbours), exports the arena's handle, and every peer opens it once:
+// the opened pointer goes into the table like any other chunk's. Each
+// returns 0 or the cudaError_t; the device is set for the call and put
+// back.
+
+extern "C" int ring_ipc_handle_bytes() {
+  return (int)sizeof(cudaIpcMemHandle_t);
+}
+
+// An arena of `bytes` on card `dev`: its pointer and its exported handle
+// (ring_ipc_handle_bytes() bytes).
+extern "C" int ring_ipc_alloc(int dev, long long bytes, void** ptr,
+                              void* handle) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(dev);
+  if (err == cudaSuccess) err = cudaMalloc(ptr, (size_t)bytes);
+  if (err == cudaSuccess) {
+    err = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle),
+                              *ptr);
+    if (err != cudaSuccess) cudaFree(*ptr);
+  }
+  cudaSetDevice(prev);
+  return (int)err;
+}
+
+// A peer's arena from its handle, opened on card `dev` (another card's
+// arena is read over peer access, enabled here; a pair that cannot reach
+// each other fails). Fails on a handle of this process's own.
+extern "C" int ring_ipc_open(int dev, const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof h);
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(dev);
+  if (err == cudaSuccess)
+    err = cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+  cudaSetDevice(prev);
+  return (int)err;
+}
+
+// Close a peer's arena opened by ring_ipc_open (before its owner frees it).
+extern "C" int ring_ipc_close(int dev, void* ptr) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(dev);
+  if (err == cudaSuccess) err = cudaIpcCloseMemHandle(ptr);
+  cudaSetDevice(prev);
+  return (int)err;
+}
+
+// Free this process's arena (once every peer has closed it).
+extern "C" int ring_ipc_free(int dev, void* ptr) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(dev);
+  if (err == cudaSuccess) err = cudaFree(ptr);
+  cudaSetDevice(prev);
+  return (int)err;
+}
+
+// Copy `bytes` from a contiguous chunk into an arena slot, in `stream`'s
+// order.
+extern "C" int ring_ipc_copy(void* dst, const void* src, long long bytes,
+                             void* stream) {
+  return (int)cudaMemcpyAsync(dst, src, (size_t)bytes,
+                              cudaMemcpyDeviceToDevice,
+                              static_cast<cudaStream_t>(stream));
 }

@@ -19,14 +19,28 @@ lists it is given, each in ONE call over all n steps: each block loops
 over the steps in the ring's order and reads chunk src where it lies,
 through a table of the ranks' base pointers, with its running state in
 registers, so no chunk is copied and no state goes to device memory
-between steps. One launch a card covers the ranks whose rows lie there;
-on several cards the kernels read the peers' chunks in place (peer
-access, which must be possible: a pair that cannot reach each other
-raises). Every launch waits on an event that each source card recorded
-on its current stream before the first launch, and each source's stream
-waits on every launch after the last one: the cards run at once, and no
-chunk is rewritten or freed under a reader. One card runs the same
-events on its one stream. D is the padded head width, one of
+between steps. The ranks' rows lie in one of three places:
+
+- one card: one launch covers every rank;
+- several cards of this process: one launch a card covers the ranks
+  whose rows lie there, and the kernels read the peers' chunks in place
+  (peer access, which must be possible: a pair that cannot reach each
+  other raises). Every launch waits on an event that each source card
+  recorded on its current stream before the first launch, and each
+  source's stream waits on every launch after the last one: the cards run
+  at once, and no chunk is rewritten or freed under a reader. One card
+  runs the same events on its one stream;
+- several processes (``arena=``, a ``RingArena``): each list holds this
+  process's ranks and None for the others'. Each process copies its
+  ranks' input chunks into its arena, a ``cudaMalloc`` whose CUDA IPC
+  handle every peer opened once, and launches once for each run of its
+  ranks, reading the other processes' chunks from their arenas (on
+  another card through peer access: a pair without it raises); the
+  outputs stay in its own tensors, since every block writes only the rows
+  of the rank it owns. Interprocess events and a host handshake a call
+  order the copies, the reads and the next overwrite (``RingArena``).
+
+D is the padded head width, one of
 ``SUPPORTED_D``; ``scale`` is 1/sqrt(true d_head). ``slopes`` is a
 float32 (H,) tensor of ALiBi slopes (head h of batch b is row b H + h) or
 None.
@@ -50,6 +64,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import time
 
 import torch
 
@@ -57,7 +72,7 @@ from .build import build
 
 __all__ = ["ring_fwd_cuda", "ring_bwd_cuda", "ring_fwd_step_ref",
            "ring_bwd_step_ref", "rotate", "chunk_live", "padded_d",
-           "SUPPORTED_D"]
+           "SUPPORTED_D", "RingArena", "ring_arena", "release_ring_arenas"]
 
 SUPPORTED_D = (32, 64, 128, 256)
 MAX_BH = 65535  # batch * heads rides the grid's y dimension
@@ -110,6 +125,17 @@ def _lib():
         fn.restype = i32
     lib.ring_enable_peer.argtypes = [i32, i32]
     lib.ring_enable_peer.restype = i32
+    out, buf = ctypes.POINTER(ptr), ctypes.c_char_p
+    for fn, argtypes in ((lib.ring_ipc_alloc, [i32, ctypes.c_longlong, out,
+                                               buf]),
+                         (lib.ring_ipc_open, [i32, buf, out]),
+                         (lib.ring_ipc_close, [i32, ptr]),
+                         (lib.ring_ipc_free, [i32, ptr]),
+                         (lib.ring_ipc_copy, [ptr, ptr, ctypes.c_longlong,
+                                              ptr])):
+        fn.argtypes = argtypes
+        fn.restype = i32
+    lib.ring_ipc_handle_bytes.restype = i32
     lib.ring_max_ranks.restype = i32
     if lib.ring_max_ranks() != MAX_RANKS:
         raise RuntimeError("ring_attention.cu's MAX_RANKS differs from the "
@@ -213,11 +239,16 @@ def _event(dev: int, i: int):
 
 
 def _launch(name, entry, counter, ins, outs, rows, slopes, H, causal,
-            window, scale):
+            window, scale, arena=None):
     """Launch the library's ``entry`` once per run of ranks on one device
     (the library is built on the first call that passes the checks).
     ``ins`` and ``outs`` are the table's kinds in its order (each the n
-    ranks' tensors), ``rows`` the float32 (BH, Tl) kinds among them."""
+    ranks' tensors), ``rows`` the float32 (BH, Tl) kinds among them. With
+    ``arena`` the ranks lie in several processes (``_launch_ipc``)."""
+    if arena is not None:
+        _launch_ipc(name, entry, counter, arena, ins, outs, rows, slopes, H,
+                    causal, window, scale)
+        return
     io = [k for k in ins + outs if all(k is not r for r in rows)]
     n, BH, Tl, D, hs, devs = _check(name, io, rows, H, slopes, window)
     fn = getattr(_lib(), entry)
@@ -257,24 +288,337 @@ def _launch(name, entry, counter, ins, outs, rows, slopes, H, causal,
             stream.wait_event(ev)
 
 
+def _spans(positions):
+    """(r0, nr) for each run of consecutive ring positions."""
+    out = []
+    for x in positions:
+        if out and out[-1][0] + out[-1][1] == x:
+            out[-1][1] += 1
+        else:
+            out.append([x, 1])
+    return [tuple(r) for r in out]
+
+
+def _launch_ipc(name, entry, counter, arena, ins, outs, rows, slopes, H,
+                causal, window, scale):
+    """``_launch`` for a ring whose ranks lie in several processes: the
+    lists hold this process's ranks' tensors at their ring positions
+    (``arena.members[arena.me]``) and None elsewhere. The inputs go
+    through ``arena`` (copied into its slot, read by every process), the
+    outputs stay in this process's tensors; one launch per run of this
+    process's ranks."""
+    mine = arena.members[arena.me]
+    n = arena.n
+    if n > MAX_RANKS:
+        raise ValueError(f"{name}: a ring of 1 to {MAX_RANKS} ranks, got {n}")
+    if any(len(kind) != n for kind in ins + outs):
+        raise ValueError(f"{name}: every per-rank list needs the ring's {n} "
+                         "entries")
+    pick = lambda kinds: [[kind[x] for x in mine] for kind in kinds]
+    io = pick([k for k in ins + outs if all(k is not r for r in rows)])
+    _, BH, Tl, D, hs, devs = _check(name, io, pick(rows), H, slopes, window)
+    if hs != Tl or any(dv != arena.device for dv in devs):
+        raise ValueError(f"{name}: across processes every rank's chunk is "
+                         f"one contiguous (BH, Tl, D) tensor on "
+                         f"cuda:{arena.device}")
+    fn = getattr(_lib(), entry)
+    sl = None if slopes is None else slopes.to(arena.device)
+
+    def launch(tab_in):
+        table = _TABLE()
+        for i, kind in enumerate(tab_in):
+            table[i * MAX_RANKS:i * MAX_RANKS + n] = kind
+        for i, kind in enumerate(outs):
+            for x in mine:
+                table[(_N_IN + i) * MAX_RANKS + x] = kind[x].data_ptr()
+        stream = torch.cuda.current_stream(arena.device)
+        for r0, nr in _spans(mine):
+            with torch.cuda.device(arena.device):
+                rc = fn(_DTYPE_CODE[io[0][0].dtype], D, table, Tl,
+                        None if sl is None else sl.data_ptr(), BH, H, n, Tl,
+                        r0, nr, int(bool(causal)), window or 0,
+                        float(scale), stream.cuda_stream)
+            if rc:
+                raise RuntimeError(f"{name} launch failed (code {rc})")
+            counter.launches += 1
+
+    arena.run(pick(ins), launch)
+
+
 def ring_fwd_cuda(q, k, v, o, L, *, H: int, causal: bool, window, slopes,
-                  scale: float):
+                  scale: float, arena=None):
     """K10 over the whole ring: from the n ranks' q, k, v (BH, Tl, D) into
     their o (BH, Tl, D) in q's dtype and L (BH, Tl) float32; one launch
-    per run of ranks on a device."""
+    per run of ranks on a device. With ``arena`` (a ``RingArena``) the
+    ranks lie in several processes: each list holds this process's ranks
+    and None for the others'."""
     _launch("ring_fwd_cuda", "ring_fwd_launch", ring_fwd_cuda,
-            [q, k, v], [o, L], [L], slopes, H, causal, window, scale)
+            [q, k, v], [o, L], [L], slopes, H, causal, window, scale, arena)
 
 
 def ring_bwd_cuda(q, k, v, do, L, delta, dq, dk, dv, *, H: int,
-                  causal: bool, window, slopes, scale: float):
+                  causal: bool, window, slopes, scale: float, arena=None):
     """K11 over the whole ring: into the n ranks' dq, dk, dv (BH, Tl, D) in
     q's dtype, from the forward's L and delta = rowsum(dO * O) (both
     float32 (BH, Tl)); the dq pass, then the dk/dv pass, one launch of
-    each per run of ranks on a device."""
+    each per run of ranks on a device. ``arena`` as for the forward."""
     _launch("ring_bwd_cuda", "ring_bwd_launch", ring_bwd_cuda,
             [q, k, v, do, L, delta], [dq, dk, dv], [L, delta], slopes, H,
-            causal, window, scale)
+            causal, window, scale, arena)
+
+
+# -- rings across processes: the arena and its ordering ----------------------
+
+_ALIGN = 256  # bytes: every region of an arena starts on this boundary
+_KINDS = 6    # regions a rank in a slot: q, k, v, dO, L, delta
+# what a handshake agrees on, by phase
+_CALL, _GROW, _RELEASE = 1, 2, 3
+
+
+class _IpcOps:
+    """The calls a ``RingArena`` makes, one method each, so that a test
+    can stand in for the card and the group: memory through the library's
+    ``ring_ipc_*`` entry points, events through ``torch.cuda.Event(
+    interprocess=True)`` and its IPC handles, the exchange and the
+    handshake over the ring's ``torch.distributed`` sub-group ``pg``."""
+
+    def __init__(self, pg):
+        self.pg = pg
+
+    @staticmethod
+    def _ok(what, rc):
+        if rc:
+            raise RuntimeError(f"ring arena: {what} failed (code {rc})")
+
+    def alloc(self, device, nbytes):
+        lib = _lib()
+        ptr = ctypes.c_void_p()
+        handle = ctypes.create_string_buffer(lib.ring_ipc_handle_bytes())
+        self._ok(f"cudaMalloc/cudaIpcGetMemHandle of {nbytes} bytes on "
+                 f"cuda:{device}", lib.ring_ipc_alloc(
+                     device, nbytes, ctypes.byref(ptr), handle))
+        return ptr.value, handle.raw
+
+    def open(self, device, handle):
+        ptr = ctypes.c_void_p()
+        self._ok(f"cuda:{device} opening a peer process's arena "
+                 "(cudaIpcOpenMemHandle; a peer on another card needs peer "
+                 "access)", _lib().ring_ipc_open(device, handle,
+                                                 ctypes.byref(ptr)))
+        return ptr.value
+
+    def close(self, device, ptr):
+        self._ok("cudaIpcCloseMemHandle", _lib().ring_ipc_close(device, ptr))
+
+    def free(self, device, ptr):
+        self._ok("cudaFree", _lib().ring_ipc_free(device, ptr))
+
+    def copy(self, dst, src, stream):
+        self._ok("cudaMemcpyAsync into the arena", _lib().ring_ipc_copy(
+            dst, src.data_ptr(), src.numel() * src.element_size(),
+            stream.cuda_stream))
+
+    @staticmethod
+    def stream(device):
+        return torch.cuda.current_stream(device)
+
+    @staticmethod
+    def event(device):
+        """A new interprocess event of ``device`` and its IPC handle."""
+        with torch.cuda.device(device):
+            ev = torch.cuda.Event(interprocess=True)
+            return ev, ev.ipc_handle()
+
+    @staticmethod
+    def open_event(device, handle):
+        return torch.cuda.Event.from_ipc_handle(device, handle)
+
+    @staticmethod
+    def record(ev, stream):
+        ev.record(stream)
+
+    @staticmethod
+    def wait(stream, ev):
+        stream.wait_event(ev)
+
+    @staticmethod
+    def sync(ev):
+        ev.synchronize()
+
+    def exchange(self, obj):
+        """Every process's ``obj``, in the group's process order."""
+        import torch.distributed as dist
+
+        out = [None] * dist.get_world_size(self.pg)
+        dist.all_gather_object(out, obj, group=self.pg)
+        return out
+
+    def handshake(self, vec):
+        """The element-wise max of every process's ``vec`` (ints): returns
+        only once every process has called it."""
+        import torch.distributed as dist
+
+        t = torch.tensor(vec, dtype=torch.int64)
+        if dist.get_backend(self.pg) != "gloo":
+            t = t.to(torch.device("cuda", torch.cuda.current_device()))
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.pg)
+        return t.tolist()
+
+
+class RingArena:
+    """This process's share of a ring whose ranks lie in several processes
+    on cards that can read each other's memory: ``members[p]`` are the
+    ring positions of the p-th process's ranks (processes in group
+    order), ``me`` this process's index, ``device`` its card.
+
+    The arena is one ``cudaMalloc`` of two slots; a slot holds, for each
+    of this process's ranks, the regions of one call's inputs (q, k, v;
+    the backward's dO, L, delta too), each on a 256-byte boundary, its
+    chunk's heads Tl rows apart. Every process exports its arena's handle
+    and opens every peer's once (never its own: a process reads its own
+    slots by their pointers); a call that needs more memory grows every
+    process's arena together and swaps the handles again. Two
+    interprocess events a slot, "ready" and "done", each process's own
+    and opened by every peer.
+
+    A call (``run``), in every process in the same order (the tape keeps
+    the backward's): wait on every process's "done" of the call two
+    before, the last one that read this slot; copy this process's chunks
+    into the slot; record "ready"; the handshake, a host all-reduce over
+    the group, after which every peer's "ready" record has been issued;
+    wait on every peer's "ready"; launch over the table (this process's
+    slots for its ranks, the opened peer slots for the others'); record
+    "done". No flag is spun on and nothing waits on the host but the
+    handshake. ``handshake_s`` sums the host seconds the calls spent in
+    it; ``opened`` counts the peer handles opened."""
+
+    def __init__(self, members, me, device, ops):
+        self.members = [list(m) for m in members]
+        self.me, self.device, self.ops = me, int(device), ops
+        self.k = max(len(m) for m in self.members)
+        self.n = sum(len(m) for m in self.members)
+        self.calls = 0
+        self.cap = 0
+        self.base = None
+        self.peer_base = {}
+        self.opened = 0
+        self.handshake_s = 0.0
+        self.handshakes = 0
+        evs = [ops.event(self.device) for _ in range(4)]
+        self.ready = [e for e, _ in evs[:2]]
+        self.done = [e for e, _ in evs[2:]]
+        handles = ops.exchange([h for _, h in evs])
+        peers = [p for p in range(len(self.members)) if p != me]
+        self.peer_ready = {p: [ops.open_event(self.device, h)
+                               for h in handles[p][:2]] for p in peers}
+        self.peer_done = {p: [ops.open_event(self.device, h)
+                              for h in handles[p][2:]] for p in peers}
+
+    def _agree(self, *vals):
+        """The handshake, which also checks that every process is at the
+        same step of the protocol with the same sizes."""
+        vec = [x for v in vals for x in (v, -v)]
+        got = self.ops.handshake(vec)
+        if got != vec:
+            raise RuntimeError(f"ring arena: the processes disagree on the "
+                               f"ring call (phase, call, sizes {vals} here; "
+                               f"max/min over the group {got})")
+
+    def slot_ptr(self, base, slot, j, kind, region):
+        """Region ``kind`` of member j's chunks in ``slot`` of the arena at
+        ``base`` (slots are halves of the arena)."""
+        return base + slot * (self.cap // 2) + (j * _KINDS + kind) * region
+
+    def _drop(self, phase):
+        """Free this process's arena once nothing reads it: this process's
+        launches drained (its "done" events), a handshake, every peer's
+        arena closed, a handshake (no importer left), the free."""
+        for ev in self.done:
+            self.ops.sync(ev)
+        self._agree(phase, self.calls, self.cap)
+        for ptr in self.peer_base.values():
+            self.ops.close(self.device, ptr)
+        self.peer_base = {}
+        self._agree(phase, self.calls, self.cap)
+        self.ops.free(self.device, self.base)
+        self.base, self.cap = None, 0
+
+    def _grow(self, need):
+        if self.base is not None:
+            self._drop(_GROW)
+        self._agree(_GROW, self.calls, need)
+        self.base, handle = self.ops.alloc(self.device, need)
+        self.cap = need
+        handles = self.ops.exchange(handle)
+        for p, h in enumerate(handles):
+            if p != self.me:
+                self.peer_base[p] = self.ops.open(self.device, h)
+                self.opened += 1
+
+    def run(self, kinds, launch):
+        """One call: ``kinds`` the call's input kinds in the table's order,
+        each the list of this process's ranks' contiguous chunks (members
+        order); ``launch(table)`` with ``table[kind][x]`` the pointer of
+        ring position x's chunk."""
+        region = max(t.numel() * t.element_size() for kind in kinds
+                     for t in kind)
+        region = -(-region // _ALIGN) * _ALIGN
+        if 2 * self.k * _KINDS * region > self.cap:
+            self._grow(2 * self.k * _KINDS * region)
+        ops, slot = self.ops, self.calls % 2
+        stream = ops.stream(self.device)
+        for ev in [self.done[slot]] + [d[slot] for d in
+                                       self.peer_done.values()]:
+            ops.wait(stream, ev)
+        for kind, ts in enumerate(kinds):
+            for j, t in enumerate(ts):
+                ops.copy(self.slot_ptr(self.base, slot, j, kind, region),
+                         t, stream)
+        ops.record(self.ready[slot], stream)
+        t0 = time.perf_counter()
+        self._agree(_CALL, self.calls, region, len(kinds))
+        self.handshake_s += time.perf_counter() - t0
+        self.handshakes += 1
+        for ready in self.peer_ready.values():
+            ops.wait(stream, ready[slot])
+        table = [[None] * self.n for _ in kinds]
+        for p, mem in enumerate(self.members):
+            base = self.base if p == self.me else self.peer_base[p]
+            for j, x in enumerate(mem):
+                for kind in range(len(kinds)):
+                    table[kind][x] = self.slot_ptr(base, slot, j, kind,
+                                                   region)
+        launch(table)
+        ops.record(self.done[slot], stream)
+        self.calls += 1
+
+    def release(self):
+        """Close the peers' arenas and free this one, in every process of
+        the group together (the group must still be up)."""
+        if self.base is not None:
+            self._drop(_RELEASE)
+
+
+# the arenas by (processes, members, device), in the order they were made
+_ARENAS: dict = {}
+
+
+def ring_arena(procs, members, me, device, pg) -> RingArena:
+    """The arena of the ring whose positions ``members`` (per process, in
+    the order of ``procs``) lie in the processes ``procs`` of the group
+    ``pg``, on this process's card ``device``: made once, in every member
+    process at the same call."""
+    key = (tuple(procs), tuple(tuple(m) for m in members), int(device))
+    if key not in _ARENAS:
+        _ARENAS[key] = RingArena(members, me, device, _IpcOps(pg))
+    return _ARENAS[key]
+
+
+def release_ring_arenas() -> None:
+    """Release every arena (``RingArena.release``), in the order they were
+    made: every process of the rings calls it, before the group ends."""
+    while _ARENAS:
+        _ARENAS.pop(next(iter(_ARENAS))).release()
 
 
 ring_fwd_cuda.launches = 0
@@ -309,8 +653,9 @@ def ring_fwd_step_ref(q, kv, m, l, acc, o, L, *, n: int, H: int, step: int,
     accumulator ``acc`` (BH, Tl, D), the same online softmax (-inf for
     banned scores), rank by rank; at the last step write o and L instead.
     Every argument is a list of the n ranks' rows, each rank's on its
-    device."""
-    Tl = q[0].shape[1]
+    device; only those of ``ranks`` = (r0, nr) are read (the others may
+    be None)."""
+    Tl = q[ranks[0]].shape[1]
     ninf = float("-inf")
     for r in range(ranks[0], ranks[0] + ranks[1]):
         src = (r - step) % n
@@ -351,7 +696,7 @@ def ring_bwd_step_ref(q, do, L, delta, bundle, dq_acc, dq, *, n: int,
     ``dq`` at the last step), the bundle slot's dk/dv gaining each rank's
     share of the chunk it holds. Per-rank lists as for
     ``ring_fwd_step_ref`` (``bundle``: the n ranks' (4, BH, Tl, D))."""
-    Tl = q[0].shape[1]
+    Tl = q[ranks[0]].shape[1]
     for r in range(ranks[0], ranks[0] + ranks[1]):
         src = (r - step) % n
         live = chunk_live(src, r, Tl, causal, window)

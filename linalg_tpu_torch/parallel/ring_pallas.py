@@ -8,33 +8,45 @@ slot is free. Here, on CUDA tensors, each direction is one call of the
 kernels (``kernels.ring_attention``): the forward K10, the backward K11's
 dq and dk/dv passes. Every block loops over the ring's steps in the
 ring's order and reads the chunk a step needs where it lies, through a
-table of per-rank chunk pointers: no chunk is copied and no running
-state leaves the registers between steps. A build or launch failure
-raises.
+table of per-rank chunk pointers: no chunk is copied between ranks and
+no running state leaves the registers between steps. A build or launch
+failure raises.
 
 The kernels and their plain versions take every buffer as the list of
-the n ranks' rows. Where every mesh device is the tensors' device
-(devices may repeat, as the trainers' meshes do), those are views of the
-(B*h, T, D) head tensors, rank r's rows at [r Tl, (r + 1) Tl), and each
-direction is one launch. Ranks on other devices (``make_mesh(devices=
-[...])`` over several cards) take their rows to their device as tensors
-of their own; each card launches once for the ranks it holds and reads
-the other cards' chunks in place (peer access, ordered by events), and
-the outputs come back to the input's device. A dp x sp mesh whose groups
-lie on different devices splits the batch over them.
+the n ranks' rows, which lie in one of three places:
+
+- every mesh device is the tensors' device (devices may repeat, as the
+  trainers' meshes do): views of the (B*h, T, D) head tensors, rank r's
+  rows at [r Tl, (r + 1) Tl), and each direction is one launch;
+- ranks on other devices of this process (``make_mesh(devices=[...])``
+  over several cards): each rank's rows go to its device as a tensor of
+  its own; each card launches once for the ranks it holds and reads the
+  other cards' chunks in place (peer access, ordered by events), and the
+  outputs come back to the input's device. A dp x sp mesh whose groups
+  lie on different devices splits the batch over them;
+- ranks in other processes (a mesh after ``init_distributed``;
+  ``ring_attention_pallas_ranks``, whose per-rank lists hold this
+  process's ranks only): each process copies its ranks' chunks into its
+  ``RingArena``, a ``cudaMalloc`` arena whose CUDA IPC handle every peer
+  opened once, and launches once a direction for its ranks, reading the
+  other processes' chunks from their arenas, ordered by interprocess
+  events and a host handshake a call; the call joins the tape of the
+  crossing collectives, so every process runs its rings, forward and
+  backward, in one order.
 
 On CPU tensors, and with ``plain=True`` on the card, the kernels' plain
 versions run the TPU's protocol step by step: the forward keeps two K/V
 slots (each rank's (2, BH, Tl, d)) and rotates one hop per step
-(``kernels.ring_attention.rotate``: rank r+1 receives rank r's chunk);
-the backward laps an f32 bundle (k, v, dk, dv), each rank's (4, BH, Tl,
-d), each step running the dq and dk/dv passes and then rotating the
-bundle, which after n rotations is home, in slot n % 2
+(``kernels.ring_attention.rotate``: rank r+1 receives rank r's chunk; a
+rank in another process receives it by the group's point-to-point
+message); the backward laps an f32 bundle (k, v, dk, dv), each rank's
+(4, BH, Tl, d), each step running the dq and dk/dv passes and then
+rotating the bundle, which after n rotations is home, in slot n % 2
 (``ring_pallas.py:433``). Both ways fold chunk ``src = (r - s) mod n`` at
 step s, with ``chunk_live`` skipping dead chunks, so they sum in the same
-order. Head widths from 8 up are zero-padded to the kernels' next width
-with the scale of the true width; no ``torch.cuda.synchronize()`` is on
-the path.
+order wherever the ranks lie. Head widths from 8 up are zero-padded to
+the kernels' next width with the scale of the true width; no
+``torch.cuda.synchronize()`` is on the path.
 """
 
 from __future__ import annotations
@@ -44,12 +56,13 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..kernels.ring_attention import (padded_d, ring_bwd_cuda,
-                                      ring_bwd_step_ref, ring_fwd_cuda,
-                                      ring_fwd_step_ref, rotate)
+from ..kernels.ring_attention import (_spans, padded_d, ring_arena,
+                                      ring_bwd_cuda, ring_bwd_step_ref,
+                                      ring_fwd_cuda, ring_fwd_step_ref,
+                                      rotate)
 
 __all__ = ["make_ring_attention_pallas", "ring_attention_pallas_local",
-           "ring_attention_pallas_bwd_local"]
+           "ring_attention_pallas_bwd_local", "ring_attention_pallas_ranks"]
 
 
 def _same(dv, device) -> bool:
@@ -58,30 +71,18 @@ def _same(dv, device) -> bool:
         dv.index is None or device.index is None or dv.index == device.index)
 
 
-def _one_process(mesh):
-    """Refuse a mesh whose ranks lie in several processes: K10/K11 read
-    every rank's chunk where it lies, and a chunk in another process's
-    memory would need a CUDA IPC handle."""
-    if getattr(mesh, "spans_processes", False):
-        raise NotImplementedError(
-            "the ring kernels (K10/K11) read every rank's chunk in place, "
-            "which a rank in another process does not allow: the kernel "
-            "ring across processes (CUDA IPC) is left for later (ROADMAP.md, "
-            "'Left for later'); pass --ring xla for the plain ring across "
-            "processes")
-
-
 def _ring_size(mesh, axis: str, device):
     """(n, rings): n the ring's ranks along ``axis``. ``rings`` is None
-    when every mesh device is ``device``: the ranks share it, and their
-    rows are views of the inputs. Otherwise it lists the ranks' devices of
-    each ring: one list when every group along ``axis`` lies on the same
-    devices (the whole batch rides it), else one per group in row-major
-    order of the other axes, the batch split over them as the JAX ring
-    splits it over ``batch_axis``."""
-    _one_process(mesh)
+    when every mesh device is ``device``, or when the mesh spans processes
+    (the caller holds the global tensors here): the ranks share it, and
+    their rows are views of the inputs. Otherwise it lists the ranks'
+    devices of each ring: one list when every group along ``axis`` lies
+    on the same devices (the whole batch rides it), else one per group in
+    row-major order of the other axes, the batch split over them as the
+    JAX ring splits it over ``batch_axis``."""
     n = mesh.shape[axis]
-    if all(_same(dv, device) for dv in mesh.rank_devices):
+    if mesh.spans_processes or all(_same(dv, device)
+                                   for dv in mesh.rank_devices):
         return n, None
     groups = [[torch.device(mesh.rank_devices[x]) for x in g]
               for g in mesh.groups(axis)]
@@ -157,54 +158,98 @@ def _on_rings(fn, ins, outs, n, rings):
                 view.copy_(t)
 
 
-def _fwd(qs, ks, vs, os, Ls, kw, kernel):
+def _each(fn, xs):
+    return [None if x is None else fn(x) for x in xs]
+
+
+def _hop(procs, pg):
+    """The plain ring's hop over a group whose ranks lie in several
+    processes (``procs``: each position's process; ``pg`` their
+    sub-group): a copy for a receiver whose sender is in this process, as
+    ``rotate`` makes, the group's raw point-to-point messages (no
+    autograd) for the others. Entries of other processes' ranks are
+    None."""
+    from .mesh import _p2p
+
+    def hop(cur, nxt):
+        n = len(cur)
+        sends, recvs, into = [], [], []
+        for j, x in enumerate(cur):
+            d = (j + 1) % n
+            if x is not None and nxt[d] is not None:
+                nxt[d].copy_(x)
+            elif x is not None:
+                sends.append((x, procs[d], j))
+            elif nxt[d] is not None:
+                recvs.append(((tuple(nxt[d].shape), nxt[d].dtype), procs[j],
+                              j, nxt[d].device))
+                into.append(nxt[d])
+        for t, got in zip(into, _p2p(pg, sends, recvs)):
+            t.copy_(got)
+    return hop
+
+
+def _fwd(qs, ks, vs, os, Ls, kw, kernel, hop=rotate, arena=None):
     """K10, or its plain version through the TPU's two K/V slots, over the
-    n ranks' rows: into ``os`` and ``Ls``."""
+    n ranks' rows (None for another process's rank, whose chunks come
+    through ``arena``, or by ``hop`` in the plain version): into ``os``
+    and ``Ls``."""
     if kernel:
-        ring_fwd_cuda(qs, ks, vs, os, Ls, **kw)
+        ring_fwd_cuda(qs, ks, vs, os, Ls, arena=arena, **kw)
         return
     n = len(qs)
+    runs = _spans([j for j, q in enumerate(qs) if q is not None])
     f32 = dict(dtype=torch.float32)
-    kv = [[torch.stack([k, v]) for k, v in zip(ks, vs)],
-          [torch.empty((2,) + q.shape, dtype=q.dtype, device=q.device)
-           for q in qs]]
-    m = [torch.empty(q.shape[:2], **f32, device=q.device) for q in qs]
-    l = [torch.empty_like(x) for x in m]
-    acc = [torch.empty(q.shape, **f32, device=q.device) for q in qs]
+    kv = [[None if k is None else torch.stack([k, v])
+           for k, v in zip(ks, vs)],
+          _each(lambda q: torch.empty((2,) + q.shape, dtype=q.dtype,
+                                      device=q.device), qs)]
+    m = _each(lambda q: torch.empty(q.shape[:2], **f32, device=q.device), qs)
+    l = _each(torch.empty_like, m)
+    acc = _each(lambda q: torch.empty(q.shape, **f32, device=q.device), qs)
     for s in range(n):
         cur = kv[s % 2]
         if s < n - 1:
-            rotate(cur, kv[(s + 1) % 2])
-        ring_fwd_step_ref(qs, cur, m, l, acc, os, Ls, n=n, step=s,
-                          ranks=(0, n), last=s == n - 1, **kw)
+            hop(cur, kv[(s + 1) % 2])
+        for run in runs:
+            ring_fwd_step_ref(qs, cur, m, l, acc, os, Ls, n=n, step=s,
+                              ranks=run, last=s == n - 1, **kw)
 
 
-def _bwd(qs, ks, vs, dos, Ls, dls, dqs, dks, dvs, kw, kernel):
+def _bwd(qs, ks, vs, dos, Ls, dls, dqs, dks, dvs, kw, kernel, hop=rotate,
+         arena=None):
     """K11, or its plain version through the TPU's f32 bundle lap, over
-    the n ranks' rows: into ``dqs``, ``dks`` and ``dvs``."""
+    the n ranks' rows (other processes' as for ``_fwd``): into ``dqs``,
+    ``dks`` and ``dvs``."""
     if kernel:
-        ring_bwd_cuda(qs, ks, vs, dos, Ls, dls, dqs, dks, dvs, **kw)
+        ring_bwd_cuda(qs, ks, vs, dos, Ls, dls, dqs, dks, dvs, arena=arena,
+                      **kw)
         return
     n = len(qs)
+    runs = _spans([j for j, q in enumerate(qs) if q is not None])
 
     def zeros(k):
         return torch.zeros(k.shape, dtype=torch.float32, device=k.device)
 
-    bundle = [[torch.stack([k.float(), v.float(), zeros(k), zeros(k)])
+    bundle = [[None if k is None else
+               torch.stack([k.float(), v.float(), zeros(k), zeros(k)])
                for k, v in zip(ks, vs)],
-              [torch.empty((4,) + q.shape, dtype=torch.float32,
-                           device=q.device) for q in qs]]
-    dq_acc = [torch.empty(q.shape, dtype=torch.float32, device=q.device)
-              for q in qs]
+              _each(lambda q: torch.empty((4,) + q.shape,
+                                          dtype=torch.float32,
+                                          device=q.device), qs)]
+    dq_acc = _each(lambda q: torch.empty(q.shape, dtype=torch.float32,
+                                         device=q.device), qs)
     for s in range(n):
         cur, nxt = bundle[s % 2], bundle[(s + 1) % 2]
-        ring_bwd_step_ref(qs, dos, Ls, dls, cur, dq_acc, dqs, n=n, step=s,
-                          ranks=(0, n), last=s == n - 1, **kw)
+        for run in runs:
+            ring_bwd_step_ref(qs, dos, Ls, dls, cur, dq_acc, dqs, n=n,
+                              step=s, ranks=run, last=s == n - 1, **kw)
         if n > 1:  # every step, so the bundle finishes its lap at home
-            rotate(cur, nxt)
+            hop(cur, nxt)
     for x, dk, dv in zip(bundle[n % 2 if n > 1 else 0], dks, dvs):
-        dk.copy_(x[2])
-        dv.copy_(x[3])
+        if x is not None:
+            dk.copy_(x[2])
+            dv.copy_(x[3])
 
 
 def ring_attention_pallas_local(q, k, v, *, mesh, axis: str = "sp",
@@ -300,9 +345,25 @@ def make_ring_attention_pallas(mesh, *, axis: str = "sp",
     the ranks of a dp x sp mesh on one device run in one launch, and groups
     on different devices take the batch's blocks in group order).
     ``slopes`` (len h) adds the ALiBi bias; ``window`` (causal only) the
-    sliding-window band, whose far-past chunks skip their compute."""
+    sliding-window band, whose far-past chunks skip their compute.
+
+    Over a mesh whose ranks lie in several processes it does what
+    ``make_ring_attention`` does there: the process holds the global
+    tensors and runs the whole ring over them on q's device, every rank's
+    rows a view of them, with no communication.
+    ``ring_attention_pallas_ranks`` is the ring across the processes."""
     del batch_axis
-    _one_process(mesh)
+    window, slopes = _options(causal, window, slopes)
+
+    def attn(q, k, v):
+        return _RingAttention.apply(q, k, v, mesh, axis, causal, slopes,
+                                    window)
+
+    return attn
+
+
+def _options(causal, window, slopes):
+    """(window, slopes) checked and made hashable."""
     if window is not None:
         if not causal:
             raise ValueError("window requires causal=True")
@@ -311,9 +372,122 @@ def make_ring_attention_pallas(mesh, *, axis: str = "sp",
             raise ValueError(f"window must be >= 1, got {window}")
     if slopes is not None:
         slopes = tuple(float(s) for s in slopes)
+    return window, slopes
 
-    def attn(q, k, v):
-        return _RingAttention.apply(q, k, v, mesh, axis, causal, slopes,
-                                    window)
 
-    return attn
+def _group_link(mesh, group, kernel, device):
+    """How a ring over ``group`` reaches its ranks in other processes:
+    {"arena": its ``RingArena``} for the kernels, {"hop": the plain
+    version's hop}; {} when every rank is in this process."""
+    if all(mesh.is_local(r) for r in group):
+        return {}
+    from .mesh import _Span
+
+    sp = _Span(mesh, group)
+    procs = sorted({mesh.rank_process[r] for r in group})
+    if kernel:
+        return {"arena": ring_arena(procs, sp.members, sp.me, device.index,
+                                    sp.pg)}
+    return {"hop": _hop([mesh.rank_process[r] for r in group], sp.pg)}
+
+
+def ring_attention_pallas_ranks(qs, ks, vs, mesh, axis: str = "sp", *,
+                                causal: bool = True, slopes=None,
+                                window=None, plain: bool = False):
+    """K10/K11 over per-rank chunks, the kernel twin of ``parallel.ring
+    .ring_attention_ranks``: ``qs``, ``ks``, ``vs`` per-rank lists of (B,
+    h, Tl, d) (None for the ranks of other processes), the rank at index
+    j of its ``axis`` group holding positions [j Tl, (j + 1) Tl). Returns
+    the per-rank (B, h, Tl, d) outputs in q's dtype; the backward forms
+    delta = rowsum(dO * O) in float32 and runs K11.
+
+    One call covers all of this process's ranks: each ``axis`` group that
+    holds one of them is a ring, launched once a direction for each run of
+    its ranks here. A group inside this process reads its ranks' own
+    tensors; a group across processes reads the others' chunks through
+    its ``RingArena`` (CUDA IPC). Across processes the call, forward and
+    backward, joins the tape of the crossing collectives
+    (``parallel.mesh.taped``), so every process runs its rings in one
+    order; under autograd outside a tape it raises. On CPU tensors, and
+    with ``plain``, the kernels' plain versions run, a chunk of another
+    process's rank crossing by the group's point-to-point messages, and
+    the sums are the one-process ring's."""
+    from . import mesh as mesh_mod
+
+    window, slopes = _options(causal, window, slopes)
+    groups = [g for g in mesh.groups(axis)
+              if any(mesh.is_local(r) for r in g)]
+    mine = [r for g in groups for r in g if mesh.is_local(r)]
+    if not mine:
+        return [None] * mesh.size
+    q0 = qs[mine[0]]
+    B, h, Tl, d = q0.shape
+    if d < 8:
+        raise ValueError(f"ring attention takes d_head >= 8, got {d}")
+    if q0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ring attention: no kernel and no plain version "
+                         f"for device {q0.device}")
+    if any(qs[r].shape != q0.shape for r in mine):
+        raise ValueError("ring attention: every rank's q must be "
+                         f"{tuple(q0.shape)}")
+    D, m = padded_d(d), len(mine)
+    kernel = q0.device.type == "cuda" and not plain
+    at = {r: i for i, r in enumerate(mine)}
+    links = [_group_link(mesh, g, kernel, q0.device) for g in groups]
+    cfgs = [dict(H=h, causal=causal, window=window, scale=1.0 / math.sqrt(d),
+                 slopes=_slopes_on(slopes, qs[next(r for r in g if r in at)]
+                                   .device)) for g in groups]
+    saved = {}
+
+    def padded(g, xs, like):
+        """Group g's rows of this process's (B, h, Tl, d) ``xs`` as
+        contiguous (BH, Tl, D) in ``like``'s dtypes; None for the ranks
+        of other processes."""
+        return [_heads(xs[at[r]].to(like[at[r]].dtype), D) if r in at
+                else None for r in g]
+
+    def unpad(t):
+        return t.view(B, h, Tl, D)[..., :d]
+
+    def fwd(xs):
+        q, k, v = xs[:m], xs[m:2 * m], xs[2 * m:]
+        o, L = [None] * m, [None] * m
+        for g, link, cfg in zip(groups, links, cfgs):
+            qf, kf, vf = (padded(g, x, q) for x in (q, k, v))
+            of = _each(torch.empty_like, qf)
+            Lf = _each(lambda t: t.new_empty(t.shape[:2],
+                                             dtype=torch.float32), qf)
+            _fwd(qf, kf, vf, of, Lf, cfg, kernel, **link)
+            for r, o_, L_ in zip(g, of, Lf):
+                if r in at:
+                    o[at[r]], L[at[r]] = unpad(o_), L_
+        saved.update(q=q, k=k, v=v, o=o, L=L)
+        return o
+
+    def bwd(gs):
+        q, k, v, o, L = (saved[x] for x in "qkvoL")
+        dq, dk, dv = [None] * m, [None] * m, [None] * m
+        for g, link, cfg in zip(groups, links, cfgs):
+            qf, kf, vf, dof = (padded(g, x, q) for x in (q, k, v, gs))
+            Lf = [L[at[r]] if r in at else None for r in g]
+            dl = [torch.sum(gs[at[r]].float() * o[at[r]].float(), dim=-1)
+                  .reshape(B * h, Tl).contiguous() if r in at else None
+                  for r in g]
+            grads = [_each(torch.empty_like, qf) for _ in range(3)]
+            _bwd(qf, kf, vf, dof, Lf, dl, *grads, cfg, kernel, **link)
+            for j, r in enumerate(g):
+                if r in at:
+                    i = at[r]
+                    dq[i] = unpad(grads[0][j])
+                    dk[i] = unpad(grads[1][j]).to(k[i].dtype)
+                    dv[i] = unpad(grads[2][j]).to(v[i].dtype)
+        return dq + dk + dv
+
+    crossing = any(links)
+    apply = mesh_mod._apply_x if crossing else mesh_mod._apply
+    outs = apply(fwd, bwd, [qs[r] for r in mine] + [ks[r] for r in mine]
+                 + [vs[r] for r in mine])
+    res = [None] * mesh.size
+    for r, o in zip(mine, outs):
+        res[r] = o
+    return res

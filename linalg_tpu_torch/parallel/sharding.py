@@ -38,9 +38,11 @@ replicated, and the ranks share one process, so the pointwise ops run on
 the whole batch and only attention is split into ranks. Over a mesh
 whose ranks lie in several processes (``make_sp_ranks_*``) every rank
 runs its own (B/dp, T/sp) block through the whole trunk with its own copy
-of the parameters, attention through the plain ring over ``ppermute``
-(``ring.ring_attention_ranks``), and the gradients are all-reduced as
-replicated leaves' are; the kernel ring refuses such a mesh.
+of the parameters, attention through the ring over per-rank chunks (the
+plain ring over ``ppermute``, ``ring.ring_attention_ranks``, or with
+``pallas=True`` K10/K11 reading the other processes' chunks through CUDA
+IPC, ``ring_pallas.ring_attention_pallas_ranks``), and the gradients are
+all-reduced as replicated leaves' are.
 
 Tensor-parallel serving (``tp_serve_params``, ``tp_serve_ops``,
 ``tp_prefill``, behind ``ServeEngine(mesh=...)``) keeps the same layout
@@ -79,7 +81,8 @@ from ..train.trainer import (_eval_device, _value_and_grad, _windows,
 from .mesh import (all_reduce, make_mesh, pick_dp_tp, shard_tree, spec_axes,
                    taped, unshard_tree)
 from .ring import make_ring_attention, ring_attention_ranks
-from .ring_pallas import make_ring_attention_pallas
+from .ring_pallas import (make_ring_attention_pallas,
+                          ring_attention_pallas_ranks)
 
 __all__ = ["gpt_param_specs", "make_sharded_attn", "make_sharded_train_step",
            "make_sharded_device_train_step", "make_sharded_eval",
@@ -584,12 +587,15 @@ def _embed_rows(p, ids, cfg: GPTConfig, T: int, lo: int, dt):
     return (emb + pe[rows][None]).to(dt), None
 
 
-def _sp_ranks_loss(cfg: GPTConfig, mesh):
+def _sp_ranks_loss(cfg: GPTConfig, mesh, pallas: bool = False):
     """``loss(rank_params, x, y)`` of sequence parallelism with every rank's
     block its own: rank (i, j) takes dp block i's rows at positions
-    [j T/sp, (j + 1) T/sp) through the trunk (LN, QKV, the plain ring over
-    the sp group, Wo, the FFN) and the head; the global mean CE."""
+    [j T/sp, (j + 1) T/sp) through the trunk (LN, QKV, the ring over the
+    sp group: the plain ring, or K10/K11 with ``pallas``, one call a layer
+    over all of this process's ranks; Wo, the FFN) and the head; the
+    global mean CE."""
     n, dp = mesh.shape["sp"], mesh.shape["dp"]
+    ring = ring_attention_pallas_ranks if pallas else ring_attention_ranks
     H, KV = cfg.n_heads, cfg.kv_heads
     slopes = (tuple(float(s) for s in alibi_slopes(cfg.n_heads))
               if cfg.pos == "alibi" else None)
@@ -619,10 +625,8 @@ def _sp_ranks_loss(cfg: GPTConfig, mesh):
                 return q, _gqa_expand(k, H), _gqa_expand(v, H)
 
             t = _each(qkv, hs, layers, emb)
-            o = ring_attention_ranks(*(_each(lambda u: u[i], t)
-                                       for i in range(3)), mesh, "sp",
-                                     causal=True, slopes=slopes,
-                                     window=cfg.window)
+            o = ring(*(_each(lambda u: u[i], t) for i in range(3)), mesh,
+                     "sp", causal=True, slopes=slopes, window=cfg.window)
             h1s = _each(lambda h, oo, lay: h + _unheads(oo) @ lay[li]["Wo"],
                         hs, o, layers)
             hs = _each(lambda h1, lay: h1 + _ffn_half(h1, lay[li], cfg.ffn),
@@ -640,26 +644,31 @@ def make_sp_ranks_device_train_step(cfg: GPTConfig, mesh, batch_size: int, *,
                                     weight_decay: float,
                                     lr_embed_scale: float = 1.0,
                                     lr_head_scale: float = 1.0,
-                                    clip_norm: float = 0.0):
+                                    clip_norm: float = 0.0,
+                                    pallas: bool = False):
     """The trainer's sp step over a (dp, sp) mesh whose ranks lie in
     several processes: ``step(rank_params, rank_opt, data_ids, generator)
     -> (rank_params, rank_opt, generator, loss)``, ``rank_params`` =
-    ``shard_tree(params, sp_param_specs(cfg), mesh)``."""
+    ``shard_tree(params, sp_param_specs(cfg), mesh)``; attention through
+    the ring kernels with ``pallas``, else the plain ring."""
     if batch_size % mesh.shape["dp"]:
         raise ValueError("batch_size must divide by dp")
     specs = sp_param_specs(cfg)
     return _device_step(
-        _loss_and_grads(_sp_ranks_loss(cfg, mesh), specs, mesh), specs, mesh,
+        _loss_and_grads(_sp_ranks_loss(cfg, mesh, pallas), specs, mesh),
+        specs, mesh,
         batch_size, cfg.ctx_len, base_lr=base_lr, min_lr=min_lr,
         warmup=warmup, max_steps=max_steps, weight_decay=weight_decay,
         lr_embed_scale=lr_embed_scale, lr_head_scale=lr_head_scale,
         clip_norm=clip_norm)
 
 
-def make_sp_ranks_eval(cfg: GPTConfig, mesh, batch: int, batches: int):
+def make_sp_ranks_eval(cfg: GPTConfig, mesh, batch: int, batches: int,
+                       pallas: bool = False):
     """``evaluate(rank_params, val_ids, generator)``: the mean per-rank sp
-    loss over ``batches`` windows, one device scalar."""
-    return _device_eval(_sp_ranks_loss(cfg, mesh), batch, batches,
+    loss over ``batches`` windows, one device scalar (the ring kernels
+    with ``pallas``)."""
+    return _device_eval(_sp_ranks_loss(cfg, mesh, pallas), batch, batches,
                         cfg.ctx_len)
 
 

@@ -379,9 +379,12 @@ def train_sharded(args, dp: int, tp: int, device):
     ``train``; eval averages 10 batches, as JAX's sharded evals do. The
     best checkpoint is gathered to whole arrays (across processes first)
     and saved as ``train`` saves it, from process 0; the whole parameters
-    are returned in every process. A ``--sp`` mesh across processes takes
-    the plain ring (``--ring xla``) over per-rank blocks
-    (``make_sp_ranks_*``); the kernel ring refuses it."""
+    are returned in every process. A ``--sp`` mesh across processes runs
+    per-rank blocks (``make_sp_ranks_*``): through K10/K11 with ``--ring
+    pallas`` (and ``auto`` on the card), each process reading the others'
+    chunks through CUDA IPC (the kernels' plain versions on the CPU), or
+    the plain ring with ``--ring xla``; the rings' arenas are released in
+    every process at the end."""
     from ..parallel.distributed import local_devices, process_count
     from ..parallel.mesh import make_mesh, shard_tree, unshard_tree
 
@@ -482,16 +485,17 @@ def train_sharded(args, dp: int, tp: int, device):
             raise ValueError(f"--ring must be auto, pallas or xla, got "
                              f"{ring!r}")
         pallas = device.type == "cuda" if ring == "auto" else ring == "pallas"
-        if mesh.spans_processes and not pallas:
+        if mesh.spans_processes:  # per-rank blocks, this process's ranks
             from ..parallel.sharding import (make_sp_ranks_device_train_step,
                                              make_sp_ranks_eval,
                                              sp_param_specs)
 
             specs = sp_param_specs(cfg)
             step_fn = make_sp_ranks_device_train_step(cfg, mesh, B,
+                                                      pallas=pallas,
                                                       **lr_kwargs)
-            eval_fn = make_sp_ranks_eval(cfg, mesh, B, 10)
-        else:  # the kernel ring refuses a mesh across processes here
+            eval_fn = make_sp_ranks_eval(cfg, mesh, B, 10, pallas=pallas)
+        else:
             step_fn = make_sp_device_train_step(cfg, mesh, B, pallas=pallas,
                                                 **lr_kwargs)
             eval_fn = make_sp_eval(cfg, mesh, B, 10, pallas=pallas)
@@ -509,7 +513,10 @@ def train_sharded(args, dp: int, tp: int, device):
         step_fn = make_sharded_device_train_step(cfg, mesh, B, **lr_kwargs)
         eval_fn = make_sharded_eval(cfg, mesh, B, 10)
         desc = f"mesh dp={dp} tp={tp}, "
-    what = (f"ring {'kernels (K10/K11)' if pallas else 'plain'}" if is_sp
+    what = (f"ring {'kernels (K10/K11)' if pallas else 'plain'}"
+            + (", other processes' chunks through CUDA IPC"
+               if pallas and mesh.spans_processes and device.type == "cuda"
+               else "") if is_sp
             else f"{microbatches} microbatches (1F1B)" if is_pp
             else "parameters and moments sharded" if is_fsdp else
             "experts sharded" if is_moe and tp > 1 else "heads/FFN sharded")
@@ -534,6 +541,10 @@ def train_sharded(args, dp: int, tp: int, device):
             generator, step_fn, eval_fn, train_ids, val_ids, tok, stoi, itos,
             desc=desc, save_fn=save_fn)
         params = unshard_tree(rank_params, specs, mesh)
+    if is_sp and mesh.spans_processes:  # no peer reads an arena any more
+        from ..kernels.ring_attention import release_ring_arenas
+
+        release_ring_arenas()
     for p in tree_leaves(params):
         p.requires_grad_(False)
     return params, cfg, stoi, itos

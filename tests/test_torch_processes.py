@@ -14,16 +14,26 @@ meshes (and against the JAX package where it has the function):
   losses and the gathered parameters against JAX's on ``jmesh((2, 4))``
   at rtol 1e-9 (float64);
 - (c) two trainer steps each of FSDP 4, dp 2 x ep 2 (MoE), dp 2 x pp 2
-  (1F1B) and dp 1 x sp 2 (the plain ring), and two GPipe steps (autograd
-  through the stages' ppermutes), against the one-process port, which the
-  other parallel test files hold against JAX;
+  (1F1B) and dp 1 x sp 2 (the plain ring, and the ring kernels' plain
+  versions with the chunks crossing by point-to-point messages), and two
+  GPipe steps (autograd through the stages' ppermutes), against the
+  one-process port, which the other parallel test files hold against
+  JAX;
 - (d) ``apps.gpt.main(["--train", "--dp", "2", "--tp", "2", ...])`` in both
   processes: process 0 logs the one-process run's losses, and its one
   checkpoint loads in both packages;
-- (e) the refusals: the kernel ring, ``ServeEngine(mesh=...)`` and ``--sp
-  --ring pallas`` over a mesh across processes;
+- (e) over a mesh across processes the kernel ring on global tensors runs
+  (as the plain ring does there); the per-rank kernel ring under autograd
+  outside ``taped()`` and ``ServeEngine(mesh=...)`` refuse;
 - (f) without a group: ``make_mesh()`` deals the ranks over faked lists of
-  cards and shares one card among all ranks.
+  cards and shares one card among all ranks;
+- (g) ``ring_attention_pallas_ranks`` (K10/K11's plain versions) over (2,)
+  and (4,) meshes split over the two processes, causal, window and ALiBi:
+  outputs and gradients against JAX's ``make_ring_attention_pallas`` (its
+  Pallas ring in interpret mode) at atol 1e-5 in float32, and bit-equal to
+  the one-process port in float64;
+- (h) ``apps.gpt.main(["--train", "--sp", "2", "--ring", "pallas", ...])``
+  in both processes: process 0 logs the one-process run's losses.
 """
 
 import json
@@ -36,10 +46,12 @@ import torch
 
 import torch_process_child as child
 from linalg_tpu.nn import functional as jF
+from linalg_tpu.parallel import make_mesh as jmake_mesh
+from linalg_tpu.parallel import make_ring_attention_pallas as jring_pallas
 from linalg_tpu.parallel import sharding as jsh
 from linalg_tpu.train import checkpoint as jckpt
 from linalg_tpu.train.optim import adamw_init as jadamw_init
-from linalg_tpu_torch.parallel import make_mesh
+from linalg_tpu_torch.parallel import make_mesh, make_ring_attention_pallas
 from linalg_tpu_torch.parallel import mesh as tmesh_mod
 from linalg_tpu_torch.parallel.distributed import global_mesh_shape
 from linalg_tpu_torch.train import checkpoint as tckpt
@@ -183,17 +195,98 @@ def test_cli_trains_one_model_across_processes(runs, f64, tmp_path):
 
 
 def test_refusals_across_processes(runs):
-    """(e): no kernel ring, no serving engine and no ``--ring pallas``
-    training over a mesh whose ranks lie in two processes."""
-    res, _, _ = runs
+    """(e): over a mesh whose ranks lie in two processes the kernel ring on
+    global tensors runs, as the plain ring does there (the whole ring in
+    each process, equal to one process's); the per-rank kernel ring under
+    autograd outside a tape and the serving engine refuse."""
+    res, arrays, _ = runs
+    q, k, v, _ = child.qkvw(2, torch.float64, seed=7)
+    want = make_ring_attention_pallas(one_process((1, 2), ("dp", "sp")))(
+        q, k, v).numpy()
     for r in RANKS:
         got = res[r]["refusals"]
-        assert got["ring"][0] == "NotImplementedError"
-        assert "--ring xla" in got["ring"][1]
-        assert "Left for later" in got["ring"][1]
-        assert got["sp_pallas"] == got["ring"]
+        assert got["ring"] is None
+        np.testing.assert_array_equal(arrays[r]["ring_global"], want)
+        assert got["ring_untaped"][0] == "RuntimeError"
+        assert "taped()" in got["ring_untaped"][1]
         assert got["serve"][0] == "ValueError"
         assert "spans processes [0, 1]" in got["serve"][1]
+
+
+def _ring_arrays(arrays, n, name, dt):
+    """The (o, dq, dk, dv) of a (g) case, each rank's rows from the process
+    that holds it, concatenated along T."""
+    prefix = f"ring/{n}/{name}/{dt}/"
+    parts = {}
+    for r in RANKS:
+        parts.update({k[len(prefix):]: a for k, a in arrays[r].items()
+                      if k.startswith(prefix)})
+    assert len(parts) == 4 * n
+    return [np.concatenate([parts[f"{what}/{x}"] for x in range(n)], axis=2)
+            for what in ("o", "dq", "dk", "dv")]
+
+
+def _ring_kw(name):
+    kw = dict(child.RING_CASES[name])
+    if "slopes" in kw:
+        kw["slopes"] = child._slopes()
+    return kw
+
+
+@pytest.mark.parametrize("name", sorted(child.RING_CASES))
+@pytest.mark.parametrize("n", child.RING_NS)
+def test_kernel_ring_across_processes_matches_jax(runs, n, name):
+    """(g), float32: the per-rank kernel ring over two processes against
+    JAX's Pallas ring (interpret mode) on an (n,) mesh of the virtual
+    devices, forward and all three gradients, atol 1e-5."""
+    _, arrays, _ = runs
+    arrs = [t.numpy() for t in child.qkvw(n, torch.float32, seed=40 + n)]
+
+    def f(q, k, v, w):
+        attn = jring_pallas(jmake_mesh((n,), ("sp",), jax.devices()[:n]),
+                            **_ring_kw(name))
+        out, vjp = jax.vjp(attn, q, k, v)
+        return (out,) + vjp(w)
+
+    want = [np.asarray(x) for x in jax.jit(f)(*map(jnp.asarray, arrs))]
+    got = _ring_arrays(arrays, n, name, "f32")
+    for what, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, atol=1e-5, err_msg=what)
+
+
+@pytest.mark.parametrize("name", sorted(child.RING_CASES))
+@pytest.mark.parametrize("n", child.RING_NS)
+def test_kernel_ring_across_processes_equals_one_process(runs, n, name):
+    """(g), float64: the per-rank kernel ring over two processes, bit for
+    bit the one-process port's ring on the global tensors."""
+    _, arrays, _ = runs
+    q, k, v, w = (t.requires_grad_(True) for t in child.qkvw(
+        n, torch.float64, seed=40 + n))
+    out = make_ring_attention_pallas(one_process((n,), ("sp",)),
+                                     **_ring_kw(name))(q, k, v)
+    want = [out] + list(torch.autograd.grad(out, (q, k, v), w.detach()))
+    got = _ring_arrays(arrays, n, name, "f64")
+    for what, g, t in zip(("o", "dq", "dk", "dv"), got, want):
+        np.testing.assert_array_equal(g, t.detach().numpy(), err_msg=what)
+
+
+def test_sp_kernel_ring_cli_across_processes(runs, f64, tmp_path):
+    """(h): ``--sp 2 --ring pallas`` trains in both processes; process 0
+    logs what one process logs for the same run, process 1 prints no
+    step."""
+    res, _, out = runs
+    one = child.cli_run(tmp_path / "ck", tmp_path / "log.jsonl", sp=True)
+    assert "mesh dp=1 sp=2: 2 ranks share cpu; ring kernels (K10/K11)" in one
+    lead, other = res[0]["sp_cli_stdout"], res[1]["sp_cli_stdout"]
+    assert ("mesh dp=1 sp=2: 2 ranks over 2 processes (1 here on cpu); ring "
+            "kernels (K10/K11)") in lead
+    assert "step" not in other and "saved best" not in other
+    assert [ln for ln in lead.splitlines() if ln.startswith("step")] == [
+        ln for ln in one.splitlines() if ln.startswith("step")]
+    got, want = _losses(out / "sp.jsonl"), _losses(tmp_path / "log.jsonl")
+    assert [len(g) for g in got] == [len(w) for w in want] == [1, 1]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-5)
 
 
 def test_make_mesh_deals_over_faked_cards(monkeypatch):

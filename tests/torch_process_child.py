@@ -7,7 +7,8 @@ reference. Imports neither JAX nor the JAX package.
 
 Every case takes a mesh factory ``make(shape, names)``: the children's
 spans the two processes, the reference's keeps every rank in one
-process. Float64 throughout, with the port-side casts of
+process. Float64 throughout (the kernel ring's cases also in float32),
+with the port-side casts of
 ``torch_parallel_common.f64`` (logits and router kept in float64, RoPE
 tables in float64, the JAX package's float32 sinusoidal tables, which the
 pytest process hands the children in ``sinusoidal.npz``).
@@ -38,7 +39,7 @@ TINY = dict(vocab_size=19, d_model=32, n_heads=4, n_layers=2, d_ff=64,
             ctx_len=16)
 WIDE = dict(vocab_size=17, d_model=64, n_heads=4, n_layers=2, d_ff=256,
             ctx_len=16)
-STEPS = ("fsdp", "ep", "pp", "gpipe", "sp")
+STEPS = ("fsdp", "ep", "pp", "gpipe", "sp", "sp_pallas")
 STEP_KW = dict(base_lr=1e-2, min_lr=1e-3, warmup=2, max_steps=10,
                weight_decay=0.01)
 
@@ -214,9 +215,10 @@ def dp_tp_steps(make):
 def device_steps(make, which):
     """Two trainer steps (windows drawn from one seeded generator) of FSDP
     4, dp 2 x ep 2 (MoE), dp 2 x pp 2 (1F1B, M 2) or dp 1 x sp 2 (the
-    plain ring; over one process the replicated step, over two the
-    per-rank one), or two GPipe steps (dp 2 x pp 2, M 2, fixed batches):
-    (losses, the whole parameters after them)."""
+    plain ring, or with "sp_pallas" the ring kernels' plain versions; over
+    one process the replicated step, over two the per-rank one), or two
+    GPipe steps (dp 2 x pp 2, M 2, fixed batches): (losses, the whole
+    parameters after them)."""
     from linalg_tpu_torch.parallel import (fsdp_param_specs,
                                            make_ep_device_train_step,
                                            make_fsdp_device_train_step,
@@ -264,15 +266,18 @@ def device_steps(make, which):
         cfg = Cfg64(**{**TINY, "pos": "rope"})
         params = _params64(cfg)
         mesh = make((1, 2), ("dp", "sp"))
+        pallas = which == "sp_pallas"
         if not mesh.spans_processes:  # the one-process step, replicated
-            step = tsh.make_sp_device_train_step(cfg, mesh, 8, **STEP_KW)
+            step = tsh.make_sp_device_train_step(cfg, mesh, 8, pallas=pallas,
+                                                 **STEP_KW)
             opt, losses = adamw_init(params), []
             for _ in range(2):
                 params, opt, gen, loss = step(params, opt, data, gen)
                 losses.append(float(loss))
             return losses, params
         specs = tsh.sp_param_specs(cfg)
-        step = tsh.make_sp_ranks_device_train_step(cfg, mesh, 8, **STEP_KW)
+        step = tsh.make_sp_ranks_device_train_step(cfg, mesh, 8,
+                                                   pallas=pallas, **STEP_KW)
     rp = shard_tree(params, specs, mesh)
     ro = [None if p is None else adamw_init(p) for p in rp]
     losses = []
@@ -282,33 +287,108 @@ def device_steps(make, which):
     return losses, unshard_tree(rp, specs, mesh)
 
 
-# -- (d) the CLI, (e) the refusals --------------------------------------------
+# -- (d) the CLI, (e) the refusals, (g) the kernel ring --------------------
 
 
-def cli_argv(ckpt, log):
-    return ["--train", "--dp", "2", "--tp", "2", "--steps", "3",
-            "--eval_every", "3", "--d_model", "32", "--layers", "2",
-            "--heads", "4", "--ctx_len", "16", "--batch_size", "4",
-            "--device", "cpu", "--ckpt_dir", str(ckpt), "--log_file",
-            str(log)]
+def cli_argv(ckpt, log, sp=False):
+    """The CLI's dp 2 x tp 2 run, or with ``sp`` the same model under --sp
+    2 --ring pallas."""
+    axes = (["--sp", "2", "--ring", "pallas"] if sp else
+            ["--dp", "2", "--tp", "2"])
+    return ["--train", *axes, "--steps", "3", "--eval_every", "3",
+            "--d_model", "32", "--layers", "2", "--heads", "4", "--ctx_len",
+            "16", "--batch_size", "4", "--device", "cpu", "--ckpt_dir",
+            str(ckpt), "--log_file", str(log)]
 
 
-def cli_run(ckpt, log):
+def cli_run(ckpt, log, sp=False):
     """``apps.gpt.main`` of ``cli_argv``: what it printed."""
     from linalg_tpu_torch.apps import gpt as tapp
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        tapp.main(cli_argv(ckpt, log))
+        tapp.main(cli_argv(ckpt, log, sp))
     return buf.getvalue()
 
 
-def refusals(make, out_dir):
-    """The kernel ring and the serving engine over a mesh across
-    processes, and ``--sp --ring pallas`` training across them:
-    {case: [exception type, message]}."""
-    from linalg_tpu_torch.apps import gpt as tapp
+def qkvw(n, dtype, B=2, h=2, Tl=8, d=8, seed=0):
+    """q, k, v and a cotangent w, (B, h, n Tl, d) from a numpy seed (float32
+    draws, as tests/test_torch_ring.py makes them), as ``dtype`` tensors."""
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.standard_normal((B, h, n * Tl, d)).astype(
+        np.float32), dtype=dtype) for _ in range(4)]
+
+
+def _slopes():
+    from linalg_tpu_torch.nn.positional import alibi_slopes
+
+    return tuple(float(s) for s in alibi_slopes(2))
+
+
+# name: ring options (Tl 8 a rank: window 12 reaches one chunk back)
+RING_CASES = {"causal": {}, "window12": {"window": 12},
+              "alibi": {"slopes": "alibi"}}
+RING_NS = (2, 4)
+RING_DTYPES = {"f32": torch.float32, "f64": torch.float64}
+
+
+def ring_case(make, n, name, dtype):
+    """``ring_attention_pallas_ranks`` (the kernels' plain versions) over a
+    (n,) mesh on ``qkvw(n, seed 40 + n)``, the loss sum(o * w) over this
+    process's ranks on the tape: {"o/r", "dq/r", "dk/r", "dv/r"} of this
+    process's ranks."""
+    from linalg_tpu_torch.parallel.ring_pallas import (
+        ring_attention_pallas_ranks)
+
+    kw = dict(RING_CASES[name])
+    if "slopes" in kw:
+        kw["slopes"] = _slopes()
+    mesh = make((n,), ("sp",))
+    q, k, v, w = qkvw(n, dtype, seed=40 + n)
+    cut = [[x[:, :, r * 8:(r + 1) * 8].clone().requires_grad_(True)
+            if mesh.is_local(r) else None for r in range(n)]
+           for x in (q, k, v)]
+    with taped() as tape:
+        outs = ring_attention_pallas_ranks(*cut, mesh, plain=True, **kw)
+        loss = tape.tie(sum((outs[r] * w[:, :, r * 8:(r + 1) * 8]).sum()
+                            for r in mesh.local_ranks))
+    mine = [x[r] for x in cut for r in mesh.local_ranks]
+    grads = torch.autograd.grad(loss, mine + [tape.root])
+    arrays, m = {}, len(mesh.local_ranks)
+    for i, r in enumerate(mesh.local_ranks):
+        arrays[f"o/{r}"] = _np(outs[r])
+        for j, g in enumerate(("dq", "dk", "dv")):
+            arrays[f"{g}/{r}"] = _np(grads[j * m + i])
+    return arrays
+
+
+def ring_global(make):
+    """``make_ring_attention_pallas`` over a (1, 2) dp x sp mesh across
+    the processes, on global tensors: the output."""
     from linalg_tpu_torch.parallel import make_ring_attention_pallas
+
+    q, k, v, _ = qkvw(2, torch.float64, seed=7)
+    return _np(make_ring_attention_pallas(make((1, 2), ("dp", "sp")))(q, k,
+                                                                      v))
+
+
+def _untaped_ring(make):
+    """The per-rank kernel ring across processes under autograd, outside
+    ``taped()``."""
+    from linalg_tpu_torch.parallel.ring_pallas import (
+        ring_attention_pallas_ranks)
+
+    mesh = make((2,), ("sp",))
+    q = [torch.zeros(1, 1, 8, 8, requires_grad=True) if mesh.is_local(r)
+         else None for r in range(2)]
+    ring_attention_pallas_ranks(q, q, q, mesh)
+
+
+def refusals(make):
+    """The kernel ring over a mesh across processes (it runs: None), the
+    per-rank kernel ring under autograd outside a tape and the serving
+    engine over such a mesh (they refuse): {case: None or [exception
+    type, message]}."""
     from linalg_tpu_torch.serve.engine import ServeEngine
 
     got = {}
@@ -320,15 +400,12 @@ def refusals(make, out_dir):
         except Exception as e:  # the refusal is the result
             got[name] = [type(e).__name__, str(e)]
 
-    catch("ring", lambda: make_ring_attention_pallas(
-        make((1, 2), ("dp", "sp"))))
+    catch("ring", lambda: ring_global(make))
+    catch("ring_untaped", lambda: _untaped_ring(make))
     cfg = tgpt.GPTConfig(**TINY)
     catch("serve", lambda: ServeEngine(
         tgpt.init_gpt_params(cfg, seed=0), cfg, n_slots=2,
         mesh=make((1, 2), ("dp", "tp")), device="cpu"))
-    argv = cli_argv(out_dir / "ring_ck", out_dir / "ring.jsonl")
-    argv[1:5] = ["--sp", "2", "--ring", "pallas"]
-    catch("sp_pallas", lambda: tapp.main(argv))
     return got
 
 
@@ -365,8 +442,17 @@ def main():
         losses, params = device_steps(make, which)
         res["steps"][which] = losses
         arrays.update({f"{which}/{k}": v for k, v in flat(params).items()})
-    res["refusals"] = refusals(make, out_dir)
+    res["refusals"] = refusals(make)
+    arrays["ring_global"] = ring_global(make)
+    for n in RING_NS:
+        for name in RING_CASES:
+            for dt, dtype in RING_DTYPES.items():
+                a = ring_case(make, n, name, dtype)
+                arrays.update({f"ring/{n}/{name}/{dt}/{k}": v
+                               for k, v in a.items()})
     res["cli_stdout"] = cli_run(out_dir / "cli_ck", out_dir / "cli.jsonl")
+    res["sp_cli_stdout"] = cli_run(out_dir / "sp_ck", out_dir / "sp.jsonl",
+                                   sp=True)
     res["jax"] = "jax" in sys.modules or any(
         m.startswith("linalg_tpu.") for m in sys.modules)
     np.savez(out_dir / f"arrays{rank}.npz", **arrays)
