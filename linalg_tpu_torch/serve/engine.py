@@ -71,6 +71,13 @@ with one ``all_reduce`` over ``tp`` after Wo and one after W2
 tp rank 0's device. A windowed RoPE/ALiBi model stays on the slot cache,
 as in JAX; quant, MoE, paged KV, multi-LoRA and speculative decoding raise
 the JAX engine's ``ValueError``s.
+
+While a profiler records, a step is traced as ``serve.step``, holding a
+``serve.admit`` per admission (its request id and prompt length in its
+args; inside it ``serve.prefill``, the first window, and a ``serve.extend``
+per further window), ``serve.decode`` (the host dispatching the chunk),
+``serve.fetch`` (the host waiting for the chunk's tokens) and
+``serve.account`` (taking them, finishing requests, freeing pages).
 """
 
 from __future__ import annotations
@@ -92,6 +99,7 @@ from ..models.moe import MoEGPTConfig, _moe_decode_ops, moe_prefill
 from ..models.speculative import _block_forward
 from ..nn.cache import fkv_write_slots
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .paged import SUPPORTED_KERNEL_D
 
 __all__ = ["Request", "Completion", "ServeEngine", "serve",
@@ -568,9 +576,8 @@ class ServeEngine:
         self._submit_ts: Dict[int, float] = {}
         self._admit_ts: Dict[int, float] = {}
         self.completions: List[Completion] = []
-        self.stats = {"chunks": 0, "decode_tokens": 0, "emitted_tokens": 0,
-                      "prefills": 0, "syncs": 0, "page_cache_hits": 0,
-                      "page_cache_evicted": 0}
+        self.stats = {"chunks": 0, "emitted_tokens": 0, "prefills": 0,
+                      "page_cache_hits": 0, "page_cache_evicted": 0}
 
     # -- submission ---------------------------------------------------------
 
@@ -901,8 +908,9 @@ class ServeEngine:
             first = min(len(prompt), W)
             ids = np.zeros((1, W), np.int64)
             ids[0, :first] = prompt[:first]
-            logits, cache = self._run_prefill(
-                params, torch.tensor(ids, device=dev), length=first)
+            with span("serve.prefill"):
+                logits, cache = self._run_prefill(
+                    params, torch.tensor(ids, device=dev), length=first)
             pk, pv = cache["k"], cache["v"]
             pos, rest = first, prompt[first:]
         ops = None
@@ -910,13 +918,21 @@ class ServeEngine:
             if ops is None:
                 ops = (_dt_decode_ops(params, cfg) if req.lora_id
                        else self._dense_ops)
-            ids = torch.tensor(rest[off:off + W][None], dtype=torch.long,
-                               device=dev)
-            logits, pk, pv = _extend_prefix(ops, cfg, pk, pv, pos, ids)
+            with span("serve.extend"):
+                ids = torch.tensor(rest[off:off + W][None],
+                                   dtype=torch.long, device=dev)
+                logits, pk, pv = _extend_prefix(ops, cfg, pk, pv, pos, ids)
             pos += ids.shape[1]
         return pk, pv, logits, pos
 
     def _admit(self, slot: int, req: Request) -> bool:
+        """Admit ``req`` into the free ``slot``; False when the page pool
+        cannot hold it yet."""
+        with span("serve.admit", args={"request": req.request_id,
+                                       "prompt": len(req.prompt)}):
+            return self._admit_into(slot, req)
+
+    def _admit_into(self, slot: int, req: Request) -> bool:
         cfg = self.cfg
         shared: List[int] = []
         if req.prefix_id is not None:
@@ -1069,6 +1085,10 @@ class ServeEngine:
     def step(self) -> bool:
         """Admit queued requests into free slots, then advance every active
         slot by one decode chunk. Returns False when fully idle."""
+        with span("serve.step"):
+            return self._step()
+
+    def _step(self) -> bool:
         for slot in range(self.n_slots):
             if self._slot_req[slot] is None and self._queue:
                 if self.schedule == "fifo":
@@ -1105,31 +1125,32 @@ class ServeEngine:
         active = [s for s in range(self.n_slots)
                   if self._slot_req[s] is not None]
         self.stats["chunks"] += 1
-        self.stats["syncs"] += 1
         if self._spec:
             self._step_spec(active)
             return True
-        if self._paged:
-            from .paged import decode_chunk_paged
+        with span("serve.decode"):
+            if self._paged:
+                from .paged import decode_chunk_paged
 
-            toks, self._logits, self._cache = decode_chunk_paged(
-                self._ops, self._cache, self._logits, self._gen,
-                *self._samp_dev, self.cfg, self.chunk,
-                use_kernel=self._paged_kernel)
-        elif self._ring:
-            from ..models.stream import stream_chunk_slots
+                toks, self._logits, self._cache = decode_chunk_paged(
+                    self._ops, self._cache, self._logits, self._gen,
+                    *self._samp_dev, self.cfg, self.chunk,
+                    use_kernel=self._paged_kernel)
+            elif self._ring:
+                from ..models.stream import stream_chunk_slots
 
-            toks, self._logits, self._cache = stream_chunk_slots(
-                self._ops, self._cache, self._logits, self._gen,
-                *self._samp_dev, self.cfg, self.chunk)
-        else:
-            toks, self._logits, self._cache = decode_chunk_slots(
-                self._ops, self._cache, self._logits, self._gen,
-                *self._samp_dev, self.cfg, self.chunk)
-        toks = toks.cpu().numpy()  # the one host sync per chunk
-        self.stats["decode_tokens"] += self.n_slots * self.chunk
-        for slot in active:
-            self._account(slot, toks[slot])
+                toks, self._logits, self._cache = stream_chunk_slots(
+                    self._ops, self._cache, self._logits, self._gen,
+                    *self._samp_dev, self.cfg, self.chunk)
+            else:
+                toks, self._logits, self._cache = decode_chunk_slots(
+                    self._ops, self._cache, self._logits, self._gen,
+                    *self._samp_dev, self.cfg, self.chunk)
+        with span("serve.fetch"):
+            toks = toks.cpu().numpy()  # the one host sync per chunk
+        with span("serve.account"):
+            for slot in active:
+                self._account(slot, toks[slot])
         return True
 
     def _step_spec(self, active: List[int]) -> None:
@@ -1138,21 +1159,24 @@ class ServeEngine:
         host in one copy, and each slot takes its valid rows."""
         from .spec import decode_chunk_spec
 
-        toks, valid, self._cache = decode_chunk_spec(
-            self._ops, self._cache, self._gen, *self._samp_dev, self.cfg,
-            self._spec_rounds, self._spec)
-        B, R, S = toks.shape
-        host = torch.cat([toks.reshape(B, R * S).long(), valid.long()],
-                         1).cpu().numpy()
+        with span("serve.decode"):
+            toks, valid, self._cache = decode_chunk_spec(
+                self._ops, self._cache, self._gen, *self._samp_dev,
+                self.cfg, self._spec_rounds, self._spec)
+            B, R, S = toks.shape
+            host = torch.cat([toks.reshape(B, R * S).long(), valid.long()],
+                             1)
+        with span("serve.fetch"):
+            host = host.cpu().numpy()
         rows, v = host[:, :R * S].reshape(B, R, S), host[:, R * S:]
-        self.stats["decode_tokens"] += int(v.sum())
         # rounds of the engine, and rounds a request was in a slot
         self.stats["spec_rounds"] = self.stats.get("spec_rounds", 0) + R
         self.stats["spec_slot_rounds"] = (
             self.stats.get("spec_slot_rounds", 0) + R * len(active))
-        for slot in active:
-            self._account(slot, np.concatenate(
-                [rows[slot, r, :n] for r, n in enumerate(v[slot])]))
+        with span("serve.account"):
+            for slot in active:
+                self._account(slot, np.concatenate(
+                    [rows[slot, r, :n] for r, n in enumerate(v[slot])]))
 
     def run(self) -> List[Completion]:
         """Drain the queue and all in-flight slots; returns completions in

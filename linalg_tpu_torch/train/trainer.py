@@ -11,6 +11,10 @@ backwards (``autograd.Function``s, the flash kernels on the card), AdamW
 in place. The corpus lives on the device and each step draws its windows
 there from a ``torch.Generator``, so no batch crosses from the host; the
 every-20-steps loss print is the loop's only host sync besides evals.
+While a profiler records, ``make_device_train_step``'s step is traced as
+``train.step`` around ``train.forward``, ``train.backward`` (once per
+microbatch) and ``train.optimizer``; those three also time their work on
+the card (``utils.profiling.device_ms``).
 
 ``--dp``, ``--tp``, ``--sp``, ``--pp`` and ``--fsdp`` train over a mesh
 (``train_sharded``) whose ranks share one device: dp x tp (megatron), dp
@@ -46,6 +50,7 @@ from ..models.moe import (MoEGPTConfig, init_moe_params, moe_decode_chunk,
                           moe_gpt_loss, moe_prefill)
 from ..nn.tokenizers import BPETokenizer, CharTokenizer
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .checkpoint import load_ckpt, load_tokenizer, save_ckpt
 from .data import load_text
 from .optim import (adamw_init, adamw_update, gpt_lr_scales, gpt_wd_mask,
@@ -74,8 +79,10 @@ def _value_and_grad(params, x, y, cfg, attn_fn=None, lora=None):
         from ..models.lora import lora_merge
 
         model = lora_merge(lora[0], params, lora[1])
-    loss = _loss_fn_for(cfg)(model, x, y, cfg, attn_fn=attn_fn)
-    grads = iter(torch.autograd.grad(loss, leaves))
+    with span("train.forward", x.device):
+        loss = _loss_fn_for(cfg)(model, x, y, cfg, attn_fn=attn_fn)
+    with span("train.backward", x.device):
+        grads = iter(torch.autograd.grad(loss, leaves))
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
 
@@ -132,6 +139,10 @@ def make_device_train_step(cfg: GPTConfig, batch_size: int, *,
     micro = B // grad_accum
 
     def train_step(params, opt_state, data_ids, generator):
+        with span("train.step"):
+            return step(params, opt_state, data_ids, generator)
+
+    def step(params, opt_state, data_ids, generator):
         x, y = _windows(data_ids, B, T, generator)
         if grad_accum == 1:
             loss, grads = _value_and_grad(params, x, y, cfg, attn_fn, lora)
@@ -145,13 +156,15 @@ def make_device_train_step(cfg: GPTConfig, batch_size: int, *,
                 grads = g if grads is None else tree_map(torch.add, grads, g)
             loss = loss / grad_accum
             grads = tree_map(lambda g: g / grad_accum, grads)
-        lr = warmup_cosine(opt_state.t + 1, base=base_lr, min_lr=min_lr,
-                           warmup=warmup, max_steps=max_steps)
-        params, opt_state = adamw_update(
-            params, grads, opt_state, lr, gpt_wd_mask(params, weight_decay),
-            lr_scales=gpt_lr_scales(params, embed=lr_embed_scale,
-                                    head=lr_head_scale),
-            clip_norm=clip_norm)
+        with span("train.optimizer", data_ids.device):
+            lr = warmup_cosine(opt_state.t + 1, base=base_lr, min_lr=min_lr,
+                               warmup=warmup, max_steps=max_steps)
+            params, opt_state = adamw_update(
+                params, grads, opt_state, lr,
+                gpt_wd_mask(params, weight_decay),
+                lr_scales=gpt_lr_scales(params, embed=lr_embed_scale,
+                                        head=lr_head_scale),
+                clip_norm=clip_norm)
         return params, opt_state, generator, loss
 
     return train_step
