@@ -347,11 +347,20 @@ def _trunk_mask(cfg: GPTConfig, T: int, dt, device=None):
     return m
 
 
+def _unstack(stack, dt=None):
+    """Per-layer dicts of a dict of stacked (L, ...) weights, each stack
+    cast to ``dt`` (when given) once and split by one ``unbind``: its
+    backward writes the L layers' gradients into the stack once, where
+    indexing ``w[i]`` per layer would zero-fill a whole stack for each
+    layer and add them up, O(L^2) bytes."""
+    split = {k: (w if dt is None else w.to(dt)).unbind(0)
+             for k, w in stack.items()}
+    return [dict(zip(split, ws)) for ws in zip(*split.values())]
+
+
 def _layer_params(params: Params, dt):
     """Per-layer dicts of the stacked weights, cast to ``dt``."""
-    stacked = {k: w.to(dt) for k, w in params["layers"].items()}
-    L = next(iter(stacked.values())).shape[0]
-    return [{k: w[i] for k, w in stacked.items()} for i in range(L)]
+    return _unstack(params["layers"], dt)
 
 
 def _head(params: Params, h, dt):

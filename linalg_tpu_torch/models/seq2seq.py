@@ -21,6 +21,7 @@ import torch
 
 from ..nn.functional import (causal_mask, layer_norm, relu, sdpa,
                              sinusoidal_encoding)
+from .gpt import _unstack
 
 __all__ = ["Seq2SeqConfig", "init_seq2seq_params", "seq2seq_apply",
            "seq2seq_loss", "make_reverse_batch"]
@@ -111,11 +112,6 @@ def _ffn(lp, x):
     return relu(x @ lp["W1"] + lp["b1"]) @ lp["W2"] + lp["b2"]
 
 
-def _layers(stack):
-    L = next(iter(stack.values())).shape[0]
-    return [{k: w[i] for k, w in stack.items()} for i in range(L)]
-
-
 def seq2seq_apply(params: Params, src_ids, tgt_ids, cfg: Seq2SeqConfig):
     """(src (B, Ts), tgt_in (B, Tt)) -> logits (B, Tt, V), in the
     parameters' dtype."""
@@ -129,13 +125,13 @@ def seq2seq_apply(params: Params, src_ids, tgt_ids, cfg: Seq2SeqConfig):
     tgt = params["tgt_emb"][tgt_ids] + pe[:Tt][None]
     tgt_mask = causal_mask(Tt, dtype=src.dtype, device=dev)
     memory = src
-    for lp in _layers(params["encoder"]):
+    for lp in _unstack(params["encoder"]):
         xn = layer_norm(memory, lp["ln1_g"], lp["ln1_b"])
         memory = memory + _attn(lp, "sa", xn, xn, None, h)
         memory = memory + _ffn(lp, layer_norm(memory, lp["lnf_g"],
                                               lp["lnf_b"]))
     x = tgt
-    for lp in _layers(params["decoder"]):
+    for lp in _unstack(params["decoder"]):
         xn = layer_norm(x, lp["ln1_g"], lp["ln1_b"])
         x = x + _attn(lp, "sa", xn, xn, tgt_mask, h)
         xc = layer_norm(x, lp["ln2_g"], lp["ln2_b"])

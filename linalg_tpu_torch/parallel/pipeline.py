@@ -35,8 +35,8 @@ from typing import Optional
 
 import torch
 
-from ..models.gpt import (GPTConfig, _embed, _head, _layer, _pick_attn_cfg,
-                          _rope, _trunk_mask)
+from ..models.gpt import (GPTConfig, _embed, _head, _layer, _layer_params,
+                          _pick_attn_cfg, _rope, _trunk_mask)
 from .mesh import ppermute
 from .sharding import (_const_step, _device_eval, _device_step, _each,
                        _first, _loss_and_grads, _mean_loss, _reduce_grads,
@@ -63,16 +63,9 @@ def _check(cfg: GPTConfig, mesh):
         raise ValueError("n_layers must divide by the pp axis size")
 
 
-def _stage_layers(p, dt):
-    """A stage's own layers as per-layer dicts in the compute dtype."""
-    stacked = {k: w.to(dt) for k, w in p["layers"].items()}
-    n = next(iter(stacked.values())).shape[0]
-    return [{k: w[i] for k, w in stacked.items()} for i in range(n)]
-
-
 def _run_stage(cfg, p, h, mask, attn_fn, rope):
     dt = cfg.compute_dtype
-    for lp in _stage_layers(p, dt):
+    for lp in _layer_params(p, dt):
         h, _ = _layer(h, lp, mask, cfg.n_heads, cfg.kv_heads, cfg.ffn,
                       attn_fn, rope)
     return h
