@@ -10,8 +10,9 @@ served), the L2 encoder-decoder stack, the sharded trainers (dp x tp,
 FSDP, the 1F1B pipeline, expert parallelism; every rank on the card,
 K2 and K8/K9 inside each), the small apps, tensor-parallel serving with
 DCP checkpoints, the ring kernels over one tensor per rank, one mesh
-over two processes on the card, and the ring kernels across two
-processes through CUDA IPC.
+over two processes on the card, the ring kernels across two processes
+through CUDA IPC, and K13, the grouped GEMM, with the Mellum cell's
+training step.
 
     python3 chip_smoke.py
 
@@ -357,6 +358,22 @@ Phases, each reported on its own line; any failure exits non-zero:
              no plain ring call, both processes' losses equal, the step-1
              loss within 1e-2 of phase 15's one-process run, ms/step
              beside it. Nothing falls back to the plain ring.
+29. grouped — K13 (``kernels.grouped_gemm``, the dropless routed FFN's
+             grouped GEMM): registers and spills (any stack frame or spill
+             fails); the six calls of a routed layer's training step at
+             ``mellum2-ep8-train``'s shapes (8 held experts, d 2304, width
+             896, 65,537-row buffers: the forward [U|G] with the token
+             gather and Y, dH and dx with W^T, dW2 and dW1g with the
+             gather) against the plain version at a bf16-tight tolerance,
+             on even, skewed (empty groups and one of 2 rows), full (a
+             tail of one row) and empty routings; the tail's rows and
+             empty groups' gradients exactly zero; CUDA-event ms beside
+             the bound and cuBLAS ``bmm`` over equal groups; then the
+             cell's own step (28 layers, B 1 x T 8192, through
+             ``make_device_train_step``): K13's launches counted from 0 over
+             two steps (4 rows + 2 dw a layer and step), finite losses,
+             ms/step, peak bytes, the steps under CUDA's sync debug mode
+             at "error" (any host round trip inside them fails).
 
 Phase 2 builds every kernel, one ``nvcc`` per source, all started
 together. The line before the last is a JSON object describing the
@@ -393,7 +410,7 @@ SERVE_CFG = dict(vocab_size=65, d_model=512, n_heads=4, n_kv_heads=2,
 ENGINE_KW = dict(paged=True, page=256, n_slots=8, chunk=32,
                  prefill_window=2048)
 KERNELS = ("paged_attention", "qr_panel", "flash_attention", "fused_layer",
-           "ring_attention")
+           "ring_attention", "grouped_gemm")
 QR_N = 4096          # the headline QR: 4096^2 float32
 QR_INNER = 32        # strip width householder_qr_panel passes the kernel
 QR_RESID_MAX = 1e-6  # ||A - QR||_F / ||A||_F, the headline accuracy gate
@@ -4815,6 +4832,246 @@ def ipc_ring_phase(smi, tables, sp_one):
             "ms_step": ms}
 
 
+# -- phase 29: K13 at Mellum's routed shapes, and the cell's main path ------
+
+# the routed layer of ``mellum2-ep8-train`` (B 1 x T 8192, top-8, 8 held
+# experts of width 896 at d_model 2304): its buffers hold the most rows any
+# routing gives, 8192 * 8 + 1 = 65,537; each case's group rows sum to the
+# rows routed to the held experts, the rest of the 65,537 is the zero tail
+GROUPED_D, GROUPED_F, GROUPED_TOKENS, GROUPED_TOP_K = 2304, 896, 8192, 8
+GROUPED_CASES = {
+    "even": None,  # 8,192 rows over the 8 experts by a seeded multinomial
+    "skewed": [6000, 1500, 0, 391, 200, 99, 2, 0],
+    "full": [8192] * 8,  # every assignment on a held expert: a tail of 1
+    "empty": [0] * 8,  # nothing routed here: every row is the tail
+}
+# max |kernel - plain| over max |plain|: rounding an f32 sum to bf16 (8
+# significant bits, to nearest) moves it by at most 2^-8 of its size, and
+# the two f32 accumulation orders differ by ~1e-6 of it
+GROUPED_TOL = 4e-3
+MELLUM_CONFIG = "portbench/configs/mellum2-12b-ep8.json"
+MELLUM_TRAFFIC = "portbench/traffic/train-moe-b1-t8192.json"
+
+
+def grouped_builds(lib):
+    """Phase 29's build check: registers and spills of K13's kernels; any
+    stack frame or spill fails."""
+    kernels = ptxas_kernels(lib)
+    for name, (regs, *frame) in sorted(kernels.items()):
+        phase("grouped", f"{name}: {regs} registers, stack frame {frame[0]}, "
+              f"spill stores {frame[1]}, loads {frame[2]}")
+    spills = ptxas_spills(lib)
+    if not kernels or spills:
+        raise RuntimeError(f"K13 spills registers: {spills}" if spills
+                           else "no ptxas lines in the K13 build log")
+
+
+def grouped_inputs(counts, seed):
+    """Random bf16 operands of one routed layer on the card, with the
+    group offsets of ``counts``; the inputs' tail rows are random too, so a
+    kernel that read past ``offs[El]`` would show."""
+    D, F, El = GROUPED_D, GROUPED_F, len(counts)
+    M = GROUPED_TOKENS * GROUPED_TOP_K + 1
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).bfloat16()
+
+    return {"offs": torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                                 dtype=torch.int32, device="cuda"),
+            "M": M, "x": r(GROUPED_TOKENS, D),
+            "tok": torch.randint(0, GROUPED_TOKENS, (M,), generator=g,
+                                 device="cuda", dtype=torch.int32),
+            "W1g": r(El, D, 2 * F, scale=0.02), "W2": r(El, F, D, scale=0.02),
+            "H": r(M, F), "dY": r(M, D), "dUG": r(M, 2 * F)}
+
+
+def grouped_calls(t):
+    """The six K13 calls of a routed layer's training step, in
+    ``portbench.flops_moe.expert_gemm_calls``' order: (name, kernel call,
+    its plain version over float32 copies, "rows" or "dw")."""
+    from linalg_tpu_torch.kernels import grouped_gemm as gg
+
+    o, M, tok = t["offs"], t["M"], t["tok"]
+    f = {k: t[k].float() for k in ("x", "W1g", "W2", "H", "dY", "dUG")}
+
+    def rows(a, idx, w, trans=False):
+        return (lambda: gg.grouped_rows(t[a], idx, o, t[w], M, trans),
+                lambda: gg.grouped_rows_ref(f[a], idx, o, f[w], M, trans),
+                "rows")
+
+    def dw(a, idx, d):
+        return (lambda: gg.grouped_dw(t[a], idx, t[d], o),
+                lambda: gg.grouped_dw_ref(f[a], idx, f[d], o), "dw")
+
+    return [("[U|G] = x[tok] W1g", *rows("x", tok, "W1g")),
+            ("Y = H W2", *rows("H", None, "W2")),
+            ("dH = dY W2^T", *rows("dY", None, "W2", True)),
+            ("dW2 = H^T dY", *dw("H", None, "dY")),
+            ("dW1g = x[tok]^T dUG", *dw("x", tok, "dUG")),
+            ("dx = dUG W1g^T", *rows("dUG", None, "W1g", True))]
+
+
+def grouped_check(tag, name, kind, got, want, counts):
+    """The worst error of one call over max |plain| (per group for dW);
+    the tail's rows and empty groups' gradients must be exactly zero."""
+    torch.cuda.synchronize()
+    if kind == "rows":
+        live = int(sum(counts))
+        if got[live:].abs().max().item() != 0:
+            raise RuntimeError(f"grouped {tag} {name}: a tail row past "
+                               f"{live} is not zero")
+        pairs = [(got[:live], want[:live])] if live else []
+    else:
+        for e, c in enumerate(counts):
+            if c == 0 and got[e].abs().max().item() != 0:
+                raise RuntimeError(f"grouped {tag} {name}: empty group {e}'s "
+                                   "gradient is not zero")
+        pairs = [(got[e], want[e]) for e, c in enumerate(counts) if c]
+    err = max([((a.float() - b).abs().max()
+                / b.abs().max().clamp_min(1e-30)).item() for a, b in pairs],
+              default=0.0)
+    if not err <= GROUPED_TOL:
+        raise RuntimeError(f"grouped {tag} {name}: max error {err:.3g} of "
+                           f"the largest entry, over {GROUPED_TOL}")
+    return err
+
+
+def grouped_library_ms(t, rows):
+    """cuBLAS ``bmm`` over 8 equal groups of ``rows`` for the six calls
+    (no gather, no tail): the yardstick of the even case."""
+    D, El = GROUPED_D, t["W1g"].shape[0]
+    a = {k: t[k][:El * rows].reshape(El, rows, -1)
+         for k in ("H", "dY", "dUG")}
+    a["x"] = t["x"][:El * rows].reshape(El, rows, D)
+    W1gT, W2T = t["W1g"].transpose(1, 2), t["W2"].transpose(1, 2)
+    calls = [lambda: torch.bmm(a["x"], t["W1g"]),
+             lambda: torch.bmm(a["H"], t["W2"]),
+             lambda: torch.bmm(a["dY"], W2T),
+             lambda: torch.bmm(a["H"].transpose(1, 2), a["dY"]),
+             lambda: torch.bmm(a["x"].transpose(1, 2), a["dUG"]),
+             lambda: torch.bmm(a["dUG"], W1gT)]
+    return [median_ms(c, (), trials=10, reps=5) for c in calls]
+
+
+def mellum_step(steps=2):
+    """The main path of ``mellum2-ep8-train``: the benchmark's Mellum
+    configuration (28 layers, 8 of 64 experts held, the grouped dispatch)
+    through ``make_device_train_step`` at its traffic's B 1 x T 8192, one
+    warm step, then ``steps`` with K13's launch counters set to 0 just
+    before them and CUDA's sync debug mode at "error" (a host round trip
+    inside them raises). Returns ((rows launches, dw launches), ms a step,
+    peak bytes, losses, layers)."""
+    from linalg_tpu_torch.kernels import grouped_gemm as gg
+    from linalg_tpu_torch.models.moe import MoEGPTConfig
+    from linalg_tpu_torch.nn.functional import YaRN
+    from linalg_tpu_torch.train.optim import adamw_init
+    from linalg_tpu_torch.train.trainer import make_device_train_step
+    from portbench import weights_moe
+    from portbench.traffic.train import _corpus
+    from portbench.traffic.train_moe import _CFG_KEYS
+
+    root = pathlib.Path(__file__).resolve().parent
+    conf = json.loads((root / MELLUM_CONFIG).read_text())
+    mix = json.loads((root / MELLUM_TRAFFIC).read_text())
+    shape = conf["port"]
+    cfg = MoEGPTConfig(**{k: shape[k] for k in _CFG_KEYS if k in shape},
+                       rope_scaling=YaRN(**shape["rope_scaling"]))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = weights_moe.make_params(shape, conf["init"], 0, "cuda")
+    opt = adamw_init(params)
+    data = _corpus(mix, shape["vocab_size"], 0, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step = make_device_train_step(cfg, mix["batch"],
+                                  grad_accum=mix["grad_accum"],
+                                  **mix["schedule"])
+    params, opt, gen, loss = step(params, opt, data, gen)
+    losses = [loss]
+    torch.cuda.synchronize()
+    gg.grouped_rows.launches = gg.grouped_dw.launches = 0
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a.record()
+        for _ in range(steps):
+            params, opt, gen, loss = step(params, opt, data, gen)
+            losses.append(loss)
+        b.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    n = (gg.grouped_rows.launches, gg.grouped_dw.launches)
+    ms = a.elapsed_time(b) / steps
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    del params, opt, data, step
+    torch.cuda.empty_cache()
+    return n, ms, peak, losses, cfg.n_layers
+
+
+def grouped_phase(smi):
+    """Phase 29: K13 at the Mellum cell's routed shapes against its plain
+    version, then the cell's main path with K13's launches counted.
+    Returns the kernel's JSON record."""
+    from portbench.flops_moe import expert_gemm_calls
+
+    El = 8
+    shape = {"d_model": GROUPED_D, "d_ff": GROUPED_F, "experts_held": El}
+    rng = np.random.default_rng(0)
+    record = {"tolerance": GROUPED_TOL, "cases": {}}
+    for i, (tag, counts) in enumerate(GROUPED_CASES.items()):
+        if counts is None:
+            counts = rng.multinomial(GROUPED_TOKENS, [1 / El] * El).tolist()
+        t = grouped_inputs(counts, seed=i)
+        calls = grouped_calls(t)
+        errs = []
+        for name, kern, plain, kind in calls:
+            errs.append(grouped_check(tag, name, kind, kern(), plain(),
+                                      counts))
+        ms = [median_ms(kern, (), trials=10, reps=5)
+              for _, kern, _, _ in calls]
+        live = int(sum(counts))
+        bms = sum(bound_ms(fl, nb, torch.bfloat16)[0]
+                  for fl, nb in expert_gemm_calls(shape, live))
+        rec = {"rows": counts, "tail": t["M"] - live,
+               "max_err": max(errs), "ms": [round(v, 4) for v in ms],
+               "layer_ms": round(sum(ms), 4), "bound_ms": round(bms, 4),
+               "pct_of_bound": round(100 * bms / sum(ms), 2)}
+        if tag == "even":
+            lib = grouped_library_ms(t, GROUPED_TOKENS // El)
+            rec["bmm_ms"] = [round(v, 4) for v in lib]
+            rec["bmm_layer_ms"] = round(sum(lib), 4)
+        record["cases"][tag] = rec
+        phase("grouped", f"{tag} (group rows {counts}, tail {rec['tail']}): "
+              f"max error {rec['max_err']:.3g} of the largest entry; "
+              f"ms {rec['ms']} = {rec['layer_ms']} a layer, bound "
+              f"{rec['bound_ms']} ({rec['pct_of_bound']}%)"
+              + (f"; cuBLAS bmm over 8 groups of 1,024 {rec['bmm_ms']} = "
+                 f"{rec['bmm_layer_ms']}" if "bmm_ms" in rec else ""))
+        del t, calls
+    phase("grouped", f"{torch.cuda.memory_allocated()} bytes held on the "
+          "card before the Mellum step")
+    (rows, dw), ms, peak, losses, L = mellum_step()
+    steps = len(losses) - 1
+    phase("grouped", f"mellum2-ep8-train's step ({L} layers, B 1 x T 8192, "
+          f"{smi}): K13 launches rows {rows}, dw {dw} in {steps} steps; "
+          f"{ms:.1f} ms a step, peak {peak} bytes, losses "
+          f"{[round(v, 4) for v in losses]}; no host round trip inside the "
+          "steps (sync debug mode 'error')")
+    if (rows, dw) != (4 * L * steps, 2 * L * steps):
+        raise RuntimeError(f"grouped: {rows} rows and {dw} dw launches in "
+                           f"{steps} steps, not {4 * L} and {2 * L} a step")
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"grouped: a Mellum loss is not finite: {losses}")
+    record.update(launches=rows + dw, launches_rows_dw=[rows, dw],
+                  mellum_steps=steps, mellum_ms=round(ms, 2),
+                  mellum_peak_bytes=peak)
+    return record
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -4960,6 +5217,11 @@ def main() -> int:
     # -- 28. ipc ring: K10/K11 across two processes through CUDA IPC --------
     ipc = ipc_ring_phase(smi, tables, sp_launches["train_big 2 layers"])
 
+    # -- 29. grouped: K13 at Mellum's routed shapes, the Mellum cell's step -
+    report_build("grouped", built["grouped_gemm"])
+    grouped_builds(built["grouped_gemm"][0])
+    grouped_record = grouped_phase(smi)
+
     # the profiler breakdowns last: the profiler stays attached to the card
     ring_copies()
     profile_qr()
@@ -5058,7 +5320,12 @@ def main() -> int:
         "processes": {k: {"ms_process_0_1": v["ms"][1],
                           "handshake_us_process_0_1": v["handshake_us"][1],
                           "one_process_ms": v["one_process_ms"][1]}
-                      for k, v in ipc["cases"].items() if k in tables}}]}),
+                      for k, v in ipc["cases"].items() if k in tables}}, {
+        "name": "grouped_gemm", "route": "cuda",
+        "source": "linalg_tpu_torch/kernels/csrc/grouped_gemm.cu",
+        "replaces": "none: linalg_tpu/models/moe.py's experts are einsums "
+                    "over capacity slots",
+        **grouped_record}]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -43,9 +43,9 @@ from ..nn.flash_btd import attention_btd, btd_supported
 from ..nn.flash_long import flash_attention_long
 from ..nn.flash_stream import STREAM_BLOCK, flash_attention_stream
 from ..nn.fused_layer import fused_supported, ln_ffn, ln_qkv
-from ..nn.functional import (causal_mask, geglu, gelu, layer_norm, relu,
-                             rope_rotate, rope_tables, sdpa,
-                             sinusoidal_encoding, swiglu)
+from ..nn.functional import (YaRN, causal_mask, geglu, gelu, layer_norm,
+                             relu, rope_rotate, rope_tables, sdpa,
+                             sinusoidal_encoding, swiglu, yarn_tables)
 from ..nn.losses import chunked_softmax_ce
 from ..nn.positional import alibi_slopes
 
@@ -73,11 +73,19 @@ class GPTConfig:
     n_kv_heads: Optional[int] = None  # GQA: K/V heads, divides n_heads
     window: Optional[int] = None  # sliding-window attention
     ffn: str = "relu"  # "relu" | "gelu" | "swiglu" | "geglu"
+    # the port's own fields (the JAX package has none of them); each
+    # default is the model above
+    head_dim: Optional[int] = None  # None: d_model // n_heads
+    rope_theta: float = 10000.0
+    # with ``window``, layers i % full_every == full_every - 1 attend over
+    # the full causal context (None: every layer takes ``window``)
+    full_every: Optional[int] = None
+    rope_scaling: Optional[YaRN] = None  # RoPE of the full layers
 
     def __post_init__(self):
         if self.pos not in ("sinusoidal", "rope", "learned", "alibi"):
             raise ValueError(f"Unknown positional encoding: {self.pos!r}")
-        if self.pos == "rope" and (self.d_model // self.n_heads) % 2 != 0:
+        if self.pos == "rope" and self.d_head % 2 != 0:
             raise ValueError("RoPE requires an even head dimension")
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"Unknown compute dtype: {self.dtype!r}")
@@ -93,6 +101,13 @@ class GPTConfig:
         if self.ffn not in ("relu", "gelu", "swiglu", "geglu"):
             raise ValueError(f"Unknown ffn: {self.ffn!r} (expected relu, "
                              "gelu, swiglu or geglu)")
+        if self.head_dim is not None and self.head_dim < 1:
+            raise ValueError("head_dim must be >= 1")
+        if self.full_every is not None and (self.full_every < 1
+                                            or self.window is None):
+            raise ValueError("full_every needs a window and must be >= 1")
+        if self.rope_scaling is not None and self.pos != "rope":
+            raise ValueError("rope_scaling needs pos='rope'")
 
     @property
     def dff(self) -> int:
@@ -100,7 +115,21 @@ class GPTConfig:
 
     @property
     def d_head(self) -> int:
-        return self.d_model // self.n_heads
+        return (self.head_dim if self.head_dim is not None
+                else self.d_model // self.n_heads)
+
+    @property
+    def q_width(self) -> int:
+        """Columns of Wq (rows of Wo): n_heads * d_head."""
+        return self.n_heads * self.d_head
+
+    @property
+    def layer_windows(self) -> tuple:
+        """Each layer's attention band: ``window``, or None (full causal)
+        at every ``full_every``-th layer."""
+        k = self.full_every
+        return tuple(None if k and i % k == k - 1 else self.window
+                     for i in range(self.n_layers))
 
     @property
     def kv_heads(self) -> int:
@@ -130,14 +159,14 @@ def init_gpt_params(cfg: GPTConfig, seed: int = 123,
     def he(fan_in, shape):
         return t(rng.normal(0.0, math.sqrt(2.0 / fan_in), size=shape))
 
-    KD = cfg.kv_heads * cfg.d_head
+    KD, QD = cfg.kv_heads * cfg.d_head, cfg.q_width
     layers = {
         "ln1_g": t(np.ones((L, D))),
         "ln1_b": t(np.zeros((L, D))),
-        "Wq": he(D, (L, D, D)),
+        "Wq": he(D, (L, D, QD)),
         "Wk": he(D, (L, D, KD)),
         "Wv": he(D, (L, D, KD)),
-        "Wo": he(D, (L, D, D)),
+        "Wo": he(QD, (L, QD, D)),
         "ln2_g": t(np.ones((L, D))),
         "ln2_b": t(np.zeros((L, D))),
         "W1": he(D, (L, D, Fd)),
@@ -310,7 +339,7 @@ def _embed(params: Params, x_ids, cfg: GPTConfig, T: int, dt):
     dev = params["tok_W"].device
     emb = params["tok_W"][x_ids]
     if cfg.pos == "rope":
-        return emb.to(dt), _rope(cfg, T, dt, dev)
+        return emb.to(dt), _rope(cfg, T, dt, dev, full=cfg.window is None)
     if cfg.pos == "alibi":
         return emb.to(dt), None
     if cfg.pos == "learned":
@@ -320,13 +349,41 @@ def _embed(params: Params, x_ids, cfg: GPTConfig, T: int, dt):
     return (emb + pe[None]).to(dt), None
 
 
-def _rope(cfg: GPTConfig, T: int, dt, device=None):
+def _rope(cfg: GPTConfig, T: int, dt, device=None, full: bool = False):
     """The (cos, sin) RoPE tables of positions 0..T-1 in ``dt``, or None
-    when the config does not rotate."""
+    when the config does not rotate; ``full`` layers take the config's
+    YaRN tables where it has them. The base is passed only where it is not
+    the default, so two-argument stand-ins of ``rope_tables`` still fit."""
     if cfg.pos != "rope":
         return None
-    cos, sin = rope_tables(cfg.d_head, torch.arange(T, device=device))
+    pos = torch.arange(T, device=device)
+    if full and cfg.rope_scaling is not None:
+        cos, sin = yarn_tables(cfg.d_head, pos, cfg.rope_theta,
+                               cfg.rope_scaling)
+    elif cfg.rope_theta != 10000.0:
+        cos, sin = rope_tables(cfg.d_head, pos, cfg.rope_theta)
+    else:
+        cos, sin = rope_tables(cfg.d_head, pos)
     return cos.to(dt), sin.to(dt)
+
+
+def _layer_kinds(cfg: GPTConfig, T: int, dt, device, rope,
+                 attn_fn: Optional[Callable] = None):
+    """Each layer's (attention, mask, RoPE tables), built once a forward
+    for each distinct band of ``cfg.layer_windows``: a full layer of a
+    windowed config takes the full causal mask, ``_pick_attn_cfg``'s pick
+    for no window, and the YaRN tables where the config has them.
+    ``rope`` is ``_embed``'s tables (the config's own window); an explicit
+    ``attn_fn`` serves every layer."""
+    kinds = {}
+    for w in set(cfg.layer_windows):
+        c = cfg if w == cfg.window else dataclasses.replace(
+            cfg, window=w, full_every=None)
+        kinds[w] = (attn_fn or _pick_attn_cfg(c, T, device.type),
+                    _trunk_mask(c, T, dt, device),
+                    rope if w == cfg.window else _rope(
+                        cfg, T, dt, device, full=w is None))
+    return [kinds[w] for w in cfg.layer_windows]
 
 
 def _trunk_mask(cfg: GPTConfig, T: int, dt, device=None):
@@ -338,8 +395,9 @@ def _trunk_mask(cfg: GPTConfig, T: int, dt, device=None):
     i = torch.arange(T, device=device)
     if cfg.window is not None:
         far = (i[:, None] - i[None, :]) >= cfg.window  # query i, key j
-        m = torch.where(far[None, None], torch.tensor(-1e9, dtype=dt,
-                                                      device=device), m)
+        # a fill, not a scalar tensor made on the device: that copy waits
+        # on the host
+        m = m.masked_fill(far[None, None], -1e9)
     if cfg.pos == "alibi":
         sl = alibi_slopes(cfg.n_heads, device=device)
         bias = sl[:, None, None] * (i[None, None, :] - i[None, :, None])
@@ -440,7 +498,7 @@ def _pick_fused(B: int, T: int, cfg: GPTConfig, device_type: str) -> bool:
     shows otherwise (PERF.md has the H100 A/B)."""
     if cfg.kv_heads != cfg.n_heads or cfg.window is not None:
         return False
-    if cfg.ffn != "relu":
+    if cfg.ffn != "relu" or cfg.q_width != cfg.d_model:
         return False
     if os.environ.get("LINALG_TPU_FUSED_LN", "") != "1":
         return False
@@ -501,19 +559,18 @@ def _gpt_trunk(params: Params, x_ids, cfg: GPTConfig,
     dev = x_ids.device.type
     gqa = cfg.kv_heads != cfg.n_heads
     attn_btd = None
-    if attn_fn is None:
-        if cfg.pos != "alibi" and not gqa and cfg.window is None:
-            # the (B, T, H*d) kernel takes the raw QKV projections: no
-            # grouped K/V, and a pure causal mask (no band, no bias)
-            attn_btd = _pick_attn_btd(B, T, cfg, dev)
-        attn_fn = _pick_attn_cfg(cfg, T, dev)
+    if (attn_fn is None and cfg.pos != "alibi" and not gqa
+            and cfg.window is None and cfg.q_width == cfg.d_model):
+        # the (B, T, H*d) kernel takes the raw QKV projections: no
+        # grouped K/V, and a pure causal mask (no band, no bias)
+        attn_btd = _pick_attn_btd(B, T, cfg, dev)
     fused = (not gqa) and _pick_fused(B, T, cfg, dev)
     dt = cfg.compute_dtype
     h, rope = _embed(params, x_ids, cfg, T, dt)
-    mask = _trunk_mask(cfg, T, dt, h.device)
-    for lp in _layer_params(params, dt):
+    kinds = _layer_kinds(cfg, T, dt, h.device, rope, attn_fn)
+    for lp, (fn, mask, rp) in zip(_layer_params(params, dt), kinds):
         h, _ = _layer(h, lp, mask, cfg.n_heads, cfg.kv_heads, cfg.ffn,
-                      attn_fn, rope, fused, attn_btd)
+                      fn, rp, fused, attn_btd)
     return h
 
 
@@ -544,16 +601,28 @@ def gpt_loss(params: Params, x_ids, y_ids, cfg: GPTConfig,
                         y_ids, cfg)
 
 
-def _hidden_loss(params: Params, h, y_ids, cfg: GPTConfig):
+def _hidden_loss(params: Params, h, y_ids, cfg: GPTConfig, head=None):
     """``gpt_loss`` from the trunk's final hidden h (B, T, D): the mean CE
-    of the tied head, chunked at wide vocabularies."""
+    of the tied head, chunked at wide vocabularies; narrower ones form the
+    logits with ``head`` (default ``_head``)."""
     if cfg.vocab_size >= CE_CHUNK_THRESHOLD:
         return chunked_softmax_ce(h, params["tok_W"], params["head_b"],
                                   y_ids)
-    logits = _head(params, h, cfg.compute_dtype)
+    logits = (head or _head)(params, h, cfg.compute_dtype)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, y_ids[..., None].long())[..., 0]
     return torch.mean(logz - gold)
+
+
+def _uniform(cfg: GPTConfig) -> None:
+    """Serving runs one attention kind at the default RoPE base: raise for
+    a config whose layers differ (``full_every``, ``rope_scaling``) or
+    whose base is another, which only training takes."""
+    if (cfg.full_every is not None or cfg.rope_scaling is not None
+            or cfg.rope_theta != 10000.0):
+        raise ValueError("prefill and decode take one attention kind at "
+                         "the default RoPE base; full_every, rope_scaling "
+                         "and rope_theta are trained only")
 
 
 @torch.no_grad()
@@ -564,6 +633,7 @@ def gpt_prefill(params: Params, x_ids, cfg: GPTConfig, length=None):
     with the true length in ``length``: causality keeps the pads inert and
     the logits are read at ``length - 1``. The cache holds k/v
     (L, B, kv_heads, ctx_len, d) padded to ctx_len, and ``length``."""
+    _uniform(cfg)
     T = x_ids.shape[1]
     dt = cfg.compute_dtype
     h, rope = _embed(params, x_ids, cfg, T, dt)
@@ -613,6 +683,7 @@ def gpt_prefill_batched(params: Params, x_ids, start, cfg: GPTConfig):
     start[b] and to the window band (column-relative: the rows share the
     shift), and ALiBi's bias is relative, so the shift cancels. The cache
     carries ``start`` so decode keeps masking the pad slots."""
+    _uniform(cfg)
     dev = params["tok_W"].device
     x_ids = torch.as_tensor(x_ids, device=dev).long()
     B, W = x_ids.shape

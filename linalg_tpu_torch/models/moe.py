@@ -1,10 +1,19 @@
 """Mixture-of-Experts GPT — the counterpart of ``linalg_tpu/models/moe.py``.
 
 Each layer carries E expert FFNs stacked on a leading expert axis and a
-linear router; every token goes to its top-1 (Switch) or top-2 (GShard)
-experts under a per-expert capacity, with the Switch load-balancing loss
+linear router; every token goes to its top-1 (Switch) or top-k (GShard,
+k >= 2: the chosen probabilities renormalised to sum to one) experts
+under a per-expert capacity, with the Switch load-balancing loss
 ``E * sum_e f_e * P_e``. Tokens over capacity get a zero FFN output (the
 residual carries them). Routing groups are the rows of the batch.
+
+The port adds a third dispatch, ``"grouped"`` (the JAX package has none
+like it): dropless, every assignment computed, the routed rows sorted by
+expert and run through K13, the grouped GEMM (``kernels.grouped_gemm``),
+with the group offsets kept on the device. While a profiler records it
+marks ``moe.route``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``
+and counts each layer's routed rows (``utils.profiling.count``,
+``moe.rows``: the rows its held experts took and the largest expert's).
 
 Same parameters as the JAX package (``init_moe_params`` draws the same
 numpy stream in the same order), same routing rule, same two dispatch
@@ -36,13 +45,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels.grouped_gemm import GroupedFFN, RowSum
 from ..nn.cache import fkv_write
-from ..nn.functional import (geglu, gelu, layer_norm, relu, rope_tables,
-                             sdpa, sinusoidal_encoding, swiglu)
+from ..nn.functional import (geglu, geglu_backward, gelu, gelu_backward,
+                             layer_norm, relu, relu_backward, rope_tables,
+                             sdpa, sinusoidal_encoding, swiglu,
+                             swiglu_backward)
 from ..nn.positional import alibi_slopes
+from ..utils.profiling import count, span
 from .gpt import (GPTConfig, _attn_half, _decode_chunk_core, _embed, _head,
-                  _layer_params, _make_decode_step, _pick_attn_cfg,
-                  _pick_fused, _trunk_mask)
+                  _hidden_loss, _layer_kinds, _layer_params,
+                  _make_decode_step, _pick_fused, _trunk_mask, _uniform)
 
 __all__ = ["MoEGPTConfig", "init_moe_params", "moe_ffn", "moe_gpt_apply",
            "moe_gpt_loss", "moe_prefill", "moe_prefill_batched",
@@ -62,15 +75,18 @@ class MoEGPTConfig(GPTConfig):
     n_experts: int = 8
     capacity_factor: float = 1.25
     aux_weight: float = 0.01
-    router_top_k: int = 1  # 1 = Switch, 2 = GShard top-2
-    dispatch: str = "einsum"  # "einsum" | "gather" (see moe_ffn)
+    router_top_k: int = 1  # 1 = Switch, 2 = GShard top-2 (grouped: any k)
+    dispatch: str = "einsum"  # "einsum" | "gather" | "grouped" (moe_ffn)
 
     def __post_init__(self):
         super().__post_init__()
-        if self.router_top_k not in (1, 2):
-            raise ValueError("router_top_k must be 1 or 2")
-        if self.dispatch not in ("gather", "einsum"):
-            raise ValueError("dispatch must be 'gather' or 'einsum'")
+        if self.dispatch != "grouped":  # the JAX package's rules, verbatim
+            if self.router_top_k not in (1, 2):
+                raise ValueError("router_top_k must be 1 or 2")
+            if self.dispatch not in ("gather", "einsum"):
+                raise ValueError("dispatch must be 'gather' or 'einsum'")
+        elif self.router_top_k < 1:  # dropless: any k of the n_experts
+            raise ValueError("router_top_k must be >= 1")
         if self.router_top_k > self.n_experts:
             raise ValueError("router_top_k cannot exceed n_experts")
 
@@ -90,14 +106,14 @@ def init_moe_params(cfg: MoEGPTConfig, seed: int = 123,
     def he(fan_in, shape):
         return t(rng.normal(0.0, math.sqrt(2.0 / fan_in), size=shape))
 
-    KD = cfg.kv_heads * cfg.d_head
+    KD, QD = cfg.kv_heads * cfg.d_head, cfg.q_width
     layers = {
         "ln1_g": t(np.ones((L, D))),
         "ln1_b": t(np.zeros((L, D))),
-        "Wq": he(D, (L, D, D)),
+        "Wq": he(D, (L, D, QD)),
         "Wk": he(D, (L, D, KD)),
         "Wv": he(D, (L, D, KD)),
-        "Wo": he(D, (L, D, D)),
+        "Wo": he(QD, (L, QD, D)),
         "ln2_g": t(np.ones((L, D))),
         "ln2_b": t(np.zeros((L, D))),
         # small router init: early routing is near-uniform
@@ -136,7 +152,9 @@ def _expert_mlp(xin, W1, b1, W2, b2, Wg, bg, ffn: str):
 def _route(x, Wr, top_k: int):
     """(router probs (B, T, E) in ``_ROUTER_DTYPE``, expert ids (B, T, K),
     gates (B, T, K) in x's dtype). A stable descending sort picks the top
-    k, so a tie goes to the lower expert, as ``lax.top_k`` breaks it."""
+    k, so a tie goes to the lower expert, as ``lax.top_k`` breaks it. At
+    k >= 2 the gates are the chosen probabilities over their sum (Hugging
+    Face's ``norm_topk_prob``)."""
     probs = torch.softmax((x @ Wr).to(_ROUTER_DTYPE), dim=-1)
     vals, idxs = torch.sort(probs, dim=-1, descending=True, stable=True)
     vals, idxs = vals[..., :top_k], idxs[..., :top_k]
@@ -167,7 +185,10 @@ def moe_ffn(x, Wr, W1, b1, W2, b2, capacity: int, top_k: int = 1,
     counts saturate at 256). "gather": an int slot -> token table and row
     gathers. The two compute the same function.
 
-    Expert parallelism (einsum mode): W1 ... hold the experts
+    "grouped": dropless (``capacity`` is not read), every token's k
+    assignments computed through K13 (``_grouped_ffn``).
+
+    Expert parallelism (einsum and grouped modes): W1 ... hold the experts
     ``expert_offset`` to ``expert_offset + W1.shape[0]`` of the router's E;
     routing runs over all E, and ``out`` is those experts' share of the
     combine (the shares sum to the whole). ``stats=True`` returns the
@@ -177,14 +198,22 @@ def moe_ffn(x, Wr, W1, b1, W2, b2, capacity: int, top_k: int = 1,
     B, T, D = x.shape
     E = Wr.shape[-1]
     El = E if W1 is None else W1.shape[0]
-    if El != E and mode != "einsum":
-        raise ValueError("an expert slice needs the einsum dispatch")
+    if El != E and mode == "gather":
+        raise ValueError("an expert slice needs the einsum or grouped "
+                         "dispatch")
     C = capacity
     dev = x.device
-    probs, idxs, gates = _route(x, Wr, top_k)
+    with span("moe.route", dev):
+        probs, idxs, gates = _route(x, Wr, top_k)
     rdt = _ROUTER_DTYPE
     validf = None if valid is None else valid.to(rdt)
-    if mode == "gather":
+    if mode == "grouped":
+        out = _grouped_ffn(x, idxs, gates, W1, b1, W2, b2, Wg, bg, ffn,
+                           expert_offset, valid)
+        onehot1 = F.one_hot(idxs[..., 0], E).to(rdt)
+        if valid is not None:
+            onehot1 = onehot1 * validf[..., None]
+    elif mode == "gather":
         b_ix = torch.arange(B, device=dev)[:, None]  # (B, 1)
         t_ix = torch.arange(T, device=dev)[None, :].expand(B, T)
         # slot -> token table: slot C is the overflow sink, token T the
@@ -258,6 +287,66 @@ def moe_ffn(x, Wr, W1, b1, W2, b2, capacity: int, top_k: int = 1,
     return out, E * torch.sum(f * P_mean)
 
 
+# (forward, backward) of each FFN activation, for ``GroupedFFN``
+_ACTS = {"swiglu": (swiglu, swiglu_backward), "geglu": (geglu, geglu_backward),
+         "gelu": (gelu, gelu_backward), "relu": (relu, relu_backward)}
+
+
+def _grouped_ffn(x, idxs, gates, W1, b1, W2, b2, Wg, bg, ffn: str,
+                 expert_offset: int, valid=None):
+    """The dropless routed FFN of the held experts ``expert_offset`` ..
+    ``expert_offset + El``: every (token, choice) assignment to one of them
+    is a row. Rows are sorted by expert (a stable sort: token order within
+    an expert), group e's rows are ``offs[e]:offs[e + 1]`` with ``offs`` on
+    the device, and the buffers are sized for the most rows any routing
+    can give, N * min(k, El), plus one zero row; nothing is read back to
+    the host. K13 computes the experts (``GroupedFFN``), each row scaled
+    by its gate before W2; ``RowSum`` adds each token's rows back."""
+    B, T, D = x.shape
+    N, k = B * T, idxs.shape[-1]
+    El = W1.shape[0]
+    dev = x.device
+    with span("moe.dispatch", dev):
+        local = idxs.reshape(N, k) - expert_offset
+        held = (local >= 0) & (local < El)
+        if valid is not None:
+            held &= valid.reshape(N, 1)
+        key = torch.where(held, local, El).reshape(-1)  # El: not held here
+        order = torch.sort(key, stable=True).indices
+        # a scatter, not ``bincount``: that reads its input's max back to
+        # the host to size its output
+        counts = torch.zeros(El + 1, dtype=torch.long,
+                             device=dev).scatter_add_(
+            0, key, torch.ones_like(key))
+        offs = torch.cat([counts.new_zeros(1),
+                          torch.cumsum(counts[:El], 0)]).int()
+        M = N * min(k, El) + 1
+        rows = order[:M - 1]
+        rkey = key[rows]
+        live = rkey < El
+        tok = F.pad((rows // k).int(), (0, 1))
+        gate = F.pad(torch.where(live, gates.reshape(-1)[rows], 0), (0, 1))
+        onehot = F.one_hot(F.pad(rkey, (0, 1), value=El),
+                           El + 1)[:, :El].to(x.dtype)
+        slot = torch.empty_like(order)
+        slot[order] = torch.arange(N * k, device=dev)
+        R = torch.where(held.reshape(-1), slot, M - 1).reshape(N, k)
+        count("moe.rows", lambda: torch.stack([counts[:El].sum(),
+                                               counts[:El].max()]))
+    with span("moe.experts", dev):
+        gated = Wg is not None
+        W1g = torch.cat([W1, Wg], -1) if gated else W1.contiguous()
+        b1g = torch.cat([b1, bg], -1) if gated else b1
+        Y = GroupedFFN.apply(x.reshape(N, D), W1g, b1g, W2.contiguous(),
+                             gate, tok, offs, onehot, R, _ACTS[ffn], gated)
+    with span("moe.combine", dev):
+        # the held experts' output biases, each at its token's gate
+        gsum = x.new_zeros((N, El + 1)).scatter_add(
+            1, key.reshape(N, k), gates.reshape(N, k))
+        out = RowSum.apply(Y, R, tok) + gsum[:, :El] @ b2
+    return out.reshape(B, T, D)
+
+
 def _moe_layer(h_in, lp, mask, n_heads: int, attn_fn: Callable, rope,
                capacity: int, top_k: int = 1, fused: bool = False,
                mode: str = "gather", valid=None, n_kv: Optional[int] = None,
@@ -282,37 +371,44 @@ def _capacity(cfg: MoEGPTConfig, group_tokens: int) -> int:
                                 * group_tokens / cfg.n_experts)))
 
 
-def moe_gpt_apply(params: Params, x_ids, cfg: MoEGPTConfig,
-                  attn_fn: Optional[Callable] = None):
-    """Forward: ids (B, T) -> (float32 logits (B, T, V), mean aux loss over
-    the layers). Attention is ``_pick_attn_cfg``'s (the flash kernels on
-    the card from T 512); ``_pick_fused`` opens K8 for the attention half.
-    Differentiable with respect to ``params``."""
+def _moe_trunk(params: Params, x_ids, cfg: MoEGPTConfig,
+               attn_fn: Optional[Callable] = None):
+    """Embedding + the routed layer stack: ids (B, T) -> (final hidden
+    (B, T, D) in the compute dtype, mean aux loss over the layers). Each
+    layer takes its kind's attention, mask and RoPE tables
+    (``_layer_kinds``: ``_pick_attn_cfg``'s pick, the flash kernels on the
+    card from T 512); ``_pick_fused`` opens K8 for the attention half."""
     B, T = x_ids.shape
-    dev = x_ids.device.type
-    if attn_fn is None:
-        attn_fn = _pick_attn_cfg(cfg, T, dev)
-    fused = _pick_fused(B, T, cfg, dev)
+    fused = _pick_fused(B, T, cfg, x_ids.device.type)
     dt = cfg.compute_dtype
     h, rope = _embed(params, x_ids, cfg, T, dt)
-    mask = _trunk_mask(cfg, T, dt, h.device)
+    kinds = _layer_kinds(cfg, T, dt, h.device, rope, attn_fn)
     cap = _capacity(cfg, T)  # per-row routing groups
     auxes = []
-    for lp in _layer_params(params, dt):
-        h, _, aux = _moe_layer(h, lp, mask, cfg.n_heads, attn_fn, rope, cap,
+    for lp, (fn, mask, rp) in zip(_layer_params(params, dt), kinds):
+        h, _, aux = _moe_layer(h, lp, mask, cfg.n_heads, fn, rp, cap,
                                cfg.router_top_k, fused, cfg.dispatch,
                                n_kv=cfg.kv_heads, ffn=cfg.ffn)
         auxes.append(aux)
-    return _head(params, h, dt), torch.stack(auxes).mean()
+    return h, torch.stack(auxes).mean()
+
+
+def moe_gpt_apply(params: Params, x_ids, cfg: MoEGPTConfig,
+                  attn_fn: Optional[Callable] = None):
+    """Forward: ids (B, T) -> (float32 logits (B, T, V), mean aux loss over
+    the layers). Differentiable with respect to ``params``."""
+    h, aux = _moe_trunk(params, x_ids, cfg, attn_fn)
+    return _head(params, h, cfg.compute_dtype), aux
 
 
 def moe_gpt_loss(params: Params, x_ids, y_ids, cfg: MoEGPTConfig,
                  attn_fn: Optional[Callable] = None):
-    """Mean cross-entropy plus ``aux_weight`` times the load-balance loss."""
-    logits, aux = moe_gpt_apply(params, x_ids, cfg, attn_fn)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, y_ids[..., None].long())[..., 0]
-    return torch.mean(logz - gold) + cfg.aux_weight * aux
+    """Mean cross-entropy plus ``aux_weight`` times the load-balance loss;
+    the cross-entropy is ``gpt_loss``'s (``_hidden_loss``: chunked at wide
+    vocabularies, so the (B, T, V) logits are never formed)."""
+    h, aux = _moe_trunk(params, x_ids, cfg, attn_fn)
+    return (_hidden_loss(params, h, y_ids, cfg, _head)
+            + cfg.aux_weight * aux)
 
 
 def _pad_cache(ks, vs, cfg: MoEGPTConfig, T: int):
@@ -329,6 +425,7 @@ def moe_prefill(params: Params, x_ids, cfg: MoEGPTConfig, length=None):
     positional), but the capacity grows with the padded T, so padding can
     only keep a token the unpadded prompt would have dropped: the engine's
     equality is against the window-padded prefill for that reason."""
+    _uniform(cfg)
     B, T = x_ids.shape
     dt = cfg.compute_dtype
     h, rope = _embed(params, x_ids, cfg, T, dt)
@@ -357,6 +454,7 @@ def moe_prefill_batched(params: Params, x_ids, start, cfg: MoEGPTConfig):
     layout); the left pads are kept out of expert routing by ``valid``
     (they precede real tokens in the capacity cumsum and would take every
     early slot)."""
+    _uniform(cfg)
     dev = params["tok_W"].device
     x_ids = torch.as_tensor(x_ids, device=dev).long()
     B, W = x_ids.shape

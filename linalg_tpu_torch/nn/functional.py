@@ -17,7 +17,9 @@ forward is the same function either way.
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional
 
 import torch
 
@@ -25,7 +27,7 @@ __all__ = ["relu", "relu_backward", "gelu", "gelu_backward", "silu",
            "silu_backward", "swiglu", "swiglu_backward", "geglu",
            "geglu_backward", "softmax_last", "causal_mask", "layer_norm",
            "rms_norm", "sdpa", "sinusoidal_encoding", "rope_tables",
-           "rope_rotate", "he_init"]
+           "rope_rotate", "YaRN", "yarn_tables", "he_init"]
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 _GELU_C = 0.044715
@@ -345,6 +347,58 @@ def rope_tables(d_head: int, positions, base: float = 10000.0,
         0, d_head, 2, dtype=torch.float32, device=positions.device) / d_head))
     angles = positions.to(torch.float32)[..., None] * inv_freq
     return torch.cos(angles).to(dtype), torch.sin(angles).to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class YaRN:
+    """YaRN's RoPE scaling (Peng et al. 2023), the parameters of Hugging
+    Face's ``rope_type: "yarn"``: the context grows ``factor`` times past
+    ``original_max_position_embeddings``; rotary pairs that turn fewer than
+    ``beta_slow`` times over that context are interpolated, those that
+    turn more than ``beta_fast`` times keep their frequency, and a linear
+    ramp blends the ones between. ``attention_factor`` scales cos and sin
+    (None: 0.1 ln(factor) + 1)."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    attention_factor: Optional[float] = None
+
+
+def yarn_tables(d_head: int, positions, base: float, yarn: YaRN,
+                dtype=torch.float32):
+    """cos/sin tables (..., d_head/2) of YaRN-scaled RoPE, float32, as
+    Hugging Face's ``_compute_yarn_parameters`` and rotary embedding form
+    them: per pair i, the inverse frequency ``inv_e = base^(-2i/d)``
+    blended with ``inv_e / factor`` by ``1 - ramp(i)``, the ramp linear
+    from 0 to 1 between floor(low) and ceil(high), the correction dims
+    of ``beta_fast`` and ``beta_slow`` (clamped to [0, d - 1]); the
+    tables are then multiplied by the attention factor."""
+    positions = torch.as_tensor(positions)
+    dev = positions.device
+    orig = yarn.original_max_position_embeddings
+
+    def corr_dim(rotations):
+        return (d_head * math.log(orig / (rotations * 2 * math.pi))
+                / (2 * math.log(base)))
+
+    low = max(math.floor(corr_dim(yarn.beta_fast)), 0)
+    high = min(math.ceil(corr_dim(yarn.beta_slow)), d_head - 1)
+    if low == high:
+        high += 0.001
+    inv_e = 1.0 / (base ** (torch.arange(
+        0, d_head, 2, dtype=torch.float32, device=dev) / d_head))
+    ramp = torch.clamp((torch.arange(d_head // 2, dtype=torch.float32,
+                                     device=dev) - low) / (high - low),
+                       0.0, 1.0)
+    extra = 1.0 - ramp  # the share of each pair kept at its frequency
+    inv = inv_e / yarn.factor * (1.0 - extra) + inv_e * extra
+    af = (yarn.attention_factor if yarn.attention_factor is not None
+          else 0.1 * math.log(yarn.factor) + 1.0)
+    angles = positions.to(torch.float32)[..., None] * inv
+    return ((torch.cos(angles) * af).to(dtype),
+            (torch.sin(angles) * af).to(dtype))
 
 
 def rope_rotate(x, cos, sin):

@@ -22,6 +22,7 @@ and neither package converts).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 from typing import Dict, Tuple
@@ -30,6 +31,7 @@ import numpy as np
 
 from ..models.gpt import GPTConfig, Params, params_from_numpy
 from ..models.moe import MoEGPTConfig
+from ..nn.functional import YaRN
 from ..nn.tokenizers import BPETokenizer, CharTokenizer
 
 __all__ = ["save_ckpt", "load_ckpt", "load_tokenizer", "save_ckpt_orbax",
@@ -44,6 +46,10 @@ _LAYER_KEYS = ("ln1_g", "ln1_b", "Wq", "Wk", "Wv", "Wo", "ln2_g", "ln2_b",
 _GATE_KEYS = ("Wg", "bg")  # swiglu/geglu's gate branch
 # the MoE layer in ``init_moe_params``'s order: the router, then experts
 _MOE_LAYER_KEYS = _LAYER_KEYS[:8] + ("Wr",) + _LAYER_KEYS[8:]
+# config fields the JAX package lacks, with their defaults (its model): a
+# sidecar names them only where a config sets them otherwise
+_PORT_ONLY = {"head_dim": None, "rope_theta": 10000.0, "full_every": None,
+              "rope_scaling": None}
 
 
 def save_ckpt(ckpt_dir, params: Params, cfg: GPTConfig,
@@ -101,6 +107,12 @@ def _build_meta(cfg: GPTConfig, stoi, itos, tokenizer=None) -> dict:
         meta["window"] = cfg.window
     if cfg.ffn != "relu":
         meta["ffn"] = cfg.ffn
+    # the port's own settings, where they are not the JAX model's
+    for key, default in _PORT_ONLY.items():
+        val = getattr(cfg, key, default)
+        if val != default:
+            meta[key] = (dataclasses.asdict(val)
+                         if dataclasses.is_dataclass(val) else val)
     if isinstance(tokenizer, BPETokenizer):
         meta["tokenizer"] = "bpe"
         meta["merges"] = [list(m) for m in tokenizer.merges]
@@ -109,6 +121,8 @@ def _build_meta(cfg: GPTConfig, stoi, itos, tokenizer=None) -> dict:
         meta["capacity_factor"] = cfg.capacity_factor
         meta["aux_weight"] = cfg.aux_weight
         meta["router_top_k"] = cfg.router_top_k
+        if cfg.dispatch == "grouped":  # the port's own dispatch
+            meta["dispatch"] = cfg.dispatch
     return meta
 
 
@@ -155,12 +169,18 @@ def _cfg_from_meta(meta: dict) -> GPTConfig:
         window=meta.get("window"),
         ffn=meta.get("ffn", "relu"),
     )
+    for key in ("head_dim", "rope_theta", "full_every"):
+        if key in meta:
+            common[key] = meta[key]
+    if "rope_scaling" in meta:
+        common["rope_scaling"] = YaRN(**meta["rope_scaling"])
     if meta.get("experts", 0):
         return MoEGPTConfig(
             n_experts=meta["experts"],
             capacity_factor=meta.get("capacity_factor", 1.25),
             aux_weight=meta.get("aux_weight", 0.01),
-            router_top_k=meta.get("router_top_k", 1), **common)
+            router_top_k=meta.get("router_top_k", 1),
+            dispatch=meta.get("dispatch", "einsum"), **common)
     return GPTConfig(**common)
 
 

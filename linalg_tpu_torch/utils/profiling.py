@@ -9,7 +9,8 @@ so a trace names the device's idle gaps by the span the host was in. A
 span opened with a CUDA ``device`` also records a CUDA event pair around
 its work: ``device_ms(name)`` reads the device time of each such span of
 the newest profiler session. With no session recording a span costs one
-attribute check.
+attribute check. ``count(name, value)`` keeps a counter's device tensor
+while a session records, and ``counts(name)`` reads them after it.
 """
 
 from __future__ import annotations
@@ -17,23 +18,26 @@ from __future__ import annotations
 import contextlib
 import pathlib
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["trace", "span", "device_ms", "StepTimer"]
+__all__ = ["trace", "span", "device_ms", "count", "counts", "StepTimer"]
 
 # (name, start, end) of each device-timed span of the newest profiler
 # session, in the order the spans closed
 _records: List[Tuple[str, "torch.cuda.Event", "torch.cuda.Event"]] = []
+# name -> the tensors ``count`` kept in the newest profiler session
+_counts: Dict[str, List[torch.Tensor]] = {}
 _NO_SPAN = contextlib.nullcontext()
 
 
 def _on_profiler_start(start=_autograd_profiler._run_on_profiler_start):
     """torch calls this as a profiler session starts: a new session starts
-    with no device records."""
+    with no device records or counts."""
     _records.clear()
+    _counts.clear()
     start()
 
 
@@ -69,6 +73,20 @@ def _recorded(name: str, device: Optional[torch.device],
         yield
         end.record(stream)
         _records.append((name, start, end))
+
+
+def count(name: str, value: Callable[[], torch.Tensor]) -> None:
+    """While a profiler session records, keep the tensor ``value()`` (on
+    its device: nothing is copied to the host here) under ``name``; with
+    none recording, ``value`` is not called."""
+    if _autograd_profiler._is_profiler_enabled:
+        _counts.setdefault(name, []).append(value().detach())
+
+
+def counts(name: str) -> List[list]:
+    """The values ``count`` kept under ``name`` in the newest profiler
+    session, in order, as lists (one copy to the host each)."""
+    return [v.tolist() for v in _counts.get(name, [])]
 
 
 def device_ms(name: str) -> List[float]:

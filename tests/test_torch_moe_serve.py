@@ -24,6 +24,7 @@ from linalg_tpu_torch.train import checkpoint as tckpt
 from linalg_tpu_torch.train import optim as toptim
 from linalg_tpu_torch.train import trainer as ttrainer
 from test_torch_moe import TINY, PortMoE64, cfgs64, f64, flat  # noqa: F401
+from torch_config_common import jax_fields
 
 torch.set_num_threads(2)
 
@@ -52,7 +53,7 @@ def test_checkpoints_both_ways(tmp_path, over):
     back_t, tc2, _, _ = tckpt.load_ckpt(tmp_path / "j")
     want = dataclasses.asdict(jc)
     want["dispatch"] = "einsum"
-    assert dataclasses.asdict(jc2) == want == dataclasses.asdict(tc2)
+    assert dataclasses.asdict(jc2) == want == jax_fields(tc2)
     assert isinstance(tc2, tmoe.MoEGPTConfig)
     for back in (back_j, back_t):
         got = flat(back)
@@ -170,7 +171,7 @@ class TestCLI:
         _, cfg, _, _ = tckpt.load_ckpt(ck)
         _, jcfg, _, _ = jckpt.load_ckpt(ck)
         assert (cfg.n_experts, cfg.router_top_k) == (4, 2)
-        assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
+        assert dataclasses.asdict(jcfg) == jax_fields(cfg)
         prompts = tmp_path / "p.txt"
         prompts.write_text("FIRST CITIZEN:\nALL:\n", encoding="utf-8")
         out = tmp_path / "out.jsonl"

@@ -35,6 +35,7 @@ from linalg_tpu_torch.train import checkpoint as tckpt
 from linalg_tpu_torch.train import data as tdata
 from linalg_tpu_torch.train import optim as toptim
 from linalg_tpu_torch.train import trainer as ttrainer
+from torch_config_common import jax_fields
 
 torch.set_num_threads(2)
 
@@ -531,7 +532,7 @@ class TestCLI:
         assert (cfg.pos, cfg.ffn, cfg.window, cfg.n_kv_heads) == (
             args.pos, args.ffn, args.window, args.kv_heads)
         jparams, jcfg, jstoi, jitos = jckpt.load_ckpt(ck)
-        assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
+        assert dataclasses.asdict(jcfg) == jax_fields(cfg)
         assert (jstoi, jitos) == (stoi, itos)
         want = flat(params)
         assert flat(jparams).keys() == want.keys()
