@@ -12,7 +12,10 @@ gradients rtol 1e-10 (chunked CE) and 1e-9 (``gpt_loss`` through a
 2-layer trunk); float32 rtol 1e-5. Gradient entries that are sums of
 cancelling terms (a dW entry near 1e-20 beside entries of 1e-4) also get
 an atol of 1e-12 x max|want| in float64 and 1e-6 x max|want| in float32:
-sums taken in another order.
+sums taken in another order. The bf16 tensor-core path (a bfloat16 h on a
+card) is held on the card by ``tests/test_torch_losses_card.py``; here a
+profiled run shows that a CPU h, bfloat16 included, takes the products in
+the working type.
 """
 
 import dataclasses
@@ -22,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from linalg_tpu.models import gpt as jgpt
 from linalg_tpu.nn import losses as jlosses
@@ -197,3 +201,24 @@ def test_gpt_loss_wide_vocab_f64_matches_jax(jax_ce_f64, monkeypatch):
 def test_default_chunk_is_jax_s():
     assert DEFAULT_CHUNK == jlosses.DEFAULT_CHUNK == 4096
     assert tgpt.CE_CHUNK_THRESHOLD == jgpt.CE_CHUNK_THRESHOLD == 8192
+
+
+@pytest.mark.parametrize("dtype,path", [(torch.bfloat16, "f32"),
+                                        (torch.float32, "f32"),
+                                        (torch.float64, "f64")])
+def test_ce_spans_name_the_cpu_path(dtype, path):
+    """Under a profiler the forward's and the backward's chunk loops run in
+    ``ce.forward`` / ``ce.backward`` spans whose args name the products'
+    precision: on the CPU a bfloat16 h takes float32 products, as in the
+    JAX package. V 300 in chunks of 128 is 3 chunks."""
+    h, W, b, y = args(16, 32, 300, np.float64)
+    th = torch.tensor(h).to(dtype).requires_grad_(True)
+    tW, tb = (torch.tensor(a).to(torch.promote_types(dtype, torch.float32))
+              for a in (W, b))
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        loss = chunked_softmax_ce(th, tW, tb, torch.from_numpy(y), 128)
+        torch.autograd.grad(loss, [th])
+    for name in ("ce.forward", "ce.backward"):
+        (ev,) = [e for e in prof.events() if e.name == name]
+        assert ev.kwinputs == {"path": path, "chunks": 3}, name
